@@ -1,0 +1,29 @@
+"""Model zoo: scorers, embedders, and the model factory.
+
+Ported so far: ComplEx and the reciprocal relations model over lookup
+embedders. The other models of kge_tpu are listed in ROADMAP.md.
+"""
+
+from kge_tpu_torch.models.base import (
+    KgeBase,
+    KgeEmbedder,
+    KgeModel,
+    LookupEmbedder,
+    RelationalScorer,
+)
+from kge_tpu_torch.models.convert import load_jax_params, to_jax_params
+from kge_tpu_torch.models.factorization import ComplEx, ComplExScorer
+from kge_tpu_torch.models.reciprocal import ReciprocalRelationsModel
+
+__all__ = [
+    "KgeBase",
+    "KgeEmbedder",
+    "KgeModel",
+    "LookupEmbedder",
+    "RelationalScorer",
+    "ComplEx",
+    "ComplExScorer",
+    "ReciprocalRelationsModel",
+    "load_jax_params",
+    "to_jax_params",
+]

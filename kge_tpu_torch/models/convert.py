@@ -1,0 +1,60 @@
+"""Weights across the two packages.
+
+kge_tpu keeps a model's parameters as a pytree of arrays,
+``{"entity_embedder": {"embeddings": [E, d]}, "relation_embedder":
+{"embeddings": [R or 2R, d]}}`` (plus ``"scorer"`` for scorers with
+parameters of their own); its checkpoints store the tree with numpy leaves.
+This package keeps them in its modules. ``load_jax_params`` copies such a
+tree into a model, ``to_jax_params`` reads one out, both through numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_EMBEDDERS = {
+    "entity_embedder": "get_s_embedder",
+    "relation_embedder": "get_p_embedder",
+}
+
+
+def _embedders(model):
+    return {key: getattr(model, getter)() for key, getter in _EMBEDDERS.items()}
+
+
+@torch.no_grad()
+def load_jax_params(model, tree: Dict[str, Any]) -> None:
+    """Copy kge_tpu's parameter tree (numpy or array-like leaves) into
+    ``model``'s parameters, on the device they already live on."""
+    extra = set(tree) - set(_EMBEDDERS)
+    if extra:
+        raise ValueError(
+            f"parameters {sorted(extra)} have no counterpart in "
+            f"{type(model).__name__} (only lookup embedders are ported)"
+        )
+    for key, embedder in _embedders(model).items():
+        leaves = tree[key]
+        if set(leaves) != {"embeddings"}:
+            raise ValueError(
+                f"{key}: expected a lookup embedder's {{'embeddings'}}, "
+                f"got {sorted(leaves)}"
+            )
+        value = np.asarray(leaves["embeddings"], dtype=np.float32)
+        if tuple(value.shape) != tuple(embedder.embeddings.shape):
+            raise ValueError(
+                f"{key}.embeddings has shape {value.shape}, the model "
+                f"expects {tuple(embedder.embeddings.shape)}"
+            )
+        embedder.embeddings.copy_(torch.tensor(value))
+
+
+@torch.no_grad()
+def to_jax_params(model) -> Dict[str, Any]:
+    """``model``'s parameters as kge_tpu's tree of numpy arrays."""
+    return {
+        key: {"embeddings": embedder.embeddings.detach().cpu().numpy().copy()}
+        for key, embedder in _embedders(model).items()
+    }
