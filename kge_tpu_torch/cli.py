@@ -1,16 +1,20 @@
 """kge_tpu_torch command-line interface.
 
-The verbs ``eval``, ``valid`` and ``test`` evaluate the model of an
-experiment folder (or a checkpoint in it) written by kge_tpu or by this
-package, with kge_tpu's surface (kge_tpu/cli.py): any configuration key can
-be passed as ``--dotted.key value`` (or ``--dotted.key=value``) and is
-validated by the typed ``Config.set``. The other verbs of kge_tpu (start,
-create, resume, dump, package) exit non-zero: they are not ported yet.
+Verbs, with kge_tpu's surface (kge_tpu/cli.py; the reference's
+kge/cli.py:87-138): ``start`` / ``create`` build a new experiment from a
+config file, ``resume`` continues one, and ``eval`` / ``valid`` / ``test``
+are evaluation presets over resume. Folders and checkpoints written by
+kge_tpu or by this package serve alike. Any configuration key can be passed
+as ``--dotted.key value`` (or ``--dotted.key=value``) and is validated by
+the typed ``Config.set``. Jobs run on the CUDA card unless ``--job.device
+cpu`` is given. The verbs ``dump`` and ``package`` exit non-zero: they are
+not ported yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import sys
 import traceback
@@ -19,6 +23,7 @@ from typing import Dict, List, Tuple
 import yaml
 
 from kge_tpu_torch import Config, Dataset
+from kge_tpu_torch.misc import kge_base_dir
 from kge_tpu_torch.utils.io import get_checkpoint_file, load_checkpoint
 from kge_tpu_torch.utils.seed import apply_device_config, seed_from_config
 
@@ -33,15 +38,15 @@ _SHORT_KEYS = (
     ("-m", "model"),
 )
 
-#: verbs that are presets over resuming a folder; the preset key/value pairs
-#: are forced — an explicit conflicting override is rejected
+#: verbs that are presets over a base verb; the preset key/value pairs are
+#: forced: an explicit conflicting override is rejected
 _EVAL_PRESETS = {
     "eval": {"job.type": "eval"},
     "valid": {"job.type": "eval", "eval.split": "valid"},
     "test": {"job.type": "eval", "eval.split": "test"},
 }
 
-_NOT_PORTED = ("start", "create", "resume", "dump", "package")
+_NOT_PORTED = ("dump", "package")
 
 
 def argparse_bool_type(text):
@@ -71,6 +76,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     verbs = parser.add_subparsers(title="command", dest="command", required=True)
     for verb, blurb in (
+        ("start", "Create a new job and run it"),
+        ("create", "Create a new job without running it"),
+    ):
+        sub = verbs.add_parser(verb, help=blurb, parents=[shared])
+        sub.add_argument("config", nargs="?", help="config yaml file")
+        sub.add_argument("--folder", "-f", help="experiment folder to create")
+        sub.add_argument(
+            "--run", type=argparse_bool_type, default=(verb == "start"),
+            help="run the job after creating it",
+        )
+    for verb, blurb in (
+        ("resume", "Resume a prior job"),
         ("eval", "Evaluate the result of a prior job"),
         ("valid", "Evaluate a prior job on validation data"),
         ("test", "Evaluate a prior job on test data"),
@@ -136,6 +153,12 @@ def apply_overrides(config: Config, pairs: List[Tuple[str, str]],
         config.set(key, value)
 
 
+def _fresh_experiment_folder(config_path: str) -> str:
+    stem = os.path.splitext(os.path.basename(config_path))[0]
+    stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+    return os.path.join(os.getcwd(), "local", "experiments", f"{stamp}-{stem}")
+
+
 def main(argv=None):
     from kge_tpu_torch.job import Job
 
@@ -151,39 +174,81 @@ def main(argv=None):
         sys.exit(2)
 
     overrides = collect_overrides(leftover)
+    # the four short/long aliases argparse knows about join the override list
     for _, key in _SHORT_KEYS:
         value = vars(args).get(key)
         if value is not None:
             overrides.append((key, value))
-    forced = _EVAL_PRESETS[command]
+    forced = _EVAL_PRESETS.get(command, {})
+    if command in _EVAL_PRESETS:
+        command = "resume"
+    run_job = command == "resume" or (command in ("start", "create") and args.run)
+    if command == "create":
+        command = "start"
 
     config = Config()
     quiet = any(k == "console.quiet" and argparse_bool_type(v)
                 for k, v in overrides)
-    target = args.config
-    if os.path.isdir(target) and os.path.isfile(
-        os.path.join(target, "config.yaml")
-    ):
-        target = os.path.join(target, "config.yaml")
-    if not quiet:
-        print(f"Resuming from configuration {target}...")
-    config.load(target)
-    config.folder = os.path.dirname(target) or "."
-    if not os.path.exists(config.folder):
-        raise ValueError(f"{target} is not a valid config file for resuming")
+
+    if command == "start":
+        if args.config is None:
+            args.config = os.path.join(
+                kge_base_dir(), "..", "examples", "toy-complex-train.yaml"
+            )
+            print(
+                "WARNING: No configuration specified; using " + args.config,
+                file=sys.stderr,
+            )
+        if not quiet:
+            print(f"Loading configuration {args.config}...")
+        config.load(args.config)
+    else:  # resume family
+        target = args.config
+        if os.path.isdir(target) and os.path.isfile(
+            os.path.join(target, "config.yaml")
+        ):
+            target = os.path.join(target, "config.yaml")
+        if not quiet:
+            print(f"Resuming from configuration {target}...")
+        config.load(target)
+        config.folder = os.path.dirname(target) or "."
+        if not os.path.exists(config.folder):
+            raise ValueError(f"{target} is not a valid config file for resuming")
+
     apply_overrides(config, overrides, forced)
 
+    if command == "start":
+        config.folder = args.folder or _fresh_experiment_folder(args.config)
+
     try:
+        if command == "start" and not config.init_folder():
+            raise ValueError(f"output folder {config.folder} exists already")
         config.log(f"Using folder: {config.folder}")
-        checkpoint_file = get_checkpoint_file(config, args.checkpoint)
-        if checkpoint_file is None:
-            raise ValueError(f"no checkpoint found in {config.folder}")
+
+        checkpoint_file = None
+        if command == "resume":
+            checkpoint_file = get_checkpoint_file(config, args.checkpoint)
+            if checkpoint_file is None and forced:
+                raise ValueError(f"no checkpoint found in {config.folder}")
+
         Dataset._abort_when_cache_outdated = args.abort_when_cache_outdated
         apply_device_config(config)
         seed_from_config(config)
+
+        if not run_job:
+            config.log("Job created successfully.")
+            return
+
         dataset = Dataset.create(config)
-        checkpoint = load_checkpoint(checkpoint_file)
-        job = Job.create_from(checkpoint, new_config=config, dataset=dataset)
+        if command == "resume" and checkpoint_file is not None:
+            checkpoint = load_checkpoint(checkpoint_file)
+            job = Job.create_from(checkpoint, new_config=config, dataset=dataset)
+        else:
+            job = Job.create(config, dataset)
+            if command == "resume":
+                job.config.log(
+                    "No checkpoint found or specified, starting from scratch..."
+                )
         config.log("Configuration:")
         config.log(yaml.dump(config.options, default_flow_style=False),
                    prefix="  ", echo=False)

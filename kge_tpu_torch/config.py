@@ -319,9 +319,26 @@ class Config:
     def load_config(self, config: "Config", create=False, overwrite=Overwrite.Yes):
         self.set_all(config.options, create, overwrite)
 
+    def _shared_options(self) -> Dict[str, Any]:
+        """The options as files shared with the JAX package hold them: its
+        module names under ``modules`` (read back as this package's)."""
+        options = dict(self.options)
+        if isinstance(options.get("modules"), list):
+            options["modules"] = [
+                misc.jax_module_name(m) for m in options["modules"]
+            ]
+        return options
+
     def save(self, filename: str):
         with open(filename, "w+") as file:
-            file.write(yaml.dump(self.options, default_flow_style=False))
+            file.write(yaml.dump(self._shared_options(), default_flow_style=False))
+
+    def __getstate__(self):
+        # pickled into checkpoints, which the JAX package reads too; every
+        # lookup here reads its module names as this package's (misc.py)
+        state = dict(self.__dict__)
+        state["options"] = self._shared_options()
+        return state
 
     def save_to(self, checkpoint: Dict) -> Dict:
         """Adds the config file to a checkpoint dict."""

@@ -4,8 +4,8 @@ Mirrors the reference job lifecycle (kge/job/job.py) as kge_tpu does
 (kge_tpu/job/job.py): uuid job ids, parent/resumed-from lineage, creation
 hooks (trace + per-job config snapshot), ``run()`` = pre hooks + ``_run`` +
 post hooks, and the training-or-evaluation hook surface (pre/post batch/epoch
-hooks plus a ``current_trace`` dict that hooks may mutate). Only evaluation
-jobs are ported so far; other job types raise (see ROADMAP.md).
+hooks plus a ``current_trace`` dict that hooks may mutate). Training and
+evaluation jobs are ported; search jobs raise (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -70,14 +70,21 @@ class Job(Configurable):
 
     @staticmethod
     def create(config: Config, dataset: Optional[Dataset] = None,
-               parent_job: Optional["Job"] = None, model=None) -> "Job":
-        """Create a job by ``job.type`` (only ``eval`` is ported)."""
+               parent_job: Optional["Job"] = None, model=None,
+               forward_only: bool = False) -> "Job":
+        """Create a job by ``job.type`` (``train`` and ``eval`` are ported)."""
         from kge_tpu_torch.job.eval import EvaluationJob
+        from kge_tpu_torch.job.train import TrainingJob
 
         if dataset is None:
             dataset = Dataset.create(config)
         job_type = config.get("job.type")
-        if job_type == "eval":
+        if job_type == "train":
+            return TrainingJob.create(
+                config, dataset, parent_job=parent_job, model=model,
+                forward_only=forward_only,
+            )
+        elif job_type == "eval":
             return EvaluationJob.create(
                 config, dataset, parent_job=parent_job, model=model
             )

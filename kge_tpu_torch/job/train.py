@@ -1,0 +1,620 @@
+"""Abstract training job.
+
+The port of kge_tpu/job/train.py: an epoch-driven trainer with the
+reference's control surface (kge/job/train.py): best-checkpoint tracking,
+early stopping (patience + threshold), LR warmup, periodic validation
+driving a metric-based LR scheduler, checkpoint retention, NaN abort, and
+per-epoch timing traces. Checkpoints and trace entries keep kge_tpu's
+schema, so either package resumes and evaluates what the other wrote.
+
+Execution model: the model is an ``nn.Module`` on the job's device and the
+step runs eagerly. Each strategy provides ``_loss_for_batch(batch)``; the
+job adds penalties, differentiates, applies the optimizer in place and runs
+the post-batch parameter transforms. Batches are prepared host-side as
+numpy (shuffled by ``np.random.default_rng(seed ^ 0xA5A5)``, as kge_tpu
+shuffles) and the final partial batch is padded and masked. The loss
+scalars of every batch stay on the device and are fetched once at the end
+of the epoch, so the device queue never waits for the host unless
+``train.trace_level: batch`` asks for per-batch values.
+
+Not ported (see ROADMAP.md): kge_tpu's scanned epoch (``train.epoch_scan``
+is accepted and has nothing to select), subbatches, out-of-memory
+handling, device meshes.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from kge_tpu_torch import misc
+from kge_tpu_torch.config import Config
+from kge_tpu_torch.dataset import Dataset
+from kge_tpu_torch.job.job import Job, TrainingOrEvaluationJob
+from kge_tpu_torch.models import KgeModel
+from kge_tpu_torch.models.convert import (
+    load_jax_opt_state,
+    param_leaves,
+    to_jax_opt_state,
+    to_jax_params,
+)
+from kge_tpu_torch.ops.losses import KgeLoss
+from kge_tpu_torch.ops.optim import KgeLRScheduler, KgeOptimizer
+from kge_tpu_torch.utils.io import save_checkpoint
+from kge_tpu_torch.utils.seed import apply_device_config, seed_from_config
+
+S, P, O = 0, 1, 2
+
+
+class TrainingJob(TrainingOrEvaluationJob):
+    """Abstract base job to train a single model with a fixed set of
+    hyperparameters."""
+
+    def __init__(self, config: Config, dataset: Dataset, parent_job: Job = None,
+                 model: Optional[KgeModel] = None, forward_only: bool = False):
+        super().__init__(config, dataset, parent_job)
+        #: a model handed in (from a checkpoint) keeps its weights
+        self._init_model_params = model is None
+        if model is None:
+            self.model: KgeModel = KgeModel.create(config, dataset)
+        else:
+            self.model = model
+        self.loss = KgeLoss.create(config)
+        self.abort_on_nan: bool = config.get("train.abort_on_nan")
+        self.batch_size: int = config.get("train.batch_size")
+        self._subbatch_size: int = config.get("train.subbatch_size")
+        self.train_split = config.get("train.split")
+        self.forward_only = forward_only
+
+        self.config.check("train.trace_level", ["batch", "epoch"])
+        self.trace_batch: bool = self.config.get("train.trace_level") == "batch"
+        self.epoch: int = 0
+        self.is_forward_only = forward_only
+
+        self.valid_trace: List[Dict[str, Any]] = []
+
+        # mutable state (set in _prepare or _load)
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.optimizer: Optional[KgeOptimizer] = None
+        self.kge_lr_scheduler: Optional[KgeLRScheduler] = None
+        self._lr_warmup = self.config.get("train.lr_warmup")
+
+        self._rng_seed = seed_from_config(config)
+        self._np_rng = np.random.default_rng(self._rng_seed ^ 0xA5A5)
+
+        if not self.is_forward_only:
+            self.valid_job = _make_valid_job(config, dataset, self)
+
+        if self.__class__ == TrainingJob:
+            for f in Job.job_created_hooks:
+                f(self)
+
+    # -- factory ---------------------------------------------------------------
+
+    @staticmethod
+    def create(config: Config, dataset: Dataset, parent_job: Job = None,
+               model: Optional[KgeModel] = None,
+               forward_only: bool = False) -> "TrainingJob":
+        """Factory by ``train.type`` -> ``<type>.class_name``."""
+        train_type = config.get("train.type")
+        class_name = config.get_default(train_type + ".class_name")
+        return misc.init_from(
+            class_name, config.get("modules"),
+            config, dataset, parent_job, model=model, forward_only=forward_only,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    # -- run loop (reference train.py:139-258) ---------------------------------
+
+    def _run(self):
+        """Start/resume the training job and run to completion."""
+        if self.is_forward_only:
+            raise Exception(
+                f"{self.__class__.__name__} was initialized for forward "
+                "only. You can only call run_epoch()"
+            )
+
+        # save the initialization for reproducibility (reference
+        # train.py:146-147; retained under train.checkpoint.keep_init)
+        if self.epoch == 0:
+            self._save(self.config.checkpoint_file(0))
+
+        self.config.log("Starting training...")
+        checkpoint_every = self.config.get("train.checkpoint.every")
+        checkpoint_keep = self.config.get("train.checkpoint.keep")
+        metric_name = self.config.get("valid.metric")
+        patience = self.config.get("valid.early_stopping.patience")
+
+        while True:
+            # checking for model improvement according to metric_name
+            # and do early stopping and keep the best checkpoint
+            if len(self.valid_trace) > 0 and (
+                self.valid_trace[-1]["epoch"] == self.epoch
+            ):
+                best_index = _best_index(
+                    [trace_entry[metric_name] for trace_entry in self.valid_trace],
+                    self.config.get("valid.metric_max"),
+                )
+                if best_index == len(self.valid_trace) - 1:
+                    self._save(self.config.checkpoint_file("best"))
+                if patience > 0 and len(self.valid_trace) > patience and (
+                    best_index < len(self.valid_trace) - patience
+                ):
+                    self.config.log(
+                        "Stopping early ({} did not improve over best result "
+                        "in the last {} validation runs).".format(
+                            metric_name, patience
+                        )
+                    )
+                    break
+                threshold_epochs = self.config.get(
+                    "valid.early_stopping.threshold.epochs"
+                )
+                if threshold_epochs > 0 and self.epoch >= threshold_epochs:
+                    achieved = self.valid_trace[best_index][metric_name]
+                    target = self.config.get(
+                        "valid.early_stopping.threshold.metric_value"
+                    )
+                    if achieved < target:
+                        self.config.log(
+                            "Stopping early ({} did not achieve threshold "
+                            "value {} after {} epochs".format(
+                                metric_name, target, self.epoch
+                            )
+                        )
+                        break
+
+            # should we stop?
+            if self.epoch >= self.config.get("train.max_epochs"):
+                self.config.log("Maximum number of epochs reached.")
+                break
+
+            # update learning rate if warmup is used
+            if self.epoch < self._lr_warmup:
+                self._warmup_factor = (self.epoch + 1) / (self._lr_warmup + 1)
+            else:
+                self._warmup_factor = 1.0
+
+            # start a new epoch
+            self.epoch += 1
+            self.config.log("Starting epoch {}...".format(self.epoch))
+            trace_entry = self.run_epoch()
+            self.config.log("Finished epoch {}.".format(self.epoch))
+
+            # validate
+            if (
+                self.config.get("valid.every") > 0
+                and (
+                    self.epoch % self.config.get("valid.every") == 0
+                    or (
+                        self.config.get("valid.last")
+                        and self.epoch == self.config.get("train.max_epochs")
+                    )
+                )
+            ):
+                self.valid_job.epoch = self.epoch
+                trace_entry = self.valid_job.run()
+                self.valid_trace.append(trace_entry)
+                for f in self.post_valid_hooks:
+                    f(self)
+
+                # metric-based scheduler step
+                if self.kge_lr_scheduler.metric_based:
+                    self.kge_lr_scheduler.step(trace_entry[metric_name])
+            if not self.kge_lr_scheduler.metric_based:
+                self.kge_lr_scheduler.step()
+
+            # create checkpoint and delete old one, if necessary
+            self._save(self.config.checkpoint_file(self.epoch))
+            if self.epoch > 1:
+                delete_checkpoint_epoch = -1
+                if checkpoint_every == 0:
+                    delete_checkpoint_epoch = self.epoch - 1
+                elif (self.epoch - 1) % checkpoint_every != 0:
+                    delete_checkpoint_epoch = self.epoch - 1
+                elif checkpoint_keep > 0:
+                    delete_checkpoint_epoch = (
+                        self.epoch - 1 - checkpoint_every * checkpoint_keep
+                    )
+                if delete_checkpoint_epoch >= 0:
+                    if delete_checkpoint_epoch != 0 or not self.config.get(
+                        "train.checkpoint.keep_init"
+                    ):
+                        self._delete_checkpoint(delete_checkpoint_epoch)
+
+        self.trace(event="train_completed", epoch=self.epoch)
+        return self.valid_trace[-1] if self.valid_trace else None
+
+    # -- preparation -----------------------------------------------------------
+
+    def _prepare(self):
+        """Prepare data, parameters, optimizer, and the step function."""
+        super()._prepare()
+        from kge_tpu_torch.ops import embedding_ops
+
+        apply_device_config(self.config)
+        device = self.device
+        self.model.prepare_job(self)
+
+        if self._subbatch_size > 0:
+            raise NotImplementedError(
+                "train.subbatch_size > 0 (gradient accumulation over "
+                "subbatches) is not ported yet: see ROADMAP.md"
+            )
+        scan = self.config.check("train.epoch_scan", ["auto", "always", "never"])
+        if scan != "never":
+            self.config.log(
+                f"train.epoch_scan={scan}: kge_tpu's compiled epoch scan has "
+                "no counterpart here; epochs run batch by batch"
+            )
+
+        #: all randomness of the job on the device: parameter init, dropout
+        #: and negatives drawn on the device
+        self._generator = torch.Generator(device=device)
+        self._generator.manual_seed(self._rng_seed)
+        for module in self.model.modules():
+            if hasattr(module, "dropout_generator"):
+                module.dropout_generator = self._generator
+
+        # initialize parameters unless restored from a checkpoint
+        if self._init_model_params:
+            self.model.init_params(self._generator)
+            self._init_model_params = False
+
+        if not self.is_forward_only:
+            self.optimizer = KgeOptimizer.create(
+                self.config, param_leaves(self.model)
+            )
+            if self.opt_state is None:
+                self.opt_state = self.optimizer.init()
+            if self.kge_lr_scheduler is None:
+                self.kge_lr_scheduler = KgeLRScheduler(self.config)
+            self._warmup_factor = 1.0
+        self.post_valid_hooks: List[Callable[[Job], Any]] = getattr(
+            self, "post_valid_hooks", []
+        )
+
+        # Lookup gradients: "auto" and "always" route the backward of every
+        # embedding lookup through the scatter kernel (sorted_scatter_add;
+        # on CPU tensors its plain version), "never" leaves it to torch's
+        # own indexing backward.
+        # The mode is one setting of the process (as in kge_tpu), so every
+        # step sets its job's own: another job prepared in between may have
+        # chosen otherwise.
+        mode = self.config.check(
+            "train.pallas_gather", ["auto", "never", "always"]
+        )
+        self._gather_mode = "torch" if mode == "never" else "kernel"
+        embedding_ops.set_gather_mode(self._gather_mode)
+
+        self._prepare_data()
+        self._build_step_fn()
+
+    def _prepare_data(self):
+        """Subclasses: materialize examples for epoch iteration."""
+        raise NotImplementedError
+
+    def _build_step_fn(self):
+        """Select the train step; subclasses may replace ``self._train_step``
+        (e.g. by the row-sparse step)."""
+        self._train_step = self._dense_step
+
+    def _loss_for_batch(self, batch: Dict[str, torch.Tensor]):
+        """Strategy-specific loss: returns (summed-and-averaged loss, aux)."""
+        raise NotImplementedError
+
+    def _loss_fn(self, batch):
+        """Loss plus penalties (computed once per batch, reference
+        train.py:417-435): returns (cost, aux)."""
+        loss_value, aux = self._loss_for_batch(batch)
+        penalty_batch = {k: batch[k] for k in ("triples", "mask") if k in batch}
+        penalties = self.model.penalty(batch=penalty_batch, epoch=self.epoch)
+        cost = loss_value
+        penalty_values = {}
+        for name, value in penalties:
+            cost = cost + value
+            penalty_values[name] = value
+        aux = dict(aux)
+        aux["avg_loss"] = loss_value
+        aux["penalties"] = penalty_values
+        return cost, aux
+
+    def _dense_step(self, batch, lr):
+        """One step with dense table gradients: every lookup's backward
+        yields its own table-sized gradient (the scatter kernel when
+        selected), autograd sums them, and the optimizer rule runs over
+        whole tables. Returns (cost, aux) as detached tensors."""
+        self._enter_step()
+        params = self.optimizer.params
+        cost, aux = self._loss_fn(batch)
+        grads = torch.autograd.grad(cost, params, allow_unused=True)
+        grads = [
+            torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)
+        ]
+        self.optimizer.update(grads, self.opt_state, lr)
+        self.model.postprocess_params()
+        return cost.detach(), _detach(aux)
+
+    def _enter_step(self):
+        """Train mode and this job's lookup-gradient mode."""
+        from kge_tpu_torch.ops import embedding_ops
+
+        self.model.train()
+        embedding_ops.set_gather_mode(self._gather_mode)
+
+    def _forward_step(self, batch):
+        self._enter_step()
+        with torch.no_grad():
+            cost, aux = self._loss_fn(batch)
+        return cost, aux
+
+    # -- epoch loop ------------------------------------------------------------
+
+    def run_epoch(self) -> Dict[str, Any]:
+        """Run one epoch and return its trace entry."""
+        if not self._is_prepared:
+            self._prepare()
+            self._is_prepared = True
+
+        if self.config.get("train.profile") and self.config.folder:
+            from torch.profiler import ProfilerActivity, profile
+
+            profile_dir = os.path.join(self.config.folder, "profile")
+            os.makedirs(profile_dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            with profile(activities=activities) as prof:
+                entry = self._run_epoch_inner()
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, f"epoch_{self.epoch:05d}.json")
+            )
+            return entry
+        return self._run_epoch_inner()
+
+    def _run_epoch_inner(self) -> Dict[str, Any]:
+        self.current_trace["epoch"] = dict(
+            type=self.type_str, scope="epoch", epoch=self.epoch,
+            split=self.train_split, batches=0, size=0,
+        )
+        for f in self.pre_epoch_hooks:
+            f(self)
+
+        device = self.device
+        epoch_start = time.time()
+        num_batches = 0
+        total_batches = -(-self.num_examples // self.batch_size)
+        prepare_time_total = 0.0
+        forward_time_total = 0.0
+        #: per-batch device scalars, fetched once at epoch end so the device
+        #: queue never waits for the host
+        pending: List[Any] = []
+
+        lr_vec = self._current_lrs() if not self.is_forward_only else None
+
+        for batch_index, batch in enumerate(self._batches()):
+            self.current_trace["batch"] = {
+                "type": self.type_str, "scope": "batch",
+                "epoch": self.epoch, "split": self.train_split,
+                "batch": batch_index, "size": int(batch["true_size"]),
+            }
+            for f in self.pre_batch_hooks:
+                f(self)
+
+            prepare_start = time.time()
+            device_batch = {
+                k: torch.as_tensor(v).to(device, non_blocking=True)
+                for k, v in batch.items()
+                if k != "true_size" and not isinstance(v, str)
+            }
+            prepare_time_total += time.time() - prepare_start
+
+            forward_start = time.time()
+            if self.is_forward_only:
+                cost, aux = self._forward_step(device_batch)
+            else:
+                cost, aux = self._train_step(device_batch, lr_vec)
+            forward_time_total += time.time() - forward_start
+
+            pending.append((cost, aux))
+            num_batches += 1
+            self.current_trace["epoch"]["size"] += int(batch["true_size"])
+
+            if self.trace_batch:
+                # per-batch tracing needs the values now (waits for the device)
+                self.current_trace["batch"].update(
+                    avg_loss=float(aux["avg_loss"]), cost=float(cost),
+                )
+                self.config.trace(**self.current_trace["batch"])
+            # in-epoch console feedback (reference train.py:502-524); loss
+            # values only under trace_batch, since fetching them every batch
+            # would make the host wait for the device
+            self.config.print(
+                "\r{}  batch {}/{}".format(
+                    self.config.log_prefix, num_batches - 1, total_batches - 1
+                )
+                + (
+                    ", avg_loss {:.4E}, cost {:.4E}".format(
+                        float(aux["avg_loss"]), float(cost)
+                    )
+                    if self.trace_batch else ""
+                )
+                + ", time {:6.2f}s\033[K".format(time.time() - epoch_start),
+                end="",
+                flush=True,
+            )
+            self.current_trace["batch"] = None
+            for f in self.post_batch_hooks:
+                f(self)
+
+        # fetch all per-batch scalars in one transfer
+        penalty_names = sorted({n for _, a in pending for n in a.get("penalties", {})})
+        if pending:
+            zero = torch.zeros((), device=device)
+            stacked = torch.stack([
+                torch.stack(
+                    [c.float(), a["avg_loss"].float()]
+                    + [a["penalties"].get(n, zero).float() for n in penalty_names]
+                )
+                for c, a in pending
+            ]).cpu().numpy().astype(np.float64)
+        else:
+            stacked = np.zeros((0, 2 + len(penalty_names)))
+        sum_cost = float(stacked[:, 0].sum())
+        sum_loss = float(stacked[:, 1].sum())
+        sum_penalties = {
+            n: float(stacked[:, 2 + i].sum()) for i, n in enumerate(penalty_names)
+        }
+
+        if self.abort_on_nan and math.isnan(sum_cost):
+            raise FloatingPointError("Cost became nan, aborting training job")
+
+        epoch_time = time.time() - epoch_start
+        self.current_trace["epoch"].update(
+            dict(
+                batches=num_batches,
+                avg_loss=sum_loss / max(num_batches, 1),
+                avg_cost=sum_cost / max(num_batches, 1),
+                avg_penalty=(sum_cost - sum_loss) / max(num_batches, 1),
+                avg_penalties={
+                    k: v / max(num_batches, 1) for k, v in sum_penalties.items()
+                },
+                epoch_time=epoch_time,
+                prepare_time=prepare_time_total,
+                forward_time=forward_time_total,
+                event="epoch_completed",
+                num_parameters=self.model.num_parameters(),
+            )
+        )
+        for f in self.post_epoch_hooks:
+            f(self)
+        trace_entry = self.trace(**self.current_trace["epoch"], echo=False, log=True)
+        from kge_tpu_torch.job.trace import format_trace_entry
+
+        self.config.log(
+            format_trace_entry("train_epoch", trace_entry, self.config),
+            prefix="  ",
+        )
+        self.current_trace["epoch"] = None
+        return trace_entry
+
+    def _batches(self):
+        """Yield fixed-shape numpy batches (subclasses)."""
+        raise NotImplementedError
+
+    def _current_lrs(self) -> np.ndarray:
+        base = self.optimizer.base_lrs()
+        factor = self._warmup_factor * self.kge_lr_scheduler.factor
+        return np.asarray(base * factor, dtype=np.float32)
+
+    @property
+    def type_str(self) -> str:
+        raise NotImplementedError
+
+    # -- checkpointing (reference train.py:260-320) ----------------------------
+
+    def _save(self, filename) -> None:
+        self.config.log("Saving checkpoint to {}...".format(filename))
+        checkpoint = self.save_to({})
+        save_checkpoint(checkpoint, filename)
+
+    def save_to(self, checkpoint: Dict) -> Dict:
+        """The job's state in kge_tpu's checkpoint schema, with numpy
+        arrays as parameter and optimizer-state leaves."""
+        train_checkpoint = {
+            "type": "train",
+            "epoch": self.epoch,
+            "valid_trace": self.valid_trace,
+            "model": (to_jax_params(self.model), self.model.meta),
+            "optimizer_state": (
+                to_jax_opt_state(self.opt_state)
+                if self.opt_state is not None else None
+            ),
+            "lr_scheduler_state_dict": (
+                self.kge_lr_scheduler.state_dict()
+                if self.kge_lr_scheduler else {}
+            ),
+            "job_id": self.job_id,
+        }
+        train_checkpoint = self.config.save_to(train_checkpoint)
+        train_checkpoint = self.dataset.save_to(train_checkpoint)
+        checkpoint.update(train_checkpoint)
+        return checkpoint
+
+    def _load(self, checkpoint: Dict) -> str:
+        if checkpoint["type"] != "train":
+            raise ValueError("Training can only be continued on trained models")
+        self.epoch = checkpoint["epoch"]
+        self.valid_trace = checkpoint["valid_trace"]
+        if checkpoint.get("optimizer_state") is not None:
+            self.opt_state = load_jax_opt_state(
+                checkpoint["optimizer_state"], param_leaves(self.model)
+            )
+        if self.kge_lr_scheduler is None:
+            self.kge_lr_scheduler = KgeLRScheduler(self.config)
+        self.kge_lr_scheduler.load_state_dict(
+            checkpoint.get("lr_scheduler_state_dict", {})
+        )
+        self.resumed_from_job_id = checkpoint.get("job_id")
+        self.trace(
+            event="job_resumed", epoch=self.epoch,
+            checkpoint_file=checkpoint.get("file"),
+        )
+        self.config.log(
+            "Resuming training from {} of job {}".format(
+                checkpoint.get("file"), self.resumed_from_job_id
+            )
+        )
+        return ""
+
+    def _delete_checkpoint(self, checkpoint_id: int):
+        filename = self.config.checkpoint_file(checkpoint_id)
+        if os.path.exists(filename):
+            self.config.log("Removing old checkpoint {}...".format(filename))
+            os.remove(filename)
+
+    # -- helpers for subclasses ------------------------------------------------
+
+    def _epoch_permutation(self, n: int) -> np.ndarray:
+        return self._np_rng.permutation(n)
+
+    def _pad_batch(self, arr: np.ndarray, size: int) -> np.ndarray:
+        """Pad the leading axis to ``size`` by repeating the last row."""
+        if len(arr) == size:
+            return arr
+        pad = np.repeat(arr[-1:], size - len(arr), axis=0)
+        return np.concatenate([arr, pad], axis=0)
+
+
+def _detach(aux):
+    if isinstance(aux, dict):
+        return {k: _detach(v) for k, v in aux.items()}
+    return aux.detach() if isinstance(aux, torch.Tensor) else aux
+
+
+def _best_index(values: List[float], metric_max: bool) -> int:
+    """Index of the best value (the first one among equals)."""
+    values = list(values)
+    return values.index(max(values) if metric_max else min(values))
+
+
+def _make_valid_job(config: Config, dataset: Dataset, parent: TrainingJob):
+    from kge_tpu_torch.job.eval import EvaluationJob
+
+    valid_conf = config.clone()
+    valid_conf.set("job.type", "eval")
+    if config.get("valid.split") != "":
+        valid_conf.set("eval.split", config.get("valid.split"))
+    valid_conf.set("eval.trace_level", config.get("valid.trace_level"))
+    return EvaluationJob.create(
+        valid_conf, dataset, parent_job=parent, model=parent.model
+    )

@@ -28,6 +28,15 @@ def port_module_name(module_name: str) -> str:
     return module_name
 
 
+def jax_module_name(module_name: str) -> str:
+    """``kge_tpu_torch[.x]`` -> ``kge_tpu[.x]``; other names unchanged. Files
+    that both packages read (``config.yaml``, checkpoints) name the JAX
+    package's modules."""
+    if module_name == _PACKAGE or module_name.startswith(_PACKAGE + "."):
+        return _JAX_PACKAGE + module_name[len(_PACKAGE):]
+    return module_name
+
+
 def module_base_dir(module_name: str) -> str:
     module = importlib.import_module(port_module_name(module_name))
     return os.path.dirname(os.path.abspath(module.__file__))
@@ -60,9 +69,10 @@ def init_from(class_name: str, module_names: List[str], *args, **kwargs):
         if hasattr(module, class_name):
             return getattr(module, class_name)(*args, **kwargs)
     raise ValueError(
-        "class {} not found in modules {} (models and jobs other than "
-        "ComplEx, the reciprocal relations model and entity-ranking "
-        "evaluation are not ported yet: see ROADMAP.md)".format(
+        "class {} not found in modules {} (models other than ComplEx and "
+        "the reciprocal relations model, and jobs other than "
+        "negative-sampling training and entity-ranking evaluation, are "
+        "not ported yet: see ROADMAP.md)".format(
             class_name, looked_in
         )
     )

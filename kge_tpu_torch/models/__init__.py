@@ -11,7 +11,13 @@ from kge_tpu_torch.models.base import (
     LookupEmbedder,
     RelationalScorer,
 )
-from kge_tpu_torch.models.convert import load_jax_params, to_jax_params
+from kge_tpu_torch.models.convert import (
+    load_jax_opt_state,
+    load_jax_params,
+    param_leaves,
+    to_jax_opt_state,
+    to_jax_params,
+)
 from kge_tpu_torch.models.factorization import ComplEx, ComplExScorer
 from kge_tpu_torch.models.reciprocal import ReciprocalRelationsModel
 
@@ -26,4 +32,7 @@ __all__ = [
     "ReciprocalRelationsModel",
     "load_jax_params",
     "to_jax_params",
+    "load_jax_opt_state",
+    "to_jax_opt_state",
+    "param_leaves",
 ]

@@ -8,9 +8,16 @@ reference's names and combine semantics (score_spo/score_sp/score_po/
 score_sp_po with "spo"/"sp_"/"_po", kge_model.py:122-213,663-789).
 Randomness comes from explicit ``torch.Generator``s.
 
-Ported so far: what filtered entity-ranking evaluation needs. Penalties,
-pretrained initialization, projection embedders and the ring-sharded
-scoring path are not ported yet (see ROADMAP.md).
+Ported so far: what filtered entity-ranking evaluation and
+negative-sampling training need. Pretrained initialization, projection
+embedders and the ring-sharded scoring path are not ported yet (see
+ROADMAP.md).
+
+Where kge_tpu swaps gathered mini-tables into the parameter tree for the
+row-sparse training step, the embedders here own their tables, so ``embed``
+and the scoring functions take the substitute explicitly (``table=`` /
+``tables=``): a tensor used in place of the embedder's own table for that
+call. No table-sized gradient exists on that step.
 """
 
 from __future__ import annotations
@@ -148,6 +155,7 @@ class RelationalScorer(KgeBase):
     - combine="spo": s, p, o are [n, d*]; result [n, 1]
     - combine="sp_": s, p are [n, d*], o is [m, d*]; result [n, m]
     - combine="_po": p, o are [n, d*], s is [m, d*]; result [n, m]
+    - combine="s_o": s, o are [n, d*], p is [m, d*]; result [n, m]
 
     The generic form materializes all pairs and delegates to "spo"
     (reference kge_model.py:150-213); concrete scorers override the combines
@@ -173,9 +181,20 @@ class RelationalScorer(KgeBase):
                 s_emb.repeat(n, 1), p_emb.repeat_interleave(m, 0),
                 o_emb.repeat_interleave(m, 0),
             )
+        elif combine == "s_o":
+            n = s_emb.shape[0]
+            m = p_emb.shape[0]
+            out = self.score_emb_spo(
+                s_emb.repeat_interleave(m, 0), p_emb.repeat(n, 1),
+                o_emb.repeat_interleave(m, 0),
+            )
         else:
             raise ValueError(f'cannot handle combine="{combine}"')
         return out.reshape(n, -1)
+
+    def penalty(self, **kwargs):
+        """Penalty terms of the scorer's own parameters."""
+        return []
 
     def factorize_slot(self, s_emb, p_emb, o_emb, slot: int):
         """Optional (query, target_map[, score_map]) factorization of slot
@@ -241,9 +260,14 @@ class KgeEmbedder(KgeBase):
     def init_params(self, generator: torch.Generator) -> None:
         raise NotImplementedError
 
-    def embed(self, indexes: torch.Tensor) -> torch.Tensor:
-        """Embeddings of the given vocabulary indexes, [n, dim]."""
+    def embed(self, indexes: torch.Tensor, table=None) -> torch.Tensor:
+        """Embeddings of the given vocabulary indexes, [n, dim]; ``table``
+        stands in for the embedder's own table when given."""
         raise NotImplementedError
+
+    def penalty(self, **kwargs):
+        """Penalty terms as (name, value) pairs."""
+        return []
 
     def embed_all(self) -> torch.Tensor:
         """Embeddings of all vocabulary members, [vocab_size, dim]."""
@@ -256,8 +280,10 @@ class KgeEmbedder(KgeBase):
 class LookupEmbedder(KgeEmbedder):
     """Dense embedding table with normalization (reference
     kge/model/embedder/lookup_embedder.py): one parameter ``embeddings``
-    [vocab, dim]. Its ``dropout`` acts only in training, which is not
-    ported yet: it is read and checked as kge_tpu does."""
+    [vocab, dim], with dropout, normalization and lp/n3 penalty. Lookups go
+    through ``embedding_gather`` (ops/embedding_ops.py), whose backward is
+    the scatter kernel when a job selects it. Dropout acts in train mode
+    and draws from ``dropout_generator`` (set by the training job)."""
 
     def __init__(self, config, dataset, configuration_key, vocab_size,
                  init_for_load_only=False, device=None):
@@ -282,6 +308,7 @@ class LookupEmbedder(KgeEmbedder):
                 )
                 dropout = 0.0
         self.dropout = dropout
+        self.dropout_generator: Optional[torch.Generator] = None
         self.embeddings = nn.Parameter(
             torch.empty(vocab_size, self._dim, dtype=torch.float32,
                         device=device)
@@ -307,12 +334,87 @@ class LookupEmbedder(KgeEmbedder):
         if self.normalize_p > 0:
             self.embeddings.copy_(self._normalize(self.embeddings))
 
-    def embed(self, indexes) -> torch.Tensor:
-        indexes = torch.as_tensor(indexes, device=self.embeddings.device)
-        return self.embeddings[indexes.long()]
+    def _dropout(self, emb: torch.Tensor) -> torch.Tensor:
+        """Inverted dropout (torch.nn.Dropout semantics) in train mode."""
+        if not self.training or self.dropout <= 0.0:
+            return emb
+        keep = 1.0 - self.dropout
+        mask = torch.rand(
+            emb.shape, generator=self.dropout_generator, device=emb.device
+        ) < keep
+        return torch.where(mask, emb / keep, torch.zeros_like(emb))
+
+    def embed(self, indexes, table=None) -> torch.Tensor:
+        from kge_tpu_torch.ops.embedding_ops import embedding_gather
+
+        if table is None:
+            table = self.embeddings
+        indexes = torch.as_tensor(indexes, device=table.device)
+        return self._dropout(embedding_gather(table, indexes))
 
     def embed_all(self) -> torch.Tensor:
-        return self.embeddings
+        return self._dropout(self.embeddings)
+
+    def _abs_complex(self, parameters: torch.Tensor) -> torch.Tensor:
+        re, im = torch.chunk(parameters, 2, dim=1)
+        # epsilon inside the sqrt keeps the gradient finite at exactly 0
+        return torch.sqrt(re ** 2 + im ** 2 + 1e-14)
+
+    def penalty(self, indexes=None, indexes_weight=None, num_index_rows=None,
+                **kwargs):
+        """lp / n3 penalty, optionally weighted by batch index frequency
+        (kge_tpu LookupEmbedder.penalty; reference lookup_embedder.py:149-173).
+
+        The weighted form sums ``emb[idx]**p`` over all (possibly repeated)
+        indexes, which equals the reference's sum over unique indexes times
+        their counts. ``indexes_weight`` (matching indexes' leading shape)
+        zeroes padded rows; ``num_index_rows`` overrides the denominator
+        (the true number of index rows when the batch is padded).
+        """
+        from kge_tpu_torch.ops.embedding_ops import embedding_gather
+
+        result = []
+        weight = float(self.get_option("regularize_weight"))
+        if self.regularize == "" or weight == 0.0:
+            return result
+        if self.regularize == "n3":
+            p = 3
+        else:
+            p = self.get_option("regularize_args.p") if self.has_option(
+                "regularize_args.p"
+            ) else 2
+        p = float(p)
+        name = f"{self.configuration_key}.L{int(p) if p == int(p) else p}_penalty"
+        table = self.embeddings
+        if not self.get_option("regularize_args.weighted"):
+            parameters = table
+            if self.regularize == "n3" and self.space == "complex":
+                parameters = self._abs_complex(parameters)
+                value = weight / p * torch.sum(parameters ** p)
+            else:
+                value = weight / p * torch.sum(torch.abs(parameters) ** p)
+            result.append((name, value))
+        else:
+            if indexes is None:
+                raise ValueError("weighted regularization requires batch indexes")
+            idx = torch.as_tensor(indexes, device=table.device)
+            if num_index_rows is None:
+                num_index_rows = idx.shape[0]
+            parameters = embedding_gather(table, idx.reshape(-1))
+            if self.regularize == "n3" and self.space == "complex":
+                parameters = self._abs_complex(parameters)
+            elif p % 2 == 1 and self.regularize != "n3":
+                parameters = torch.abs(parameters)
+            contrib = torch.sum(parameters ** p, dim=-1)  # [len(flat)]
+            if indexes_weight is not None:
+                w = torch.as_tensor(indexes_weight, device=table.device)
+                w = w.reshape(idx.shape[0], -1)[:, :1].expand(
+                    idx.shape[0], idx.numel() // max(idx.shape[0], 1)
+                ).reshape(-1)
+                contrib = contrib * w
+            value = weight / p * torch.sum(contrib) / num_index_rows
+            result.append((name, value))
+        return result
 
 
 # -- model ---------------------------------------------------------------------
@@ -440,6 +542,54 @@ class KgeModel(KgeBase):
     def device(self) -> torch.device:
         return self.get_s_embedder().embeddings.device
 
+    #: Whether scoring functions index tables only with the ids they are
+    #: passed (no internal id arithmetic). When True, a training job may
+    #: rewrite a batch to "localized" ids over a gathered mini-table. The
+    #: reciprocal wrapper computes p + |R| internally and opts out.
+    supports_localized_batches: bool = True
+
+    def num_parameters(self) -> int:
+        return sum(int(p.numel()) for p in self.parameters())
+
+    # -- penalty ---------------------------------------------------------------
+
+    def penalty(self, batch: Optional[Dict] = None, **kwargs):
+        """Penalty terms of scorer + embedders as (name, value) pairs.
+
+        Entity penalties are doubled when the embedder is shared and
+        unweighted, or computed over the concatenated (s, o) index matrix
+        when weighted (reference kge_model.py:603-649).
+        """
+        result = list(self._scorer.penalty(**kwargs))
+        if batch is not None and "triples" in batch:
+            triples = batch["triples"]
+            mask = batch.get("mask")
+            if mask is not None:
+                num_rows = torch.sum(mask)
+            else:
+                num_rows = triples.shape[0]
+            result += self.get_p_embedder().penalty(
+                indexes=triples[:, P], indexes_weight=mask,
+                num_index_rows=num_rows, **kwargs
+            )
+            weighted = self.get_s_embedder().get_option("regularize_args.weighted")
+            if weighted:
+                entity_indexes = torch.stack(
+                    [triples[:, S], triples[:, O]], dim=1
+                )
+                result += self.get_s_embedder().penalty(
+                    indexes=entity_indexes, indexes_weight=mask,
+                    num_index_rows=num_rows, **kwargs
+                )
+            else:
+                ent = self.get_s_embedder().penalty(indexes=None, **kwargs)
+                result += [(name, 2 * value) for name, value in ent]
+        else:
+            result += self.get_p_embedder().penalty(**kwargs)
+            ent = self.get_s_embedder().penalty(**kwargs)
+            result += [(name, 2 * value) for name, value in ent]
+        return result
+
     # -- embedder access -------------------------------------------------------
 
     def get_s_embedder(self) -> KgeEmbedder:
@@ -456,28 +606,44 @@ class KgeModel(KgeBase):
 
     # -- scoring API -----------------------------------------------------------
 
-    def score_spo(self, s, p, o, direction=None) -> torch.Tensor:
+    # Every scoring function takes ``tables``: an optional (entity table,
+    # relation table) pair used in place of the embedders' own tables (the
+    # gathered mini-tables of the row-sparse training step).
+
+    def score_spo(self, s, p, o, direction=None, tables=None) -> torch.Tensor:
         """Scores of the n triples (s_i, p_i, o_i); returns [n]."""
-        s_emb = self.get_s_embedder().embed(s)
-        p_emb = self.get_p_embedder().embed(p)
-        o_emb = self.get_o_embedder().embed(o)
+        ent, rel = tables if tables is not None else (None, None)
+        s_emb = self.get_s_embedder().embed(s, ent)
+        p_emb = self.get_p_embedder().embed(p, rel)
+        o_emb = self.get_o_embedder().embed(o, ent)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "spo").reshape(-1)
 
-    def score_sp(self, s, p, o=None) -> torch.Tensor:
+    def score_sp(self, s, p, o=None, tables=None) -> torch.Tensor:
         """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m]."""
-        s_emb = self.get_s_embedder().embed(s)
-        p_emb = self.get_p_embedder().embed(p)
+        ent, rel = tables if tables is not None else (None, None)
+        s_emb = self.get_s_embedder().embed(s, ent)
+        p_emb = self.get_p_embedder().embed(p, rel)
         o_emb = (self.get_o_embedder().embed_all() if o is None
-                 else self.get_o_embedder().embed(o))
+                 else self.get_o_embedder().embed(o, ent))
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "sp_")
 
-    def score_po(self, p, o, s=None) -> torch.Tensor:
+    def score_po(self, p, o, s=None, tables=None) -> torch.Tensor:
         """Scores of (*, p_i, o_i) against all (or the given) subjects; [n, m]."""
+        ent, rel = tables if tables is not None else (None, None)
         s_emb = (self.get_s_embedder().embed_all() if s is None
-                 else self.get_s_embedder().embed(s))
-        p_emb = self.get_p_embedder().embed(p)
-        o_emb = self.get_o_embedder().embed(o)
+                 else self.get_s_embedder().embed(s, ent))
+        p_emb = self.get_p_embedder().embed(p, rel)
+        o_emb = self.get_o_embedder().embed(o, ent)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "_po")
+
+    def score_so(self, s, o, p=None, tables=None) -> torch.Tensor:
+        """Scores of (s_i, *, o_i) against all (or the given) relations; [n, m]."""
+        ent, rel = tables if tables is not None else (None, None)
+        s_emb = self.get_s_embedder().embed(s, ent)
+        o_emb = self.get_o_embedder().embed(o, ent)
+        p_emb = (self.get_p_embedder().embed_all() if p is None
+                 else self.get_p_embedder().embed(p, rel))
+        return self._scorer.score_emb(s_emb, p_emb, o_emb, "s_o")
 
     def score_sp_po(self, s, p, o, entity_subset=None) -> torch.Tensor:
         """[score_sp(s,p,E) | score_po(p,o,E)] concatenated; [n, 2m]
@@ -518,6 +684,44 @@ class KgeModel(KgeBase):
             if target_map is not None:
                 t = target_map(t)
             out[slot] = (pos, q, t, score_map)
+        return out
+
+    def score_all_grouped_multi(self, triples, slots, targets, tables=None):
+        """{slot: (pos [n], scores [n, m])} for several corrupted slots,
+        embedding each triple slot ONCE (kge_tpu ``score_all_grouped_multi``
+        with ``targets``, base.py:1181-1236).
+
+        ``targets`` maps each slot to an [m] id array (e.g. the shared
+        negative-sample rows); the scores are flat matrices against those
+        candidates. s, p and o are embedded once and the positives and every
+        slot's query derive from the shared tensors, so the backward pass
+        holds one lookup gradient per triple slot plus one per target list.
+        Embedding dropout is drawn once per slot (not once per scoring
+        call): callers gate on dropout being off. None when the scorer does
+        not factorize.
+        """
+        ent, rel = tables if tables is not None else (None, None)
+        embedders = (
+            self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
+        )
+        slot_tables = (ent, rel, ent)
+        embs = [
+            embedders[i].embed(triples[:, i], slot_tables[i]) for i in range(3)
+        ]
+        pos = self._scorer.score_emb_spo(embs[0], embs[1], embs[2])
+        out = {}
+        for slot in slots:
+            kept = [e if i != slot else None for i, e in enumerate(embs)]
+            fac = self._scorer.factorize_slot(kept[0], kept[1], kept[2], slot)
+            if fac is None:
+                return None
+            q, target_map = fac[0], fac[1]
+            score_map = fac[2] if len(fac) > 2 else None
+            t = embedders[slot].embed(targets[slot], slot_tables[slot])
+            if target_map is not None:
+                t = target_map(t)
+            dot = q @ t.T
+            out[slot] = (pos, dot if score_map is None else score_map(dot))
         return out
 
     def prepare_job(self, job, **kwargs):

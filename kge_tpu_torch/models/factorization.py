@@ -65,6 +65,9 @@ class ComplExScorer(RelationalScorer):
             out = self._sp_query(s_emb, p_emb) @ o_emb.T
         elif combine == "_po":
             out = self._po_query(p_emb, o_emb) @ s_emb.T
+        elif combine == "s_o":
+            n = s_emb.shape[0]
+            out = self._so_query(s_emb, o_emb) @ p_emb.T
         else:
             return super().score_emb(s_emb, p_emb, o_emb, combine)
         return out.reshape(n, -1)

@@ -45,6 +45,10 @@ class ReciprocalRelationsModel(KgeModel):
         self._entity_embedder = base_model.get_s_embedder()
         self._relation_embedder = base_model.get_p_embedder()
 
+    #: p + |R| is computed inside the model, so batches cannot be rewritten
+    #: to mini-table positions
+    supports_localized_batches = False
+
     def init_params(self, generator):
         self._base_model.init_params(generator)
 
@@ -61,7 +65,33 @@ class ReciprocalRelationsModel(KgeModel):
              triples[:, 0]], dim=1,
         )
 
-    def score_spo(self, s, p, o, direction=None):
+    def penalty(self, batch=None, **kwargs):
+        """Base penalty; with weighted relation regularization, additionally
+        penalize the reciprocal relation rows touched by the batch
+        (reference reciprocal_relations_model.py:58-72)."""
+        result = self._base_model.penalty(batch=batch, **kwargs)
+        embedder = self.get_p_embedder()
+        is_weighted = embedder.get_option("regularize_args.weighted")
+        regularize = getattr(embedder, "regularize", "")
+        regularize_weight = embedder.get_option("regularize_weight")
+        if is_weighted and regularize != "" and regularize_weight != 0.0 \
+                and batch is not None and "triples" in batch:
+            reciprocal_indexes = (
+                batch["triples"][:, 1] + self.dataset.num_relations()
+            )
+            mask = batch.get("mask")
+            num_rows = torch.sum(mask) if mask is not None else None
+            result += embedder.penalty(
+                indexes=reciprocal_indexes, indexes_weight=mask,
+                num_index_rows=num_rows, **kwargs
+            )
+        return result
+
+    def score_spo(self, s, p, o, direction=None, tables=None):
+        if tables is not None:
+            raise ValueError(
+                "The reciprocal relations model cannot score substituted tables."
+            )
         if direction == "o":
             return self._base_model.score_spo(s, p, o, "o")
         elif direction == "s":
@@ -91,13 +121,40 @@ class ReciprocalRelationsModel(KgeModel):
             out[slot] = sub[2]
         return out
 
-    def score_sp(self, s, p, o=None):
-        return self._base_model.score_sp(s, p, o)
+    def score_all_grouped_multi(self, triples, slots, targets, tables=None):
+        """Each slot maps to a direction-specific base query: o-corruption
+        scores (s, p, ?) directly, s-corruption scores (o, p+|R|, ?); the
+        per-slot positives differ accordingly (kge_tpu reciprocal.py:107-137)."""
+        if tables is not None:
+            raise ValueError(
+                "The reciprocal relations model cannot score substituted tables."
+            )
+        out = {}
+        for slot in slots:
+            if slot == 2:
+                sub = self._base_model.score_all_grouped_multi(
+                    triples, [2], {2: targets[slot]}
+                )
+            elif slot == 0:
+                sub = self._base_model.score_all_grouped_multi(
+                    self._reciprocal(triples), [2], {2: targets[slot]}
+                )
+            else:
+                return None
+            if sub is None:
+                return None
+            out[slot] = sub[2]
+        return out
 
-    def score_po(self, p, o, s=None):
-        return self._base_model.score_sp(o, p + self.dataset.num_relations(), s)
+    def score_sp(self, s, p, o=None, tables=None):
+        return self._base_model.score_sp(s, p, o, tables)
 
-    def score_so(self, s, o, p=None):
+    def score_po(self, p, o, s=None, tables=None):
+        return self._base_model.score_sp(
+            o, p + self.dataset.num_relations(), s, tables
+        )
+
+    def score_so(self, s, o, p=None, tables=None):
         raise ValueError("The reciprocal relations model cannot score relations.")
 
     def score_sp_po(self, s, p, o, entity_subset=None):

@@ -73,10 +73,12 @@ def seed_from_config(config: Config) -> int:
     np_seed = pick("numpy")
     if np_seed >= 0:
         np.random.seed(np_seed)
-    torch_seed = pick("torch")
-    if torch_seed < 0:
-        torch_seed = random.randrange(2 ** 31)
-    return torch_seed
+    # the key keeps the JAX package's name; both packages derive the same
+    # root seed from it
+    root_seed = pick("jax")
+    if root_seed < 0:
+        root_seed = random.randrange(2 ** 31)
+    return root_seed
 
 
 def generator_from_config(config: Config, device=None) -> torch.Generator:

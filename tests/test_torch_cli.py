@@ -1,7 +1,11 @@
-"""The port's command line on a folder that kge_tpu trained: ``python -m
-kge_tpu_torch test <folder> --job.device cpu`` reports kge_tpu's own test
-metrics and loads neither jax nor any module of kge_tpu; with no card,
-``job.device: auto`` fails loudly instead of running on the host."""
+"""The port's command line against kge_tpu's. On a folder that kge_tpu
+trained, ``python -m kge_tpu_torch test <folder> --job.device cpu`` reports
+kge_tpu's own test metrics and loads neither jax nor any module of kge_tpu;
+with no card, ``job.device: auto`` fails loudly instead of running on the
+host. ``start`` and ``resume`` train on the CPU, and checkpoints cross both
+ways: kge_tpu loads and resumes what the port wrote, the port resumes what
+kge_tpu wrote, and ``valid`` of either package reports the same metrics on
+either folder."""
 
 import json
 import os
@@ -124,11 +128,178 @@ def test_auto_device_without_card_fails(trained):
         assert "needs a CUDA card" in proc.stderr
 
 
-def test_verbs_not_ported_exit_nonzero(tmp_path):
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", "x.yaml"],
+@pytest.mark.parametrize("verb", ["dump", "package"])
+def test_verbs_not_ported_exit_nonzero(tmp_path, verb):
+    proc = _run([sys.executable, "-m", "kge_tpu_torch", verb, "x.yaml"],
                 cwd=tmp_path, check=False)
     assert proc.returncode != 0
     assert "not ported yet" in proc.stderr
+
+
+# -- training through the command line, and checkpoints both ways ---------------
+
+_TRAIN_OPTIONS = {
+    "job": {"device": "cpu"},
+    "model": "complex",
+    "dataset": {"name": str(DATASET_DIR)},
+    "train": {"type": "negative_sampling", "max_epochs": 2, "batch_size": 6,
+              "optimizer": {"default": {"args": {"lr": 0.2}}},
+              "checkpoint": {"every": 1}},
+    "negative_sampling": {"shared": True, "num_samples": {"s": 4}},
+    "lookup_embedder": {"dim": 8},
+    "valid": {"every": 2, "metric": "mean_reciprocal_rank_filtered"},
+    "entity_ranking": {"hits_at_k_s": [1, 3]},
+    "console": {"quiet": True},
+    "random_seed": {"default": 3},
+}
+
+
+def _entries(folder, **match):
+    out = []
+    with open(folder / "trace.yaml") as f:
+        for line in f:
+            entry = yaml.safe_load(line)
+            if all(entry.get(k) == v for k, v in match.items()):
+                out.append(entry)
+    return out
+
+
+def _metrics(entry):
+    return {k: v for k, v in entry.items()
+            if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))}
+
+
+@pytest.fixture(scope="module")
+def started(tmp_path_factory):
+    """(tmp, folder the port trained for 2 epochs, folder kge_tpu trained for
+    2 epochs), both from the same config file."""
+    tmp = tmp_path_factory.mktemp("torch_cli_train")
+    conf = tmp / "toy.yaml"
+    with open(conf, "w") as f:
+        yaml.safe_dump(_TRAIN_OPTIONS, f)
+    port = tmp / "port"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start", str(conf),
+          "--folder", str(port)], cwd=tmp)
+    ref = tmp / "ref"
+    _run([sys.executable, "-m", "kge_tpu", "start", str(conf),
+          "--folder", str(ref)], cwd=tmp)
+    return tmp, port, ref
+
+
+def test_start_trains_and_resume_continues(started):
+    tmp, port, _ = started
+    epochs = _entries(port, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2]
+    assert epochs[1]["avg_loss"] < epochs[0]["avg_loss"]
+    assert len(_entries(port, event="eval_completed")) == 1
+    assert {"checkpoint_00000.pt", "checkpoint_00001.pt", "checkpoint_00002.pt",
+            "checkpoint_best.pt"} <= {p.name for p in port.glob("checkpoint_*.pt")}
+    # the folder's config names kge_tpu's modules, as kge_tpu's own does
+    with open(port / "config.yaml") as f:
+        assert yaml.safe_load(f)["modules"] == [
+            "kge_tpu.job", "kge_tpu.models", "kge_tpu.models.embedder"]
+    _run([sys.executable, "-m", "kge_tpu_torch", "resume", str(port),
+          "--job.device", "cpu", "--train.max_epochs", "3"], cwd=tmp)
+    epochs = _entries(port, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2, 3]
+    resumed = _entries(port, event="job_resumed", job="train")
+    assert [e["epoch"] for e in resumed] == [2]
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    checkpoint = load_checkpoint(str(port / "checkpoint_00003.pt"))
+    assert checkpoint["epoch"] == 3
+    assert int(checkpoint["optimizer_state"]["step"]) == 6  # 2 batches an epoch
+
+
+def test_start_without_card_fails_unless_cpu_is_asked(started):
+    tmp, _, _ = started
+    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start",
+                 str(tmp / "toy.yaml"), "--folder", str(tmp / "auto"),
+                 "--job.device", "auto"], cwd=tmp, check=False)
+    if torch.cuda.is_available():
+        assert proc.returncode == 0, proc.stderr
+    else:
+        assert proc.returncode != 0
+        assert "needs a CUDA card" in proc.stderr
+
+
+def test_create_makes_the_folder_and_runs_nothing(started):
+    tmp, _, _ = started
+    _run([sys.executable, "-m", "kge_tpu_torch", "create", str(tmp / "toy.yaml"),
+          "--folder", str(tmp / "created")], cwd=tmp)
+    assert (tmp / "created" / "config.yaml").is_file()
+    assert not list((tmp / "created").glob("checkpoint_*.pt"))
+    # resume on a folder without a checkpoint starts from scratch
+    _run([sys.executable, "-m", "kge_tpu_torch", "resume", str(tmp / "created"),
+          "--train.max_epochs", "1"], cwd=tmp)
+    assert [e["epoch"] for e in _entries(tmp / "created",
+                                         event="epoch_completed")] == [1]
+    # an existing folder is refused
+    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start",
+                 str(tmp / "toy.yaml"), "--folder", str(tmp / "created")],
+                cwd=tmp, check=False)
+    assert proc.returncode != 0 and "exists already" in proc.stderr
+
+
+def test_kge_tpu_loads_and_resumes_the_ports_checkpoint(started):
+    import numpy as np
+
+    from kge_tpu.utils.io import load_checkpoint as jax_load_checkpoint
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    tmp, port, _ = started
+    name = "checkpoint_00002.pt"
+    theirs = jax_load_checkpoint(str(port / name))
+    ours = load_checkpoint(str(port / name))
+    assert theirs["type"] == "train" and theirs["epoch"] == 2
+    assert theirs["config"].get("modules") == [
+        "kge_tpu.job", "kge_tpu.models", "kge_tpu.models.embedder"]
+    for key in ("entity_embedder", "relation_embedder"):
+        np.testing.assert_array_equal(theirs["model"][0][key]["embeddings"],
+                                      ours["model"][0][key]["embeddings"])
+    assert [sorted(leaf) for leaf in theirs["optimizer_state"]["leaves"]] == [
+        ["sum"], ["sum"]]
+    copy = tmp / "port_copy"
+    import shutil
+
+    shutil.copytree(port, copy)
+    for extra in copy.glob("checkpoint_00003.pt"):
+        extra.unlink()
+    _run([sys.executable, "-m", "kge_tpu", "resume", str(copy),
+          "--train.max_epochs", "4"], cwd=tmp)
+    jobs = [(e["epoch"], e["avg_loss"]) for e in
+            _entries(copy, event="epoch_completed")]
+    assert [epoch for epoch, _ in jobs][-2:] == [3, 4]
+    # Adagrad's sum came along: the loss keeps falling instead of jumping
+    assert jobs[-1][1] < jobs[1][1]
+
+
+def test_port_resumes_a_folder_kge_tpu_trained(started):
+    tmp, _, ref = started
+    _run([sys.executable, "-m", "kge_tpu_torch", "resume", str(ref),
+          "--job.device", "cpu", "--train.max_epochs", "3"], cwd=tmp)
+    epochs = _entries(ref, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2, 3]
+    assert epochs[2]["avg_loss"] < epochs[0]["avg_loss"]
+    # and kge_tpu goes on from there
+    _run([sys.executable, "-m", "kge_tpu", "resume", str(ref),
+          "--train.max_epochs", "4"], cwd=tmp)
+    assert [e["epoch"] for e in _entries(ref, event="epoch_completed")][-1] == 4
+
+
+@pytest.mark.parametrize("which", ["port", "ref"])
+def test_valid_agrees_on_either_folder(started, which):
+    tmp, port, ref = started
+    folder = port if which == "port" else ref
+    before = len(_entries(folder, event="eval_completed", job="eval"))
+    _run([sys.executable, "-m", "kge_tpu", "valid", str(folder),
+          "--checkpoint", "2"], cwd=tmp)
+    _run([sys.executable, "-m", "kge_tpu_torch", "valid", str(folder),
+          "--job.device", "cpu", "--checkpoint", "2"], cwd=tmp)
+    entries = _entries(folder, event="eval_completed", job="eval")[before:]
+    assert len(entries) == 2
+    want, got = _metrics(entries[0]), _metrics(entries[1])
+    assert want and got == want
 
 
 def test_package_imports_neither_jax_nor_kge_tpu():
