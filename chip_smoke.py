@@ -63,7 +63,50 @@ Phases (any failure exits non-zero; nothing is caught):
    library (``index_add_``, ``index_copy_``) and bound; a warm epoch of
    each training configuration (wall, triples/s) and a profile of it with
    the device's busy share.
-9. One ``kernels`` JSON line: per kernel its time per call at the main
+9. The fused row-update kernel (ops/optim.py ``fused_sorted_update``)
+   against its plain version in float64 at [200,000, 1,024] with 10,240
+   row gradients and at [237, 512] with 4,096 (over 94% duplicates): Adam,
+   AdamW and Adagrad with weight decay and SGD with Nesterov momentum at
+   both shapes, every other rule at the small one, from random non-zero
+   states at step 3 (and step 0 for SGD's momentum), on row gradients whose
+   duplicates agree in sign (no sum cancels). Parameter and states
+   within ``1e-6 + 1e-5 |reference|`` on every row; Adam's moments of
+   untouched rows bit-equal to ``beta * moment``; storage kept; two launches
+   from the same state bit-equal.
+10. The pooled distance kernels (ops/dist_pool.py ``pooled_dist_scores``
+   and its backward) against the plain version in float64, for ``l1``
+   (n = 8,192, K = 128, F = 8, d = 128 and d = 512) and ``cmod`` (n = 4,096,
+   K = 128, F = 8, d = 512 per part), one odd shape (n = 37, K = 5, F = 3,
+   d = 100, and d = 51 for the scalar path) and rows whose query equals a
+   candidate: scores, dq and dpool within ``1e-6 + 1e-5 S`` with S the sum of
+   the magnitudes that the element adds up; two launches bit-equal.
+11. P-transe: ``start`` through ``cli.main``, TransE-L1 d = 128, margin
+   ranking 4.0, 128 negatives per corrupted slot, ``implementation: auto``
+   (must resolve to ``pool``), Adagrad lr 0.1, batch 8,192, FB15k-237 sizes,
+   two epochs without validation, then ``resume`` to a third. Dense step:
+   per step 2 launches of the pooled forward, 2 of its backward and 12 of
+   the scatter kernel (per corrupted slot the lookups of s, p, o, of the
+   two kept slots again and of the pool); the loss is finite and falls.
+12. P-rotate: RotatE-L1 d = 1,024, self-adversarial BCE, Adam lr 0.001,
+   batch 4,096, 128 negatives per slot, pool factor 8, over the
+   200,000-entity graph: one epoch through ``cli.main`` and a ``resume``
+   from its checkpoint. The log must say that the row-sparse step engaged
+   with the fused kernel; per step 2 launches of the fused update, none of
+   the row write, 2 + 2 of the pooled kernels and 14 of the scatter kernel
+   (12 lookups on the mini-tables, 2 segment sums); the loss is finite and
+   falls; Adam's ``m`` and ``v`` come back from the checkpoint. One sparse
+   step against one dense step from the same state, pool and ``sel``:
+   tables and moments of every row within ``1e-6 + 1e-5 |dense|``, except
+   that at most 1e-5 of the elements may differ by up to 2.1 lr: where a
+   row's gradient nearly cancels, two summation orders give gradients of
+   different sign, and Adam's ``m_hat / (sqrt(v_hat) + eps)`` turns both
+   into about +-lr.
+13. Timings at P-rotate's shapes: the three new kernels per call beside
+   plain, a library route (``index_add_`` and ``torch.optim.Adam(fused=
+   True)``; ``cdist(p=1)`` and a gather for ``l1``, none for ``cmod``) and
+   the bound; the pooled scoring's two routes (kernel, one-hot select) at
+   d = 128; a warm epoch of each new configuration with its profile.
+14. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (bytes over 3.35 TB/s or fp32
    operations over 67 TFLOP/s, whichever is larger). Then the card's name
@@ -94,9 +137,13 @@ SPIN_CYCLES = 90_000_000       # about 50 ms of an H100's clock
 FB15K237 = (14541, 237, 272115, 17535, 20466)
 NUM_ENTITIES, NUM_TEST = FB15K237[0], FB15K237[4]
 DIM, BATCH = 512, 256
-KERNELS = ("rank_counts", "scatter_add_sorted", "rows_set")
+KERNELS = ("rank_counts", "scatter_add_sorted", "rows_set", "fused_row_update",
+           "dist_pool")
 # training: bench.py's headline workload
 TRAIN_BATCH, NUM_NEGATIVES, SPARSE_ENTITIES = 8192, 128, 200000
+# pooled negatives: bench.py's transe_margin and rotate_selfadv workloads
+POOL_FACTOR, TRANSE_DIM, ROTATE_DIM, ROTATE_BATCH = 8, 128, 1024, 4096
+ROTATE_LR = 0.001
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -549,21 +596,31 @@ def trace_entries(folder: str, **match):
 
 
 def reset_counters():
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
     from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     fused_rank_counts.launches = 0
     sorted_scatter_add.launches = 0
     rows_set.launches = 0
+    fused_sorted_update.launches = 0
+    pooled_dist_scores.launches = 0
+    pooled_dist_scores.backward_launches = 0
 
 
 def read_counters():
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
     from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     return {"rank_counts": fused_rank_counts.launches,
             "scatter_add_sorted": sorted_scatter_add.launches,
-            "rows_set": rows_set.launches}
+            "rows_set": rows_set.launches,
+            "fused_row_update": fused_sorted_update.launches,
+            "pooled_scores": pooled_dist_scores.launches,
+            "pooled_scores_bwd": pooled_dist_scores.backward_launches}
 
 
 def resumed_job(folder: str, checkpoint: str, **overrides):
@@ -585,25 +642,32 @@ def resumed_job(folder: str, checkpoint: str, **overrides):
     return job
 
 
-def tables_of(job):
-    return [p.detach().clone() for p in job.optimizer.params]
+def tables_of(job, state=False):
+    """Copies of the job's tables, with ``state`` followed by its optimizer
+    state's tensors."""
+    out = [p.detach().clone() for p in job.optimizer.params]
+    if state:
+        out += [leaf[k].clone() for leaf in job.opt_state["leaves"]
+                for k in sorted(leaf)]
+    return out
 
 
-def one_step_each(folder, checkpoint, key, values):
+def one_step_each(folder, checkpoint, key, values, state=False):
     """The same step (same state, batch and negatives) under two values of
     one configuration key; returns (tables before, tables after per value,
-    the batch, the jobs)."""
+    the batch, the jobs). With ``state`` the optimizer state counts as
+    tables."""
     jobs = [resumed_job(folder, checkpoint, **{key: value}) for value in values]
     batch = next(iter(jobs[0]._batches()))
     device = jobs[0].device
     batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
              if k != "true_size"}
     batch = jobs[0]._with_negatives(batch)
-    before = tables_of(jobs[0])
+    before = tables_of(jobs[0], state)
     after = []
     for job in jobs:
         job._train_step(dict(batch), job._current_lrs())
-        after.append(tables_of(job))
+        after.append(tables_of(job, state))
     torch.cuda.synchronize()
     return before, after, batch, jobs
 
@@ -786,6 +850,485 @@ def run_sparse_training(seed: int):
             "step_max_abs_diff_vs_dense": worst, "warm_epoch": timing}
 
 
+# -- the fused row update against its plain version ------------------------------
+
+
+def fused_cases(rng):
+    """(name, rows, D, ids): the two tables of a P-rotate step. The entity
+    table takes the lookups of s and o (power law) and of both pools
+    (uniform); the relation table the lookups of p, where a few rows own
+    most of the batch."""
+    entity_ids = np.concatenate([
+        power_law_ids(rng, SPARSE_ENTITIES, 2 * ROTATE_BATCH, 0.8),
+        rng.integers(0, SPARSE_ENTITIES, 2 * NUM_NEGATIVES * POOL_FACTOR),
+    ])
+    return [
+        ("entity table", SPARSE_ENTITIES, ROTATE_DIM, entity_ids),
+        ("relation table", FB15K237[1], ROTATE_DIM // 2,
+         power_law_ids(rng, FB15K237[1], ROTATE_BATCH, 1.0)),
+    ]
+
+
+# (rule, args, step); the first four run at both shapes, the rest at the
+# relation table's only
+FUSED_RULES = [
+    ("adam", {}, 3),
+    ("adamw", {"weight_decay": 0.01}, 3),
+    ("adagrad", {"weight_decay": 0.01, "lr_decay": 0.1}, 3),
+    ("sgd", {"momentum": 0.9, "nesterov": True, "weight_decay": 0.01}, 3),
+    ("sgd", {"momentum": 0.9, "dampening": 0.1}, 0),
+    ("sgd", {}, 3),
+    ("adam", {"weight_decay": 0.01, "betas": (0.8, 0.99)}, 0),
+    ("adamax", {"weight_decay": 0.01}, 3),
+    ("rmsprop", {}, 3),
+    ("rmsprop", {"centered": True, "momentum": 0.9, "weight_decay": 0.01}, 3),
+    ("adadelta", {"weight_decay": 0.01}, 3),
+]
+
+
+def fused_state(opt_type, args, rows, D, generator, device):
+    """A random parameter and non-zero random states of the rule, so that
+    what the rule does to untouched rows shows: first moments in [-0.1,
+    0.1), second moments in [0.01, 0.11) (at least the first one's
+    square, as the rules keep them)."""
+    from kge_tpu_torch.ops.optim import _RULES
+
+    def rand(scale):
+        return scale * torch.rand(rows, D, generator=generator, device=device)
+
+    param = rand(0.2) - 0.1
+    states = {
+        key: rand(0.2) - 0.1 if key in ("m", "momentum", "avg") else 0.01 + rand(0.1)
+        for key in _RULES[opt_type][0](param[:1], args)
+    }
+    return param, states
+
+
+def signed_updates(ids, D, generator):
+    """Row gradients [n, D] of magnitude in [0.1, 1.1) whose sign depends on
+    (id, column) only: the duplicates of a row agree in sign, so that no
+    row's sum cancels. A sum that cancels is off by rounding in proportion
+    to the summed magnitudes, not to its own value (phase 5 holds the
+    scatter kernel to that), and Adam's ``m_hat / (sqrt(v_hat) + eps)`` or
+    Adagrad's first step would turn such a gradient's uncertain sign into
+    a step of +-lr: the rule's arithmetic is checked where that cannot
+    happen."""
+    n = ids.shape[0]
+    magnitude = 0.1 + torch.rand(n, D, generator=generator, device=ids.device)
+    columns = torch.arange(D, device=ids.device)
+    sign = ((ids[:, None] + columns[None, :]) % 2) * 2 - 1
+    return magnitude * sign
+
+
+def compare_fused_update(seed: int, device) -> float:
+    """Phase 9; returns the largest |error| of Adam at the entity table."""
+    from kge_tpu_torch.ops.optim import (
+        fused_sorted_update,
+        fused_sorted_update_plain,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed + 7)
+    main_err = None
+    lr = ROTATE_LR
+    for case, (name, rows, D, ids_np) in enumerate(fused_cases(rng)):
+        ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+        n = len(ids_np)
+        touched = torch.zeros(rows, dtype=torch.bool, device=device)
+        touched[ids] = True
+        duplicates = n - int(touched.sum())
+        log(f"  {name} [{rows}, {D}], n={n} row gradients, "
+            f"{100 * duplicates / n:.1f}% duplicate ids, "
+            f"{int((~touched).sum())} untouched rows")
+        for opt_type, args, step in (FUSED_RULES[:4] if case == 0 else FUSED_RULES):
+            param, states = fused_state(opt_type, args, rows, D, generator, device)
+            upd = signed_updates(ids, D, generator)
+            ref_param = param.double()
+            ref_states = {k: v.double() for k, v in states.items()}
+            fused_sorted_update_plain(opt_type, args, ids, upd.double(), ref_param,
+                                      ref_states, lr, step)
+            runs = []
+            for _ in range(2):
+                p = param.clone()
+                st = {k: v.clone() for k, v in states.items()}
+                ptrs = [p.data_ptr()] + [st[k].data_ptr() for k in sorted(st)]
+                before = fused_sorted_update.launches
+                out = fused_sorted_update(opt_type, args, ids, upd, p, st, lr, step)
+                torch.cuda.synchronize()
+                check(fused_sorted_update.launches == before + 1,
+                      "fused update launches not counted")
+                check(out is st and ptrs == [p.data_ptr()]
+                      + [st[k].data_ptr() for k in sorted(st)],
+                      "the fused update moved the parameter or a state")
+                runs.append((p, st))
+            (p, st), (p2, st2) = runs
+            check(torch.equal(p, p2) and all(torch.equal(st[k], st2[k]) for k in st),
+                  f"fused update not deterministic ({opt_type}, {name})")
+            worst, worst_ratio = 0.0, 0.0
+            for what, got, ref in [("param", p, ref_param)] + [
+                (k, st[k], ref_states[k]) for k in sorted(st)
+            ]:
+                err = (got.double() - ref).abs()
+                ratio = float((err / (1e-6 + 1e-5 * ref.abs())).max())
+                check(ratio <= 1.0, f"fused update {opt_type} {args} at the {name}: "
+                      f"{what} off by {float(err.max()):.3e} ({ratio:.2f} x tolerance)")
+                worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio, ratio)
+            moved = float((p - param)[~touched].abs().max()) if (~touched).any() else 0.0
+            zero_gradient = opt_type == "adamw" or not args.get("weight_decay")
+            if opt_type in ("adam", "adamw") and zero_gradient and (~touched).any():
+                b1, b2 = args.get("betas", (0.9, 0.999))
+                check(torch.equal(st["m"][~touched], (b1 * states["m"])[~touched])
+                      and torch.equal(st["v"][~touched], (b2 * states["v"])[~touched]),
+                      "Adam's moments of untouched rows are not beta * moment")
+                check(moved > 0, "Adam left untouched rows where they were")
+            log(f"    {opt_type} {args} step {step}: max abs err {worst:.3e} "
+                f"({worst_ratio:.3f} x tolerance), untouched rows moved by up to "
+                f"{moved:.3e}, storage kept, two launches bit-equal")
+            if main_err is None:
+                main_err = worst
+            del param, states, upd, ref_param, ref_states, runs, p, st, p2, st2
+        torch.cuda.empty_cache()
+    return main_err
+
+
+# -- the pooled distance kernels against their plain version ----------------------
+
+
+def pooled_inputs(kind, n, K, F, d, generator, device, stride_parts=False):
+    """Random queries, pool and sel; a few rows' queries equal one of their
+    candidates (distance 0: sign(0) and the modulus' epsilon). With
+    ``stride_parts`` the two pool parts are the column halves of one table,
+    as the model passes them."""
+    parts = 1 if kind == "l1" else 2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device)
+
+    sel = torch.randint(0, F, (n, K), generator=generator, device=device,
+                        dtype=torch.int32)
+    if stride_parts and parts == 2:
+        pools = list(torch.chunk(randn(K * F, 2 * d), 2, dim=1))
+    else:
+        pools = [randn(K * F, d) for _ in range(parts)]
+    queries = [randn(n, d) for _ in range(parts)]
+    for i in range(0, n, max(1, n // 7)):
+        j = i % K
+        for q, pool in zip(queries, pools):
+            q[i] = pool[j * F + int(sel[i, j])]
+    return queries, pools, sel
+
+
+def pooled_reference(queries, pools, sel, F, kind, g, rows_per_chunk=512):
+    """Scores, dq and dpool of the plain version in float64, a chunk of
+    rows at a time, and the magnitude sums of the tolerance: |factor| <= |g|,
+    so dq[i] adds up at most sum_j |g[i, j]| and dpool[j F + f] at most the
+    sum of |g[i, j]| over the rows that selected it."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores_plain
+
+    n, K = sel.shape
+    pools64 = [p.double().requires_grad_(True) for p in pools]
+    scores, dqs = [], [[] for _ in queries]
+    dpools = [torch.zeros_like(p) for p in pools64]
+    for start in range(0, n, rows_per_chunk):
+        rows = slice(start, start + rows_per_chunk)
+        q64 = [q[rows].double().requires_grad_(True) for q in queries]
+        out = pooled_dist_scores_plain(q64, pools64, sel[rows], F, kind)
+        grads = torch.autograd.grad(out, q64 + pools64, g[rows].double())
+        scores.append(out.detach())
+        for part, dq in enumerate(grads[:len(q64)]):
+            dqs[part].append(dq)
+        for part, dp in enumerate(grads[len(q64):]):
+            dpools[part] += dp
+    pool_rows = (torch.arange(K, device=sel.device)[None, :] * F + sel.long())
+    mag_pool = torch.zeros(K * F, dtype=torch.float64, device=sel.device)
+    mag_pool.index_add_(0, pool_rows.reshape(-1), g.double().abs().reshape(-1))
+    return (torch.cat(scores), [torch.cat(d) for d in dqs], dpools,
+            g.double().abs().sum(dim=1), mag_pool)
+
+
+POOLED_CASES = [
+    # (name, kind, n, K, F, d, pool parts as column halves of one table)
+    ("TransE d=128", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, TRANSE_DIM, False),
+    ("TransE d=512", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, 512, False),
+    ("RotatE d=1024", "cmod", ROTATE_BATCH, NUM_NEGATIVES, POOL_FACTOR,
+     ROTATE_DIM // 2, True),
+    ("odd l1", "l1", 37, 5, 3, 100, False),
+    ("odd cmod", "cmod", 37, 5, 3, 100, True),
+    ("scalar l1", "l1", 37, 5, 3, 51, False),
+    ("scalar cmod", "cmod", 37, 5, 3, 51, True),
+]
+
+
+def compare_pooled(seed: int, device):
+    """Phase 10; returns (max |scores error|, max |gradient error|) at
+    P-rotate's shape."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed + 8)
+    main = None
+    for name, kind, n, K, F, d, stride_parts in POOLED_CASES:
+        queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device,
+                                            stride_parts)
+        g = torch.randn(n, K, generator=generator, device=device)
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in queries + pools]
+            if stride_parts and kind == "cmod":
+                table = torch.cat(pools, dim=1).requires_grad_(True)
+                leaves[2:] = torch.chunk(table, 2, dim=1)
+            fwd, bwd = (pooled_dist_scores.launches,
+                        pooled_dist_scores.backward_launches)
+            out = pooled_dist_scores(leaves[:len(queries)], leaves[len(queries):],
+                                     sel, F, kind)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            check(pooled_dist_scores.launches == fwd + 1
+                  and pooled_dist_scores.backward_launches == bwd + 1,
+                  "pooled kernel launches not counted")
+            runs.append((out.detach(), grads))
+        (out, grads), (out2, grads2) = runs
+        check(torch.equal(out, out2)
+              and all(torch.equal(a, b) for a, b in zip(grads, grads2)),
+              f"pooled kernels not deterministic ({name})")
+        ref, ref_dqs, ref_dpools, mag_q, mag_pool = pooled_reference(
+            queries, pools, sel, F, kind, g)
+        err = (out.double() - ref).abs()
+        check(bool((err <= 1e-6 + 1e-5 * ref.abs()).all()),
+              f"pooled scores disagree with the plain version ({name})")
+        grad_err = 0.0
+        parts = len(queries)
+        for what, got, want, mag in (
+            [("dq", a, b, mag_q) for a, b in zip(grads[:parts], ref_dqs)]
+            + [("dpool", a, b, mag_pool) for a, b in zip(grads[parts:], ref_dpools)]
+        ):
+            e = (got.double() - want).abs()
+            check(bool((e <= 1e-6 + 1e-5 * mag[:, None]).all()),
+                  f"pooled {what} disagrees with the plain version ({name}): "
+                  f"max abs err {float(e.max()):.3e}")
+            grad_err = max(grad_err, float(e.max()))
+        zero_rows = int((ref == 0).sum()) if kind == "l1" else int(
+            (ref.abs() <= 1.01e-15 * d).sum())
+        log(f"  {name} ({kind}) n={n} K={K} F={F} d={d}: scores max abs err "
+            f"{float(err.max()):.3e} (|score| up to {float(ref.abs().max()):.1f}), "
+            f"dq/dpool max abs err {grad_err:.3e}; {zero_rows} scores at distance 0; "
+            f"two launches bit-equal")
+        if name == "RotatE d=1024":
+            main = (float(err.max()), grad_err)
+        del queries, pools, sel, g, runs, out, grads, out2, grads2, ref, ref_dqs
+        del ref_dpools
+        torch.cuda.empty_cache()
+    return main
+
+
+# -- training with pooled negatives -------------------------------------------------
+
+
+def pooled_config(which: str):
+    """Overrides of ``write_train_config`` for bench.py's transe_margin and
+    rotate_selfadv workloads."""
+    common = {"negative_sampling.shared": False, "valid.every": 0}
+    if which == "transe":
+        return {**common, "model": "transe", "lookup_embedder.dim": TRANSE_DIM,
+                "train.loss": "margin_ranking",
+                "train.loss_arg": 4.0, "train.max_epochs": 2}
+    return {**common, "model": "rotate", "lookup_embedder.dim": ROTATE_DIM,
+            "train.loss": "bce_self_adversarial", "train.batch_size": ROTATE_BATCH,
+            "train.max_epochs": 1,
+            "train.optimizer.default": {"type": "Adam", "args": {"lr": ROTATE_LR}}}
+
+
+def check_pooled_counts(counts, steps, scatter_per_step, fused_per_step, what):
+    """Per step two corrupted entity slots: one pooled forward and one
+    backward each."""
+    expected = {"pooled_scores": 2 * steps, "pooled_scores_bwd": 2 * steps,
+                "scatter_add_sorted": scatter_per_step * steps,
+                "fused_row_update": fused_per_step * steps, "rows_set": 0,
+                "rank_counts": 0}
+    check(counts == expected, f"{what}: launches {counts} != {expected}")
+
+
+def run_transe_training(seed: int, data: str):
+    """Phase 11; returns a summary dict."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    num_train = FB15K237[2]
+    steps = -(-num_train // TRAIN_BATCH)
+    folder = os.path.join(WORK, "train_transe")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_transe.yaml")
+    write_train_config(conf, data, seed, **pooled_config("transe"))
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    # 12 scatter launches a step: per corrupted slot the lookups of s, p and
+    # o (positive score), of the two kept slots, and of the pool
+    check_pooled_counts(counts, 2 * steps, 12, 0, "P-transe start")
+    with open(os.path.join(folder, "kge.log")) as f:
+        check("Set negative_sampling.implementation=pool" in f.read(),
+              "auto did not resolve to pool")
+    epochs = trace_entries(folder, event="epoch_completed")
+    losses = [e["avg_loss"] for e in epochs]
+    check([e["epoch"] for e in epochs] == [1, 2] and all(np.isfinite(losses))
+          and losses[1] < losses[0], f"P-transe loss did not fall: {losses}")
+    log(f"  start, 2 epochs: wall {start_wall:.2f} s; auto resolved to pool; "
+        f"launches {counts} (= 2, 2 and 12 a step x {steps} steps x 2 epochs); "
+        f"avg_loss {losses[0]:.4f} -> {losses[1]:.4f}")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    check_pooled_counts(read_counters(), steps, 12, 0, "P-transe resume")
+    epochs = trace_entries(folder, event="epoch_completed")
+    check([e["epoch"] for e in epochs] == [1, 2, 3]
+          and epochs[2]["avg_loss"] < epochs[1]["avg_loss"],
+          "P-transe: resume did not run a better epoch 3")
+    last = load_checkpoint(os.path.join(folder, "checkpoint_00003.pt"))
+    check(last["epoch"] == 3 and int(last["optimizer_state"]["step"]) == 3 * steps)
+    log(f"  resume to epoch 3: avg_loss {epochs[2]['avg_loss']:.4f}, optimizer "
+        f"step {3 * steps}")
+    job = resumed_job(folder, "checkpoint_00003.pt")
+    routes = time_pooled_routes(job)
+    timing = warm_epoch(job, num_train, "P-transe")
+    return {"launches": counts, "start_wall_s": start_wall, "avg_loss": losses,
+            "routes_d128": routes, "warm_epoch": timing}
+
+
+def time_pooled_routes(job):
+    """The pooled scoring of one batch's subject corruption (forward and
+    backward to the tables) by its two routes: the kernel and the one-hot
+    select, at d = 128."""
+    batch = next(iter(job._batches()))
+    triples = torch.as_tensor(batch["triples"]).to(job.device)
+    drawn = job._draw_negatives_on_device(triples, 0)
+    params = job.optimizer.params
+    job._enter_step()
+    out = {}
+    for mode in ("auto", "never"):
+        job.model.config.set("negative_sampling.pooled_kernel", mode)
+
+        def forward():
+            return job.model.score_spo_neg_pooled(
+                triples, drawn["neg_pool_0"], drawn["neg_sel_0"], POOL_FACTOR, 0)
+
+        def both():
+            return torch.autograd.grad(forward().sum(), params)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(forward, reps=10)
+        out[mode] = {"forward_ms": fwd_ms, "forward_backward_ms": time_ms(both, reps=10)}
+    job.model.config.set("negative_sampling.pooled_kernel", "auto")
+    log(f"  pooled scoring of one slot at n={triples.shape[0]} d={TRANSE_DIM} "
+        f"(lookups and their scatter included): kernel route forward "
+        f"{out['auto']['forward_ms']:.4f} ms, forward+backward "
+        f"{out['auto']['forward_backward_ms']:.4f} ms; one-hot select route "
+        f"{out['never']['forward_ms']:.4f} ms and "
+        f"{out['never']['forward_backward_ms']:.4f} ms")
+    return out
+
+
+def run_rotate_training(seed: int):
+    """Phase 12; returns a summary dict. Uses the 200,000-entity graph that
+    phase 7 wrote."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    num_train = FB15K237[2]
+    steps = -(-num_train // ROTATE_BATCH)
+    data = os.path.join(WORK, "sparse_synthetic")
+    folder = os.path.join(WORK, "train_rotate")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_rotate.yaml")
+    write_train_config(conf, data, seed, **pooled_config("rotate"))
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    with open(os.path.join(folder, "kge.log")) as f:
+        engaged = ("Using row-sparse embedding updates (fused dense-semantics "
+                   "kernel)") in f.read()
+    check(engaged, "train.sparse_embedding_update=auto did not engage the fused "
+          "row update for RotatE with Adam")
+    # 14 scatter launches a step: 12 lookups on the mini-tables and the
+    # segment sums of the two fused updates
+    check_pooled_counts(counts, steps, 14, 2, "P-rotate start")
+    (first,) = trace_entries(folder, event="epoch_completed")
+    saved = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+    check(int(saved["optimizer_state"]["step"]) == steps)
+    for leaf in saved["optimizer_state"]["leaves"]:
+        check(sorted(leaf) == ["m", "v"] and float(np.abs(leaf["m"]).max()) > 0
+              and float(leaf["v"].min()) >= 0 and float(leaf["v"].max()) > 0,
+              "the checkpoint holds no Adam moments")
+    log(f"  start, 1 epoch at {SPARSE_ENTITIES} entities: wall {start_wall:.2f} s, "
+        f"epoch {first['epoch_time']:.3f} s, avg_loss {first['avg_loss']:.4f}; the "
+        f"log shows the row-sparse step with the fused kernel; launches {counts} "
+        f"(= 2 fused, 2 + 2 pooled, 14 scatter a step x {steps} steps)")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "2"])
+    torch.cuda.synchronize()
+    check_pooled_counts(read_counters(), steps, 14, 2, "P-rotate resume")
+    epochs = trace_entries(folder, event="epoch_completed")
+    losses = [e["avg_loss"] for e in epochs]
+    check([e["epoch"] for e in epochs] == [1, 2] and all(np.isfinite(losses))
+          and losses[1] < losses[0], f"P-rotate loss did not fall: {losses}")
+    last = load_checkpoint(os.path.join(folder, "checkpoint_00002.pt"))
+    check(last["epoch"] == 2 and int(last["optimizer_state"]["step"]) == 2 * steps)
+    # had the resumed job started from zero moments, v could not exceed what
+    # one epoch accumulates; it went on from the saved ones
+    for before, after in zip(saved["optimizer_state"]["leaves"],
+                             last["optimizer_state"]["leaves"]):
+        check(float(after["v"].sum()) > float(before["v"].sum()),
+              "the resumed job did not go on from the saved Adam moments")
+    # (the trainer keeps only the newest checkpoint of epochs off
+    # train.checkpoint.every, so the first one is gone by now)
+    job = resumed_job(folder, "checkpoint_00002.pt")
+    for leaf, before in zip(job.opt_state["leaves"], last["optimizer_state"]["leaves"]):
+        check(all(np.array_equal(leaf[k].cpu().numpy(), before[k]) for k in ("m", "v")),
+              "Adam's moments did not come back from the checkpoint")
+    del job
+    log(f"  resume to epoch 2: avg_loss {losses[0]:.4f} -> {losses[1]:.4f}, "
+        f"optimizer step {2 * steps}, Adam's m and v came back from the checkpoint")
+
+    before, (sparse, dense), batch, jobs = one_step_each(
+        folder, "checkpoint_00002.pt", "train.sparse_embedding_update",
+        ("auto", "never"), state=True)
+    check(jobs[0]._sparse_update and not jobs[1]._sparse_update)
+    worst, loose, total = 0.0, 0, 0
+    for a, b in zip(sparse, dense):
+        err = (a - b).abs()
+        off = err > 1e-6 + 1e-5 * b.abs()
+        check(bool((err[off] <= 2.1 * ROTATE_LR).all()),
+              "the sparse Adam step differs from the dense step by more than 2.1 lr")
+        loose += int(off.sum())
+        total += err.numel()
+        worst = max(worst, float(err.max()))
+    check(loose <= 1e-5 * total, f"{loose} of {total} elements of the sparse Adam "
+          "step are off the dense step's by more than 1e-6 + 1e-5 |dense|")
+    moved = max(float((a - b).abs().max()) for a, b in zip(sparse, before))
+    check(moved > 1e-4, "the step did not move the tables")
+    log(f"  one step, row-sparse (fused Adam) vs dense, tables and moments of every "
+        f"row: max abs difference {worst:.3e}; {loose} of {total} elements beyond "
+        f"1e-6 + 1e-5 |dense| (all within 2.1 lr = {2.1 * ROTATE_LR:.1e}; allowed "
+        f"{int(1e-5 * total)}); the step moved the tables by up to {moved:.3e}")
+    del jobs[1], dense, sparse, before
+    torch.cuda.empty_cache()
+    timing = warm_epoch(jobs[0], num_train, "P-rotate")
+    return {"launches": counts, "start_wall_s": start_wall, "avg_loss": losses,
+            "epoch_time_s": [e["epoch_time"] for e in epochs],
+            "step_max_abs_diff_vs_dense": worst, "step_elements_beyond_tolerance": loose,
+            "warm_epoch": timing}
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -876,6 +1419,136 @@ def time_rows_set(seed: int, device):
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": "bytes"})
     return out
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and operations over its fp32 rate."""
+    by_bytes, by_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(by_bytes, by_flops) * 1e3, "bytes" if by_bytes >= by_flops else "operations"
+
+
+def time_fused_update(seed: int, device):
+    """Fused row update (Adam) per call at the two tables of a P-rotate
+    step; the first is the kernels line's."""
+    from kge_tpu_torch.ops.optim import (
+        fused_sorted_update,
+        fused_sorted_update_plain,
+        fused_update_presummed,
+        segment_sums,
+    )
+
+    rng = np.random.default_rng(seed + 9)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed + 9)
+    out = []
+    lr, step = ROTATE_LR, 3
+    for name, rows, D, ids_np in fused_cases(rng):
+        n = len(ids_np)
+        ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+        upd = signed_updates(ids, D, generator)
+        param, states = fused_state("adam", {}, rows, D, generator, device)
+        ms = time_ms(lambda: fused_sorted_update(
+            "adam", {}, ids, upd, param, states, lr, step), reps=10)
+        segments = segment_sums(ids, upd)
+        kernel_only_ms = time_ms(lambda: fused_update_presummed(
+            "adam", {}, *segments, param, states, lr, step), reps=10)
+        plain_ms = time_ms(lambda: fused_sorted_update_plain(
+            "adam", {}, ids, upd, param, states, lr, step), reps=5)
+
+        # library route: a dense gradient by index_add_, then torch's fused Adam
+        weight = torch.nn.Parameter(param.clone())
+        adam = torch.optim.Adam([weight], lr=lr, fused=True)
+
+        def library():
+            weight.grad = torch.zeros_like(weight).index_add_(0, ids, upd)
+            adam.step()
+
+        library_ms = time_ms(library, reps=10)
+        del weight, adam
+        # param and both moments read and written once, the row gradients
+        # and their ids read once; a dozen operations per element
+        nbytes = 4.0 * (2 * 3 * rows * D + n * D) + 8.0 * n
+        bound_ms, bound_by = bound(nbytes, 12.0 * rows * D)
+        log(f"  fused_row_update (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms (the "
+            f"wrapper: torch.sort, the segment sum by the scatter kernel and the "
+            f"kernel; the kernel alone {kernel_only_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, library index_add_ + torch.optim.Adam(fused=True) {library_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        out.append({"shape": name, "rows": rows, "D": D, "n": n, "ms": ms,
+                    "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        del param, states, upd, segments
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_pooled(seed: int, device):
+    """Pooled distance kernels per call, forward and backward, at P-rotate's
+    shape (first: the kernels line's) and P-transe's two."""
+    from kge_tpu_torch.ops.dist_pool import (
+        pooled_dist_scores,
+        pooled_dist_scores_plain,
+    )
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed + 10)
+    forward, backward = [], []
+    order = [POOLED_CASES[2], POOLED_CASES[0], POOLED_CASES[1]]
+    for name, kind, n, K, F, d, _ in order:
+        queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device)
+        g = torch.randn(n, K, generator=generator, device=device)
+        leaves = [t.requires_grad_(True) for t in queries + pools]
+        parts = len(queries)
+        rows = torch.arange(K, device=device)[None, :] * F + sel.long()
+
+        def run(fn):
+            return fn(leaves[:parts], leaves[parts:], sel, F, kind)
+
+        def library():
+            # one library call that covers the function: all n x K F L1
+            # distances, of which each row keeps its K
+            return -torch.cdist(leaves[0], leaves[parts], p=1).gather(1, rows)
+
+        elements = float(n) * K * d
+        ops = 4.0 if kind == "l1" else 8.0
+        read = 4.0 * (parts * (n * d + K * F * d) + n * K)
+        times = {}
+        for what, fn in (("kernel", lambda: run(pooled_dist_scores)),
+                         ("plain", lambda: run(pooled_dist_scores_plain)),
+                         ("library", library if kind == "l1" else None)):
+            if fn is None:
+                times[what] = (None, None)
+                continue
+            with torch.no_grad():
+                fwd_ms = time_ms(fn, reps=10)
+            out = fn()
+            bwd_ms = time_ms(
+                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), reps=10)
+            times[what] = (fwd_ms, bwd_ms)
+            del out
+        fwd_bound = bound(read + 4.0 * n * K, ops * elements)
+        bwd_bound = bound(read + 4.0 * n * K + 4.0 * parts * (n * d + K * F * d),
+                          2 * ops * elements)
+        library_name = "cdist(p=1) + gather" if kind == "l1" else "none for cmod"
+        for label, index, (bound_ms, bound_by), sink in (
+            ("pooled_scores", 0, fwd_bound, forward),
+            ("pooled_scores_bwd", 1, bwd_bound, backward),
+        ):
+            lib_ms = times["library"][index]
+            log(f"  {label} {name} ({kind}) n={n} K={K} F={F} d={d}: "
+                f"{times['kernel'][index]:.4f} ms, plain {times['plain'][index]:.4f} "
+                f"ms, library ({library_name}) "
+                f"{'null' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            sink.append({"shape": name, "kind": kind, "n": n, "K": K, "F": F, "d": d,
+                         "ms": times["kernel"][index],
+                         "plain_ms": times["plain"][index], "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+        del queries, pools, sel, g, leaves, rows
+        torch.cuda.empty_cache()
+    return forward, backward
 
 
 def main():
@@ -1035,10 +1708,29 @@ def main():
     rows_set_times = time_rows_set(args.seed, device)
     log(f"  {card}")
 
-    def entry(name, replaces, count, max_abs_err, times, **more):
+    log("== phase 9: fused row-update kernel vs plain version")
+    fused_err = compare_fused_update(args.seed, device)
+
+    log("== phase 10: pooled distance kernels vs plain version")
+    pooled_err, pooled_grad_err = compare_pooled(args.seed, device)
+
+    log("== phase 11: P-transe (TransE-L1 d=128, pooled negatives, FB15k-237 sizes)")
+    transe = run_transe_training(args.seed, data)
+
+    log(f"== phase 12: P-rotate (RotatE-L1 d={ROTATE_DIM}, Adam, {SPARSE_ENTITIES} "
+        f"entities)")
+    rotate = run_rotate_training(args.seed)
+
+    log("== phase 13: kernel timings at P-rotate's shapes")
+    fused_times = time_fused_update(args.seed, device)
+    pooled_fwd_times, pooled_bwd_times = time_pooled(args.seed, device)
+    log(f"  {card}")
+
+    def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
-            name=name, route="cuda", source=f"kge_tpu_torch/csrc/{name}.cu",
+            name=name, route="cuda",
+            source=f"kge_tpu_torch/csrc/{source or name}.cu",
             replaces=replaces, launches=count, max_abs_err=max_abs_err,
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
@@ -1056,11 +1748,22 @@ def main():
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
+        entry("fused_row_update", "kge_tpu/ops/pallas_ops.py:402",
+              rotate["launches"]["fused_row_update"], fused_err, fused_times,
+              shapes=fused_times),
+        entry("pooled_scores", "kge_tpu/ops/dist_pool.py:279",
+              rotate["launches"]["pooled_scores"], pooled_err, pooled_fwd_times,
+              source="dist_pool", shapes=pooled_fwd_times,
+              launches_transe_start=transe["launches"]["pooled_scores"]),
+        entry("pooled_scores_bwd", "kge_tpu/ops/dist_pool.py:248",
+              rotate["launches"]["pooled_scores_bwd"], pooled_grad_err,
+              pooled_bwd_times, source="dist_pool", shapes=pooled_bwd_times,
+              launches_transe_start=transe["launches"]["pooled_scores_bwd"]),
     ], "eval_wall_s": wall, "eval_warm_wall_s": warm_wall, "profile": profile,
         "filtered_triples_per_s": NUM_TEST / wall,
         "filtered_triples_per_s_warm": NUM_TEST / warm_wall,
         "train_dense": dense, "train_sparse": sparse,
-        "card": card}
+        "train_transe": transe, "train_rotate": rotate, "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,25 @@ kge_tpu/job/train_negative_sampling.py).
 Per slot with num_samples > 0: scores = [positive score | negative scores],
 labels = column 0, loss summed per slot and divided by batch size.
 
-Ported: shared negatives scored against the batch's unique targets
-(``negative_sampling.implementation: batch`` with ``shared: true``, which
-is what ``auto`` resolves to when negatives are shared), drawn on the
-device or by the host sampler, with the dense step and the row-sparse step
-(``train.sparse_embedding_update``). kge_tpu's ``auto`` ladder is kept, so
-a configuration resolves to the same implementation in both packages; the
-implementations that are not ported yet (``triple``, ``all``, ``pool``,
-and ``batch`` without shared negatives) raise and are listed in
-ROADMAP.md.
+Ported implementations (``negative_sampling.implementation``):
+
+- ``batch`` with ``shared: true`` (what ``auto`` resolves to when negatives
+  are shared): one sample row for the whole batch, scored against the
+  batch's unique targets;
+- ``pool``: a pool of ``num * pool_factor`` candidates per batch, of which
+  every row selects one per group of ``pool_factor``. Matmul scorers
+  (ComplEx) score the pool once and select columns; distance scorers
+  (TransE, RotatE) score each row's own candidates through
+  ``score_spo_neg_pooled`` and its kernel (ops/dist_pool.py);
+- ``triple``: per-row negatives scored row by row (``score_spo_neg``), the
+  only choice when candidates are filtered on the host.
+
+Negatives are drawn on the device or by the host sampler, and every
+implementation runs on the dense step and on the row-sparse step
+(``train.sparse_embedding_update``) with any optimizer rule. kge_tpu's
+``auto`` ladder is kept, so a configuration resolves to the same
+implementation in both packages; ``all`` and ``batch`` without shared
+negatives are not ported yet: they raise and are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -105,13 +115,38 @@ class TrainingJobNegativeSampling(TrainingJob):
             "negative_sampling.implementation",
             ["triple", "batch", "all", "pool"],
         )
-        if self._implementation != "batch" or not self._sampler.shared:
+        self._pool_factor = int(self.config.get("negative_sampling.pool_factor"))
+        if self._implementation == "pool":
+            if self._sampler.shared:
+                raise ValueError(
+                    "negative_sampling.implementation=pool replaces per-row "
+                    "sampling; it cannot be combined with shared negatives"
+                )
+            if self._sampler.filter_positives.any():
+                raise ValueError(
+                    "negative_sampling.implementation=pool draws candidates "
+                    "on-device and cannot filter positives; use "
+                    "implementation triple/all with filtering"
+                )
+            if self._pool_factor < 1:
+                raise ValueError("negative_sampling.pool_factor must be >= 1")
+        unported = self._implementation == "all" or (
+            not self._sampler.shared
+            and (
+                self._implementation == "batch"
+                # a pool is drawn on the device only: with host-drawn per-row
+                # samples kge_tpu scores them as "batch" does
+                or (self._implementation == "pool"
+                    and self.config.get("negative_sampling.on_device") == "never")
+            )
+        )
+        if unported:
             raise NotImplementedError(
                 "negative_sampling.implementation="
                 f"{self._implementation} with shared="
-                f"{bool(self._sampler.shared)} is not ported yet: only "
-                "shared negatives scored per batch (implementation: batch, "
-                "shared: true) are; see ROADMAP.md section A.8"
+                f"{bool(self._sampler.shared)} and on_device="
+                f"{self.config.get('negative_sampling.on_device')} is not "
+                "ported yet: see ROADMAP.md section A.8"
             )
         self.triples = self.dataset.split(self.train_split)
         self.num_examples = len(self.triples)
@@ -174,30 +209,57 @@ class TrainingJobNegativeSampling(TrainingJob):
             if not self._on_device:
                 for slot in self._active_slots:
                     neg = self._sampler.sample(triples_padded, slot)
-                    batch[f"neg_unique_{slot}"] = neg.unique_samples
-                    batch[f"neg_gather_{slot}"] = neg.gather_map
+                    if neg.kind == "plain":
+                        batch[f"neg_samples_{slot}"] = neg.samples
+                    else:
+                        batch[f"neg_unique_{slot}"] = neg.unique_samples
+                        batch[f"neg_gather_{slot}"] = neg.gather_map
             yield batch
 
     def _draw_negatives_on_device(self, triples, slot):
-        """Shared negatives drawn on the job's device from its generator
-        (uniform or frequency-based): one sample row for the whole batch,
-        with replacement. For shared_type=default, one spare is drawn and
-        each row's own positive (first match) is replaced by it; the
-        replacement is an elementwise substitution of the spare score
-        column. Returns entries for the batch dict mirroring the host
-        sampler's fixed-shape products."""
+        """Negatives drawn on the job's device from its generator (uniform
+        or frequency-based, with replacement). Returns entries for the
+        batch dict mirroring the host sampler's fixed-shape products.
+
+        ``pool``: a group-structured pool of ``num * pool_factor`` iid
+        candidates; each row independently picks one candidate per group of
+        ``pool_factor``. Chosen candidates are distinct slots by
+        construction and the pool is iid, so every row's ``num`` negatives
+        are exactly iid draws from the sampling distribution (rows
+        correlate only through the shared pool).
+
+        Non-shared otherwise: [n, num] per-row samples.
+
+        Shared: one sample row for the whole batch. For
+        shared_type=default, one spare is drawn and each row's own positive
+        (first match) is replaced by it; the replacement is an elementwise
+        substitution of the spare score column."""
         num = int(self._sampler.num_samples[slot])
+        n = triples.shape[0]
         vocab = int(self._sampler.vocabulary_size[slot])
         device = triples.device
-        if self._device_cdf is not None:
-            u = torch.rand(num + 1, generator=self._generator, device=device)
-            sample = torch.searchsorted(self._device_cdf[slot], u).clamp_max(
-                vocab - 1
+
+        def draw(shape):
+            if self._device_cdf is not None:
+                u = torch.rand(shape, generator=self._generator, device=device)
+                return torch.searchsorted(self._device_cdf[slot], u).clamp_max(
+                    vocab - 1
+                )
+            return torch.randint(
+                0, vocab, shape, generator=self._generator, device=device
             )
-        else:
-            sample = torch.randint(
-                0, vocab, (num + 1,), generator=self._generator, device=device
+
+        if self._implementation == "pool" and not self._sampler.shared:
+            pool = draw((num * self._pool_factor,))
+            sel = torch.randint(
+                0, self._pool_factor, (n, num), generator=self._generator,
+                device=device,
             )
+            return {f"neg_pool_{slot}": pool, f"neg_sel_{slot}": sel}
+        if not self._sampler.shared:
+            return {f"neg_samples_{slot}": draw((n, num))}
+
+        sample = draw((num + 1,))
         out = {f"neg_unique_{slot}": sample}
         if self._sampler.shared_type == "default":
             pos = triples[:, slot]
@@ -214,7 +276,8 @@ class TrainingJobNegativeSampling(TrainingJob):
         it (pre-drawn, or from the host sampler) stay."""
         batch = dict(batch)
         for slot in self._active_slots:
-            if f"neg_unique_{slot}" in batch:
+            if any(f"neg_{kind}_{slot}" in batch
+                   for kind in ("unique", "samples", "pool")):
                 continue
             if not self._on_device:
                 raise ValueError(
@@ -242,6 +305,46 @@ class TrainingJobNegativeSampling(TrainingJob):
             # scatter-add (columns repeat under with-replacement sampling)
             return all_scores.gather(1, batch[f"neg_gather_{slot}"].long())
         return all_scores[:, :num]
+
+    def _neg_from_pool_scores(self, pool_scores, batch, slot, num):
+        """[n, num] negatives from the [n, num * pool_factor] pool score
+        matrix: each row selects its slot within every group of
+        pool_factor columns (an elementwise one-hot contraction, whose
+        backward is elementwise too)."""
+        n = pool_scores.shape[0]
+        sel = batch[f"neg_sel_{slot}"]
+        pool_scores = pool_scores.reshape(n, num, self._pool_factor)
+        one_hot = torch.nn.functional.one_hot(
+            sel.long(), self._pool_factor
+        ).to(pool_scores.dtype)
+        return torch.sum(pool_scores * one_hot, dim=2)
+
+    def _score_negatives(self, triples, slot, batch, tables):
+        """Score the negatives of one slot -> [n, num], by the batch's kind
+        of negatives (reference sampler.py:263-356)."""
+        num = int(self._sampler.num_samples[slot])
+        if f"neg_pool_{slot}" in batch:
+            pool = batch[f"neg_pool_{slot}"]
+            if getattr(self.model.get_scorer(), "pairwise_many_targets", False):
+                # distance models: the [n, P] many-targets form is a
+                # pairwise reduction; score each row's own candidates
+                return self.model.score_spo_neg_pooled(
+                    triples, pool, batch[f"neg_sel_{slot}"], self._pool_factor,
+                    slot, tables=tables,
+                )
+            return self._neg_from_pool_scores(
+                self._score_targets(triples, slot, pool, tables), batch, slot, num
+            )
+        if f"neg_unique_{slot}" in batch:
+            all_scores = self._score_targets(
+                triples, slot, batch[f"neg_unique_{slot}"], tables
+            )
+            return self._neg_from_unique_scores(all_scores, batch, slot, num)
+        # triple: the kept slots are embedded once per row, only the
+        # corrupted slot looks up n * num table rows
+        return self.model.score_spo_neg(
+            triples, batch[f"neg_samples_{slot}"], slot, tables=tables
+        )
 
     def _score_targets(self, triples, slot, targets, tables):
         if slot == S:
@@ -276,28 +379,34 @@ class TrainingJobNegativeSampling(TrainingJob):
         total = torch.zeros((), device=triples.device)
         aux = {}
         grouped = None
-        if self._grouped_multi_eligible():
-            # shared negatives: s, p and o are embedded once and the unique
-            # sample rows are the targets, so the backward pass holds one
-            # lookup gradient per triple slot and one per target list
+        target_kind = "pool" if self._implementation == "pool" else "unique"
+        if self._grouped_multi_eligible() and all(
+            f"neg_{target_kind}_{slot}" in batch for slot in self._active_slots
+        ):
+            # shared or pooled negatives of a scorer that factorizes: s, p
+            # and o are embedded once and the sample rows (or the pools) are
+            # the targets, so the backward pass holds one lookup gradient
+            # per triple slot and one per target list. None for scorers
+            # that do not factorize (the distance models).
             grouped = self.model.score_all_grouped_multi(
                 triples, self._active_slots,
-                {slot: batch[f"neg_unique_{slot}"] for slot in self._active_slots},
+                {slot: batch[f"neg_{target_kind}_{slot}"]
+                 for slot in self._active_slots},
                 tables=tables,
             )
         for slot in self._active_slots:
             num = int(self._sampler.num_samples[slot])
             if grouped is not None:
                 pos_flat, all_scores = grouped[slot]
+                neg_from = (self._neg_from_pool_scores if target_kind == "pool"
+                            else self._neg_from_unique_scores)
+                neg = neg_from(all_scores, batch, slot, num)
             else:
                 pos_flat = self.model.score_spo(
                     triples[:, S], triples[:, P], triples[:, O],
                     direction=SLOT_STR[slot], tables=tables,
                 )
-                all_scores = self._score_targets(
-                    triples, slot, batch[f"neg_unique_{slot}"], tables
-                )
-            neg = self._neg_from_unique_scores(all_scores, batch, slot, num)
+                neg = self._score_negatives(triples, slot, batch, tables)
             scores = torch.cat([pos_flat.reshape(-1, 1), neg], dim=1)
             labels = torch.zeros(
                 scores.shape[0], dtype=torch.long, device=scores.device
@@ -328,13 +437,17 @@ class TrainingJobNegativeSampling(TrainingJob):
         for slot in self._active_slots:
             is_rel = slot == P
             ids, off = (rel_ids, rel_off) if is_rel else (ent_ids, ent_off)
-            key = f"neg_unique_{slot}"
+            # a pool localizes like a shared unique list (the per-row
+            # selection neg_sel is pool-relative and needs no rewrite);
+            # per-row samples localize element by element
+            key = next(f"neg_{kind}_{slot}" for kind in ("pool", "unique", "samples")
+                       if f"neg_{kind}_{slot}" in batch)
             arr = batch[key]
-            ids.append(arr)
+            ids.append(arr.reshape(-1))
             batch[key] = off + torch.arange(
-                arr.shape[0], dtype=arr.dtype, device=arr.device
-            )
-            off += arr.shape[0]
+                arr.numel(), dtype=arr.dtype, device=arr.device
+            ).reshape(arr.shape)
+            off += arr.numel()
             if is_rel:
                 rel_off = off
             else:
@@ -406,7 +519,13 @@ class TrainingJobNegativeSampling(TrainingJob):
         # auto: worthwhile when the batch touches <= 1/8 of the entity table
         rows_per_batch = 2 * self.batch_size
         for slot in self._active_slots:
-            rows_per_batch += int(self._sampler.num_samples[slot]) + 1
+            num = int(self._sampler.num_samples[slot])
+            if self._sampler.shared:
+                rows_per_batch += num + 1
+            elif self._implementation == "pool":
+                rows_per_batch += num * self._pool_factor
+            else:
+                rows_per_batch += self.batch_size * num
         return self.dataset.num_entities() >= 8 * rows_per_batch
 
     def _build_step_fn(self):
@@ -420,16 +539,10 @@ class TrainingJobNegativeSampling(TrainingJob):
             leaf for leaf in (self._ent_leaf, self._rel_leaf)
             if not self.optimizer.supports_sparse_rows(leaf)
         ]
-        if fused_leaves:
-            raise NotImplementedError(
-                "train.sparse_embedding_update engages for this "
-                "configuration, and its optimizer (not Adagrad or plain SGD "
-                "without weight decay) needs the fused row-update kernel K4 "
-                "(kge_tpu's fused_sorted_update), which is not ported yet: "
-                "see ROADMAP.md; set train.sparse_embedding_update: never"
-            )
         self.config.log(
-            "Using row-sparse embedding updates (exact for this optimizer)"
+            "Using row-sparse embedding updates "
+            + ("(fused dense-semantics kernel)" if fused_leaves
+               else "(exact for this optimizer)")
         )
         self._train_step = self._sparse_step
 
@@ -438,8 +551,10 @@ class TrainingJobNegativeSampling(TrainingJob):
         loss is computed on gathered "mini-tables" whose rows are exactly
         the ones the batch touches (the batch's indexes localize to arange
         offsets), the gradient is taken with respect to the mini-tables,
-        and the optimizer applies exact row-sparse updates to the real
-        tables in place."""
+        and the optimizer applies exact updates to the real tables in place
+        from the row gradients: row writes where zero-gradient rows are
+        fixed points of the rule, one fused pass over the table
+        otherwise."""
         self._enter_step()
         params = self.optimizer.params
         local_batch, ent_ids, rel_ids = self._localize_batch(batch)

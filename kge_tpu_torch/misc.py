@@ -69,8 +69,8 @@ def init_from(class_name: str, module_names: List[str], *args, **kwargs):
         if hasattr(module, class_name):
             return getattr(module, class_name)(*args, **kwargs)
     raise ValueError(
-        "class {} not found in modules {} (models other than ComplEx and "
-        "the reciprocal relations model, and jobs other than "
+        "class {} not found in modules {} (models other than ComplEx, "
+        "TransE, RotatE and the reciprocal relations model, and jobs other than "
         "negative-sampling training and entity-ranking evaluation, are "
         "not ported yet: see ROADMAP.md)".format(
             class_name, looked_in

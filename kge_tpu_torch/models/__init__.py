@@ -1,7 +1,7 @@
 """Model zoo: scorers, embedders, and the model factory.
 
-Ported so far: ComplEx and the reciprocal relations model over lookup
-embedders. The other models of kge_tpu are listed in ROADMAP.md.
+Ported so far: ComplEx, TransE, RotatE and the reciprocal relations model
+over lookup embedders. The other models of kge_tpu are listed in ROADMAP.md.
 """
 
 from kge_tpu_torch.models.base import (
@@ -20,6 +20,12 @@ from kge_tpu_torch.models.convert import (
 )
 from kge_tpu_torch.models.factorization import ComplEx, ComplExScorer
 from kge_tpu_torch.models.reciprocal import ReciprocalRelationsModel
+from kge_tpu_torch.models.translation import (
+    RotatE,
+    RotatEScorer,
+    TransE,
+    TransEScorer,
+)
 
 __all__ = [
     "KgeBase",
@@ -30,6 +36,10 @@ __all__ = [
     "ComplEx",
     "ComplExScorer",
     "ReciprocalRelationsModel",
+    "TransE",
+    "TransEScorer",
+    "RotatE",
+    "RotatEScorer",
     "load_jax_params",
     "to_jax_params",
     "load_jax_opt_state",

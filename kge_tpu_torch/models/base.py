@@ -9,7 +9,7 @@ score_sp_po with "spo"/"sp_"/"_po", kge_model.py:122-213,663-789).
 Randomness comes from explicit ``torch.Generator``s.
 
 Ported so far: what filtered entity-ranking evaluation and
-negative-sampling training need. Pretrained initialization, projection
+negative-sampling training (shared, pooled and per-row negatives) need. Pretrained initialization, projection
 embedders and the ring-sharded scoring path are not ported yet (see
 ROADMAP.md).
 
@@ -203,6 +203,29 @@ class RelationalScorer(KgeBase):
         [n, d'] built from the two kept slots (the corrupted slot's entry is
         None). None when the scorer does not factorize."""
         return None
+
+    def pooled_kernel_queries(self, s_emb, p_emb, o_emb, slot: int):
+        """Optional (kind, queries) for the pooled distance kernel
+        (ops/dist_pool.py): distance scorers whose per-candidate score is a
+        plain elementwise distance ``-||q - c||`` return the kind ("l1" or
+        "cmod") and the per-row query tensor(s) built from the two kept
+        slots (the corrupted slot's entry is None). None (default): no
+        kernel form for this scorer, slot or norm."""
+        return None
+
+    def score_emb_neg(self, s_emb, p_emb, o_emb, slot: int) -> torch.Tensor:
+        """Score each row against its own k candidates in the corrupted
+        ``slot`` (0=s, 1=p, 2=o): that slot's embeddings are [n, k, d*], the
+        other two are [n, d*]; result [n, k]. The generic form broadcasts
+        the row embeddings over k and delegates to "spo"."""
+        emb3 = (s_emb, p_emb, o_emb)[slot]
+        n, k = emb3.shape[0], emb3.shape[1]
+        flat = [
+            e.reshape(n * k, -1) if i == slot
+            else e[:, None, :].expand(n, k, e.shape[-1]).reshape(n * k, -1)
+            for i, e in enumerate((s_emb, p_emb, o_emb))
+        ]
+        return self.score_emb_spo(flat[0], flat[1], flat[2]).reshape(n, k)
 
 
 # -- embedders -----------------------------------------------------------------
@@ -617,6 +640,82 @@ class KgeModel(KgeBase):
         p_emb = self.get_p_embedder().embed(p, rel)
         o_emb = self.get_o_embedder().embed(o, ent)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "spo").reshape(-1)
+
+    def score_spo_neg(self, triples, samples, slot: int,
+                      tables=None) -> torch.Tensor:
+        """Scores of each triple against its per-row candidate replacements
+        of ``slot``: samples is [n, k] -> result [n, k]. The two kept slots
+        are embedded once per row; only the candidates look up n*k table
+        rows."""
+        n, k = samples.shape
+        ent, rel = tables if tables is not None else (None, None)
+        embedders = (
+            self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
+        )
+        slot_tables = (ent, rel, ent)
+        embs = []
+        for i in range(3):
+            ids = samples.reshape(-1) if i == slot else triples[:, i]
+            e = embedders[i].embed(ids, slot_tables[i])
+            embs.append(e.reshape(n, k, -1) if i == slot else e)
+        return self._scorer.score_emb_neg(embs[0], embs[1], embs[2], slot)
+
+    def score_spo_neg_pooled(self, triples, pool, sel, pool_factor: int,
+                             slot: int, tables=None) -> torch.Tensor:
+        """Pool-implementation scoring for scorers whose many-targets forms
+        are pairwise reductions (distance models); returns [n, k] for sel
+        [n, k]. The pool (k * pool_factor ids, row ``j * pool_factor + f``
+        candidate f of negative slot j) is embedded once as a mini-table,
+        and row i's candidate j is its row ``j * pool_factor + sel[i, j]``.
+
+        Two routes, selected by ``negative_sampling.pooled_kernel``:
+
+        - the kernel ``pooled_dist_scores`` (ops/dist_pool.py), which never
+          materializes the [n, k, d] candidates: ``auto`` takes it for
+          tensors on a CUDA card whenever the scorer gives a kernel form
+          (``pooled_kernel_queries``), ``always`` takes it on any device
+          (its plain version serves CPU tensors);
+        - the select route: the candidates are materialized by a one-hot
+          contraction over the pool's group axis
+          (``einsum("njf,jfd->njd")``, exact in float32: every sum has one
+          non-zero term) and scored by ``score_emb_neg``. ``never``, CPU
+          tensors under ``auto``, and slots without a kernel form (RotatE's
+          relation corruption) take it.
+        """
+        k = sel.shape[1]
+        ent, rel = tables if tables is not None else (None, None)
+        embedders = (
+            self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
+        )
+        slot_tables = (ent, rel, ent)
+        pool_emb = embedders[slot].embed(pool, slot_tables[slot])
+        kept = [
+            None if i == slot
+            else embedders[i].embed(triples[:, i], slot_tables[i])
+            for i in range(3)
+        ]
+        mode = self.config.get_default("negative_sampling.pooled_kernel")
+        if mode == "always" or (mode == "auto" and pool_emb.device.type == "cuda"):
+            spec = self._scorer.pooled_kernel_queries(
+                kept[0], kept[1], kept[2], slot
+            )
+            if spec is not None:
+                from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+
+                kind, queries = spec
+                pools = (
+                    (pool_emb,) if kind == "l1"
+                    else torch.chunk(pool_emb, 2, dim=1)
+                )
+                return pooled_dist_scores(queries, pools, sel, pool_factor, kind)
+        # [k, pool_factor, d] grouped pool; cand[i, j] = pool3[j, sel[i, j]]
+        pool3 = pool_emb.reshape(k, pool_factor, -1)
+        sel_oh = torch.nn.functional.one_hot(sel.long(), pool_factor).to(
+            pool_emb.dtype
+        )
+        cand = torch.einsum("njf,jfd->njd", sel_oh, pool3)
+        embs = [cand if i == slot else kept[i] for i in range(3)]
+        return self._scorer.score_emb_neg(embs[0], embs[1], embs[2], slot)
 
     def score_sp(self, s, p, o=None, tables=None) -> torch.Tensor:
         """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m]."""

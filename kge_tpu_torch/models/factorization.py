@@ -72,6 +72,15 @@ class ComplExScorer(RelationalScorer):
             return super().score_emb(s_emb, p_emb, o_emb, combine)
         return out.reshape(n, -1)
 
+    def score_emb_neg(self, s_emb, p_emb, o_emb, slot):
+        # the slot's query (as for sp_/_po/s_o) dotted against each row's
+        # own candidates [n, k, d] in one contraction
+        query = self.factorize_slot(
+            *(None if i == slot else e
+              for i, e in enumerate((s_emb, p_emb, o_emb))), slot
+        )[0]
+        return torch.einsum("nd,nkd->nk", query, (s_emb, p_emb, o_emb)[slot])
+
     def factorize_slot(self, s_emb, p_emb, o_emb, slot):
         if slot == 0:
             return self._po_query(p_emb, o_emb), None

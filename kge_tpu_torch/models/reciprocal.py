@@ -102,6 +102,19 @@ class ReciprocalRelationsModel(KgeModel):
             "The reciprocal relations model cannot compute undirected spo scores."
         )
 
+    def score_spo_neg(self, triples, samples, slot, tables=None):
+        if tables is not None:
+            raise ValueError(
+                "The reciprocal relations model cannot score substituted tables."
+            )
+        if slot == 2:  # corrupt o: base model direct
+            return self._base_model.score_spo_neg(triples, samples, 2)
+        if slot == 0:  # corrupt s: (sample, p, o) = base (o, p+|R|, sample)
+            return self._base_model.score_spo_neg(
+                self._reciprocal(triples), samples, 2
+            )
+        raise ValueError("The reciprocal relations model cannot score relations.")
+
     def factorized_queries(self, triples, slots):
         """Each slot maps to a direction-specific base query: o-corruption
         scores (s, p, ?) directly, s-corruption scores (o, p+|R|, ?); the

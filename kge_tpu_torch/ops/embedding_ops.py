@@ -109,38 +109,26 @@ def sorted_scatter_add(ids: torch.Tensor, upd: torch.Tensor,
 sorted_scatter_add.launches = 0
 
 
-def _typed(lib, name, argtypes):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _require(name, x, device, dtype):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch_scatter(ids_sorted, order, upd, num_rows):
-    from kge_tpu_torch.ops.kernel_utils import check_launch, load_library
+    from kge_tpu_torch.ops.kernel_utils import (
+        check_launch,
+        load_library,
+        require,
+        typed,
+    )
 
     device = upd.device
-    _require("upd", upd, device, torch.float32)
-    _require("ids_sorted", ids_sorted, device, torch.int64)
-    _require("order", order, device, torch.int64)
+    require("upd", upd, device, torch.float32)
+    require("ids_sorted", ids_sorted, device, torch.int64)
+    require("order", order, device, torch.int64)
     n, D = upd.shape
     out = torch.empty(num_rows, D, dtype=torch.float32, device=device)
     if num_rows == 0 or D == 0:
         return out
     lib = load_library("scatter_add_sorted")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _typed(lib, "scatter_add_sorted_launch", [p, p, p, i, i, i, p, p, p])
-    chunk = _typed(lib, "scatter_add_sorted_chunk", [])()
+    launch = typed(lib, "scatter_add_sorted_launch", [p, p, p, i, i, i, p, p, p])
+    chunk = typed(lib, "scatter_add_sorted_chunk", [])()
     partial = torch.empty(-(-n // chunk), 2, D, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         code = launch(
@@ -188,20 +176,25 @@ rows_set.launches = 0
 
 
 def _launch_rows_set(table, ids, rows):
-    from kge_tpu_torch.ops.kernel_utils import check_launch, load_library
+    from kge_tpu_torch.ops.kernel_utils import (
+        check_launch,
+        load_library,
+        require,
+        typed,
+    )
 
     device = table.device
-    _require("table", table, device, torch.float32)
-    _require("rows", rows, device, torch.float32)
+    require("table", table, device, torch.float32)
+    require("rows", rows, device, torch.float32)
     if ids.dtype == torch.int32:
         ids = ids.long()
-    _require("ids", ids, device, torch.int64)
+    require("ids", ids, device, torch.int64)
     m, D = rows.shape
     if m == 0 or D == 0:
         return table
     lib = load_library("rows_set")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _typed(lib, "rows_set_launch", [p, p, p, i, i, ctypes.c_longlong, p])
+    launch = typed(lib, "rows_set_launch", [p, p, p, i, i, ctypes.c_longlong, p])
     with torch.cuda.device(device):
         code = launch(
             table.data_ptr(), ids.data_ptr(), rows.data_ptr(), m, D,

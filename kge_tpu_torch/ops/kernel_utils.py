@@ -109,3 +109,24 @@ def check_launch(code: int, kernel: str) -> None:
     """Raise when a launch function returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {code}")
+
+
+def typed(lib: ctypes.CDLL, name: str, argtypes):
+    """The C function ``name`` of ``lib`` with its argument types set (once);
+    every launch function returns a CUDA error code."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def require(name: str, x, device, dtype) -> None:
+    """Raise unless tensor ``x`` is a contiguous ``dtype`` tensor on
+    ``device``: the kernels read raw pointers."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

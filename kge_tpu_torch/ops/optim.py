@@ -14,6 +14,12 @@ parameter tensors in kge_tpu's tree-flatten order (sorted keys:
 ``entity_embedder.embeddings``, ``relation_embedder.embeddings``), and its
 state is ``{"leaves": [state dict per leaf], "step": int}`` in the same
 order, which is also the checkpoint's ``optimizer_state``.
+
+``fused_sorted_update`` replaces kge_tpu's Pallas kernel of that name
+(ops/pallas_ops.py): one pass over a table that applies any rule with dense
+semantics from row gradients. Beside it stand its plain PyTorch version
+(``fused_sorted_update_plain``: the path for CPU tensors and the kernel's
+oracle on the card) and a launch counter (``.launches``).
 """
 
 from __future__ import annotations
@@ -214,6 +220,189 @@ _RULES = {
 }
 
 
+# -- K4: one-pass dense-semantics update from row gradients --------------------
+
+# rule numbers and flag bits of csrc/fused_row_update.cu
+_KERNEL_RULE = {"adagrad": 0, "adam": 1, "adamw": 1, "adamax": 2, "sgd": 3,
+                "rmsprop": 4, "adadelta": 5}
+_FLAG_NESTEROV, _FLAG_FIRST_STEP, _FLAG_CENTERED, _FLAG_DECOUPLED = 1, 2, 4, 8
+
+
+def _kernel_hyper(opt_type: str, args: Dict[str, Any], lr: float, step: int):
+    """(the 12 float hyperparameters of the kernel's ``Hyper``, flags):
+    every scalar that the rule's plain version computes on the host,
+    computed the same way, so that both round alike."""
+    h = dict.fromkeys(
+        ("lr", "wd", "eps", "b1", "omb1", "b2", "omb2", "c1", "c2",
+         "momentum", "omd", "lrwd"), 0.0)
+    h["lr"] = lr
+    h["wd"] = args.get("weight_decay", 0.0)
+    flags = 0
+    t = step + 1
+    if opt_type == "adagrad":
+        h["lr"] = _decayed_lr(lr, step, args.get("lr_decay", 0.0))
+        h["eps"] = args.get("eps", 1e-10)
+    elif opt_type in ("adam", "adamw", "adamax"):
+        b1, b2 = args.get("betas", (0.9, 0.999))
+        h.update(b1=b1, omb1=1 - b1, b2=b2, omb2=1 - b2,
+                 eps=args.get("eps", 1e-8), c1=_one_minus_pow(b1, t),
+                 c2=_one_minus_pow(b2, t), lrwd=lr * h["wd"])
+        if opt_type == "adamw":
+            flags |= _FLAG_DECOUPLED
+        if opt_type == "adamax":
+            h["c1"] = float(np.float32(-lr) / np.float32(h["c1"]))
+    elif opt_type == "sgd":
+        h["momentum"] = args.get("momentum", 0.0)
+        h["omd"] = 1 - args.get("dampening", 0.0)
+        if args.get("nesterov", False):
+            flags |= _FLAG_NESTEROV
+        if step == 0:
+            flags |= _FLAG_FIRST_STEP
+    elif opt_type == "rmsprop":
+        alpha = args.get("alpha", 0.99)
+        h.update(b1=alpha, omb1=1 - alpha, eps=args.get("eps", 1e-8),
+                 momentum=args.get("momentum", 0.0))
+        if args.get("centered", False):
+            flags |= _FLAG_CENTERED
+    elif opt_type == "adadelta":
+        rho = args.get("rho", 0.9)
+        h.update(b1=rho, omb1=1 - rho, eps=args.get("eps", 1e-6))
+    else:
+        raise ValueError(f"unsupported optimizer type: {opt_type}")
+    return np.array(list(h.values()), dtype=np.float32), flags
+
+
+def _check_fused(ids, upd, param, states):
+    if ids.dim() != 1 or upd.dim() != 2 or param.dim() != 2 or upd.shape != (
+        ids.shape[0], param.shape[1]
+    ):
+        raise ValueError(
+            f"the fused update takes ids [n], upd [n, D] and param [R, D], "
+            f"got {tuple(ids.shape)}, {tuple(upd.shape)}, {tuple(param.shape)}"
+        )
+    for name, value in states.items():
+        if value.shape != param.shape:
+            raise ValueError(
+                f"state {name} has shape {tuple(value.shape)}, the parameter "
+                f"{tuple(param.shape)}"
+            )
+
+
+@torch.no_grad()
+def fused_sorted_update_plain(opt_type: str, args: Dict[str, Any],
+                              ids: torch.Tensor, upd: torch.Tensor,
+                              param: torch.Tensor,
+                              states: Dict[str, torch.Tensor], lr: float,
+                              step: int) -> Dict[str, torch.Tensor]:
+    """Plain version of ``fused_sorted_update``: ``index_add_`` into a
+    dense zero gradient, then the rule of ``_RULES`` over the whole table,
+    written back into ``param`` and ``states``."""
+    _check_fused(ids, upd, param, states)
+    grad = torch.zeros_like(param).index_add_(0, ids.long(), upd.to(param.dtype))
+    delta, new_states = _RULES[opt_type][1](grad, states, param, lr, step, args)
+    param.add_(delta)
+    for name, value in new_states.items():
+        states[name].copy_(value)
+    return states
+
+
+@torch.no_grad()
+def fused_sorted_update(opt_type: str, args: Dict[str, Any],
+                        ids: torch.Tensor, upd: torch.Tensor,
+                        param: torch.Tensor, states: Dict[str, torch.Tensor],
+                        lr: float, step: int) -> Dict[str, torch.Tensor]:
+    """One optimizer step of a whole table from row gradients, IN PLACE.
+
+    Semantically ``g = zeros_like(param).index_add_(0, ids, upd)`` followed
+    by the rule ``opt_type`` of ``_RULES`` on ``param`` and ``states`` with
+    gradient ``g``: every row is updated, named by ``ids`` (duplicates,
+    any order) or not, so Adam's moments decay and weight decay applies
+    everywhere as on the dense step. The dense gradient is never held: the
+    wrapper sorts the ids and sums duplicates with the scatter kernel into
+    one gradient row per distinct id, and the kernel
+    (``csrc/fused_row_update.cu``, which replaces kge_tpu's
+    ``fused_sorted_update``) walks the table once. ``param`` and the
+    tensors of ``states`` keep their storage; returns ``states``. On CPU
+    tensors this is ``fused_sorted_update_plain``; a CUDA tensor goes to
+    the kernel or the call raises. Ids outside the table are ignored on
+    the card."""
+    _check_fused(ids, upd, param, states)
+    if param.device.type == "cpu":
+        return fused_sorted_update_plain(
+            opt_type, args, ids, upd, param, states, lr, step
+        )
+    if param.device.type != "cuda":
+        raise ValueError(f"fused_sorted_update: unsupported device {param.device}")
+    if ids.device != param.device:
+        raise ValueError(f"ids is on {ids.device}, expected {param.device}")
+    return fused_update_presummed(
+        opt_type, args, *segment_sums(ids, upd), param, states, lr, step
+    )
+
+
+#: launches of the fused row-update kernel
+fused_sorted_update.launches = 0
+
+
+def segment_sums(ids: torch.Tensor, upd: torch.Tensor):
+    """(sorted ids [n], segment number of every sorted position [n], summed
+    rows [n, D]): a stable sort and one sum per segment of equal ids by the
+    scatter kernel, deterministic. Rows of the sums past the last segment
+    are zero. Nothing is read back to the host."""
+    from kge_tpu_torch.ops.embedding_ops import scatter_add_presorted
+
+    rs, order = torch.sort(ids.long(), stable=True)
+    first = torch.ones_like(rs, dtype=torch.bool)
+    first[1:] = rs[1:] != rs[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    return rs, seg, scatter_add_presorted(seg, order, upd.contiguous(), rs.shape[0])
+
+
+def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
+                           lr, step):
+    """The kernel launch of ``fused_sorted_update`` on the products of
+    ``segment_sums``; CUDA tensors only."""
+    import ctypes
+
+    from kge_tpu_torch.ops.kernel_utils import (
+        check_launch,
+        load_library,
+        require,
+        typed,
+    )
+
+    device = param.device
+    if device.type != "cuda":
+        raise ValueError(f"the fused update kernel takes CUDA tensors, got {device}")
+    keys = sorted(states)  # the kernel takes the states in sorted key order
+    require("param", param, device, torch.float32)
+    for name in keys:
+        require(f"state {name}", states[name], device, torch.float32)
+    require("gsum", gsum, device, torch.float32)
+    require("ids_sorted", ids_sorted, device, torch.int64)
+    require("seg", seg, device, torch.int64)
+    num_rows, D = param.shape
+    if num_rows == 0 or D == 0:
+        return states
+    hyper, flags = _kernel_hyper(opt_type, args, lr, step)
+    lib = load_library("fused_row_update")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = typed(lib, "fused_row_update_launch",
+                    [i, p, p, p, i, i, ctypes.c_longlong, p, p, p, p, i, p, i, p])
+    state_ptrs = [states[name].data_ptr() for name in keys] + [None] * 3
+    with torch.cuda.device(device):
+        code = launch(
+            _KERNEL_RULE[opt_type], ids_sorted.data_ptr(), seg.data_ptr(),
+            gsum.data_ptr(), ids_sorted.shape[0], D, num_rows, param.data_ptr(),
+            state_ptrs[0], state_ptrs[1], state_ptrs[2], len(keys),
+            hyper.ctypes.data, flags,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check_launch(code, "fused_row_update")
+    fused_sorted_update.launches += 1
+    return states
+
+
 class ParameterGroup:
     def __init__(self, name: str, opt_type: str, args: Dict[str, Any]):
         self.name = name
@@ -351,11 +540,27 @@ class KgeOptimizer:
         return False
 
     def supports_fused_rows(self, leaf_index: int) -> bool:
-        """True when kge_tpu would give the leaf a one-pass dense-semantics
-        update from row gradients (its kernel ``fused_sorted_update``): any
-        table rule. That kernel is not ported yet, see
-        ``update_with_sparse_leaves``."""
+        """True when the leaf can take a one-pass dense-semantics update
+        from row gradients (``fused_sorted_update``): any table rule. Adam's
+        moment decay, weight decay etc. reach untouched rows through a zero
+        gradient, exactly as on the dense step. Complements
+        ``supports_sparse_rows``, which needs zero-gradient rows to be fixed
+        points."""
         return self.groups[self._labels[leaf_index]].opt_type in _RULES
+
+    @torch.no_grad()
+    def fused_row_update(self, leaf_index: int, state_leaf: Dict[str, Any],
+                         rows: torch.Tensor, row_grads: torch.Tensor,
+                         lr: float, step: int) -> Dict[str, Any]:
+        """Dense-semantics optimizer step of one leaf from row gradients,
+        in place on the parameter and its state, without materializing the
+        dense gradient (``fused_sorted_update``). Returns the leaf's
+        state."""
+        grp = self.groups[self._labels[leaf_index]]
+        return fused_sorted_update(
+            grp.opt_type, grp.args, rows, row_grads, self.params[leaf_index],
+            state_leaf, lr, step,
+        )
 
     @torch.no_grad()
     def sparse_row_update(self, leaf_index: int, state_leaf: Dict[str, Any],
@@ -370,21 +575,12 @@ class KgeOptimizer:
         segment then writes the identical updated value, so the final row
         write is deterministic. Returns the leaf's new state.
         """
-        from kge_tpu_torch.ops.embedding_ops import (
-            rows_set,
-            scatter_add_presorted,
-        )
+        from kge_tpu_torch.ops.embedding_ops import rows_set
 
         grp = self.groups[self._labels[leaf_index]]
         args = grp.args
         param = self.params[leaf_index]
-        rs, order = torch.sort(rows.long(), stable=True)
-        first = torch.ones_like(rs, dtype=torch.bool)
-        first[1:] = rs[1:] != rs[:-1]
-        seg = torch.cumsum(first, 0) - 1
-        gsum = scatter_add_presorted(
-            seg, order, row_grads.contiguous(), rs.shape[0]
-        )
+        rs, seg, gsum = segment_sums(rows, row_grads)
         g = gsum[seg]  # per-position combined gradient of its row
 
         clr = _decayed_lr(lr, step, args.get("lr_decay", 0.0))
@@ -418,16 +614,11 @@ class KgeOptimizer:
             grp = self.groups[label]
             if i in sparse:
                 rows, row_grads = sparse[i]
-                if not self.supports_sparse_rows(i):
-                    raise NotImplementedError(
-                        f"row-sparse updates of a {grp.opt_type} leaf"
-                        + (" with weight decay" if grp.args.get("weight_decay")
-                           else "")
-                        + " need the fused row-update kernel K4 (kge_tpu's "
-                        "fused_sorted_update), which is not ported yet: see "
-                        "ROADMAP.md; set train.sparse_embedding_update: never"
-                    )
-                new_states.append(self.sparse_row_update(
+                row_update = (
+                    self.sparse_row_update if self.supports_sparse_rows(i)
+                    else self.fused_row_update
+                )
+                new_states.append(row_update(
                     i, s_leaf, rows, row_grads, float(lr[label]), step
                 ))
                 continue

@@ -302,6 +302,116 @@ def test_valid_agrees_on_either_folder(started, which):
     assert want and got == want
 
 
+# -- the distance models: pooled negatives, Adam, checkpoints both ways ---------
+
+
+def _pooled_options(model):
+    options = {
+        "job": {"device": "cpu"},
+        "model": model,
+        "dataset": {"name": str(DATASET_DIR)},
+        "train": {"type": "negative_sampling", "max_epochs": 3, "batch_size": 6,
+                  "checkpoint": {"every": 1}},
+        "negative_sampling": {"num_samples": {"s": 16}, "pool_factor": 3},
+        "lookup_embedder": {"dim": 8},
+        "valid": {"every": 0},
+        "console": {"quiet": True},
+        "random_seed": {"default": 5},
+    }
+    if model == "rotate":
+        options["train"].update(
+            loss="bce_self_adversarial",
+            optimizer={"default": {"type": "Adam", "args": {"lr": 0.05}}})
+    else:
+        options["train"].update(
+            loss="margin_ranking", loss_arg=4.0,
+            optimizer={"default": {"type": "Adagrad", "args": {"lr": 0.5}}})
+    return options
+
+
+@pytest.fixture(scope="module", params=["transe", "rotate"])
+def started_pooled(request, tmp_path_factory):
+    """(model, tmp, folder the port trained for 3 epochs, folder kge_tpu
+    trained for 3 epochs) from one config file with
+    ``negative_sampling.implementation: auto``."""
+    tmp = tmp_path_factory.mktemp("torch_cli_" + request.param)
+    conf = tmp / "toy.yaml"
+    with open(conf, "w") as f:
+        yaml.safe_dump(_pooled_options(request.param), f)
+    port, ref = tmp / "port", tmp / "ref"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start", str(conf),
+          "--folder", str(port)], cwd=tmp)
+    _run([sys.executable, "-m", "kge_tpu", "start", str(conf),
+          "--folder", str(ref)], cwd=tmp)
+    return request.param, tmp, port, ref
+
+
+def test_pooled_start_resolves_auto_to_pool_and_learns(started_pooled):
+    model, _, port, ref = started_pooled
+    for folder in (port, ref):
+        assert "Set negative_sampling.implementation=pool" in (
+            folder / "kge.log").read_text()
+    epochs = _entries(port, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2, 3]
+    assert epochs[2]["avg_loss"] < epochs[0]["avg_loss"]
+
+
+def test_pooled_checkpoints_cross_both_ways(started_pooled):
+    """The optimizer state of the model's rule (Adagrad's ``sum``, Adam's
+    ``m`` and ``v``) is read by the other package, and each resumes the
+    other's folder."""
+    import numpy as np
+
+    from kge_tpu.utils.io import load_checkpoint as jax_load_checkpoint
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    model, tmp, port, ref = started_pooled
+    keys = ["m", "v"] if model == "rotate" else ["sum"]
+    theirs = jax_load_checkpoint(str(port / "checkpoint_00003.pt"))
+    ours = load_checkpoint(str(port / "checkpoint_00003.pt"))
+    assert [sorted(leaf) for leaf in theirs["optimizer_state"]["leaves"]] == [
+        keys, keys]
+    assert int(theirs["optimizer_state"]["step"]) == 6
+    for mine, other in zip(ours["optimizer_state"]["leaves"],
+                           theirs["optimizer_state"]["leaves"]):
+        for key in keys:
+            np.testing.assert_array_equal(np.asarray(mine[key]),
+                                          np.asarray(other[key]))
+            assert np.abs(np.asarray(mine[key])).max() > 0
+    # kge_tpu goes on from the port's folder, then the port from kge_tpu's
+    # checkpoint of that folder
+    _run([sys.executable, "-m", "kge_tpu", "resume", str(port),
+          "--train.max_epochs", "4"], cwd=tmp)
+    _run([sys.executable, "-m", "kge_tpu_torch", "resume", str(port),
+          "--job.device", "cpu", "--train.max_epochs", "5"], cwd=tmp)
+    epochs = _entries(port, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2, 3, 4, 5]
+    assert epochs[4]["avg_loss"] < epochs[0]["avg_loss"]
+    last = load_checkpoint(str(port / "checkpoint_00005.pt"))
+    assert int(last["optimizer_state"]["step"]) == 10
+    # and the port resumes a folder kge_tpu trained
+    _run([sys.executable, "-m", "kge_tpu_torch", "resume", str(ref),
+          "--job.device", "cpu", "--train.max_epochs", "4"], cwd=tmp)
+    epochs = _entries(ref, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == [1, 2, 3, 4]
+    assert epochs[3]["avg_loss"] < epochs[0]["avg_loss"]
+
+
+def test_kge_tpu_validates_the_ports_distance_model_folder(started_pooled):
+    """Evaluation of the distance models is not ported: ``valid`` of the port
+    says so, and kge_tpu evaluates the folder the port trained."""
+    model, tmp, port, _ = started_pooled
+    _run([sys.executable, "-m", "kge_tpu", "valid", str(port),
+          "--checkpoint", "3"], cwd=tmp)
+    (entry,) = _entries(port, event="eval_completed", job="eval")
+    mrr = entry["mean_reciprocal_rank_filtered"]
+    assert 0.0 < mrr <= 1.0
+    proc = _run([sys.executable, "-m", "kge_tpu_torch", "valid", str(port),
+                 "--job.device", "cpu", "--checkpoint", "3"], cwd=tmp, check=False)
+    assert proc.returncode != 0
+    assert "evaluation is not ported yet" in proc.stderr
+
+
 def test_package_imports_neither_jax_nor_kge_tpu():
     pattern = re.compile(
         r"^\s*(import\s+(jax|kge_tpu)\b(?!_torch)|from\s+(jax|kge_tpu)\b(?!_torch))",

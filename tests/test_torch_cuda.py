@@ -208,3 +208,210 @@ def test_rows_set_kernel_is_exact_and_in_place(num_rows, D, m):
     rows_set(table, ids.int(), values[ids])
     torch.cuda.synchronize()
     assert torch.equal(table, want)
+
+
+# -- fused row-update kernel ------------------------------------------------------
+
+FUSED_RULES = [
+    ("adagrad", {}),
+    ("adagrad", {"weight_decay": 0.01, "lr_decay": 0.1}),
+    ("adam", {}),
+    ("adam", {"weight_decay": 0.01, "betas": (0.8, 0.99), "eps": 1e-6}),
+    ("adamw", {"weight_decay": 0.01}),
+    ("adamax", {"weight_decay": 0.01}),
+    ("sgd", {}),
+    ("sgd", {"momentum": 0.9, "dampening": 0.1, "weight_decay": 0.01}),
+    ("sgd", {"momentum": 0.9, "nesterov": True}),
+    ("rmsprop", {"weight_decay": 0.01, "momentum": 0.9, "centered": True}),
+    ("rmsprop", {}),
+    ("adadelta", {"weight_decay": 0.01, "rho": 0.8}),
+]
+
+
+def _fused_case(opt_type, args, rows, D, n, device, seed=0):
+    """Parameter, non-zero states, ids with duplicates and row gradients
+    whose sign depends on (id, column) only, so that no row's sum cancels:
+    a cancelling sum is off by rounding in proportion to the summed
+    magnitudes, which Adam's ``m_hat / (sqrt(v_hat) + eps)`` would turn into
+    a step of +-lr."""
+    from kge_tpu_torch.ops.optim import _RULES
+
+    rng = np.random.default_rng(seed)
+    param = torch.tensor(rng.normal(size=(rows, D)).astype(np.float32), device=device)
+    states = {
+        key: torch.tensor(
+            (rng.random((rows, D)) * 0.2 - 0.1 if key in ("m", "momentum", "avg")
+             else 0.01 + rng.random((rows, D)) * 0.1).astype(np.float32),
+            device=device)
+        for key in _RULES[opt_type][0](param[:1], args)
+    }
+    ids_np = rng.integers(0, max(1, rows // 2), n)
+    ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+    sign = ((ids_np[:, None] + np.arange(D)[None, :]) % 2) * 2 - 1
+    upd = torch.tensor(((0.1 + rng.random((n, D))) * sign).astype(np.float32),
+                       device=device)
+    return param, states, ids, upd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D,n", [(300, 128, 200), (50, 6, 400), (9, 1024, 1)])
+@pytest.mark.parametrize("opt_type,args", FUSED_RULES)
+def test_fused_update_kernel_matches_plain_on_card(opt_type, args, rows, D, n):
+    """Against the plain version in float64: |error| <= 1e-6 + 1e-5 |ref| on
+    the parameter and every state, touched rows and untouched; in place;
+    bit-equal across two launches; one launch counted per call."""
+    from kge_tpu_torch.ops.optim import (
+        fused_sorted_update,
+        fused_sorted_update_plain,
+    )
+
+    device = _card()
+    param, states, ids, upd = _fused_case(opt_type, args, rows, D, n, device)
+    for step in (0, 3):
+        ref_param = param.double()
+        ref_states = {k: v.double() for k, v in states.items()}
+        fused_sorted_update_plain(opt_type, args, ids, upd.double(), ref_param,
+                                  ref_states, 0.01, step)
+        runs = []
+        for _ in range(2):
+            p = param.clone()
+            st = {k: v.clone() for k, v in states.items()}
+            ptrs = [p.data_ptr()] + [st[k].data_ptr() for k in sorted(st)]
+            before = fused_sorted_update.launches
+            out = fused_sorted_update(opt_type, args, ids, upd, p, st, 0.01, step)
+            torch.cuda.synchronize()
+            assert fused_sorted_update.launches == before + 1
+            assert out is st
+            assert ptrs == [p.data_ptr()] + [st[k].data_ptr() for k in sorted(st)]
+            runs.append((p, st))
+        (p, st), (p2, st2) = runs
+        assert torch.equal(p, p2)
+        assert all(torch.equal(st[k], st2[k]) for k in st)
+        for got, ref in [(p, ref_param)] + [(st[k], ref_states[k]) for k in st]:
+            err = (got.double() - ref).abs()
+            assert bool((err <= 1e-6 + 1e-5 * ref.abs()).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_fused_update_without_updates_and_ids_outside_the_table():
+    """No row gradient at all is the dense rule with a zero gradient; ids
+    outside the table are skipped, as the scatter kernel skips them."""
+    from kge_tpu_torch.ops.optim import (
+        fused_sorted_update,
+        fused_sorted_update_plain,
+    )
+
+    device = _card()
+    param, states, ids, upd = _fused_case("adam", {}, 40, 16, 10, device)
+    want_p, want_s = param.clone(), {k: v.clone() for k, v in states.items()}
+    fused_sorted_update_plain("adam", {}, ids[:0], upd[:0], want_p, want_s, 0.01, 2)
+    got_p, got_s = param.clone(), {k: v.clone() for k, v in states.items()}
+    fused_sorted_update("adam", {}, ids[:0], upd[:0], got_p, got_s, 0.01, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_p, want_p, rtol=1e-5, atol=1e-6)
+    assert not torch.equal(got_p, param)  # the moments moved every row
+    inside = ids < 15
+    want_p, want_s = param.clone(), {k: v.clone() for k, v in states.items()}
+    fused_sorted_update_plain("adam", {}, ids[inside], upd[inside], want_p, want_s,
+                              0.01, 2)
+    shifted = torch.where(inside, ids, ids + 1000)
+    shifted[(~inside).nonzero().flatten()[::2]] = -3
+    got_p, got_s = param.clone(), {k: v.clone() for k, v in states.items()}
+    fused_sorted_update("adam", {}, shifted, upd, got_p, got_s, 0.01, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_p, want_p, rtol=1e-5, atol=1e-6)
+    for key in want_s:
+        torch.testing.assert_close(got_s[key], want_s[key], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_update_raises_instead_of_falling_back():
+    from kge_tpu_torch.ops.optim import fused_sorted_update
+
+    device = _card()
+    param, states, ids, upd = _fused_case("adam", {}, 40, 16, 10, device)
+    with pytest.raises(TypeError):
+        fused_sorted_update("adam", {}, ids, upd.double(), param.double(),
+                            {k: v.double() for k, v in states.items()}, 0.01, 0)
+    with pytest.raises(ValueError):  # on another device
+        fused_sorted_update("adam", {}, ids.cpu(), upd, param, states, 0.01, 0)
+    with pytest.raises(ValueError):  # a state of another shape
+        fused_sorted_update("adam", {}, ids, upd, param,
+                            {"m": states["m"], "v": states["v"][:5]}, 0.01, 0)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_sorted_update("adam", {}, ids, upd, param,
+                            {"m": states["m"], "v": states["v"].t().contiguous().t()},
+                            0.01, 0)
+
+
+# -- pooled distance kernels --------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,F,d", [(64, 16, 4, 128), (37, 5, 3, 100),
+                                     (9, 130, 2, 51), (200, 8, 8, 512)])
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d):
+    """Scores, dq and dpool against the plain version in float64: |error| <=
+    1e-6 + 1e-5 x the sum of magnitudes an element adds up; bit-equal across
+    two launches; one forward and one backward launch counted per call."""
+    from kge_tpu_torch.ops.dist_pool import (
+        pooled_dist_scores,
+        pooled_dist_scores_plain,
+    )
+
+    device = _card()
+    rng = np.random.default_rng(8)
+    parts = 1 if kind == "l1" else 2
+    queries = [rng.normal(size=(n, d)).astype(np.float32) for _ in range(parts)]
+    pools = [rng.normal(size=(K * F, d)).astype(np.float32) for _ in range(parts)]
+    sel = rng.integers(0, F, (n, K)).astype(np.int32)
+    for i, j in ((0, 1), (3, K - 1)):  # distance exactly 0
+        for q, pool in zip(queries, pools):
+            q[i] = pool[j * F + sel[i, j]]
+    g = torch.tensor(rng.normal(size=(n, K)).astype(np.float32), device=device)
+    sel = torch.tensor(sel, device=device)
+    runs = []
+    for _ in range(2):
+        leaves = [torch.tensor(a, device=device, requires_grad=True)
+                  for a in queries + pools]
+        before = (pooled_dist_scores.launches, pooled_dist_scores.backward_launches)
+        out = pooled_dist_scores(leaves[:parts], leaves[parts:], sel, F, kind)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        assert (pooled_dist_scores.launches,
+                pooled_dist_scores.backward_launches) == (before[0] + 1, before[1] + 1)
+        runs.append((out.detach(), grads))
+    (out, grads), (out2, grads2) = runs
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    leaves64 = [torch.tensor(a, device=device, dtype=torch.float64,
+                             requires_grad=True) for a in queries + pools]
+    ref = pooled_dist_scores_plain(leaves64[:parts], leaves64[parts:], sel, F, kind)
+    ref_grads = torch.autograd.grad(ref, leaves64, g.double())
+    assert bool(((out.double() - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all())
+    assert float(out[0, 1].abs()) <= 1.01e-15 * d
+    mag_q = g.double().abs().sum(dim=1)
+    rows = torch.arange(K, device=device)[None, :] * F + sel.long()
+    mag_pool = torch.zeros(K * F, dtype=torch.float64, device=device).index_add_(
+        0, rows.reshape(-1), g.double().abs().reshape(-1))
+    for index, (got, want) in enumerate(zip(grads, ref_grads)):
+        mag = mag_q if index < parts else mag_pool
+        assert torch.isfinite(got).all()
+        assert bool(((got.double() - want).abs() <= 1e-6 + 1e-5 * mag[:, None]).all())
+
+
+@pytest.mark.cuda
+def test_pooled_kernels_raise_instead_of_falling_back():
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+
+    device = _card()
+    q = torch.zeros(4, 8, device=device)
+    pool = torch.zeros(8, 8, device=device)
+    sel = torch.zeros(4, 4, dtype=torch.int32, device=device)
+    with pytest.raises(TypeError):
+        pooled_dist_scores([q.double()], [pool.double()], sel, 2, "l1")
+    with pytest.raises(ValueError):  # on another device
+        pooled_dist_scores([q], [pool.cpu()], sel, 2, "l1")
+    with pytest.raises(ValueError):  # rows without unit stride
+        pooled_dist_scores([q], [torch.zeros(8, 8, device=device).t()], sel, 2, "l1")

@@ -288,14 +288,24 @@ def test_sparse_row_update_matches_jax(opt_type, args):
 
 
 def test_sparse_leaf_of_other_rules_names_the_missing_kernel():
+    """The kernel is there now: a sparse leaf of a rule without fixed points
+    (Adam) takes the fused dense-semantics update and no longer raises. One
+    row gradient moves its row as the dense rule does; every other row
+    takes the rule with a zero gradient (here: stays, since m = v = 0)."""
     tables = _tables(np.random.default_rng(0))
     (_, tconfig) = _configs(_optimizer_options("Adam", {}))
     topt = torch_optim.KgeOptimizer.create(tconfig, _torch_leaves(tables))
-    with pytest.raises(NotImplementedError, match="K4.*ROADMAP"):
-        topt.update_with_sparse_leaves(
-            [None, torch.zeros(3, 8)], topt.init(), topt.base_lrs(),
-            sparse={0: (torch.tensor([1]), torch.zeros(1, 8))},
-        )
+    dense = torch_optim.KgeOptimizer.create(tconfig, _torch_leaves(tables))
+    row_grad = torch.full((1, 8), 0.5)
+    topt.update_with_sparse_leaves(
+        [None, torch.zeros(3, 8)], topt.init(), topt.base_lrs(),
+        sparse={0: (torch.tensor([1]), row_grad)},
+    )
+    grad = torch.zeros_like(dense.params[0])
+    grad[1] = row_grad[0]
+    dense.update([grad, torch.zeros(3, 8)], dense.init(), dense.base_lrs())
+    assert torch.equal(topt.params[0], dense.params[0])
+    assert not torch.equal(topt.params[0][1], torch.tensor(tables[0][1]))
 
 
 def test_optimizer_state_round_trip():

@@ -14,8 +14,6 @@ element that cancels to ~0 would otherwise move its weight by lr in one
 package and not in the other.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,14 +23,15 @@ import kge_tpu_torch
 from kge_tpu.ops import pallas_ops
 from kge_tpu_torch.ops import embedding_ops
 from tests.torch_parity import (
+    jax_tables as _jax_tables,
     make_config,
     make_job_pair,
+    run_steps as _run_steps,
     shared_negatives,
+    torch_tables as _tables,
     train_options,
 )
 from tests.util import DATASET_DIR, make_synthetic_dataset
-
-STEPS = 5
 
 
 @pytest.fixture(autouse=True)
@@ -40,42 +39,6 @@ def _reset_modes():
     yield
     pallas_ops.set_gather_mode("xla")
     embedding_ops.set_gather_mode("torch")
-
-
-def _tables(job):
-    return [p.detach().numpy() for p in job.optimizer.params]
-
-
-def _jax_tables(job):
-    return [np.asarray(job.model_params[k]["embeddings"])
-            for k in ("entity_embedder", "relation_embedder")]
-
-
-def _run_steps(jjob, tjob, steps=STEPS, seed=3):
-    """The same ``steps`` batches with the same negatives through both jobs'
-    raw train steps; returns the per-step (jax loss, torch loss)."""
-    rng = np.random.default_rng(seed)
-    slots = jjob._active_slots
-    assert tjob._active_slots == slots
-    vocab = [int(v) for v in jjob._sampler.vocabulary_size]
-    losses = []
-    batches = list(jjob._batches())
-    for step in range(steps):
-        batch = batches[step % len(batches)]
-        triples = batch["triples"].astype(np.int64)
-        num = int(jjob._sampler.num_samples[slots[0]])
-        arrays = {"triples": triples, "mask": batch["mask"]}
-        arrays.update(shared_negatives(rng, triples, slots, num, vocab))
-        lr = jjob._current_lrs()
-        jbatch = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
-                  for k, v in arrays.items()}
-        jjob.model_params, jjob.opt_state, _, jaux = jjob._raw_step(
-            jjob.model_params, jjob.opt_state, jbatch, jax.random.PRNGKey(step), lr
-        )
-        tbatch = {k: torch.tensor(v) for k, v in arrays.items()}
-        _, taux = tjob._train_step(tbatch, tjob._current_lrs())
-        losses.append((float(jaux["avg_loss"]), float(taux["avg_loss"])))
-    return losses
 
 
 def _assert_same_state(jjob, tjob):
@@ -110,7 +73,9 @@ def test_trajectory_matches_jax(sparse, gather):
 
 
 @pytest.mark.parametrize("case", ["p_negatives", "n3_weighted", "sgd_sparse",
-                                  "naive_shared", "bce", "reciprocal"])
+                                  "naive_shared", "bce", "reciprocal",
+                                  "pool", "pool_sparse", "triple",
+                                  "triple_sparse"])
 def test_trajectory_variants_match_jax(case):
     extra = {
         "p_negatives": {"negative_sampling.num_samples.p": 2,
@@ -125,12 +90,26 @@ def test_trajectory_variants_match_jax(case):
         "bce": {"train.loss": "bce"},
         "reciprocal": {"model": "reciprocal_relations_model",
                        "reciprocal_relations_model.base_model.type": "complex"},
+        # per-row negatives of a matmul scorer: the pool is scored once and
+        # every row selects its columns; triple scores row by row
+        "pool": {"negative_sampling.shared": False,
+                 "negative_sampling.pool_factor": 3},
+        "pool_sparse": {"negative_sampling.shared": False,
+                        "negative_sampling.pool_factor": 3,
+                        "negative_sampling.num_samples.p": 4,
+                        "train.sparse_embedding_update": "always"},
+        "triple": {"negative_sampling.shared": False,
+                   "negative_sampling.implementation": "triple"},
+        "triple_sparse": {"negative_sampling.shared": False,
+                          "negative_sampling.implementation": "triple",
+                          "train.sparse_embedding_update": "always"},
     }[case]
     options = train_options(**extra)
     if case != "sgd_sparse":
         options["train.optimizer.default.args.initial_accumulator_value"] = 0.1
     jjob, tjob = make_job_pair(DATASET_DIR, "dataset_test", options)
     assert tjob._sparse_update == jjob._sparse_update
+    assert tjob._implementation == jjob._implementation
     for want, got in _run_steps(jjob, tjob):
         np.testing.assert_allclose(got, want, rtol=1e-4)
     _assert_same_state(jjob, tjob)
@@ -255,29 +234,63 @@ def _torch_job(extra):
     return TrainingJob.create(config, dataset)
 
 
-def test_rules_without_fixed_points_name_the_missing_kernel():
-    """kge_tpu gives Adam its fused row-update kernel on this path; here the
-    job says at preparation that the kernel is not ported."""
-    job = _torch_job({"train.sparse_embedding_update": "always",
-                      "train.optimizer.default.type": "Adam",
-                      "train.optimizer.default.args.lr": 0.01})
-    with pytest.raises(NotImplementedError, match="K4.*ROADMAP"):
+def test_rules_without_fixed_points_name_the_missing_kernel(tmp_path):
+    """Zero-gradient rows are no fixed points of Adam, so the row-sparse step
+    gives both tables the fused dense-semantics update, as kge_tpu does: the
+    job's log names it, and a step moves rows that the batch did not touch
+    (their moments decay) exactly as the dense step does."""
+    extra = {"train.optimizer.default.type": "Adam",
+             "train.optimizer.default.args.lr": 0.01, "train.batch_size": 2}
+    jobs = {}
+    for sparse in ("never", "always"):
+        job = _torch_job({**extra, "train.sparse_embedding_update": sparse})
+        job.config.folder = str(tmp_path / sparse)
+        job.config.init_folder()
+        job.config.set("console.quiet", True)
         job._prepare()
+        job._is_prepared = True
+        jobs[sparse] = job
+    dense, sparse = jobs["never"], jobs["always"]
+    assert sparse._sparse_update and not dense._sparse_update
+    with open(tmp_path / "always" / "kge.log") as f:
+        assert "fused dense-semantics kernel" in f.read()
+    for step in range(2):
+        batch = list(dense._batches())[step]
+        triples = batch["triples"]
+        arrays = {"triples": triples, "mask": batch["mask"]}
+        arrays.update(shared_negatives(np.random.default_rng(step), triples,
+                                       (0, 2), 4, [7, 3, 7]))
+        for job in (dense, sparse):
+            job._train_step({k: torch.tensor(v) for k, v in arrays.items()},
+                            job._current_lrs())
+    # lr 0.01: a step moves an element by about lr, the two steps agree far
+    # below that (sums of a row's gradients run in another order)
+    for a, b in zip(_tables(dense), _tables(sparse)):
+        np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
+    for a, b in zip(dense.opt_state["leaves"], sparse.opt_state["leaves"]):
+        assert sorted(a) == sorted(b) == ["m", "v"]
+        for key in a:
+            np.testing.assert_allclose(a[key].numpy(), b[key].numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("extra,resolved", [
-    ({"negative_sampling.shared": False}, "pool"),
+@pytest.mark.parametrize("extra,resolved,ported", [
+    ({"negative_sampling.shared": False}, "pool", True),
     ({"negative_sampling.shared": False, "negative_sampling.on_device": "never"},
-     "all"),
+     "all", False),
     ({"negative_sampling.shared": False, "negative_sampling.auto_exact": True,
-      "train.sparse_embedding_update": "always"}, "triple"),
-    ({"negative_sampling.implementation": "triple"}, "triple"),
+      "train.sparse_embedding_update": "always"}, "triple", True),
+    ({"negative_sampling.implementation": "triple"}, "triple", True),
     ({"negative_sampling.shared": False,
-      "negative_sampling.implementation": "batch"}, "batch"),
+      "negative_sampling.implementation": "batch"}, "batch", False),
+    ({"negative_sampling.shared": False, "negative_sampling.on_device": "never",
+      "negative_sampling.implementation": "pool"}, "pool", False),
+    ({"negative_sampling.shared": False,
+      "negative_sampling.filtering.o": True}, "all", False),
 ])
-def test_unported_implementations_raise(extra, resolved):
+def test_unported_implementations_raise(extra, resolved, ported):
     """The ``auto`` ladder resolves as kge_tpu's does; what it resolves to
-    raises when it is not ported."""
+    raises when it is not ported (``all``, ``batch`` without shared
+    negatives, a pool drawn on the host) and prepares when it is."""
     from kge_tpu.job import TrainingJob as JaxTrainingJob
 
     jconfig = make_config(kge_tpu, "dataset_test", train_options(**extra))
@@ -288,9 +301,35 @@ def test_unported_implementations_raise(extra, resolved):
     jjob._prepare()
     assert jjob._implementation == resolved
     job = _torch_job(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if ported:
         job._prepare()
+        assert job._implementation == resolved
+        assert job._on_device == jjob._on_device
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            job._prepare()
     assert job.config.get("negative_sampling.implementation") == resolved
+
+
+@pytest.mark.parametrize("extra,error", [
+    ({"negative_sampling.implementation": "pool"}, "shared negatives"),
+    ({"negative_sampling.implementation": "pool",
+      "negative_sampling.shared": False,
+      "negative_sampling.filtering.s": True}, "cannot filter"),
+    ({"negative_sampling.implementation": "pool",
+      "negative_sampling.shared": False,
+      "negative_sampling.pool_factor": 0}, "pool_factor"),
+])
+def test_pool_refusals_are_kge_tpus(extra, error):
+    from kge_tpu.job import TrainingJob as JaxTrainingJob
+
+    jconfig = make_config(kge_tpu, "dataset_test", train_options(**extra))
+    jjob = JaxTrainingJob.create(
+        jconfig, kge_tpu.Dataset.create(jconfig, folder=str(DATASET_DIR)))
+    with pytest.raises(ValueError, match=error):
+        jjob._prepare()
+    with pytest.raises(ValueError, match=error):
+        _torch_job(extra)._prepare()
 
 
 @pytest.mark.parametrize("extra,error", [

@@ -3,7 +3,9 @@ options builds a config, a dataset and a model in each package, and kge_tpu's
 weights are carried across through numpy."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 import kge_tpu
 import kge_tpu_torch
@@ -106,3 +108,102 @@ def shared_negatives(rng, triples, slots, num, vocab_sizes):
         out[f"neg_first_{slot}"] = np.argmax(matches, axis=1).astype(np.int64)
         out[f"neg_hasmatch_{slot}"] = matches.any(axis=1)
     return out
+
+
+def pooled_options(model, **extra):
+    """Options of a toy pooled-negative training job of a distance model (d =
+    8, batch 6, 4 negatives per slot from pools of 4 x 3 candidates):
+    TransE-L1 with margin ranking and Adagrad, RotatE-L1 with self-adversarial
+    BCE and Adam, the small counterparts of the port's pooled paths."""
+    options = {
+        "model": model,
+        "lookup_embedder.dim": 8,
+        "train.type": "negative_sampling",
+        "train.batch_size": 6,
+        "negative_sampling.shared": False,
+        "negative_sampling.implementation": "auto",
+        "negative_sampling.num_samples.s": 4,
+        "negative_sampling.num_samples.o": -1,
+        "negative_sampling.pool_factor": 3,
+        "valid.every": 0,
+    }
+    if model == "rotate":
+        options.update({
+            "train.loss": "bce_self_adversarial",
+            "train.optimizer.default.type": "Adam",
+            "train.optimizer.default.args.lr": 0.001,
+        })
+    else:
+        options.update({
+            "train.loss": "margin_ranking",
+            "train.loss_arg": 4.0,
+            "train.optimizer.default.type": "Adagrad",
+            "train.optimizer.default.args.lr": 0.1,
+        })
+    options.update(extra)
+    return options
+
+
+def pooled_negatives(rng, triples, slots, num, vocab_sizes, pool_factor):
+    """Pooled negatives for one batch as numpy arrays, in the form both
+    packages take pre-drawn: per slot a pool of ``num * pool_factor`` ids and
+    each row's choice within every group of ``pool_factor``."""
+    out = {}
+    for slot in slots:
+        out[f"neg_pool_{slot}"] = rng.integers(
+            0, vocab_sizes[slot], num * pool_factor).astype(np.int64)
+        out[f"neg_sel_{slot}"] = rng.integers(
+            0, pool_factor, (len(triples), num)).astype(np.int64)
+    return out
+
+
+def per_row_negatives(rng, triples, slots, num, vocab_sizes):
+    """Per-row negatives for one batch: [n, num] ids per slot."""
+    return {
+        f"neg_samples_{slot}": rng.integers(
+            0, vocab_sizes[slot], (len(triples), num)).astype(np.int64)
+        for slot in slots
+    }
+
+
+def torch_tables(job):
+    return [p.detach().numpy() for p in job.optimizer.params]
+
+
+def jax_tables(job):
+    return [np.asarray(job.model_params[k]["embeddings"])
+            for k in ("entity_embedder", "relation_embedder")]
+
+
+def run_steps(jjob, tjob, steps=5, seed=3):
+    """The same ``steps`` batches with the same pre-drawn negatives (of the
+    kind the jobs' implementation scores) through both jobs' raw train
+    steps; returns the per-step (jax loss, torch loss)."""
+    rng = np.random.default_rng(seed)
+    slots = jjob._active_slots
+    assert tjob._active_slots == slots
+    vocab = [int(v) for v in jjob._sampler.vocabulary_size]
+    num = int(jjob._sampler.num_samples[slots[0]])
+    losses = []
+    batches = list(jjob._batches())
+    for step in range(steps):
+        batch = batches[step % len(batches)]
+        triples = batch["triples"].astype(np.int64)
+        arrays = {"triples": triples, "mask": batch["mask"]}
+        if jjob._implementation == "pool":
+            arrays.update(pooled_negatives(rng, triples, slots, num, vocab,
+                                           jjob._pool_factor))
+        elif jjob._implementation == "triple":
+            arrays.update(per_row_negatives(rng, triples, slots, num, vocab))
+        else:
+            arrays.update(shared_negatives(rng, triples, slots, num, vocab))
+        jbatch = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v)
+                  for k, v in arrays.items()}
+        jjob.model_params, jjob.opt_state, _, jaux = jjob._raw_step(
+            jjob.model_params, jjob.opt_state, jbatch, jax.random.PRNGKey(step),
+            jjob._current_lrs()
+        )
+        tbatch = {k: torch.tensor(v) for k, v in arrays.items()}
+        _, taux = tjob._train_step(tbatch, tjob._current_lrs())
+        losses.append((float(jaux["avg_loss"]), float(taux["avg_loss"])))
+    return losses
