@@ -8,13 +8,17 @@ Phases (any failure exits non-zero; nothing is caught):
    and the build of every CUDA kernel of the package from ``csrc/`` (one
    ``nvcc`` per source, all started together).
 2. The rank kernel (ops/rank_kernel.py) against its plain PyTorch version on
-   the card at n = 256 and n = 1024, |E| = 14,541, D = 512, with skewed CSR
-   labels and NaN / -inf edge rows. Label values agree within rtol 1e-5
-   (atol 1e-6); counts agree on every row except rows where a candidate's
-   plain score lies within 4 ulp of a tie boundary pivot +- (atol + rtol
-   |pivot|), since cuBLAS sums in another order than the kernel. The rows
-   that differ there are excluded, counted, and may be at most 0.1% of the
-   rows; the rows at a boundary are counted too.
+   the card at n = 256, 1,024 and 242 (the last test batch), |E| = 14,541,
+   D = 512, and at D = 510 (no multiple of 4: the 4-byte copy route), with
+   skewed CSR labels and NaN / -inf edge rows. Label values agree within
+   rtol 1e-5 (atol 1e-6); counts agree on every row except rows where a
+   candidate's plain score lies within 4 ulp of a tie boundary pivot +-
+   (atol + rtol |pivot|), since cuBLAS sums in another order than the
+   kernel. The rows that differ there are excluded, counted, and may be at
+   most 0.1% of the rows; the rows at a boundary are counted too. The
+   kernel's four outputs are bit-equal across two launches and across three
+   column splits (the planned one, one range, one wave of blocks), and the
+   label value at the pivot column equals the pivot bit for bit.
 3. The main path: a synthetic dataset of FB15k-237's sizes (14,541
    entities, 237 relations, 272,115 / 17,535 / 20,466 triples, made from
    ``--seed``), reciprocal ComplEx at d = 512 (the repo's
@@ -28,7 +32,8 @@ Phases (any failure exits non-zero; nothing is caught):
    report the same metrics as on the CPU.
 4. Where the eval's time goes (a profiled warm evaluation) and the rank
    kernel's time per call beside its plain version, one library call and
-   its bound.
+   its bound, at the evaluation's first batch, at n = 1,024 and over
+   200,000 candidates, each also as one wave of blocks.
 5. The scatter kernel (ops/embedding_ops.py ``sorted_scatter_add``) against
    its plain version in float64 at the shapes of a training step (8,192
    updates into 14,541 entity rows and into 237 relation rows, 129 updates
@@ -37,7 +42,12 @@ Phases (any failure exits non-zero; nothing is caught):
    reference's differs by rounding that grows with the summed magnitudes,
    so the check is ``|kernel - reference| <= 1e-6 + 1e-5 S`` with S the
    row's sum of ``|update|`` (for a row of one update that is rtol 1e-5,
-   atol 1e-6); two launches must give the same bits. The row-write kernel
+   atol 1e-6); two launches must give the same bits. The kernel's own sort
+   (launch A: sorted ids, permutation and segment numbers) must equal a
+   stable ``torch.sort`` exactly at every one of these cases, at n = 1, at
+   the largest n it takes and, through the wrapper's ``torch.sort`` route,
+   at one above; the segment sums built on it are held to the same float64
+   rule. The row-write kernel
    (``rows_set``) against its plain version: exact equality with duplicate
    ids, at 16,642 rows into a 200,000-row table and 8,192 rows into a
    237-row table, and the table keeps its storage.
@@ -60,7 +70,10 @@ Phases (any failure exits non-zero; nothing is caught):
    sparse step against the dense step from the same state and negatives:
    touched rows within atol 1e-6 + rtol 1e-5, untouched rows bit-equal.
 8. Timings: the two kernels per call at the main shapes beside plain,
-   library (``index_add_``, ``index_copy_``) and bound; a warm epoch of
+   library (``index_add_``, ``index_copy_``) and bound, the scatter
+   kernel's two launches (sort and zeros; sums) also alone, at d = 128 and
+   at the row-sparse step's 16,642 ids of 200,000 too, with the segment
+   sums and their sort alone; a warm epoch of
    each training configuration (wall, triples/s) and a profile of it with
    the device's busy share.
 9. The fused row-update kernel (ops/optim.py ``fused_sorted_update``)
@@ -109,7 +122,8 @@ Phases (any failure exits non-zero; nothing is caught):
 14. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (bytes over 3.35 TB/s or fp32
-   operations over 67 TFLOP/s, whichever is larger). Then the card's name
+   operations over 67 TFLOP/s, whichever is larger); every time in it is
+   measured by this run. Then the card's name
    and power limit, then the ``ok`` JSON line last.
 """
 
@@ -202,13 +216,17 @@ def boundary_rows(q, targets, pivot, num_valid) -> torch.Tensor:
     return near
 
 
-def skewed_labels(rng, n, num_entities, device):
+def skewed_labels(rng, n, num_entities, device, true=None):
     """CSR labels with FB15k-237-like skew: most rows hold a few labels,
-    every 37th row thousands."""
+    every 37th row thousands. With ``true``, row i also holds true[i], as
+    an evaluation's labels hold the true answer."""
     per_row = []
     for i in range(n):
         k = 3000 if i % 37 == 1 else int(rng.zipf(1.6)) % 200
-        per_row.append(np.sort(rng.choice(num_entities, size=k, replace=False)))
+        row = rng.choice(num_entities, size=k, replace=False)
+        if true is not None:
+            row = np.union1d(row, true[i:i + 1])
+        per_row.append(np.sort(row))
     row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in per_row])])
     return (torch.tensor(row_ptr, dtype=torch.int32, device=device),
             torch.tensor(np.concatenate(per_row), dtype=torch.int32, device=device))
@@ -217,16 +235,23 @@ def skewed_labels(rng, n, num_entities, device):
 def compare_kernel(seed: int, device):
     """Phase 2; returns (max |vals error|, rows excluded, rows)."""
     from kge_tpu_torch.ops.rank_kernel import (
+        csr_row_ids,
         fused_rank_counts,
         fused_rank_counts_plain,
+        rank_plan,
     )
 
     rng = np.random.default_rng(seed)
-    E, D = NUM_ENTITIES, DIM
-    targets = torch.tensor(rng.normal(0, 0.05, (E, D)).astype(np.float32), device=device)
+    E = NUM_ENTITIES
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     max_err, excluded, rows = 0.0, 0, 0
-    t0 = targets[:, 0].cpu().numpy()
-    for n in (256, 1024):
+    tables = {}
+    for n, D in ((256, DIM), (1024, DIM), (242, DIM), (242, DIM - 2)):
+        if D not in tables:
+            tables[D] = torch.tensor(
+                rng.normal(0, 0.05, (E, D)).astype(np.float32), device=device)
+        targets = tables[D]
+        t0 = targets[:, 0].cpu().numpy()
         true_np = rng.integers(0, E, n).astype(np.int32)
         qn = rng.normal(0, 0.05, (n, D)).astype(np.float32)
         qn[2] = np.nan                          # NaN pivot, reads as -inf
@@ -234,15 +259,37 @@ def compare_kernel(seed: int, device):
             qn[row] = 0.0
             qn[row, 0] = sign * np.inf * np.sign(t0[true_np[row]])
         q = torch.tensor(qn, device=device)
-        row_ptr, cols = skewed_labels(rng, n, E, device)
+        row_ptr, cols = skewed_labels(rng, n, E, device, true=true_np)
         true = torch.tensor(true_np, device=device)
-        g, c, vals, pivot = fused_rank_counts(
-            q, targets, None, row_ptr, cols, E, ATOL, RTOL, pivot_cols=true,
-        )
-        torch.cuda.synchronize()
+
+        def run(plan=None):
+            out = fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL, RTOL,
+                                    pivot_cols=true, plan=plan)
+            torch.cuda.synchronize()
+            return out
+
+        g, c, vals, pivot = first = run()
         check(bool(torch.isnan(pivot[2])) and float(pivot[5]) == -float("inf")
               and float(pivot[6]) == float("inf"),
               "edge rows did not give NaN, -inf and +inf pivots")
+
+        def same_bits(a, b):
+            return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(a, b))
+
+        planned = rank_plan(n, E)
+        for what, plan in (
+            ("a second launch", None),
+            ("one column range", rank_plan(n, E, num_ranges=1)),
+            ("one wave of blocks",
+             rank_plan(n, E, num_ranges=2 * sms // planned["row_tiles"])),
+        ):
+            check(same_bits(first, run(plan)),
+                  f"rank kernel outputs differ in bits with {what} (n={n}, D={D})")
+        at_pivot = cols == true[csr_row_ids(row_ptr)]
+        check(int(at_pivot.sum()) == n and torch.equal(
+            vals[at_pivot].view(torch.int32), pivot.view(torch.int32)),
+            f"the label value at the pivot column is not the pivot's bits (n={n})")
         pg, pc, pvals, _ = fused_rank_counts_plain(
             q, targets, pivot, row_ptr, cols, E, ATOL, RTOL
         )
@@ -253,21 +300,24 @@ def compare_kernel(seed: int, device):
             both_nan | (vals == pvals)
             | (finite_ref & (err <= 1e-6 + 1e-5 * pvals.abs()))
         ))
-        check(ok_vals, f"rank kernel vals disagree with plain (n={n})")
+        check(ok_vals, f"rank kernel vals disagree with plain (n={n}, D={D})")
         max_err = max(max_err, float(err[finite_ref].max()) if finite_ref.any() else 0.0)
         differ = (g != pg) | (c != pc)
         near = boundary_rows(q, targets, pivot, E)
         bad = differ & ~near
         check(not bool(bad.any()), (
             f"rank kernel counts disagree with plain on {int(bad.sum())} "
-            f"rows away from a tie boundary (n={n})"
+            f"rows away from a tie boundary (n={n}, D={D})"
         ))
         excluded += int((differ & near).sum())
         rows += n
-        log(f"  n={n}: counts equal on {n - int(differ.sum())}/{n} rows; "
+        log(f"  n={n} D={D}: counts equal on {n - int(differ.sum())}/{n} rows; "
             f"{int(near.sum())} rows lie at a tie boundary, "
             f"{int((differ & near).sum())} of them differ and are excluded; "
-            f"vals max abs err {float(err[finite_ref].max()):.3e}")
+            f"vals max abs err {float(err[finite_ref].max()):.3e}; outputs "
+            f"bit-equal across two launches, {planned['num_ranges']} / 1 / "
+            f"{2 * sms // planned['row_tiles']} column ranges; the "
+            f"label value at the pivot column is the pivot bit for bit")
     check(excluded <= 0.001 * rows, f"{excluded} of {rows} rows excluded")
     return max_err, excluded, rows
 
@@ -409,21 +459,33 @@ def profile_run(fn, what: str):
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:6]
+    ranked = sorted(events, key=device_us, reverse=True)
+
+    def rows(chosen):
+        return [{"name": e.key[:60], "ms": device_us(e) / 1e3, "calls": e.count}
+                for e in chosen]
+
+    # the six longest, and the package's own kernels (all compiled into
+    # anonymous namespaces) and torch's sorts wherever they rank
+    top = rows(ranked[:6])
+    own = rows(e for e in ranked[6:]
+               if "(anonymous namespace)::" in e.key and "at::native" not in e.key)
+    sorts = rows(e for e in ranked if "RadixSort" in e.key or "radix_sort" in e.key)
     out = {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if events else None,
         "device_busy_share": busy_ms / wall_ms if events else None,
-        "top": [{"name": e.key[:60], "ms": device_us(e) / 1e3, "calls": e.count}
-                for e in top],
+        "top": top, "own_kernels_below_top": own, "torch_sort_kernels": sorts,
     }
     if not events:
         log("  profiler recorded no device time: not measured")
     else:
         log(f"  profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
             f"({100 * busy_ms / wall_ms:.1f}%)")
-        for t in out["top"]:
+        for t in top + own:
             log(f"    {t['ms']:9.3f} ms  {t['calls']:5d} calls  {t['name']}")
+        log(f"    torch radix-sort kernels: {sum(t['calls'] for t in sorts)} launches, "
+            f"{sum(t['ms'] for t in sorts):.3f} ms")
     return out
 
 
@@ -479,38 +541,91 @@ def rows_set_cases(rng):
     ]
 
 
+def stable_sort_reference(ids, num_rows):
+    """(sorted keys, permutation, segment numbers) of a stable torch.sort,
+    ids outside the table read as ``num_rows``."""
+    outside = (ids < 0) | (ids >= num_rows)
+    keys, order = torch.sort(
+        torch.where(outside, torch.full_like(ids, num_rows), ids), stable=True)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    return keys, order, torch.cumsum(first, 0) - 1
+
+
+def check_sort_and_segments(name, ids, upd, num_rows):
+    """Launch A's sort against a stable torch.sort, exactly, and the segment
+    sums built on it against float64."""
+    from kge_tpu_torch.ops.embedding_ops import scatter_launch, sorted_segment_sums
+
+    n = ids.shape[0]
+    keys, order, seg = stable_sort_reference(ids, num_rows)
+    _, work, _ = scatter_launch(ids, None, upd, num_rows, phases=1)
+    rs, got_seg, gsum = sorted_segment_sums(ids, upd, num_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(work[:n].long(), keys) and torch.equal(work[n:2 * n].long(), order)
+          and torch.equal(work[2 * n:3 * n].long(), seg),
+          f"the kernel's sort differs from a stable torch.sort ({name})")
+    check(torch.equal(rs.long(), keys) and torch.equal(got_seg.long(), seg),
+          f"segment numbers differ from a stable torch.sort's ({name})")
+    ref = torch.zeros(n, upd.shape[1], dtype=torch.float64, device=ids.device)
+    magnitude = torch.zeros_like(ref)
+    ref.index_add_(0, seg, upd.double()[order])
+    magnitude.index_add_(0, seg, upd.double().abs()[order])
+    check(bool(((gsum.double() - ref).abs() <= 1e-6 + 1e-5 * magnitude).all()),
+          f"segment sums disagree with float64 ({name})")
+
+
 def compare_scatter(seed: int, device) -> float:
     """Phase 5, scatter kernel; returns the largest |error| at the three
     shapes of the dense step."""
     from kge_tpu_torch.ops.embedding_ops import (
+        SORT_LIMIT,
+        sort_route,
         sorted_scatter_add,
         sorted_scatter_add_plain,
     )
 
     rng = np.random.default_rng(seed + 2)
     worst = 0.0
-    for index, (name, ids_np, num_rows) in enumerate(scatter_cases(rng)):
+    cases = scatter_cases(rng) + [
+        ("one update", np.array([NUM_ENTITIES - 1]), NUM_ENTITIES),
+        ("the largest sort in the kernel",
+         power_law_ids(rng, SPARSE_ENTITIES, SORT_LIMIT, 0.8), SPARSE_ENTITIES),
+        ("one above it (torch.sort route)",
+         power_law_ids(rng, SPARSE_ENTITIES, SORT_LIMIT + 1, 0.8), SPARSE_ENTITIES),
+    ]
+    for index, (name, ids_np, num_rows) in enumerate(cases):
+        D = DIM if index < 5 else 64
         ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
         upd = torch.tensor(
-            rng.normal(0, 1, (len(ids_np), DIM)).astype(np.float32), device=device)
-        before = sorted_scatter_add.launches
+            rng.normal(0, 1, (len(ids_np), D)).astype(np.float32), device=device)
+        before = sorted_scatter_add.launches, sorted_scatter_add.torch_sorts
         got = sorted_scatter_add(ids, upd, num_rows)
         again = sorted_scatter_add(ids, upd, num_rows)
         torch.cuda.synchronize()
-        check(sorted_scatter_add.launches == before + 2, "scatter launches not counted")
-        check(got.shape == (num_rows, DIM) and got.dtype == torch.float32)
+        by_torch = sort_route(len(ids_np)) == "torch"
+        check(by_torch == (len(ids_np) > SORT_LIMIT))
+        check(sorted_scatter_add.launches == before[0] + 2, "scatter launches not counted")
+        check(sorted_scatter_add.torch_sorts == before[1] + 2 * by_torch,
+              f"the sort took another route than sort_route says ({name})")
+        check(got.shape == (num_rows, D) and got.dtype == torch.float32)
         check(torch.equal(got, again), f"scatter kernel not deterministic ({name})")
         ref = sorted_scatter_add_plain(ids, upd.double(), num_rows)
         magnitude = sorted_scatter_add_plain(ids, upd.double().abs(), num_rows)
         err = (got.double() - ref).abs()
         check(bool((err <= 1e-6 + 1e-5 * magnitude).all()),
               f"scatter kernel disagrees with its plain version ({name})")
+        if not by_torch:
+            check_sort_and_segments(name, ids, upd, num_rows)
         strict = float((err <= 1e-6 + 1e-5 * ref.abs()).double().mean())
         counts = torch.bincount(ids, minlength=num_rows)
         log(f"  {name}: n={len(ids_np)} rows={num_rows}, longest segment "
             f"{int(counts.max())}, {int((counts == 0).sum())} empty rows: bit-equal "
             f"across two launches, max abs err {float(err.max()):.3e} "
-            f"({100 * strict:.4f}% of elements also within 1e-6 + 1e-5 |ref|)")
+            f"({100 * strict:.4f}% of elements also within 1e-6 + 1e-5 |ref|); "
+            + ("sorted by torch.sort in the wrapper" if by_torch else
+               "sort, permutation and segment numbers equal a stable torch.sort's, "
+               "segment sums within tolerance"))
         if index < 3:
             worst = max(worst, float(err.max()))
     return worst
@@ -1345,48 +1460,133 @@ def rotating(make, copies: int = 4):
     return pick
 
 
+def time_rank(seed: int, device, first_batch):
+    """Rank kernel per call: at the evaluation's first batch (q, targets,
+    row_ptr, cols, true: the kernels line's shape), and on random inputs
+    with one label a row at n = 1,024 and over 200,000 candidates. Beside
+    the planned grid (one tile a block) the same call with one wave of
+    blocks, which is what the plan was chosen against."""
+    from kge_tpu_torch.ops.rank_kernel import (
+        csr_row_ids,
+        fused_rank_counts,
+        fused_rank_counts_plain,
+        rank_plan,
+    )
+
+    generator = torch.Generator(device=device).manual_seed(seed + 11)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    cases = [("first test batch", first_batch)]
+    for n, E in ((1024, NUM_ENTITIES), (BATCH, SPARSE_ENTITIES)):
+        true = torch.randint(0, E, (n,), generator=generator, device=device,
+                             dtype=torch.int32)
+        cases.append(("random, one label a row", (
+            torch.randn(n, DIM, generator=generator, device=device) * 0.05,
+            torch.randn(E, DIM, generator=generator, device=device) * 0.05,
+            torch.arange(n + 1, dtype=torch.int32, device=device), true, true)))
+    out = []
+    for name, (q, targets, row_ptr, cols, true) in cases:
+        (n, D), E, nnz = q.shape, targets.shape[0], cols.numel()
+        planned = rank_plan(n, E)
+        one_wave = rank_plan(n, E, num_ranges=2 * sms // planned["row_tiles"])
+
+        def kernel(plan=None):
+            return fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL, RTOL,
+                                     pivot_cols=true, plan=plan)
+
+        before = fused_rank_counts.launches
+        ms = time_ms(kernel)
+        check(fused_rank_counts.launches > before)
+        one_wave_ms = time_ms(lambda: kernel(one_wave))
+        plain_ms = time_ms(lambda: fused_rank_counts_plain(
+            q, targets, None, row_ptr, cols, E, ATOL, RTOL, pivot_cols=true))
+        rows = csr_row_ids(row_ptr)
+
+        def library():
+            scores = torch.matmul(q, targets.T)
+            pivot = scores.gather(1, true.long()[:, None])
+            close = torch.isclose(scores, pivot, rtol=RTOL, atol=ATOL)
+            greater = (scores > pivot) & ~close
+            return greater.sum(1), close.sum(1), scores[rows, cols.long()]
+
+        library_ms = time_ms(library)
+        flops = 2.0 * n * E * D + 2.0 * n * D
+        bound_ms, bound_by = bound(
+            4.0 * (n * D + E * D + (n + 1) + nnz + n + 3 * n + nnz), flops)
+        rate = flops / (ms * 1e-3) / FP32_FLOPS_PER_S
+        log(f"  rank_counts {name} n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms "
+            f"({planned['row_tiles']} x {planned['num_ranges']} blocks of one tile, "
+            f"{100 * rate:.1f}% of the fp32 rate; as one wave of "
+            f"{one_wave['row_tiles']} x {one_wave['num_ranges']} blocks of "
+            f"{one_wave['tiles_per_range']} tiles {one_wave_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library matmul + compares {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        out.append({"shape": name, "n": n, "num_candidates": E, "ms": ms,
+                    "one_wave_ms": one_wave_ms, "share_of_fp32_rate": rate,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    return out
+
+
 def time_scatter(seed: int, device):
-    """Scatter kernel per call at the three shapes of the dense step; the
-    first is the kernels line's."""
+    """Scatter kernel per call at the three shapes of the dense step (the
+    first is the kernels line's), at P-transe's d = 128 and at T-sparse's
+    entity segment sum: the wrapper and its two launches alone, and the
+    segment sums with their launch A, the sort without zeros to write."""
     from kge_tpu_torch.ops.embedding_ops import (
-        scatter_add_presorted,
+        scatter_launch,
         sorted_scatter_add,
         sorted_scatter_add_plain,
+        sorted_segment_sums,
     )
 
     rng = np.random.default_rng(seed + 4)
+    cases = [case + (DIM,) for case in scatter_cases(rng)[:3]] + [
+        ("entity lookups, d = 128",
+         power_law_ids(rng, NUM_ENTITIES, TRAIN_BATCH, 0.8), NUM_ENTITIES, TRANSE_DIM),
+        ("row-sparse entity ids", rows_set_cases(rng)[0][2], SPARSE_ENTITIES, DIM),
+    ]
     out = []
-    for name, ids_np, num_rows in scatter_cases(rng)[:3]:
+    for name, ids_np, num_rows, D in cases:
         n = len(ids_np)
 
         def make():
             return (torch.tensor(ids_np, dtype=torch.int64, device=device),
-                    torch.randn(n, DIM, device=device))
+                    torch.randn(n, D, device=device))
 
         pick = rotating(make)
         ms = time_ms(lambda: sorted_scatter_add(*pick(), num_rows))
         plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), num_rows))
-        ids_sorted, order = torch.sort(pick()[0], stable=True)
-        kernel_only_ms = time_ms(
-            lambda: scatter_add_presorted(ids_sorted, order, pick()[1], num_rows))
+        ids, upd = pick()
+        buffers = scatter_launch(ids, None, upd, num_rows)
+        sort_ms = time_ms(lambda: scatter_launch(
+            pick()[0], None, upd, num_rows, phases=1, buffers=buffers))
+        sums_ms = time_ms(lambda: scatter_launch(
+            ids, None, pick()[1], num_rows, phases=2, buffers=buffers))
+        segments_ms = time_ms(lambda: sorted_segment_sums(*pick(), num_rows))
+        by_segment = scatter_launch(ids, None, upd, num_rows, by_segment=True)
+        sort_alone_ms = time_ms(lambda: scatter_launch(
+            pick()[0], None, upd, num_rows, by_segment=True, phases=1,
+            buffers=by_segment))
 
         def library():
             ids, upd = pick()
-            return torch.zeros(num_rows, DIM, device=device).index_add_(0, ids, upd)
+            return torch.zeros(num_rows, D, device=device).index_add_(0, ids, upd)
 
         library_ms = time_ms(library)
-        # sorted ids are read by the kernel, the sort itself is outside it
-        nbytes = 4.0 * (n * DIM + num_rows * DIM) + 16.0 * n
-        flops = float(n * DIM)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S
-                    else "operations")
-        log(f"  scatter_add_sorted {name} n={n} rows={num_rows} D={DIM}: {ms:.4f} ms "
-            f"(the wrapper: torch.sort and the kernel; the kernel alone "
-            f"{kernel_only_ms:.4f} ms), plain {plain_ms:.4f} ms, library index_add_ "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        out.append({"shape": name, "n": n, "num_rows": num_rows, "ms": ms,
-                    "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        # the unsorted int64 ids and the updates read once, the table written
+        # once: the same work whatever sorts
+        bound_ms, bound_by = bound(4.0 * (n * D + num_rows * D) + 8.0 * n,
+                                   float(n * D))
+        log(f"  scatter_add_sorted {name} n={n} rows={num_rows} D={D}: {ms:.4f} ms "
+            f"(launch A alone, the sort beside the zeros, {sort_ms:.4f} ms; launch "
+            f"B alone, the sums, {sums_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"library index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); segment sums {segments_ms:.4f} ms (their launch A, the "
+            f"sort without zeros, {sort_alone_ms:.4f} ms)")
+        out.append({"shape": name, "n": n, "num_rows": num_rows, "dim": D, "ms": ms,
+                    "sort_and_zero_ms": sort_ms, "sums_ms": sums_ms,
+                    "segment_sums_ms": segments_ms, "sort_alone_ms": sort_alone_ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by})
     return out
 
@@ -1450,7 +1650,8 @@ def time_fused_update(seed: int, device):
         param, states = fused_state("adam", {}, rows, D, generator, device)
         ms = time_ms(lambda: fused_sorted_update(
             "adam", {}, ids, upd, param, states, lr, step), reps=10)
-        segments = segment_sums(ids, upd)
+        segments_ms = time_ms(lambda: segment_sums(ids, upd, rows), reps=10)
+        segments = segment_sums(ids, upd, rows)
         kernel_only_ms = time_ms(lambda: fused_update_presummed(
             "adam", {}, *segments, param, states, lr, step), reps=10)
         plain_ms = time_ms(lambda: fused_sorted_update_plain(
@@ -1471,11 +1672,13 @@ def time_fused_update(seed: int, device):
         nbytes = 4.0 * (2 * 3 * rows * D + n * D) + 8.0 * n
         bound_ms, bound_by = bound(nbytes, 12.0 * rows * D)
         log(f"  fused_row_update (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms (the "
-            f"wrapper: torch.sort, the segment sum by the scatter kernel and the "
-            f"kernel; the kernel alone {kernel_only_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"wrapper: segment_sums, which is the scatter kernel's sort and sums, "
+            f"{segments_ms:.4f} ms, and the kernel, alone {kernel_only_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} "
             f"ms, library index_add_ + torch.optim.Adam(fused=True) {library_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by})")
         out.append({"shape": name, "rows": rows, "D": D, "n": n, "ms": ms,
+                    "segment_sums_ms": segments_ms,
                     "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by})
@@ -1561,7 +1764,6 @@ def main():
     from kge_tpu_torch import cli
     from kge_tpu_torch.ops import kernel_utils
     from kge_tpu_torch.ops.rank_kernel import (
-        csr_row_ids,
         fused_rank_counts,
         fused_rank_counts_plain,
     )
@@ -1660,38 +1862,12 @@ def main():
         profile = profile_run(job._evaluate, "warm eval")
 
         triples, labels = device_batches[0]
-        pos, q, targets, _ = job.model.factorized_queries(triples, (2,))[2]
-        q, targets = q.contiguous(), targets.contiguous()
+        _, q, targets, _ = job.model.factorized_queries(triples, (2,))[2]
         row_ptr, cols, _, _ = labels["o"]
         true = triples[:, 2].to(torch.int32).contiguous()
-        n, nnz = q.shape[0], cols.numel()
-        before = fused_rank_counts.launches
-        ms = time_ms(lambda: fused_rank_counts(
-            q, targets, None, row_ptr, cols, NUM_ENTITIES, ATOL, RTOL,
-            pivot_cols=true))
-        check(fused_rank_counts.launches > before)
-        plain_ms = time_ms(lambda: fused_rank_counts_plain(
-            q, targets, None, row_ptr, cols, NUM_ENTITIES, ATOL, RTOL,
-            pivot_cols=true))
-        rows = csr_row_ids(row_ptr)
-
-        def library():
-            scores = torch.matmul(q, targets.T)
-            pivot = scores.gather(1, true.long()[:, None])
-            close = torch.isclose(scores, pivot, rtol=RTOL, atol=ATOL)
-            greater = (scores > pivot) & ~close
-            return greater.sum(1), close.sum(1), scores[rows, cols.long()]
-
-        library_ms = time_ms(library)
-        flops = 2.0 * n * NUM_ENTITIES * DIM + 2.0 * n * DIM
-        nbytes = 4.0 * (n * DIM + NUM_ENTITIES * DIM + (n + 1) + nnz + n
-                        + 3 * n + nnz)
-        bound_ms = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        bound_by = ("operations" if flops / FP32_FLOPS_PER_S
-                    >= nbytes / HBM_BYTES_PER_S else "bytes")
-        log(f"  rank_counts n={n} |E|={NUM_ENTITIES} D={DIM} nnz={nnz}: "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}); {card}")
+        rank_times = time_rank(args.seed, device, (
+            q.contiguous(), targets.contiguous(), row_ptr, cols, true))
+        log(f"  {card}")
 
     log("== phase 5: scatter and row-write kernels vs plain versions")
     scatter_err = compare_scatter(args.seed, device)
@@ -1736,14 +1912,14 @@ def main():
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
             library_ms=main_shape["library_ms"], **more)
 
-    rank_times = [{"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}]
     kernels = {"kernels": [
         entry("rank_counts", "kge_tpu/ops/rank_kernel.py:108", launches, max_err,
-              rank_times),
+              rank_times, shapes=rank_times),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
+              sort_and_zero_ms=scatter_times[0]["sort_and_zero_ms"],
+              sums_ms=scatter_times[0]["sums_ms"],
               launches_sparse_epoch=sparse["launches"]["scatter_add_sorted"]),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,

@@ -1,11 +1,23 @@
 """kge_tpu_torch: the PyTorch and CUDA port of kge_tpu.
 
-A second package beside the JAX one, with its layout and module names. It
-runs filtered entity-ranking evaluation (``python -m kge_tpu_torch
-valid|test <folder>``) of models and checkpoints written by kge_tpu, on an
-NVIDIA Hopper card, with the TPU's rank kernel rewritten in CUDA C++
-(``ops/rank_kernel.py``, ``csrc/rank_counts.cu``). It imports neither jax
-nor kge_tpu.
+A second package beside the JAX one, with its layout and module names, for
+one NVIDIA Hopper card. It reads and writes kge_tpu's folders, configs,
+checkpoints and trace records, and runs
+
+- negative-sampling training (``python -m kge_tpu_torch start|create|resume``)
+  of ComplEx, reciprocal ComplEx, TransE and RotatE over lookup embedders,
+  with shared, pooled or per-row negatives, any of kge_tpu's losses and
+  optimizer rules, on the dense step and on the row-sparse step;
+- filtered entity-ranking evaluation (``eval|valid|test``) of the
+  factorizing models.
+
+Every kernel that kge_tpu writes in Pallas for the TPU is rewritten by hand
+in CUDA C++ under ``csrc/`` and bound in ``ops/``: the rank kernel
+(``ops/rank_kernel.py``), the lookup-gradient scatter and the row write
+(``ops/embedding_ops.py``), the fused row-sparse optimizer update
+(``ops/optim.py``) and the pooled distance scores with their backward
+(``ops/dist_pool.py``). Each has a plain PyTorch version beside it, which
+tensors on the CPU take. The package imports neither jax nor kge_tpu.
 """
 
 from kge_tpu_torch.config import Config, Configurable

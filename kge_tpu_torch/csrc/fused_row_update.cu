@@ -16,11 +16,11 @@
 // f32 on the MXU). Neither is carried over. The caller sorts the ids and
 // reduces duplicates with the scatter kernel (scatter_add_sorted.cu) into
 // one gradient row per segment of equal ids:
-//   ids  [n] sorted ascending,
-//   seg  [n] the segment number of each sorted position,
+//   ids  [n] sorted ascending (int32, as the scatter kernel's sort gives),
+//   seg  [n] the segment number of each sorted position (int32),
 //   gsum [>= number of segments, D] the summed gradient of each segment.
 // Here one warp owns one table row. It binary-searches ids for its row (all
-// lanes read the same words, which stay in cache: 80 KiB at n = 10,240),
+// lanes read the same words, which stay in cache: 40 KiB at n = 10,240),
 // reads the segment's gradient row or takes zero, and applies the rule to
 // the row of param and of every state. No atomics and one owner per element:
 // two launches from the same state give the same bits. Ids outside the
@@ -181,7 +181,7 @@ struct Adadelta {  // states: acc, sq
 };
 
 // first position in ids[0, n) whose id is >= value (n when there is none)
-__device__ __forceinline__ int lower_bound(const int64_t* ids, int n,
+__device__ __forceinline__ int lower_bound(const int32_t* ids, int n,
                                            int64_t value) {
   int lo = 0, hi = n;
   while (lo < hi) {
@@ -202,8 +202,8 @@ struct States {
 // VEC floats per access (4: 16-byte loads and stores; 1: scalar). Dv is the
 // row length in units of VEC floats.
 template <typename Rule, int VEC>
-__global__ void fused_row_update_kernel(const int64_t* __restrict__ ids,
-                                        const int64_t* __restrict__ seg,
+__global__ void fused_row_update_kernel(const int32_t* __restrict__ ids,
+                                        const int32_t* __restrict__ seg,
                                         const float* __restrict__ gsum, int n,
                                         int Dv, int64_t num_rows,
                                         float* __restrict__ param,
@@ -265,7 +265,7 @@ __global__ void fused_row_update_kernel(const int64_t* __restrict__ ids,
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 template <typename Rule>
-int launch(const int64_t* ids, const int64_t* seg, const float* gsum, int n,
+int launch(const int32_t* ids, const int32_t* seg, const float* gsum, int n,
            int D, long long num_rows, float* param, States states, int nstate,
            const Hyper& h, cudaStream_t stream) {
   if (nstate != Rule::NSTATE) return (int)cudaErrorInvalidValue;
@@ -300,7 +300,7 @@ enum {
 // ids [n] sorted ascending, seg [n], gsum [segments, D]; param [num_rows, D]
 // and the nstate states (sorted key order, each [num_rows, D]) are updated
 // in place. hyper: the 12 floats of Hyper in its order.
-int fused_row_update_launch(int rule, const int64_t* ids, const int64_t* seg,
+int fused_row_update_launch(int rule, const int32_t* ids, const int32_t* seg,
                             const float* gsum, int n, int D,
                             long long num_rows, float* param, float* s0,
                             float* s1, float* s2, int nstate,

@@ -3,28 +3,42 @@ in-place row write.
 
 Replaces the first part of kge_tpu/ops/pallas_ops.py:
 
-- ``sorted_scatter_add`` (there a Pallas kernel of sorted one-hot matmuls)
-  is the CUDA C++ kernel ``csrc/scatter_add_sorted.cu``: a deterministic
-  two-level segmented sum in float32, no atomics.
+- ``sorted_scatter_add`` (there a sort and a Pallas kernel of sorted one-hot
+  matmuls) is ``csrc/scatter_add_sorted.cu``: the ids go in UNSORTED and two
+  launches do the whole job. Launch A sorts (id, position) pairs by a
+  stable radix sort inside one block (``cub::BlockRadixSort`` as a building
+  block), on the bits the table's row count needs, while the other blocks
+  zero the output; launch B is a deterministic two-level segmented sum in
+  float32 with no float atomics, eight update rows loaded ahead of their
+  adds, whose cut segments are finished by the last of their blocks. Bytes bound it (every update row
+  read once, every output row written once). ``sorted_segment_sums`` is the
+  same pair of launches with one output row per distinct id, which the
+  row-sparse optimizer step takes. Measured by ``chip_smoke.py`` on an
+  NVIDIA H100 80GB HBM3 (700 W) at 8,192 updates into [14,541, 512]: about
+  0.038 ms a call, against a bound of 0.014 ms and 0.044 ms for
+  ``index_add_`` (PERF.md has the table).
 - ``rows_set`` (there per-row DMAs into the aliased table) is
   ``csrc/rows_set.cu``: ``table[ids] = rows`` on the table's own storage.
 - ``embedding_gather`` is ``table[ids]`` as a ``torch.autograd.Function``
-  whose backward sorts the flat ids and calls ``sorted_scatter_add``
-  (kge_tpu's ``_pallas_gather_bwd``). ``set_gather_mode`` selects it
-  ("kernel") or torch's own indexing backward ("torch").
+  whose backward hands the flat ids to ``sorted_scatter_add`` (kge_tpu's
+  ``_pallas_gather_bwd``). ``set_gather_mode`` selects it ("kernel") or
+  torch's own indexing backward ("torch").
 
 Beside each kernel stand its plain PyTorch version (``*_plain``: the path
 for tensors on the CPU, and the kernel's oracle on the card) and a launch
 counter on the wrapper (``.launches``). A CUDA tensor goes to the kernel or
-the wrapper raises; no path falls back to the plain version. What bounds
-each kernel on an H100, and what its design does about that, is noted in
-the CUDA sources.
+the wrapper raises; no path falls back to the plain version.
+
+The sort's route goes by size (``sort_route``): up to ``SORT_LIMIT`` ids the
+kernel sorts them itself; above it (shared memory holds no more) the wrapper
+sorts with a stable ``torch.sort`` and hands the kernel the sort, and
+``sorted_scatter_add.torch_sorts`` counts those calls.
 
 Differences from the TPU wrappers, both for the card: the kernels take
-int64 ids (what ``torch.sort`` returns); ``rows_set`` has no compile probe
-and no silent second route; ``scatter_add_presorted`` takes the sort's
-permutation instead of permuted updates, so the row-sparse optimizer step
-reuses one sort.
+int64 or int32 ids and return sorted ids and segment numbers as int32;
+``rows_set`` has no compile probe and no silent second route;
+``scatter_add_presorted`` takes a sort's permutation instead of permuted
+updates.
 """
 
 from __future__ import annotations
@@ -50,7 +64,17 @@ def gather_mode() -> str:
     return _gather_mode
 
 
-# -- K2: scatter-add of sorted row updates -------------------------------------
+# -- K2: scatter-add of row updates, the sort included --------------------------
+
+#: ids that the kernel sorts itself (SORT_LIMIT of csrc/scatter_add_sorted.cu)
+SORT_LIMIT = 17 * 1024
+
+
+def sort_route(n: int) -> str:
+    """Who sorts ``n`` ids on the card: "kernel" (the radix sort inside
+    launch A) up to ``SORT_LIMIT``, "torch" (a stable ``torch.sort`` in the
+    wrapper) above it."""
+    return "kernel" if n <= SORT_LIMIT else "torch"
 
 
 def scatter_add_presorted_plain(ids_sorted, order, upd, num_rows: int):
@@ -66,6 +90,18 @@ def sorted_scatter_add_plain(ids, upd, num_rows: int):
     return out.index_add_(0, ids.long(), upd)
 
 
+def sorted_segment_sums_plain(ids, upd, num_rows: int):
+    """Plain version of ``sorted_segment_sums``: a stable ``torch.sort``, the
+    segment numbers by a prefix sum, ``index_add_`` of the permuted rows."""
+    rs, order = torch.sort(ids.long(), stable=True)
+    first = torch.ones_like(rs, dtype=torch.bool)
+    first[1:] = rs[1:] != rs[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    gsum = torch.zeros(upd.shape, dtype=upd.dtype, device=upd.device)
+    gsum.index_add_(0, seg, upd[order])
+    return rs.to(torch.int32), seg.to(torch.int32), gsum
+
+
 def _check_scatter(ids, upd, num_rows):
     if ids.dim() != 1 or upd.dim() != 2 or upd.shape[0] != ids.shape[0]:
         raise ValueError(
@@ -79,9 +115,10 @@ def _check_scatter(ids, upd, num_rows):
 def scatter_add_presorted(ids_sorted: torch.Tensor, order: torch.Tensor,
                           upd: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Dense [num_rows, D] sum ``out[ids_sorted[p]] += upd[order[p]]`` for
-    ids already sorted ascending; ``order`` is the sort's permutation. Every
-    row is summed in ascending sorted position, so the result is
-    deterministic. Ids outside ``[0, num_rows)`` are ignored on the card."""
+    ids already sorted ascending (int64 or int32); ``order`` is the sort's
+    permutation. Every row is summed in ascending sorted position, so the
+    result is deterministic. Ids outside ``[0, num_rows)`` are ignored on
+    the card."""
     _check_scatter(ids_sorted, upd, num_rows)
     if order.shape != ids_sorted.shape:
         raise ValueError("order must have the shape of ids_sorted")
@@ -89,56 +126,130 @@ def scatter_add_presorted(ids_sorted: torch.Tensor, order: torch.Tensor,
         return scatter_add_presorted_plain(ids_sorted, order, upd, num_rows)
     if upd.device.type != "cuda":
         raise ValueError(f"scatter_add_presorted: unsupported device {upd.device}")
-    return _launch_scatter(ids_sorted, order, upd, num_rows)
+    return scatter_launch(ids_sorted, order, upd, num_rows)[0]
 
 
 def sorted_scatter_add(ids: torch.Tensor, upd: torch.Tensor,
                        num_rows: int) -> torch.Tensor:
-    """Dense [num_rows, D] result of scattering ``upd`` rows at ``ids``:
-    ``zeros[num_rows, D].index_add_(0, ids, upd)``, deterministic. The ids
-    are sorted here (a stable ``torch.sort``), outside the kernel, as the
-    TPU wrapper sorts outside its kernel."""
+    """Dense [num_rows, D] result of scattering ``upd`` rows at ``ids``
+    (any order, int64 or int32): ``zeros[num_rows, D].index_add_(0, ids,
+    upd)``, deterministic. On the card the kernel sorts the ids itself, up
+    to ``SORT_LIMIT`` of them; above that the wrapper sorts with a stable
+    ``torch.sort`` (``sort_route``). Ids outside ``[0, num_rows)`` are
+    ignored on the card."""
     _check_scatter(ids, upd, num_rows)
     if upd.device.type == "cpu":
         return sorted_scatter_add_plain(ids, upd, num_rows)
-    ids_sorted, order = torch.sort(ids.long(), stable=True)
-    return scatter_add_presorted(ids_sorted, order, upd, num_rows)
+    if upd.device.type != "cuda":
+        raise ValueError(f"sorted_scatter_add: unsupported device {upd.device}")
+    return scatter_launch(*_sorted_above_limit(ids, num_rows), upd, num_rows)[0]
 
 
-#: launches of the scatter kernel, through either wrapper
+#: launches of the scatter kernel, through any wrapper
 sorted_scatter_add.launches = 0
+#: calls whose ids were too many for the kernel's sort and went to torch.sort
+sorted_scatter_add.torch_sorts = 0
 
 
-def _launch_scatter(ids_sorted, order, upd, num_rows):
-    from kge_tpu_torch.ops.kernel_utils import (
-        check_launch,
-        load_library,
-        require,
-        typed,
-    )
+def sorted_segment_sums(ids: torch.Tensor, upd: torch.Tensor, num_rows: int):
+    """(sorted ids [n] int32, segment number of every sorted position [n]
+    int32, summed rows [n, D]): a stable sort of ``ids`` (any order, ids of
+    a table of ``num_rows`` rows) and one sum per segment of equal ids, in
+    ascending sorted position, deterministic. Row ``s`` of the sums belongs
+    to the ``s``-th distinct id; rows past the last segment are zero. On the
+    card an id outside ``[0, num_rows)`` reads as ``num_rows`` and sorts
+    last. The sort's route goes by size as in ``sorted_scatter_add``.
+    Nothing is read back to the host."""
+    _check_scatter(ids, upd, num_rows)
+    if upd.device.type == "cpu":
+        return sorted_segment_sums_plain(ids, upd, num_rows)
+    if upd.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sums: unsupported device {upd.device}")
+    n = ids.shape[0]
+    gsum, work, _ = scatter_launch(*_sorted_above_limit(ids, num_rows), upd, num_rows,
+                                   by_segment=True)
+    return work[:n], work[2 * n:3 * n], gsum
+
+
+def _sorted_above_limit(ids, num_rows: int):
+    """(ids, None) where the kernel sorts, else a stable torch.sort's (sorted
+    keys, permutation), an id outside the table sorted as the key
+    ``num_rows`` as the kernel's own sort reads it."""
+    if sort_route(ids.shape[0]) == "kernel":
+        return ids, None
+    sorted_scatter_add.torch_sorts += 1
+    outside = (ids < 0) | (ids >= num_rows)
+    return torch.sort(torch.where(outside, num_rows, ids), stable=True)
+
+
+def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
+                   phases: int = 3, buffers=None):
+    """The launch of ``csrc/scatter_add_sorted.cu`` on CUDA tensors; returns
+    (out, work, partial). ``ids`` are unsorted with ``order`` None (the
+    kernel sorts), or sorted with the sort's permutation. ``out`` is the
+    [num_rows, D] scatter-add, or by segment the [n, D] segment sums.
+    ``work`` (int32) holds the sorted keys in ``[:n]``, the permutation in
+    ``[n:2n]`` and the segment numbers in ``[2n:3n]``; ``partial`` is
+    scratch. ``phases`` 1 or 2 runs launch A (sort and zeros) or launch B
+    (sums) alone, for measurements, the latter on the ``buffers`` (out,
+    work, partial) of an earlier call."""
+    from kge_tpu_torch.ops.kernel_utils import check_launch, require
 
     device = upd.device
     require("upd", upd, device, torch.float32)
-    require("ids_sorted", ids_sorted, device, torch.int64)
-    require("order", order, device, torch.int64)
+    for name, x in (("ids", ids), ("order", order)):
+        if x is not None and x.dtype not in (torch.int64, torch.int32):
+            raise TypeError(f"{name} must be int64 or int32, got {x.dtype}")
+    # the kernel reads ids with their stride: a column of triples serves
+    if ids.device != device:
+        raise ValueError(f"ids is on {ids.device}, expected {device}")
+    if order is not None:
+        require("order", order, device, order.dtype)
     n, D = upd.shape
-    out = torch.empty(num_rows, D, dtype=torch.float32, device=device)
-    if num_rows == 0 or D == 0:
-        return out
-    lib = load_library("scatter_add_sorted")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    launch = typed(lib, "scatter_add_sorted_launch", [p, p, p, i, i, i, p, p, p])
-    chunk = typed(lib, "scatter_add_sorted_chunk", [])()
-    partial = torch.empty(-(-n // chunk), 2, D, dtype=torch.float32, device=device)
+    if order is None and sort_route(n) != "kernel":
+        raise ValueError(f"the kernel sorts at most {SORT_LIMIT} ids, got {n}")
+    out_rows = n if by_segment else num_rows
+    lib = _scatter_library()
+    if buffers is None:
+        buffers = (
+            torch.empty(out_rows, D, dtype=torch.float32, device=device),
+            torch.empty(lib.scatter_add_work_ints(n, D), dtype=torch.int32,
+                        device=device),
+            torch.empty(-(-n // lib.scatter_add_chunk()), 2, D,
+                        dtype=torch.float32, device=device),
+        )
+    out, work, partial = buffers
+    if out_rows == 0 or D == 0:
+        return buffers
     with torch.cuda.device(device):
-        code = launch(
-            ids_sorted.data_ptr(), order.data_ptr(), upd.data_ptr(), n, D,
-            num_rows, out.data_ptr(), partial.data_ptr(),
+        code = lib.scatter_add_launch(
+            ids.data_ptr(), int(ids.dtype == torch.int64),
+            ids.stride(0) if n else 1, None if order is None else order.data_ptr(),
+            int(order is not None and order.dtype == torch.int64),
+            upd.data_ptr(), n, D, num_rows, int(by_segment), out.data_ptr(),
+            out_rows, work.data_ptr(), partial.data_ptr(), phases,
             torch.cuda.current_stream(device).cuda_stream,
         )
     check_launch(code, "scatter_add_sorted")
     sorted_scatter_add.launches += 1
-    return out
+    return buffers
+
+
+def _scatter_library():
+    from kge_tpu_torch.ops.kernel_utils import load_library, typed
+
+    lib = load_library("scatter_add_sorted")
+    if not getattr(lib, "_kge_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        typed(lib, "scatter_add_launch",
+              [p, i, i, p, i, p, i, i, i, i, p, i, p, p, i, p])
+        typed(lib, "scatter_add_work_ints", [i, i])
+        typed(lib, "scatter_add_chunk", [])
+        if typed(lib, "scatter_add_sort_limit", [])() != SORT_LIMIT:
+            raise RuntimeError(
+                "scatter_add_sorted: SORT_LIMIT differs from the kernel's")
+        lib._kge_typed = True
+    return lib
 
 
 # -- K3: in-place row writes -----------------------------------------------------

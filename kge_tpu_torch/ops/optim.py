@@ -318,8 +318,8 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
     gradient ``g``: every row is updated, named by ``ids`` (duplicates,
     any order) or not, so Adam's moments decay and weight decay applies
     everywhere as on the dense step. The dense gradient is never held: the
-    wrapper sorts the ids and sums duplicates with the scatter kernel into
-    one gradient row per distinct id, and the kernel
+    scatter kernel sorts the ids and sums duplicates into one gradient row
+    per distinct id (``segment_sums``), and the kernel
     (``csrc/fused_row_update.cu``, which replaces kge_tpu's
     ``fused_sorted_update``) walks the table once. ``param`` and the
     tensors of ``states`` keep their storage; returns ``states``. On CPU
@@ -336,7 +336,8 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
     if ids.device != param.device:
         raise ValueError(f"ids is on {ids.device}, expected {param.device}")
     return fused_update_presummed(
-        opt_type, args, *segment_sums(ids, upd), param, states, lr, step
+        opt_type, args, *segment_sums(ids, upd, param.shape[0]), param, states,
+        lr, step
     )
 
 
@@ -344,18 +345,16 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
 fused_sorted_update.launches = 0
 
 
-def segment_sums(ids: torch.Tensor, upd: torch.Tensor):
-    """(sorted ids [n], segment number of every sorted position [n], summed
-    rows [n, D]): a stable sort and one sum per segment of equal ids by the
-    scatter kernel, deterministic. Rows of the sums past the last segment
-    are zero. Nothing is read back to the host."""
-    from kge_tpu_torch.ops.embedding_ops import scatter_add_presorted
+def segment_sums(ids: torch.Tensor, upd: torch.Tensor, num_rows: int):
+    """(sorted ids [n] int32, segment number of every sorted position [n]
+    int32, summed rows [n, D]) of row gradients ``upd`` at the rows ``ids``
+    of a table of ``num_rows`` rows: the scatter kernel's sort and one sum
+    per segment of equal ids (``sorted_segment_sums``), deterministic. Rows
+    of the sums past the last segment are zero. Nothing is read back to the
+    host."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_segment_sums
 
-    rs, order = torch.sort(ids.long(), stable=True)
-    first = torch.ones_like(rs, dtype=torch.bool)
-    first[1:] = rs[1:] != rs[:-1]
-    seg = torch.cumsum(first, 0) - 1
-    return rs, seg, scatter_add_presorted(seg, order, upd.contiguous(), rs.shape[0])
+    return sorted_segment_sums(ids, upd.contiguous(), num_rows)
 
 
 def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
@@ -379,8 +378,8 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     for name in keys:
         require(f"state {name}", states[name], device, torch.float32)
     require("gsum", gsum, device, torch.float32)
-    require("ids_sorted", ids_sorted, device, torch.int64)
-    require("seg", seg, device, torch.int64)
+    require("ids_sorted", ids_sorted, device, torch.int32)
+    require("seg", seg, device, torch.int32)
     num_rows, D = param.shape
     if num_rows == 0 or D == 0:
         return states
@@ -580,7 +579,8 @@ class KgeOptimizer:
         grp = self.groups[self._labels[leaf_index]]
         args = grp.args
         param = self.params[leaf_index]
-        rs, seg, gsum = segment_sums(rows, row_grads)
+        rs, seg, gsum = segment_sums(rows, row_grads, param.shape[0])
+        rs = rs.long()
         g = gsum[seg]  # per-position combined gradient of its row
 
         clr = _decayed_lr(lr, step, args.get("lr_decay", 0.0))

@@ -31,9 +31,10 @@ def _card():
 def _inputs(seed, n, E, D):
     rng = np.random.default_rng(seed)
     q = rng.normal(0, 0.2, (n, D)).astype(np.float32)
-    q[2] = np.nan
-    q[5] = 0.0
-    q[5, 0] = np.inf
+    if n > 5:
+        q[2] = np.nan
+        q[5] = 0.0
+        q[5, 0] = np.inf
     T = rng.normal(0, 0.2, (E, D)).astype(np.float32)
     per_row = [np.sort(rng.choice(E, size=int(rng.integers(0, 40)), replace=False))
                for _ in range(n)]
@@ -48,7 +49,9 @@ def _inputs(seed, n, E, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,E,D,num_valid", [(40, 1000, 64, 997), (33, 777, 30, 700),
-                                             (2200, 3000, 64, 2990)])
+                                             (2200, 3000, 64, 2990),
+                                             (1, 50, 100, 50), (257, 100, 64, 90),
+                                             (70, 3000, 100, 3000)])
 def test_kernel_matches_plain_on_card(n, E, D, num_valid):
     """Counts equal the plain version's; the pivot is the kernel's own score
     at the true column, bit for bit the value it reports for that label."""
@@ -68,6 +71,44 @@ def test_kernel_matches_plain_on_card(n, E, D, num_valid):
     # the true column ties with itself wherever its score is finite
     finite = torch.isfinite(pivot) & (true < num_valid)
     assert bool((c[finite] >= 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,E,D,num_valid,labels", [
+    (257, 3000, 64, 2990, True), (2200, 1500, 30, 1500, True),
+    (64, 100, 100, 77, False), (300, 14541, 512, 14541, True),
+])
+def test_kernel_outputs_do_not_depend_on_the_plan(n, E, D, num_valid, labels):
+    """greater, close, vals and pivot are bit-equal across two launches and
+    across column splits (the planned one, one range, five ranges, one wave
+    of blocks); a label at the pivot column carries the pivot's bits; rows
+    without labels and no labels at all are served."""
+    device = _card()
+    q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(13, n, E, D))
+    true = true % num_valid
+    if not labels:
+        row_ptr, cols = torch.zeros_like(row_ptr), cols[:0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def run(plan=None):
+        out = fused_rank_counts(q, T, None, row_ptr, cols, num_valid, ATOL, RTOL,
+                                pivot_cols=true, plan=plan)
+        torch.cuda.synchronize()
+        return [x.view(torch.int32) for x in out]
+
+    first = run()
+    plans = [None, rank_kernel.rank_plan(n, num_valid, num_ranges=1),
+             rank_kernel.rank_plan(n, num_valid, num_ranges=5),
+             rank_kernel.rank_plan(n, num_valid, num_ranges=2 * sms)]
+    for plan in plans:
+        assert all(torch.equal(a, b) for a, b in zip(first, run(plan))), plan
+    at_pivot = cols == true[rank_kernel.csr_row_ids(row_ptr)]
+    rows = rank_kernel.csr_row_ids(row_ptr)[at_pivot]
+    assert torch.equal(first[2][at_pivot], first[3][rows])
+    with pytest.raises(ValueError):  # a plan for another number of columns
+        fused_rank_counts(q, T, None, row_ptr, cols, num_valid, ATOL, RTOL,
+                          pivot_cols=true,
+                          plan=rank_kernel.rank_plan(n, num_valid + 200))
 
 
 @pytest.mark.cuda
@@ -128,6 +169,114 @@ def test_scatter_kernel_matches_plain_on_card(case):
     # rows that no id names are written as zeros
     absent = torch.bincount(ids, minlength=num_rows) == 0
     assert bool((got[absent] == 0).all())
+
+
+SORT_CASES = {
+    "relations": lambda rng: (rng.integers(0, 237, 8192), 237),
+    "entities": lambda rng: (rng.integers(0, 14541, 8192), 14541),
+    "large_table": lambda rng: (rng.integers(0, 200000, 8192), 200000),
+    "row_sparse_step": lambda rng: (rng.integers(0, 200000, 16642), 200000),
+    "twelve_a_thread": lambda rng: (rng.integers(0, 200000, 10240), 200000),
+    "all_equal": lambda rng: (np.full(5000, 11), 237),
+    "arange": lambda rng: (np.arange(3000), 3000),
+    "reversed": lambda rng: (np.arange(3000)[::-1].copy(), 3000),
+    "outside": lambda rng: (rng.integers(-40, 300, 4000), 237),
+    "single": lambda rng: (np.array([7]), 9),
+    "limit": lambda rng: (rng.integers(0, 70000, embedding_ops.SORT_LIMIT), 70000),
+    "two_rows": lambda rng: (rng.integers(0, 2, 1500), 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_kernel_sort_equals_stable_torch_sort(case, dtype):
+    """Launch A's sorted keys, permutation and segment numbers equal a
+    stable ``torch.sort``'s exactly (an id outside the table reads as
+    ``num_rows``), and the segment sums built on them agree with float64
+    within 1e-6 + 1e-5 S, S the segment's sum of |update|."""
+    device = _card()
+    rng = np.random.default_rng(9)
+    ids_np, num_rows = SORT_CASES[case](rng)
+    n, D = len(ids_np), 8
+    ids64 = torch.tensor(ids_np, dtype=torch.int64, device=device)
+    ids = ids64.to(dtype)
+    upd = torch.tensor(rng.normal(size=(n, D)).astype(np.float32), device=device)
+    outside = (ids64 < 0) | (ids64 >= num_rows)
+    keys, order = torch.sort(
+        torch.where(outside, torch.full_like(ids64, num_rows), ids64), stable=True)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    assert embedding_ops.sort_route(n) == "kernel"
+    before = sorted_scatter_add.torch_sorts
+    _, work, _ = embedding_ops.scatter_launch(ids, None, upd, num_rows, phases=1)
+    rs, got_seg, gsum = embedding_ops.sorted_segment_sums(ids, upd, num_rows)
+    torch.cuda.synchronize()
+    assert sorted_scatter_add.torch_sorts == before
+    assert torch.equal(work[:n].long(), keys)
+    assert torch.equal(work[n:2 * n].long(), order)
+    assert torch.equal(work[2 * n:3 * n].long(), seg)
+    assert rs.dtype == got_seg.dtype == torch.int32
+    assert torch.equal(rs.long(), keys) and torch.equal(got_seg.long(), seg)
+    ref = torch.zeros(n, D, dtype=torch.float64, device=device)
+    ref.index_add_(0, seg, upd.double()[order])
+    mag = torch.zeros_like(ref).index_add_(0, seg, upd.double().abs()[order])
+    assert bool(((gsum.double() - ref).abs() <= 1e-6 + 1e-5 * mag).all())
+    assert bool((gsum[int(seg[-1]) + 1:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_scatter_above_the_sort_limit_and_strided_ids():
+    """One id more than the kernel sorts goes through ``torch.sort`` in the
+    wrapper, counted; a column of a batch of triples serves as ids without
+    a copy."""
+    device = _card()
+    rng = np.random.default_rng(10)
+    n, num_rows, D = embedding_ops.SORT_LIMIT + 1, 5000, 16
+    ids = torch.tensor(rng.integers(0, num_rows, n), device=device)
+    upd = torch.tensor(rng.normal(size=(n, D)).astype(np.float32), device=device)
+    before = sorted_scatter_add.torch_sorts
+    got = sorted_scatter_add(ids, upd, num_rows)
+    rs, seg, gsum = embedding_ops.sorted_segment_sums(ids, upd, num_rows)
+    torch.cuda.synchronize()
+    assert sorted_scatter_add.torch_sorts == before + 2
+    ref = sorted_scatter_add_plain(ids, upd.double(), num_rows)
+    mag = sorted_scatter_add_plain(ids, upd.double().abs(), num_rows)
+    assert bool(((got.double() - ref).abs() <= 1e-6 + 1e-5 * mag).all())
+    assert torch.equal(rs.long(), torch.sort(ids, stable=True)[0])
+    present = torch.unique(ids)
+    assert bool(((gsum[:present.numel()].double() - ref[present]).abs()
+                 <= 1e-6 + 1e-5 * mag[present]).all())
+    with pytest.raises(ValueError):  # the kernel itself sorts no more than the limit
+        embedding_ops.scatter_launch(ids, None, upd, num_rows)
+    # ids outside the table read as num_rows and sort last on this route too
+    wild = torch.tensor(rng.integers(-40, num_rows + 60, n), device=device)
+    outside = (wild < 0) | (wild >= num_rows)
+    keys, order = torch.sort(
+        torch.where(outside, torch.full_like(wild, num_rows), wild), stable=True)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    want_seg = torch.cumsum(first, 0) - 1
+    rs, seg, gsum = embedding_ops.sorted_segment_sums(wild, upd, num_rows)
+    got = sorted_scatter_add(wild, upd, num_rows)
+    torch.cuda.synchronize()
+    assert bool(outside.any()) and int(keys[0]) >= 0
+    assert torch.equal(rs.long(), keys) and torch.equal(seg.long(), want_seg)
+    sums = torch.zeros(n, D, dtype=torch.float64, device=device)
+    sums.index_add_(0, want_seg, upd.double()[order])
+    mag = torch.zeros_like(sums).index_add_(0, want_seg, upd.double().abs()[order])
+    assert bool(((gsum.double() - sums).abs() <= 1e-6 + 1e-5 * mag).all())
+    inside = ~outside
+    ref = sorted_scatter_add_plain(wild[inside], upd.double()[inside], num_rows)
+    mag = sorted_scatter_add_plain(wild[inside], upd.double().abs()[inside], num_rows)
+    assert bool(((got.double() - ref).abs() <= 1e-6 + 1e-5 * mag).all())
+    triples = torch.tensor(rng.integers(0, 50, (300, 3)), device=device)
+    column = triples[:, 2]
+    assert not column.is_contiguous()
+    small = upd[:300].contiguous()
+    assert torch.equal(sorted_scatter_add(column, small, 50),
+                       sorted_scatter_add(column.contiguous(), small, 50))
 
 
 @pytest.mark.cuda

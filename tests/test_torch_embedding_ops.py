@@ -149,3 +149,65 @@ def test_rows_set_rejects_bad_calls():
     # an empty write leaves the table as it is
     assert torch.equal(rows_set(table, torch.zeros(0, dtype=torch.long),
                                 torch.zeros(0, 4)), torch.zeros(5, 4))
+
+
+# -- segment sums and the sort's route ---------------------------------------------
+
+SEGMENT_CASES = {
+    "duplicates": lambda rng: rng.integers(0, 9, 40),
+    "arange": lambda rng: np.arange(17),
+    "reversed": lambda rng: np.arange(17)[::-1].copy(),
+    "all_equal": lambda rng: np.full(25, 3),
+    "single": lambda rng: np.array([6]),
+    "empty": lambda rng: np.zeros(0, dtype=np.int64),
+    "hub": lambda rng: np.where(rng.random(300) < 0.8, 2, rng.integers(0, 50, 300)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_sums_match_numpy_unique_and_add_at(case, dtype):
+    """``segment_sums`` on CPU tensors: sorted ids, the segment number of
+    every sorted position and one summed row per distinct id, against
+    numpy's ``unique`` and ``add.at``; rows past the last segment are zero.
+    Sums of float32 in sorted order against float64: atol 1e-5 (1e-4 for
+    the hub of 240 unit-variance updates)."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_segment_sums
+    from kge_tpu_torch.ops.optim import segment_sums
+
+    rng = np.random.default_rng(len(case))
+    ids = SEGMENT_CASES[case](rng)
+    n, D, num_rows = len(ids), 6, 60
+    upd = rng.normal(size=(n, D)).astype(np.float32)
+    uniq, inverse = np.unique(ids, return_inverse=True)
+    want = np.zeros((n, D))
+    np.add.at(want, inverse, upd.astype(np.float64))
+    for fn in (segment_sums, sorted_segment_sums):
+        rs, seg, gsum = fn(torch.tensor(ids, dtype=dtype), torch.tensor(upd), num_rows)
+        assert rs.dtype == seg.dtype == torch.int32
+        assert gsum.shape == (n, D) and gsum.dtype == torch.float32
+        np.testing.assert_array_equal(rs.numpy(), np.sort(ids, kind="stable"))
+        np.testing.assert_array_equal(seg.numpy(), np.sort(inverse, kind="stable"))
+        np.testing.assert_allclose(gsum.numpy(), want,
+                                   atol=1e-4 if case == "hub" else 1e-5)
+        assert not gsum.numpy()[len(uniq):].any()
+
+
+@pytest.mark.parametrize("n,route", [
+    (0, "kernel"), (1, "kernel"), (8192, "kernel"), (16642, "kernel"),
+    (embedding_ops.SORT_LIMIT, "kernel"), (embedding_ops.SORT_LIMIT + 1, "torch"),
+    (10 ** 6, "torch"),
+])
+def test_sort_route_goes_by_size(n, route):
+    """Up to SORT_LIMIT ids the kernel sorts them itself; the batch shapes of
+    the training paths (8,192; 10,240; 16,642) lie below it."""
+    assert embedding_ops.sort_route(n) == route
+    assert embedding_ops.SORT_LIMIT == 17 * 1024
+
+
+def test_cpu_scatter_counts_neither_launches_nor_torch_sorts():
+    before = sorted_scatter_add.launches, sorted_scatter_add.torch_sorts
+    ids = torch.arange(embedding_ops.SORT_LIMIT + 5) % 7
+    got = sorted_scatter_add(ids, torch.ones(ids.shape[0], 2), 7)
+    assert float(got.sum()) == 2.0 * ids.shape[0]
+    assert (sorted_scatter_add.launches, sorted_scatter_add.torch_sorts) == before

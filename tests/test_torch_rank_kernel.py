@@ -136,3 +136,80 @@ def test_wrapper_checks_and_cpu_path_does_not_count():
         fused_rank_counts(q, T, torch.zeros(2), row_ptr, cols, 6, ATOL, RTOL)
     with pytest.raises(ValueError):
         fused_rank_counts(q, T, None, row_ptr, cols, 5, ATOL, RTOL)
+
+
+# -- the kernel's grid plan, and counts by column range ---------------------------
+
+
+@pytest.mark.parametrize("num_ranges", [None, 1, 7, "one a tile"])
+@pytest.mark.parametrize("num_valid", [0, 1, 128, 129, 14541, 200000,
+                                       65536 * 128 + 1])
+@pytest.mark.parametrize("n", [0, 1, 65, 256, 2200])
+def test_rank_plan_covers_the_columns_once_in_whole_tiles(n, num_valid, num_ranges):
+    """The ranges of a plan partition [0, num_valid) in ascending order, each
+    starts on a tile edge and (but the last) ends on one, none is empty, and
+    there are no more of them than a grid's second dimension holds."""
+    tile_rows = rank_kernel.TILE_ROWS
+    if num_ranges == "one a tile":
+        num_ranges = num_valid
+    plan = rank_kernel.rank_plan(n, num_valid, num_ranges=num_ranges)
+    ranges = rank_kernel.plan_ranges(plan, num_valid)
+    width = plan["tile_cols"]
+    assert plan["tile_cols"] == rank_kernel.TILE_COLS
+    assert plan["row_tiles"] * tile_rows >= n > (plan["row_tiles"] - 1) * tile_rows
+    assert plan["num_tiles"] == -(-num_valid // width)
+    assert len(ranges) == plan["num_ranges"] <= 65535
+    assert plan["tiles_per_range"] >= 1
+    covered = 0
+    for start, stop in ranges:
+        assert start == covered and stop > start
+        assert start % width == 0
+        assert stop % width == 0 or stop == num_valid
+        covered = stop
+    assert covered == num_valid
+    if num_ranges is None:
+        # one tile a block, unless the grid cannot hold that many blocks
+        assert plan["tiles_per_range"] == max(1, -(-plan["num_tiles"] // 65535))
+    if num_ranges == 1:
+        assert plan["num_ranges"] == min(1, plan["num_tiles"])
+
+
+def test_rank_plan_rejects_bad_arguments():
+    with pytest.raises(ValueError):
+        rank_kernel.rank_plan(-1, 100)
+    with pytest.raises(ValueError):
+        rank_kernel.rank_plan(4, -1)
+    with pytest.raises(TypeError):
+        rank_kernel.rank_plan(4, 100, 132)  # no card enters the plan
+
+
+@pytest.mark.parametrize("n,E,D,num_valid",
+                         [(9, 300, 16, 251), (20, 700, 24, 700), (8, 130, 8, 129)])
+def test_partial_counts_per_column_range_add_up(n, E, D, num_valid):
+    """What the kernel's blocks do across column ranges, by the plain
+    version: the counts of the ranges of a plan add up to the whole counts
+    (integer sums, exact in any order), and every label has one owner."""
+    q, T, pivot, row_ptr, cols, _, _ = _inputs(n + E, n, E, D, num_valid, True)
+    q, T, pivot = (torch.from_numpy(x) for x in (q, T, pivot))
+    row_ptr, cols = torch.from_numpy(row_ptr), torch.from_numpy(cols)
+    g, c, vals, _ = rank_kernel.fused_rank_counts_plain(
+        q, T, pivot, row_ptr, cols, num_valid, ATOL, RTOL)
+    plan = rank_kernel.rank_plan(n, num_valid, num_ranges=3)
+    ranges = rank_kernel.plan_ranges(plan, num_valid)
+    assert len(ranges) > 1
+    g_sum, c_sum = torch.zeros_like(g), torch.zeros_like(c)
+    vals_sum, owners = torch.zeros_like(vals), torch.zeros_like(cols)
+    rows = rank_kernel.csr_row_ids(row_ptr)
+    for start, stop in ranges:
+        pg, pc, _, _ = rank_kernel.fused_rank_counts_plain(
+            q, T[start:stop], pivot, torch.zeros(n + 1, dtype=torch.int32),
+            torch.zeros(0, dtype=torch.int32), stop - start, ATOL, RTOL)
+        g_sum += pg
+        c_sum += pc
+        mine = (cols >= start) & (cols < stop)
+        owners += mine.to(owners.dtype)
+        scores = q @ T[start:stop].T
+        vals_sum[mine] = scores[rows[mine], (cols[mine] - start).long()]
+    assert torch.equal(g_sum, g) and torch.equal(c_sum, c)
+    assert torch.equal(owners, (cols < num_valid).to(owners.dtype))
+    np.testing.assert_allclose(vals_sum.numpy(), vals.numpy(), rtol=1e-5, atol=1e-6)
