@@ -119,11 +119,35 @@ Phases (any failure exits non-zero; nothing is caught):
    True)``; ``cdist(p=1)`` and a gather for ``l1``, none for ``cmod``) and
    the bound; the pooled scoring's two routes (kernel, one-hot select) at
    d = 128; a warm epoch of each new configuration with its profile.
-14. One ``kernels`` JSON line: per kernel its time per call at the main
+14. T-transe-l2: TransE-L2 d = 128 with the settings of
+   examples/fb15k-237-transe-negsamp.yaml (margin ranking 4.0, Adagrad lr
+   0.05, batch 2,048, 64 + 64 negatives, ``xavier_uniform_``; ``auto``
+   must resolve to ``pool``, whose pool L2 scores once through its
+   factorization, every row picking its columns) on the
+   FB15k-237-sized graph: ``start`` for two epochs with ``valid.every 1``,
+   then ``test`` on the folder. Both validations must run,
+   ``checkpoint_00002.pt`` must exist and the loss must fall; the rank
+   kernel must launch twice a validation and a test batch, every launch
+   with the L2 score epilogue. Every test batch's filtered ranks must equal
+   the plain version's outside tie-boundary rows (phase 3's rule, with the
+   boundary window widened by the augmented product's rounding). The
+   epilogue kernel against its plain version on random inputs at n = 256,
+   |E| = 14,541, d = 128 (132 augmented columns), close pairs included:
+   counts equal outside tie-boundary rows, label values and pivots within
+   rtol 1e-5 (atol 1e-6), and the epilogue applied to the identity
+   kernel's pivots and label values gives the epilogue kernel's bits. Its
+   time per call beside the plain version, ``matmul`` + the epilogue +
+   compares and the bound (2 n |E| D' fp32 operations). Walls, and the
+   profiles of a warm epoch and of a warm test evaluation. Then ``test`` on
+   phase 11's P-transe folder (TransE-L1: the score-matrix route, no rank kernel
+   launch) must exit with finite metrics; its warm evaluation is
+   profiled.
+15. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (bytes over 3.35 TB/s or fp32
    operations over 67 TFLOP/s, whichever is larger); every time in it is
-   measured by this run. Then the card's name
+   measured by this run; the rank kernel's entry also holds the L2
+   epilogue's times and its launches in phase 14. Then the card's name
    and power limit, then the ``ok`` JSON line last.
 """
 
@@ -201,18 +225,31 @@ def time_ms(fn, reps: int = 30) -> float:
 # -- the rank kernel against its plain version ---------------------------------
 
 
-def boundary_rows(q, targets, pivot, num_valid) -> torch.Tensor:
+def boundary_rows(q, targets, pivot, num_valid, score_map=None,
+                  dim=None) -> torch.Tensor:
     """Rows where a plain score lies within 4 ulp of pivot +- tolerance:
-    there the kernel's summation order may legitimately flip a decision."""
-    scores = q @ targets[:num_valid].T
+    there the kernel's summation order may legitimately flip a decision.
+    With the L2 epilogue (``score_map``; q and targets the augmented
+    operands of a ``dim``-wide embedding) a row is also near where the
+    product lies within 32 float32 epsilons of (||q|| + ||c||)^2, the
+    rounding of a cancelling sum, from a bound's preimage -b^2."""
+    dots = q @ targets[:num_valid].T
+    scores = dots if score_map is None else score_map(dots)
     p = torch.where(torch.isnan(pivot), torch.full_like(pivot, -float("inf")), pivot)
     tol = ATOL + RTOL * p.abs()
     near = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+    if score_map is not None:
+        qn = (-q[:, dim + 1]).clamp_min(0).sqrt()
+        cn = targets[:num_valid, dim].clamp_min(0).sqrt()
+        window = 32 * 1.1920929e-07 * (qn[:, None] + cn[None, :]) ** 2
     for bound in (p - tol, p + tol):
         b = bound[:, None]
         ulp = (torch.nextafter(b.abs(), torch.full_like(b, float("inf")))
                - b.abs())
-        near |= (((scores - b).abs() <= 4 * ulp) & torch.isfinite(b)).any(dim=1)
+        close = (scores - b).abs() <= 4 * ulp
+        if score_map is not None:
+            close |= (dots + b * b).abs() <= window
+        near |= (close & torch.isfinite(b)).any(dim=1)
     return near
 
 
@@ -421,7 +458,7 @@ def test_job(folder: str):
     config.folder = folder
     config.set("eval.split", "test")
     return EvaluationJob.create_from(
-        load_checkpoint(os.path.join(folder, "checkpoint_best.pt")),
+        load_checkpoint(Config.best_or_last_checkpoint_file(folder)),
         new_config=config,
     )
 
@@ -487,6 +524,46 @@ def profile_run(fn, what: str):
         log(f"    torch radix-sort kernels: {sum(t['calls'] for t in sorts)} launches, "
             f"{sum(t['ms'] for t in sorts):.3f} ms")
     return out
+
+
+def eval_ranks_agree(job, dim=None):
+    """Every batch of a prepared evaluation job (its collated batches) ranked
+    by the kernel and by its plain version: filtered ranks equal outside the
+    tie-boundary rows, which may be at most 0.1% of the (row, ranking,
+    direction) entries. ``dim``: the embedding width, for the L2
+    epilogue's boundary window."""
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts_plain
+
+    _, device_batches = job._collate_cache
+    E = job.dataset.num_entities()
+    differ_rows = near_rows = total_rows = 0
+    for triples, labels in device_batches:
+        kernel, _ = job._rank_batch(triples, labels)
+        plain, _ = job._rank_batch(triples, labels,
+                                   rank_counts=fused_rank_counts_plain)
+        fac = job.model.factorized_queries(triples, (0, 2))
+        near = {}
+        for key, slot, true in (("o", 2, triples[:, 2]), ("s", 0, triples[:, 0])):
+            _, q, targets, score_map = fac[slot]
+            pivot = fused_rank_counts_plain(
+                q, targets, None, labels[key][0], labels[key][1],
+                E, ATOL, RTOL, score_map=score_map, pivot_cols=true,
+            )[3]
+            near[key] = boundary_rows(q, targets, pivot, E, score_map, dim)
+        for r in kernel:
+            d = kernel[r] != plain[r]
+            d_s, d_o = d[0] | d[1], d[2] | d[3]
+            bad = (d_s & ~near["s"]) | (d_o & ~near["o"])
+            check(not bool(bad.any()), f"ranking {r}: kernel and plain ranks differ")
+            differ_rows += int(d_s.sum() + d_o.sum())
+            near_rows += int(near["s"].sum() + near["o"].sum())
+            total_rows += 2 * triples.shape[0]
+    check(differ_rows <= 0.001 * total_rows, (differ_rows, total_rows))
+    log(f"  filtered ranks of all {len(device_batches)} batches equal the plain "
+        f"version's on {total_rows - differ_rows}/{total_rows} (row, ranking, "
+        f"direction) entries; {near_rows} lie at a tie boundary, the "
+        f"{differ_rows} that differ are excluded")
+    return {"entries": total_rows, "at_boundary": near_rows, "differ": differ_rows}
 
 
 def small_eval_agrees(seed: int):
@@ -717,6 +794,7 @@ def reset_counters():
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     fused_rank_counts.launches = 0
+    fused_rank_counts.epilogue_launches = 0
     sorted_scatter_add.launches = 0
     rows_set.launches = 0
     fused_sorted_update.launches = 0
@@ -731,6 +809,7 @@ def read_counters():
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     return {"rank_counts": fused_rank_counts.launches,
+            "rank_counts_epilogue": fused_rank_counts.epilogue_launches,
             "scatter_add_sorted": sorted_scatter_add.launches,
             "rows_set": rows_set.launches,
             "fused_row_update": fused_sorted_update.launches,
@@ -1260,7 +1339,7 @@ def check_pooled_counts(counts, steps, scatter_per_step, fused_per_step, what):
     expected = {"pooled_scores": 2 * steps, "pooled_scores_bwd": 2 * steps,
                 "scatter_add_sorted": scatter_per_step * steps,
                 "fused_row_update": fused_per_step * steps, "rows_set": 0,
-                "rank_counts": 0}
+                "rank_counts": 0, "rank_counts_epilogue": 0}
     check(counts == expected, f"{what}: launches {counts} != {expected}")
 
 
@@ -1312,7 +1391,7 @@ def run_transe_training(seed: int, data: str):
     routes = time_pooled_routes(job)
     timing = warm_epoch(job, num_train, "P-transe")
     return {"launches": counts, "start_wall_s": start_wall, "avg_loss": losses,
-            "routes_d128": routes, "warm_epoch": timing}
+            "routes_d128": routes, "warm_epoch": timing, "folder": folder}
 
 
 def time_pooled_routes(job):
@@ -1442,6 +1521,242 @@ def run_rotate_training(seed: int):
             "epoch_time_s": [e["epoch_time"] for e in epochs],
             "step_max_abs_diff_vs_dense": worst, "step_elements_beyond_tolerance": loose,
             "warm_epoch": timing}
+
+
+# -- T-transe-l2: the L2 epilogue, and evaluation of the distance models --------
+
+L2_BATCH, L2_NEGATIVES = 2048, 64   # examples/fb15k-237-transe-negsamp.yaml
+
+
+def l2_inputs(seed: int, device, n: int = BATCH, dim: int = TRANSE_DIM):
+    """The augmented L2 operands of random queries and candidates at the
+    evaluation's shape, with the first 8 rows' true candidates moved close
+    to their queries (where the expansion cancels), skewed CSR labels and
+    the pivot columns."""
+    from kge_tpu_torch.models.translation import _l2_factorization
+
+    rng = np.random.default_rng(seed + 13)
+    E = NUM_ENTITIES
+    q = rng.normal(0, 0.1, (n, dim)).astype(np.float32)
+    c = rng.normal(0, 0.1, (E, dim)).astype(np.float32)
+    true_np = rng.integers(0, E, n).astype(np.int32)
+    c[true_np[:8]] = q[:8] + rng.normal(0, 1e-3, (8, dim))
+    query, target_map, score_map = _l2_factorization(torch.tensor(q, device=device))
+    targets = target_map(torch.tensor(c, device=device))
+    row_ptr, cols = skewed_labels(rng, n, E, device, true=true_np)
+    true = torch.tensor(true_np, device=device)
+    return query.contiguous(), targets.contiguous(), score_map, row_ptr, cols, true
+
+
+def compare_epilogue(seed: int, device):
+    """The L2 epilogue kernel against its plain version and against the
+    identity kernel mapped by the epilogue; returns the largest label-value
+    or pivot error against the plain version."""
+    from kge_tpu_torch.ops.rank_kernel import (
+        fused_rank_counts,
+        fused_rank_counts_plain,
+    )
+
+    q, targets, score_map, row_ptr, cols, true = l2_inputs(seed, device)
+    E = NUM_ENTITIES
+    g, c, vals, pivot = fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL,
+                                          RTOL, score_map=score_map, pivot_cols=true)
+    _, _, ivals, ipivot = fused_rank_counts(q, targets, None, row_ptr, cols, E,
+                                            ATOL, RTOL, pivot_cols=true)
+    torch.cuda.synchronize()
+    check(torch.equal(score_map(ipivot).view(torch.int32), pivot.view(torch.int32))
+          and torch.equal(score_map(ivals).view(torch.int32), vals.view(torch.int32)),
+          "the epilogue kernel's pivots or label values are not the identity "
+          "kernel's mapped by the epilogue")
+    pg, pc, pvals, _ = fused_rank_counts_plain(q, targets, pivot, row_ptr, cols, E,
+                                               ATOL, RTOL, score_map=score_map)
+    ppivot = fused_rank_counts_plain(q, targets, None, row_ptr, cols, E, ATOL, RTOL,
+                                     score_map=score_map, pivot_cols=true)[3]
+    worst = 0.0
+    for got, want, what in ((vals, pvals, "label values"), (pivot, ppivot, "pivots")):
+        err = (got - want).abs()
+        check(bool((err <= 1e-6 + 1e-5 * want.abs()).all()),
+              f"epilogue kernel {what} disagree with plain")
+        worst = max(worst, float(err.max()))
+    differ = (g != pg) | (c != pc)
+    near = boundary_rows(q, targets, pivot, E, score_map, TRANSE_DIM)
+    check(not bool((differ & ~near).any()),
+          "epilogue kernel counts disagree with plain away from a tie boundary")
+    check(bool((c >= 1).all()), "a true column does not tie with itself")
+    check(int(differ.sum()) <= 0.001 * q.shape[0] + 1, "too many boundary rows differ")
+    log(f"  L2 epilogue n={q.shape[0]} |E|={E} D'={q.shape[1]}: counts equal on "
+        f"{q.shape[0] - int(differ.sum())}/{q.shape[0]} rows ({int(near.sum())} at a "
+        f"tie boundary, {int(differ.sum())} of them differ); label values and pivots "
+        f"max abs err {worst:.3e} (rtol 1e-5, atol 1e-6); pivots and label values "
+        f"are the identity kernel's mapped by the epilogue, bit for bit; close pairs' "
+        f"pivots {float(pivot[:8].max()):.3e} at most")
+    return worst
+
+
+def time_epilogue(seed: int, device):
+    """The L2 epilogue kernel per call at n = 256, |E| = 14,541, D' = 132,
+    beside its plain version, ``matmul`` + the epilogue + compares, and the
+    bound."""
+    from kge_tpu_torch.ops.rank_kernel import (
+        csr_row_ids,
+        fused_rank_counts,
+        fused_rank_counts_plain,
+    )
+
+    q, targets, score_map, row_ptr, cols, true = l2_inputs(seed + 1, device)
+    (n, D), E, nnz = q.shape, targets.shape[0], cols.numel()
+    rows = csr_row_ids(row_ptr)
+    ms = time_ms(lambda: fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL,
+                                           RTOL, score_map=score_map, pivot_cols=true))
+    plain_ms = time_ms(lambda: fused_rank_counts_plain(
+        q, targets, None, row_ptr, cols, E, ATOL, RTOL, score_map=score_map,
+        pivot_cols=true))
+
+    def library():
+        scores = score_map(torch.matmul(q, targets.T))
+        pivot = scores.gather(1, true.long()[:, None])
+        close = torch.isclose(scores, pivot, rtol=RTOL, atol=ATOL)
+        greater = (scores > pivot) & ~close
+        return greater.sum(1), close.sum(1), scores[rows, cols.long()]
+
+    library_ms = time_ms(library)
+    flops = 2.0 * n * E * D
+    bound_ms, bound_by = bound(
+        4.0 * (n * D + E * D + (n + 1) + nnz + n + 3 * n + nnz), flops)
+    log(f"  rank_counts, L2 epilogue, n={n} |E|={E} D'={D} nnz={nnz}: {ms:.4f} ms "
+        f"({100 * flops / (ms * 1e-3) / FP32_FLOPS_PER_S:.1f}% of the fp32 rate), "
+        f"plain {plain_ms:.4f} ms, library matmul + epilogue + compares "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"shape": "L2 epilogue, random, skewed labels", "n": n,
+            "num_candidates": E, "D": D, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def run_transe_l2(seed: int, data: str, transe_folder: str):
+    """Phase 14; returns a summary dict."""
+    from kge_tpu_torch import cli
+
+    num_train, num_valid = FB15K237[2], FB15K237[3]
+    steps = -(-num_train // L2_BATCH)
+    valid_batches = -(-num_valid // BATCH)
+    test_batches = -(-NUM_TEST // BATCH)
+    folder = os.path.join(WORK, "train_transe_l2")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_transe_l2.yaml")
+    write_train_config(conf, data, seed, **{
+        "model": "transe", "transe.l_norm": 2.0,
+        "lookup_embedder.dim": TRANSE_DIM,
+        "lookup_embedder.initialize": "xavier_uniform_",
+        "train.batch_size": L2_BATCH, "train.loss": "margin_ranking",
+        "train.loss_arg": 4.0, "train.max_epochs": 2,
+        "train.optimizer.default": {"type": "Adagrad", "args": {"lr": 0.05}},
+        "negative_sampling.shared": False,
+        "negative_sampling.num_samples": {"s": L2_NEGATIVES, "p": 0,
+                                          "o": L2_NEGATIVES},
+        "valid.every": 1})
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    with open(os.path.join(folder, "kge.log")) as f:
+        check("Set negative_sampling.implementation=pool" in f.read(),
+              "auto did not resolve to pool")
+    valid = trace_entries(folder, event="eval_completed")
+    check([e["epoch"] for e in valid] == [1, 2], "expected validations at epochs 1 and 2")
+    check(os.path.exists(os.path.join(folder, "checkpoint_00002.pt")),
+          "checkpoint_00002.pt is missing")
+    epochs = trace_entries(folder, event="epoch_completed")
+    losses = [e["avg_loss"] for e in epochs]
+    check(all(np.isfinite(losses)) and losses[1] < losses[0],
+          f"T-transe-l2 loss did not fall: {losses}")
+    check(counts["rank_counts"] == counts["rank_counts_epilogue"] == 2 * 2 * valid_batches,
+          f"rank launches {counts} != 2 x {valid_batches} x 2 validations, all with "
+          "the L2 epilogue")
+    check(counts["pooled_scores"] == counts["rows_set"] == 0 and
+          counts["scatter_add_sorted"] > 0, counts)
+    log(f"  start, 2 epochs ({steps} steps each) and 2 validations: wall "
+        f"{start_wall:.2f} s; auto resolved to pool; launches "
+        f"{counts}; avg_loss {losses[0]:.4f} -> {losses[1]:.4f}; epoch times "
+        f"{epochs[0]['epoch_time']:.3f} s, {epochs[1]['epoch_time']:.3f} s; "
+        f"validation MRR filtered {valid[0]['mean_reciprocal_rank_filtered']:.6f} -> "
+        f"{valid[1]['mean_reciprocal_rank_filtered']:.6f}; validation walls "
+        f"{valid[0]['epoch_time']:.3f} s, {valid[1]['epoch_time']:.3f} s")
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["test", folder, "--eval.batch_size", str(BATCH)])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - start
+    test_counts = read_counters()
+    check(test_counts["rank_counts"] == test_counts["rank_counts_epilogue"]
+          == 2 * test_batches, f"test launches {test_counts} != 2 x {test_batches}")
+    entry = last_test_entry(folder)
+    metrics = {k: v for k, v in entry.items()
+               if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))
+               and not k.endswith("_with_test")}
+    check(metrics and all(np.isfinite(v) for v in metrics.values()), metrics)
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
+    log(f"  test: {test_counts['rank_counts']} rank launches, all with the L2 "
+        f"epilogue; wall {test_wall:.3f} s ({NUM_TEST / test_wall:.1f} filtered "
+        f"triples/s); MRR filtered {entry['mean_reciprocal_rank_filtered']:.6f}, "
+        f"Hits@10 filtered {entry['hits_at_10_filtered']:.6f}")
+
+    job = test_job(folder)
+    with torch.inference_mode():
+        job._prepare()
+        job._is_prepared = True
+        job._evaluate()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        job._evaluate()
+        torch.cuda.synchronize()
+        warm_test_wall = time.perf_counter() - start
+        log(f"  second test eval (collated batches reused): wall {warm_test_wall:.3f} s")
+        agree = eval_ranks_agree(job, dim=TRANSE_DIM)
+        eval_profile = profile_run(job._evaluate, "warm test eval of T-transe-l2")
+    del job
+    train_job = resumed_job(folder, "checkpoint_00002.pt")
+    timing = warm_epoch(train_job, num_train, "T-transe-l2")
+    del train_job
+
+    # TransE-L1 by the score-matrix route: phase 11's folder
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["test", transe_folder, "--eval.batch_size", str(BATCH)])
+    torch.cuda.synchronize()
+    l1_wall = time.perf_counter() - start
+    l1_counts = read_counters()
+    check(l1_counts["rank_counts"] == 0, f"TransE-L1 launched the rank kernel: {l1_counts}")
+    l1 = last_test_entry(transe_folder)
+    l1_metrics = {k: v for k, v in l1.items()
+                  if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))
+                  and not k.endswith("_with_test")}
+    check(l1_metrics and all(np.isfinite(v) for v in l1_metrics.values()), l1_metrics)
+    check(0.0 < l1["mean_reciprocal_rank_filtered"] <= 1.0)
+    log(f"  test of P-transe's folder (TransE-L1, score matrix): wall {l1_wall:.3f} s "
+        f"({NUM_TEST / l1_wall:.1f} filtered triples/s), MRR filtered "
+        f"{l1['mean_reciprocal_rank_filtered']:.6f}, no rank kernel launch")
+    job = test_job(transe_folder)
+    with torch.inference_mode():
+        job._prepare()
+        job._is_prepared = True
+        job._evaluate()
+        l1_profile = profile_run(job._evaluate, "warm test eval of TransE-L1")
+    del job
+    return {"launches": counts, "test_launches": test_counts,
+            "start_wall_s": start_wall, "avg_loss": losses,
+            "epoch_time_s": [e["epoch_time"] for e in epochs],
+            "valid_wall_s": [e["epoch_time"] for e in valid],
+            "valid_mrr_filtered": [e["mean_reciprocal_rank_filtered"] for e in valid],
+            "test_wall_s": test_wall, "test_warm_wall_s": warm_test_wall,
+            "test_mrr_filtered": entry["mean_reciprocal_rank_filtered"],
+            "ranks_vs_plain": agree, "eval_profile": eval_profile,
+            "warm_epoch": timing, "transe_l1_test_wall_s": l1_wall,
+            "transe_l1_test_mrr_filtered": l1["mean_reciprocal_rank_filtered"],
+            "transe_l1_eval_profile": l1_profile}
 
 
 # -- kernel timings ---------------------------------------------------------------
@@ -1763,10 +2078,7 @@ def main():
 
     from kge_tpu_torch import cli
     from kge_tpu_torch.ops import kernel_utils
-    from kge_tpu_torch.ops.rank_kernel import (
-        fused_rank_counts,
-        fused_rank_counts_plain,
-    )
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1827,33 +2139,7 @@ def main():
         torch.cuda.synchronize()
         warm_wall = time.perf_counter() - start
         _, device_batches = job._collate_cache
-        differ_rows = near_rows = total_rows = 0
-        for triples, labels in device_batches:
-            kernel, _ = job._rank_batch(triples, labels)
-            plain, _ = job._rank_batch(triples, labels,
-                                       rank_counts=fused_rank_counts_plain)
-            fac = job.model.factorized_queries(triples, (0, 2))
-            near = {}
-            for key, slot, true in (("o", 2, triples[:, 2]), ("s", 0, triples[:, 0])):
-                _, q, targets, _ = fac[slot]
-                pivot = fused_rank_counts_plain(
-                    q, targets, None, labels[key][0], labels[key][1],
-                    NUM_ENTITIES, ATOL, RTOL, pivot_cols=true,
-                )[3]
-                near[key] = boundary_rows(q, targets, pivot, NUM_ENTITIES)
-            for r in kernel:
-                d = kernel[r] != plain[r]
-                d_s, d_o = d[0] | d[1], d[2] | d[3]
-                bad = (d_s & ~near["s"]) | (d_o & ~near["o"])
-                check(not bool(bad.any()), f"ranking {r}: kernel and plain ranks differ")
-                differ_rows += int(d_s.sum() + d_o.sum())
-                near_rows += int(near["s"].sum() + near["o"].sum())
-                total_rows += 2 * triples.shape[0]
-        check(differ_rows <= 0.001 * total_rows, (differ_rows, total_rows))
-        log(f"  filtered ranks of all {len(device_batches)} batches equal the plain "
-            f"version's on {total_rows - differ_rows}/{total_rows} (row, ranking, "
-            f"direction) entries; {near_rows} lie at a tie boundary, the "
-            f"{differ_rows} that differ are excluded")
+        eval_ranks_agree(job)
         log(f"  second test eval (collated batches reused): wall {warm_wall:.3f} s "
             f"({NUM_TEST / warm_wall:.1f} filtered triples/s)")
         small_eval_agrees(args.seed)
@@ -1902,6 +2188,13 @@ def main():
     pooled_fwd_times, pooled_bwd_times = time_pooled(args.seed, device)
     log(f"  {card}")
 
+    log("== phase 14: T-transe-l2 (TransE-L2 d=128, FB15k-237 sizes; validation "
+        "and test through the L2 epilogue) and the test of a TransE-L1 folder")
+    epilogue_err = compare_epilogue(args.seed, device)
+    transe_l2 = run_transe_l2(args.seed, data, transe["folder"])
+    epilogue_times = time_epilogue(args.seed, device)
+    log(f"  {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -1914,7 +2207,11 @@ def main():
 
     kernels = {"kernels": [
         entry("rank_counts", "kge_tpu/ops/rank_kernel.py:108", launches, max_err,
-              rank_times, shapes=rank_times),
+              rank_times, shapes=rank_times,
+              epilogue={**epilogue_times, "name": "neg_sqrt_l2",
+                        "max_abs_err": epilogue_err},
+              launches_transe_l2=transe_l2["launches"]["rank_counts_epilogue"]
+              + transe_l2["test_launches"]["rank_counts_epilogue"]),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
@@ -1939,7 +2236,8 @@ def main():
         "filtered_triples_per_s": NUM_TEST / wall,
         "filtered_triples_per_s_warm": NUM_TEST / warm_wall,
         "train_dense": dense, "train_sparse": sparse,
-        "train_transe": transe, "train_rotate": rotate, "card": card}
+        "train_transe": transe, "train_rotate": rotate,
+        "train_transe_l2": transe_l2, "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,11 @@
 // no tensor cores): slices are consumed in ascending k, and k past D is
 // zero-filled on both sides, which leaves a chain as it is. A score
 // therefore has the same bits wherever it is computed: in a tile, in the
-// pivot and in vals. The true column ties with itself exactly, and a caller
-// that recounts a label from vals reproduces the kernel's decision. Tensor
+// pivot and in vals. The epilogue runs after the chain at all three places,
+// each of its float operations rounded on its own (no --use_fast_math: the
+// sqrt is correctly rounded, as torch.sqrt's on the card), so it keeps that
+// property. The true column ties with itself exactly, and a caller that
+// recounts a label from vals reproduces the kernel's decision. Tensor
 // cores are left out for that reason: TF32 and bf16 keep 10 and 7 bits of
 // mantissa, and a split product sums in another order than the pivot.
 //
@@ -111,9 +114,23 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int lo, int hi,
   return lo;
 }
 
-// The epilogue's score transform: the identity for the factorizing scorers.
-// (The sqrt of the L2 distance scorers belongs here.)
-__device__ __forceinline__ float score_transform(float s) { return s; }
+// Score epilogues, by the code the caller passes (ops/rank_kernel.py
+// ScoreEpilogue): 0 the identity (the factorizing scorers); 1 neg_sqrt_l2,
+// -sqrt(max(-s, 0) + 1e-30), which turns the augmented product -||q - c||^2
+// of the L2 distance scorers into -||q - c||. As torch.clamp, the max keeps
+// a NaN. Callers pad the augmented operands to a multiple of 4 columns with
+// zeros, which leaves the chain as it is and keeps the 16-byte copies.
+constexpr int EPILOGUE_NONE = 0;
+constexpr int EPILOGUE_NEG_SQRT_L2 = 1;
+
+__device__ __forceinline__ float score_transform(float s, int epilogue) {
+  if (epilogue == EPILOGUE_NEG_SQRT_L2) {
+    float x = -s;
+    x = x < 0.0f ? 0.0f : x;
+    return -__fsqrt_rn(__fadd_rn(x, 1e-30f));
+  }
+  return s;
+}
 
 // The tie rule of kge_tpu's _close_greater, with each float operation
 // rounded on its own (no contraction into an FMA) as the plain version does.
@@ -140,7 +157,7 @@ rank_prologue_kernel(const float* __restrict__ q, const float* __restrict__ t,
                      const int32_t* __restrict__ row_ptr,
                      const int32_t* __restrict__ cols, int n, int D,
                      int num_valid, int num_tiles, int nnz, int pivot_blocks,
-                     float* __restrict__ pivot_out,
+                     int epilogue, float* __restrict__ pivot_out,
                      int32_t* __restrict__ greater_out,
                      int32_t* __restrict__ close_out,
                      int32_t* __restrict__ tile_ptr,
@@ -169,7 +186,7 @@ rank_prologue_kernel(const float* __restrict__ q, const float* __restrict__ t,
       __syncwarp();
     }
     if (lane == 0) {
-      pivot_out[row] = score_transform(p);
+      pivot_out[row] = score_transform(p, epilogue);
       greater_out[row] = 0;
       close_out[row] = 0;
     }
@@ -259,7 +276,8 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
                   const int32_t* __restrict__ tile_ptr,
                   const float* __restrict__ pivot, int n, int D,
                   int num_valid, int num_tiles, int tiles_per_range,
-                  float atol, float rtol, int32_t* __restrict__ greater_out,
+                  float atol, float rtol, int epilogue,
+                  int32_t* __restrict__ greater_out,
                   int32_t* __restrict__ close_out,
                   float* __restrict__ vals_out) {
   extern __shared__ __align__(16) float smem[];
@@ -336,7 +354,7 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
       int g = 0, c = 0;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        acc[i][j] = score_transform(acc[i][j]);
+        acc[i][j] = score_transform(acc[i][j], epilogue);
         int cl, gr;
         close_greater(acc[i][j], p, tol, cl, gr);
         const bool valid = c0 + tx + TX * j < num_valid;
@@ -400,8 +418,9 @@ int rank_counts_tile_cols() { return BN; }
 int rank_counts_tile_rows() { return BM; }
 
 // Launches both kernels on `stream`; returns the CUDA error code of the
-// first launch that failed (0 = ok). The pivot of row i is its own score at
-// column pivot_cols[i] and is written to pivot_out. Every output is written
+// first launch that failed (0 = ok). `epilogue` names the score epilogue
+// (EPILOGUE_*). The pivot of row i is its own score at column pivot_cols[i]
+// and is written to pivot_out. Every output is written
 // here, zeros included: greater, close [n], vals [nnz], pivot_out [n].
 // tile_ptr: scratch of n * (ceil(num_valid / tile_cols) + 1) int32. The plan:
 // the columns cut into ranges of tiles_per_range tiles, one block per (row
@@ -409,12 +428,14 @@ int rank_counts_tile_rows() { return BM; }
 int rank_counts_launch(const float* q, const float* t,
                        const int32_t* pivot_cols, const int32_t* row_ptr,
                        const int32_t* cols, int n, int D, int num_valid,
-                       int nnz, float atol, float rtol,
+                       int nnz, float atol, float rtol, int epilogue,
                        int tiles_per_range, int32_t* tile_ptr,
                        int32_t* greater_out, int32_t* close_out,
                        float* vals_out, float* pivot_out, void* stream) {
   if (n <= 0) return 0;
   if (tiles_per_range < 1) return (int)cudaErrorInvalidValue;
+  if (epilogue != EPILOGUE_NONE && epilogue != EPILOGUE_NEG_SQRT_L2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int num_tiles = (num_valid + BN - 1) / BN;
   const int pivot_blocks = (n + PIVOT_ROWS - 1) / PIVOT_ROWS;
@@ -425,7 +446,8 @@ int rank_counts_launch(const float* q, const float* t,
   rank_prologue_kernel<<<pivot_blocks + (unsigned)fill_blocks,
                          PROLOGUE_THREADS, 0, s>>>(
       q, t, pivot_cols, row_ptr, cols, n, D, num_valid, num_tiles, nnz,
-      pivot_blocks, pivot_out, greater_out, close_out, tile_ptr, vals_out);
+      pivot_blocks, epilogue, pivot_out, greater_out, close_out, tile_ptr,
+      vals_out);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_tiles == 0) return (int)err;
   err = allow_shared_memory();
@@ -435,7 +457,8 @@ int rank_counts_launch(const float* q, const float* t,
   dim3 grid((n + BM - 1) / BM, ranges);
   rank_tiles_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
       q, t, cols, tile_ptr, pivot_out, n, D, num_valid, num_tiles,
-      tiles_per_range, atol, rtol, greater_out, close_out, vals_out);
+      tiles_per_range, atol, rtol, epilogue, greater_out, close_out,
+      vals_out);
   return (int)cudaGetLastError();
 }
 

@@ -8,17 +8,34 @@ out, and final ranks follow the configured tie policy. Metrics (MRR, Hits@k,
 mean rank — raw, filtered and filtered-with-test, plus head/tail,
 relation-type, and frequency drill-downs) are computed from rank histograms.
 
-Design: every batch is ranked by the fused rank kernel
-(ops/rank_kernel.py), once per direction, on the model's factorized query
-(``factorized_queries``) against the entity table. The kernel returns the
-raw (greater, close) counts, the pivot (the score at the true entity, from
-the same float32 FMA chain as every other score, so the true entity ties
-with itself exactly) and the scores at the batch's known positives, given
-per row in CSR form. Filtered counts are the raw counts minus the
-positives' own (greater, close) counts, clamped at 0, as kge_tpu's
-``_rank_batch_grouped`` computes them; the batch x |E| score matrix is never
-held on the card. The ``chunk_size`` option of kge_tpu bounds that matrix
-there; it is accepted here and has nothing to bound.
+Design: every batch is ranked once per direction by one of two routes,
+which return the same four things: the raw (greater, close) counts, the
+pivot (the true entity's own score, so that it ties with itself exactly)
+and the scores at the batch's known positives, given per row in CSR form.
+Filtered counts are the raw counts minus the positives' own (greater, close)
+counts, clamped at 0, as kge_tpu's ``_rank_batch_grouped`` computes them.
+
+- The rank kernel (ops/rank_kernel.py), for scorers that factorize
+  (``factorized_queries``: ComplEx, the L2 distance scorers with their sqrt
+  epilogue): the model's query against the entity table, one float32 FMA
+  chain a score. The batch x |E| score matrix is never held on the card,
+  and ``entity_ranking.chunk_size`` has nothing to bound there.
+- The score matrix (``score_matrix_rank_counts``), for scorers that do not
+  factorize (TransE and RotatE under L1 or L_p, TransH): kge_tpu's flat
+  ``_rank_batch`` in plain PyTorch, since kge_tpu computes it outside any
+  Pallas kernel. The sp_/_po scores are computed over entity chunks of
+  ``entity_ranking.chunk_size`` columns (-1: all of |E| at once), so that
+  the [n, chunk] matrix is what the card holds. The pivot is the true
+  entity's own matrix entry; with more than one chunk a first pass over
+  the chunks finds it.
+
+The consistency check compares the pivot with the triple's true score and
+warns (``entity_ranking.tie_handling.warn_only``) when they differ beyond
+the tie tolerance, where kge_tpu warns: on the rank kernel's route the true
+score is the spo score (kge_tpu's grouped route), on the score matrix's the
+sp_/_po form at the batch's own answers (kge_tpu's flat route). The L2
+factorization cancels for close pairs, so a trained L2 model may warn there,
+as it does in kge_tpu.
 
 Precision is float32 throughout: the job sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -99,6 +116,58 @@ def hist_per_frequency_percentile(hists, s, p, o, s_ranks, o_ranks, job, **kwarg
             np.add.at(hists[key], ranks[mask], 1)
 
 
+def has_ranking_route(model) -> bool:
+    """Whether entity ranking can evaluate ``model``: every relational
+    scorer can, by the rank kernel where it factorizes and by the score
+    matrix of its sp_/_po forms (its own or the generic ones) otherwise."""
+    from kge_tpu_torch.models.base import RelationalScorer
+
+    return isinstance(model.get_scorer(), RelationalScorer)
+
+
+def score_matrix_rank_counts(score_chunk, true: torch.Tensor,
+                             cols: torch.Tensor, rows: torch.Tensor,
+                             num_valid: int, chunk_size: int, atol: float,
+                             rtol: float):
+    """(greater [n] int32, close [n] int32, vals [nnz], pivot [n]), as
+    ``fused_rank_counts`` returns them, from score matrices:
+    ``score_chunk(start, stop)`` gives the [n, stop - start] scores of the
+    candidate columns [start, stop), taken ``chunk_size`` at a time over
+    ``[0, num_valid)``. The pivot is row i's own entry at column
+    ``true[i]``; ``vals`` holds the entries at the CSR labels (``cols``,
+    with ``rows`` the row of each). With more than one chunk a first pass
+    finds the pivots and a second counts, each chunk scored by the same
+    call both times."""
+    n = true.shape[0]
+    true = true.long()
+    ranges = [(start, min(start + chunk_size, num_valid))
+              for start in range(0, num_valid, chunk_size)]
+    kept = None
+    if len(ranges) == 1:
+        kept = score_chunk(*ranges[0])
+        pivot = kept.gather(1, true[:, None])[:, 0]
+    else:
+        pivot = None
+        for start, stop in ranges:
+            scores = score_chunk(start, stop)
+            inside = (true >= start) & (true < stop)
+            at = (true - start).clamp(0, stop - start - 1)
+            entry = scores.gather(1, at[:, None])[:, 0]
+            pivot = entry if pivot is None else torch.where(inside, entry, pivot)
+    g = torch.zeros(n, dtype=torch.int32, device=true.device)
+    c = torch.zeros(n, dtype=torch.int32, device=true.device)
+    vals = torch.zeros(cols.shape[0], dtype=pivot.dtype, device=true.device)
+    for start, stop in ranges:
+        scores = kept if kept is not None else score_chunk(start, stop)
+        close, greater = close_greater(scores, pivot[:, None], atol, rtol)
+        g += greater.sum(dim=1, dtype=torch.int32)
+        c += close.sum(dim=1, dtype=torch.int32)
+        inside = (cols >= start) & (cols < stop)
+        at = (cols.long() - start).clamp(0, stop - start - 1)
+        vals = torch.where(inside, scores[rows, at], vals)
+    return g, c, vals, pivot
+
+
 def _csr(rows: np.ndarray, n: int):
     """row_ptr [n+1] of coordinates sorted by row."""
     return np.concatenate(
@@ -152,6 +221,10 @@ class EntityRankingJob(EvaluationJob):
         if "test" not in self.filter_splits and self.filter_with_test:
             self.dataset.index("test_sp_to_o")
             self.dataset.index("test_po_to_s")
+        if self.config.get("entity_ranking.chunk_size") > -1:
+            self.chunk_size = self.config.get("entity_ranking.chunk_size")
+        else:
+            self.chunk_size = self.dataset.num_entities()
         self.model.prepare_job(self)
 
     # -- label coords ----------------------------------------------------------
@@ -208,28 +281,40 @@ class EntityRankingJob(EvaluationJob):
         the object, "s": for the subject) to CSR (row_ptr, cols, rows,
         in_filt).
         Returns per-ranking [4, n] (s_rank, s_ties, o_rank, o_ties) plus the
-        largest excess of |pivot - spo score| over the tie tolerance.
-        ``rank_counts`` lets a check run the same batch through the rank
-        kernel's plain version."""
+        largest excess of |pivot - true score| over the tie tolerance. The
+        route is the rank kernel when the model factorizes, else the score
+        matrix. ``rank_counts`` lets a check run the same batch through the
+        rank kernel's plain version."""
         E = self.dataset.num_entities()
         fac = self.model.factorized_queries(triples, (0, 2))
-        if fac is None:
-            raise NotImplementedError(
-                f"{type(self.model.get_scorer()).__name__} does not factorize "
-                "into a query and a target table; its evaluation is not "
-                "ported yet (see ROADMAP.md)"
-            )
         atol, rtol = self.tie_atol, self.tie_rtol
         raw, filt, filt_test, excess = {}, {}, {}, []
-        for key, slot, true in (("o", 2, triples[:, O]), ("s", 0, triples[:, S])):
-            pos, q, targets, score_map = fac[slot]
+        s, p, o = triples[:, S], triples[:, P], triples[:, O]
+        for key, slot, true in (("o", 2, o), ("s", 0, s)):
             row_ptr, cols, rows, in_filt = labels[key]
-            g, c, vals, pivot = rank_counts(
-                q.contiguous(), targets.contiguous(), None, row_ptr, cols, E,
-                atol, rtol, score_map=score_map,
-                pivot_cols=true.to(torch.int32).contiguous(),
-            )
-            # consistency: the spo scoring path vs the kernel's own score
+            if fac is not None:
+                pos, q, targets, score_map = fac[slot]
+                g, c, vals, pivot = rank_counts(
+                    q.contiguous(), targets.contiguous(), None, row_ptr, cols,
+                    E, atol, rtol, score_map=score_map,
+                    pivot_cols=true.to(torch.int32).contiguous(),
+                )
+            else:
+                # the true score that kge_tpu's flat route checks against:
+                # the sp_/_po form at the batch's own answers
+                # (kge_tpu/job/eval_entity_ranking.py:336-339)
+                if key == "o":
+                    def score_chunk(start, stop):
+                        return self.model.score_sp(s, p, self._entity_range(start, stop))
+                    pos = torch.diagonal(self.model.score_sp(s, p, o))
+                else:
+                    def score_chunk(start, stop):
+                        return self.model.score_po(p, o, self._entity_range(start, stop))
+                    pos = torch.diagonal(self.model.score_po(p, o, s))
+                g, c, vals, pivot = score_matrix_rank_counts(
+                    score_chunk, true, cols, rows, E, self.chunk_size, atol, rtol
+                )
+            # consistency: the true score vs the ranking's own entry
             excess.append(torch.max(
                 (pivot - pos).abs() - (atol + rtol * pos.abs())
             ))
@@ -258,6 +343,12 @@ class EntityRankingJob(EvaluationJob):
             for r, v in results.items()
         }
         return results, torch.max(torch.stack(excess))
+
+    def _entity_range(self, start: int, stop: int):
+        """The entity ids [start, stop), or None for all of them."""
+        if start == 0 and stop == self.dataset.num_entities():
+            return None
+        return torch.arange(start, stop, device=self.model.device)
 
     def _final_rank(self, rank, num_ties):
         if self.tie_handling == "rounded_mean_rank":

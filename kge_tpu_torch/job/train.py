@@ -89,6 +89,7 @@ class TrainingJob(TrainingOrEvaluationJob):
 
         if not self.is_forward_only:
             self.valid_job = _make_valid_job(config, dataset, self)
+            _check_validation_route(config, self.model)
 
         if self.__class__ == TrainingJob:
             for f in Job.job_created_hooks:
@@ -605,6 +606,19 @@ def _best_index(values: List[float], metric_max: bool) -> int:
     """Index of the best value (the first one among equals)."""
     values = list(values)
     return values.index(max(values) if metric_max else min(values))
+
+
+def _check_validation_route(config: Config, model: KgeModel) -> None:
+    """Refuse at job creation, not after the first epochs, a run whose
+    validation could not evaluate its model."""
+    from kge_tpu_torch.job.eval_entity_ranking import has_ranking_route
+
+    if config.get("valid.every") > 0 and not has_ranking_route(model):
+        raise ValueError(
+            f"valid.every={config.get('valid.every')}: "
+            f"{type(model.get_scorer()).__name__} has no entity-ranking "
+            "route, so the first validation would fail; set valid.every 0"
+        )
 
 
 def _make_valid_job(config: Config, dataset: Dataset, parent: TrainingJob):

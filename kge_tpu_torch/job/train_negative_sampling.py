@@ -146,7 +146,7 @@ class TrainingJobNegativeSampling(TrainingJob):
                 f"{self._implementation} with shared="
                 f"{bool(self._sampler.shared)} and on_device="
                 f"{self.config.get('negative_sampling.on_device')} is not "
-                "ported yet: see ROADMAP.md section A.8"
+                "ported yet: see ROADMAP.md section A.2"
             )
         self.triples = self.dataset.split(self.train_split)
         self.num_examples = len(self.triples)
@@ -161,7 +161,7 @@ class TrainingJobNegativeSampling(TrainingJob):
             raise NotImplementedError(
                 "negative_sampling.fused_scoring=always (localized "
                 "single-gather scoring on the dense step) is not ported "
-                "yet: see ROADMAP.md section A.8"
+                "yet: see ROADMAP.md section A.2"
             )
 
         # negatives drawn on the device: available when no filtering is

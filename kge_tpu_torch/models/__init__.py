@@ -1,7 +1,8 @@
 """Model zoo: scorers, embedders, and the model factory.
 
-Ported so far: ComplEx, TransE, RotatE and the reciprocal relations model
-over lookup embedders. The other models of kge_tpu are listed in ROADMAP.md.
+Ported so far: ComplEx, TransE, TransH, RotatE and the reciprocal relations
+model over lookup embedders. The other models of kge_tpu are listed in
+ROADMAP.md.
 """
 
 from kge_tpu_torch.models.base import (
@@ -25,6 +26,8 @@ from kge_tpu_torch.models.translation import (
     RotatEScorer,
     TransE,
     TransEScorer,
+    TransH,
+    TransHScorer,
 )
 
 __all__ = [
@@ -38,6 +41,8 @@ __all__ = [
     "ReciprocalRelationsModel",
     "TransE",
     "TransEScorer",
+    "TransH",
+    "TransHScorer",
     "RotatE",
     "RotatEScorer",
     "load_jax_params",

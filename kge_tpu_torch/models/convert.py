@@ -2,8 +2,10 @@
 
 kge_tpu keeps a model's parameters as a pytree of arrays,
 ``{"entity_embedder": {"embeddings": [E, d]}, "relation_embedder":
-{"embeddings": [R or 2R, d]}}`` (plus ``"scorer"`` for scorers with
-parameters of their own); its checkpoints store the tree with numpy leaves.
+{"embeddings": [R or 2R, d or 2d]}}`` (2R rows for the reciprocal
+relations model, 2d columns for TransH's [translation | normal]; plus
+``"scorer"`` for scorers with parameters of their own); its checkpoints
+store the tree with numpy leaves.
 This package keeps them in its modules. ``load_jax_params`` copies such a
 tree into a model, ``to_jax_params`` reads one out, both through numpy.
 

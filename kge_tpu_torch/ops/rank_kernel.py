@@ -19,11 +19,13 @@ the outputs are bit-equal across launches and across plans. Measured by
 and 0.28 ms for ``torch.matmul`` and the compares (PERF.md has the table).
 
 Beside the kernel stand its plain PyTorch version (``fused_rank_counts_plain``,
-the path for tensors on the CPU and the kernel's oracle on the card) and a
-launch counter (``fused_rank_counts.launches``). A CUDA tensor goes to the
-kernel or the wrapper raises; no path falls back to the plain version.
+the path for tensors on the CPU and the kernel's oracle on the card) and
+launch counters (``fused_rank_counts.launches``, and of those the launches
+with a score epilogue, ``fused_rank_counts.epilogue_launches``). A CUDA
+tensor goes to the kernel or the wrapper raises; no path falls back to the
+plain version.
 
-Differences from the TPU kernel's interface, both for the card:
+Differences from the TPU kernel's interface, all for the card:
 
 - Labels come per row in CSR form (``row_ptr [n+1]``, ``cols`` ascending and
   unique within each row) and ``vals`` is aligned with ``cols``; some
@@ -35,10 +37,21 @@ Differences from the TPU kernel's interface, both for the card:
   takes the pivot only this way; an explicit ``pivot``, as the TPU kernel
   takes it, is for CPU tensors (the plain version).
 
+- ``score_map``, the TPU kernel's score epilogue, is a Python callable
+  there. A callable cannot cross into CUDA, so here it must be a named
+  epilogue (``ScoreEpilogue``) whose integer code the kernel takes:
+  ``NEG_SQRT_L2`` (code 1), ``-sqrt(max(-dot, 0) + 1e-30)``, the epilogue of
+  the L2 distance scorers' augmented factorization
+  (models/translation.py ``_l2_factorization``). The kernel applies it to
+  the pivot, to every tile score before the compares and so to every label
+  value; the plain version calls it on the product. Any other callable
+  raises.
+
 Precision is float32 throughout (the TPU kernel rounds its inputs to bf16):
 every score is one FMA chain over the embedding dimension in ascending
-order, whatever the plan. ``score_map`` epilogues (the sqrt of L2 distance
-scorers) are not supported.
+order, whatever the plan, and the epilogue's float operations round one by
+one (the sqrt correctly rounded, as ``torch.sqrt``'s on the card), so the
+true entity ties with itself exactly under the epilogue too.
 """
 
 from __future__ import annotations
@@ -53,6 +66,27 @@ _KERNEL = "rank_counts"
 TILE_COLS = 128
 #: query rows per block of the kernel (BM of csrc/rank_counts.cu)
 TILE_ROWS = 64
+
+
+class ScoreEpilogue:
+    """A named score epilogue: ``code`` is what the CUDA kernel takes, and a
+    call applies the same map to a tensor of scores in PyTorch."""
+
+    def __init__(self, name: str, code: int, fn):
+        self.name, self.code, self._fn = name, code, fn
+
+    def __call__(self, scores: torch.Tensor) -> torch.Tensor:
+        return self._fn(scores)
+
+    def __repr__(self):
+        return f"ScoreEpilogue({self.name!r}, {self.code})"
+
+
+#: -||q - c||_2 from the augmented product -||q - c||^2, clamped at 0
+#: against cancellation (kge_tpu/models/translation.py ``_l2_factorization``)
+NEG_SQRT_L2 = ScoreEpilogue(
+    "neg_sqrt_l2", 1, lambda dot: -torch.sqrt(torch.clamp(-dot, min=0.0) + 1e-30)
+)
 
 
 def rank_plan(n: int, num_valid: int, *,
@@ -178,24 +212,24 @@ def fused_rank_counts(
 ):
     """(greater [n] int32, close [n] int32, vals [nnz] float32, pivot [n]).
 
-    Scores are ``q @ targets.T`` over the columns ``< num_valid``; counts
-    are against the row's pivot under isclose tie semantics; ``vals`` holds
-    the score at each CSR label column (0 where the column is ``>=
-    num_valid``). Give either ``pivot`` [n] or ``pivot_cols`` [n], the
-    column whose own score is the pivot; on the card only ``pivot_cols``.
-    ``plan`` (of ``rank_plan``) sets the kernel's grid; the outputs do not
-    depend on it.
+    Scores are ``score_map(q @ targets.T)`` over the columns ``<
+    num_valid``; counts are against the row's pivot under isclose tie
+    semantics; ``vals`` holds the score at each CSR label column (0 where the
+    column is ``>= num_valid``). ``score_map`` is None or a ``ScoreEpilogue``.
+    Give either ``pivot`` [n] or ``pivot_cols`` [n], the column whose own
+    score is the pivot; on the card only ``pivot_cols``. ``plan`` (of
+    ``rank_plan``) sets the kernel's grid; the outputs do not depend on it.
     """
-    if score_map is not None:
+    if score_map is not None and not isinstance(score_map, ScoreEpilogue):
         raise NotImplementedError(
-            "fused_rank_counts: score epilogues (L2 distance scorers) are not "
-            "ported yet; see ROADMAP.md"
+            f"fused_rank_counts: score_map {score_map!r} is not a named "
+            "epilogue (ScoreEpilogue); the kernel applies only those"
         )
     _check(q, targets, pivot, row_ptr, cols, num_valid, pivot_cols)
     if q.device.type == "cpu":
         return fused_rank_counts_plain(
             q, targets, pivot, row_ptr, cols, num_valid, atol, rtol,
-            pivot_cols=pivot_cols,
+            score_map=score_map, pivot_cols=pivot_cols,
         )
     if q.device.type != "cuda":
         raise ValueError(f"fused_rank_counts: unsupported device {q.device}")
@@ -205,10 +239,13 @@ def fused_rank_counts(
             "pivot_cols, not as an explicit pivot"
         )
     return _launch(q, targets, row_ptr, cols, num_valid, atol, rtol,
-                   pivot_cols, plan)
+                   pivot_cols, plan,
+                   epilogue=0 if score_map is None else score_map.code)
 
 
 fused_rank_counts.launches = 0
+#: the launches among them with a score epilogue other than the identity
+fused_rank_counts.epilogue_launches = 0
 
 
 def _library():
@@ -218,7 +255,7 @@ def _library():
     if not getattr(lib, "_kge_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.rank_counts_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, f, f, i, p, p, p, p, p, p,
+            p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p, p,
         ]
         lib.rank_counts_launch.restype = i
         for name in ("rank_counts_tile_cols", "rank_counts_tile_rows"):
@@ -232,7 +269,7 @@ def _library():
 
 
 def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
-            plan=None):
+            plan=None, epilogue=0):
     from kge_tpu_torch.ops.kernel_utils import check_launch
 
     device = q.device
@@ -269,10 +306,11 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
             q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
             row_ptr.data_ptr(), cols.data_ptr(),
             n, D, int(num_valid), cols.numel(), float(atol), float(rtol),
-            plan["tiles_per_range"], tile_ptr.data_ptr(),
+            int(epilogue), plan["tiles_per_range"], tile_ptr.data_ptr(),
             counts[0].data_ptr(), counts[1].data_ptr(), vals.data_ptr(),
             pivot_out.data_ptr(), stream,
         )
     check_launch(code, "rank_counts")
     fused_rank_counts.launches += 1
+    fused_rank_counts.epilogue_launches += epilogue != 0
     return counts[0], counts[1], vals, pivot_out

@@ -5,12 +5,14 @@ with no card, ``job.device: auto`` fails loudly instead of running on the
 host. ``start`` and ``resume`` train on the CPU, and checkpoints cross both
 ways: kge_tpu loads and resumes what the port wrote, the port resumes what
 kge_tpu wrote, and ``valid`` of either package reports the same metrics on
-either folder."""
+either folder, for the distance models too; their training runs validate
+on schedule and keep every checkpoint."""
 
 import json
 import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 
@@ -22,6 +24,7 @@ from tests.util import DATASET_DIR, TESTS_DIR
 
 REPO_ROOT = TESTS_DIR.parent
 PACKAGE_DIR = REPO_ROOT / "kge_tpu_torch"
+EXAMPLES_DIR = REPO_ROOT / "examples"
 
 # runs the CLI as `python -m kge_tpu_torch` does, then reports which
 # modules the process holds
@@ -398,18 +401,95 @@ def test_pooled_checkpoints_cross_both_ways(started_pooled):
 
 
 def test_kge_tpu_validates_the_ports_distance_model_folder(started_pooled):
-    """Evaluation of the distance models is not ported: ``valid`` of the port
-    says so, and kge_tpu evaluates the folder the port trained."""
-    model, tmp, port, _ = started_pooled
-    _run([sys.executable, "-m", "kge_tpu", "valid", str(port),
-          "--checkpoint", "3"], cwd=tmp)
-    (entry,) = _entries(port, event="eval_completed", job="eval")
-    mrr = entry["mean_reciprocal_rank_filtered"]
-    assert 0.0 < mrr <= 1.0
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", "valid", str(port),
-                 "--job.device", "cpu", "--checkpoint", "3"], cwd=tmp, check=False)
-    assert proc.returncode != 0
-    assert "evaluation is not ported yet" in proc.stderr
+    """``valid`` of either package on the folder the port trained (and on
+    the one kge_tpu trained) reports the same metrics: the port ranks an L1
+    distance model by the score matrix."""
+    model, tmp, port, ref = started_pooled
+    for folder in (port, ref):
+        before = len(_entries(folder, event="eval_completed", job="eval"))
+        _run([sys.executable, "-m", "kge_tpu", "valid", str(folder),
+              "--checkpoint", "3"], cwd=tmp)
+        _run([sys.executable, "-m", "kge_tpu_torch", "valid", str(folder),
+              "--job.device", "cpu", "--checkpoint", "3"], cwd=tmp)
+        want, got = (_metrics(e) for e in
+                     _entries(folder, event="eval_completed", job="eval")[before:])
+        assert 0.0 < want["mean_reciprocal_rank_filtered"] <= 1.0
+        assert got == want
+
+
+# -- validation during training of the distance models --------------------------
+
+
+def _toy_cwd(tmp):
+    """A working directory holding the toy dataset where the example
+    configs look for it (data/dataset_test)."""
+    shutil.copytree(DATASET_DIR, tmp / "data" / "dataset_test")
+    return tmp
+
+
+def test_transe_l1_run_validates_and_keeps_its_checkpoints(tmp_path):
+    """TransE-L1 trained for two epochs with a validation at the second:
+    the run exits 0, validates, writes the epoch's checkpoint, and its
+    validation equals kge_tpu's on the same checkpoint."""
+    cwd = _toy_cwd(tmp_path)
+    folder = cwd / "c1"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start",
+          str(EXAMPLES_DIR / "toy-transe-train.yaml"), "--transe.l_norm", "1.0",
+          "--train.max_epochs", "2", "--valid.every", "2", "--job.device", "cpu",
+          "--folder", str(folder)], cwd=cwd)
+    assert {"checkpoint_00002.pt", "checkpoint_best.pt"} <= {
+        p.name for p in folder.glob("checkpoint_*.pt")}
+    (valid,) = _entries(folder, event="eval_completed", job="eval")
+    assert valid["epoch"] == 2 and valid["split"] == "valid"
+    assert 0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0
+    _run([sys.executable, "-m", "kge_tpu", "valid", str(folder),
+          "--checkpoint", "2"], cwd=cwd)
+    assert _metrics(_entries(folder, event="eval_completed", job="eval")[-1]) == (
+        _metrics(valid))
+
+
+def test_transe_l2_example_trains_and_validates(tmp_path):
+    """The toy TransE example as it stands (l_norm 2, validation every 5 of
+    10 epochs) exits 0 with both validations and their checkpoints."""
+    cwd = _toy_cwd(tmp_path)
+    folder = cwd / "toy"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start",
+          str(EXAMPLES_DIR / "toy-transe-train.yaml"), "--job.device", "cpu",
+          "--folder", str(folder)], cwd=cwd)
+    valid = _entries(folder, event="eval_completed", job="eval")
+    assert [e["epoch"] for e in valid] == [5, 10]
+    assert all(0.0 < e["mean_reciprocal_rank_filtered"] <= 1.0 for e in valid)
+    assert {"checkpoint_00005.pt", "checkpoint_00010.pt", "checkpoint_best.pt"} <= {
+        p.name for p in folder.glob("checkpoint_*.pt")}
+    epochs = _entries(folder, event="epoch_completed")
+    assert [e["epoch"] for e in epochs] == list(range(1, 11))
+    assert epochs[-1]["avg_loss"] < epochs[0]["avg_loss"]
+
+
+@pytest.mark.parametrize("model,extra", [
+    ("transe", {"transe": {"l_norm": 2.0}}),
+    ("rotate", {"rotate": {"l_norm": 2.0}}),
+    ("transh", {"transh": {"C": 0.1}}),
+])
+def test_port_tests_kge_tpu_distance_model_folders(tmp_path, model, extra):
+    """A folder kge_tpu trained (TransE-L2, RotatE-L2, TransH): ``test`` of
+    the port reports kge_tpu's own test metrics."""
+    options = _pooled_options(model)
+    options.update(extra)
+    options["train"]["max_epochs"] = 1
+    options["train"]["checkpoint"] = {"every": 0}
+    conf = tmp_path / "toy.yaml"
+    with open(conf, "w") as f:
+        yaml.safe_dump(options, f)
+    folder = tmp_path / "ref"
+    _run([sys.executable, "-m", "kge_tpu", "start", str(conf), "--folder",
+          str(folder)], cwd=tmp_path)
+    _run([sys.executable, "-m", "kge_tpu", "test", str(folder)], cwd=tmp_path)
+    _run([sys.executable, "-m", "kge_tpu_torch", "test", str(folder),
+          "--job.device", "cpu"], cwd=tmp_path)
+    want, got = (_metrics(e) for e in _eval_entries(folder))
+    assert 0.0 < want["mean_reciprocal_rank_filtered"] <= 1.0
+    assert got == want
 
 
 def test_package_imports_neither_jax_nor_kge_tpu():

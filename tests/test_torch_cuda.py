@@ -127,6 +127,120 @@ def test_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError):  # the kernel takes no explicit pivot
         fused_rank_counts(q, T, torch.zeros(8, device=device), row_ptr, cols,
                           50, ATOL, RTOL)
+    with pytest.raises(NotImplementedError):  # an epilogue without a name
+        fused_rank_counts(q, T, None, row_ptr, cols, 50, ATOL, RTOL,
+                          score_map=torch.sqrt, pivot_cols=true)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,E,d", [(40, 1000, 62), (257, 3000, 128), (33, 777, 30)])
+def test_l2_epilogue_kernel_matches_plain_on_card(n, E, d):
+    """The L2 score epilogue on the port's padded augmented operands: counts
+    equal the plain version's, label values within rtol 1e-5; the epilogue
+    maps the identity kernel's pivot and label values to the epilogue
+    kernel's bit for bit (both round each operation correctly); the true
+    column ties with itself, close pairs (where the expansion cancels)
+    included."""
+    from kge_tpu_torch.models.translation import _l2_factorization
+
+    device = _card()
+    rng = np.random.default_rng(n + E)
+    q = rng.normal(0, 0.3, (n, d)).astype(np.float32)
+    c = rng.normal(0, 0.3, (E, d)).astype(np.float32)
+    true = rng.integers(0, E, n)
+    c[true[:4]] = q[:4] + rng.normal(0, 1e-4, (4, d))  # near-zero distances
+    q[5] = np.nan
+    query, target_map, score_map = _l2_factorization(torch.tensor(q, device=device))
+    targets = target_map(torch.tensor(c, device=device))
+    assert query.shape[1] % 4 == 0 and score_map.code == 1
+    _, _, row_ptr, cols, _ = (x.to(device) for x in _inputs(7, n, E, d))
+    true = torch.tensor(true, dtype=torch.int32, device=device)
+    before = fused_rank_counts.launches
+    g, cl, vals, pivot = fused_rank_counts(query, targets, None, row_ptr, cols, E,
+                                           ATOL, RTOL, score_map=score_map,
+                                           pivot_cols=true)
+    ig, ic, ivals, ipivot = fused_rank_counts(query, targets, None, row_ptr, cols,
+                                              E, ATOL, RTOL, pivot_cols=true)
+    torch.cuda.synchronize()
+    assert fused_rank_counts.launches == before + 2
+    assert torch.equal(score_map(ipivot).view(torch.int32), pivot.view(torch.int32))
+    assert torch.equal(score_map(ivals).view(torch.int32), vals.view(torch.int32))
+    pg, pc, pvals, _ = rank_kernel.fused_rank_counts_plain(
+        query, targets, pivot, row_ptr, cols, E, ATOL, RTOL, score_map=score_map)
+    np.testing.assert_allclose(vals.cpu().numpy(), pvals.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(g, pg) and torch.equal(cl, pc)
+    finite = torch.isfinite(pivot)
+    assert bool((cl[finite] >= 1).all()) and not bool(finite[5])
+    assert bool((pivot[:4] > -0.01).all())  # the close pairs
+
+
+def _write_dataset(folder, seed, num_entities=300, num_relations=6,
+                   sizes=(2000, 100, 100)):
+    """A random graph in the .del layout (``dataset.yaml`` and the splits)."""
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    total = sum(sizes)
+    triples = np.stack([rng.integers(0, num_entities, total),
+                        rng.integers(0, num_relations, total),
+                        rng.integers(0, num_entities, total)], axis=1)
+    start = 0
+    for name, size in zip(("train", "valid", "test"), sizes):
+        part = triples[start:start + size]
+        start += size
+        (folder / f"{name}.del").write_text(
+            "".join("\t".join(map(str, t)) + "\n" for t in part.tolist()))
+    for name, num in (("entity_ids", num_entities), ("relation_ids", num_relations)):
+        (folder / f"{name}.del").write_text(
+            "".join(f"{i}\t{name[0]}{i}\n" for i in range(num)))
+    (folder / "dataset.yaml").write_text(
+        f"dataset:\n  name: {folder.name}\n  num_entities: {num_entities}\n"
+        f"  num_relations: {num_relations}\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_norm", [1.0, 2.0])
+def test_transe_test_evaluation_on_card_equals_cpu(tmp_path, l_norm):
+    """TransE's test evaluation on the card (L2: the rank kernel with its
+    epilogue; L1: the score matrix, in chunks and whole) reports the CPU's
+    metrics from the same weights."""
+    from kge_tpu_torch import Config, Dataset
+    from kge_tpu_torch.job import EvaluationJob
+    from kge_tpu_torch.models import KgeModel, load_jax_params
+
+    device = _card()
+    data = tmp_path / "transe_synth"
+    _write_dataset(data, 3)
+    rng = np.random.default_rng(4)
+    params = {"entity_embedder": {"embeddings": rng.normal(0, 0.3, (300, 32)).astype(np.float32)},
+              "relation_embedder": {"embeddings": rng.normal(0, 0.3, (6, 32)).astype(np.float32)}}
+    entries = {}
+    for where, chunk in (("cuda", -1), ("cuda", 70), ("cpu", -1)):
+        config = Config()
+        config.load_options({"model": "transe"})
+        for key, value in (("transe.l_norm", l_norm), ("lookup_embedder.dim", 32),
+                           ("job.device", where), ("dataset.name", str(data)),
+                           ("eval.split", "test"), ("eval.batch_size", 32),
+                           ("entity_ranking.chunk_size", chunk),
+                           ("console.quiet", True)):
+            config.set(key, value)
+        dataset = Dataset.create(config, folder=str(data))
+        model = KgeModel.create(config, dataset, init_for_load_only=True)
+        load_jax_params(model, params)
+        job = EvaluationJob.create(config, dataset, model=model)
+        job.epoch = 0
+        before = fused_rank_counts.launches
+        with torch.inference_mode():
+            entries[where, chunk] = job._evaluate()
+        launched = fused_rank_counts.launches - before
+        # the rank kernel serves L2 on the card, twice a batch; L1 never
+        assert launched == (2 * 4 if where == "cuda" and l_norm == 2.0 else 0)
+    keys = [k for k in entries["cpu", -1]
+            if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))]
+    assert keys
+    for key in keys:
+        assert entries["cuda", -1][key] == entries["cpu", -1][key], key
+        assert entries["cuda", 70][key] == entries["cpu", -1][key], key
 
 
 # -- scatter kernel ---------------------------------------------------------------

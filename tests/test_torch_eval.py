@@ -3,10 +3,13 @@ same weights (made by kge_tpu, carried across through numpy) evaluated by
 both packages on the CPU must give the same trace entry, metric by metric
 and exactly — the rank histograms are integer, so the floats are identical.
 
-Covers plain and reciprocal ComplEx, the three tie policies, ranking with a
-chunk_size below |E| and kge_tpu's flat label layout on its side,
-filter_with_test, and the head/tail, relation-type and argument-frequency
-drill-downs, on tests/data/dataset_test and on a seeded synthetic graph."""
+Covers plain and reciprocal ComplEx (the rank kernel's route), the distance
+models (TransE and RotatE under L1 by the score matrix and under L2 by the
+rank kernel with its sqrt epilogue, TransH by the score matrix), the three
+tie policies, ranking with a chunk_size below |E| and kge_tpu's flat label
+layout on its side, filter_with_test, the head/tail, relation-type and
+argument-frequency drill-downs and the consistency warning, on
+tests/data/dataset_test and on a seeded synthetic graph."""
 
 import math
 
@@ -39,9 +42,37 @@ def synth(tmp_path_factory):
     )
 
 
-def _evaluate_both(folder, dataset_name, model, options, perrow_budget=None):
+#: the distance models: name -> options
+DISTANCE_MODELS = {
+    "transe": {"model": "transe"},
+    "transe_l2": {"model": "transe", "transe.l_norm": 2.0},
+    "rotate": {"model": "rotate"},
+    "rotate_l2": {"model": "rotate", "rotate.l_norm": 2.0},
+    "transh": {"model": "transh"},
+}
+
+
+def _warnings_of(config):
+    """The WARNING lines that ``config`` logs from now on."""
+    seen = []
+    log = config.log
+
+    def record(msg, *args, **kwargs):
+        if "WARNING" in str(msg):
+            seen.append(str(msg))
+        return log(msg, *args, **kwargs)
+
+    config.log = record
+    return seen
+
+
+def _evaluate_both(folder, dataset_name, model, options, perrow_budget=None,
+                   warnings=None):
     options = {**model_options(model), **options}
     jmodel, params, tmodel = make_pair(folder, dataset_name, options, seed=5)
+    if warnings is not None:
+        warnings["kge_tpu"] = _warnings_of(jmodel.config)
+        warnings["port"] = _warnings_of(tmodel.config)
 
     jjob = JaxEvaluationJob.create(jmodel.config, jmodel.dataset, model=jmodel)
     jjob.model_params = params
@@ -116,6 +147,66 @@ def test_dataset_test_eval_matches_kge_tpu(model, split):
     options = {**DRILL_DOWNS, "eval.split": split, "eval.batch_size": 2}
     expected, got = _evaluate_both(DATASET_DIR, "dataset_test", model, options)
     _assert_same_entry(expected, got)
+
+
+@pytest.mark.parametrize("split", ["valid", "test"])
+@pytest.mark.parametrize("chunk_size", [-1, 70])
+@pytest.mark.parametrize("name", list(DISTANCE_MODELS))
+def test_distance_model_eval_matches_kge_tpu(synth, name, chunk_size, split):
+    """Every metric of kge_tpu's trace entry, exactly, by both routes of the
+    port: the rank kernel (L2) and the score matrix, over all of |E| at once
+    and in chunks of 70 columns; neither package warns."""
+    options = {
+        **DISTANCE_MODELS[name],
+        **DRILL_DOWNS,
+        "eval.split": split,
+        "eval.batch_size": 64,
+        "entity_ranking.chunk_size": chunk_size,
+    }
+    warnings = {}
+    expected, got = _evaluate_both(synth, "eval_synth", options["model"], options,
+                                   warnings=warnings)
+    _assert_same_entry(expected, got)
+    assert warnings == {"kge_tpu": [], "port": []}
+
+
+@pytest.mark.parametrize("name", ["transe", "transe_l2", "transh"])
+def test_distance_model_eval_tie_policy_matches_kge_tpu(synth, name):
+    """With a wide tie tolerance the worst-rank policy moves ranks, in both
+    packages alike."""
+    options = {
+        **DISTANCE_MODELS[name],
+        "eval.split": "valid",
+        "eval.batch_size": 64,
+        "entity_ranking.tie_handling.type": "worst_rank",
+        "entity_ranking.tie_handling.atol": "0.5",
+    }
+    expected, got = _evaluate_both(synth, "eval_synth", options["model"], options)
+    _assert_same_entry(expected, got)
+    best = _evaluate_both(synth, "eval_synth", options["model"], {
+        **options, "entity_ranking.tie_handling.type": "best_rank"})[1]
+    assert best["mean_rank_filtered"] != got["mean_rank_filtered"]
+
+
+@pytest.mark.parametrize("name,warns", [("transe_l2", True), ("rotate_l2", True),
+                                         ("transe", False), ("transh", False)])
+def test_consistency_warning_where_kge_tpu_warns(synth, name, warns):
+    """At zero tie tolerance the L2 factorization's cancellation puts the
+    pivot off the spo score: both packages warn (and report the same
+    metrics); the score matrix's pivot equals its true score and neither
+    package warns."""
+    options = {
+        **DISTANCE_MODELS[name],
+        "eval.split": "valid",
+        "eval.batch_size": 64,
+        "entity_ranking.tie_handling.atol": "0.0",
+        "entity_ranking.tie_handling.rtol": "0.0",
+    }
+    warnings = {}
+    expected, got = _evaluate_both(synth, "eval_synth", options["model"], options,
+                                   warnings=warnings)
+    _assert_same_entry(expected, got)
+    assert bool(warnings["kge_tpu"]) == bool(warnings["port"]) == warns
 
 
 def test_collate_cache_reused_across_epochs(synth):

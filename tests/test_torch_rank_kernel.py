@@ -3,7 +3,8 @@ kge_tpu's Pallas kernel (run in interpret mode on the CPU, as
 tests/test_rank_kernel.py runs it): the same inputs, made with numpy from a
 seed, through both. Counts must be equal; label values agree within rtol
 1e-5, atol 1e-6 (test_rank_kernel.py's tolerance: the two sides compute
-the products with different matmul libraries)."""
+the products with different matmul libraries). The L2 score epilogue is held
+the same way, each package on its own augmented operands."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,6 +108,83 @@ def test_pivot_cols_self_tie_matches_pallas_kernel():
     np.testing.assert_array_equal(c.numpy(), jc)
 
 
+def _l2_inputs(seed, n, E, d, num_valid):
+    """Augmented L2 operands of both packages for queries and candidates
+    made with numpy: kge_tpu's [n, d + 2] and the port's, padded with zero
+    columns to a multiple of 4; pivots near each row's distance to one
+    candidate, and a NaN row and a -inf pivot."""
+    from kge_tpu.models.translation import _l2_factorization as jax_l2
+    from kge_tpu_torch.models.translation import _l2_factorization
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(E, d)).astype(np.float32)
+    q[2] = np.nan
+    jq, jmap, jscore = jax_l2(jnp.asarray(q))
+    jt = jmap(jnp.asarray(c))
+    tq, tmap, score_map = _l2_factorization(torch.from_numpy(q))
+    tt = tmap(torch.from_numpy(c))
+    near = rng.integers(0, num_valid, n)
+    pivot = (-np.linalg.norm(q - c[near], axis=1)
+             * rng.uniform(0.95, 1.05, n)).astype(np.float32)
+    pivot[3] = -np.inf
+    row_ptr, cols, padded, per_row = _labels(rng, n, E, num_valid, 40)
+    return (jq, jt, jscore), (tq, tt, score_map), pivot, row_ptr, cols, padded, per_row
+
+
+@pytest.mark.parametrize("n,E,d,num_valid",
+                         [(8, 50, 16, 50), (9, 300, 30, 251), (20, 700, 128, 700)])
+def test_l2_epilogue_matches_pallas_kernel(n, E, d, num_valid):
+    """The L2 score epilogue: the plain version with ``NEG_SQRT_L2`` on the
+    port's padded augmented operands against kge_tpu's kernel with its
+    ``score_map`` on its own; exact counts, values within the file's
+    tolerance."""
+    from kge_tpu_torch.ops.rank_kernel import NEG_SQRT_L2
+
+    (jq, jt, jscore), (tq, tt, score_map), pivot, row_ptr, cols, padded, per_row = (
+        _l2_inputs(n + E + d, n, E, d, num_valid))
+    assert score_map is NEG_SQRT_L2 and tq.shape[1] % 4 == 0
+    jg, jc, jvals = (np.asarray(x) for x in jax_rank_counts(
+        jq, jt, jnp.asarray(pivot), jnp.asarray(padded), num_valid, ATOL, RTOL,
+        score_map=jscore))
+    before = fused_rank_counts.launches
+    g, c, vals, piv = fused_rank_counts(
+        tq, tt, torch.from_numpy(pivot), torch.from_numpy(row_ptr),
+        torch.from_numpy(cols), num_valid, ATOL, RTOL, score_map=score_map)
+    assert fused_rank_counts.launches == before
+    np.testing.assert_array_equal(g.numpy(), jg)
+    np.testing.assert_array_equal(c.numpy(), jc)
+    expected = np.concatenate([jvals[i, : len(r)] for i, r in enumerate(per_row)])
+    np.testing.assert_allclose(vals.numpy(), expected, rtol=1e-5, atol=1e-6)
+    # the NaN row's scores and pivot read as -inf and all tie, the -inf
+    # pivot ties every finite score, and some rows have candidates on both
+    # sides
+    assert g[2] == 0 and c[2] == num_valid and c[3] == num_valid
+    assert bool(((g > 0) & (g < num_valid - 1)).any())
+
+
+def test_l2_epilogue_self_tie_matches_pallas_kernel():
+    """With ``pivot_cols`` the pivot is the row's own epilogued score, so
+    the column ties with itself; the counts equal kge_tpu's for that
+    pivot."""
+    n, E, d = 12, 200, 20
+    (jq, jt, jscore), (tq, tt, score_map), _, row_ptr, cols, padded, _ = (
+        _l2_inputs(5, n, E, d, E))
+    true = np.random.default_rng(6).integers(0, E, size=n).astype(np.int32)
+    g, c, vals, piv = fused_rank_counts(
+        tq, tt, None, torch.from_numpy(row_ptr), torch.from_numpy(cols), E,
+        ATOL, RTOL, score_map=score_map, pivot_cols=torch.from_numpy(true))
+    scores = score_map(tq @ tt.T)
+    np.testing.assert_array_equal(
+        piv.numpy(), scores[torch.arange(n), torch.from_numpy(true).long()].numpy())
+    finite = np.isfinite(piv.numpy())
+    assert np.all(c.numpy()[finite] >= 1)
+    jg, jc, _ = jax_rank_counts(jq, jt, jnp.asarray(piv.numpy()), jnp.asarray(padded),
+                                E, ATOL, RTOL, score_map=jscore)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(jg))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
 def test_csr_helpers():
     row_ptr = torch.tensor([0, 0, 3, 4, 4], dtype=torch.int32)
     np.testing.assert_array_equal(
@@ -126,9 +204,15 @@ def test_wrapper_checks_and_cpu_path_does_not_count():
     before = fused_rank_counts.launches
     fused_rank_counts(q, T, torch.zeros(2), row_ptr, cols, 5, ATOL, RTOL)
     assert fused_rank_counts.launches == before
-    with pytest.raises(NotImplementedError):
+    # a score epilogue must be a named one, on every device
+    with pytest.raises(NotImplementedError, match="ScoreEpilogue"):
         fused_rank_counts(q, T, torch.zeros(2), row_ptr, cols, 5, ATOL, RTOL,
                           score_map=torch.sqrt)
+    g, c, _, _ = fused_rank_counts(q, T, torch.zeros(2), row_ptr, cols, 5,
+                                   ATOL, RTOL, score_map=rank_kernel.NEG_SQRT_L2)
+    assert fused_rank_counts.launches == before
+    # every score is -sqrt(1e-30) and ties the pivot 0
+    assert g.tolist() == [0, 0] and c.tolist() == [5, 5]
     with pytest.raises(ValueError):
         fused_rank_counts(q, torch.zeros(5, 3), torch.zeros(2), row_ptr, cols,
                           5, ATOL, RTOL)

@@ -26,6 +26,7 @@ from tests.torch_parity import (
     jax_tables as _jax_tables,
     make_config,
     make_job_pair,
+    pooled_options,
     run_steps as _run_steps,
     shared_negatives,
     torch_tables as _tables,
@@ -113,6 +114,30 @@ def test_trajectory_variants_match_jax(case):
     for want, got in _run_steps(jjob, tjob):
         np.testing.assert_allclose(got, want, rtol=1e-4)
     _assert_same_state(jjob, tjob)
+
+
+@pytest.mark.parametrize("case,implementation", [
+    ("pool", "pool"), ("pool_sparse", "pool"), ("shared", "batch")])
+def test_transe_l2_trajectory_matches_jax(case, implementation):
+    """TransE-L2, margin ranking, Adagrad: five steps of pooled negatives
+    on the dense and the row-sparse step and of shared negatives; both
+    score their candidates once through the L2 factorization and its sqrt
+    epilogue (every row picking its columns of the pool)."""
+    extra = {"transe.l_norm": 2.0,
+             "train.optimizer.default.args.initial_accumulator_value": 0.1}
+    if case == "pool_sparse":
+        extra["train.sparse_embedding_update"] = "always"
+    if case == "shared":
+        extra["negative_sampling.shared"] = True
+    jjob, tjob = make_job_pair(DATASET_DIR, "dataset_test",
+                               pooled_options("transe", **extra))
+    assert tjob._implementation == jjob._implementation == implementation
+    assert tjob._sparse_update == jjob._sparse_update == (case == "pool_sparse")
+    start = [t.copy() for t in _tables(tjob)]
+    for want, got in _run_steps(jjob, tjob):
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_same_state(jjob, tjob)
+    assert max(np.abs(a - b).max() for a, b in zip(_tables(tjob), start)) > 1e-2
 
 
 def test_sparse_step_equals_dense_step():
@@ -437,3 +462,33 @@ def test_profile_option_writes_a_trace(tmp_path):
     entry = job.run_epoch()
     assert entry["batches"] == 2
     assert (tmp_path / "exp" / "profile" / "epoch_00001.json").is_file()
+
+
+@pytest.mark.parametrize("model", ["complex", "reciprocal_relations_model",
+                                   "transe", "rotate", "transh"])
+def test_every_ported_model_has_a_ranking_route(model):
+    from kge_tpu_torch.job.eval_entity_ranking import has_ranking_route
+
+    config = make_config(kge_tpu_torch, "dataset_test",
+                         {"model": model, "lookup_embedder.dim": 8,
+                          "reciprocal_relations_model.base_model.type": "transe"})
+    dataset = kge_tpu_torch.Dataset.create(config, folder=str(DATASET_DIR))
+    assert has_ranking_route(kge_tpu_torch.models.KgeModel.create(config, dataset))
+
+
+def test_validation_without_a_ranking_route_is_refused_at_creation():
+    """A run whose validation could not evaluate its model is refused when
+    the job is created, before any epoch, unless it does not validate."""
+    from kge_tpu_torch.job import TrainingJob
+
+    for every in (1, 0):
+        config = make_config(kge_tpu_torch, "dataset_test",
+                             train_options(**{"valid.every": every}))
+        dataset = kge_tpu_torch.Dataset.create(config, folder=str(DATASET_DIR))
+        model = kge_tpu_torch.models.KgeModel.create(config, dataset)
+        model._scorer = torch.nn.Identity()  # no relational scorer
+        if every:
+            with pytest.raises(ValueError, match="no entity-ranking route"):
+                TrainingJob.create(config, dataset, model=model)
+        else:
+            TrainingJob.create(config, dataset, model=model)
