@@ -90,7 +90,10 @@ Phases (any failure exits non-zero; nothing is caught):
    and its backward) against the plain version in float64, for ``l1``
    (n = 8,192, K = 128, F = 8, d = 128 and d = 512) and ``cmod`` (n = 4,096,
    K = 128, F = 8, d = 512 per part), one odd shape (n = 37, K = 5, F = 3,
-   d = 100, and d = 51 for the scalar path) and rows whose query equals a
+   d = 100, and d = 51 for the scalar path), the backward's edges (K =
+   1,024; several row chunks with n no multiple of one; K = 13 with d = 300;
+   F = 1, 16 and 100; sel partly outside [0, F), which stands for a zero
+   candidate and no pool row; n = 0) and rows whose query equals a
    candidate: scores, dq and dpool within ``1e-6 + 1e-5 S`` with S the sum of
    the magnitudes that the element adds up; two launches bit-equal.
 11. P-transe: ``start`` through ``cli.main``, TransE-L1 d = 128, margin
@@ -117,8 +120,10 @@ Phases (any failure exits non-zero; nothing is caught):
 13. Timings at P-rotate's shapes: the three new kernels per call beside
    plain, a library route (``index_add_`` and ``torch.optim.Adam(fused=
    True)``; ``cdist(p=1)`` and a gather for ``l1``, none for ``cmod``) and
-   the bound; the pooled scoring's two routes (kernel, one-hot select) at
-   d = 128; a warm epoch of each new configuration with its profile.
+   the bound, the pooled backward's two launches (``dq``, ``dpool``) each
+   from torch.profiler; the pooled scoring's two routes (kernel, one-hot
+   select) at d = 128; a warm epoch of each new configuration with its
+   profile.
 14. T-transe-l2: TransE-L2 d = 128 with the settings of
    examples/fb15k-237-transe-negsamp.yaml (margin ranking 4.0, Adagrad lr
    0.05, batch 2,048, 64 + 64 negatives, ``xavier_uniform_``; ``auto``
@@ -144,8 +149,10 @@ Phases (any failure exits non-zero; nothing is caught):
    profiled.
 15. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
-   library call's time, and the bound (bytes over 3.35 TB/s or fp32
-   operations over 67 TFLOP/s, whichever is larger); every time in it is
+   library call's time, and the bound (the largest of bytes over 3.35 TB/s,
+   fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
+   16 a clock per SM at the card's maximum SM clock; ``bound_term`` names
+   it); every time in it is
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14. Then the card's name
    and power limit, then the ``ok`` JSON line last.
@@ -154,6 +161,7 @@ Phases (any failure exits non-zero; nothing is caught):
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -168,6 +176,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
+SPECIAL_PER_CLOCK_PER_SM = 16  # sqrt / rsqrt results (Hopper's special-function units)
 ATOL, RTOL = 1e-5, 1e-4        # entity_ranking.tie_handling defaults
 SPIN_CYCLES = 90_000_000       # about 50 ms of an H100's clock
 
@@ -476,6 +485,35 @@ def last_test_entry(folder: str):
     return entry
 
 
+def device_us(event):
+    """A profiler event's own device time, microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_ms(fn, names, reps: int = 10):
+    """Mean device ms of one launch of each kernel whose name holds one of
+    ``names`` (each launched once a call of ``fn``), from torch.profiler
+    over ``reps`` calls after a warm-up: the device time over the launches
+    the profiler recorded. None where it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for event in prof.key_averages():
+        for name in names:
+            if name in event.key and device_us(event) > 0:
+                total[name] += device_us(event)
+                count[name] += event.count
+    return {name: total[name] / 1e3 / count[name] if count[name] else None
+            for name in names}
+
+
 def profile_run(fn, what: str):
     """``fn()`` under torch.profiler: wall time, device time by kernel
     name, and the device's busy share of the wall."""
@@ -486,10 +524,6 @@ def profile_run(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-
-    def device_us(event):
-        return getattr(event, "self_device_time_total",
-                       getattr(event, "self_cuda_time_total", 0.0))
 
     # kernels only: an operator's entry repeats its kernels' device time
     events = [e for e in prof.key_averages()
@@ -1189,11 +1223,13 @@ def compare_fused_update(seed: int, device) -> float:
 # -- the pooled distance kernels against their plain version ----------------------
 
 
-def pooled_inputs(kind, n, K, F, d, generator, device, stride_parts=False):
+def pooled_inputs(kind, n, K, F, d, generator, device, stride_parts=False,
+                  outside=False):
     """Random queries, pool and sel; a few rows' queries equal one of their
     candidates (distance 0: sign(0) and the modulus' epsilon). With
     ``stride_parts`` the two pool parts are the column halves of one table,
-    as the model passes them."""
+    as the model passes them; with ``outside`` about a fifth of sel lies
+    outside [0, F) (-1, F and F + 7)."""
     parts = 1 if kind == "l1" else 2
 
     def randn(*shape):
@@ -1210,6 +1246,11 @@ def pooled_inputs(kind, n, K, F, d, generator, device, stride_parts=False):
         j = i % K
         for q, pool in zip(queries, pools):
             q[i] = pool[j * F + int(sel[i, j])]
+    if outside:
+        draw = torch.rand(n, K, generator=generator, device=device)
+        sel[draw < 0.1] = -1
+        sel[(draw >= 0.1) & (draw < 0.15)] = F
+        sel[(draw >= 0.15) & (draw < 0.2)] = F + 7
     return queries, pools, sel
 
 
@@ -1217,17 +1258,26 @@ def pooled_reference(queries, pools, sel, F, kind, g, rows_per_chunk=512):
     """Scores, dq and dpool of the plain version in float64, a chunk of
     rows at a time, and the magnitude sums of the tolerance: |factor| <= |g|,
     so dq[i] adds up at most sum_j |g[i, j]| and dpool[j F + f] at most the
-    sum of |g[i, j]| over the rows that selected it."""
+    sum of |g[i, j]| over the rows that selected it. A sel outside [0, F)
+    stands for a zero candidate and no pool row, as in the kernels: the
+    plain version runs on pools with a zero row appended to every group."""
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores_plain
 
     n, K = sel.shape
-    pools64 = [p.double().requires_grad_(True) for p in pools]
-    scores, dqs = [], [[] for _ in queries]
+    d = queries[0].shape[1]
+    inside = (sel >= 0) & (sel < F)
+    sel_z = torch.where(inside, sel, torch.full_like(sel, F))
+    zeros = torch.zeros(K, 1, d, dtype=torch.float64, device=sel.device)
+    pools64 = [torch.cat([p.double().reshape(K, F, d), zeros], 1)
+               .reshape(K * (F + 1), d).requires_grad_(True) for p in pools]
+    scores = [torch.zeros(0, K, dtype=torch.float64, device=sel.device)]
+    dqs = [[torch.zeros(0, d, dtype=torch.float64, device=sel.device)]
+           for _ in queries]
     dpools = [torch.zeros_like(p) for p in pools64]
     for start in range(0, n, rows_per_chunk):
         rows = slice(start, start + rows_per_chunk)
         q64 = [q[rows].double().requires_grad_(True) for q in queries]
-        out = pooled_dist_scores_plain(q64, pools64, sel[rows], F, kind)
+        out = pooled_dist_scores_plain(q64, pools64, sel_z[rows], F + 1, kind)
         grads = torch.autograd.grad(out, q64 + pools64, g[rows].double())
         scores.append(out.detach())
         for part, dq in enumerate(grads[:len(q64)]):
@@ -1236,21 +1286,41 @@ def pooled_reference(queries, pools, sel, F, kind, g, rows_per_chunk=512):
             dpools[part] += dp
     pool_rows = (torch.arange(K, device=sel.device)[None, :] * F + sel.long())
     mag_pool = torch.zeros(K * F, dtype=torch.float64, device=sel.device)
-    mag_pool.index_add_(0, pool_rows.reshape(-1), g.double().abs().reshape(-1))
+    mag_pool.index_add_(0, pool_rows[inside], g.double().abs()[inside])
+    dpools = [dp.reshape(K, F + 1, d)[:, :F].reshape(K * F, d) for dp in dpools]
     return (torch.cat(scores), [torch.cat(d) for d in dqs], dpools,
             g.double().abs().sum(dim=1), mag_pool)
 
 
 POOLED_CASES = [
-    # (name, kind, n, K, F, d, pool parts as column halves of one table)
-    ("TransE d=128", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, TRANSE_DIM, False),
-    ("TransE d=512", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, 512, False),
+    # (name, kind, n, K, F, d, pool parts as column halves of one table,
+    #  sel partly outside [0, F))
+    ("TransE d=128", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, TRANSE_DIM, False,
+     False),
+    ("TransE d=512", "l1", TRAIN_BATCH, NUM_NEGATIVES, POOL_FACTOR, 512, False, False),
     ("RotatE d=1024", "cmod", ROTATE_BATCH, NUM_NEGATIVES, POOL_FACTOR,
-     ROTATE_DIM // 2, True),
-    ("odd l1", "l1", 37, 5, 3, 100, False),
-    ("odd cmod", "cmod", 37, 5, 3, 100, True),
-    ("scalar l1", "l1", 37, 5, 3, 51, False),
-    ("scalar cmod", "cmod", 37, 5, 3, 51, True),
+     ROTATE_DIM // 2, True, False),
+    ("odd l1", "l1", 37, 5, 3, 100, False, False),
+    ("odd cmod", "cmod", 37, 5, 3, 100, True, False),
+    ("scalar l1", "l1", 37, 5, 3, 51, False, False),
+    ("scalar cmod", "cmod", 37, 5, 3, 51, True, False),
+    # the backward's edges: K = 1,024; several row chunks with n no multiple
+    # of one; K no multiple of a block's 8 slots and d of the 128-column
+    # tile; F = 1, F = 16 and F = 100 (dq's pool groups too large to stage);
+    # sel outside [0, F); no rows
+    ("K=1024 l1", "l1", 2048, 1024, POOL_FACTOR, TRANSE_DIM, False, False),
+    ("K=1024 cmod", "cmod", 1024, 1024, POOL_FACTOR, 256, True, False),
+    ("chunks l1", "l1", 1000, NUM_NEGATIVES, POOL_FACTOR, TRANSE_DIM, False, False),
+    ("chunks cmod", "cmod", 999, 64, POOL_FACTOR, 256, True, False),
+    ("K=13 d=300 l1", "l1", 300, 13, POOL_FACTOR, 300, False, False),
+    ("K=13 d=300 cmod", "cmod", 300, 13, POOL_FACTOR, 300, True, False),
+    ("F=1 l1", "l1", 500, 64, 1, TRANSE_DIM, False, False),
+    ("F=16 cmod", "cmod", 500, 40, 16, 192, True, False),
+    ("F=100 cmod", "cmod", 200, 6, 100, 128, True, False),
+    ("outside l1", "l1", 300, 24, POOL_FACTOR, TRANSE_DIM, False, True),
+    ("outside cmod", "cmod", 300, 24, POOL_FACTOR, 100, True, True),
+    ("n=0 l1", "l1", 0, 16, 4, 64, False, False),
+    ("n=0 cmod", "cmod", 0, 16, 4, 64, True, False),
 ]
 
 
@@ -1262,9 +1332,9 @@ def compare_pooled(seed: int, device):
     generator = torch.Generator(device=device)
     generator.manual_seed(seed + 8)
     main = None
-    for name, kind, n, K, F, d, stride_parts in POOLED_CASES:
+    for name, kind, n, K, F, d, stride_parts, outside in POOLED_CASES:
         queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device,
-                                            stride_parts)
+                                            stride_parts, outside)
         g = torch.randn(n, K, generator=generator, device=device)
         runs = []
         for _ in range(2):
@@ -1278,7 +1348,7 @@ def compare_pooled(seed: int, device):
                                      sel, F, kind)
             grads = torch.autograd.grad(out, leaves, g)
             torch.cuda.synchronize()
-            check(pooled_dist_scores.launches == fwd + 1
+            check(pooled_dist_scores.launches == fwd + (n > 0)
                   and pooled_dist_scores.backward_launches == bwd + 1,
                   "pooled kernel launches not counted")
             runs.append((out.detach(), grads))
@@ -1298,14 +1368,16 @@ def compare_pooled(seed: int, device):
             + [("dpool", a, b, mag_pool) for a, b in zip(grads[parts:], ref_dpools)]
         ):
             e = (got.double() - want).abs()
+            e_max = float(e.max()) if e.numel() else 0.0
             check(bool((e <= 1e-6 + 1e-5 * mag[:, None]).all()),
                   f"pooled {what} disagrees with the plain version ({name}): "
-                  f"max abs err {float(e.max()):.3e}")
-            grad_err = max(grad_err, float(e.max()))
+                  f"max abs err {e_max:.3e}")
+            grad_err = max(grad_err, e_max)
         zero_rows = int((ref == 0).sum()) if kind == "l1" else int(
             (ref.abs() <= 1.01e-15 * d).sum())
+        top = float(ref.abs().max()) if n else 0.0
         log(f"  {name} ({kind}) n={n} K={K} F={F} d={d}: scores max abs err "
-            f"{float(err.max()):.3e} (|score| up to {float(ref.abs().max()):.1f}), "
+            f"{float(err.max()) if n else 0.0:.3e} (|score| up to {top:.1f}), "
             f"dq/dpool max abs err {grad_err:.3e}; {zero_rows} scores at distance 0; "
             f"two launches bit-equal")
         if name == "RotatE d=1024":
@@ -1621,7 +1693,7 @@ def time_epilogue(seed: int, device):
 
     library_ms = time_ms(library)
     flops = 2.0 * n * E * D
-    bound_ms, bound_by = bound(
+    bound_ms, bound_by, _ = bound(
         4.0 * (n * D + E * D + (n + 1) + nnz + n + 3 * n + nnz), flops)
     log(f"  rank_counts, L2 epilogue, n={n} |E|={E} D'={D} nnz={nnz}: {ms:.4f} ms "
         f"({100 * flops / (ms * 1e-3) / FP32_FLOPS_PER_S:.1f}% of the fp32 rate), "
@@ -1825,7 +1897,7 @@ def time_rank(seed: int, device, first_batch):
 
         library_ms = time_ms(library)
         flops = 2.0 * n * E * D + 2.0 * n * D
-        bound_ms, bound_by = bound(
+        bound_ms, bound_by, _ = bound(
             4.0 * (n * D + E * D + (n + 1) + nnz + n + 3 * n + nnz), flops)
         rate = flops / (ms * 1e-3) / FP32_FLOPS_PER_S
         log(f"  rank_counts {name} n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms "
@@ -1890,7 +1962,7 @@ def time_scatter(seed: int, device):
         library_ms = time_ms(library)
         # the unsorted int64 ids and the updates read once, the table written
         # once: the same work whatever sorts
-        bound_ms, bound_by = bound(4.0 * (n * D + num_rows * D) + 8.0 * n,
+        bound_ms, bound_by, _ = bound(4.0 * (n * D + num_rows * D) + 8.0 * n,
                                    float(n * D))
         log(f"  scatter_add_sorted {name} n={n} rows={num_rows} D={D}: {ms:.4f} ms "
             f"(launch A alone, the sort beside the zeros, {sort_ms:.4f} ms; launch "
@@ -1936,11 +2008,30 @@ def time_rows_set(seed: int, device):
     return out
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
-    and operations over its fp32 rate."""
-    by_bytes, by_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-    return max(by_bytes, by_flops) * 1e3, "bytes" if by_bytes >= by_flops else "operations"
+@functools.lru_cache(maxsize=None)
+def special_rate() -> float:
+    """Square roots (sqrt, rsqrt) a second: 16 a clock on each of the
+    card's SMs, at its maximum SM clock as nvidia-smi reports it."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = SPECIAL_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    log(f"  special-function rate {rate:.6g} square roots/s "
+        f"({SPECIAL_PER_CLOCK_PER_SM} a clock x {sms} SMs x {mhz:g} MHz)")
+    return rate
+
+
+def bound(nbytes: float, flops: float, specials: float = 0.0):
+    """(bound_ms, bound_by, term): the largest of bytes over the card's
+    memory rate, fp32 operations over its fp32 rate and square roots over
+    its special-function rate (``special_rate``); ``bound_by`` is "bytes"
+    or "operations", ``term`` names which of the three binds."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "fp32": flops / FP32_FLOPS_PER_S,
+             "special functions": specials / special_rate() if specials else 0.0}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
 def time_fused_update(seed: int, device):
@@ -1985,7 +2076,7 @@ def time_fused_update(seed: int, device):
         # param and both moments read and written once, the row gradients
         # and their ids read once; a dozen operations per element
         nbytes = 4.0 * (2 * 3 * rows * D + n * D) + 8.0 * n
-        bound_ms, bound_by = bound(nbytes, 12.0 * rows * D)
+        bound_ms, bound_by, _ = bound(nbytes, 12.0 * rows * D)
         log(f"  fused_row_update (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms (the "
             f"wrapper: segment_sums, which is the scatter kernel's sort and sums, "
             f"{segments_ms:.4f} ms, and the kernel, alone {kernel_only_ms:.4f} ms), "
@@ -2014,7 +2105,7 @@ def time_pooled(seed: int, device):
     generator.manual_seed(seed + 10)
     forward, backward = [], []
     order = [POOLED_CASES[2], POOLED_CASES[0], POOLED_CASES[1]]
-    for name, kind, n, K, F, d, _ in order:
+    for name, kind, n, K, F, d, _, _ in order:
         queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device)
         g = torch.randn(n, K, generator=generator, device=device)
         leaves = [t.requires_grad_(True) for t in queries + pools]
@@ -2031,8 +2122,10 @@ def time_pooled(seed: int, device):
 
         elements = float(n) * K * d
         ops = 4.0 if kind == "l1" else 8.0
+        # cmod: one sqrt per element forward, one rsqrt per element backward
+        specials = elements if kind == "cmod" else 0.0
         read = 4.0 * (parts * (n * d + K * F * d) + n * K)
-        times = {}
+        times, split = {}, {}
         for what, fn in (("kernel", lambda: run(pooled_dist_scores)),
                          ("plain", lambda: run(pooled_dist_scores_plain)),
                          ("library", library if kind == "l1" else None)):
@@ -2042,28 +2135,37 @@ def time_pooled(seed: int, device):
             with torch.no_grad():
                 fwd_ms = time_ms(fn, reps=10)
             out = fn()
-            bwd_ms = time_ms(
-                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), reps=10)
-            times[what] = (fwd_ms, bwd_ms)
+
+            def backward_of(out=out):
+                return torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+            times[what] = (fwd_ms, time_ms(backward_of, reps=10))
+            if what == "kernel":
+                split = kernel_ms(backward_of, ("pooled_dq_kernel", "pooled_dpool_kernel"))
             del out
-        fwd_bound = bound(read + 4.0 * n * K, ops * elements)
+        fwd_bound = bound(read + 4.0 * n * K, ops * elements, specials)
         bwd_bound = bound(read + 4.0 * n * K + 4.0 * parts * (n * d + K * F * d),
-                          2 * ops * elements)
+                          2 * ops * elements, specials)
         library_name = "cdist(p=1) + gather" if kind == "l1" else "none for cmod"
-        for label, index, (bound_ms, bound_by), sink in (
-            ("pooled_scores", 0, fwd_bound, forward),
-            ("pooled_scores_bwd", 1, bwd_bound, backward),
+        for label, index, (bound_ms, bound_by, term), sink, more in (
+            ("pooled_scores", 0, fwd_bound, forward, {}),
+            ("pooled_scores_bwd", 1, bwd_bound, backward,
+             {"dq_ms": split["pooled_dq_kernel"],
+              "dpool_ms": split["pooled_dpool_kernel"]}),
         ):
             lib_ms = times["library"][index]
             log(f"  {label} {name} ({kind}) n={n} K={K} F={F} d={d}: "
-                f"{times['kernel'][index]:.4f} ms, plain {times['plain'][index]:.4f} "
-                f"ms, library ({library_name}) "
+                f"{times['kernel'][index]:.4f} ms"
+                + "".join(f", {k[:-3]} {v:.4f} ms (profiler)" if v else
+                          f", {k[:-3]} not measured" for k, v in more.items())
+                + f", plain {times['plain'][index]:.4f} ms, library ({library_name}) "
                 f"{'null' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+                f"bound {bound_ms:.4f} ms ({bound_by}: {term})")
             sink.append({"shape": name, "kind": kind, "n": n, "K": K, "F": F, "d": d,
-                         "ms": times["kernel"][index],
+                         "ms": times["kernel"][index], **more,
                          "plain_ms": times["plain"][index], "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by})
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_term": term})
         del queries, pools, sel, g, leaves, rows
         torch.cuda.empty_cache()
     return forward, backward

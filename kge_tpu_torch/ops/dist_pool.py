@@ -35,6 +35,15 @@ import torch
 _EPS = 1e-30
 _KINDS = {"l1": 0, "cmod": 1}
 
+# dpool's work units, as csrc/dist_pool.cu has them: a block of DPOOL_UNITS
+# warps, each the owner of DPOOL_UNIT_ROWS pool rows of one slot; the rows i
+# staged DPOOL_STAGE_ROWS at a time
+DPOOL_UNITS, DPOOL_UNIT_ROWS, DPOOL_STAGE_ROWS = 16, 4, 64
+#: blocks the row chunking aims at (a few per SM of an H100), and the most
+#: bytes the chunks' partial sums may take
+DPOOL_BLOCKS = 256
+DPOOL_WORKSPACE_BYTES = 64 << 20
+
 
 def pooled_dist_scores_plain(queries: Sequence[torch.Tensor],
                              pool_embs: Sequence[torch.Tensor],
@@ -53,6 +62,40 @@ def pooled_dist_scores_plain(queries: Sequence[torch.Tensor],
     return -torch.sum(
         torch.sqrt(diffs[0] * diffs[0] + diffs[1] * diffs[1] + _EPS), dim=2
     )
+
+
+def dpool_plan(n: int, K: int, F: int, d: int, parts: int):
+    """How the dpool launch splits the rows i: ``chunks`` chunks of
+    ``rows_per_chunk`` rows (whole stages), ascending, covering ``[0, n)``.
+
+    The launch has ``unit_blocks`` x ``tiles`` blocks a chunk: unit ``u`` of
+    ``unit_blocks * DPOOL_UNITS`` owns slot ``j = u // f_blocks`` (if ``j <
+    K``) and its pool rows ``j * F + (u % f_blocks) * DPOOL_UNIT_ROWS + k``
+    below ``(j + 1) * F``, for every column tile of ``tile_cols`` columns
+    (narrower on the scalar path, which only adds blocks). Chunks are there
+    to fill the card where the units alone give few blocks; with more than
+    one, the partial sums take ``workspace_floats`` floats (chunks x parts x
+    K F x d, at most ``DPOOL_WORKSPACE_BYTES``) and ``counters`` zeroed
+    ints, one per (unit block, tile of 32 columns or more)."""
+    if min(n, K, F, d) < 0 or F < 1 or parts not in (1, 2):
+        raise ValueError("dpool_plan takes non-negative sizes, F >= 1 and 1 or 2 parts")
+    f_blocks = -(-F // DPOOL_UNIT_ROWS)
+    unit_blocks = -(-K * f_blocks // DPOOL_UNITS)
+    tile_cols = 128
+    tiles = -(-d // tile_cols)
+    stages = -(-n // DPOOL_STAGE_ROWS)
+    partial_bytes = 4 * parts * K * F * d
+    chunks = max(1, min(stages, -(-DPOOL_BLOCKS // max(1, unit_blocks * tiles)),
+                        DPOOL_WORKSPACE_BYTES // max(1, partial_bytes)))
+    rows_per_chunk = max(1, -(-stages // chunks)) * DPOOL_STAGE_ROWS
+    chunks = max(1, -(-n // rows_per_chunk))
+    several = chunks > 1
+    return {
+        "f_blocks": f_blocks, "unit_blocks": unit_blocks, "tile_cols": tile_cols,
+        "tiles": tiles, "rows_per_chunk": rows_per_chunk, "chunks": chunks,
+        "workspace_floats": chunks * parts * K * F * d if several else 0,
+        "counters": unit_blocks * -(-d // 32) if several else 0,
+    }
 
 
 def _check(queries, pool_embs, sel, pool_factor, kind):
@@ -132,7 +175,7 @@ def _rows(name, x, device):
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if x.shape[1] > 1 and x.stride(1) != 1:
+    if x.shape[0] > 0 and x.shape[1] > 1 and x.stride(1) != 1:
         raise ValueError(f"{name} must have unit stride within a row")
     return x
 
@@ -195,15 +238,22 @@ def _launch_backward(queries, pools, sel, grad, pool_factor, kind):
               for _ in range(parts)]
     if K == 0 or d == 0:
         return dqs, dpools
+    plan = dpool_plan(n, K, F, d, parts)
+    ws = torch.empty(plan["workspace_floats"], dtype=torch.float32, device=device)
+    counters = torch.zeros(plan["counters"], dtype=torch.int32, device=device)
     lib = load_library("dist_pool")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     launch = typed(lib, "pooled_scores_bwd_launch",
-                    [i, p, p, ll, p, p, ll, p, p, i, i, i, i, p, p, p, p, p])
+                    [i, p, p, ll, p, p, ll, p, p, i, i, i, i, p, p, p, p, i, i, p, p,
+                     p])
     second = parts - 1
     with torch.cuda.device(device):
         code = launch(*args, grad.data_ptr(), n, K, F, d,
                       dqs[0].data_ptr(), dqs[second].data_ptr(),
                       dpools[0].data_ptr(), dpools[second].data_ptr(),
+                      plan["rows_per_chunk"], plan["chunks"],
+                      ws.data_ptr() if ws.numel() else None,
+                      counters.data_ptr() if counters.numel() else None,
                       torch.cuda.current_stream(device).cuda_stream)
     check_launch(code, "pooled_scores_bwd")
     pooled_dist_scores.backward_launches += 1

@@ -1,0 +1,167 @@
+"""Time the pooled-distance backward (K5b: ``pooled_dq_kernel`` and
+``pooled_dpool_kernel`` of kge_tpu_torch/csrc/dist_pool.cu) on one CUDA
+card, at the shapes of chip_smoke.py phase 13: the whole backward by CUDA
+events (chip_smoke.py ``time_ms``) and each launch from torch.profiler, and
+the result against the plain version in float64 (phase 10's rule).
+
+    python3 scripts/pooled_bwd_timing.py [--root DIR] [--variant NAME=V,NAME=V]...
+                                         [--swap OLD=>NEW]... [--sass FILE]
+
+``--root``: the checkout whose kge_tpu_torch is timed (default: this one),
+so that two trees can be compared in one process. ``--variant``: also time
+the root's kernels with those constants replaced (the tile sizes); may be
+repeated. A NAME of ops/dist_pool.py (``DPOOL_BLOCKS``) is set there for
+that run; any other is a ``constexpr int`` of dist_pool.cu, built into a
+copy. ``--swap``: also time a copy with the text OLD replaced by NEW (an
+ablation, such as an instruction taken out, to see what binds the time;
+its results are wrong by design). ``--sass``: write the root's built
+library disassembled (``cuobjdump -sass``) to FILE and print each kernel's
+instruction count. Prints one JSON line per (variant, shape), then the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def build_variant(kernel_utils, settings: dict, swap=None) -> str:
+    """A library of the root's dist_pool.cu with ``settings`` replacing its
+    ``constexpr int`` constants and, with ``swap`` ("OLD=>NEW"), the text
+    OLD replaced by NEW; the compiler's resource report is printed."""
+    with open(os.path.join(kernel_utils.CSRC_DIR, "dist_pool.cu")) as f:
+        source = f.read()
+    if swap:
+        old, new = swap.split("=>")
+        if old not in source:
+            raise SystemExit(f"dist_pool.cu has no {old!r}")
+        source = source.replace(old, new)
+    for name, value in settings.items():
+        source, count = re.subn(rf"(constexpr int {name} = )[^;]+;",
+                                rf"\g<1>{value};", source)
+        if count != 1:
+            raise SystemExit(f"dist_pool.cu has no 'constexpr int {name}'")
+    label = ",".join(f"{k}={v}" for k, v in settings.items()) or swap
+    folder = os.path.join(kernel_utils.BUILD_DIR, "variants")
+    os.makedirs(folder, exist_ok=True)
+    cu = os.path.join(folder, f"dist_pool_{hashlib.sha1(label.encode()).hexdigest()[:12]}.cu")
+    with open(cu, "w") as f:
+        f.write(source)
+    so = cu[:-3] + ".so"
+    proc = subprocess.run(
+        [kernel_utils._nvcc()] + kernel_utils.NVCC_FLAGS
+        + ["-I", kernel_utils.CSRC_DIR, "-o", so, cu],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed for {label}:\n{proc.stderr}")
+    report = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+              if "registers" in line or "spill" in line]
+    print(f"{label}: " + " | ".join(report), flush=True)
+    return so
+
+
+def time_case(smoke, dist_pool, case, device, seed: int):
+    name, kind, n, K, F, d = case[:6]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    queries, pools, sel = smoke.pooled_inputs(kind, n, K, F, d, generator, device)
+    g = torch.randn(n, K, generator=generator, device=device)
+
+    def backward():
+        return dist_pool._launch_backward(queries, pools, sel, g, F, kind)
+
+    ms = smoke.time_ms(backward, reps=20)
+    split = smoke.kernel_ms(backward, ("pooled_dq_kernel", "pooled_dpool_kernel"))
+    dqs, dpools = backward()
+    first = [t.clone() for t in dqs + dpools]
+    dqs, dpools = backward()
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, dqs + dpools))
+    _, ref_dqs, ref_dpools, mag_q, mag_pool = smoke.pooled_reference(
+        queries, pools, sel, F, kind, g)
+    err, within = 0.0, True
+    for got, want, mag in ([(a, b, mag_q) for a, b in zip(dqs, ref_dqs)]
+                           + [(a, b, mag_pool) for a, b in zip(dpools, ref_dpools)]):
+        e = (got.double() - want).abs()
+        err = max(err, float(e.max()))
+        within = within and bool((e <= 1e-6 + 1e-5 * mag[:, None]).all())
+    return {"shape": name, "kind": kind, "n": n, "K": K, "F": F, "d": d, "ms": ms,
+            "dq_ms": split["pooled_dq_kernel"], "dpool_ms": split["pooled_dpool_kernel"],
+            "max_abs_err": err, "within_tolerance": within, "bit_equal": same_bits}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=HERE)
+    parser.add_argument("--variant", action="append", default=[])
+    parser.add_argument("--swap", action="append", default=[])
+    parser.add_argument("--sass")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("pooled_bwd_timing.py: no CUDA card available")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from kge_tpu_torch.ops import dist_pool, kernel_utils
+
+    smoke = load_smoke()
+    device = torch.device("cuda")
+    default_lib = kernel_utils.load_library("dist_pool")
+    if args.sass:
+        cuobjdump = os.path.join(os.path.dirname(kernel_utils._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", kernel_utils.library_path("dist_pool")],
+                              capture_output=True, text=True, check=True).stdout
+        with open(args.sass, "w") as f:
+            f.write(sass)
+        for function in sass.split("Function : ")[1:]:
+            count = len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", function, re.M))
+            print(f"sass: {count} instructions in {function.split()[0]}", flush=True)
+    for line in kernel_utils.build_log.get("dist_pool", "").splitlines():
+        if "entry function" in line or "registers" in line or "stack frame" in line:
+            print("default: " + line.strip(), flush=True)
+    # (label, constants of ops/dist_pool.py, constants of dist_pool.cu, swap)
+    runs = [("default", {}, {}, None)]
+    for variant in args.variant:
+        pairs = dict(item.split("=") for item in variant.split(","))
+        py = {k: int(v) for k, v in pairs.items() if hasattr(dist_pool, k)}
+        runs.append((variant, py, {k: v for k, v in pairs.items() if k not in py},
+                     None))
+    runs += [(f"swap {swap}", {}, {}, swap) for swap in args.swap]
+    with ThreadPoolExecutor(max(1, len(runs))) as pool:
+        libs = list(pool.map(
+            lambda run: ctypes.CDLL(build_variant(kernel_utils, run[2], run[3]))
+            if run[2] or run[3] else default_lib, runs))
+    cases = [smoke.POOLED_CASES[2], smoke.POOLED_CASES[0], smoke.POOLED_CASES[1]]
+    defaults = {k: getattr(dist_pool, k) for _, py, _, _ in runs for k in py}
+    for (label, py, _, _), lib in zip(runs, libs):
+        kernel_utils._libraries["dist_pool"] = lib
+        for k, v in {**defaults, **py}.items():
+            setattr(dist_pool, k, v)
+        for case in cases:
+            row = time_case(smoke, dist_pool, case, device, args.seed + 10)
+            print(json.dumps({"root": os.path.abspath(args.root), "build": label,
+                              **row}), flush=True)
+    print(smoke.card_line())
+
+
+if __name__ == "__main__":
+    main()

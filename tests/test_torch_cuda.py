@@ -610,18 +610,50 @@ def test_fused_update_raises_instead_of_falling_back():
 # -- pooled distance kernels --------------------------------------------------------
 
 
+def _pooled_reference(queries, pools, sel, F, kind, g):
+    """Scores and gradients of the plain version in float64, where a sel
+    outside [0, F) stands for a zero candidate and no pool row: the plain
+    version on pools with a zero row appended to every group."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores_plain
+
+    n, K = sel.shape
+    d = queries[0].shape[1]
+    inside = (sel >= 0) & (sel < F)
+    sel_z = torch.where(inside, sel, torch.full_like(sel, F))
+    q64 = [q.double().requires_grad_(True) for q in queries]
+    p64 = [torch.cat([p.double().reshape(K, F, d),
+                      torch.zeros(K, 1, d, dtype=torch.float64, device=p.device)], 1)
+           .reshape(K * (F + 1), d).requires_grad_(True) for p in pools]
+    ref = pooled_dist_scores_plain(q64, p64, sel_z, F + 1, kind)
+    grads = torch.autograd.grad(ref, q64 + p64, g.double(), allow_unused=True)
+    parts = len(queries)
+    dqs = [torch.zeros_like(q) if dq is None else dq for q, dq in zip(q64, grads[:parts])]
+    dpools = [dp.reshape(K, F + 1, d)[:, :F].reshape(K * F, d) for dp in grads[parts:]]
+    rows = torch.arange(K, device=sel.device)[None, :] * F + sel.long()
+    mag_pool = torch.zeros(K * F, dtype=torch.float64, device=sel.device).index_add_(
+        0, rows[inside], g.double().abs()[inside])
+    return ref.detach(), dqs + dpools, g.double().abs().sum(dim=1), mag_pool
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,K,F,d", [(64, 16, 4, 128), (37, 5, 3, 100),
-                                     (9, 130, 2, 51), (200, 8, 8, 512)])
+@pytest.mark.parametrize("n,K,F,d,outside", [
+    (64, 16, 4, 128, False), (37, 5, 3, 100, False), (9, 130, 2, 51, False),
+    (200, 8, 8, 512, False),
+    (256, 1024, 8, 64, False),   # K = 1,024
+    (1000, 128, 8, 128, False),  # several row chunks, n no multiple of one
+    (300, 13, 8, 300, False),    # K no multiple of a block's 8 slots; 3 tiles
+    (500, 64, 1, 128, False), (500, 40, 16, 192, False),  # F = 1 and F = 16
+    (200, 6, 100, 128, False),   # dq's pool groups too large to stage
+    (300, 24, 8, 128, True),     # sel outside [0, F)
+    (0, 16, 4, 64, False),       # no rows
+])
 @pytest.mark.parametrize("kind", ["l1", "cmod"])
-def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d):
+def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d, outside):
     """Scores, dq and dpool against the plain version in float64: |error| <=
     1e-6 + 1e-5 x the sum of magnitudes an element adds up; bit-equal across
-    two launches; one forward and one backward launch counted per call."""
-    from kge_tpu_torch.ops.dist_pool import (
-        pooled_dist_scores,
-        pooled_dist_scores_plain,
-    )
+    two launches; one backward launch counted per call, and one forward
+    launch where there are rows."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
 
     device = _card()
     rng = np.random.default_rng(8)
@@ -630,8 +662,13 @@ def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d):
     pools = [rng.normal(size=(K * F, d)).astype(np.float32) for _ in range(parts)]
     sel = rng.integers(0, F, (n, K)).astype(np.int32)
     for i, j in ((0, 1), (3, K - 1)):  # distance exactly 0
-        for q, pool in zip(queries, pools):
-            q[i] = pool[j * F + sel[i, j]]
+        if i < n:
+            for q, pool in zip(queries, pools):
+                q[i] = pool[j * F + sel[i, j]]
+    if outside:
+        sel[rng.random((n, K)) < 0.1] = -1
+        sel[rng.random((n, K)) < 0.1] = F
+        sel[rng.random((n, K)) < 0.05] = F + 7
     g = torch.tensor(rng.normal(size=(n, K)).astype(np.float32), device=device)
     sel = torch.tensor(sel, device=device)
     runs = []
@@ -643,21 +680,19 @@ def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d):
         grads = torch.autograd.grad(out, leaves, g)
         torch.cuda.synchronize()
         assert (pooled_dist_scores.launches,
-                pooled_dist_scores.backward_launches) == (before[0] + 1, before[1] + 1)
+                pooled_dist_scores.backward_launches) == (before[0] + (n > 0),
+                                                          before[1] + 1)
         runs.append((out.detach(), grads))
     (out, grads), (out2, grads2) = runs
+    assert out.shape == (n, K)
     assert torch.equal(out, out2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    leaves64 = [torch.tensor(a, device=device, dtype=torch.float64,
-                             requires_grad=True) for a in queries + pools]
-    ref = pooled_dist_scores_plain(leaves64[:parts], leaves64[parts:], sel, F, kind)
-    ref_grads = torch.autograd.grad(ref, leaves64, g.double())
+    ref, ref_grads, mag_q, mag_pool = _pooled_reference(
+        [torch.tensor(q, device=device) for q in queries],
+        [torch.tensor(p, device=device) for p in pools], sel, F, kind, g)
     assert bool(((out.double() - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all())
-    assert float(out[0, 1].abs()) <= 1.01e-15 * d
-    mag_q = g.double().abs().sum(dim=1)
-    rows = torch.arange(K, device=device)[None, :] * F + sel.long()
-    mag_pool = torch.zeros(K * F, dtype=torch.float64, device=device).index_add_(
-        0, rows.reshape(-1), g.double().abs().reshape(-1))
+    if n > 0 and not outside:
+        assert float(out[0, 1].abs()) <= 1.01e-15 * d
     for index, (got, want) in enumerate(zip(grads, ref_grads)):
         mag = mag_q if index < parts else mag_pool
         assert torch.isfinite(got).all()

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from kge_tpu.ops.dist_pool import pooled_dist_scores as jax_pooled_dist_scores
+from kge_tpu_torch.ops import dist_pool
 from kge_tpu_torch.ops.dist_pool import (
+    dpool_plan,
     pooled_dist_scores,
     pooled_dist_scores_plain,
 )
@@ -161,3 +163,63 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(a, b)
     assert before == (pooled_dist_scores.launches,
                       pooled_dist_scores.backward_launches) == (0, 0)
+
+
+@pytest.mark.parametrize("n,K,F,d,parts", [
+    (4096, 128, 8, 512, 2), (8192, 128, 8, 128, 1), (8192, 128, 8, 512, 1),
+    (1000, 128, 8, 128, 1), (300, 13, 8, 300, 2), (500, 64, 1, 128, 1),
+    (500, 40, 16, 192, 2), (0, 16, 4, 64, 1), (37, 5, 3, 51, 2),
+    (256, 1024, 8, 64, 2), (4096, 1024, 8, 1024, 2), (33, 3, 100, 8, 1),
+])
+def test_dpool_plan_gives_every_element_one_owner(n, K, F, d, parts):
+    """The dpool launch's plan: every (pool row, element) has exactly one
+    owner (a unit for the rows, a tile for the columns), the chunks cover
+    [0, n) in ascending order with whole stages, and the partial sums stay
+    within the stated workspace."""
+    plan = dpool_plan(n, K, F, d, parts)
+    owners = np.zeros((K * F, d), dtype=np.int64)
+    units = dist_pool.DPOOL_UNITS
+    assert plan["unit_blocks"] == -(-K * plan["f_blocks"] // units)
+    for u in range(plan["unit_blocks"] * units):
+        j, fb = divmod(u, plan["f_blocks"])
+        f0 = fb * dist_pool.DPOOL_UNIT_ROWS
+        if j >= K:
+            continue
+        rows = np.arange(j * F + f0, j * F + min(F, f0 + dist_pool.DPOOL_UNIT_ROWS))
+        for t in range(plan["tiles"]):
+            owners[rows, t * plan["tile_cols"]:(t + 1) * plan["tile_cols"]] += 1
+    assert (owners == 1).all()
+
+    rows_per_chunk, chunks = plan["rows_per_chunk"], plan["chunks"]
+    assert rows_per_chunk % dist_pool.DPOOL_STAGE_ROWS == 0 and chunks >= 1
+    starts = [z * rows_per_chunk for z in range(chunks)]
+    stops = [min(n, s + rows_per_chunk) for s in starts]
+    assert starts[0] == 0 and stops[-1] == n
+    assert all(a < b for a, b in zip(starts, stops)) or n == 0
+    assert all(b == c for b, c in zip(stops, starts[1:]))
+    assert chunks <= max(1, -(-n // dist_pool.DPOOL_STAGE_ROWS))
+
+    partial = parts * K * F * d
+    if chunks == 1:
+        assert plan["workspace_floats"] == 0 and plan["counters"] == 0
+    else:
+        assert plan["workspace_floats"] == chunks * partial
+        assert 4 * plan["workspace_floats"] <= dist_pool.DPOOL_WORKSPACE_BYTES
+        # one counter per (unit block, column tile), tiles no narrower than 32
+        assert plan["counters"] >= plan["unit_blocks"] * -(-d // 32)
+
+
+def test_dpool_plan_fills_the_card_and_rejects_bad_sizes():
+    # P-rotate's and P-transe's shapes: enough blocks from the chunks
+    for n, K, F, d, parts in ((4096, 128, 8, 512, 2), (8192, 128, 8, 128, 1)):
+        plan = dpool_plan(n, K, F, d, parts)
+        blocks = plan["unit_blocks"] * plan["tiles"] * plan["chunks"]
+        assert blocks >= dist_pool.DPOOL_BLOCKS
+    # a pool whose one copy passes the workspace bound takes one chunk
+    assert dpool_plan(64, 4096, 8, 1024, 2)["chunks"] == 1
+    with pytest.raises(ValueError):
+        dpool_plan(-1, 4, 2, 8, 1)
+    with pytest.raises(ValueError):
+        dpool_plan(4, 4, 0, 8, 1)
+    with pytest.raises(ValueError):
+        dpool_plan(4, 4, 2, 8, 3)
