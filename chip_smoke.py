@@ -93,9 +93,15 @@ Phases (any failure exits non-zero; nothing is caught):
    d = 100, and d = 51 for the scalar path), the backward's edges (K =
    1,024; several row chunks with n no multiple of one; K = 13 with d = 300;
    F = 1, 16 and 100; sel partly outside [0, F), which stands for a zero
-   candidate and no pool row; n = 0) and rows whose query equals a
-   candidate: scores, dq and dpool within ``1e-6 + 1e-5 S`` with S the sum of
-   the magnitudes that the element adds up; two launches bit-equal.
+   candidate and no pool row; n = 0), the forward's edges (n = 257 and K =
+   17, one past a block's 256 rows and 16 slots, with d = 132 in five
+   32-column tiles; F = 24, whose pool rows a stage holds for l1 and not for
+   cmod; F = 60, read from L2) and rows whose query equals a candidate:
+   scores, dq and dpool within ``1e-6 + 1e-5 S`` with S the sum of the
+   magnitudes that the element adds up; two launches bit-equal. Then cmod
+   terms of +inf (a difference whose square overflows) and NaN: the forward
+   must give sqrtf's scores, -inf and NaN where the plain version in float32
+   has them.
 11. P-transe: ``start`` through ``cli.main``, TransE-L1 d = 128, margin
    ranking 4.0, 128 negatives per corrupted slot, ``implementation: auto``
    (must resolve to ``pool``), Adagrad lr 0.1, batch 8,192, FB15k-237 sizes,
@@ -1321,6 +1327,15 @@ POOLED_CASES = [
     ("outside cmod", "cmod", 300, 24, POOL_FACTOR, 100, True, True),
     ("n=0 l1", "l1", 0, 16, 4, 64, False, False),
     ("n=0 cmod", "cmod", 0, 16, 4, 64, True, False),
+    # the forward's edges: n and K one past a block's 256 rows and 16 slots,
+    # d = 132 in five 32-column tiles (the last of one vector); F = 24, whose
+    # pool rows a stage holds for l1 and not for cmod; F = 60 from L2
+    ("fwd edges l1", "l1", 257, 17, POOL_FACTOR, 132, False, False),
+    ("fwd edges cmod", "cmod", 257, 17, POOL_FACTOR, 132, True, False),
+    ("F=24 l1", "l1", 300, 20, 24, 64, False, False),
+    ("F=24 cmod", "cmod", 300, 20, 24, 64, True, False),
+    ("F=60 l1", "l1", 150, 9, 60, 40, False, False),
+    ("F=60 cmod", "cmod", 150, 9, 60, 40, True, False),
 ]
 
 
@@ -1385,7 +1400,34 @@ def compare_pooled(seed: int, device):
         del queries, pools, sel, g, runs, out, grads, out2, grads2, ref, ref_dqs
         del ref_dpools
         torch.cuda.empty_cache()
+    check_infinite_terms(generator, device)
     return main
+
+
+def check_infinite_terms(generator, device):
+    """``cmod`` terms of +inf (a difference whose square overflows float32)
+    and NaN: the forward gives sqrtf's scores, -inf and NaN where the plain
+    version in float32 has them, and the others within phase 10's rule."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
+
+    F = POOL_FACTOR
+    queries, pools, sel = pooled_inputs("cmod", 300, 40, F, 256, generator, device)
+    queries[0][3, 5] = 3e19      # every pair of row 3
+    queries[1][7, 0] = float("nan")  # every pair of row 7
+    pools[0][2 * F + 1, 7] = -3e19   # the pairs (i, 2) that select it
+    out = pooled_dist_scores(queries, pools, sel, F, "cmod")
+    plain = pooled_dist_scores_plain(queries, pools, sel, F, "cmod")
+    ref = pooled_dist_scores_plain([q.double() for q in queries],
+                                   [p.double() for p in pools], sel, F, "cmod")
+    finite = torch.isfinite(plain)
+    check(torch.equal(torch.isnan(out), torch.isnan(plain))
+          and torch.equal(torch.isinf(out), torch.isinf(plain))
+          and torch.equal(out[~finite & ~torch.isnan(out)],
+                          plain[~finite & ~torch.isnan(plain)])
+          and bool(((out.double() - ref).abs() <= 1e-6 + 1e-5 * ref.abs())[finite].all()),
+          "pooled scores with infinite or NaN terms differ from sqrtf's")
+    log(f"  cmod with infinite and NaN terms: {int(torch.isinf(out).sum())} scores -inf, "
+        f"{int(torch.isnan(out).sum())} NaN, as the plain version's")
 
 
 # -- training with pooled negatives -------------------------------------------------

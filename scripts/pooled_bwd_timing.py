@@ -1,10 +1,17 @@
-"""Time the pooled-distance backward (K5b: ``pooled_dq_kernel`` and
-``pooled_dpool_kernel`` of kge_tpu_torch/csrc/dist_pool.cu) on one CUDA
-card, at the shapes of chip_smoke.py phase 13: the whole backward by CUDA
-events (chip_smoke.py ``time_ms``) and each launch from torch.profiler, and
-the result against the plain version in float64 (phase 10's rule).
+"""Time the pooled-distance kernels of kge_tpu_torch/csrc/dist_pool.cu on
+one CUDA card, at the shapes of chip_smoke.py phase 13: by default the
+backward (K5b: ``pooled_dq_kernel`` and ``pooled_dpool_kernel``), with
+``--forward`` the forward (K5a: ``pooled_scores_kernel``), there also with
+the ``cmod`` pool parts as the column halves of one table (row stride 2 d,
+as the model passes them). The whole call by CUDA events (chip_smoke.py
+``time_ms``) and each launch from torch.profiler, and the result against
+the plain version in float64 (phase 10's rule; the forward's rows whose
+query equals a candidate also within ``1.01e-15 d`` of 0 at ``cmod``, and
+exactly 0 at ``l1``; ``bits`` is a hash of its scores, so that two builds
+can be compared bit for bit).
 
-    python3 scripts/pooled_bwd_timing.py [--root DIR] [--variant NAME=V,NAME=V]...
+    python3 scripts/pooled_bwd_timing.py [--forward] [--root DIR]
+                                         [--variant NAME=V,NAME=V]...
                                          [--swap OLD=>NEW]... [--sass FILE]
 
 ``--root``: the checkout whose kge_tpu_torch is timed (default: this one),
@@ -14,7 +21,8 @@ repeated. A NAME of ops/dist_pool.py (``DPOOL_BLOCKS``) is set there for
 that run; any other is a ``constexpr int`` of dist_pool.cu, built into a
 copy. ``--swap``: also time a copy with the text OLD replaced by NEW (an
 ablation, such as an instruction taken out, to see what binds the time;
-its results are wrong by design). ``--sass``: write the root's built
+its results are wrong by design); several replacements are joined by
+``|||``. ``--sass``: write the root's built
 library disassembled (``cuobjdump -sass``) to FILE and print each kernel's
 instruction count. Prints one JSON line per (variant, shape), then the
 card's name and power limit.
@@ -52,8 +60,8 @@ def build_variant(kernel_utils, settings: dict, swap=None) -> str:
     OLD replaced by NEW; the compiler's resource report is printed."""
     with open(os.path.join(kernel_utils.CSRC_DIR, "dist_pool.cu")) as f:
         source = f.read()
-    if swap:
-        old, new = swap.split("=>")
+    for pair in swap.split("|||") if swap else ():
+        old, new = pair.split("=>")
         if old not in source:
             raise SystemExit(f"dist_pool.cu has no {old!r}")
         source = source.replace(old, new)
@@ -110,8 +118,39 @@ def time_case(smoke, dist_pool, case, device, seed: int):
             "max_abs_err": err, "within_tolerance": within, "bit_equal": same_bits}
 
 
+def time_forward(smoke, dist_pool, case, device, seed: int, stride_parts: bool):
+    name, kind, n, K, F, d = case[:6]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    queries, pools, sel = smoke.pooled_inputs(kind, n, K, F, d, generator, device,
+                                              stride_parts)
+
+    def forward():
+        return dist_pool._launch_forward(queries, pools, sel, F, kind)
+
+    ms = smoke.time_ms(forward, reps=20)
+    kernel = smoke.kernel_ms(forward, ("pooled_scores",))["pooled_scores"]
+    out = forward().clone()
+    same_bits = torch.equal(out, forward())
+    g = torch.zeros(n, K, device=device)
+    ref = smoke.pooled_reference(queries, pools, sel, F, kind, g)[0]
+    e = (out.double() - ref).abs()
+    within = bool((e <= 1e-6 + 1e-5 * ref.abs()).all())
+    # the rows pooled_inputs gave a query equal to a candidate
+    rows = torch.arange(0, n, max(1, n // 7), device=device)
+    zero = out[rows, rows % K].abs()
+    zero_ok = bool((zero <= 1.01e-15 * d).all() if kind == "cmod" else (zero == 0).all())
+    return {"shape": name + (" (parts as column halves)" if stride_parts else ""),
+            "kind": kind, "n": n, "K": K, "F": F, "d": d,
+            "ldp": pools[0].stride(0), "ms": ms, "kernel_ms": kernel,
+            "max_abs_err": float(e.max()), "within_tolerance": within,
+            "zero_distance_ok": zero_ok, "bit_equal": same_bits,
+            "bits": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--forward", action="store_true")
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--variant", action="append", default=[])
     parser.add_argument("--swap", action="append", default=[])
@@ -150,14 +189,19 @@ def main():
         libs = list(pool.map(
             lambda run: ctypes.CDLL(build_variant(kernel_utils, run[2], run[3]))
             if run[2] or run[3] else default_lib, runs))
-    cases = [smoke.POOLED_CASES[2], smoke.POOLED_CASES[0], smoke.POOLED_CASES[1]]
+    cases = [(smoke.POOLED_CASES[2], False), (smoke.POOLED_CASES[0], False),
+             (smoke.POOLED_CASES[1], False)]
+    if args.forward:
+        cases.insert(1, (smoke.POOLED_CASES[2], True))
     defaults = {k: getattr(dist_pool, k) for _, py, _, _ in runs for k in py}
     for (label, py, _, _), lib in zip(runs, libs):
         kernel_utils._libraries["dist_pool"] = lib
         for k, v in {**defaults, **py}.items():
             setattr(dist_pool, k, v)
-        for case in cases:
-            row = time_case(smoke, dist_pool, case, device, args.seed + 10)
+        for case, stride_parts in cases:
+            row = (time_forward(smoke, dist_pool, case, device, args.seed + 10,
+                                stride_parts) if args.forward
+                   else time_case(smoke, dist_pool, case, device, args.seed + 10))
             print(json.dumps({"root": os.path.abspath(args.root), "build": label,
                               **row}), flush=True)
     print(smoke.card_line())

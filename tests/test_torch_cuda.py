@@ -646,6 +646,10 @@ def _pooled_reference(queries, pools, sel, F, kind, g):
     (200, 6, 100, 128, False),   # dq's pool groups too large to stage
     (300, 24, 8, 128, True),     # sel outside [0, F)
     (0, 16, 4, 64, False),       # no rows
+    # the forward's edges: n and K one past a block's 256 rows and 16 slots,
+    # d = 132 in five 32-column tiles (the last of one vector); F = 24
+    # staged for l1 and not for cmod; F = 60 from L2 for both
+    (257, 17, 8, 132, False), (300, 20, 24, 64, False), (150, 9, 60, 40, False),
 ])
 @pytest.mark.parametrize("kind", ["l1", "cmod"])
 def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d, outside):
@@ -697,6 +701,37 @@ def test_pooled_kernels_match_plain_on_card(kind, n, K, F, d, outside):
         mag = mag_q if index < parts else mag_pool
         assert torch.isfinite(got).all()
         assert bool(((got.double() - want).abs() <= 1e-6 + 1e-5 * mag[:, None]).all())
+
+
+@pytest.mark.cuda
+def test_pooled_scores_keep_sqrtf_at_infinite_terms():
+    """``cmod`` terms of +inf (a difference whose square overflows) and NaN
+    give the scores that sqrtf gives, as the plain version in float32 does:
+    -inf and NaN in the same places; every other score within 1e-6 + 1e-5
+    |ref| of float64."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
+
+    device = _card()
+    rng = np.random.default_rng(9)
+    n, K, F, d = 40, 20, 4, 36
+    queries = [rng.normal(size=(n, d)).astype(np.float32) for _ in range(2)]
+    pools = [rng.normal(size=(K * F, d)).astype(np.float32) for _ in range(2)]
+    queries[0][3, 5] = 3e19        # every pair of row 3: an infinite term
+    queries[1][7, 0] = np.nan      # every pair of row 7: NaN
+    pools[0][2 * F + 1, 7] = -3e19  # the pairs (i, 2) that select it
+    sel = torch.tensor(rng.integers(0, F, (n, K)).astype(np.int32), device=device)
+    qs = [torch.tensor(q, device=device) for q in queries]
+    ps = [torch.tensor(p, device=device) for p in pools]
+    out = pooled_dist_scores(qs, ps, sel, F, "cmod")
+    plain = pooled_dist_scores_plain(qs, ps, sel, F, "cmod")
+    assert bool(torch.isinf(plain).any()) and bool(torch.isnan(plain).any())
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert torch.equal(torch.isinf(out), torch.isinf(plain))
+    assert torch.equal(out[torch.isinf(out)], plain[torch.isinf(plain)])
+    finite = torch.isfinite(plain)
+    ref = pooled_dist_scores_plain([q.double() for q in qs], [p.double() for p in ps],
+                                   sel, F, "cmod")
+    assert bool(((out.double() - ref).abs() <= 1e-6 + 1e-5 * ref.abs())[finite].all())
 
 
 @pytest.mark.cuda

@@ -79,6 +79,21 @@ def test_scores_and_gradients_match_jax(kind, n, K, F, d):
     assert abs(float(scores.detach()[0, 1])) <= 1e-14 * d
 
 
+@pytest.mark.parametrize("n,K,F,d", [(5, 13, 1, 24), (33, 17, 1, 7), (12, 3, 5, 130)])
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_forward_matches_jax_at_edges(kind, n, K, F, d):
+    """The scores alone at the forward kernel's edges: K no multiple of 8
+    (nor of the kernel's slot group), F = 1, d no multiple of 4 or past a
+    column tile."""
+    queries, pools, sel, w = _inputs(kind, n, K, F, d, seed=5)
+    want_scores, _ = _jax_values_and_grads(queries, pools, sel, w, F, kind)
+    got = pooled_dist_scores([torch.tensor(q) for q in queries],
+                             [torch.tensor(p) for p in pools], torch.tensor(sel),
+                             F, kind)
+    np.testing.assert_allclose(got.numpy(), want_scores, rtol=1e-5, atol=1e-6)
+    assert abs(float(got[0, 1])) <= 1.01e-15 * d
+
+
 @pytest.mark.parametrize("kind", ["l1", "cmod"])
 def test_definition(kind):
     """Against the definition written out with loops, in float64."""
