@@ -153,14 +153,38 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 11's P-transe folder (TransE-L1: the score-matrix route, no rank kernel
    launch) must exit with finite metrics; its warm evaluation is
    profiled.
-15. One ``kernels`` JSON line: per kernel its time per call at the main
+15. O-complex: examples/fb15k-237-complex-1vsall.yaml as written
+   (reciprocal ComplEx d = 512, 1vsAll, KL, Adagrad lr 0.3, batch 512, N3
+   1e-9) on the FB15k-237-sized graph, cut to two epochs with ``valid.every
+   1``: ``start`` through ``cli.main``, ``resume`` to epoch 3, then
+   ``test``. The scatter kernel must launch 4 times a step (s and p for the
+   object direction, o and p + |R| for the subject direction), the rank
+   kernel twice a validation and a test batch; losses finite and falling.
+   One step with the kernel against ``train.pallas_gather: never`` from the
+   same state: tables within atol 1e-6 + rtol 1e-5. A warm epoch's wall,
+   triples/s and profile.
+16. K-complex: bench.py's stage 6 (ComplEx d = 512, KvsAll with ``sp_`` and
+   ``_po``, KL, Adagrad lr 0.1, batch 512): ``start`` for two epochs and one
+   validation, ``resume`` to epoch 3. The scatter kernel must launch twice a
+   step (the query's two keys); one batch's dense labels must sum, row by
+   row, to its queries' distinct answers; one step with the kernel against
+   the ``never`` step as in phase 15. A warm epoch's wall, queries/s (the
+   bench's unit) and profile.
+17. DistMult, RESCAL, CP, SimplE and RelationalTucker3 at the toy widths of
+   examples/toy-rt3-train.yaml (d = 16; Tucker3's core from 8) on a small
+   graph: a test evaluation on the card (the rank kernel twice a batch)
+   reports the CPU's metrics, and one KvsAll step on the card (2 scatter
+   launches) gives the CPU's tables within atol 1e-6 + rtol 1e-5.
+18. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
    16 a clock per SM at the card's maximum SM clock; ``bound_term`` names
    it); every time in it is
    measured by this run; the rank kernel's entry also holds the L2
-   epilogue's times and its launches in phase 14. Then the card's name
+   epilogue's times and its launches in phase 14, and its launches in phases
+   15-17, the scatter kernel's its launches in phases 15 and 16. Then the
+   card's name
    and power limit, then the ``ok`` JSON line last.
 """
 
@@ -893,14 +917,16 @@ def one_step_each(folder, checkpoint, key, values, state=False):
     tables."""
     jobs = [resumed_job(folder, checkpoint, **{key: value}) for value in values]
     batch = next(iter(jobs[0]._batches()))
+    variant = jobs[0]._step_variant(batch)
     device = jobs[0].device
     batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
-             if k != "true_size"}
-    batch = jobs[0]._with_negatives(batch)
+             if k != "true_size" and not isinstance(v, str)}
+    if hasattr(jobs[0], "_with_negatives"):
+        batch = jobs[0]._with_negatives(batch)
     before = tables_of(jobs[0], state)
     after = []
     for job in jobs:
-        job._train_step(dict(batch), job._current_lrs())
+        job._train_step(dict(batch), job._current_lrs(), variant)
         after.append(tables_of(job, state))
     torch.cuda.synchronize()
     return before, after, batch, jobs
@@ -915,9 +941,10 @@ def check_tables_close(a, b, what):
     return worst
 
 
-def warm_epoch(job, num_train: int, what: str):
+def warm_epoch(job, num_train: int, what: str, unit: str = "triples"):
     """A warm epoch of a prepared job: wall by the host clock around work
-    that ends in a synchronize, then the same under the profiler."""
+    that ends in a synchronize, then the same under the profiler.
+    ``num_train`` examples an epoch, counted in ``unit``."""
     job.epoch += 1
     job.run_epoch()  # warms allocator and caches
     torch.cuda.synchronize()
@@ -927,14 +954,14 @@ def warm_epoch(job, num_train: int, what: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     log(f"  warm epoch of {what}: wall {wall:.3f} s ({num_train / wall:.1f} "
-        f"triples/s), {entry['batches']} batches, avg_loss {entry['avg_loss']:.4f}")
+        f"{unit}/s), {entry['batches']} batches, avg_loss {entry['avg_loss']:.4f}")
 
     def profiled():
         job.epoch += 1
         job.run_epoch()
 
     profile = profile_run(profiled, f"warm epoch of {what}")
-    return {"wall_s": wall, "triples_per_s": num_train / wall, "profile": profile}
+    return {"wall_s": wall, f"{unit}_per_s": num_train / wall, "profile": profile}
 
 
 def run_dense_training(seed: int, data: str):
@@ -1873,6 +1900,267 @@ def run_transe_l2(seed: int, data: str, transe_folder: str):
             "transe_l1_eval_profile": l1_profile}
 
 
+# -- 1vsAll and KvsAll training, and the factorization family ----------------------
+
+OCOMPLEX_EXAMPLE = os.path.join(ROOT, "examples", "fb15k-237-complex-1vsall.yaml")
+ALL_BATCH = 512  # O-complex (the example's) and K-complex (bench.py stage 6)
+# the factorization family at the toy widths of examples/toy-rt3-train.yaml
+FACTORIZATION = {
+    "distmult": {"lookup_embedder.dim": 16},
+    "rescal": {"lookup_embedder.dim": 16},
+    "cp": {"lookup_embedder.dim": 16},
+    "simple": {"lookup_embedder.dim": 16},
+    "relational_tucker3": {"relational_tucker3.entity_embedder.dim": 16,
+                           "relational_tucker3.relation_embedder.base_embedder.dim": 8},
+}
+
+
+def check_losses(folder, epochs):
+    entries = trace_entries(folder, event="epoch_completed")
+    check([e["epoch"] for e in entries] == epochs, f"epochs {entries}")
+    losses = [e["avg_loss"] for e in entries]
+    check(all(np.isfinite(losses)), f"loss is not finite: {losses}")
+    return losses
+
+
+def run_ocomplex(seed: int, data: str):
+    """Phase 15; returns a summary dict."""
+    from kge_tpu_torch import cli
+
+    num_train, num_valid, num_test = FB15K237[2:]
+    steps = -(-num_train // ALL_BATCH)
+    valid_batches, test_batches = -(-num_valid // BATCH), -(-num_test // BATCH)
+    folder = os.path.join(WORK, "train_ocomplex")
+    shutil.rmtree(folder, ignore_errors=True)
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", OCOMPLEX_EXAMPLE, "--folder", folder, "--dataset.name", data,
+              "--train.max_epochs", "2", "--valid.every", "1",
+              "--random_seed.default", str(seed), "--console.quiet", "True"])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    log(f"  start, 2 epochs and 2 validations: wall {start_wall:.2f} s; launches {counts}")
+    # 4 scatter launches a step: the lookups of s and p (score_sp) and of o
+    # and p + |R| (score_po through the reciprocal relations); 2 rank
+    # launches a validation batch
+    check(counts["scatter_add_sorted"] == 4 * steps * 2,
+          f"scatter launches {counts['scatter_add_sorted']} != 4 x {steps} x 2")
+    check(counts["rank_counts"] == 2 * valid_batches * 2,
+          f"rank launches {counts['rank_counts']} != 2 x {valid_batches} x 2")
+    check(counts["rows_set"] == 0 and counts["pooled_scores"] == 0, counts)
+    losses = check_losses(folder, [1, 2])
+    valid = trace_entries(folder, event="eval_completed")
+    check([e["epoch"] for e in valid] == [1, 2], "expected validations at 1 and 2")
+    check(all(0.0 < e["mean_reciprocal_rank_filtered"] <= 1.0 for e in valid))
+    log(f"  scatter kernel: 4 launches x {steps} steps x 2 epochs = "
+        f"{counts['scatter_add_sorted']}; rank kernel: 2 x {valid_batches} x 2 "
+        f"validations = {counts['rank_counts']}; avg_loss {losses}")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resumed = read_counters()
+    check(resumed["scatter_add_sorted"] == 4 * steps, resumed)
+    check(resumed["rank_counts"] == 2 * valid_batches, resumed)
+    losses = check_losses(folder, [1, 2, 3])
+    check(losses[2] < losses[0], f"loss did not fall: {losses}")
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["test", folder])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - start
+    tested = read_counters()
+    check(tested["rank_counts"] == 2 * test_batches, tested)
+    entry = last_test_entry(folder)
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0, entry)
+    log(f"  resume to epoch 3: launches {resumed}; test: {tested['rank_counts']} rank "
+        f"launches, wall {test_wall:.3f} s, MRR filtered "
+        f"{entry['mean_reciprocal_rank_filtered']:.6f}; avg_loss {losses}")
+
+    before, (kernel, never), _, jobs = one_step_each(
+        folder, "checkpoint_00003.pt", "train.pallas_gather", ("always", "never"))
+    worst = check_tables_close(
+        kernel, never, "a 1vsAll step with the scatter kernel differs from the same "
+        "step with torch's indexing backward")
+    moved = max(float((a - b).abs().max()) for a, b in zip(kernel, before))
+    check(moved > 1e-4, "the step did not move the tables")
+    log(f"  one step, scatter kernel vs train.pallas_gather=never: max abs "
+        f"difference {worst:.3e} (tables moved by up to {moved:.3e}); "
+        f"tolerance atol 1e-6 + rtol 1e-5")
+    del jobs[1]
+    timing = warm_epoch(jobs[0], num_train, "O-complex")
+    return {"launches": counts, "resume_launches": resumed, "test_launches": tested,
+            "start_wall_s": start_wall, "test_wall_s": test_wall, "avg_loss": losses,
+            "valid_mrr_filtered": [e["mean_reciprocal_rank_filtered"] for e in valid],
+            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing}
+
+
+def check_dense_labels(job):
+    """The first batch's dense label rows sum to the number of distinct
+    answers of each query (the synthetic graph holds some triples twice,
+    and a label is set once)."""
+    batch = next(iter(job._batches()))
+    qtype = job._step_variant(batch)
+    index = job.query_indexes[qtype]
+    n = batch["true_size"]
+    device_batch = {k: torch.as_tensor(v).to(job.device) for k, v in batch.items()
+                    if k != "true_size" and not isinstance(v, str)}
+    labels = job._dense_labels(device_batch, qtype).cpu()
+    counts = [len(np.unique(index.get(int(a), int(b)))) for a, b in batch["queries"][:n]]
+    check(np.array_equal(labels.sum(1).numpy()[:n], np.array(counts, np.float32)),
+          "dense labels do not sum to the CSR counts")
+    check(float(labels[n:].sum()) == 0.0, "padded rows hold labels")
+    log(f"  dense labels of a {qtype} batch: {n} rows sum to their queries' "
+        f"{int(sum(counts))} distinct answers")
+
+
+def run_kcomplex(seed: int, data: str):
+    """Phase 16; returns a summary dict."""
+    from kge_tpu_torch import cli
+
+    num_valid = FB15K237[3]
+    valid_batches = -(-num_valid // BATCH)
+    folder = os.path.join(WORK, "train_kcomplex")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_kcomplex.yaml")
+    write_train_config(conf, data, seed, **{"train.type": "KvsAll",
+                                            "train.batch_size": ALL_BATCH})
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    losses = check_losses(folder, [1, 2])
+    steps = [e["batches"] for e in trace_entries(folder, event="epoch_completed")]
+    (valid,) = trace_entries(folder, event="eval_completed")
+    check(0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0, valid)
+    # 2 scatter launches a step: the query's two keys (s and p for sp_, p
+    # and o for _po); the whole vocabulary's scores read the table itself
+    check(counts["scatter_add_sorted"] == 2 * sum(steps),
+          f"scatter launches {counts['scatter_add_sorted']} != 2 x {sum(steps)}")
+    check(counts["rank_counts"] == 2 * valid_batches, counts)
+    log(f"  start, 2 epochs and one validation: wall {start_wall:.2f} s; scatter "
+        f"kernel 2 x {sum(steps)} steps = {counts['scatter_add_sorted']}, rank "
+        f"kernel 2 x {valid_batches} = {counts['rank_counts']}; avg_loss {losses}")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resumed = read_counters()
+    losses = check_losses(folder, [1, 2, 3])
+    check(losses[2] < losses[0], f"loss did not fall: {losses}")
+    check(resumed["scatter_add_sorted"] == 2 * steps[0], resumed)
+    before, (kernel, never), _, jobs = one_step_each(
+        folder, "checkpoint_00003.pt", "train.pallas_gather", ("always", "never"))
+    worst = check_tables_close(
+        kernel, never, "a KvsAll step with the scatter kernel differs from the same "
+        "step with torch's indexing backward")
+    moved = max(float((a - b).abs().max()) for a, b in zip(kernel, before))
+    check(moved > 1e-4, "the step did not move the tables")
+    log(f"  resume to epoch 3: launches {resumed}, avg_loss {losses}; one step, "
+        f"scatter kernel vs never: max abs difference {worst:.3e} (moved {moved:.3e})")
+    check_dense_labels(jobs[0])
+    del jobs[1]
+    queries = jobs[0].num_examples
+    timing = warm_epoch(jobs[0], queries, "K-complex", unit="queries")
+    return {"launches": counts, "resume_launches": resumed, "start_wall_s": start_wall,
+            "avg_loss": losses, "queries": queries, "steps": steps,
+            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing}
+
+
+def factorization_job(name: str, data: str, seed: int, device: str, params=None):
+    """A prepared KvsAll training job of one factorization model on
+    ``data`` on ``device``, with ``params`` (kge_tpu's tree) or weights from
+    the seed; returns the job and its weights as such a tree."""
+    from kge_tpu_torch import Config, Dataset
+    from kge_tpu_torch.job import TrainingJob
+    from kge_tpu_torch.models import KgeModel, load_jax_params, to_jax_params
+
+    config = Config()
+    config.load_options({"model": name})
+    for key, value in {
+        **FACTORIZATION[name], "lookup_embedder.initialize_args.std": 0.1,
+        "job.device": device, "dataset.name": data, "train.type": "KvsAll",
+        "train.batch_size": 256, "train.optimizer.default.type": "Adagrad",
+        "train.optimizer.default.args.lr": 0.1,
+        "train.optimizer.default.args.initial_accumulator_value": 0.1,
+        "valid.every": 0, "eval.split": "test", "eval.batch_size": 64,
+        "random_seed.default": seed, "console.quiet": True,
+    }.items():
+        config.set(key, value, create=True)
+    dataset = Dataset.create(config)
+    model = KgeModel.create(config, dataset, init_for_load_only=True)
+    if params is None:
+        model.init_params(torch.Generator(device=model.device).manual_seed(seed))
+        params = to_jax_params(model)
+    load_jax_params(model, params)
+    job = TrainingJob.create(config, dataset, model=model)
+    job._prepare()
+    job._is_prepared = True
+    return job, params
+
+
+def run_factorization_family(seed: int):
+    """Phase 17; returns a summary dict."""
+    from kge_tpu_torch.job import EvaluationJob
+
+    data = os.path.join(WORK, "small_data")
+    sizes = (500, 8, 5000, 300, 300)
+    write_dataset(data, seed, sizes=sizes)
+    test_batches = -(-sizes[4] // 64)
+    out = {}
+    for name in FACTORIZATION:
+        card, params = factorization_job(name, data, seed, "cuda")
+        host, _ = factorization_job(name, data, seed, "cpu", params)
+        entries, launches = {}, {}
+        for where, job in (("cuda", card), ("cpu", host)):
+            evaluation = EvaluationJob.create(job.config, job.dataset, model=job.model)
+            evaluation.epoch = 0
+            reset_counters()
+            with torch.inference_mode():
+                entries[where] = evaluation._evaluate()
+            torch.cuda.synchronize()
+            launches[where] = read_counters()["rank_counts"]
+        check(launches == {"cuda": 2 * test_batches, "cpu": 0},
+              f"{name}: rank launches {launches}")
+        keys = [k for k in entries["cpu"]
+                if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))
+                and not k.endswith("_with_test")]
+        differ = [k for k in keys if entries["cuda"][k] != entries["cpu"][k]]
+        check(keys and not differ, f"{name}: card and CPU metrics differ: {differ}")
+
+        batch = next(iter(card._batches()))
+        variant = card._step_variant(batch)
+        arrays = {k: v for k, v in batch.items()
+                  if k != "true_size" and not isinstance(v, str)}
+        before = tables_of(card)
+        reset_counters()
+        for job in (card, host):
+            job._train_step({k: torch.as_tensor(v).to(job.device) for k, v in arrays.items()},
+                            job._current_lrs(), variant)
+        torch.cuda.synchronize()
+        step = read_counters()
+        check(step["scatter_add_sorted"] == 2, f"{name}: scatter launches {step}")
+        after = tables_of(card)
+        worst = check_tables_close(
+            [t.cpu() for t in after], tables_of(host),
+            f"{name}: a KvsAll step on the card differs from the step on the CPU")
+        moved = max(float((a - b).abs().max()) for a, b in zip(after, before))
+        check(moved > 1e-4, f"{name}: the step did not move the tables")
+        widths = [tuple(p.shape) for p in card.optimizer.params]
+        log(f"  {name} {widths}: {len(keys)} metrics equal on card and CPU (MRR "
+            f"filtered {entries['cuda']['mean_reciprocal_rank_filtered']:.6f}, "
+            f"{launches['cuda']} rank launches); one {variant} step on card vs CPU: "
+            f"max abs difference {worst:.3e} (moved {moved:.3e}), 2 scatter launches")
+        out[name] = {"rank_launches": launches["cuda"], "metrics_equal": len(keys),
+                     "step_max_abs_diff_vs_cpu": worst, "tables": widths}
+    return out
+
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -2339,6 +2627,20 @@ def main():
     epilogue_times = time_epilogue(args.seed, device)
     log(f"  {card}")
 
+    log("== phase 15: O-complex (examples/fb15k-237-complex-1vsall.yaml: reciprocal "
+        "ComplEx d=512, 1vsAll, FB15k-237 sizes)")
+    ocomplex = run_ocomplex(args.seed, data)
+    log(f"  {card}")
+
+    log("== phase 16: K-complex (bench.py stage 6: ComplEx d=512, KvsAll sp_ and _po, "
+        "FB15k-237 sizes)")
+    kcomplex = run_kcomplex(args.seed, data)
+    log(f"  {card}")
+
+    log("== phase 17: DistMult, RESCAL, CP, SimplE, RelationalTucker3 (d=16): "
+        "evaluation and a KvsAll step, card against CPU")
+    family = run_factorization_family(args.seed)
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -2355,13 +2657,21 @@ def main():
               epilogue={**epilogue_times, "name": "neg_sqrt_l2",
                         "max_abs_err": epilogue_err},
               launches_transe_l2=transe_l2["launches"]["rank_counts_epilogue"]
-              + transe_l2["test_launches"]["rank_counts_epilogue"]),
+              + transe_l2["test_launches"]["rank_counts_epilogue"],
+              launches_ocomplex=ocomplex["launches"]["rank_counts"]
+              + ocomplex["resume_launches"]["rank_counts"]
+              + ocomplex["test_launches"]["rank_counts"],
+              launches_kcomplex=kcomplex["launches"]["rank_counts"]
+              + kcomplex["resume_launches"]["rank_counts"],
+              launches_factorization={k: v["rank_launches"] for k, v in family.items()}),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
               sort_and_zero_ms=scatter_times[0]["sort_and_zero_ms"],
               sums_ms=scatter_times[0]["sums_ms"],
-              launches_sparse_epoch=sparse["launches"]["scatter_add_sorted"]),
+              launches_sparse_epoch=sparse["launches"]["scatter_add_sorted"],
+              launches_ocomplex_start=ocomplex["launches"]["scatter_add_sorted"],
+              launches_kcomplex_start=kcomplex["launches"]["scatter_add_sorted"]),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -2381,7 +2691,8 @@ def main():
         "filtered_triples_per_s_warm": NUM_TEST / warm_wall,
         "train_dense": dense, "train_sparse": sparse,
         "train_transe": transe, "train_rotate": rotate,
-        "train_transe_l2": transe_l2, "card": card}
+        "train_transe_l2": transe_l2, "train_ocomplex": ocomplex,
+        "train_kcomplex": kcomplex, "factorization": family, "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,14 @@ A second package beside the JAX one, with its layout and module names, for
 one NVIDIA Hopper card. It reads and writes kge_tpu's folders, configs,
 checkpoints and trace records, and runs
 
-- negative-sampling training (``python -m kge_tpu_torch start|create|resume``)
-  of ComplEx, reciprocal ComplEx, TransE and RotatE over lookup embedders,
-  with shared, pooled or per-row negatives, any of kge_tpu's losses and
-  optimizer rules, on the dense step and on the row-sparse step;
-- filtered entity-ranking evaluation (``eval|valid|test``) of the
-  factorizing models.
+- training (``python -m kge_tpu_torch start|create|resume``) by KvsAll,
+  1vsAll and negative sampling (shared, pooled or per-row negatives, on the
+  dense step and on the row-sparse step) of the factorization family
+  (DistMult, ComplEx, RESCAL, CP, SimplE, RelationalTucker3), the
+  reciprocal relations model, TransE, TransH and RotatE, with any of
+  kge_tpu's losses and optimizer rules;
+- filtered entity-ranking evaluation (``eval|valid|test``) of every ported
+  model.
 
 Every kernel that kge_tpu writes in Pallas for the TPU is rewritten by hand
 in CUDA C++ under ``csrc/`` and bound in ``ops/``: the rank kernel

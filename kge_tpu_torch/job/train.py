@@ -8,18 +8,24 @@ per-epoch timing traces. Checkpoints and trace entries keep kge_tpu's
 schema, so either package resumes and evaluates what the other wrote.
 
 Execution model: the model is an ``nn.Module`` on the job's device and the
-step runs eagerly. Each strategy provides ``_loss_for_batch(batch)``; the
-job adds penalties, differentiates, applies the optimizer in place and runs
-the post-batch parameter transforms. Batches are prepared host-side as
-numpy (shuffled by ``np.random.default_rng(seed ^ 0xA5A5)``, as kge_tpu
-shuffles) and the final partial batch is padded and masked. The loss
+step runs eagerly. Each strategy provides ``_loss_for_batch(batch,
+variant)``; the job adds penalties, differentiates, applies the optimizer
+in place and runs the post-batch parameter transforms. Batches are
+prepared host-side as numpy (shuffled by ``np.random.default_rng(seed ^
+0xA5A5)``, as kge_tpu shuffles) and the final partial batch is padded and
+masked. The loss
 scalars of every batch stay on the device and are fetched once at the end
 of the epoch, so the device queue never waits for the host unless
 ``train.trace_level: batch`` asks for per-batch values.
 
+A strategy whose batches need different step functions (KvsAll's query
+types) tags each batch with ``_step_variant(batch)`` before the loop drops
+its string entries, and the tag reaches ``_loss_for_batch(batch, variant)``
+through the step, as kge_tpu selects one compiled step per tag.
+
 Not ported (see ROADMAP.md): kge_tpu's scanned epoch (``train.epoch_scan``
-is accepted and has nothing to select), subbatches, out-of-memory
-handling, device meshes.
+is accepted and has nothing to select: epochs run in kge_tpu's unscanned
+order), subbatches, out-of-memory handling, device meshes.
 """
 
 from __future__ import annotations
@@ -308,14 +314,20 @@ class TrainingJob(TrainingOrEvaluationJob):
         (e.g. by the row-sparse step)."""
         self._train_step = self._dense_step
 
-    def _loss_for_batch(self, batch: Dict[str, torch.Tensor]):
-        """Strategy-specific loss: returns (summed-and-averaged loss, aux)."""
+    def _loss_for_batch(self, batch: Dict[str, torch.Tensor], variant=None):
+        """Strategy-specific loss of a batch of step variant ``variant``:
+        returns (summed-and-averaged loss, aux)."""
         raise NotImplementedError
 
-    def _loss_fn(self, batch):
+    def _step_variant(self, batch) -> Optional[str]:
+        """A tag selecting how the step treats this (numpy) batch, taken
+        before its string entries are dropped; None: one step for all."""
+        return None
+
+    def _loss_fn(self, batch, variant=None):
         """Loss plus penalties (computed once per batch, reference
         train.py:417-435): returns (cost, aux)."""
-        loss_value, aux = self._loss_for_batch(batch)
+        loss_value, aux = self._loss_for_batch(batch, variant)
         penalty_batch = {k: batch[k] for k in ("triples", "mask") if k in batch}
         penalties = self.model.penalty(batch=penalty_batch, epoch=self.epoch)
         cost = loss_value
@@ -328,14 +340,14 @@ class TrainingJob(TrainingOrEvaluationJob):
         aux["penalties"] = penalty_values
         return cost, aux
 
-    def _dense_step(self, batch, lr):
+    def _dense_step(self, batch, lr, variant=None):
         """One step with dense table gradients: every lookup's backward
         yields its own table-sized gradient (the scatter kernel when
         selected), autograd sums them, and the optimizer rule runs over
         whole tables. Returns (cost, aux) as detached tensors."""
         self._enter_step()
         params = self.optimizer.params
-        cost, aux = self._loss_fn(batch)
+        cost, aux = self._loss_fn(batch, variant)
         grads = torch.autograd.grad(cost, params, allow_unused=True)
         grads = [
             torch.zeros_like(p) if g is None else g
@@ -352,10 +364,10 @@ class TrainingJob(TrainingOrEvaluationJob):
         self.model.train()
         embedding_ops.set_gather_mode(self._gather_mode)
 
-    def _forward_step(self, batch):
+    def _forward_step(self, batch, variant=None):
         self._enter_step()
         with torch.no_grad():
-            cost, aux = self._loss_fn(batch)
+            cost, aux = self._loss_fn(batch, variant)
         return cost, aux
 
     # -- epoch loop ------------------------------------------------------------
@@ -412,6 +424,7 @@ class TrainingJob(TrainingOrEvaluationJob):
                 f(self)
 
             prepare_start = time.time()
+            variant = self._step_variant(batch)
             device_batch = {
                 k: torch.as_tensor(v).to(device, non_blocking=True)
                 for k, v in batch.items()
@@ -421,9 +434,9 @@ class TrainingJob(TrainingOrEvaluationJob):
 
             forward_start = time.time()
             if self.is_forward_only:
-                cost, aux = self._forward_step(device_batch)
+                cost, aux = self._forward_step(device_batch, variant)
             else:
-                cost, aux = self._train_step(device_batch, lr_vec)
+                cost, aux = self._train_step(device_batch, lr_vec, variant)
             forward_time_total += time.time() - forward_start
 
             pending.append((cost, aux))

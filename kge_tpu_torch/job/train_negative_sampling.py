@@ -368,7 +368,7 @@ class TrainingJobNegativeSampling(TrainingJob):
             for emb in (self.model.get_s_embedder(), self.model.get_p_embedder())
         )
 
-    def _loss_for_batch(self, batch, tables=None):
+    def _loss_for_batch(self, batch, variant=None, tables=None):
         """Loss of one batch. ``tables`` is the (entity, relation)
         mini-table pair of a localized batch (row-sparse step); negatives
         not in the batch are drawn here."""
@@ -546,7 +546,7 @@ class TrainingJobNegativeSampling(TrainingJob):
         )
         self._train_step = self._sparse_step
 
-    def _sparse_step(self, batch, lr):
+    def _sparse_step(self, batch, lr, variant=None):
         """Train step that never materializes table-sized gradients: the
         loss is computed on gathered "mini-tables" whose rows are exactly
         the ones the batch touches (the batch's indexes localize to arange

@@ -1,8 +1,9 @@
 """Model zoo: scorers, embedders, and the model factory.
 
-Ported so far: ComplEx, TransE, TransH, RotatE and the reciprocal relations
-model over lookup embedders. The other models of kge_tpu are listed in
-ROADMAP.md.
+Ported so far: the factorization family (DistMult, ComplEx, RESCAL, CP,
+SimplE, RelationalTucker3), TransE, TransH, RotatE and the reciprocal
+relations model, over lookup and projection embedders. ConvE and
+Transformer are listed in ROADMAP.md.
 """
 
 from kge_tpu_torch.models.base import (
@@ -10,7 +11,9 @@ from kge_tpu_torch.models.base import (
     KgeEmbedder,
     KgeModel,
     LookupEmbedder,
+    ProjectionEmbedder,
     RelationalScorer,
+    Tucker3RelationEmbedder,
 )
 from kge_tpu_torch.models.convert import (
     load_jax_opt_state,
@@ -19,7 +22,19 @@ from kge_tpu_torch.models.convert import (
     to_jax_opt_state,
     to_jax_params,
 )
-from kge_tpu_torch.models.factorization import ComplEx, ComplExScorer
+from kge_tpu_torch.models.factorization import (
+    CP,
+    ComplEx,
+    ComplExScorer,
+    CPScorer,
+    DistMult,
+    DistMultScorer,
+    RelationalTucker3,
+    Rescal,
+    RescalScorer,
+    SimplE,
+    SimplEScorer,
+)
 from kge_tpu_torch.models.reciprocal import ReciprocalRelationsModel
 from kge_tpu_torch.models.translation import (
     RotatE,
@@ -35,9 +50,20 @@ __all__ = [
     "KgeEmbedder",
     "KgeModel",
     "LookupEmbedder",
+    "ProjectionEmbedder",
+    "Tucker3RelationEmbedder",
     "RelationalScorer",
+    "DistMult",
+    "DistMultScorer",
     "ComplEx",
     "ComplExScorer",
+    "Rescal",
+    "RescalScorer",
+    "CP",
+    "CPScorer",
+    "SimplE",
+    "SimplEScorer",
+    "RelationalTucker3",
     "ReciprocalRelationsModel",
     "TransE",
     "TransEScorer",

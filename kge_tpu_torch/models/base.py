@@ -8,9 +8,10 @@ reference's names and combine semantics (score_spo/score_sp/score_po/
 score_sp_po with "spo"/"sp_"/"_po", kge_model.py:122-213,663-789).
 Randomness comes from explicit ``torch.Generator``s.
 
-Ported so far: what filtered entity-ranking evaluation and
-negative-sampling training (shared, pooled and per-row negatives) need. Pretrained initialization, projection
-embedders and the ring-sharded scoring path are not ported yet (see
+Ported so far: lookup and projection embedders (``ProjectionEmbedder``,
+``Tucker3RelationEmbedder``), and what filtered entity-ranking evaluation
+and negative-sampling, 1vsAll and KvsAll training need. Pretrained
+initialization and the ring-sharded scoring path are not ported yet (see
 ROADMAP.md).
 
 Where kge_tpu swaps gathered mini-tables into the parameter tree for the
@@ -299,14 +300,30 @@ class KgeEmbedder(KgeBase):
     def postprocess_params(self) -> None:
         """Post-batch parameter transform (e.g. L_p renormalization)."""
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The embedder's parameters as kge_tpu's parameter tree of this
+        embedder: nested dicts with tensor leaves."""
+        raise NotImplementedError
+
+    def _dropout(self, emb: torch.Tensor) -> torch.Tensor:
+        """Inverted dropout (torch.nn.Dropout semantics) at rate
+        ``self.dropout`` in train mode, drawn from ``dropout_generator``
+        (set by the training job)."""
+        if not self.training or self.dropout <= 0.0:
+            return emb
+        keep = 1.0 - self.dropout
+        mask = torch.rand(
+            emb.shape, generator=self.dropout_generator, device=emb.device
+        ) < keep
+        return torch.where(mask, emb / keep, torch.zeros_like(emb))
+
 
 class LookupEmbedder(KgeEmbedder):
     """Dense embedding table with normalization (reference
     kge/model/embedder/lookup_embedder.py): one parameter ``embeddings``
     [vocab, dim], with dropout, normalization and lp/n3 penalty. Lookups go
     through ``embedding_gather`` (ops/embedding_ops.py), whose backward is
-    the scatter kernel when a job selects it. Dropout acts in train mode
-    and draws from ``dropout_generator`` (set by the training job)."""
+    the scatter kernel when a job selects it. Dropout acts in train mode."""
 
     def __init__(self, config, dataset, configuration_key, vocab_size,
                  init_for_load_only=False, device=None):
@@ -357,15 +374,8 @@ class LookupEmbedder(KgeEmbedder):
         if self.normalize_p > 0:
             self.embeddings.copy_(self._normalize(self.embeddings))
 
-    def _dropout(self, emb: torch.Tensor) -> torch.Tensor:
-        """Inverted dropout (torch.nn.Dropout semantics) in train mode."""
-        if not self.training or self.dropout <= 0.0:
-            return emb
-        keep = 1.0 - self.dropout
-        mask = torch.rand(
-            emb.shape, generator=self.dropout_generator, device=emb.device
-        ) < keep
-        return torch.where(mask, emb / keep, torch.zeros_like(emb))
+    def param_tree(self) -> Dict[str, Any]:
+        return {"embeddings": self.embeddings}
 
     def embed(self, indexes, table=None) -> torch.Tensor:
         from kge_tpu_torch.ops.embedding_ops import embedding_gather
@@ -438,6 +448,97 @@ class LookupEmbedder(KgeEmbedder):
             value = weight / p * torch.sum(contrib) / num_index_rows
             result.append((name, value))
         return result
+
+
+class ProjectionEmbedder(KgeEmbedder):
+    """Base embedder followed by a bias-free linear projection (reference
+    kge/model/embedder/projection_embedder.py; kge_tpu ProjectionEmbedder):
+    the base embedder's module ``base_embedder`` and the parameter
+    ``projection`` [dim_out, dim_in], kge_tpu's tree ``{"base": <base
+    tree>, "projection": ...}``. Lookups go through the base embedder (its
+    ``embedding_gather``); dropout acts on the projected embeddings in train
+    mode; the lp penalty of the projection adds to the base's penalties.
+    ``table`` (the row-sparse step's substitute) stands in for the base
+    embedder's table."""
+
+    def __init__(self, config, dataset, configuration_key, vocab_size,
+                 init_for_load_only=False, device=None):
+        super().__init__(
+            config, dataset, configuration_key, vocab_size, init_for_load_only
+        )
+        self.base_embedder = KgeEmbedder.create(
+            config, dataset, configuration_key + ".base_embedder", vocab_size,
+            init_for_load_only, device=device,
+        )
+        self._dim = int(self.get_option("dim"))
+        if self._dim < 0:
+            self._dim = self.base_embedder.dim
+            self.set_option("dim", self._dim, log=True)
+        self.regularize = self.check_option("regularize", ["", "lp"])
+        self.dropout = float(self.get_option("dropout"))
+        self.dropout_generator: Optional[torch.Generator] = None
+        self.projection = nn.Parameter(
+            torch.empty(self._dim, self.base_embedder.dim, dtype=torch.float32,
+                        device=device)
+        )
+
+    @property
+    def dim(self) -> int:
+        return self._dim
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        self.base_embedder.init_params(generator)
+        self.initializer()(self.projection, generator)
+
+    def param_tree(self) -> Dict[str, Any]:
+        return {"base": self.base_embedder.param_tree(),
+                "projection": self.projection}
+
+    def _project(self, emb: torch.Tensor) -> torch.Tensor:
+        return self._dropout(emb @ self.projection.T)
+
+    def embed(self, indexes, table=None) -> torch.Tensor:
+        return self._project(self.base_embedder.embed(indexes, table))
+
+    def embed_all(self) -> torch.Tensor:
+        return self._project(self.base_embedder.embed_all())
+
+    def postprocess_params(self) -> None:
+        self.base_embedder.postprocess_params()
+
+    def penalty(self, indexes=None, **kwargs):
+        result = self.base_embedder.penalty(indexes=indexes, **kwargs)
+        weight = float(self.get_option("regularize_weight"))
+        if self.regularize == "" or weight == 0.0:
+            return result
+        p = float(self.get_option("regularize_args.p"))
+        result.append(
+            (
+                f"{self.configuration_key}.L{int(p) if p == int(p) else p}_penalty",
+                weight * torch.sum(torch.abs(self.projection) ** p),
+            )
+        )
+        return result
+
+
+class Tucker3RelationEmbedder(ProjectionEmbedder):
+    """ProjectionEmbedder with dim fixed to entity_dim^2 (the Tucker core;
+    reference kge/model/embedder/tucker3_relation_embedder.py)."""
+
+    def __init__(self, config, dataset, configuration_key, vocab_size,
+                 init_for_load_only=False, device=None):
+        # dim is set by the model (RelationalTucker3) before creation; when
+        # unset, derive it from the sibling entity embedder
+        dim = config.get_default(configuration_key + ".dim")
+        if dim < 0:
+            ent_key = configuration_key.replace("relation_embedder", "entity_embedder")
+            ent_dim = config.get_default(ent_key + ".dim")
+            config.set(configuration_key + ".dim", ent_dim ** 2, create=True)
+        super().__init__(
+            config, dataset, configuration_key, vocab_size, init_for_load_only,
+            device=device,
+        )
 
 
 # -- model ---------------------------------------------------------------------
@@ -563,7 +664,7 @@ class KgeModel(KgeBase):
 
     @property
     def device(self) -> torch.device:
-        return self.get_s_embedder().embeddings.device
+        return next(self.parameters()).device
 
     #: Whether scoring functions index tables only with the ids they are
     #: passed (no internal id arithmetic). When True, a training job may

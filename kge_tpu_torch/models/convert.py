@@ -1,20 +1,24 @@
 """Weights across the two packages.
 
 kge_tpu keeps a model's parameters as a pytree of arrays,
-``{"entity_embedder": {"embeddings": [E, d]}, "relation_embedder":
-{"embeddings": [R or 2R, d or 2d]}}`` (2R rows for the reciprocal
-relations model, 2d columns for TransH's [translation | normal]; plus
-``"scorer"`` for scorers with parameters of their own); its checkpoints
-store the tree with numpy leaves.
-This package keeps them in its modules. ``load_jax_params`` copies such a
-tree into a model, ``to_jax_params`` reads one out, both through numpy.
+``{"entity_embedder": <tree>, "relation_embedder": <tree>}``, where a
+lookup embedder's tree is ``{"embeddings": [vocab, d]}`` (2R rows for the
+reciprocal relations model, 2d columns for TransH's [translation | normal])
+and a projection embedder's ``{"base": <base tree>, "projection": [d_out,
+d_in]}`` (RelationalTucker3's relation embedder); plus ``"scorer"`` for
+scorers with parameters of their own. Its checkpoints store the tree with
+numpy leaves. This package keeps them in its modules, and each embedder
+gives its tree with tensor leaves (``param_tree``). ``load_jax_params``
+copies such a tree into a model, ``to_jax_params`` reads one out, both
+through numpy.
 
 kge_tpu's optimizer state is ``{"leaves": [state dict per parameter leaf],
-"step": int}`` with the leaves in its tree-flatten order (sorted keys:
-``entity_embedder.embeddings``, ``relation_embedder.embeddings``).
-``param_leaves`` lists a model's parameters in that order, and
-``load_jax_opt_state`` / ``to_jax_opt_state`` carry the state across, again
-through numpy.
+"step": int}`` with the leaves in its tree-flatten order (keys sorted at
+every level: ``entity_embedder.embeddings``, then
+``relation_embedder.base.embeddings`` and ``relation_embedder.projection``
+or ``relation_embedder.embeddings``). ``param_leaves`` lists a model's
+parameters in that order, and ``load_jax_opt_state`` / ``to_jax_opt_state``
+carry the state across, again through numpy.
 """
 
 from __future__ import annotations
@@ -34,6 +38,17 @@ def _embedders(model):
     return {key: getattr(model, getter)() for key, getter in _EMBEDDERS.items()}
 
 
+def _flatten(tree, path=()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs of a nested dict, keys sorted at every level."""
+    if not isinstance(tree, dict):
+        return [(path, tree)]
+    return [leaf for key in sorted(tree) for leaf in _flatten(tree[key], path + (key,))]
+
+
+def _model_tree(model) -> Dict[str, Any]:
+    return {key: embedder.param_tree() for key, embedder in _embedders(model).items()}
+
+
 @torch.no_grad()
 def load_jax_params(model, tree: Dict[str, Any]) -> None:
     """Copy kge_tpu's parameter tree (numpy or array-like leaves) into
@@ -42,40 +57,41 @@ def load_jax_params(model, tree: Dict[str, Any]) -> None:
     if extra:
         raise ValueError(
             f"parameters {sorted(extra)} have no counterpart in "
-            f"{type(model).__name__} (only lookup embedders are ported)"
+            f"{type(model).__name__} (only embedder parameters are ported)"
         )
-    for key, embedder in _embedders(model).items():
-        leaves = tree[key]
-        if set(leaves) != {"embeddings"}:
+    own = _flatten(_model_tree(model))
+    given = _flatten(tree)
+    if [path for path, _ in given] != [path for path, _ in own]:
+        raise ValueError(
+            f"parameters {['.'.join(p) for p, _ in given]} do not match "
+            f"{type(model).__name__}'s {['.'.join(p) for p, _ in own]}"
+        )
+    for (path, param), (_, leaf) in zip(own, given):
+        value = np.asarray(leaf, dtype=np.float32)
+        if tuple(value.shape) != tuple(param.shape):
             raise ValueError(
-                f"{key}: expected a lookup embedder's {{'embeddings'}}, "
-                f"got {sorted(leaves)}"
+                f"{'.'.join(path)} has shape {value.shape}, the model "
+                f"expects {tuple(param.shape)}"
             )
-        value = np.asarray(leaves["embeddings"], dtype=np.float32)
-        if tuple(value.shape) != tuple(embedder.embeddings.shape):
-            raise ValueError(
-                f"{key}.embeddings has shape {value.shape}, the model "
-                f"expects {tuple(embedder.embeddings.shape)}"
-            )
-        embedder.embeddings.copy_(torch.tensor(value))
+        param.copy_(torch.tensor(value))
 
 
 @torch.no_grad()
 def to_jax_params(model) -> Dict[str, Any]:
     """``model``'s parameters as kge_tpu's tree of numpy arrays."""
-    return {
-        key: {"embeddings": embedder.embeddings.detach().cpu().numpy().copy()}
-        for key, embedder in _embedders(model).items()
-    }
+
+    def to_numpy(tree):
+        if isinstance(tree, dict):
+            return {key: to_numpy(value) for key, value in tree.items()}
+        return tree.detach().cpu().numpy().copy()
+
+    return to_numpy(_model_tree(model))
 
 
 def param_leaves(model) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     """``model``'s parameters as (path in kge_tpu's tree, tensor) pairs in
     kge_tpu's tree-flatten order (keys sorted at every level)."""
-    return [
-        ((key, "embeddings"), embedder.embeddings)
-        for key, embedder in sorted(_embedders(model).items())
-    ]
+    return _flatten(_model_tree(model))
 
 
 def load_jax_opt_state(state: Dict[str, Any], leaves) -> Dict[str, Any]:

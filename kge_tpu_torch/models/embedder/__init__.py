@@ -1,1 +1,2 @@
-"""Embedder configuration files (lookup_embedder.yaml)."""
+"""Embedder configuration files (lookup_embedder.yaml,
+projection_embedder.yaml, tucker3_relation_embedder.yaml)."""

@@ -243,6 +243,61 @@ def test_transe_test_evaluation_on_card_equals_cpu(tmp_path, l_norm):
         assert entries["cuda", 70][key] == entries["cpu", -1][key], key
 
 
+FACTORIZATION_MODELS = {
+    "distmult": {"model": "distmult", "lookup_embedder.dim": 16},
+    "rescal": {"model": "rescal", "lookup_embedder.dim": 16},
+    "cp": {"model": "cp", "lookup_embedder.dim": 16},
+    "simple": {"model": "simple", "lookup_embedder.dim": 16},
+    "relational_tucker3": {"model": "relational_tucker3",
+                           "relational_tucker3.entity_embedder.dim": 16,
+                           "relational_tucker3.relation_embedder.base_embedder.dim": 8},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FACTORIZATION_MODELS))
+def test_factorization_model_evaluation_on_card_equals_cpu(tmp_path, name):
+    """DistMult, RESCAL, CP, SimplE and RelationalTucker3 rank through the
+    rank kernel on the card (twice a batch) and report the CPU's metrics
+    from the same weights."""
+    from kge_tpu_torch import Config, Dataset
+    from kge_tpu_torch.job import EvaluationJob
+    from kge_tpu_torch.models import KgeModel, load_jax_params, to_jax_params
+
+    _card()
+    data = tmp_path / "factorization_synth"
+    _write_dataset(data, 5)
+    params, entries = None, {}
+    for where in ("cpu", "cuda"):
+        config = Config()
+        config.load_options({"model": FACTORIZATION_MODELS[name]["model"]})
+        for key, value in FACTORIZATION_MODELS[name].items():
+            if key != "model":
+                config.set(key, value, create=True)
+        for key, value in (("lookup_embedder.initialize_args.std", 0.1),
+                           ("job.device", where), ("dataset.name", str(data)),
+                           ("eval.split", "test"), ("eval.batch_size", 32),
+                           ("console.quiet", True)):
+            config.set(key, value, create=True)
+        dataset = Dataset.create(config, folder=str(data))
+        model = KgeModel.create(config, dataset, init_for_load_only=True)
+        if params is None:
+            model.init_params(torch.Generator().manual_seed(6))
+            params = to_jax_params(model)
+        load_jax_params(model, params)
+        job = EvaluationJob.create(config, dataset, model=model)
+        job.epoch = 0
+        before = fused_rank_counts.launches
+        with torch.inference_mode():
+            entries[where] = job._evaluate()
+        assert fused_rank_counts.launches - before == (2 * 4 if where == "cuda" else 0)
+    keys = [k for k in entries["cpu"]
+            if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))]
+    assert keys
+    for key in keys:
+        assert entries["cuda"][key] == entries["cpu"][key], key
+
+
 # -- scatter kernel ---------------------------------------------------------------
 
 SCATTER_CASES = {
@@ -256,6 +311,8 @@ SCATTER_CASES = {
     "chunk_edges": lambda rng: (np.repeat([0, 2, 5], [32, 64, 33]), 7, 8),
     "d_not_multiple_of_4": lambda rng: (rng.integers(0, 20, 300), 20, 6),
     "d_eight": lambda rng: (rng.integers(0, 7, 12), 7, 8),
+    # RESCAL's relation table at d = 16: rows of d^2 = 256
+    "relation_d_squared": lambda rng: (rng.integers(0, 237, 512), 237, 256),
 }
 
 

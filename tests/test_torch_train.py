@@ -23,7 +23,7 @@ import kge_tpu_torch
 from kge_tpu.ops import pallas_ops
 from kge_tpu_torch.ops import embedding_ops
 from tests.torch_parity import (
-    jax_tables as _jax_tables,
+    assert_same_state as _assert_same_state,
     make_config,
     make_job_pair,
     pooled_options,
@@ -40,17 +40,6 @@ def _reset_modes():
     yield
     pallas_ops.set_gather_mode("xla")
     embedding_ops.set_gather_mode("torch")
-
-
-def _assert_same_state(jjob, tjob):
-    for got, want in zip(_tables(tjob), _jax_tables(jjob)):
-        np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
-    for got, want in zip(tjob.opt_state["leaves"], jjob.opt_state["leaves"]):
-        assert sorted(got) == sorted(want)
-        for key in want:
-            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
-                                       atol=1e-5, rtol=0)
-    assert int(tjob.opt_state["step"]) == int(jjob.opt_state["step"])
 
 
 @pytest.mark.parametrize("gather", ["always", "never"])

@@ -171,8 +171,23 @@ def torch_tables(job):
 
 
 def jax_tables(job):
-    return [np.asarray(job.model_params[k]["embeddings"])
-            for k in ("entity_embedder", "relation_embedder")]
+    """kge_tpu's parameter leaves in its tree-flatten order, the order of
+    the port's ``optimizer.params``."""
+    return [np.asarray(leaf) for leaf in jax.tree_util.tree_leaves(job.model_params)]
+
+
+def assert_same_state(jjob, tjob):
+    """Tables within atol 5e-6, optimizer state within atol 1e-5, the same
+    step count."""
+    for got, want in zip(torch_tables(tjob), jax_tables(jjob), strict=True):
+        np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
+    for got, want in zip(tjob.opt_state["leaves"], jjob.opt_state["leaves"],
+                         strict=True):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                       atol=1e-5, rtol=0)
+    assert int(tjob.opt_state["step"]) == int(jjob.opt_state["step"])
 
 
 def run_steps(jjob, tjob, steps=5, seed=3):
@@ -205,5 +220,29 @@ def run_steps(jjob, tjob, steps=5, seed=3):
         )
         tbatch = {k: torch.tensor(v) for k, v in arrays.items()}
         _, taux = tjob._train_step(tbatch, tjob._current_lrs())
+        losses.append((float(jaux["avg_loss"]), float(taux["avg_loss"])))
+    return losses
+
+
+def run_batch_steps(jjob, tjob, steps=5):
+    """The first ``steps`` batches of kge_tpu's epoch (1vsAll, KvsAll: no
+    negatives to inject) through both jobs' raw train steps, each with its
+    step variant; returns the per-step (jax loss, torch loss)."""
+    losses = []
+    batches = list(jjob._batches())
+    for step in range(steps):
+        batch = batches[step % len(batches)]
+        variant = jjob._step_variant(batch)
+        assert tjob._step_variant(batch) == variant
+        arrays = {k: v for k, v in batch.items()
+                  if k != "true_size" and not isinstance(v, str)}
+        raw = jjob._raw_step if variant is None else jjob._raw_steps[variant]
+        jjob.model_params, jjob.opt_state, _, jaux = raw(
+            jjob.model_params, jjob.opt_state,
+            {k: jnp.asarray(v) for k, v in arrays.items()},
+            jax.random.PRNGKey(step), jjob._current_lrs(),
+        )
+        _, taux = tjob._train_step({k: torch.tensor(v) for k, v in arrays.items()},
+                                   tjob._current_lrs(), variant)
         losses.append((float(jaux["avg_loss"]), float(taux["avg_loss"])))
     return losses
