@@ -175,7 +175,33 @@ Phases (any failure exits non-zero; nothing is caught):
    graph: a test evaluation on the card (the rank kernel twice a batch)
    reports the CPU's metrics, and one KvsAll step on the card (2 scatter
    launches) gives the CPU's tables within atol 1e-6 + rtol 1e-5.
-18. One ``kernels`` JSON line: per kernel its time per call at the main
+18. X-complex: bench.py's stage 3 (``negsamp_perrow_exact``): phase 6's
+   settings with 128 per-row negatives for s and for o (``shared: false``)
+   scored by ``implementation: all`` against every entity, then picked per
+   row (ops/pick.py), on the FB15k-237-sized graph: ``start`` for two
+   epochs with ``valid.every 1``, ``resume`` to epoch 3. The scatter kernel
+   must launch 3 times a step (s, p and o embedded once; the whole
+   vocabulary's scores read the table itself), the rank kernel twice a
+   validation batch; losses finite and falling. One kernel step against the
+   ``never`` step (tables within atol 1e-6 + rtol 1e-5); the pick at this
+   shape: values equal a gather, the backward bit-equal across two launches
+   on the run's samples and on samples with a column picked three times in
+   every row; the same samples scored by ``all``, ``batch`` and ``triple``
+   (losses rtol 1e-5, tables after one step within atol 1e-6 + rtol 1e-5;
+   scatter launches 3, 12, 12); a step in 4 subbatches of 2,048 against
+   the whole step (same rules). A warm epoch's wall, triples/s and profile.
+19. At T-dense's shape, each ``start`` for two epochs through ``cli.main``
+   with the scatter kernel's launches a step by equality and a finite
+   falling loss: per-row ``batch`` (12 a step), ``pool`` with
+   ``on_device: never`` (host-drawn samples scored as ``batch``, 12 a
+   step), ``fused_scoring: always`` with shared negatives (7 a step: one
+   into each whole table, five into the mini-tables), with one fused step
+   against the unfused one (tables within atol 1e-6 + rtol 1e-5); a warm
+   epoch of each; the ``batch`` route's bounded unique timed alone. Then one
+   KvsAll step of phase 16 in subbatches of 128 against the whole step
+   (loss rtol 1e-5, tables as above; 8 scatter launches against 2), and the
+   wall of a warm epoch of the subbatched job (not profiled). Each of phases 18 and 19 logs its wall.
+20. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -183,9 +209,8 @@ Phases (any failure exits non-zero; nothing is caught):
    it); every time in it is
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14, and its launches in phases
-   15-17, the scatter kernel's its launches in phases 15 and 16. Then the
-   card's name
-   and power limit, then the ``ok`` JSON line last.
+   15-18, the scatter kernel's its launches in phases 15, 16, 18 and 19.
+   Then the card's name and power limit, then the ``ok`` JSON line last.
 """
 
 from __future__ import annotations
@@ -910,11 +935,13 @@ def tables_of(job, state=False):
     return out
 
 
-def one_step_each(folder, checkpoint, key, values, state=False):
-    """The same step (same state, batch and negatives) under two values of
+def one_step_each(folder, checkpoint, key, values, state=False, costs=None,
+                  launches=None):
+    """The same step (same state, batch and negatives) under the values of
     one configuration key; returns (tables before, tables after per value,
     the batch, the jobs). With ``state`` the optimizer state counts as
-    tables."""
+    tables; ``costs`` and ``launches`` (lists) receive each step's cost and
+    its kernel launch counts."""
     jobs = [resumed_job(folder, checkpoint, **{key: value}) for value in values]
     batch = next(iter(jobs[0]._batches()))
     variant = jobs[0]._step_variant(batch)
@@ -926,8 +953,13 @@ def one_step_each(folder, checkpoint, key, values, state=False):
     before = tables_of(jobs[0], state)
     after = []
     for job in jobs:
-        job._train_step(dict(batch), job._current_lrs(), variant)
+        reset_counters()
+        cost, _ = job._train_step(dict(batch), job._current_lrs(), variant)
         after.append(tables_of(job, state))
+        if costs is not None:
+            costs.append(float(cost))
+        if launches is not None:
+            launches.append(read_counters())
     torch.cuda.synchronize()
     return before, after, batch, jobs
 
@@ -941,10 +973,11 @@ def check_tables_close(a, b, what):
     return worst
 
 
-def warm_epoch(job, num_train: int, what: str, unit: str = "triples"):
+def warm_epoch(job, num_train: int, what: str, unit: str = "triples",
+               profiled: bool = True):
     """A warm epoch of a prepared job: wall by the host clock around work
-    that ends in a synchronize, then the same under the profiler.
-    ``num_train`` examples an epoch, counted in ``unit``."""
+    that ends in a synchronize, then (``profiled``) the same under the
+    profiler. ``num_train`` examples an epoch, counted in ``unit``."""
     job.epoch += 1
     job.run_epoch()  # warms allocator and caches
     torch.cuda.synchronize()
@@ -956,12 +989,14 @@ def warm_epoch(job, num_train: int, what: str, unit: str = "triples"):
     log(f"  warm epoch of {what}: wall {wall:.3f} s ({num_train / wall:.1f} "
         f"{unit}/s), {entry['batches']} batches, avg_loss {entry['avg_loss']:.4f}")
 
-    def profiled():
-        job.epoch += 1
-        job.run_epoch()
+    out = {"wall_s": wall, f"{unit}_per_s": num_train / wall}
+    if profiled:
+        def epoch():
+            job.epoch += 1
+            job.run_epoch()
 
-    profile = profile_run(profiled, f"warm epoch of {what}")
-    return {"wall_s": wall, f"{unit}_per_s": num_train / wall, "profile": profile}
+        out["profile"] = profile_run(epoch, f"warm epoch of {what}")
+    return out
 
 
 def run_dense_training(seed: int, data: str):
@@ -2068,7 +2103,8 @@ def run_kcomplex(seed: int, data: str):
     timing = warm_epoch(jobs[0], queries, "K-complex", unit="queries")
     return {"launches": counts, "resume_launches": resumed, "start_wall_s": start_wall,
             "avg_loss": losses, "queries": queries, "steps": steps,
-            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing}
+            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing,
+            "folder": folder}
 
 
 def factorization_job(name: str, data: str, seed: int, device: str, params=None):
@@ -2157,6 +2193,267 @@ def run_factorization_family(seed: int):
             f"max abs difference {worst:.3e} (moved {moved:.3e}), 2 scatter launches")
         out[name] = {"rank_launches": launches["cuda"], "metrics_equal": len(keys),
                      "step_max_abs_diff_vs_cpu": worst, "tables": widths}
+    return out
+
+
+# -- per-row negatives, the fused step and subbatches ---------------------------------
+
+
+def check_pick_bits(generator, device, samples):
+    """``picked_scores`` at X-complex's shape ([8,192, 14,541] scores, 128
+    picks a row): values equal a gather, and the backward of two launches
+    is bit-equal, on the run's own samples and with a column picked three
+    times in every row; the backward within 1e-6 + 1e-5 S of a float64 sum
+    (S the summed magnitudes). Returns (rows of ``samples`` with a column
+    three times or more, max abs error)."""
+    from kge_tpu_torch.ops.pick import picked_scores
+
+    n, K = samples.shape
+    S = torch.randn((n, NUM_ENTITIES), generator=generator, device=device)
+    g = torch.randn((n, K), generator=generator, device=device)
+    sorted_ids = samples.sort(dim=1).values
+    triples = (sorted_ids[:, 2:] == sorted_ids[:, :-2]).any(dim=1)
+    forced = samples.clone()
+    forced[:, 1:3] = forced[:, :1]
+    worst = 0.0
+    for idx in (samples, forced):
+        grads = []
+        for _ in range(2):
+            St = S.clone().requires_grad_(True)
+            out = picked_scores(St, idx)
+            check(torch.equal(out, torch.gather(S, 1, idx)), "the pick's values differ")
+            grads.append(torch.autograd.grad(out, St, g)[0])
+        check(torch.equal(grads[0], grads[1]),
+              "the pick's backward differs between two launches")
+        want = torch.zeros((n, NUM_ENTITIES), dtype=torch.float64, device=device)
+        rows = torch.arange(n, device=device)[:, None].expand_as(idx)
+        want.index_put_((rows, idx), g.double(), accumulate=True)
+        mag = torch.zeros_like(want).index_put_((rows, idx), g.double().abs(),
+                                                accumulate=True)
+        err = (grads[0].double() - want).abs()
+        check(bool((err <= 1e-6 + 1e-5 * mag).all()), "the pick's backward is off")
+        worst = max(worst, float(err.max()))
+    log(f"  picked_scores [{n}, {NUM_ENTITIES}] x {K} picks: values equal a gather; "
+        f"backward bit-equal across two launches ({int(triples.sum())} rows of the "
+        f"run's samples pick a column three times or more, and a case with one in "
+        f"every row); max abs error vs float64 {worst:.3e}")
+    return int(triples.sum()), worst
+
+
+def run_xcomplex(seed: int, data: str):
+    """Phase 18; returns a summary dict."""
+    from kge_tpu_torch import cli
+
+    num_train, num_valid = FB15K237[2], FB15K237[3]
+    steps = -(-num_train // TRAIN_BATCH)
+    valid_batches = -(-num_valid // BATCH)
+    folder = os.path.join(WORK, "train_xcomplex")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_xcomplex.yaml")
+    write_train_config(conf, data, seed, **{
+        "negative_sampling.shared": False, "negative_sampling.implementation": "all",
+        "valid.every": 1})
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    # 3 scatter launches a step: s, p and o embedded once; the whole
+    # vocabulary's scores read the entity table itself; 2 rank launches a
+    # validation batch
+    check(counts["scatter_add_sorted"] == 3 * steps * 2,
+          f"scatter launches {counts['scatter_add_sorted']} != 3 x {steps} x 2")
+    check(counts["rank_counts"] == 2 * valid_batches * 2,
+          f"rank launches {counts['rank_counts']} != 2 x {valid_batches} x 2")
+    check(counts["rows_set"] == 0 and counts["pooled_scores"] == 0, counts)
+    losses = check_losses(folder, [1, 2])
+    check(losses[1] < losses[0], f"loss did not fall: {losses}")
+    valid = trace_entries(folder, event="eval_completed")
+    check([e["epoch"] for e in valid] == [1, 2], "expected validations at 1 and 2")
+    check(all(0.0 < e["mean_reciprocal_rank_filtered"] <= 1.0 for e in valid))
+    with open(os.path.join(folder, "kge.log")) as f:
+        check("Drawing negative samples on-device" in f.read(), "negatives not on the card")
+    log(f"  start, 2 epochs and 2 validations: wall {start_wall:.2f} s; scatter kernel "
+        f"3 x {steps} x 2 = {counts['scatter_add_sorted']}, rank kernel 2 x "
+        f"{valid_batches} x 2 = {counts['rank_counts']}; avg_loss {losses}")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "3"])
+    torch.cuda.synchronize()
+    resumed = read_counters()
+    check(resumed["scatter_add_sorted"] == 3 * steps, resumed)
+    check(resumed["rank_counts"] == 2 * valid_batches, resumed)
+    losses = check_losses(folder, [1, 2, 3])
+    check(losses[2] < losses[1], f"loss did not fall after resume: {losses}")
+    log(f"  resume to epoch 3: launches {resumed}; avg_loss {losses}")
+
+    before, (kernel, never), batch, jobs = one_step_each(
+        folder, "checkpoint_00003.pt", "train.pallas_gather", ("always", "never"))
+    worst = check_tables_close(
+        kernel, never, "an all-negatives step with the scatter kernel differs from "
+        "the same step with torch's indexing backward")
+    moved = max(float((a - b).abs().max()) for a, b in zip(kernel, before))
+    check(moved > 1e-4, "the step did not move the tables")
+    log(f"  one step, scatter kernel vs train.pallas_gather=never: max abs difference "
+        f"{worst:.3e} (moved {moved:.3e}); tolerance atol 1e-6 + rtol 1e-5")
+    del jobs
+    samples = batch["neg_samples_0"]
+    generator = torch.Generator(device=samples.device).manual_seed(seed + 18)
+    triple_rows, pick_err = check_pick_bits(generator, samples.device, samples)
+
+    # the same per-row samples through the three routes that score them
+    route_costs, launches = [], []
+    routes = ("all", "batch", "triple")
+    _, after, _, jobs = one_step_each(
+        folder, "checkpoint_00003.pt", "negative_sampling.implementation", routes,
+        costs=route_costs, launches=launches)
+    check([job._implementation for job in jobs] == list(routes))
+    route_err = 0.0
+    for route, tables, cost in zip(routes[1:], after[1:], route_costs[1:]):
+        check(abs(cost - route_costs[0]) <= 1e-5 * abs(route_costs[0]),
+              f"{route}'s loss {cost} differs from all's {route_costs[0]}")
+        route_err = max(route_err, check_tables_close(
+            tables, after[0], f"a {route} step differs from the all step"))
+    check([c["scatter_add_sorted"] for c in launches] == [3, 12, 12], launches)
+    log(f"  the same samples by all / batch / triple: losses {route_costs}, tables "
+        f"within {route_err:.3e}; scatter launches "
+        f"{[c['scatter_add_sorted'] for c in launches]}")
+    del jobs, after
+
+    # the step in 4 subbatches (of 2,048 rows)
+    costs, launches = [], []
+    _, (whole, parts), _, jobs = one_step_each(
+        folder, "checkpoint_00003.pt", "train.subbatch_size", (-1, TRAIN_BATCH // 4),
+        costs=costs, launches=launches)
+    check(abs(costs[1] - costs[0]) <= 1e-5 * abs(costs[0]),
+          f"subbatched loss {costs[1]} differs from {costs[0]}")
+    sub_err = check_tables_close(parts, whole, "the subbatched step differs")
+    check(launches[1]["scatter_add_sorted"] == 3 * 4, launches)
+    log(f"  one step in 4 subbatches of {TRAIN_BATCH // 4} vs whole: losses {costs}, tables within "
+        f"{sub_err:.3e}; scatter launches {launches[1]['scatter_add_sorted']}")
+    timing = warm_epoch(jobs[0], num_train, "X-complex")
+    return {"launches": counts, "resume_launches": resumed, "start_wall_s": start_wall,
+            "avg_loss": losses,
+            "valid_mrr_filtered": [e["mean_reciprocal_rank_filtered"] for e in valid],
+            "step_max_abs_diff_vs_never": worst, "pick_max_abs_err": pick_err,
+            "rows_with_a_triple_pick": triple_rows, "route_losses": route_costs,
+            "route_max_abs_diff": route_err, "subbatch_losses": costs,
+            "subbatch_max_abs_diff": sub_err,
+            "warm_epoch": timing}
+
+
+def time_unique(device):
+    """The bounded unique of the ``batch`` route at T-dense's shape (8,192 x
+    128 samples of 14,541 ids): host wall per call, which includes the wait
+    for the card that ``torch.unique`` makes (its output size)."""
+    from kge_tpu_torch.job.train_negative_sampling import _bounded_unique
+
+    ids = torch.randint(0, NUM_ENTITIES, (TRAIN_BATCH * NUM_NEGATIVES,), device=device)
+    _bounded_unique(ids, NUM_ENTITIES)
+    torch.cuda.synchronize()
+    reps = 20
+    start = time.perf_counter()
+    for _ in range(reps):
+        _bounded_unique(ids, NUM_ENTITIES)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / reps
+
+
+def run_route(seed: int, data: str, name: str, scatter_per_step: int, **extra):
+    """One configuration of phase 19: ``start`` for 2 epochs through
+    ``cli.main`` at T-dense's shape, K2's launches a step by equality, a
+    finite falling loss; returns (summary, the folder)."""
+    from kge_tpu_torch import cli
+
+    num_train = FB15K237[2]
+    steps = -(-num_train // TRAIN_BATCH)
+    folder = os.path.join(WORK, f"train_{name}")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, f"train_{name}.yaml")
+    write_train_config(conf, data, seed, **{"valid.every": 0, **extra})
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    check(counts["scatter_add_sorted"] == scatter_per_step * steps * 2,
+          f"{name}: scatter launches {counts['scatter_add_sorted']} != "
+          f"{scatter_per_step} x {steps} x 2")
+    check(counts["rank_counts"] == 0 and counts["rows_set"] == 0, counts)
+    losses = check_losses(folder, [1, 2])
+    check(losses[1] < losses[0], f"{name}: loss did not fall: {losses}")
+    log(f"  {name}: start, 2 epochs: wall {start_wall:.2f} s; scatter kernel "
+        f"{scatter_per_step} x {steps} x 2 = {counts['scatter_add_sorted']}; "
+        f"avg_loss {losses}")
+    return {"launches": counts, "start_wall_s": start_wall, "avg_loss": losses}, folder
+
+
+def run_other_routes(seed: int, data: str, kcomplex_folder: str):
+    """Phase 19; returns a summary dict."""
+    num_train = FB15K237[2]
+    out = {}
+    # per slot: s, p and o of the positive score, then p, o and the batch's
+    # distinct samples of the negatives' scores
+    for name, extra in (
+            ("batch_per_row", {"negative_sampling.shared": False,
+                               "negative_sampling.implementation": "batch"}),
+            ("pool_host", {"negative_sampling.shared": False,
+                           "negative_sampling.implementation": "pool",
+                           "negative_sampling.on_device": "never"})):
+        out[name], folder = run_route(seed, data, name, 12, **extra)
+        if name == "pool_host":
+            with open(os.path.join(folder, "kge.log")) as f:
+                check("Drawing negative samples on-device" not in f.read(),
+                      "pool with on_device never drew on the card")
+        job = resumed_job(folder, "checkpoint_00002.pt")
+        out[name]["warm_epoch"] = warm_epoch(job, num_train, name)
+        device = job.device
+        del job
+    out["unique_ms"] = time_unique(device)
+    log(f"  the batch route's bounded unique of {TRAIN_BATCH * NUM_NEGATIVES} ids: "
+        f"{out['unique_ms']:.3f} ms a call by the host clock (one wait for the card)")
+
+    # fused: 2 gathers of the whole tables (one scatter into each) and 5
+    # lookups on the mini-tables (s, p, o and one target list a slot)
+    out["fused"], folder = run_route(seed, data, "fused", 7, **{
+        "negative_sampling.fused_scoring": "always"})
+    with open(os.path.join(folder, "kge.log")) as f:
+        check("Using fused (localized single-gather) scoring" in f.read())
+    launches = []
+    before, (fused, unfused), _, jobs = one_step_each(
+        folder, "checkpoint_00002.pt", "negative_sampling.fused_scoring",
+        ("always", "never"), launches=launches)
+    check([c["scatter_add_sorted"] for c in launches] == [7, 5], launches)
+    worst = check_tables_close(fused, unfused, "the fused step differs from the unfused")
+    moved = max(float((a - b).abs().max()) for a, b in zip(fused, before))
+    check(moved > 1e-4, "the step did not move the tables")
+    log(f"  one fused step vs the unfused step: max abs difference {worst:.3e} (moved "
+        f"{moved:.3e}); scatter launches 7 and 5")
+    out["fused"]["step_max_abs_diff_vs_unfused"] = worst
+    del jobs[1]
+    out["fused"]["warm_epoch"] = warm_epoch(jobs[0], num_train, "fused")
+    del jobs
+
+    # one KvsAll step of phase 16 in 4 subbatches (of 128)
+    costs, launches = [], []
+    _, (whole, parts), _, jobs = one_step_each(
+        kcomplex_folder, "checkpoint_00003.pt", "train.subbatch_size",
+        (-1, ALL_BATCH // 4), costs=costs, launches=launches)
+    check(abs(costs[1] - costs[0]) <= 1e-5 * abs(costs[0]), costs)
+    sub_err = check_tables_close(parts, whole, "the subbatched KvsAll step differs")
+    check([c["scatter_add_sorted"] for c in launches] == [2, 8], launches)
+    log(f"  one KvsAll step in 4 subbatches of {ALL_BATCH // 4} vs whole: losses {costs}, tables "
+        f"within {sub_err:.3e}; scatter launches 2 and 8")
+    del jobs[0]
+    out["kvsall_subbatch"] = {
+        "losses": costs, "max_abs_diff": sub_err,
+        # wall only: the profile of 2,472 launches of each kind costs more
+        # than the epoch
+        "warm_epoch": warm_epoch(jobs[0], jobs[0].num_examples, "subbatched KvsAll",
+                                 unit="queries", profiled=False)}
     return out
 
 
@@ -2641,6 +2938,18 @@ def main():
         "evaluation and a KvsAll step, card against CPU")
     family = run_factorization_family(args.seed)
 
+    log("== phase 18: X-complex (bench.py stage 3: ComplEx d=512, 128 + 128 per-row "
+        "negatives scored against all entities, FB15k-237 sizes)")
+    start = time.perf_counter()
+    xcomplex = run_xcomplex(args.seed, data)
+    log(f"  phase 18 took {time.perf_counter() - start:.1f} s; {card}")
+
+    log("== phase 19: per-row batch, host-drawn pool, fused step (T-dense's shape) "
+        "and a subbatched KvsAll step")
+    start = time.perf_counter()
+    routes = run_other_routes(args.seed, data, kcomplex["folder"])
+    log(f"  phase 19 took {time.perf_counter() - start:.1f} s; {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -2663,6 +2972,8 @@ def main():
               + ocomplex["test_launches"]["rank_counts"],
               launches_kcomplex=kcomplex["launches"]["rank_counts"]
               + kcomplex["resume_launches"]["rank_counts"],
+              launches_xcomplex=xcomplex["launches"]["rank_counts"]
+              + xcomplex["resume_launches"]["rank_counts"],
               launches_factorization={k: v["rank_launches"] for k, v in family.items()}),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
@@ -2671,7 +2982,11 @@ def main():
               sums_ms=scatter_times[0]["sums_ms"],
               launches_sparse_epoch=sparse["launches"]["scatter_add_sorted"],
               launches_ocomplex_start=ocomplex["launches"]["scatter_add_sorted"],
-              launches_kcomplex_start=kcomplex["launches"]["scatter_add_sorted"]),
+              launches_kcomplex_start=kcomplex["launches"]["scatter_add_sorted"],
+              launches_xcomplex_start=xcomplex["launches"]["scatter_add_sorted"],
+              launches_phase19_start={
+                  k: routes[k]["launches"]["scatter_add_sorted"]
+                  for k in ("batch_per_row", "pool_host", "fused")}),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -2692,7 +3007,8 @@ def main():
         "train_dense": dense, "train_sparse": sparse,
         "train_transe": transe, "train_rotate": rotate,
         "train_transe_l2": transe_l2, "train_ocomplex": ocomplex,
-        "train_kcomplex": kcomplex, "factorization": family, "card": card}
+        "train_kcomplex": kcomplex, "factorization": family,
+        "train_xcomplex": xcomplex, "other_routes": routes, "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

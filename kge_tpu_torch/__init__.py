@@ -5,8 +5,10 @@ one NVIDIA Hopper card. It reads and writes kge_tpu's folders, configs,
 checkpoints and trace records, and runs
 
 - training (``python -m kge_tpu_torch start|create|resume``) by KvsAll,
-  1vsAll and negative sampling (shared, pooled or per-row negatives, on the
-  dense step and on the row-sparse step) of the factorization family
+  1vsAll and negative sampling (every implementation of kge_tpu: shared,
+  pooled or per-row negatives, scored against a batch's samples or the
+  whole vocabulary, on the dense step, the fused dense step and the
+  row-sparse step), in subbatches where asked, of the factorization family
   (DistMult, ComplEx, RESCAL, CP, SimplE, RelationalTucker3), the
   reciprocal relations model, TransE, TransH and RotatE, with any of
   kge_tpu's losses and optimizer rules;

@@ -57,7 +57,7 @@ class TrainingJob1vsAll(TrainingJob):
     def _loss_for_batch(self, batch, variant=None):
         triples = batch["triples"]
         mask = batch["mask"]
-        batch_size = torch.sum(mask)
+        batch_size = batch.get("__denom__", torch.sum(mask))
 
         # object direction: score (s, p, ?) against all entities
         sp_scores = self.model.score_sp(triples[:, S], triples[:, P])

@@ -152,17 +152,26 @@ class TrainingJobKvsAll(TrainingJob):
     def _step_variant(self, batch):
         return batch["qtype"]
 
+    def _batch_wide(self, key):
+        """The label coordinates name rows of the whole batch: every
+        subbatch takes them all and keeps its own rows."""
+        return key in ("label_rows", "label_cols")
+
     def _dense_labels(self, batch, qtype: str) -> torch.Tensor:
         """The batch's [batch_size, vocab] 0/1 label matrix: the coordinates
         set in a matrix with one extra row, which takes the padded
-        coordinates and is dropped."""
+        coordinates and is dropped. In a subbatch the coordinates' rows
+        refer to the whole batch and are moved by ``__row_offset__``; rows
+        outside the subbatch go to the dropped row too."""
         bs = batch["queries"].shape[0]
         labels = torch.zeros(
             (bs + 1, self._vocab_size(qtype)), dtype=torch.float32,
             device=batch["queries"].device,
         )
+        rows = batch["label_rows"].long() - batch.get("__row_offset__", 0)
+        rows = torch.where((rows >= 0) & (rows < bs), rows, bs)
         labels.index_put_(
-            (batch["label_rows"].long(), batch["label_cols"].long()),
+            (rows, batch["label_cols"].long()),
             torch.ones((), dtype=labels.dtype, device=labels.device),
         )
         return labels[:bs]
@@ -171,7 +180,7 @@ class TrainingJobKvsAll(TrainingJob):
         qtype = variant
         queries = batch["queries"]
         mask = batch["mask"]
-        batch_size = torch.sum(mask)
+        batch_size = batch.get("__denom__", torch.sum(mask))
 
         if qtype == "sp_":
             scores = self.model.score_sp(queries[:, 0], queries[:, 1])

@@ -4,25 +4,33 @@ kge_tpu/job/train_negative_sampling.py).
 Per slot with num_samples > 0: scores = [positive score | negative scores],
 labels = column 0, loss summed per slot and divided by batch size.
 
-Ported implementations (``negative_sampling.implementation``):
+Implementations (``negative_sampling.implementation``), all of kge_tpu's:
 
 - ``batch`` with ``shared: true`` (what ``auto`` resolves to when negatives
   are shared): one sample row for the whole batch, scored against the
   batch's unique targets;
+- ``batch`` with per-row negatives: scored against the distinct ids the
+  batch samples (a unique padded to kge_tpu's static size ``min(n * num,
+  vocab)`` with id 0), then each row picks its columns;
 - ``pool``: a pool of ``num * pool_factor`` candidates per batch, of which
   every row selects one per group of ``pool_factor``. Matmul scorers
   (ComplEx) score the pool once and select columns; distance scorers
   (TransE, RotatE) score each row's own candidates through
-  ``score_spo_neg_pooled`` and its kernel (ops/dist_pool.py);
-- ``triple``: per-row negatives scored row by row (``score_spo_neg``), the
-  only choice when candidates are filtered on the host.
+  ``score_spo_neg_pooled`` and its kernel (ops/dist_pool.py). A pool is
+  drawn on the device only: with ``on_device: never`` the host draws
+  per-row samples, which are scored as ``batch`` scores them (kge_tpu's
+  route);
+- ``all``: every row scored against the whole vocabulary, then each row
+  picks its samples (``ops/pick.py`` ``picked_scores``);
+- ``triple``: per-row negatives scored row by row (``score_spo_neg``).
 
-Negatives are drawn on the device or by the host sampler, and every
-implementation runs on the dense step and on the row-sparse step
-(``train.sparse_embedding_update``) with any optimizer rule. kge_tpu's
-``auto`` ladder is kept, so a configuration resolves to the same
-implementation in both packages; ``all`` and ``batch`` without shared
-negatives are not ported yet: they raise and are listed in ROADMAP.md.
+Negatives are drawn on the device or by the host sampler (with filtering).
+Every implementation but ``all`` runs on the dense step and on the
+row-sparse step (``train.sparse_embedding_update``) with any optimizer
+rule; ``negative_sampling.fused_scoring: always`` localizes each batch on
+the dense step too, so that each table's gradient is written once.
+kge_tpu's ``auto`` ladder and refusals are kept, so a configuration
+resolves to the same implementation in both packages.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from kge_tpu_torch.job.job import Job
 from kge_tpu_torch.job.train import TrainingJob, _detach
+from kge_tpu_torch.ops.pick import picked_scores
 from kge_tpu_torch.ops.sampler import SLOT_STR, KgeSampler
 
 S, P, O = 0, 1, 2
@@ -130,24 +139,6 @@ class TrainingJobNegativeSampling(TrainingJob):
                 )
             if self._pool_factor < 1:
                 raise ValueError("negative_sampling.pool_factor must be >= 1")
-        unported = self._implementation == "all" or (
-            not self._sampler.shared
-            and (
-                self._implementation == "batch"
-                # a pool is drawn on the device only: with host-drawn per-row
-                # samples kge_tpu scores them as "batch" does
-                or (self._implementation == "pool"
-                    and self.config.get("negative_sampling.on_device") == "never")
-            )
-        )
-        if unported:
-            raise NotImplementedError(
-                "negative_sampling.implementation="
-                f"{self._implementation} with shared="
-                f"{bool(self._sampler.shared)} and on_device="
-                f"{self.config.get('negative_sampling.on_device')} is not "
-                "ported yet: see ROADMAP.md section A.2"
-            )
         self.triples = self.dataset.split(self.train_split)
         self.num_examples = len(self.triples)
         self._active_slots = [
@@ -157,12 +148,15 @@ class TrainingJobNegativeSampling(TrainingJob):
         fused = self.config.check(
             "negative_sampling.fused_scoring", ["auto", "always", "never"]
         )
-        if fused == "always":
-            raise NotImplementedError(
-                "negative_sampling.fused_scoring=always (localized "
-                "single-gather scoring on the dense step) is not ported "
-                "yet: see ROADMAP.md section A.2"
+        self._fused = fused == "always" and self._fused_eligible()
+        if fused == "always" and not self._fused:
+            raise ValueError(
+                "negative_sampling.fused_scoring=always requires lookup "
+                "embedders, implementation != 'all', and a model without "
+                "internal id arithmetic (no reciprocal wrapper)"
             )
+        if self._fused:
+            self.config.log("Using fused (localized single-gather) scoring")
 
         # negatives drawn on the device: available when no filtering is
         # configured
@@ -215,6 +209,10 @@ class TrainingJobNegativeSampling(TrainingJob):
                         batch[f"neg_unique_{slot}"] = neg.unique_samples
                         batch[f"neg_gather_{slot}"] = neg.gather_map
             yield batch
+
+    def _batch_wide(self, key):
+        """A shared sample row and a pool serve every row of the batch."""
+        return key.startswith(("neg_unique_", "neg_pool_"))
 
     def _draw_negatives_on_device(self, triples, slot):
         """Negatives drawn on the job's device from its generator (uniform
@@ -301,9 +299,9 @@ class TrainingJobNegativeSampling(TrainingJob):
             replace = (cols == first[:, None]) & has_match[:, None]
             return torch.where(replace, spare[:, None], neg)
         if f"neg_gather_{slot}" in batch:
-            # host sampler route only: a gather, whose backward is torch's
-            # scatter-add (columns repeat under with-replacement sampling)
-            return all_scores.gather(1, batch[f"neg_gather_{slot}"].long())
+            # host sampler route only: columns repeat under with-replacement
+            # sampling, and the pick sums their gradients in a fixed order
+            return picked_scores(all_scores, batch[f"neg_gather_{slot}"])
         return all_scores[:, :num]
 
     def _neg_from_pool_scores(self, pool_scores, batch, slot, num):
@@ -340,11 +338,30 @@ class TrainingJobNegativeSampling(TrainingJob):
                 triples, slot, batch[f"neg_unique_{slot}"], tables
             )
             return self._neg_from_unique_scores(all_scores, batch, slot, num)
-        # triple: the kept slots are embedded once per row, only the
-        # corrupted slot looks up n * num table rows
-        return self.model.score_spo_neg(
-            triples, batch[f"neg_samples_{slot}"], slot, tables=tables
-        )
+        samples = batch[f"neg_samples_{slot}"]
+        if self._implementation == "triple":
+            # the kept slots are embedded once per row, only the corrupted
+            # slot looks up n * num table rows
+            return self.model.score_spo_neg(triples, samples, slot, tables=tables)
+        if self._implementation == "all":
+            # every row against the whole vocabulary, then its own columns
+            all_scores = self._score_targets(triples, slot, None, tables)
+            return picked_scores(all_scores, samples)
+        # batch, and host-drawn samples of pool: score against the DISTINCT
+        # ids of the batch's samples, then pick each row's own columns (the
+        # reference's dedup, kge/util/sampler.py:307-344)
+        n, num = samples.shape
+        flat = samples.reshape(-1)
+        if batch.get("__localized__"):
+            # mini-table positions are distinct aranges already, in the
+            # mini-table's id space: the dedup is the identity
+            all_scores = self._score_targets(triples, slot, flat, tables)
+            cols = torch.arange(n * num, device=flat.device).reshape(n, num)
+            return picked_scores(all_scores, cols)
+        vocab = int(self._sampler.vocabulary_size[slot])
+        uniq, inv = _bounded_unique(flat, min(flat.numel(), vocab))
+        all_scores = self._score_targets(triples, slot, uniq, tables)
+        return picked_scores(all_scores, inv.reshape(n, num))
 
     def _score_targets(self, triples, slot, targets, tables):
         if slot == S:
@@ -368,39 +385,92 @@ class TrainingJobNegativeSampling(TrainingJob):
             for emb in (self.model.get_s_embedder(), self.model.get_p_embedder())
         )
 
+    def _fused_eligible(self) -> bool:
+        """The fused path rewrites each batch to "localized" ids over
+        mini-tables gathered once (``_localize_batch``): the backward then
+        writes each table's gradient once, by one scatter, instead of once
+        per lookup. Exact for any optimizer, penalty and dropout (penalties
+        run on the whole tables in ``_loss_fn``; dropout acts on the
+        looked-up rows). kge_tpu's conditions, refusal by refusal."""
+        from kge_tpu_torch.models.base import LookupEmbedder
+
+        if self._implementation == "all":
+            return False  # full-vocabulary scoring reads the whole table
+        if not getattr(self.model, "supports_localized_batches", True):
+            return False
+        return all(
+            type(emb) is LookupEmbedder
+            for emb in (self.model.get_s_embedder(), self.model.get_p_embedder())
+        )
+
+    def _grouped_targets(self, batch):
+        """The targets of the embed-once path, {slot: ids or None (the whole
+        vocabulary)}, and the kind of negatives they serve ("all", "unique",
+        "pool"); None where the path does not apply (kge_tpu's conditions,
+        train_negative_sampling.py:480-515)."""
+        if not self._grouped_multi_eligible():
+            return None
+        slots = self._active_slots
+        if self._implementation == "all" and all(
+            f"neg_samples_{slot}" in batch for slot in slots
+        ):
+            return {slot: None for slot in slots}, "all"
+        if self._sampler.shared:
+            kind = "unique"
+        elif self._implementation == "pool":
+            kind = "pool"
+        else:
+            return None
+        if not all(f"neg_{kind}_{slot}" in batch for slot in slots):
+            return None
+        return {slot: batch[f"neg_{kind}_{slot}"] for slot in slots}, kind
+
     def _loss_for_batch(self, batch, variant=None, tables=None):
         """Loss of one batch. ``tables`` is the (entity, relation)
         mini-table pair of a localized batch (row-sparse step); negatives
-        not in the batch are drawn here."""
+        not in the batch are drawn here. On the fused path the batch is
+        localized here and its mini-tables gathered from the whole tables
+        through ``embedding_gather``, so the scatter kernel writes each
+        table's gradient once; the lookups into the mini-tables then
+        launch it once each, into mini-table-sized gradients."""
+        if self._fused and tables is None:
+            from kge_tpu_torch.ops.embedding_ops import embedding_gather
+
+            batch, ent_ids, rel_ids = self._localize_batch(batch)
+            tables = (
+                embedding_gather(self.model.get_s_embedder().embeddings, ent_ids),
+                embedding_gather(self.model.get_p_embedder().embeddings, rel_ids),
+            )
         batch = self._with_negatives(batch)
         triples = batch["triples"]
         mask = batch["mask"]
-        batch_size = torch.sum(mask)
+        batch_size = batch.get("__denom__", torch.sum(mask))
         total = torch.zeros((), device=triples.device)
         aux = {}
-        grouped = None
-        target_kind = "pool" if self._implementation == "pool" else "unique"
-        if self._grouped_multi_eligible() and all(
-            f"neg_{target_kind}_{slot}" in batch for slot in self._active_slots
-        ):
-            # shared or pooled negatives of a scorer that factorizes: s, p
-            # and o are embedded once and the sample rows (or the pools) are
-            # the targets, so the backward pass holds one lookup gradient
-            # per triple slot and one per target list. None for scorers
-            # that do not factorize (the distance models).
+        grouped, kind = None, None
+        targets = self._grouped_targets(batch)
+        if targets is not None:
+            # s, p and o are embedded once and the sample rows, the pools or
+            # the whole vocabulary ("all") are the targets, so the backward
+            # pass holds one lookup gradient per triple slot and one per
+            # target list (none for the whole vocabulary: the product reads
+            # the table itself). With "all" that is 3 scatter launches a
+            # step for s, p and o. None for scorers that do not factorize
+            # (the distance models).
+            targets, kind = targets
             grouped = self.model.score_all_grouped_multi(
-                triples, self._active_slots,
-                {slot: batch[f"neg_{target_kind}_{slot}"]
-                 for slot in self._active_slots},
-                tables=tables,
+                triples, self._active_slots, targets, tables=tables
             )
         for slot in self._active_slots:
             num = int(self._sampler.num_samples[slot])
             if grouped is not None:
                 pos_flat, all_scores = grouped[slot]
-                neg_from = (self._neg_from_pool_scores if target_kind == "pool"
-                            else self._neg_from_unique_scores)
-                neg = neg_from(all_scores, batch, slot, num)
+                if kind == "all":
+                    neg = picked_scores(all_scores, batch[f"neg_samples_{slot}"])
+                elif kind == "pool":
+                    neg = self._neg_from_pool_scores(all_scores, batch, slot, num)
+                else:
+                    neg = self._neg_from_unique_scores(all_scores, batch, slot, num)
             else:
                 pos_flat = self.model.score_spo(
                     triples[:, S], triples[:, P], triples[:, O],
@@ -453,6 +523,7 @@ class TrainingJobNegativeSampling(TrainingJob):
             else:
                 ent_off = off
         batch["triples"] = torch.stack(local_triples, dim=1)
+        batch["__localized__"] = True  # ids are mini-table positions now
         return (
             batch,
             torch.cat([a.reshape(-1) for a in ent_ids]),
@@ -569,6 +640,7 @@ class TrainingJobNegativeSampling(TrainingJob):
         g_ent_rows, g_rel_rows = torch.autograd.grad(
             loss_value, [ent_rows, rel_rows]
         )
+        self._optimizer_wrote = True
         self.optimizer.update_with_sparse_leaves(
             [None] * len(params), self.opt_state, lr,
             sparse={
@@ -587,3 +659,15 @@ class TrainingJobNegativeSampling(TrainingJob):
         within a row (consistent with the reference's sum convention), in
         float32."""
         return self.loss.rows(scores.float(), labels)
+
+
+def _bounded_unique(ids: torch.Tensor, size: int):
+    """``jnp.unique(ids, size=size, fill_value=0, return_inverse=True)``:
+    the sorted distinct ids padded with 0 to ``size`` (the padding's scores
+    are computed and never picked), and each id's position among them. On
+    CUDA the host waits for the card once here: ``torch.unique``'s output
+    size is data-dependent."""
+    uniq, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    if uniq.numel() < size:
+        uniq = torch.cat([uniq, uniq.new_zeros(size - uniq.numel())])
+    return uniq, inv

@@ -888,14 +888,18 @@ class KgeModel(KgeBase):
 
     def score_all_grouped_multi(self, triples, slots, targets, tables=None):
         """{slot: (pos [n], scores [n, m])} for several corrupted slots,
-        embedding each triple slot ONCE (kge_tpu ``score_all_grouped_multi``
-        with ``targets``, base.py:1181-1236).
+        embedding each triple slot ONCE (kge_tpu ``score_all_grouped_multi``,
+        base.py:1181-1249).
 
         ``targets`` maps each slot to an [m] id array (e.g. the shared
-        negative-sample rows); the scores are flat matrices against those
-        candidates. s, p and o are embedded once and the positives and every
+        negative-sample rows) or to None, the whole vocabulary (``embed_all``:
+        m = V, kge_tpu's call without ``targets``); the scores are flat
+        matrices against those candidates, not kge_tpu's grouped [n, G, 128]
+        layout. s, p and o are embedded once and the positives and every
         slot's query derive from the shared tensors, so the backward pass
-        holds one lookup gradient per triple slot plus one per target list.
+        holds one lookup gradient per triple slot plus one per target list
+        (none for the whole vocabulary, whose gradient comes from the
+        product).
         Embedding dropout is drawn once per slot (not once per scoring
         call): callers gate on dropout being off. None when the scorer does
         not factorize.
@@ -917,7 +921,10 @@ class KgeModel(KgeBase):
                 return None
             q, target_map = fac[0], fac[1]
             score_map = fac[2] if len(fac) > 2 else None
-            t = embedders[slot].embed(targets[slot], slot_tables[slot])
+            if targets[slot] is None:
+                t = embedders[slot].embed_all()
+            else:
+                t = embedders[slot].embed(targets[slot], slot_tables[slot])
             if target_map is not None:
                 t = target_map(t)
             dot = q @ t.T

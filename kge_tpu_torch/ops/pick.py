@@ -1,0 +1,51 @@
+"""Per-row column picks from a score matrix (kge_tpu/ops/pick.py).
+
+``picked_scores(S, idx)`` is ``S[b, idx[b, k]]``: the op behind exact
+per-row negative sampling (score against all entities, or against a batch's
+distinct candidates, then take each row's sampled columns; reference
+kge/util/sampler.py:263-356).
+
+kge_tpu computes the pick with ``take_along_axis`` off the TPU
+(``pick.py:45-47``) and, on the TPU, as a one-hot contraction that avoids
+XLA's serial gather. That contraction is the TPU's tiling and is not
+ported, and neither is ``picked_scores_grouped`` with its [n, G, 128]
+layout: the port's score matrices are flat [n, V].
+
+Here the forward is ``torch.gather`` and the backward is written out as a
+``torch.autograd.Function``: with-replacement sampling picks one column of a
+row several times, and torch's own gather backward sums such repeats with
+float atomics on CUDA, in an order that changes from launch to launch. The
+backward here is ``index_put_(..., accumulate=True)`` into a zero [n, V]
+matrix: on CUDA that path sorts the linear indices with a stable radix sort
+and sums each index's duplicates in the sorted (so the original) order, so
+two launches give the same bits, one order for every output element as the
+package's kernels keep. On the CPU it is a sequential loop in index order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class _PickedScores(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, S, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = S.shape
+        return torch.gather(S, 1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        n, V = ctx.shape
+        dS = torch.zeros((n, V), dtype=grad.dtype, device=grad.device)
+        rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
+        dS.index_put_((rows, idx), grad, accumulate=True)
+        return dS, None
+
+
+def picked_scores(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(S, idx, axis=1)``: S [n, V] scores, idx [n, K]
+    columns in [0, V); returns [n, K] in S's dtype, with a backward whose
+    sums of repeated columns are bit-equal across launches."""
+    return _PickedScores.apply(S, idx.long())

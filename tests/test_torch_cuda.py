@@ -805,3 +805,139 @@ def test_pooled_kernels_raise_instead_of_falling_back():
         pooled_dist_scores([q], [pool.cpu()], sel, 2, "l1")
     with pytest.raises(ValueError):  # rows without unit stride
         pooled_dist_scores([q], [torch.zeros(8, 8, device=device).t()], sel, 2, "l1")
+
+
+# -- per-row picks and the negative-sampling routes --------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,V,K", [(8192, 14541, 128), (64, 5, 256)])
+def test_picked_scores_backward_is_bit_equal_on_card(n, V, K):
+    """``picked_scores`` takes the same values as a gather on the CPU, and
+    its backward sums the repeated columns of a row in one order: two
+    launches give the same bits, on cases with a column picked three times
+    or more in one row, within float32 rounding of the float64 sum."""
+    from kge_tpu_torch.ops.pick import picked_scores
+
+    device = _card()
+    generator = torch.Generator(device=device).manual_seed(n)
+    S = torch.randn((n, V), generator=generator, device=device)
+    idx = torch.randint(0, V, (n, K), generator=generator, device=device)
+    idx[:, 1] = idx[:, 0]
+    idx[:, 2] = idx[:, 0]
+    g = torch.randn((n, K), generator=generator, device=device)
+    grads = []
+    for _ in range(2):
+        St = S.clone().requires_grad_(True)
+        out = picked_scores(St, idx)
+        assert torch.equal(out.cpu(), torch.gather(S.cpu(), 1, idx.cpu()))
+        (grad,) = torch.autograd.grad(out, St, g)
+        grads.append(grad)
+    assert torch.equal(grads[0], grads[1])
+    want = torch.zeros((n, V), dtype=torch.float64)
+    want.index_put_((torch.arange(n)[:, None].expand_as(idx), idx.cpu()),
+                    g.cpu().double(), accumulate=True)
+    err = (grads[0].cpu().double() - want).abs()
+    assert bool((err <= 1e-6 + 1e-5 * want.abs()).all())
+
+
+def _negative_sampling_job(data, device, params=None, **extra):
+    """A prepared ComplEx negative-sampling job on ``data`` (d = 32, batch
+    64, 16 per-row negatives per slot, KL, Adagrad), with ``params`` or
+    weights from a seed; returns the job and its weights as kge_tpu's
+    tree."""
+    from kge_tpu_torch import Config, Dataset
+    from kge_tpu_torch.job import TrainingJob
+    from kge_tpu_torch.models import KgeModel, load_jax_params, to_jax_params
+
+    config = Config()
+    config.load_options({"model": "complex"})
+    for key, value in {
+        "lookup_embedder.dim": 32, "job.device": device, "dataset.name": str(data),
+        "train.type": "negative_sampling", "train.batch_size": 64, "train.loss": "kl",
+        "train.optimizer.default.type": "Adagrad",
+        "train.optimizer.default.args.lr": 0.1,
+        "train.optimizer.default.args.initial_accumulator_value": 0.1,
+        "negative_sampling.shared": False, "negative_sampling.num_samples.s": 16,
+        "negative_sampling.num_samples.o": 16, "valid.every": 0,
+        "random_seed.default": 0, "console.quiet": True, **extra,
+    }.items():
+        config.set(key, value, create=True)
+    dataset = Dataset.create(config, folder=str(data))
+    model = KgeModel.create(config, dataset, init_for_load_only=True)
+    if params is None:
+        model.init_params(torch.Generator(device=model.device).manual_seed(8))
+        params = to_jax_params(model)
+    load_jax_params(model, params)
+    job = TrainingJob.create(config, dataset, model=model)
+    job._prepare()
+    job._is_prepared = True
+    return job, params
+
+
+def _one_step(job, arrays):
+    batch = {k: torch.as_tensor(v).to(job.device) for k, v in arrays.items()}
+    cost, _ = job._train_step(batch, job._current_lrs())
+    return float(cost), [p.detach().cpu().clone() for p in job.optimizer.params]
+
+
+def _per_row_batch(job, seed):
+    rng = np.random.default_rng(seed)
+    batch = next(iter(job._batches()))
+    arrays = {"triples": batch["triples"], "mask": batch["mask"]}
+    for slot in (0, 2):
+        arrays[f"neg_samples_{slot}"] = rng.integers(0, 300, (64, 16))
+        arrays[f"neg_samples_{slot}"][:, 1:3] = arrays[f"neg_samples_{slot}"][:, :1]
+    return arrays
+
+
+def _close(a, b):
+    for x, y in zip(a, b):
+        assert bool(((x - y).abs() <= 1e-6 + 1e-5 * y.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", ["never", "always"])
+def test_per_row_routes_agree_on_card(tmp_path, sparse):
+    """The same per-row samples scored by ``all`` (dense step only),
+    ``batch`` and ``triple`` give the same loss (rtol 1e-5) and the same
+    tables after one step (atol 1e-6 + rtol 1e-5), and ``batch`` on the card
+    gives the CPU's."""
+    _card()
+    data = tmp_path / "routes_synth"
+    _write_dataset(data, 9)
+    results, params = {}, None
+    routes = ("batch", "triple") if sparse == "always" else ("all", "batch", "triple")
+    for route in routes:
+        job, params = _negative_sampling_job(
+            data, "cuda", params, **{"negative_sampling.implementation": route,
+                                     "train.sparse_embedding_update": sparse})
+        assert job._sparse_update == (sparse == "always")
+        results[route] = _one_step(job, _per_row_batch(job, 1))
+    host, _ = _negative_sampling_job(
+        data, "cpu", params, **{"negative_sampling.implementation": "batch",
+                                "train.sparse_embedding_update": sparse})
+    results["cpu"] = _one_step(host, _per_row_batch(host, 1))
+    for route, (cost, tables) in results.items():
+        np.testing.assert_allclose(cost, results["batch"][0], rtol=1e-5, err_msg=route)
+        _close(tables, results["batch"][1])
+
+
+@pytest.mark.cuda
+def test_fused_and_subbatched_steps_on_card(tmp_path):
+    """On the card, the fused step and a step in subbatches of 16 against
+    the plain dense step from the same weights and samples."""
+    _card()
+    data = tmp_path / "fused_synth"
+    _write_dataset(data, 10)
+    results, params = {}, None
+    for name, extra in (("dense", {}),
+                        ("fused", {"negative_sampling.fused_scoring": "always"}),
+                        ("subbatched", {"train.subbatch_size": 16})):
+        job, params = _negative_sampling_job(
+            data, "cuda", params, **{"negative_sampling.implementation": "batch",
+                                     "train.sparse_embedding_update": "never", **extra})
+        results[name] = _one_step(job, _per_row_batch(job, 2))
+    for name, (cost, tables) in results.items():
+        np.testing.assert_allclose(cost, results["dense"][0], rtol=1e-5, err_msg=name)
+        _close(tables, results["dense"][1])

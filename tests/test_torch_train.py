@@ -287,7 +287,7 @@ def test_rules_without_fixed_points_name_the_missing_kernel(tmp_path):
             np.testing.assert_allclose(a[key].numpy(), b[key].numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("extra,resolved,ported", [
+@pytest.mark.parametrize("extra,resolved,on_device", [
     ({"negative_sampling.shared": False}, "pool", True),
     ({"negative_sampling.shared": False, "negative_sampling.on_device": "never"},
      "all", False),
@@ -295,16 +295,17 @@ def test_rules_without_fixed_points_name_the_missing_kernel(tmp_path):
       "train.sparse_embedding_update": "always"}, "triple", True),
     ({"negative_sampling.implementation": "triple"}, "triple", True),
     ({"negative_sampling.shared": False,
-      "negative_sampling.implementation": "batch"}, "batch", False),
+      "negative_sampling.implementation": "batch"}, "batch", True),
     ({"negative_sampling.shared": False, "negative_sampling.on_device": "never",
       "negative_sampling.implementation": "pool"}, "pool", False),
     ({"negative_sampling.shared": False,
       "negative_sampling.filtering.o": True}, "all", False),
 ])
-def test_unported_implementations_raise(extra, resolved, ported):
-    """The ``auto`` ladder resolves as kge_tpu's does; what it resolves to
-    raises when it is not ported (``all``, ``batch`` without shared
-    negatives, a pool drawn on the host) and prepares when it is."""
+def test_unported_implementations_raise(extra, resolved, on_device):
+    """The ``auto`` ladder resolves as kge_tpu's does, and every
+    implementation it resolves to prepares (``all``, ``batch`` without
+    shared negatives and a pool drawn on the host included), with
+    negatives drawn where kge_tpu draws them and the same step kind."""
     from kge_tpu.job import TrainingJob as JaxTrainingJob
 
     jconfig = make_config(kge_tpu, "dataset_test", train_options(**extra))
@@ -315,13 +316,11 @@ def test_unported_implementations_raise(extra, resolved, ported):
     jjob._prepare()
     assert jjob._implementation == resolved
     job = _torch_job(extra)
-    if ported:
-        job._prepare()
-        assert job._implementation == resolved
-        assert job._on_device == jjob._on_device
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            job._prepare()
+    job._prepare()
+    assert job._implementation == resolved
+    assert job._on_device == jjob._on_device == on_device
+    assert job._sparse_update == jjob._sparse_update
+    assert job._fused == jjob._fused is False
     assert job.config.get("negative_sampling.implementation") == resolved
 
 
@@ -347,15 +346,25 @@ def test_pool_refusals_are_kge_tpus(extra, error):
 
 
 @pytest.mark.parametrize("extra,error", [
-    ({"negative_sampling.fused_scoring": "always"}, NotImplementedError),
-    ({"train.subbatch_size": 3}, NotImplementedError),
+    # kge_tpu's refusals of the fused step and of subbatches that do not
+    # divide the batch (tests/test_torch_negative_sampling_routes.py and
+    # tests/test_torch_subbatch.py hold their messages against kge_tpu's)
+    ({"negative_sampling.fused_scoring": "always",
+      "negative_sampling.shared": False,
+      "negative_sampling.implementation": "all"}, ValueError),
+    ({"train.subbatch_size": 4}, ValueError),
     ({"negative_sampling.on_device": "sometimes"}, ValueError),
     ({"train.pallas_gather": "maybe"}, ValueError),
     ({"train.sparse_embedding_update": "yes"}, ValueError),
 ])
 def test_unported_options_raise(extra, error):
+    """Options the port refuses, at preparation or at the first step."""
+    job = _torch_job(extra)
     with pytest.raises(error):
-        _torch_job(extra)._prepare()
+        job._prepare()
+        job._is_prepared = True
+        job.epoch = 1
+        job.run_epoch()
 
 
 # -- negatives drawn on the device ----------------------------------------------

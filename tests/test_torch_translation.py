@@ -421,12 +421,6 @@ def test_auto_resolves_for_l2_and_transh_as_in_kge_tpu(model, extra, resolved):
     tconfig = make_config(kge_tpu_torch, "dataset_test", options)
     tjob = TrainingJob.create(
         tconfig, kge_tpu_torch.Dataset.create(tconfig, folder=str(DATASET_DIR)))
-    if resolved == "all":
-        # the same resolution, then the refusal of an unported implementation
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section A.2"):
-            tjob._prepare()
-        assert tjob._implementation == "all"
-        return
     tjob._prepare()
     assert tjob._implementation == resolved
 

@@ -192,8 +192,10 @@ def assert_same_state(jjob, tjob):
 
 def run_steps(jjob, tjob, steps=5, seed=3):
     """The same ``steps`` batches with the same pre-drawn negatives (of the
-    kind the jobs' implementation scores) through both jobs' raw train
-    steps; returns the per-step (jax loss, torch loss)."""
+    kind the jobs' implementation scores: a pool where it is drawn on the
+    device, per-row samples for ``triple`` and without shared negatives,
+    else a shared sample row) through both jobs' raw train steps; returns
+    the per-step (jax loss, torch loss)."""
     rng = np.random.default_rng(seed)
     slots = jjob._active_slots
     assert tjob._active_slots == slots
@@ -205,10 +207,11 @@ def run_steps(jjob, tjob, steps=5, seed=3):
         batch = batches[step % len(batches)]
         triples = batch["triples"].astype(np.int64)
         arrays = {"triples": triples, "mask": batch["mask"]}
-        if jjob._implementation == "pool":
+        if jjob._implementation == "pool" and jjob._on_device:
             arrays.update(pooled_negatives(rng, triples, slots, num, vocab,
                                            jjob._pool_factor))
-        elif jjob._implementation == "triple":
+        elif jjob._implementation == "triple" or not jjob._sampler.shared:
+            # per-row samples: triple, all, batch, and a pool's host draws
             arrays.update(per_row_negatives(rng, triples, slots, num, vocab))
         else:
             arrays.update(shared_negatives(rng, triples, slots, num, vocab))
