@@ -200,8 +200,43 @@ Phases (any failure exits non-zero; nothing is caught):
    epoch of each; the ``batch`` route's bounded unique timed alone. Then one
    KvsAll step of phase 16 in subbatches of 128 against the whole step
    (loss rtol 1e-5, tables as above; 8 scatter launches against 2), and the
-   wall of a warm epoch of the subbatched job (not profiled). Each of phases 18 and 19 logs its wall.
-20. One ``kernels`` JSON line: per kernel its time per call at the main
+   wall of the subbatched job's next epoch (not profiled, no warm-up epoch). Each of phases 18 and 19 logs its wall.
+20. C-conve: the reciprocal relations model over ConvE at the ConvE paper's
+   widths (d = 200 as a 10 x 20 map stacked to 20 x 20, 32 filters of 3 x 3,
+   flat size 10,368, the yaml's dropouts 0.2 / 0.2 / 0.3), KvsAll with
+   ``bce`` and label smoothing 0.1, Adam lr 0.003, batch 128, on the
+   FB15k-237-sized graph: ``start`` for one epoch with a validation through
+   the rank kernel (D = 201), ``resume`` to epoch 2 (the warm epoch), ``test``,
+   then ``valid --eval.type training_loss`` on the folder. The scatter kernel
+   must launch 2 times a step (the query's two keys), the rank kernel twice a
+   validation and a test batch, the forward-only training loss nothing; the
+   losses are finite; the batch-norm statistics moved while their Adam
+   moments stayed zero. Every test batch's ranks by the rank kernel equal
+   those of the score-matrix route (``score_sp`` / ``score_po``, kge_tpu's)
+   outside tie-boundary rows (phase 2's 4 ulp, widened by the difference of
+   the two routes' scores; at most 1% of the rows differ), and the rank
+   kernel's plain version's under phase 2's rule; the scatter kernel against
+   its plain version as in phase 5 at the lookups' shapes (128 ids into the
+   entity and the relation table, D = 201). One step on the card against the
+   same step on the CPU from the epoch-2 checkpoint with every dropout 0:
+   losses within rtol 1e-5, tables, scorer parameters, statistics and Adam's
+   moments within 1e-5 + 1e-4 |CPU| (cuDNN and cuBLAS sum in other orders),
+   except the leaves whose gradient is zero up to rounding (the
+   convolution's and the projection's biases, which batch norm follows),
+   within twice Adam's largest step, 2 (1 - beta1) / sqrt(1 - beta2) lr.
+   The warm epoch's wall and queries/s, the validation's and the test's
+   walls, and a profiled window of 50 steps of a warm epoch: the
+   leading kernels, the device's busy share of the profiled wall and its
+   device time a step against the unprofiled warm epoch's wall a step (a
+   whole epoch's millions of profiler events take minutes to reduce, and
+   the profiler slows the host).
+21. C-hitter: the reciprocal Transformer ("no context" HittER) at the
+   yaml's widths with d = 320 (8 heads, feed-forward 1,280, 3 layers, dropout
+   0.1), 1vsAll with ``kl``, Adam lr 0.001, batch 512: the same verbs and
+   checks as phase 20, the scatter kernel 4 times a step (s, p, o, p + |R|),
+   the leaves of zero gradient the attention's key biases, the scatter
+   kernel's shapes 512 ids at D = 320.
+22. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -209,15 +244,18 @@ Phases (any failure exits non-zero; nothing is caught):
    it); every time in it is
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14, and its launches in phases
-   15-18, the scatter kernel's its launches in phases 15, 16, 18 and 19.
-   Then the card's name and power limit, then the ``ok`` JSON line last.
+   15-18, 20 and 21, the scatter kernel's its launches in phases 15, 16, 18,
+   19, 20 and 21. Then the card's name and power limit, then the ``ok`` JSON
+   line last.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -744,12 +782,7 @@ def check_sort_and_segments(name, ids, upd, num_rows):
 def compare_scatter(seed: int, device) -> float:
     """Phase 5, scatter kernel; returns the largest |error| at the three
     shapes of the dense step."""
-    from kge_tpu_torch.ops.embedding_ops import (
-        SORT_LIMIT,
-        sort_route,
-        sorted_scatter_add,
-        sorted_scatter_add_plain,
-    )
+    from kge_tpu_torch.ops.embedding_ops import SORT_LIMIT
 
     rng = np.random.default_rng(seed + 2)
     worst = 0.0
@@ -761,40 +794,56 @@ def compare_scatter(seed: int, device) -> float:
          power_law_ids(rng, SPARSE_ENTITIES, SORT_LIMIT + 1, 0.8), SPARSE_ENTITIES),
     ]
     for index, (name, ids_np, num_rows) in enumerate(cases):
-        D = DIM if index < 5 else 64
-        ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
-        upd = torch.tensor(
-            rng.normal(0, 1, (len(ids_np), D)).astype(np.float32), device=device)
-        before = sorted_scatter_add.launches, sorted_scatter_add.torch_sorts
-        got = sorted_scatter_add(ids, upd, num_rows)
-        again = sorted_scatter_add(ids, upd, num_rows)
-        torch.cuda.synchronize()
-        by_torch = sort_route(len(ids_np)) == "torch"
-        check(by_torch == (len(ids_np) > SORT_LIMIT))
-        check(sorted_scatter_add.launches == before[0] + 2, "scatter launches not counted")
-        check(sorted_scatter_add.torch_sorts == before[1] + 2 * by_torch,
-              f"the sort took another route than sort_route says ({name})")
-        check(got.shape == (num_rows, D) and got.dtype == torch.float32)
-        check(torch.equal(got, again), f"scatter kernel not deterministic ({name})")
-        ref = sorted_scatter_add_plain(ids, upd.double(), num_rows)
-        magnitude = sorted_scatter_add_plain(ids, upd.double().abs(), num_rows)
-        err = (got.double() - ref).abs()
-        check(bool((err <= 1e-6 + 1e-5 * magnitude).all()),
-              f"scatter kernel disagrees with its plain version ({name})")
-        if not by_torch:
-            check_sort_and_segments(name, ids, upd, num_rows)
-        strict = float((err <= 1e-6 + 1e-5 * ref.abs()).double().mean())
-        counts = torch.bincount(ids, minlength=num_rows)
-        log(f"  {name}: n={len(ids_np)} rows={num_rows}, longest segment "
-            f"{int(counts.max())}, {int((counts == 0).sum())} empty rows: bit-equal "
-            f"across two launches, max abs err {float(err.max()):.3e} "
-            f"({100 * strict:.4f}% of elements also within 1e-6 + 1e-5 |ref|); "
-            + ("sorted by torch.sort in the wrapper" if by_torch else
-               "sort, permutation and segment numbers equal a stable torch.sort's, "
-               "segment sums within tolerance"))
+        err = scatter_case(rng, device, name, ids_np, num_rows,
+                           DIM if index < 5 else 64)
         if index < 3:
-            worst = max(worst, float(err.max()))
+            worst = max(worst, err)
     return worst
+
+
+def scatter_case(rng, device, name, ids_np, num_rows, D) -> float:
+    """The scatter kernel on ``ids_np`` and random [n, D] updates against its
+    plain version in float64 (``|kernel - reference| <= 1e-6 + 1e-5 S``),
+    bit-equal across two launches, its sort against a stable torch.sort;
+    returns the largest |error|."""
+    from kge_tpu_torch.ops.embedding_ops import (
+        SORT_LIMIT,
+        sort_route,
+        sorted_scatter_add,
+        sorted_scatter_add_plain,
+    )
+
+    ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+    upd = torch.tensor(
+        rng.normal(0, 1, (len(ids_np), D)).astype(np.float32), device=device)
+    before = sorted_scatter_add.launches, sorted_scatter_add.torch_sorts
+    got = sorted_scatter_add(ids, upd, num_rows)
+    again = sorted_scatter_add(ids, upd, num_rows)
+    torch.cuda.synchronize()
+    by_torch = sort_route(len(ids_np)) == "torch"
+    check(by_torch == (len(ids_np) > SORT_LIMIT))
+    check(sorted_scatter_add.launches == before[0] + 2, "scatter launches not counted")
+    check(sorted_scatter_add.torch_sorts == before[1] + 2 * by_torch,
+          f"the sort took another route than sort_route says ({name})")
+    check(got.shape == (num_rows, D) and got.dtype == torch.float32)
+    check(torch.equal(got, again), f"scatter kernel not deterministic ({name})")
+    ref = sorted_scatter_add_plain(ids, upd.double(), num_rows)
+    magnitude = sorted_scatter_add_plain(ids, upd.double().abs(), num_rows)
+    err = (got.double() - ref).abs()
+    check(bool((err <= 1e-6 + 1e-5 * magnitude).all()),
+          f"scatter kernel disagrees with its plain version ({name})")
+    if not by_torch:
+        check_sort_and_segments(name, ids, upd, num_rows)
+    strict = float((err <= 1e-6 + 1e-5 * ref.abs()).double().mean())
+    counts = torch.bincount(ids, minlength=num_rows)
+    log(f"  {name}: n={len(ids_np)} rows={num_rows} D={D}, longest segment "
+        f"{int(counts.max())}, {int((counts == 0).sum())} empty rows: bit-equal "
+        f"across two launches, max abs err {float(err.max()):.3e} "
+        f"({100 * strict:.4f}% of elements also within 1e-6 + 1e-5 |ref|); "
+        + ("sorted by torch.sort in the wrapper" if by_torch else
+           "sort, permutation and segment numbers equal a stable torch.sort's, "
+           "segment sums within tolerance"))
+    return float(err.max())
 
 
 def compare_rows_set(seed: int, device) -> float:
@@ -974,12 +1023,15 @@ def check_tables_close(a, b, what):
 
 
 def warm_epoch(job, num_train: int, what: str, unit: str = "triples",
-               profiled: bool = True):
+               profiled: bool = True, warmup: bool = True):
     """A warm epoch of a prepared job: wall by the host clock around work
     that ends in a synchronize, then (``profiled``) the same under the
-    profiler. ``num_train`` examples an epoch, counted in ``unit``."""
-    job.epoch += 1
-    job.run_epoch()  # warms allocator and caches
+    profiler. ``num_train`` examples an epoch, counted in ``unit``. Without
+    ``warmup`` no epoch runs before the timed one (for a job whose steps
+    already ran)."""
+    if warmup:
+        job.epoch += 1
+        job.run_epoch()  # warms allocator and caches
     torch.cuda.synchronize()
     start = time.perf_counter()
     job.epoch += 1
@@ -2451,11 +2503,360 @@ def run_other_routes(seed: int, data: str, kcomplex_folder: str):
     out["kvsall_subbatch"] = {
         "losses": costs, "max_abs_diff": sub_err,
         # wall only: the profile of 2,472 launches of each kind costs more
-        # than the epoch
+        # than the epoch; no warm-up epoch either (the job's step ran above),
+        # which keeps the whole run near half its time limit
         "warm_epoch": warm_epoch(jobs[0], jobs[0].num_examples, "subbatched KvsAll",
-                                 unit="queries", profiled=False)}
+                                 unit="queries", profiled=False, warmup=False)}
     return out
 
+
+
+# -- the neural models: C-conve and C-hitter --------------------------------------
+
+# ConvE at the ConvE paper's widths (Dettmers et al. 2018): d = 200 as a
+# 10 x 20 map (stacked to 20 x 20), 32 filters of 3 x 3 (flat size 10,368),
+# the yaml's dropouts 0.2 / 0.2 / 0.3; KvsAll with bce and label smoothing
+# 0.1, Adam lr 0.003, batch 128
+CONVE = {
+    "model": "reciprocal_relations_model",
+    "reciprocal_relations_model.base_model.type": "conve",
+    "conve.entity_embedder.dim": 200, "conve.relation_embedder.dim": 200,
+    "train.type": "KvsAll", "train.loss": "bce", "train.batch_size": 128,
+    "KvsAll.label_smoothing": 0.1,
+    "train.optimizer.default.type": "Adam", "train.optimizer.default.args.lr": 0.003,
+}
+CONVE_NO_DROPOUT = {"conve.entity_embedder.dropout": 0.0,
+                    "conve.relation_embedder.dropout": 0.0,
+                    "conve.feature_map_dropout": 0.0,
+                    "conve.projection_dropout": 0.0}
+# the "no context" HittER Transformer at the yaml's widths with d = 320: 8
+# heads, feed-forward 1,280, 3 layers, dropout 0.1; 1vsAll with kl, Adam lr
+# 0.001, batch 512
+HITTER = {
+    "model": "reciprocal_relations_model",
+    "reciprocal_relations_model.base_model.type": "transformer",
+    "transformer.entity_embedder.dim": 320, "transformer.relation_embedder.dim": 320,
+    "train.type": "1vsAll", "train.loss": "kl", "train.batch_size": 512,
+    "train.optimizer.default.type": "Adam", "train.optimizer.default.args.lr": 0.001,
+}
+HITTER_NO_DROPOUT = {"transformer.encoder.dropout": 0.0}
+PROFILED_STEPS = 50  # the profiled window of a warm epoch of C-conve, C-hitter
+
+
+def write_neural_config(path: str, data: str, seed: int, options):
+    """A config file of one epoch with a validation through the rank kernel
+    (eval batch 256) for ``options`` (dotted keys)."""
+    import yaml
+
+    conf = {"job": {"type": "train", "device": "auto"}, "dataset": {"name": data},
+            "import": [options["reciprocal_relations_model.base_model.type"]],
+            "train": {"max_epochs": 1}, "valid": {"every": 1},
+            "eval": {"batch_size": BATCH}, "random_seed": {"default": seed},
+            "console": {"quiet": True}}
+    for key, value in options.items():
+        node = conf
+        parts = key.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    with open(path, "w") as f:
+        yaml.safe_dump(conf, f)
+
+
+def routes_agree(job):
+    """Every collated batch of a prepared evaluation job ranked by the rank
+    kernel (the factorized queries) and by the score-matrix route (kge_tpu's:
+    ``score_sp`` / ``score_po`` against all entities): every ranking's
+    counts equal outside rows near a tie boundary. A row is near where a
+    candidate's score-matrix score lies within 4 ulp (phase 2's rule) plus
+    twice that candidate's difference between the two routes' scores plus
+    the difference of the routes' pivots of a boundary of either pivot:
+    each score is computed two ways (the bias column inside the product,
+    the bias added after it), not one product in two orders. Those rows
+    are counted, and the rows that differ may be at most 1% of the (row,
+    ranking, direction) entries, ten times phase 2's share (a partly
+    trained model's true entities sit among dense scores). The
+    comparison's own kernel launches come after the main path's counts
+    were read. The factorized product must equal the score matrix within
+    1e-5 of the batch's largest score."""
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+
+    model = job.model
+    E = job.dataset.num_entities()
+    _, device_batches = job._collate_cache
+    differ_rows = near_rows = total_rows = 0
+    worst_apart = 0.0
+    for triples, labels in device_batches:
+        kernel, _ = job._rank_batch(triples, labels)
+        model.factorized_queries = lambda *args: None  # the score-matrix route
+        try:
+            matrix, _ = job._rank_batch(triples, labels)
+        finally:
+            del model.factorized_queries
+        fac = model.factorized_queries(triples, (0, 2))
+        s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
+        near = {}
+        for key, slot, scores, true in (("o", 2, model.score_sp(s, p), o),
+                                        ("s", 0, model.score_po(p, o), s)):
+            _, q, targets, _ = fac[slot]
+            row_ptr, cols, _, _ = labels[key]
+            pivot_k = fused_rank_counts(
+                q.contiguous(), targets.contiguous(), None, row_ptr, cols, E,
+                ATOL, RTOL, pivot_cols=true.to(torch.int32).contiguous())[3]
+            pivot_m = scores.gather(1, true[:, None])[:, 0]
+            # the factorization reproduces the score matrix
+            apart = (q @ targets.T - scores).abs()
+            check(float(apart.max()) <= 1e-5 * float(scores.abs().max()),
+                  f"[1 | h] . o and the score matrix differ by {float(apart.max())}")
+            worst_apart = max(worst_apart, float(apart.max()))
+            slack = 2 * apart + (pivot_k - pivot_m).abs()[:, None]
+            rows = torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+            for pivot in (pivot_k, pivot_m):
+                tol = ATOL + RTOL * pivot.abs()
+                for bound in (pivot - tol, pivot + tol):
+                    b = bound[:, None]
+                    ulp = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) \
+                        - b.abs()
+                    close = (scores - b).abs() <= 4 * ulp + slack
+                    rows |= (close & torch.isfinite(b)).any(dim=1)
+            near[key] = rows
+        for r in kernel:
+            d = kernel[r] != matrix[r]
+            d_s, d_o = d[0] | d[1], d[2] | d[3]
+            bad = (d_s & ~near["s"]) | (d_o & ~near["o"])
+            check(not bool(bad.any()),
+                  f"ranking {r}: the rank kernel's and the score matrix's ranks "
+                  f"differ in {int(bad.sum())} rows away from a tie boundary")
+            differ_rows += int(d_s.sum() + d_o.sum())
+            near_rows += int(near["s"].sum() + near["o"].sum())
+            total_rows += 2 * triples.shape[0]
+    check(differ_rows <= 0.01 * total_rows, (differ_rows, total_rows))
+    log(f"  rank kernel vs score-matrix route, all {len(device_batches)} test "
+        f"batches: ranks equal on {total_rows - differ_rows}/{total_rows} (row, "
+        f"ranking, direction) entries; {near_rows} lie at a tie boundary, the "
+        f"{differ_rows} that differ are excluded; the factorized product and "
+        f"the score matrix differ by at most {worst_apart:.3e}")
+    return {"entries": total_rows, "at_boundary": near_rows, "differ": differ_rows,
+            "max_abs_score_difference": worst_apart}
+
+
+def card_matches_cpu(folder, checkpoint, no_dropout, zero_grad_leaves, lr):
+    """One step on the card and on the CPU from ``checkpoint`` with every
+    dropout off, on the same batch: losses within rtol 1e-5; tables, scorer
+    parameters, statistics and Adam's moments within 1e-5 + 1e-4 |CPU|
+    (cuDNN and cuBLAS sum in other orders than the CPU), except the leaves
+    whose gradient is zero up to rounding (``zero_grad_leaves``: path ->
+    slice), where Adam turns each device's rounding into a step of its own:
+    those within twice the largest step Adam takes, 2 (1 - beta1) /
+    sqrt(1 - beta2) lr = 6.32 lr (Kingma and Ba 2015, section 2.1). Returns
+    the largest differences and the leaves' paths."""
+    jobs = {device: resumed_job(folder, checkpoint, **{"job.device": device,
+                                                       **no_dropout})
+            for device in ("cuda", "cpu")}
+    batch = next(iter(jobs["cuda"]._batches()))
+    variant = jobs["cuda"]._step_variant(batch)
+    out = {}
+    for device, job in jobs.items():
+        tensors = {k: torch.as_tensor(v).to(job.device) for k, v in batch.items()
+                   if k != "true_size" and not isinstance(v, str)}
+        cost, _ = job._train_step(tensors, job._current_lrs(), variant)
+        paths = [".".join(map(str, p)) for p in job.optimizer._paths]
+        leaves = [p.detach().cpu() for p in job.optimizer.params]
+        states = [{k: v.cpu() for k, v in s.items()} for s in job.opt_state["leaves"]]
+        out[device] = (float(cost), paths, leaves, states)
+    torch.cuda.synchronize()
+    (cost_c, paths, leaves_c, states_c), (cost_h, _, leaves_h, states_h) = (
+        out["cuda"], out["cpu"])
+    check(abs(cost_c - cost_h) <= 1e-5 * abs(cost_h), (cost_c, cost_h))
+    b1, b2 = 0.9, 0.999  # Adam's default betas, which both phases use
+    step_bound = 2 * (1 - b1) / math.sqrt(1 - b2) * lr
+    worst = {"tables": 0.0, "zero_grad": 0.0}
+    for path, x, y, sx, sy in zip(paths, leaves_c, leaves_h, states_c, states_h):
+        pairs = [(x, y)] + [(sx[k], sy[k]) for k in sorted(sy)]
+        for a, b in pairs:
+            err = (a - b).abs()
+            if path in zero_grad_leaves:
+                part = zero_grad_leaves[path]
+                check(bool((err[part] <= step_bound).all()),
+                      f"{path}: {float(err.max())}")
+                worst["zero_grad"] = max(worst["zero_grad"], float(err[part].max()))
+                err = err.clone()
+                err[part] = 0.0
+            check(bool((err <= 1e-5 + 1e-4 * b.abs()).all()),
+                  f"card and CPU differ at {path}: {float(err.max())}")
+            worst["tables"] = max(worst["tables"], float(err.max()))
+    log(f"  one step on the card vs the CPU (dropout 0): loss {cost_c:.6f} vs "
+        f"{cost_h:.6f}; max abs difference {worst['tables']:.3e} (tolerance 1e-5 + "
+        f"1e-4 |CPU|), {worst['zero_grad']:.3e} on the leaves of zero gradient "
+        f"(tolerance {step_bound:.3e}, Adam's largest two steps)")
+    return {"loss_card": cost_c, "loss_cpu": cost_h, **worst}, paths
+
+
+def neural_launches(summary, kernel: str):
+    """A kernel's launches in each verb of phase 20 or 21."""
+    return {"start": summary["launches"][kernel],
+            "resume": summary["resume_launches"][kernel],
+            "test": summary["test_launches"][kernel]}
+
+
+def run_neural(name: str, options, no_dropout, zero_grad_leaves, scatter_per_step,
+               seed: int, data: str):
+    """Phase 20 or 21; returns a summary dict."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    num_valid, num_test = FB15K237[3:]
+    valid_batches, test_batches = -(-num_valid // BATCH), -(-num_test // BATCH)
+    folder = os.path.join(WORK, f"train_{name}")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, f"train_{name}.yaml")
+    write_neural_config(conf, data, seed, options)
+    lr = options["train.optimizer.default.args.lr"]
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    (first,) = trace_entries(folder, event="epoch_completed")
+    (valid,) = trace_entries(folder, event="eval_completed")
+    check(np.isfinite(first["avg_loss"]), first)
+    check(0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0, valid)
+    steps = first["batches"]
+    check(counts["scatter_add_sorted"] == scatter_per_step * steps,
+          f"scatter launches {counts['scatter_add_sorted']} != "
+          f"{scatter_per_step} x {steps}")
+    check(counts["rank_counts"] == 2 * valid_batches,
+          f"rank launches {counts['rank_counts']} != 2 x {valid_batches}")
+    check(counts["rank_counts_epilogue"] == 0 and counts["rows_set"] == 0
+          and counts["pooled_scores"] == 0 and counts["fused_row_update"] == 0, counts)
+    log(f"  start, one epoch and a validation: wall {start_wall:.2f} s; scatter "
+        f"kernel {scatter_per_step} x {steps} steps = {counts['scatter_add_sorted']}, "
+        f"rank kernel 2 x {valid_batches} = {counts['rank_counts']}; avg_loss "
+        f"{first['avg_loss']:.6f}, validation wall {valid['epoch_time']:.3f} s, "
+        f"MRR filtered {valid['mean_reciprocal_rank_filtered']:.6f}")
+
+    reset_counters()
+    cli.main(["resume", folder, "--train.max_epochs", "2"])
+    torch.cuda.synchronize()
+    resumed = read_counters()
+    entries = trace_entries(folder, event="epoch_completed")
+    check([e["epoch"] for e in entries] == [1, 2], entries)
+    warm = entries[1]
+    check(np.isfinite(warm["avg_loss"]), warm)
+    check(resumed["scatter_add_sorted"] == scatter_per_step * warm["batches"], resumed)
+    check(resumed["rank_counts"] == 2 * valid_batches, resumed)
+    num = warm["size"]
+    unit = "queries" if options["train.type"] == "KvsAll" else "triples"
+    log(f"  resume to epoch 2 (the warm epoch): wall {warm['epoch_time']:.3f} s "
+        f"({num / warm['epoch_time']:.1f} {unit}/s), {warm['batches']} steps, "
+        f"avg_loss {entries[0]['avg_loss']:.6f} -> {warm['avg_loss']:.6f}")
+
+    step, leaves = card_matches_cpu(folder, "checkpoint_00002.pt", no_dropout,
+                                    zero_grad_leaves, lr)
+
+    # the statistics moved, their optimizer state did not (Adam, no decay)
+    init = load_checkpoint(os.path.join(folder, "checkpoint_00000.pt"))
+    last = load_checkpoint(os.path.join(folder, "checkpoint_00002.pt"))
+    stats_moved = None
+    if "bn1_mean" in last["model"][0].get("scorer", {}):
+        stats_moved = {}
+        for key in ("bn1_mean", "bn1_var", "bn2_mean", "bn2_var"):
+            moved = float(np.abs(np.asarray(last["model"][0]["scorer"][key])
+                                 - np.asarray(init["model"][0]["scorer"][key])).max())
+            check(moved > 1e-3, f"{key} did not move")
+            state = last["optimizer_state"]["leaves"][leaves.index(f"scorer.{key}")]
+            check(all(not np.asarray(v).any() for v in state.values()),
+                  f"the optimizer state of {key} moved")
+            stats_moved[key] = moved
+        log(f"  batch-norm statistics moved by up to {stats_moved}; their Adam "
+            "moments stayed zero")
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["test", folder])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - start
+    tested = read_counters()
+    check(tested["rank_counts"] == 2 * test_batches, tested)
+    entry = last_test_entry(folder)
+    metrics = {k: v for k, v in entry.items()
+               if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))
+               and not k.endswith("_with_test")}
+    check(metrics and all(np.isfinite(v) for v in metrics.values()), metrics)
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0, entry)
+    log(f"  test: {tested['rank_counts']} rank launches, wall {test_wall:.3f} s, "
+        f"MRR filtered {entry['mean_reciprocal_rank_filtered']:.6f}")
+
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["valid", folder, "--eval.type", "training_loss"])
+    torch.cuda.synchronize()
+    loss_wall = time.perf_counter() - start
+    loss_counts = read_counters()
+    loss_entry = trace_entries(folder, event="eval_completed",
+                               type="training_loss")[-1]
+    check(np.isfinite(loss_entry["avg_loss"]) and loss_entry["avg_loss"] > 0,
+          loss_entry)
+    check(not any(loss_counts.values()), f"a forward-only pass launched {loss_counts}")
+    log(f"  valid --eval.type training_loss: avg_loss {loss_entry['avg_loss']:.6f}, "
+        f"avg_cost {loss_entry['avg_cost']:.6f}, wall {loss_wall:.3f} s (forward "
+        "only: no kernel launch)")
+
+    job = test_job(folder)
+    job.model.eval()  # as the evaluation's run() sets it
+    with torch.inference_mode():
+        job._prepare()
+        job._is_prepared = True
+        job._evaluate()
+        agree = routes_agree(job)
+        plain = eval_ranks_agree(job)
+    # the scatter kernel at the lookups' shapes: a batch of ids into the
+    # entity table and into the relation table (2 |R| rows), D wide
+    dim, device = job.model.get_s_embedder().dim, job.model.device
+    rows = (job.dataset.num_entities(), job.model.get_p_embedder().vocab_size)
+    del job
+    rng = np.random.default_rng(seed + 20)
+    n = options["train.batch_size"]
+    scatter_err = max(
+        scatter_case(rng, device, f"C-{name} {what} lookups",
+                     power_law_ids(rng, num_rows, n, exponent), num_rows, dim)
+        for what, num_rows, exponent in (("entity", rows[0], 0.8),
+                                         ("relation", rows[1], 1.0)))
+
+    # a whole epoch gives the profiler millions of events, whose reduction
+    # takes minutes: a window of its first steps stands for it
+    profiled = resumed_job(folder, "checkpoint_00002.pt")
+    batches = profiled._batches
+    profiled._batches = lambda: itertools.islice(batches(), PROFILED_STEPS)
+
+    def window():
+        profiled.epoch += 1
+        profiled.run_epoch()
+
+    profile = profile_run(window, f"{PROFILED_STEPS} steps of a warm epoch of "
+                                  f"C-{name}")
+    del profiled
+    if profile["device_busy_ms"] is not None:
+        device_step_ms = profile["device_busy_ms"] / PROFILED_STEPS
+        warm_step_ms = 1e3 * warm["epoch_time"] / warm["batches"]
+        profile["device_ms_per_step"] = device_step_ms
+        profile["busy_share_of_warm_epoch"] = device_step_ms / warm_step_ms
+        log(f"  device {device_step_ms:.3f} ms a step against the warm epoch's "
+            f"{warm_step_ms:.3f} ms of wall a step: busy "
+            f"{100 * device_step_ms / warm_step_ms:.1f}%")
+    return {"launches": counts, "resume_launches": resumed, "test_launches": tested,
+            "start_wall_s": start_wall, "warm_epoch_s": warm["epoch_time"],
+            f"warm_{unit}_per_s": num / warm["epoch_time"], "steps": warm["batches"],
+            "avg_loss": [e["avg_loss"] for e in entries],
+            "valid_wall_s": valid["epoch_time"], "test_wall_s": test_wall,
+            "valid_mrr_filtered": valid["mean_reciprocal_rank_filtered"],
+            "test_mrr_filtered": entry["mean_reciprocal_rank_filtered"],
+            "training_loss": loss_entry["avg_loss"], "training_loss_wall_s": loss_wall,
+            "stats_moved": stats_moved, "routes": agree, "rank_vs_plain": plain,
+            "scatter_max_abs_err": scatter_err, "card_vs_cpu": step,
+            "profile": profile, "folder": folder}
 
 
 # -- kernel timings ---------------------------------------------------------------
@@ -2950,6 +3351,23 @@ def main():
     routes = run_other_routes(args.seed, data, kcomplex["folder"])
     log(f"  phase 19 took {time.perf_counter() - start:.1f} s; {card}")
 
+    log("== phase 20: C-conve (reciprocal ConvE d=200, 32 filters of 3x3, KvsAll "
+        "bce with label smoothing, Adam, FB15k-237 sizes)")
+    start = time.perf_counter()
+    conve = run_neural("conve", CONVE, CONVE_NO_DROPOUT,
+                       {"scorer.conv_b": slice(None), "scorer.proj_b": slice(None)},
+                       2, args.seed, data)
+    log(f"  phase 20 took {time.perf_counter() - start:.1f} s; {card}")
+
+    log("== phase 21: C-hitter (reciprocal Transformer d=320, 8 heads, 3 layers, "
+        "1vsAll kl, Adam, FB15k-237 sizes)")
+    start = time.perf_counter()
+    hitter = run_neural("hitter", HITTER, HITTER_NO_DROPOUT,
+                        {f"scorer.layers.{i}.in_proj_b": slice(320, 640)
+                         for i in range(3)},
+                        4, args.seed, data)
+    log(f"  phase 21 took {time.perf_counter() - start:.1f} s; {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -2974,7 +3392,9 @@ def main():
               + kcomplex["resume_launches"]["rank_counts"],
               launches_xcomplex=xcomplex["launches"]["rank_counts"]
               + xcomplex["resume_launches"]["rank_counts"],
-              launches_factorization={k: v["rank_launches"] for k, v in family.items()}),
+              launches_factorization={k: v["rank_launches"] for k, v in family.items()},
+              launches_conve=neural_launches(conve, "rank_counts"),
+              launches_hitter=neural_launches(hitter, "rank_counts")),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
@@ -2986,7 +3406,9 @@ def main():
               launches_xcomplex_start=xcomplex["launches"]["scatter_add_sorted"],
               launches_phase19_start={
                   k: routes[k]["launches"]["scatter_add_sorted"]
-                  for k in ("batch_per_row", "pool_host", "fused")}),
+                  for k in ("batch_per_row", "pool_host", "fused")},
+              launches_conve=neural_launches(conve, "scatter_add_sorted"),
+              launches_hitter=neural_launches(hitter, "scatter_add_sorted")),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -3008,7 +3430,8 @@ def main():
         "train_transe": transe, "train_rotate": rotate,
         "train_transe_l2": transe_l2, "train_ocomplex": ocomplex,
         "train_kcomplex": kcomplex, "factorization": family,
-        "train_xcomplex": xcomplex, "other_routes": routes, "card": card}
+        "train_xcomplex": xcomplex, "other_routes": routes,
+        "train_conve": conve, "train_hitter": hitter, "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

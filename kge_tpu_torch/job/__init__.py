@@ -1,6 +1,6 @@
-"""Jobs: training by negative sampling, 1vsAll and KvsAll, and filtered
-entity-ranking evaluation (see ROADMAP.md for the training-loss and
-entity-pair evaluations and search)."""
+"""Jobs: training by negative sampling, 1vsAll and KvsAll, filtered
+entity-ranking evaluation, the training-loss evaluation and kge_tpu's
+entity-pair placeholder (see ROADMAP.md for search)."""
 
 from kge_tpu_torch.job.job import Job, TrainingOrEvaluationJob
 from kge_tpu_torch.job.train import TrainingJob
@@ -9,6 +9,8 @@ from kge_tpu_torch.job.train_KvsAll import TrainingJobKvsAll
 from kge_tpu_torch.job.train_negative_sampling import TrainingJobNegativeSampling
 from kge_tpu_torch.job.eval import EvaluationJob
 from kge_tpu_torch.job.eval_entity_ranking import EntityRankingJob
+from kge_tpu_torch.job.eval_entity_pair_ranking import EntityPairRankingJob
+from kge_tpu_torch.job.eval_training_loss import TrainingLossEvaluationJob
 
 __all__ = [
     "Job",
@@ -19,4 +21,6 @@ __all__ = [
     "TrainingJobNegativeSampling",
     "EvaluationJob",
     "EntityRankingJob",
+    "EntityPairRankingJob",
+    "TrainingLossEvaluationJob",
 ]

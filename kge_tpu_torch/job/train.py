@@ -32,6 +32,12 @@ the unsubbatched step's. With ``train.subbatch_auto_tune`` an out-of-memory
 error of the card raised before the optimizer wrote anything halves the
 subbatch size and retries the step (``_handle_oom``).
 
+Scorers with batch-norm statistics (ConvE): every batch loss runs with the
+model's statistics collector open (``_batch_loss``), the dense step merges
+what it collected after the optimizer update, and the forward-only step
+(the training-loss evaluation) discards it, as kge_tpu's steps do with
+``Ctx.stats``.
+
 Not ported (see ROADMAP.md): kge_tpu's scanned epoch (``train.epoch_scan``
 is accepted and has nothing to select: epochs run in kge_tpu's unscanned
 order), device meshes.
@@ -269,12 +275,10 @@ class TrainingJob(TrainingOrEvaluationJob):
             )
 
         #: all randomness of the job on the device: parameter init, dropout
-        #: and negatives drawn on the device
+        #: (the modules draw from it from each step on, ``_enter_step``) and
+        #: negatives drawn on the device
         self._generator = torch.Generator(device=device)
         self._generator.manual_seed(self._rng_seed)
-        for module in self.model.modules():
-            if hasattr(module, "dropout_generator"):
-                module.dropout_generator = self._generator
 
         # initialize parameters unless restored from a checkpoint
         if self._init_model_params:
@@ -329,6 +333,15 @@ class TrainingJob(TrainingOrEvaluationJob):
         before its string entries are dropped; None: one step for all."""
         return None
 
+    def _batch_loss(self, batch, variant=None):
+        """The strategy's loss of a batch with the model's statistics
+        collector open (kge_tpu's ``Ctx(train=True, stats={})`` of each
+        ``_loss_for_batch``): aux["stats"] holds the statistics the scoring
+        calls computed, the last call's for each name."""
+        with self.model.collect_stats() as stats:
+            loss_value, aux = self._loss_for_batch(batch, variant)
+        return loss_value, {**aux, "stats": stats}
+
     def _loss_fn(self, batch, variant=None, params=None):
         """Loss plus penalties (computed once per batch, reference
         train.py:417-435): returns (cost, aux, grads), ``grads`` the
@@ -338,19 +351,19 @@ class TrainingJob(TrainingOrEvaluationJob):
         Under ``train.subbatch_size`` the strategy's loss runs subbatch by
         subbatch (``_subbatches``) and each subbatch's gradient is taken
         before the next one runs; aux is then kge_tpu's subbatched aux,
-        ``avg_loss`` and the penalties without the strategy's own keys."""
+        ``avg_loss`` and the penalties without the strategy's own keys (so
+        without statistics: kge_tpu's subbatched step drops them too)."""
         grads = None
         if self._subbatch_size > 0:
             loss_value = torch.zeros((), device=self.device)
             for subbatch in self._subbatches(batch):
-                sub_loss, _ = self._loss_for_batch(subbatch, variant)
+                sub_loss, _ = self._batch_loss(subbatch, variant)
                 if params is not None:
-                    grads = _add_grads(grads, torch.autograd.grad(
-                        sub_loss, params, allow_unused=True))
+                    grads = _add_grads(grads, _grad(sub_loss, params))
                 loss_value = loss_value + sub_loss.detach()
             aux = {}
         else:
-            loss_value, aux = self._loss_for_batch(batch, variant)
+            loss_value, aux = self._batch_loss(batch, variant)
         penalty_batch = {k: batch[k] for k in ("triples", "mask") if k in batch}
         penalties = self.model.penalty(batch=penalty_batch, epoch=self.epoch)
         penalty_value = None
@@ -361,10 +374,9 @@ class TrainingJob(TrainingOrEvaluationJob):
         cost = loss_value if penalty_value is None else loss_value + penalty_value
         if params is not None:
             if self._subbatch_size <= 0:
-                grads = torch.autograd.grad(cost, params, allow_unused=True)
+                grads = _grad(cost, params)
             elif penalty_value is not None and penalty_value.requires_grad:
-                grads = _add_grads(grads, torch.autograd.grad(
-                    penalty_value, params, allow_unused=True))
+                grads = _add_grads(grads, _grad(penalty_value, params))
         aux = dict(aux)
         aux["avg_loss"] = loss_value
         aux["penalties"] = penalty_values
@@ -407,32 +419,47 @@ class TrainingJob(TrainingOrEvaluationJob):
         """One step with dense table gradients: every lookup's backward
         yields its own table-sized gradient (the scatter kernel when
         selected), autograd sums them, and the optimizer rule runs over
-        whole tables. Returns (cost, aux) as detached tensors."""
+        whole tables and every other leaf, the batch-norm statistics with a
+        zero gradient. The statistics the step collected then overwrite
+        theirs (kge_tpu/job/train.py:355-360). Returns (cost, aux) as
+        detached tensors."""
         self._enter_step()
         params = self.optimizer.params
         cost, aux, grads = self._loss_fn(batch, variant, params)
+        stats = aux.pop("stats", {})
         grads = [
             torch.zeros_like(p) if g is None else g
             for g, p in zip(grads, params)
         ]
         self._optimizer_wrote = True
         self.optimizer.update(grads, self.opt_state, lr)
+        self.model.merge_stats(stats)
         self.model.postprocess_params()
         return cost.detach(), _detach(aux)
 
     def _enter_step(self):
-        """Train mode and this job's lookup-gradient mode; nothing written
-        by the optimizer yet."""
+        """Train mode, dropout drawn from this job's generator, and this
+        job's lookup-gradient mode; nothing written by the optimizer yet.
+        A forward-only job (the training-loss evaluation) shares the model
+        with the job that trains it, so each job sets both at every
+        step."""
         from kge_tpu_torch.ops import embedding_ops
 
         self.model.train()
+        for module in self.model.modules():
+            if hasattr(module, "dropout_generator"):
+                module.dropout_generator = self._generator
         embedding_ops.set_gather_mode(self._gather_mode)
         self._optimizer_wrote = False
 
     def _forward_step(self, batch, variant=None):
+        """The loss of a batch in train mode, as kge_tpu's forward-only
+        step computes it; it writes no parameter, statistic or optimizer
+        state."""
         self._enter_step()
         with torch.no_grad():
             cost, aux, _ = self._loss_fn(batch, variant)
+        aux.pop("stats", None)
         return cost, aux
 
     def _step_with_retries(self, batch, lr, variant):
@@ -724,6 +751,20 @@ class TrainingJob(TrainingOrEvaluationJob):
             return arr
         pad = np.repeat(arr[-1:], size - len(arr), axis=0)
         return np.concatenate([arr, pad], axis=0)
+
+
+def _grad(value, params):
+    """Gradients of ``value`` with respect to ``params``: None where it
+    does not reach a parameter and for tensors that take none (batch-norm
+    statistics)."""
+    live = [i for i, p in enumerate(params) if p.requires_grad]
+    out = [None] * len(params)
+    got = torch.autograd.grad(
+        value, [params[i] for i in live], allow_unused=True
+    )
+    for i, g in zip(live, got):
+        out[i] = g
+    return out
 
 
 def _add_grads(total, grads):

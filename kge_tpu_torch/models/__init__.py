@@ -1,9 +1,9 @@
 """Model zoo: scorers, embedders, and the model factory.
 
-Ported so far: the factorization family (DistMult, ComplEx, RESCAL, CP,
-SimplE, RelationalTucker3), TransE, TransH, RotatE and the reciprocal
-relations model, over lookup and projection embedders. ConvE and
-Transformer are listed in ROADMAP.md.
+Every model of kge_tpu is ported: the factorization family (DistMult,
+ComplEx, RESCAL, CP, SimplE, RelationalTucker3), TransE, TransH, RotatE,
+the neural models ConvE and Transformer, and the reciprocal relations
+model, over lookup and projection embedders.
 """
 
 from kge_tpu_torch.models.base import (
@@ -35,6 +35,12 @@ from kge_tpu_torch.models.factorization import (
     SimplE,
     SimplEScorer,
 )
+from kge_tpu_torch.models.neural import (
+    ConvE,
+    ConvEScorer,
+    Transformer,
+    TransformerScorer,
+)
 from kge_tpu_torch.models.reciprocal import ReciprocalRelationsModel
 from kge_tpu_torch.models.translation import (
     RotatE,
@@ -64,6 +70,10 @@ __all__ = [
     "SimplE",
     "SimplEScorer",
     "RelationalTucker3",
+    "ConvE",
+    "ConvEScorer",
+    "Transformer",
+    "TransformerScorer",
     "ReciprocalRelationsModel",
     "TransE",
     "TransEScorer",

@@ -9,10 +9,12 @@ score_sp_po with "spo"/"sp_"/"_po", kge_model.py:122-213,663-789).
 Randomness comes from explicit ``torch.Generator``s.
 
 Ported so far: lookup and projection embedders (``ProjectionEmbedder``,
-``Tucker3RelationEmbedder``), and what filtered entity-ranking evaluation
-and negative-sampling, 1vsAll and KvsAll training need. Pretrained
-initialization and the ring-sharded scoring path are not ported yet (see
-ROADMAP.md).
+``Tucker3RelationEmbedder``), scorers with parameters of their own (the
+neural models: ``RelationalScorer.param_tree`` and the batch-norm
+statistics collector ``KgeModel.collect_stats``), and what filtered
+entity-ranking evaluation and negative-sampling, 1vsAll and KvsAll
+training need. Pretrained initialization is refused at model creation and
+the ring-sharded scoring path is not ported yet (see ROADMAP.md).
 
 Where kge_tpu swaps gathered mini-tables into the parameter tree for the
 row-sparse training step, the embedders here own their tables, so ``embed``
@@ -23,6 +25,7 @@ call. No table-sized gradient exists on that step.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import tempfile
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -144,6 +147,23 @@ class KgeBase(nn.Module, Configurable):
     def prepare_job(self, job, **kwargs):
         """Register model-specific hooks on a job."""
 
+    #: the generator of dropout masks, set by the training job
+    dropout_generator: Optional[torch.Generator] = None
+
+    def _dropout(self, x: torch.Tensor, rate: Optional[float] = None
+                 ) -> torch.Tensor:
+        """Inverted dropout (torch.nn.Dropout semantics, elementwise) at
+        ``rate`` (default ``self.dropout``) in train mode, drawn from
+        ``dropout_generator``."""
+        rate = self.dropout if rate is None else rate
+        if not self.training or rate <= 0.0:
+            return x
+        keep = 1.0 - rate
+        mask = torch.rand(
+            x.shape, generator=self.dropout_generator, device=x.device
+        ) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
 
 # -- scorers -------------------------------------------------------------------
 
@@ -161,7 +181,27 @@ class RelationalScorer(KgeBase):
     The generic form materializes all pairs and delegates to "spo"
     (reference kge_model.py:150-213); concrete scorers override the combines
     they can write as one product.
+
+    A scorer with parameters of its own (the neural models) holds them as
+    ``nn.Parameter``s and its batch-norm statistics as buffers, gives them
+    as kge_tpu's ``params["scorer"]`` tree (``param_tree``) and draws them
+    in ``init_params``. In train mode a stateful layer writes its updated
+    statistics into ``stats`` (kge_tpu's ``Ctx.stats``) when a training
+    step collects them (``KgeModel.collect_stats``); nothing else writes
+    them.
     """
+
+    #: the statistics collector of the running training step, or None
+    stats: Optional[Dict[str, torch.Tensor]] = None
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """Draw the scorer's own parameters (most scorers have none)."""
+
+    def param_tree(self) -> Dict[str, Any]:
+        """The scorer's parameters and statistics as kge_tpu's parameter
+        tree of this scorer (nested dicts and lists with tensor leaves);
+        empty for scorers without parameters."""
+        return {}
 
     def score_emb_spo(self, s_emb, p_emb, o_emb) -> torch.Tensor:
         return self.score_emb(s_emb, p_emb, o_emb, "spo").reshape(-1)
@@ -305,18 +345,6 @@ class KgeEmbedder(KgeBase):
         embedder: nested dicts with tensor leaves."""
         raise NotImplementedError
 
-    def _dropout(self, emb: torch.Tensor) -> torch.Tensor:
-        """Inverted dropout (torch.nn.Dropout semantics) at rate
-        ``self.dropout`` in train mode, drawn from ``dropout_generator``
-        (set by the training job)."""
-        if not self.training or self.dropout <= 0.0:
-            return emb
-        keep = 1.0 - self.dropout
-        mask = torch.rand(
-            emb.shape, generator=self.dropout_generator, device=emb.device
-        ) < keep
-        return torch.where(mask, emb / keep, torch.zeros_like(emb))
-
 
 class LookupEmbedder(KgeEmbedder):
     """Dense embedding table with normalization (reference
@@ -348,7 +376,6 @@ class LookupEmbedder(KgeEmbedder):
                 )
                 dropout = 0.0
         self.dropout = dropout
-        self.dropout_generator: Optional[torch.Generator] = None
         self.embeddings = nn.Parameter(
             torch.empty(vocab_size, self._dim, dtype=torch.float32,
                         device=device)
@@ -476,7 +503,6 @@ class ProjectionEmbedder(KgeEmbedder):
             self.set_option("dim", self._dim, log=True)
         self.regularize = self.check_option("regularize", ["", "lp"])
         self.dropout = float(self.get_option("dropout"))
-        self.dropout_generator: Optional[torch.Generator] = None
         self.projection = nn.Parameter(
             torch.empty(self._dim, self.base_embedder.dim, dtype=torch.float32,
                         device=device)
@@ -575,6 +601,7 @@ class KgeModel(KgeBase):
                 dataset.num_relations(), init_for_load_only=init_for_load_only,
                 device=device,
             )
+            self._refuse_pretrained()
         if type(scorer) == type:
             self._scorer: RelationalScorer = scorer(
                 config=config, dataset=dataset,
@@ -594,6 +621,25 @@ class KgeModel(KgeBase):
             else:
                 self.model = config.get("model")
                 self.configuration_key = self.model
+
+    def _refuse_pretrained(self) -> None:
+        """kge_tpu copies pretrained rows into the tables when
+        ``<embedder>.pretrain.model_filename`` is set
+        (kge_tpu/models/base.py ``_apply_pretrained``); this package does
+        not yet, and refuses the setting rather than train from a random
+        table."""
+        for which in ("entity_embedder", "relation_embedder"):
+            key = f"{which}.pretrain.model_filename"
+            try:
+                filename = self.get_option(key)
+            except KeyError:
+                continue
+            if filename:
+                raise ValueError(
+                    f"{self.configuration_key}.{key}={filename!r}: "
+                    "pretrained initialization is not ported yet (ROADMAP "
+                    "A.5); unset it"
+                )
 
     # -- factories ------------------------------------------------------------
 
@@ -654,9 +700,11 @@ class KgeModel(KgeBase):
     # -- parameters -----------------------------------------------------------
 
     def init_params(self, generator: torch.Generator) -> None:
-        """Initialize all embedders from ``generator``."""
+        """Initialize the embedders, then the scorer's own parameters, from
+        ``generator``."""
         self._entity_embedder.init_params(generator)
         self._relation_embedder.init_params(generator)
+        self._scorer.init_params(generator)
 
     def postprocess_params(self) -> None:
         self._entity_embedder.postprocess_params()
@@ -673,7 +721,33 @@ class KgeModel(KgeBase):
     supports_localized_batches: bool = True
 
     def num_parameters(self) -> int:
-        return sum(int(p.numel()) for p in self.parameters())
+        """The size of kge_tpu's parameter tree, statistics included."""
+        from kge_tpu_torch.models.convert import param_leaves
+
+        return sum(int(t.numel()) for _, t in param_leaves(self))
+
+    @contextlib.contextmanager
+    def collect_stats(self):
+        """Collect, while the block runs, the statistics that the scorer's
+        stateful layers compute in train mode (kge_tpu's ``Ctx.stats``):
+        yields a dict of name -> tensor in which the last scoring call's
+        values win. The training step writes them into the scorer after
+        the optimizer update (``merge_stats``)."""
+        scorer = self.get_scorer()
+        stats: Dict[str, torch.Tensor] = {}
+        scorer.stats = stats
+        try:
+            yield stats
+        finally:
+            scorer.stats = None
+
+    @torch.no_grad()
+    def merge_stats(self, stats: Dict[str, torch.Tensor]) -> None:
+        """Write collected statistics into the scorer's buffers of the same
+        names (kge_tpu/job/train.py:355-360)."""
+        scorer = self.get_scorer()
+        for name, value in stats.items():
+            getattr(scorer, name).copy_(value)
 
     # -- penalty ---------------------------------------------------------------
 

@@ -6,19 +6,26 @@ lookup embedder's tree is ``{"embeddings": [vocab, d]}`` (2R rows for the
 reciprocal relations model, 2d columns for TransH's [translation | normal])
 and a projection embedder's ``{"base": <base tree>, "projection": [d_out,
 d_in]}`` (RelationalTucker3's relation embedder); plus ``"scorer"`` for
-scorers with parameters of their own. Its checkpoints store the tree with
-numpy leaves. This package keeps them in its modules, and each embedder
-gives its tree with tensor leaves (``param_tree``). ``load_jax_params``
-copies such a tree into a model, ``to_jax_params`` reads one out, both
-through numpy.
+scorers with parameters of their own: ConvE's convolution, projection and
+batch-norm statistics, the Transformer's tokens and its ``layers``, a list
+of one dict per encoder layer. Its checkpoints store the tree with numpy
+leaves. This package keeps them in its modules, and each embedder and
+scorer gives its tree with tensor leaves (``param_tree``; a scorer without
+parameters gives an empty one, and the model's tree then has no
+``"scorer"``). ``load_jax_params`` copies such a tree into a model,
+``to_jax_params`` reads one out, both through numpy.
 
 kge_tpu's optimizer state is ``{"leaves": [state dict per parameter leaf],
-"step": int}`` with the leaves in its tree-flatten order (keys sorted at
-every level: ``entity_embedder.embeddings``, then
-``relation_embedder.base.embeddings`` and ``relation_embedder.projection``
-or ``relation_embedder.embeddings``). ``param_leaves`` lists a model's
-parameters in that order, and ``load_jax_opt_state`` / ``to_jax_opt_state``
-carry the state across, again through numpy.
+"step": int}`` with the leaves in its tree-flatten order: keys sorted at
+every level, list items in their order (``entity_embedder.embeddings``,
+then ``relation_embedder.base.embeddings`` and
+``relation_embedder.projection`` or ``relation_embedder.embeddings``, then
+``scorer.cls``, ``scorer.layers.0.in_proj_b``, ...). The batch-norm
+statistics are leaves of that tree too, so the optimizer holds a state for
+each (which their zero gradient leaves at zero under Adam without weight
+decay); the training step overwrites them after the update. ``param_leaves``
+lists a model's parameters in that order, and ``load_jax_opt_state`` /
+``to_jax_opt_state`` carry the state across, again through numpy.
 """
 
 from __future__ import annotations
@@ -28,49 +35,52 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-_EMBEDDERS = {
-    "entity_embedder": "get_s_embedder",
-    "relation_embedder": "get_p_embedder",
-}
 
-
-def _embedders(model):
-    return {key: getattr(model, getter)() for key, getter in _EMBEDDERS.items()}
-
-
-def _flatten(tree, path=()) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(path, leaf) pairs of a nested dict, keys sorted at every level."""
-    if not isinstance(tree, dict):
-        return [(path, tree)]
-    return [leaf for key in sorted(tree) for leaf in _flatten(tree[key], path + (key,))]
+def _flatten(tree, path=()) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """(path, leaf) pairs of nested dicts and lists in
+    ``jax.tree_util``'s flatten order: dict keys sorted, list items in
+    order (a list item's path element is its index)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in _flatten(tree[key], path + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, item in enumerate(tree)
+                for leaf in _flatten(item, path + (i,))]
+    return [(path, tree)]
 
 
 def _model_tree(model) -> Dict[str, Any]:
-    return {key: embedder.param_tree() for key, embedder in _embedders(model).items()}
+    tree = {
+        "entity_embedder": model.get_s_embedder().param_tree(),
+        "relation_embedder": model.get_p_embedder().param_tree(),
+    }
+    scorer = model.get_scorer().param_tree()
+    if scorer:
+        tree["scorer"] = scorer
+    return tree
+
+
+def _name(path) -> str:
+    return ".".join(str(key) for key in path)
 
 
 @torch.no_grad()
 def load_jax_params(model, tree: Dict[str, Any]) -> None:
     """Copy kge_tpu's parameter tree (numpy or array-like leaves) into
-    ``model``'s parameters, on the device they already live on."""
-    extra = set(tree) - set(_EMBEDDERS)
-    if extra:
-        raise ValueError(
-            f"parameters {sorted(extra)} have no counterpart in "
-            f"{type(model).__name__} (only embedder parameters are ported)"
-        )
+    ``model``'s parameters and statistics, on the device they already live
+    on."""
     own = _flatten(_model_tree(model))
     given = _flatten(tree)
     if [path for path, _ in given] != [path for path, _ in own]:
         raise ValueError(
-            f"parameters {['.'.join(p) for p, _ in given]} do not match "
-            f"{type(model).__name__}'s {['.'.join(p) for p, _ in own]}"
+            f"parameters {[_name(p) for p, _ in given]} do not match "
+            f"{type(model).__name__}'s {[_name(p) for p, _ in own]}"
         )
     for (path, param), (_, leaf) in zip(own, given):
         value = np.asarray(leaf, dtype=np.float32)
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(
-                f"{'.'.join(path)} has shape {value.shape}, the model "
+                f"{_name(path)} has shape {value.shape}, the model "
                 f"expects {tuple(param.shape)}"
             )
         param.copy_(torch.tensor(value))
@@ -83,14 +93,16 @@ def to_jax_params(model) -> Dict[str, Any]:
     def to_numpy(tree):
         if isinstance(tree, dict):
             return {key: to_numpy(value) for key, value in tree.items()}
+        if isinstance(tree, list):
+            return [to_numpy(value) for value in tree]
         return tree.detach().cpu().numpy().copy()
 
     return to_numpy(_model_tree(model))
 
 
 def param_leaves(model) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
-    """``model``'s parameters as (path in kge_tpu's tree, tensor) pairs in
-    kge_tpu's tree-flatten order (keys sorted at every level)."""
+    """``model``'s parameters and statistics as (path in kge_tpu's tree,
+    tensor) pairs in kge_tpu's tree-flatten order."""
     return _flatten(_model_tree(model))
 
 
@@ -109,7 +121,7 @@ def load_jax_opt_state(state: Dict[str, Any], leaves) -> Dict[str, Any]:
             value = np.asarray(value, dtype=np.float32)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(
-                    f"optimizer state {'.'.join(path)}.{name} has shape "
+                    f"optimizer state {_name(path)}.{name} has shape "
                     f"{value.shape}, the parameter {tuple(param.shape)}"
                 )
             converted[name] = torch.tensor(value, device=param.device)

@@ -941,3 +941,120 @@ def test_fused_and_subbatched_steps_on_card(tmp_path):
     for name, (cost, tables) in results.items():
         np.testing.assert_allclose(cost, results["dense"][0], rtol=1e-5, err_msg=name)
         _close(tables, results["dense"][1])
+
+
+def _conve_model(data, device, params=None, **extra):
+    """A reciprocal ConvE at d = 200 (10 x 20 maps, D = 201 with the bias
+    column) on ``data`` and ``device``, every dropout 0, with ``params`` or
+    weights drawn from a seed and random batch-norm statistics; returns the
+    config, the dataset, the model and its weights as kge_tpu's tree."""
+    from kge_tpu_torch import Config, Dataset
+    from kge_tpu_torch.models import KgeModel, load_jax_params, to_jax_params
+
+    config = Config()
+    config.load_options({"model": "reciprocal_relations_model"})
+    for key, value in {
+        "reciprocal_relations_model.base_model.type": "conve",
+        "conve.entity_embedder.dim": 200, "conve.relation_embedder.dim": 200,
+        "conve.entity_embedder.dropout": 0.0, "conve.relation_embedder.dropout": 0.0,
+        "conve.feature_map_dropout": 0.0, "conve.projection_dropout": 0.0,
+        "job.device": device, "dataset.name": str(data), "valid.every": 0,
+        "random_seed.default": 0, "console.quiet": True, **extra,
+    }.items():
+        config.set(key, value, create=True)
+    dataset = Dataset.create(config, folder=str(data))
+    model = KgeModel.create(config, dataset, init_for_load_only=True)
+    if params is None:
+        model.init_params(torch.Generator(device=model.device).manual_seed(5))
+        params = to_jax_params(model)
+        rng = np.random.default_rng(6)
+        for key, value in params["scorer"].items():
+            if key.startswith("bn"):
+                low, high = (0.5, 1.5) if key.endswith("_var") else (-0.1, 0.1)
+                params["scorer"][key] = rng.uniform(
+                    low, high, value.shape).astype(np.float32)
+    load_jax_params(model, params)
+    return config, dataset, model, params
+
+
+@pytest.mark.cuda
+def test_conve_rank_kernel_matches_plain_on_card(tmp_path):
+    """ConvE's evaluation queries ([1 | h], D = 201: the kernel's 4-byte copy
+    route) ranked by the kernel and by its plain version on the card: equal
+    counts, label values within rtol 1e-5, the pivot ties with itself; the
+    kernel launches once a direction of a batch."""
+    from kge_tpu_torch.job import EvaluationJob
+
+    device = _card()
+    data = tmp_path / "conve_synth"
+    _write_dataset(data, 12)
+    config, dataset, model, _ = _conve_model(
+        data, "cuda", **{"eval.batch_size": 64, "eval.split": "test"})
+    job = EvaluationJob.create(config, dataset, model=model)
+    model.eval()  # as the job's run() sets it: the factorization is eval-only
+    with torch.inference_mode():
+        job._prepare()
+        before = fused_rank_counts.launches
+        job._evaluate()
+        assert fused_rank_counts.launches - before == 2 * 2  # 100 triples, 64 a batch
+        _, device_batches = job._collate_cache
+        for triples, labels in device_batches:
+            fac = model.factorized_queries(triples, (0, 2))
+            for key, slot in (("o", 2), ("s", 0)):
+                _, q, targets, score_map = fac[slot]
+                assert q.shape[1] == targets.shape[1] == 201 and score_map is None
+                row_ptr, cols, _, _ = labels[key]
+                true = triples[:, slot].to(torch.int32).contiguous()
+                g, c, vals, pivot = fused_rank_counts(
+                    q.contiguous(), targets.contiguous(), None, row_ptr, cols,
+                    300, ATOL, RTOL, pivot_cols=true)
+                pg, pc, pvals, _ = rank_kernel.fused_rank_counts_plain(
+                    q, targets, pivot, row_ptr, cols, 300, ATOL, RTOL)
+                assert torch.equal(g, pg) and torch.equal(c, pc)
+                np.testing.assert_allclose(vals.cpu().numpy(), pvals.cpu().numpy(),
+                                           rtol=1e-5, atol=1e-6)
+                assert bool((c >= 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train_type", ["KvsAll", "1vsAll"])
+def test_conve_step_on_card_equals_cpu(tmp_path, train_type):
+    """One training step of reciprocal ConvE (d = 200, batch 64, Adagrad
+    with initial accumulator 0.1, so that the rounding noise that the
+    biases before batch norm get as gradient moves them by little, not by
+    +-lr) on the card and on the CPU from the same weights and batch: losses
+    within rtol 1e-5; tables, scorer parameters and batch-norm statistics
+    within 1e-5 + 1e-4 |CPU| (cuDNN sums the convolution's gradients in
+    another order than the CPU, and batch norm divides the difference by
+    the batch's spread); the scatter kernel launches 2 (KvsAll) or 4
+    (1vsAll) times."""
+    _card()
+    data = tmp_path / "conve_step"
+    _write_dataset(data, 13)
+    extra = {"train.type": train_type, "train.batch_size": 64,
+             "train.loss": "bce" if train_type == "KvsAll" else "kl",
+             "train.optimizer.default.type": "Adagrad",
+             "train.optimizer.default.args.lr": 0.1,
+             "train.optimizer.default.args.initial_accumulator_value": 0.1}
+    from kge_tpu_torch.job import TrainingJob
+
+    results, params = {}, None
+    for where in ("cuda", "cpu"):
+        config, dataset, model, params = _conve_model(data, where, params, **extra)
+        job = TrainingJob.create(config, dataset, model=model)
+        job._prepare()
+        job._is_prepared = True
+        batch = next(iter(job._batches()))
+        variant = job._step_variant(batch)
+        before = sorted_scatter_add.launches
+        tensors = {k: torch.as_tensor(v).to(job.device) for k, v in batch.items()
+                   if k != "true_size" and not isinstance(v, str)}
+        cost, _ = job._train_step(tensors, job._current_lrs(), variant)
+        if where == "cuda":
+            assert sorted_scatter_add.launches - before == (
+                2 if train_type == "KvsAll" else 4)
+        results[where] = (float(cost), [p.detach().cpu().clone()
+                                        for p in job.optimizer.params])
+    np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
+    for got, want in zip(results["cuda"][1], results["cpu"][1], strict=True):
+        assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())

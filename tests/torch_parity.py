@@ -249,3 +249,48 @@ def run_batch_steps(jjob, tjob, steps=5):
                                    tjob._current_lrs(), variant)
         losses.append((float(jaux["avg_loss"]), float(taux["avg_loss"])))
     return losses
+
+
+def neural_options(model: str, **extra):
+    """The reciprocal relations model over ConvE (d = 32: a 4 x 8 map, 32
+    filters of 3 x 3) or the Transformer (d = 16, 2 heads, 2 layers,
+    feed-forward 32), every dropout 0 so that values can be compared."""
+    if model == "conve":
+        options = {
+            "conve.entity_embedder.dim": 32,
+            "conve.relation_embedder.dim": 32,
+            "conve.entity_embedder.dropout": 0.0,
+            "conve.relation_embedder.dropout": 0.0,
+            "conve.feature_map_dropout": 0.0,
+            "conve.projection_dropout": 0.0,
+        }
+    else:
+        options = {
+            "transformer.entity_embedder.dim": 16,
+            "transformer.relation_embedder.dim": 16,
+            "transformer.encoder.nhead": 2,
+            "transformer.encoder.num_layers": 2,
+            "transformer.encoder.dim_feedforward": 32,
+            "transformer.encoder.dropout": 0.0,
+        }
+    options = {
+        "model": "reciprocal_relations_model",
+        "reciprocal_relations_model.base_model.type": model,
+        **options,
+    }
+    options.update(extra)
+    return options
+
+
+def random_stats(params, seed=11):
+    """kge_tpu's parameter tree with its batch-norm statistics (if any)
+    replaced by random ones (means around 0, variances in [0.5, 1.5]), so
+    that eval-mode scores depend on them."""
+    rng = np.random.default_rng(seed)
+    scorer = dict(params.get("scorer", {}))
+    for key, value in scorer.items():
+        if key.startswith("bn") and key.endswith("_mean"):
+            scorer[key] = rng.normal(0.0, 0.2, value.shape).astype(np.float32)
+        elif key.startswith("bn") and key.endswith("_var"):
+            scorer[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
+    return {**params, "scorer": scorer} if scorer else params
