@@ -236,7 +236,29 @@ Phases (any failure exits non-zero; nothing is caught):
    checks as phase 20, the scatter kernel 4 times a step (s, p, o, p + |R|),
    the leaves of zero gradient the attention's key biases, the scatter
    kernel's shapes 512 ids at D = 320.
-22. One ``kernels`` JSON line: per kernel its time per call at the main
+22. The dtype policy (``parallel.compute_dtype`` / ``param_dtype``:
+   bfloat16). Each kernel's bfloat16 path against its plain version at the
+   main shapes, with its time, the plain version's, one library call's and
+   the bound at bfloat16 bytes (and bf16 products over the tensor cores'
+   989 TFLOP/s): the rank kernel at n = 256, |E| = 14,541, D = 512 and with
+   the L2 epilogue (counts equal, vals and pivots bit for bit; library:
+   cuBLAS's bf16 product and the compares), the scatter at 8,192 ids into
+   [14,541, 512] (within an ulp of the sums; ``index_add_``), the row
+   write at 16,642 rows into [200,000, 512] (exact; ``index_copy_``), Adam's
+   fused update at 10,240 rows into [200,000, 1,024] (within an ulp), the
+   pooled scores and their backward at ``cmod``, n 4,096, K 128, F 8, d 512
+   (within an ulp; dq and dpool plus 2^-12 of their summed magnitudes).
+   Then three runs through ``cli.main``, counts set to 0 before and read
+   after each: X-complex in bfloat16 compute (``start`` one epoch and a
+   validation, ``test``: every rank launch the bfloat16 path), its entity
+   table pretrained from phase 6's folder (the initial table equals it bit
+   for bit); P-rotate with both dtypes in bfloat16 (one epoch: every launch
+   of K2, K4, K5a and K5b bfloat16; tables and Adam's moments bfloat16 in
+   the checkpoint); T-sparse with bfloat16 tables (one epoch: K3 4 times a
+   step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
+   states the bound), and the warm epochs of X-complex and P-rotate,
+   profiled (X-complex's GEMM milliseconds).
+23. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -245,8 +267,9 @@ Phases (any failure exits non-zero; nothing is caught):
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14, and its launches in phases
    15-18, 20 and 21, the scatter kernel's its launches in phases 15, 16, 18,
-   19, 20 and 21. Then the card's name and power limit, then the ``ok`` JSON
-   line last.
+   19, 20 and 21. Six more entries (``*_bf16``) hold the bfloat16 paths of
+   phase 22, their launches from its runs. Then the card's name and power
+   limit, then the ``ok`` JSON line last.
 """
 
 from __future__ import annotations
@@ -2859,6 +2882,537 @@ def run_neural(name: str, options, no_dropout, zero_grad_leaves, scatter_per_ste
             "profile": profile, "folder": folder}
 
 
+# -- phase 22: the dtype policy (parallel.*_dtype: bfloat16) ---------------------
+
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 on the tensor cores
+BF16_ULP = 2.0 ** -7           # the spacing of bfloat16 relative to a value, at most
+
+
+def reset_bf16_counters():
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+    from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+
+    for fn in (fused_rank_counts, sorted_scatter_add, rows_set, fused_sorted_update,
+               pooled_dist_scores):
+        fn.bf16_launches = 0
+    pooled_dist_scores.bf16_backward_launches = 0
+
+
+def read_bf16_counters():
+    """The bfloat16 launches among each wrapper's launches."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+    from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+
+    return {"rank_counts": fused_rank_counts.bf16_launches,
+            "scatter_add_sorted": sorted_scatter_add.bf16_launches,
+            "rows_set": rows_set.bf16_launches,
+            "fused_row_update": fused_sorted_update.bf16_launches,
+            "pooled_scores": pooled_dist_scores.bf16_launches,
+            "pooled_scores_bwd": pooled_dist_scores.bf16_backward_launches}
+
+
+def bf16_bound(nbytes: float, tensor_flops: float = 0.0, flops: float = 0.0,
+               specials: float = 0.0):
+    """``bound`` with bfloat16 products on the tensor cores as a fourth term:
+    bytes over the memory rate, bf16 multiply-adds over 989 TFLOP/s, other
+    fp32 operations and square roots over their rates."""
+    bound_ms, bound_by, term = bound(nbytes, flops, specials)
+    tensor_ms = tensor_flops / BF16_FLOPS_PER_S * 1e3
+    if tensor_ms > bound_ms:
+        return tensor_ms, "operations", "bf16 tensor cores"
+    return bound_ms, bound_by, term
+
+
+def bf16_rank_case(seed: int, device, epilogue: bool):
+    """K1's bfloat16 path against its plain version: the counts exactly,
+    vals and the pivot bit for bit; times at n = 256, |E| = 14,541, D = 512
+    (with the L2 epilogue: TransE-L2's augmented operands, d = 128, cast
+    to bfloat16)."""
+    from kge_tpu_torch.ops.rank_kernel import (
+        NEG_SQRT_L2,
+        csr_row_ids,
+        fused_rank_counts,
+        fused_rank_counts_plain,
+    )
+    from kge_tpu_torch.utils.dtypes import weak
+
+    rng = np.random.default_rng(seed + 22)
+    E, n = NUM_ENTITIES, BATCH
+    if epilogue:
+        q, targets = l2_inputs(seed, device)[:2]
+        q, targets = q.bfloat16().contiguous(), targets.bfloat16().contiguous()
+        score_map = NEG_SQRT_L2
+    else:
+        q = torch.tensor(rng.normal(0, 0.05, (n, DIM)).astype(np.float32),
+                         device=device).bfloat16()
+        targets = torch.tensor(rng.normal(0, 0.05, (E, DIM)).astype(np.float32),
+                               device=device).bfloat16()
+        score_map = None
+    D = q.shape[1]
+    true_np = rng.integers(0, E, n).astype(np.int32)
+    row_ptr, cols = skewed_labels(rng, n, E, device, true=true_np)
+    true = torch.tensor(true_np, device=device)
+
+    def kernel():
+        return fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL, RTOL,
+                                 score_map=score_map, pivot_cols=true)
+
+    def plain():
+        return fused_rank_counts_plain(q, targets, None, row_ptr, cols, E, ATOL,
+                                       RTOL, score_map=score_map, pivot_cols=true)
+
+    g, c, vals, pivot = kernel()
+    pg, pc, pvals, ppivot = plain()
+    torch.cuda.synchronize()
+    check(vals.dtype == torch.bfloat16 and pivot.dtype == torch.bfloat16)
+    check(torch.equal(g, pg) and torch.equal(c, pc),
+          f"bf16 rank counts differ from the plain version's on "
+          f"{int(((g != pg) | (c != pc)).sum())} rows")
+    check(torch.equal(vals.view(torch.int16), pvals.view(torch.int16))
+          and torch.equal(pivot.view(torch.int16), ppivot.view(torch.int16)),
+          "bf16 vals or pivots differ in bits from the plain version's")
+    rows = csr_row_ids(row_ptr)
+    atol, rtol = weak(ATOL, q), weak(RTOL, q)
+
+    def library():
+        # cuBLAS's bf16 product (its own order of sums), then the tie test
+        scores = torch.matmul(q, targets.T)
+        if score_map is not None:
+            scores = score_map(scores)
+        p = scores.gather(1, true.long()[:, None])
+        close = (scores - p).abs() <= atol + rtol * p.abs()
+        greater = (scores > p) & ~close
+        return greater.sum(1), close.sum(1), scores[rows, cols.long()]
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3)
+    library_ms = time_ms(library)
+    nnz = cols.numel()
+    nbytes = 2.0 * (n * D + E * D) + 4.0 * ((n + 1) + nnz + n + 2 * n) \
+        + 2.0 * (nnz + n)
+    bound_ms, bound_by, term = bf16_bound(nbytes, tensor_flops=2.0 * n * E * D)
+    what = "L2 epilogue" if epilogue else "identity"
+    log(f"  rank_counts bf16 ({what}) n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library bf16 matmul + compares {library_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}: {term}); counts equal the plain "
+        f"version's on all {n} rows, vals and pivots bit for bit")
+    return {"shape": f"n={n} |E|={E} D={D} ({what})", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_term": term, "max_abs_err": 0.0}
+
+
+def bf16_scatter_case(seed: int, device):
+    """K2's bfloat16 path: 8,192 power-law ids into [14,541, 512], within
+    two bfloat16 ulps of each row's summed magnitude of the plain version
+    (both sum in float32, in other orders, and round once)."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_scatter_add, sorted_scatter_add_plain
+
+    rng = np.random.default_rng(seed + 23)
+    n, rows, D = TRAIN_BATCH, NUM_ENTITIES, DIM
+    ids_np = power_law_ids(rng, rows, n, 0.8)
+
+    def make():
+        return (torch.tensor(ids_np, dtype=torch.int64, device=device),
+                torch.randn(n, D, device=device).bfloat16())
+
+    pick = rotating(make)
+    ids, upd = pick()
+    got = sorted_scatter_add(ids, upd, rows)
+    want = sorted_scatter_add_plain(ids, upd, rows)
+    magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= 1e-6 + BF16_ULP * magnitude).all()),
+          "bf16 scatter differs from its plain version beyond an ulp of the sums")
+    ms = time_ms(lambda: sorted_scatter_add(*pick(), rows))
+    plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), rows))
+
+    def library():
+        ids, upd = pick()
+        return torch.zeros(rows, D, dtype=torch.bfloat16,
+                           device=device).index_add_(0, ids, upd)
+
+    library_ms = time_ms(library)
+    bound_ms, bound_by, term = bf16_bound(2.0 * (n * D + rows * D) + 8.0 * n,
+                                          flops=float(n * D))
+    log(f"  scatter_add_sorted bf16 n={n} rows={rows} D={D}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library index_add_ (bf16) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); max abs difference from plain "
+        f"{float(err.max()):.3e}")
+    return {"shape": f"n={n} rows={rows} D={D}", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float(err.max())}
+
+
+def bf16_rows_set_case(seed: int, device):
+    """K3's bfloat16 path: 16,642 rows into [200,000, 512], exact."""
+    from kge_tpu_torch.ops.embedding_ops import rows_set, rows_set_plain
+
+    rng = np.random.default_rng(seed + 24)
+    _, num_rows, ids_np = rows_set_cases(rng)[0]
+    m = len(ids_np)
+    table = torch.zeros(num_rows, DIM, dtype=torch.bfloat16, device=device)
+    values = torch.randn(num_rows, DIM, device=device).bfloat16()
+
+    def make():
+        ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+        return ids, values[ids]
+
+    pick = rotating(make)
+    ids, rows = pick()
+    want = rows_set_plain(table.clone(), ids, rows)
+    storage = table.data_ptr()
+    rows_set(table, ids, rows)
+    check(table.data_ptr() == storage and torch.equal(table, want),
+          "bf16 rows_set differs from its plain version")
+    ms = time_ms(lambda: rows_set(table, *pick()))
+    plain_ms = time_ms(lambda: rows_set_plain(table, *pick()))
+    library_ms = time_ms(lambda: table.index_copy_(0, *pick()))
+    bound_ms = (2.0 * 2 * m * DIM + 8.0 * m) / HBM_BYTES_PER_S * 1e3
+    log(f"  rows_set bf16 m={m} into [{num_rows}, {DIM}]: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library index_copy_ {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes); equal to the plain version")
+    return {"shape": f"m={m} into [{num_rows}, {DIM}]", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "max_abs_err": 0.0}
+
+
+def bf16_fused_case(seed: int, device):
+    """K4's bfloat16 path: Adam, 10,240 row gradients into [200,000, 1,024]
+    bfloat16 with bfloat16 moments, within one bfloat16 ulp of the plain
+    version (the gradients' duplicates agree in sign)."""
+    from kge_tpu_torch.ops.optim import fused_sorted_update, fused_sorted_update_plain
+
+    rng = np.random.default_rng(seed + 25)
+    generator = torch.Generator(device=device).manual_seed(seed + 25)
+    name, rows, D, ids_np = fused_cases(rng)[0]
+    n = len(ids_np)
+    ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
+    upd = signed_updates(ids, D, generator).bfloat16()
+    param, states = fused_state("adam", {}, rows, D, generator, device)
+    param = param.bfloat16()
+    states = {k: v.bfloat16() for k, v in states.items()}
+    ref_param, ref_states = param.clone(), {k: v.clone() for k, v in states.items()}
+    lr, step = ROTATE_LR, 3
+    fused_sorted_update("adam", {}, ids, upd, param, states, lr, step)
+    fused_sorted_update_plain("adam", {}, ids, upd, ref_param, ref_states, lr, step)
+    worst = 0.0
+    for got, want in [(param, ref_param)] + [(states[k], ref_states[k]) for k in states]:
+        check(got.dtype == torch.bfloat16)
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= BF16_ULP * want.float().abs()).all()),
+              "bf16 fused update differs from its plain version by more than an ulp")
+        worst = max(worst, float(err.max()))
+    del ref_param, ref_states
+    ms = time_ms(lambda: fused_sorted_update("adam", {}, ids, upd, param, states,
+                                             lr, step), reps=10)
+    plain_ms = time_ms(lambda: fused_sorted_update_plain(
+        "adam", {}, ids, upd, param, states, lr, step), reps=3)
+    weight = torch.nn.Parameter(param.clone())
+    adam = torch.optim.Adam([weight], lr=lr, fused=True)
+
+    def library():
+        weight.grad = torch.zeros_like(weight).index_add_(0, ids, upd)
+        adam.step()
+
+    library_ms = time_ms(library, reps=10)
+    del weight, adam
+    nbytes = 2.0 * (2 * 3 * rows * D + n * D) + 8.0 * n
+    bound_ms, bound_by, _ = bf16_bound(nbytes, flops=12.0 * rows * D)
+    log(f"  fused_row_update bf16 (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library index_add_ + torch.optim.Adam(fused=True) "
+        f"on bf16 {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max abs "
+        f"difference from plain {worst:.3e} (within one bf16 ulp)")
+    del param, states, upd
+    torch.cuda.empty_cache()
+    return {"shape": f"Adam [{rows}, {D}] n={n}", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": worst}
+
+
+def bf16_pooled_case(seed: int, device):
+    """K5a and K5b's bfloat16 paths at P-rotate's shape (cmod, n = 4,096,
+    K = 128, F = 8, d = 512 a part) against the plain version: scores
+    within one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the
+    summed factor magnitudes (2 |g| each). Returns (forward, backward)."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
+
+    generator = torch.Generator(device=device).manual_seed(seed + 26)
+    name, kind, n, K, F, d, _, _ = POOLED_CASES[2]
+    queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device)
+    leaves = [x.bfloat16().requires_grad_(True) for x in queries + pools]
+    g = torch.randn(n, K, generator=generator, device=device).bfloat16()
+    parts = len(queries)
+
+    def run(fn):
+        return fn(leaves[:parts], leaves[parts:], sel, F, kind)
+
+    out = run(pooled_dist_scores)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = run(pooled_dist_scores_plain)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    err = (out.detach().float() - ref.detach().float()).abs()
+    check(out.dtype == torch.bfloat16 and bool(
+        (err <= 1e-6 + BF16_ULP * ref.float().abs()).all()),
+        "bf16 pooled scores differ from the plain version by more than an ulp")
+    fwd_err = float(err.max())
+    rows = (torch.arange(K, device=device)[None, :] * F + sel.long()).reshape(-1)
+    dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
+    dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
+        0, rows, 2 * g.float().abs().reshape(-1, 1))
+    bwd_err = 0.0
+    for i, (got, want) in enumerate(zip(grads, ref_grads)):
+        mag = dq_mag if i < parts else dpool_mag
+        e = (got.float() - want.float()).abs()
+        check(got.dtype == torch.bfloat16 and bool(
+            (e <= 1e-6 + BF16_ULP * want.float().abs() + 2.0 ** -12 * mag).all()),
+            f"bf16 pooled gradient {i} differs from the plain version")
+        bwd_err = max(bwd_err, float(e.max()))
+    del out, grads, ref, ref_grads
+    times = {}
+    for what, fn in (("kernel", pooled_dist_scores), ("plain", pooled_dist_scores_plain)):
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: run(fn), reps=10)
+        scores = run(fn)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(scores, leaves, g,
+                                                     retain_graph=True), reps=5)
+        times[what] = (fwd_ms, bwd_ms)
+        del scores
+    elements = float(n) * K * d
+    read = 2.0 * (parts * (n * d + K * F * d)) + 4.0 * n * K
+    fwd = bf16_bound(read + 2.0 * n * K, flops=8.0 * elements, specials=elements)
+    bwd = bf16_bound(read + 2.0 * n * K + 2.0 * parts * (n * d + K * F * d),
+                     flops=16.0 * elements, specials=elements)
+    out = []
+    for label, index, (bound_ms, bound_by, term), max_err in (
+            ("pooled_scores", 0, fwd, fwd_err), ("pooled_scores_bwd", 1, bwd, bwd_err)):
+        log(f"  {label} bf16 {name} ({kind}) n={n} K={K} F={F} d={d}: "
+            f"{times['kernel'][index]:.4f} ms, plain {times['plain'][index]:.4f} ms, "
+            f"library null (no one call computes cmod), bound {bound_ms:.4f} ms "
+            f"({bound_by}: {term}); max abs difference from plain {max_err:.3e}")
+        out.append({"shape": f"{name} ({kind}) n={n} K={K} F={F} d={d}",
+                    "ms": times["kernel"][index], "plain_ms": times["plain"][index],
+                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_term": term, "max_abs_err": max_err})
+    del queries, pools, sel, leaves, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_step(folder, checkpoint, lr, what):
+    """One step of a bfloat16 job on the card and on the CPU from
+    ``checkpoint``, the same batch and negatives (drawn on the card). The
+    bound: an element of a table or state within 1e-6 + 1e-5 |CPU| (float32)
+    or one bfloat16 ulp of |CPU| (bfloat16), plus 2^-5 of the step's own
+    size |CPU - before| (the step's inputs are bfloat16 scores or gradients,
+    summed in other orders on the two devices). Two things move an element
+    further, and the rule turns either into a step of its own of up to lr
+    (Adagrad's step is at most lr, Adam's about lr, ROADMAP C.3): a gradient
+    that cancels to about its terms' rounding, and a score that rounds to
+    the neighbouring bfloat16 value on the other device, which at X-complex's
+    magnitudes (scores of tens, an ulp of 0.125 to 0.25) moves the softmax
+    weights of its row by a fraction of themselves. At most 1% of the
+    elements may lie beyond that bound (up to 0.1% were, in the runs that
+    chose it), and all within it plus 2.1 lr. The step must move the tables.
+    Losses within rtol 1e-2."""
+    jobs = {device: resumed_job(folder, checkpoint, **{"job.device": device})
+            for device in ("cuda", "cpu")}
+    batch = next(iter(jobs["cuda"]._batches()))
+    variant = jobs["cuda"]._step_variant(batch)
+    tensors = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()
+               if k != "true_size" and not isinstance(v, str)}
+    if hasattr(jobs["cuda"], "_with_negatives"):
+        tensors = jobs["cuda"]._with_negatives(tensors)
+    before = [t.detach().float().cpu() for t in tables_of(jobs["cpu"], state=True)]
+    out = {}
+    for device, job in jobs.items():
+        here = {k: v.to(job.device) for k, v in tensors.items()}
+        cost, _ = job._train_step(here, job._current_lrs(), variant)
+        out[device] = (float(cost), [t.detach().cpu() for t in tables_of(job, state=True)])
+    torch.cuda.synchronize()
+    (cost_c, card), (cost_h, cpu) = out["cuda"], out["cpu"]
+    check(abs(cost_c - cost_h) <= 1e-2 * abs(cost_h), (what, cost_c, cost_h))
+    worst, beyond, total, moved = 0.0, 0, 0, 0.0
+    cpu_seen = []
+    for a, b, b0 in zip(card, cpu, before):
+        cpu_seen.append(b)
+        moved = max(moved, float((b.float() - b0).abs().max()))
+        check(a.dtype == b.dtype, f"{what}: dtypes {a.dtype} and {b.dtype}")
+        a, bf = a.float(), b.float()
+        rel = BF16_ULP if b.dtype == torch.bfloat16 else 1e-5
+        strict = 1e-6 + rel * bf.abs() + 2.0 ** -5 * (bf - b0).abs()
+        err = (a - bf).abs()
+        off = err > strict
+        excess = err - strict - 2.1 * lr
+        if bool((excess > 0).any()):
+            at = int(excess.argmax())
+            log(f"  {what}: leaf {len(cpu_seen)} {tuple(b.shape)} element {at}: "
+                f"before {float(b0.flatten()[at])!r}, card {float(a.flatten()[at])!r}, "
+                f"CPU {float(bf.flatten()[at])!r}; {int((excess > 0).sum())} elements")
+        check(bool((excess <= 0).all()),
+              f"{what}: card and CPU differ by more than 2.1 lr: {float(err.max())}")
+        beyond += int(off.sum())
+        total += err.numel()
+        worst = max(worst, float(err.max()))
+    check(beyond <= 1e-2 * total, f"{what}: {beyond} of {total} elements beyond the bound")
+    check(moved > 0.0, f"{what}: the step did not move the tables")
+    log(f"  one step of {what}, card vs CPU: loss {cost_c:.6f} vs {cost_h:.6f}; "
+        f"tables and states max abs difference {worst:.3e} (the step moved them by "
+        f"up to {moved:.3e}); {beyond} of {total} elements beyond 1e-6 + ulp |CPU| "
+        f"+ 2^-5 |step| (all within it + 2.1 lr = {2.1 * lr:.2e})")
+    del jobs
+    torch.cuda.empty_cache()
+    return {"loss_card": cost_c, "loss_cpu": cost_h, "max_abs_diff": worst,
+            "moved": moved, "elements_beyond": beyond, "elements": total}
+
+
+def run_dtype_policy(seed: int, data: str, dense_folder: str):
+    """Phase 22; returns a summary dict."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.models.convert import leaf_tensor
+    from kge_tpu_torch.utils.io import load_checkpoint, save_checkpoint
+
+    device = torch.device("cuda")
+    kernels = {
+        "rank_counts": [bf16_rank_case(seed, device, False),
+                        bf16_rank_case(seed, device, True)],
+        "scatter_add_sorted": [bf16_scatter_case(seed, device)],
+        "rows_set": [bf16_rows_set_case(seed, device)],
+        "fused_row_update": [bf16_fused_case(seed, device)],
+    }
+    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = (
+        [x] for x in bf16_pooled_case(seed, device))
+    log(f"  {card_line()}")
+    out = {"kernels": kernels}
+    num_train = FB15K237[2]
+
+    # X-complex in bfloat16 compute, its entity table from T-dense's folder
+    folder = os.path.join(WORK, "train_xcomplex_bf16")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_xcomplex_bf16.yaml")
+    # T-dense's best checkpoint, its dataset named by path: the dataset's
+    # own yaml named it by its folder's name, which resolves under data/
+    source = os.path.join(WORK, "pretrained_source.pt")
+    checkpoint = load_checkpoint(os.path.join(dense_folder, "checkpoint_best.pt"))
+    checkpoint["config"].set("dataset.name", data)
+    save_checkpoint(checkpoint, source)
+    write_train_config(conf, data, seed, **{
+        "negative_sampling.shared": False, "negative_sampling.implementation": "all",
+        "valid.every": 1, "train.max_epochs": 1,
+        "parallel.compute_dtype": "bfloat16",
+        "complex.entity_embedder.pretrain.model_filename": source})
+    reset_counters()
+    reset_bf16_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    cli.main(["test", folder])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, bf16 = read_counters(), read_bf16_counters()
+    valid_batches = -(-FB15K237[3] // BATCH)
+    test_batches = -(-NUM_TEST // BATCH)
+    check(bf16["rank_counts"] == launches["rank_counts"]
+          == 2 * (valid_batches + test_batches), (launches, bf16))
+    losses = check_losses(folder, [1])
+    initial = load_checkpoint(os.path.join(folder, "checkpoint_00000.pt"))["model"][0]
+    pretrained = load_checkpoint(source)["model"][0]
+    for key in ("entity_embedder", "relation_embedder"):
+        got = leaf_tensor(initial[key]["embeddings"])
+        want = leaf_tensor(pretrained[key]["embeddings"])
+        same = torch.equal(got, want.to(got.dtype))
+        check(same == (key == "entity_embedder"),
+              f"pretrained start: {key} equal to T-dense's: {same}")
+    (entry,) = trace_entries(folder, event="eval_completed", split="test")
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
+    log(f"  X-complex bf16 compute: start 1 epoch + validation and test, wall "
+        f"{wall:.2f} s; avg_loss {losses}; K1 bf16 launches {bf16['rank_counts']} "
+        f"(2 x ({valid_batches} + {test_batches})); test MRR filtered "
+        f"{entry['mean_reciprocal_rank_filtered']:.6f}; the initial entity table is "
+        f"T-dense's bit for bit, the relation table its own")
+    step = card_vs_cpu_step(folder, "checkpoint_00001.pt", 0.1, "X-complex bf16")
+    job = resumed_job(folder, "checkpoint_00001.pt")
+    timing = warm_epoch(job, num_train, "X-complex bf16 compute", warmup=False)
+    gemm = sum(t["ms"] for t in timing["profile"]["top"]
+               if "gemm" in t["name"].lower() or "cutlass" in t["name"].lower())
+    log(f"  X-complex bf16: GEMM kernels {gemm:.1f} ms of the profiled epoch's "
+        f"{timing['profile']['device_busy_ms']:.1f} ms of device time")
+    del job
+    torch.cuda.empty_cache()
+    out["xcomplex"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
+                       "avg_loss": losses, "step_card_vs_cpu": step,
+                       "warm_epoch": timing, "gemm_ms": gemm,
+                       "test_mrr_filtered": entry["mean_reciprocal_rank_filtered"]}
+
+    # P-rotate with both dtypes in bfloat16
+    rotate_data = os.path.join(WORK, "sparse_synthetic")
+    steps = -(-num_train // ROTATE_BATCH)
+    folder = os.path.join(WORK, "train_rotate_bf16")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_rotate_bf16.yaml")
+    write_train_config(conf, rotate_data, seed, **pooled_config("rotate"), **{
+        "parallel.compute_dtype": "bfloat16", "parallel.param_dtype": "bfloat16"})
+    reset_counters()
+    reset_bf16_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, bf16 = read_counters(), read_bf16_counters()
+    check_pooled_counts(launches, steps, 14, 2, "P-rotate bf16 start")
+    for name in ("fused_row_update", "pooled_scores", "pooled_scores_bwd",
+                 "scatter_add_sorted"):
+        check(bf16[name] == launches[name], f"P-rotate bf16: {name} {bf16} {launches}")
+    saved = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+    for leaf in saved["model"][0].values():
+        check(leaf_tensor(leaf["embeddings"]).dtype == torch.bfloat16,
+              "P-rotate bf16: a table is not bfloat16")
+    for leaf in saved["optimizer_state"]["leaves"]:
+        check(all(leaf_tensor(v).dtype == torch.bfloat16 for v in leaf.values()),
+              "P-rotate bf16: Adam's moments are not bfloat16")
+    losses = check_losses(folder, [1])
+    log(f"  P-rotate bf16: start 1 epoch, wall {wall:.2f} s, avg_loss {losses}; "
+        f"launches {launches}, all of K2, K4, K5a, K5b bf16; tables and moments "
+        f"bfloat16 in the checkpoint")
+    step = card_vs_cpu_step(folder, "checkpoint_00001.pt", ROTATE_LR, "P-rotate bf16")
+    job = resumed_job(folder, "checkpoint_00001.pt")
+    timing = warm_epoch(job, num_train, "P-rotate bf16", warmup=False)
+    del job
+    torch.cuda.empty_cache()
+    out["rotate"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
+                     "avg_loss": losses, "step_card_vs_cpu": step, "warm_epoch": timing}
+
+    # T-sparse with bfloat16 tables
+    steps = -(-num_train // TRAIN_BATCH)
+    folder = os.path.join(WORK, "train_sparse_bf16")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_sparse_bf16.yaml")
+    write_train_config(conf, rotate_data, seed, **{
+        "train.max_epochs": 1, "valid.every": 0, "parallel.param_dtype": "bfloat16"})
+    reset_counters()
+    reset_bf16_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, bf16 = read_counters(), read_bf16_counters()
+    check(launches["rows_set"] == bf16["rows_set"] == 4 * steps, (launches, bf16))
+    check(bf16["scatter_add_sorted"] > 0, bf16)
+    saved = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+    for leaf in saved["model"][0].values():
+        check(leaf_tensor(leaf["embeddings"]).dtype == torch.bfloat16,
+              "T-sparse bf16: a table is not bfloat16")
+    losses = check_losses(folder, [1])
+    log(f"  T-sparse bf16 tables: start 1 epoch, wall {wall:.2f} s, avg_loss {losses}; "
+        f"launches {launches}; bf16 {bf16}")
+    step = card_vs_cpu_step(folder, "checkpoint_00001.pt", 0.1, "T-sparse bf16 tables")
+    out["sparse"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
+                     "avg_loss": losses, "step_card_vs_cpu": step}
+    return out
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -3368,6 +3922,14 @@ def main():
                         4, args.seed, data)
     log(f"  phase 21 took {time.perf_counter() - start:.1f} s; {card}")
 
+    log("== phase 22: the dtype policy: the six kernels' bfloat16 paths; X-complex "
+        "in bfloat16 compute from T-dense's entity table, P-rotate with both dtypes "
+        "in bfloat16, T-sparse with bfloat16 tables")
+    start = time.perf_counter()
+    dtype = run_dtype_policy(args.seed, data, os.path.join(WORK, "train_dense"))
+    log(f"  phase 22 took {time.perf_counter() - start:.1f} s; {card}")
+    bf16_cases = dtype["kernels"]
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -3423,6 +3985,28 @@ def main():
               rotate["launches"]["pooled_scores_bwd"], pooled_grad_err,
               pooled_bwd_times, source="dist_pool", shapes=pooled_bwd_times,
               launches_transe_start=transe["launches"]["pooled_scores_bwd"]),
+    ] + [
+        # the bfloat16 paths: launches in phase 22's runs
+        entry(f"{name}_bf16", replaces, launches_bf16,
+              bf16_cases[name][0]["max_abs_err"], bf16_cases[name],
+              source=source, shapes=bf16_cases[name], **more)
+        for name, replaces, source, launches_bf16, more in (
+            ("rank_counts", "kge_tpu/ops/rank_kernel.py:108", None,
+             dtype["xcomplex"]["bf16_launches"]["rank_counts"],
+             {"epilogue": bf16_cases["rank_counts"][1]}),
+            ("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120", None,
+             dtype["rotate"]["bf16_launches"]["scatter_add_sorted"],
+             {"launches_sparse": dtype["sparse"]["bf16_launches"][
+                 "scatter_add_sorted"]}),
+            ("rows_set", "kge_tpu/ops/pallas_ops.py:258", None,
+             dtype["sparse"]["bf16_launches"]["rows_set"], {}),
+            ("fused_row_update", "kge_tpu/ops/pallas_ops.py:402", None,
+             dtype["rotate"]["bf16_launches"]["fused_row_update"], {}),
+            ("pooled_scores", "kge_tpu/ops/dist_pool.py:279", "dist_pool",
+             dtype["rotate"]["bf16_launches"]["pooled_scores"], {}),
+            ("pooled_scores_bwd", "kge_tpu/ops/dist_pool.py:248", "dist_pool",
+             dtype["rotate"]["bf16_launches"]["pooled_scores_bwd"], {}),
+        )
     ], "eval_wall_s": wall, "eval_warm_wall_s": warm_wall, "profile": profile,
         "filtered_triples_per_s": NUM_TEST / wall,
         "filtered_triples_per_s_warm": NUM_TEST / warm_wall,
@@ -3431,7 +4015,9 @@ def main():
         "train_transe_l2": transe_l2, "train_ocomplex": ocomplex,
         "train_kcomplex": kcomplex, "factorization": family,
         "train_xcomplex": xcomplex, "other_routes": routes,
-        "train_conve": conve, "train_hitter": hitter, "card": card}
+        "train_conve": conve, "train_hitter": hitter,
+        "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
+        "card": card}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,21 @@
 // Measured on an NVIDIA H100 80GB HBM3 (700 W) at those shapes: about
 // 0.135 ms a call against a bound of 0.057 ms (PERF.md has the table); on
 // 200,000 candidates the main loop reaches 53% of the fp32 rate.
+//
+// bfloat16 path (rank_counts_launch_bf16; parallel.compute_dtype:
+// bfloat16), as kge_tpu's evaluation ranks its bfloat16 score matrix: q and
+// t are bfloat16 (half the bytes). They widen exactly to float32 as they
+// are staged, so the chain is the same float32 chain (a product of two
+// bfloat16 values is exact in float32, so each FMA is an exact product and
+// one rounded add); each score is then rounded once to bfloat16, and the
+// epilogue and the tie test run in bfloat16 with a rounding after every
+// operation and the Python constants (1e-30, atol, rtol) rounded to
+// bfloat16 first, as JAX computes with weakly typed scalars. vals and the
+// pivot are written in bfloat16. The staging is plain loads and stores (a
+// conversion cannot ride cp.async), so the ring overlaps less; this path
+// is simple, not yet fast.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -132,13 +146,62 @@ __device__ __forceinline__ float score_transform(float s, int epilogue) {
   return s;
 }
 
+// The element type's arithmetic: Prec<float> is the float32 path above;
+// Prec<__nv_bfloat16> rounds every result to bfloat16 (R), as the
+// bfloat16 path's header says.
+__device__ __forceinline__ float R(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T>
+struct Prec;
+
+template <>
+struct Prec<float> {
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static void store(float* p, float v) { *p = v; }
+  __device__ static float score(float acc, int epilogue) {
+    return score_transform(acc, epilogue);
+  }
+  __device__ static float tol(float atol, float rtol, float p) {
+    return __fadd_rn(atol, __fmul_rn(rtol, fabsf(p)));
+  }
+  __device__ static float diff(float s, float p) { return __fsub_rn(s, p); }
+};
+
+template <>
+struct Prec<__nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ static void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);  // v is a bfloat16 value already
+  }
+  __device__ static float score(float acc, int epilogue) {
+    const float s = R(acc);
+    if (epilogue == EPILOGUE_NEG_SQRT_L2) {
+      float x = -s;
+      x = x < 0.0f ? 0.0f : x;
+      return -R(__fsqrt_rn(R(__fadd_rn(x, R(1e-30f)))));
+    }
+    return s;
+  }
+  __device__ static float tol(float atol, float rtol, float p) {
+    return R(__fadd_rn(R(atol), R(__fmul_rn(R(rtol), fabsf(p)))));
+  }
+  __device__ static float diff(float s, float p) { return R(__fsub_rn(s, p)); }
+};
+
 // The tie rule of kge_tpu's _close_greater, with each float operation
-// rounded on its own (no contraction into an FMA) as the plain version does.
-__device__ __forceinline__ void close_greater(float s, float p, float tol,
-                                              int& is_close, int& is_greater) {
+// rounded on its own (no contraction into an FMA) as the plain version does;
+// the difference in the element type's arithmetic.
+template <typename T>
+__device__ __forceinline__ void close_greater_as(float s, float p, float tol,
+                                                 int& is_close,
+                                                 int& is_greater) {
   s = isnan(s) ? -INFINITY : s;
   bool finite = isfinite(s) || isfinite(p);
-  bool close = fabsf(__fsub_rn(s, p)) <= tol;
+  bool close = fabsf(Prec<T>::diff(s, p)) <= tol;
   bool both_neg_inf = (s == -INFINITY) && (p == -INFINITY);
   close = both_neg_inf || (close && finite);
   is_close = close ? 1 : 0;
@@ -151,31 +214,32 @@ __device__ __forceinline__ void close_greater(float s, float p, float tol,
 // runs the tiles' FMA chain over them in ascending k (a chain has one
 // order, so one lane). The other blocks: tile_ptr and zero vals, in a
 // grid-stride loop.
+template <typename T>
 __global__ void __launch_bounds__(PROLOGUE_THREADS)
-rank_prologue_kernel(const float* __restrict__ q, const float* __restrict__ t,
+rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
                      const int32_t* __restrict__ pivot_cols,
                      const int32_t* __restrict__ row_ptr,
                      const int32_t* __restrict__ cols, int n, int D,
                      int num_valid, int num_tiles, int nnz, int pivot_blocks,
-                     int epilogue, float* __restrict__ pivot_out,
+                     int epilogue, T* __restrict__ pivot_out,
                      int32_t* __restrict__ greater_out,
                      int32_t* __restrict__ close_out,
                      int32_t* __restrict__ tile_ptr,
-                     float* __restrict__ vals_out) {
+                     T* __restrict__ vals_out) {
   if ((int)blockIdx.x < pivot_blocks) {
     __shared__ float s_q[PIVOT_ROWS][PIVOT_CHUNK];
     __shared__ float s_t[PIVOT_ROWS][PIVOT_CHUNK];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int row = blockIdx.x * PIVOT_ROWS + warp;
     if (row >= n) return;
-    const float* qr = q + (size_t)row * D;
-    const float* tr = t + (size_t)pivot_cols[row] * D;
+    const T* qr = q + (size_t)row * D;
+    const T* tr = t + (size_t)pivot_cols[row] * D;
     float p = 0.0f;
     for (int d0 = 0; d0 < D; d0 += PIVOT_CHUNK) {
       const int len = min(PIVOT_CHUNK, D - d0);
       for (int d = lane; d < len; d += 32) {
-        s_q[warp][d] = qr[d0 + d];
-        s_t[warp][d] = tr[d0 + d];
+        s_q[warp][d] = Prec<T>::load(qr + d0 + d);
+        s_t[warp][d] = Prec<T>::load(tr + d0 + d);
       }
       __syncwarp();
       if (lane == 0) {
@@ -186,7 +250,7 @@ rank_prologue_kernel(const float* __restrict__ q, const float* __restrict__ t,
       __syncwarp();
     }
     if (lane == 0) {
-      pivot_out[row] = score_transform(p, epilogue);
+      Prec<T>::store(pivot_out + row, Prec<T>::score(p, epilogue));
       greater_out[row] = 0;
       close_out[row] = 0;
     }
@@ -203,7 +267,8 @@ rank_prologue_kernel(const float* __restrict__ q, const float* __restrict__ t,
     const int bound = edge < num_valid ? (int)edge : num_valid;
     tile_ptr[e] = lower_bound(cols, row_ptr[row], row_ptr[row + 1], bound);
   }
-  for (size_t e = first; e < (size_t)nnz; e += stride) vals_out[e] = 0.0f;
+  for (size_t e = first; e < (size_t)nnz; e += stride)
+    Prec<T>::store(vals_out + e, 0.0f);
 }
 
 // Stage the slice [k0, k0 + BK) of query rows [row0, row0 + BM) and of
@@ -242,6 +307,52 @@ __device__ __forceinline__ void stage_slice(float* st, const float* q,
   }
 }
 
+// The bfloat16 slice: the same layout in float32, each element widened as
+// it is staged by plain loads and stores; 16-byte loads of 8 elements when
+// D is a multiple of 8 and the rows are aligned.
+__device__ __forceinline__ void stage_slice(float* st, const __nv_bfloat16* q,
+                                            const __nv_bfloat16* t, int row0,
+                                            int c0, int k0, int n,
+                                            int num_valid, int D, bool vec) {
+  if (vec) {
+    constexpr int CH = BK / 8;  // 16-byte pieces of a row of the slice
+    static_assert((BM + BN) * CH % THREADS == 0, "copies per thread");
+#pragma unroll
+    for (int u = 0; u < (BM + BN) * CH / THREADS; ++u) {
+      const int idx = threadIdx.x + u * THREADS;
+      const int r = idx / CH;
+      const int kk = (idx - r * CH) * 8;
+      const bool is_q = r < BM;
+      const int line = is_q ? row0 + r : c0 + r - BM;
+      const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (ok) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            (is_q ? q : t) + (size_t)line * D + k0 + kk);
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+        lo = make_float4(a.x, a.y, b.x, b.y);
+        hi = make_float4(c.x, c.y, d.x, d.y);
+      }
+      *reinterpret_cast<float4*>(st + r * LDS + kk) = lo;
+      *reinterpret_cast<float4*>(st + r * LDS + kk + 4) = hi;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < (BM + BN) * BK; idx += THREADS) {
+      const int r = idx / BK;
+      const int kk = idx - r * BK;
+      const bool is_q = r < BM;
+      const int line = is_q ? row0 + r : c0 + r - BM;
+      const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
+      st[r * LDS + kk] =
+          ok ? __bfloat162float((is_q ? q : t)[(size_t)line * D + k0 + kk])
+             : 0.0f;
+    }
+  }
+}
+
 // acc[i][j] += sum over the slice's k, ascending, of q[row i][k] t[col j][k]
 __device__ __forceinline__ void multiply_slice(float (&acc)[RPT][CPT],
                                                const float* as,
@@ -270,16 +381,17 @@ __device__ __forceinline__ void multiply_slice(float (&acc)[RPT][CPT],
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
+rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
                   const int32_t* __restrict__ cols,
                   const int32_t* __restrict__ tile_ptr,
-                  const float* __restrict__ pivot, int n, int D,
+                  const T* __restrict__ pivot, int n, int D,
                   int num_valid, int num_tiles, int tiles_per_range,
                   float atol, float rtol, int epilogue,
                   int32_t* __restrict__ greater_out,
                   int32_t* __restrict__ close_out,
-                  float* __restrict__ vals_out) {
+                  T* __restrict__ vals_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_piv[BM];
   __shared__ float s_tol[BM];
@@ -292,18 +404,18 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
   const int row0 = blockIdx.x * BM;
   const int tile_lo = blockIdx.y * tiles_per_range;
   const int tile_hi = min(tile_lo + tiles_per_range, num_tiles);
-  // 16-byte copies need 16-byte aligned rows
-  const bool vec = (D & 3) == 0 &&
+  // 16-byte copies need 16-byte aligned rows: 4 floats or 8 bfloat16
+  const bool vec = (D & (16 / (int)sizeof(T) - 1)) == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
                      reinterpret_cast<uintptr_t>(t)) & 15) == 0;
   const int n_ks = max(1, (D + BK - 1) / BK);
   const int total = (tile_hi - tile_lo) * n_ks;
 
   if (tid < BM) {
-    float p = row0 + tid < n ? pivot[row0 + tid] : 0.0f;
+    float p = row0 + tid < n ? Prec<T>::load(pivot + row0 + tid) : 0.0f;
     p = isnan(p) ? -INFINITY : p;
     s_piv[tid] = p;
-    s_tol[tid] = __fadd_rn(atol, __fmul_rn(rtol, fabsf(p)));
+    s_tol[tid] = Prec<T>::tol(atol, rtol, p);
     s_g[tid] = 0;
     s_c[tid] = 0;
   }
@@ -354,9 +466,9 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
       int g = 0, c = 0;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        acc[i][j] = score_transform(acc[i][j], epilogue);
+        acc[i][j] = Prec<T>::score(acc[i][j], epilogue);
         int cl, gr;
-        close_greater(acc[i][j], p, tol, cl, gr);
+        close_greater_as<T>(acc[i][j], p, tol, cl, gr);
         const bool valid = c0 + tx + TX * j < num_valid;
         g += valid ? gr : 0;
         c += valid ? cl : 0;
@@ -371,7 +483,7 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
             float v = 0.0f;
 #pragma unroll
             for (int j = 0; j < CPT; ++j) v = j == jj ? acc[i][j] : v;
-            vals_out[at] = v;
+            Prec<T>::store(vals_out + at, v);
           }
         }
       }
@@ -400,13 +512,52 @@ rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
 }
 
 // More than 48 KB of dynamic shared memory has to be allowed per device.
+template <typename T>
 cudaError_t allow_shared_memory() {
-  return cudaFuncSetAttribute(rank_tiles_kernel,
+  return cudaFuncSetAttribute(rank_tiles_kernel<T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               SMEM_BYTES);
 }
 
 }  // namespace
+
+template <typename T>
+int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
+                          const int32_t* row_ptr, const int32_t* cols, int n,
+                          int D, int num_valid, int nnz, float atol,
+                          float rtol, int epilogue, int tiles_per_range,
+                          int32_t* tile_ptr, int32_t* greater_out,
+                          int32_t* close_out, T* vals_out, T* pivot_out,
+                          void* stream) {
+  if (n <= 0) return 0;
+  if (tiles_per_range < 1) return (int)cudaErrorInvalidValue;
+  if (epilogue != EPILOGUE_NONE && epilogue != EPILOGUE_NEG_SQRT_L2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int num_tiles = (num_valid + BN - 1) / BN;
+  const int pivot_blocks = (n + PIVOT_ROWS - 1) / PIVOT_ROWS;
+  const size_t entries = (size_t)n * (num_tiles + 1);
+  const size_t fill = entries > (size_t)nnz ? entries : (size_t)nnz;
+  size_t fill_blocks = (fill + PROLOGUE_THREADS - 1) / PROLOGUE_THREADS;
+  if (fill_blocks > 4096) fill_blocks = 4096;
+  rank_prologue_kernel<T><<<pivot_blocks + (unsigned)fill_blocks,
+                         PROLOGUE_THREADS, 0, s>>>(
+      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, num_tiles, nnz,
+      pivot_blocks, epilogue, pivot_out, greater_out, close_out, tile_ptr,
+      vals_out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || num_tiles == 0) return (int)err;
+  err = allow_shared_memory<T>();
+  if (err != cudaSuccess) return (int)err;
+  const int ranges = (num_tiles + tiles_per_range - 1) / tiles_per_range;
+  if (ranges > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + BM - 1) / BM, ranges);
+  rank_tiles_kernel<T><<<grid, THREADS, SMEM_BYTES, s>>>(
+      q, t, cols, tile_ptr, pivot_out, n, D, num_valid, num_tiles,
+      tiles_per_range, atol, rtol, epilogue, greater_out, close_out,
+      vals_out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -432,34 +583,26 @@ int rank_counts_launch(const float* q, const float* t,
                        int tiles_per_range, int32_t* tile_ptr,
                        int32_t* greater_out, int32_t* close_out,
                        float* vals_out, float* pivot_out, void* stream) {
-  if (n <= 0) return 0;
-  if (tiles_per_range < 1) return (int)cudaErrorInvalidValue;
-  if (epilogue != EPILOGUE_NONE && epilogue != EPILOGUE_NEG_SQRT_L2)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int num_tiles = (num_valid + BN - 1) / BN;
-  const int pivot_blocks = (n + PIVOT_ROWS - 1) / PIVOT_ROWS;
-  const size_t entries = (size_t)n * (num_tiles + 1);
-  const size_t fill = entries > (size_t)nnz ? entries : (size_t)nnz;
-  size_t fill_blocks = (fill + PROLOGUE_THREADS - 1) / PROLOGUE_THREADS;
-  if (fill_blocks > 4096) fill_blocks = 4096;
-  rank_prologue_kernel<<<pivot_blocks + (unsigned)fill_blocks,
-                         PROLOGUE_THREADS, 0, s>>>(
-      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, num_tiles, nnz,
-      pivot_blocks, epilogue, pivot_out, greater_out, close_out, tile_ptr,
-      vals_out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || num_tiles == 0) return (int)err;
-  err = allow_shared_memory();
-  if (err != cudaSuccess) return (int)err;
-  const int ranges = (num_tiles + tiles_per_range - 1) / tiles_per_range;
-  if (ranges > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + BM - 1) / BM, ranges);
-  rank_tiles_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-      q, t, cols, tile_ptr, pivot_out, n, D, num_valid, num_tiles,
-      tiles_per_range, atol, rtol, epilogue, greater_out, close_out,
-      vals_out);
-  return (int)cudaGetLastError();
+  return rank_counts_launch_as<float>(
+      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, nnz, atol, rtol,
+      epilogue, tiles_per_range, tile_ptr, greater_out, close_out, vals_out,
+      pivot_out, stream);
+}
+
+// The same for bfloat16 q and t: the bfloat16 path of the header; vals_out
+// and pivot_out are bfloat16 [nnz] and [n].
+int rank_counts_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
+                            const int32_t* pivot_cols, const int32_t* row_ptr,
+                            const int32_t* cols, int n, int D, int num_valid,
+                            int nnz, float atol, float rtol, int epilogue,
+                            int tiles_per_range, int32_t* tile_ptr,
+                            int32_t* greater_out, int32_t* close_out,
+                            __nv_bfloat16* vals_out, __nv_bfloat16* pivot_out,
+                            void* stream) {
+  return rank_counts_launch_as<__nv_bfloat16>(
+      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, nnz, atol, rtol,
+      epilogue, tiles_per_range, tile_ptr, greater_out, close_out, vals_out,
+      pivot_out, stream);
 }
 
 }  // extern "C"

@@ -71,7 +71,15 @@
 // about 0.038 ms a call, launch A 0.021 ms (the sort's latency on one SM;
 // the zeros alone take 0.011 ms) and launch B 0.011 to 0.015 ms (PERF.md has
 // the table).
+//
+// bfloat16 (parallel.param_dtype: bfloat16; scatter_add_launch_bf16): upd
+// and out are bfloat16, the sums and the scratch float32, as kge_tpu's kernel
+// sums in float32 scratch and writes the updates' dtype. Launch B widens
+// each element as it loads it and rounds each output element once as it
+// stores it (4 columns a thread, 8-byte loads); the order of the adds is the
+// float32 path's. Half the bytes move, so the bound halves.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,6 +100,55 @@ __device__ __forceinline__ float4 vzero(const float4*) {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 __device__ __forceinline__ void vadd(float& a, const float b) { a += b; }
+
+// Loads and stores of a V (float, or float4 of 4 neighbouring columns) at
+// element index 4 i (float4) or i (float) of a float or bfloat16 array: a
+// bfloat16 element widens exactly, and a sum is rounded once to bfloat16
+// (round to nearest even) where it is stored.
+template <typename V, typename T>
+struct Elem;
+template <>
+struct Elem<float, float> {
+  __device__ static float load(const float* p, size_t i) { return p[i]; }
+  __device__ static void store(float* p, size_t i, float v) { p[i] = v; }
+};
+template <>
+struct Elem<float4, float> {
+  __device__ static float4 load(const float* p, size_t i) {
+    return reinterpret_cast<const float4*>(p)[i];
+  }
+  __device__ static void store(float* p, size_t i, float4 v) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  }
+};
+template <>
+struct Elem<float, __nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* p, size_t i) {
+    return __bfloat162float(p[i]);
+  }
+  __device__ static void store(__nv_bfloat16* p, size_t i, float v) {
+    p[i] = __float2bfloat16_rn(v);
+  }
+};
+template <>
+struct Elem<float4, __nv_bfloat16> {
+  __device__ static float4 load(const __nv_bfloat16* p, size_t i) {
+    const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static void store(__nv_bfloat16* p, size_t i, float4 v) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const unsigned*>(&a);
+    raw.y = *reinterpret_cast<const unsigned*>(&b);
+    reinterpret_cast<uint2*>(p)[i] = raw;
+  }
+};
 __device__ __forceinline__ void vadd(float4& a, const float4 b) {
   a.x += b.x;
   a.y += b.y;
@@ -240,20 +297,24 @@ sort_and_zero_kernel(const void* __restrict__ ids, int ids_wide,
                      int32_t* __restrict__ order, int32_t* __restrict__ seg,
                      int32_t* __restrict__ seg_begin,
                      int32_t* __restrict__ meta, int32_t* __restrict__ done,
-                     int num_done, float* __restrict__ out, size_t out_floats,
-                     int vec) {
+                     int num_done, void* __restrict__ out, size_t out_units,
+                     int unit) {
   extern __shared__ __align__(16) unsigned char sort_smem[];
   __shared__ int tmp[33];
   const int tid = threadIdx.x;
   if (blockIdx.x > 0) {
     const size_t first = (size_t)(blockIdx.x - 1) * SORT_THREADS + tid;
     const size_t stride = (size_t)(gridDim.x - 1) * SORT_THREADS;
-    if (vec) {
+    if (unit == 16) {
       float4* out4 = reinterpret_cast<float4*>(out);
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (size_t i = first; i < out_floats / 4; i += stride) out4[i] = zero;
+      for (size_t i = first; i < out_units; i += stride) out4[i] = zero;
+    } else if (unit == 4) {
+      float* out1 = reinterpret_cast<float*>(out);
+      for (size_t i = first; i < out_units; i += stride) out1[i] = 0.f;
     } else {
-      for (size_t i = first; i < out_floats; i += stride) out[i] = 0.f;
+      uint16_t* out2 = reinterpret_cast<uint16_t*>(out);
+      for (size_t i = first; i < out_units; i += stride) out2[i] = 0;
     }
     return;
   }
@@ -303,16 +364,17 @@ __device__ __forceinline__ float4 load_global(const float4* p) {
 // Blocks [0, num_chunks) x slabs: the two-level sums. Blocks past
 // num_chunks (by segment only): zeros over the rows past the last segment.
 // Dv is the row length in units of V; a thread owns one column of V.
-template <typename V>
+template <typename V, typename T>
 __global__ void __launch_bounds__(MAX_THREADS_B)
 segment_sums_kernel(const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ seg,
                     const int32_t* __restrict__ seg_begin,
                     const int32_t* __restrict__ order,
                     const int32_t* __restrict__ meta,
-                    const V* __restrict__ upd, int n, int Dv, int out_rows,
-                    int num_chunks, int by_segment, V* __restrict__ out,
+                    const T* __restrict__ upd, int n, int Dv, int out_rows,
+                    int num_chunks, int by_segment, T* __restrict__ out,
                     V* partial, int32_t* done) {
+  using E = Elem<V, T>;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
   const int col = blockIdx.y * blockDim.x + tid;
@@ -323,7 +385,7 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
     const int step = gridDim.x - num_chunks;
     if (active) {
       for (int row = meta[0] + (b - num_chunks); row < out_rows; row += step)
-        out[(size_t)row * Dv + col] = zero;
+        E::store(out, (size_t)row * Dv + col, zero);
     }
     return;
   }
@@ -355,7 +417,7 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
       V v[AHEAD];
 #pragma unroll
       for (int u = 0; u < AHEAD; ++u)
-        if (i0 + u < len) v[u] = upd[(size_t)s_src[i0 + u] * Dv + col];
+        if (i0 + u < len) v[u] = E::load(upd, (size_t)s_src[i0 + u] * Dv + col);
 #pragma unroll
       for (int u = 0; u < AHEAD; ++u) {
         const int i = i0 + u;
@@ -367,7 +429,7 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
                 (piece_start > 0 || starts) && (i + 1 < len || ends);
             if (row >= 0 && row < out_rows) {
               if (whole) {
-                out[(size_t)row * Dv + col] = acc;
+                E::store(out, (size_t)row * Dv + col, acc);
               } else {
                 const int slot = piece_start > 0 ? 1 : 0;
                 partial[((size_t)b * 2 + slot) * Dv + col] = acc;
@@ -434,7 +496,7 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
       for (int u = 0; u < AHEAD; ++u)
         if (c0 + u <= last_chunk) vadd(acc, v[u]);
     }
-    out[(size_t)s_job[k][2] * Dv + col] = acc;
+    E::store(out, (size_t)s_job[k][2] * Dv + col, acc);
   }
 }
 
@@ -451,19 +513,19 @@ int threads_for(int Dv) {
   return t < 32 ? 32 : (t > MAX_THREADS_B ? MAX_THREADS_B : t);
 }
 
-template <typename V>
+template <typename V, typename T>
 int launch_sums(const int32_t* keys, const int32_t* seg,
                 const int32_t* seg_begin, const int32_t* order,
-                const int32_t* meta, const float* upd, int n, int Dv,
-                int out_rows, int num_chunks, int by_segment, float* out,
+                const int32_t* meta, const T* upd, int n, int Dv,
+                int out_rows, int num_chunks, int by_segment, T* out,
                 float* partial, int32_t* done, cudaStream_t stream) {
   const int threads = threads_for(Dv);
   const int slabs = (Dv + threads - 1) / threads;
   const int tail = by_segment ? (out_rows < 128 ? out_rows : 128) : 0;
   dim3 grid(num_chunks + tail, slabs);
-  segment_sums_kernel<V><<<grid, threads, 0, stream>>>(
-      keys, seg, seg_begin, order, meta, (const V*)upd, n, Dv, out_rows,
-      num_chunks, by_segment, (V*)out, (V*)partial, done);
+  segment_sums_kernel<V, T><<<grid, threads, 0, stream>>>(
+      keys, seg, seg_begin, order, meta, upd, n, Dv, out_rows,
+      num_chunks, by_segment, out, (V*)partial, done);
   return (int)cudaGetLastError();
 }
 
@@ -494,6 +556,88 @@ cudaError_t launch_sort(bool packed, unsigned grid, cudaStream_t stream,
 }
 
 }  // namespace
+
+template <typename T>
+int scatter_add_launch_as(const void* ids, int ids_wide, int ids_stride,
+                          const void* order_in, int order_wide, const T* upd,
+                          int n, int D, int num_keys, int by_segment, T* out,
+                          int out_rows, int32_t* work, float* partial,
+                          int phases, void* stream) {
+  if (D <= 0 || out_rows <= 0 || n < 0 || num_keys < 0)
+    return D < 0 || n < 0 || num_keys < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (order_in == nullptr && n > SORT_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int num_chunks = (n + CHUNK - 1) / CHUNK;
+  int32_t* keys_sorted = work;
+  int32_t* order = work + n;
+  int32_t* seg = work + 2 * (size_t)n;
+  int32_t* seg_begin = work + 3 * (size_t)n;
+  int32_t* meta = work + 4 * (size_t)n + 1;
+  int32_t* done = meta + 1;
+  // four columns a thread: 16-byte rows of upd and out in float32, 8-byte
+  // ones in bfloat16
+  const bool vec = D % 4 == 0 && aligned16(partial) &&
+                   ((uintptr_t)upd % (4 * sizeof(T))) == 0 &&
+                   ((uintptr_t)out % (4 * sizeof(T))) == 0;
+  const int Dv = vec ? D / 4 : D;
+  const int threads = threads_for(Dv);
+  const int num_done = num_chunks * ((Dv + threads - 1) / threads);
+
+  if (phases & 1) {
+    // of the current device, asked at every call: a process may hold cards
+    // of different sizes
+    int device = 0, sm_count = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
+    if (sm_count <= 0) sm_count = 1;
+    size_t zero_blocks = 0;
+    const size_t out_floats = (size_t)out_rows * D * sizeof(T) / 4;
+    const size_t out_bytes = (size_t)out_rows * D * sizeof(T);
+    // zeros in 16-byte stores where the bytes allow, else one element each
+    const int unit = out_bytes % 16 == 0 && aligned16(out) ? 16 : (int)sizeof(T);
+    const size_t out_units = out_bytes / unit;
+    if (!by_segment) {
+      const size_t per_block = (size_t)SORT_THREADS * (vec ? 16 : 4);
+      zero_blocks = (out_floats + per_block - 1) / per_block;
+      if (zero_blocks > (size_t)2 * sm_count) zero_blocks = 2 * sm_count;
+    }
+    const unsigned grid = 1 + (unsigned)zero_blocks;
+    const int key_bits = bits_of(num_keys);
+    const int pos_bits = bits_of(n > 1 ? n - 1 : 1);
+    const bool packed = key_bits + pos_bits <= 32;
+#define KGE_SORT(ITEMS)                                                       \
+  launch_sort<ITEMS>(packed, grid, s, ids, ids_wide, ids_stride, order_in,    \
+                     order_wide, n, num_keys, key_bits, pos_bits, keys_sorted, \
+                     order, seg, seg_begin, meta, done, num_done, (void*)out, \
+                     out_units, unit)
+    // the smallest sort that holds n: its time goes by its size, not by n
+    cudaError_t err =
+        order_in != nullptr
+            ? launch_sort_as<0, false>(grid, 0, s, ids, ids_wide, ids_stride,
+                                       order_in, order_wide, n, num_keys, key_bits,
+                                       pos_bits, keys_sorted, order, seg,
+                                       seg_begin, meta, done, num_done,
+                                       (void*)out, out_units, unit)
+        : n <= SORT_THREADS      ? KGE_SORT(1)
+        : n <= 4 * SORT_THREADS  ? KGE_SORT(4)
+        : n <= 8 * SORT_THREADS  ? KGE_SORT(8)
+        : n <= 12 * SORT_THREADS ? KGE_SORT(12)
+                                 : KGE_SORT(MAX_ITEMS);
+#undef KGE_SORT
+    if (err != cudaSuccess) return (int)err;
+  }
+  if ((phases & 2) && num_chunks > 0) {
+    if (vec) {
+      return launch_sums<float4, T>(keys_sorted, seg, seg_begin, order, meta,
+                                    upd, n, Dv, out_rows, num_chunks,
+                                    by_segment, out, partial, done, s);
+    }
+    return launch_sums<float, T>(keys_sorted, seg, seg_begin, order, meta, upd,
+                                 n, Dv, out_rows, num_chunks, by_segment, out,
+                                 partial, done, s);
+  }
+  return 0;
+}
 
 extern "C" {
 
@@ -530,77 +674,26 @@ int scatter_add_work_ints(int n, int D) {
 //     launch A), 3 = both.
 int scatter_add_launch(const void* ids, int ids_wide, int ids_stride,
                        const void* order_in, int order_wide, const float* upd,
-                       int n, int D,
-                       int num_keys, int by_segment, float* out, int out_rows,
-                       int32_t* work, float* partial, int phases,
-                       void* stream) {
-  if (D <= 0 || out_rows <= 0 || n < 0 || num_keys < 0)
-    return D < 0 || n < 0 || num_keys < 0 ? (int)cudaErrorInvalidValue : 0;
-  if (order_in == nullptr && n > SORT_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int num_chunks = (n + CHUNK - 1) / CHUNK;
-  int32_t* keys_sorted = work;
-  int32_t* order = work + n;
-  int32_t* seg = work + 2 * (size_t)n;
-  int32_t* seg_begin = work + 3 * (size_t)n;
-  int32_t* meta = work + 4 * (size_t)n + 1;
-  int32_t* done = meta + 1;
-  const bool vec =
-      D % 4 == 0 && aligned16(upd) && aligned16(out) && aligned16(partial);
-  const int Dv = vec ? D / 4 : D;
-  const int threads = threads_for(Dv);
-  const int num_done = num_chunks * ((Dv + threads - 1) / threads);
+                       int n, int D, int num_keys, int by_segment, float* out,
+                       int out_rows, int32_t* work, float* partial,
+                       int phases, void* stream) {
+  return scatter_add_launch_as<float>(ids, ids_wide, ids_stride, order_in,
+                                      order_wide, upd, n, D, num_keys,
+                                      by_segment, out, out_rows, work, partial,
+                                      phases, stream);
+}
 
-  if (phases & 1) {
-    // of the current device, asked at every call: a process may hold cards
-    // of different sizes
-    int device = 0, sm_count = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
-    if (sm_count <= 0) sm_count = 1;
-    size_t zero_blocks = 0;
-    const size_t out_floats = (size_t)out_rows * D;
-    if (!by_segment) {
-      const size_t per_block = (size_t)SORT_THREADS * (vec ? 16 : 4);
-      zero_blocks = (out_floats + per_block - 1) / per_block;
-      if (zero_blocks > (size_t)2 * sm_count) zero_blocks = 2 * sm_count;
-    }
-    const unsigned grid = 1 + (unsigned)zero_blocks;
-    const int key_bits = bits_of(num_keys);
-    const int pos_bits = bits_of(n > 1 ? n - 1 : 1);
-    const bool packed = key_bits + pos_bits <= 32;
-#define KGE_SORT(ITEMS)                                                       \
-  launch_sort<ITEMS>(packed, grid, s, ids, ids_wide, ids_stride, order_in,    \
-                     order_wide, n, num_keys, key_bits, pos_bits, keys_sorted, \
-                     order, seg, seg_begin, meta, done, num_done, out,        \
-                     out_floats, vec ? 1 : 0)
-    // the smallest sort that holds n: its time goes by its size, not by n
-    cudaError_t err =
-        order_in != nullptr
-            ? launch_sort_as<0, false>(grid, 0, s, ids, ids_wide, ids_stride,
-                                       order_in, order_wide, n, num_keys, key_bits,
-                                       pos_bits, keys_sorted, order, seg,
-                                       seg_begin, meta, done, num_done, out,
-                                       out_floats, vec ? 1 : 0)
-        : n <= SORT_THREADS      ? KGE_SORT(1)
-        : n <= 4 * SORT_THREADS  ? KGE_SORT(4)
-        : n <= 8 * SORT_THREADS  ? KGE_SORT(8)
-        : n <= 12 * SORT_THREADS ? KGE_SORT(12)
-                                 : KGE_SORT(MAX_ITEMS);
-#undef KGE_SORT
-    if (err != cudaSuccess) return (int)err;
-  }
-  if ((phases & 2) && num_chunks > 0) {
-    if (vec) {
-      return launch_sums<float4>(keys_sorted, seg, seg_begin, order, meta, upd,
-                                 n, Dv, out_rows, num_chunks, by_segment, out,
-                                 partial, done, s);
-    }
-    return launch_sums<float>(keys_sorted, seg, seg_begin, order, meta, upd, n,
-                              Dv, out_rows, num_chunks, by_segment, out,
-                              partial, done, s);
-  }
-  return 0;
+// The same for bfloat16 upd and out: each row of out is summed in float32
+// (partial holds float32) and rounded once to bfloat16 when it is stored.
+int scatter_add_launch_bf16(const void* ids, int ids_wide, int ids_stride,
+                            const void* order_in, int order_wide,
+                            const __nv_bfloat16* upd, int n, int D,
+                            int num_keys, int by_segment, __nv_bfloat16* out,
+                            int out_rows, int32_t* work, float* partial,
+                            int phases, void* stream) {
+  return scatter_add_launch_as<__nv_bfloat16>(
+      ids, ids_wide, ids_stride, order_in, order_wide, upd, n, D, num_keys,
+      by_segment, out, out_rows, work, partial, phases, stream);
 }
 
 }  // extern "C"

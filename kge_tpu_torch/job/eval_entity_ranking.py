@@ -37,9 +37,15 @@ sp_/_po form at the batch's own answers (kge_tpu's flat route). The L2
 factorization cancels for close pairs, so a trained L2 model may warn there,
 as it does in kge_tpu.
 
-Precision is float32 throughout: the job sets
+Precision is float32 by default: the job sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False`` before it runs.
+``torch.backends.cudnn.allow_tf32 = False`` before it runs. Under
+``parallel.compute_dtype: bfloat16`` the scores are bfloat16, as kge_tpu's:
+the rank kernel takes its bfloat16 path (each score rounded once, the tie
+test in bfloat16), and the score matrix and the label recounts compare in
+bfloat16 with kge_tpu's roundings. Scorers with float32 parameters of their
+own (ConvE, the Transformer) and models with a float32 projection score in
+float32, as JAX promotes.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from kge_tpu_torch.ops.rank_kernel import (
     csr_row_sums,
     fused_rank_counts,
 )
+from kge_tpu_torch.utils.dtypes import weak
 
 S, P, O = 0, 1, 2
 
@@ -316,8 +323,8 @@ class EntityRankingJob(EvaluationJob):
                 )
             # consistency: the true score vs the ranking's own entry
             excess.append(torch.max(
-                (pivot - pos).abs() - (atol + rtol * pos.abs())
-            ))
+                (pivot - pos).abs() - (weak(atol, pos) + weak(rtol, pos) * pos.abs())
+            ).float())
             lab_close, lab_greater = close_greater(vals, pivot[rows], atol, rtol)
             raw[key] = (g, c)
 

@@ -24,6 +24,7 @@ import torch
 
 from kge_tpu_torch.job.job import Job
 from kge_tpu_torch.job.train import TrainingJob
+from kge_tpu_torch.utils.dtypes import weak
 
 S, P, O = 0, 1, 2
 
@@ -157,15 +158,17 @@ class TrainingJobKvsAll(TrainingJob):
         subbatch takes them all and keeps its own rows."""
         return key in ("label_rows", "label_cols")
 
-    def _dense_labels(self, batch, qtype: str) -> torch.Tensor:
-        """The batch's [batch_size, vocab] 0/1 label matrix: the coordinates
-        set in a matrix with one extra row, which takes the padded
-        coordinates and is dropped. In a subbatch the coordinates' rows
-        refer to the whole batch and are moved by ``__row_offset__``; rows
-        outside the subbatch go to the dropped row too."""
+    def _dense_labels(self, batch, qtype: str,
+                      dtype=torch.float32) -> torch.Tensor:
+        """The batch's [batch_size, vocab] 0/1 label matrix in ``dtype``
+        (the scores'): the coordinates set in a matrix with one extra row,
+        which takes the padded coordinates and is dropped. In a subbatch
+        the coordinates' rows refer to the whole batch and are moved by
+        ``__row_offset__``; rows outside the subbatch go to the dropped row
+        too."""
         bs = batch["queries"].shape[0]
         labels = torch.zeros(
-            (bs + 1, self._vocab_size(qtype)), dtype=torch.float32,
+            (bs + 1, self._vocab_size(qtype)), dtype=dtype,
             device=batch["queries"].device,
         )
         rows = batch["label_rows"].long() - batch.get("__row_offset__", 0)
@@ -191,11 +194,11 @@ class TrainingJobKvsAll(TrainingJob):
         else:
             raise ValueError(f"not a KvsAll query type: {qtype!r}")
 
-        labels = self._dense_labels(batch, qtype)
+        # in the scores' dtype, smoothed there, as kge_tpu builds them
+        labels = self._dense_labels(batch, qtype, scores.dtype)
         if self.label_smoothing > 0 and qtype != "s_o":
-            labels = (1.0 - self.label_smoothing) * labels + (
-                1.0 / self.dataset.num_entities()
-            )
+            labels = weak(1.0 - self.label_smoothing, labels) * labels + weak(
+                1.0 / self.dataset.num_entities(), labels)
 
-        per_row = self.loss.rows(scores.float(), labels)
+        per_row = self.loss.rows(scores.float(), labels.float())
         return torch.sum(per_row * mask) / batch_size, {}

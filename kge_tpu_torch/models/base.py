@@ -13,8 +13,10 @@ Ported so far: lookup and projection embedders (``ProjectionEmbedder``,
 neural models: ``RelationalScorer.param_tree`` and the batch-norm
 statistics collector ``KgeModel.collect_stats``), and what filtered
 entity-ranking evaluation and negative-sampling, 1vsAll and KvsAll
-training need. Pretrained initialization is refused at model creation and
-the ring-sharded scoring path is not ported yet (see ROADMAP.md).
+training need, kge_tpu's dtype policy (``parallel.param_dtype`` /
+``parallel.compute_dtype``, utils/dtypes.py) and pretrained initialization
+(``<embedder>.pretrain``). The ring-sharded scoring path is not ported yet
+(see ROADMAP.md).
 
 Where kge_tpu swaps gathered mini-tables into the parameter tree for the
 row-sparse training step, the embedders here own their tables, so ``embed``
@@ -37,6 +39,7 @@ from torch import nn
 from kge_tpu_torch import misc
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.dataset import Dataset
+from kge_tpu_torch.utils.dtypes import promote, torch_dtype, weak
 
 S, P, O = 0, 1, 2
 
@@ -162,7 +165,7 @@ class KgeBase(nn.Module, Configurable):
         mask = torch.rand(
             x.shape, generator=self.dropout_generator, device=x.device
         ) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.where(mask, x / weak(keep, x), torch.zeros_like(x))
 
 
 # -- scorers -------------------------------------------------------------------
@@ -274,7 +277,11 @@ class RelationalScorer(KgeBase):
 
 class KgeEmbedder(KgeBase):
     """Embeds a fixed vocabulary of objects (entities or relations)
-    (reference KgeEmbedder, kge_model.py:216-351)."""
+    (reference KgeEmbedder, kge_model.py:216-351). Under kge_tpu's dtype
+    policy a lookup table lives in ``param_dtype`` and its embeddings are
+    cast to ``compute_dtype`` before dropout and scoring; other parameters
+    (a projection, the Tucker3 core, the neural scorers') stay float32, as
+    in kge_tpu."""
 
     def __init__(
         self,
@@ -291,6 +298,8 @@ class KgeEmbedder(KgeBase):
         if not config.exists(f"{embedder_type}.class_name"):
             config._import(embedder_type)
         self.embedder_type = embedder_type
+        self.param_dtype = torch_dtype(config, "parallel.param_dtype")
+        self.compute_dtype = torch_dtype(config, "parallel.compute_dtype")
 
     @staticmethod
     def create(
@@ -345,6 +354,32 @@ class KgeEmbedder(KgeBase):
         embedder: nested dicts with tensor leaves."""
         raise NotImplementedError
 
+    @torch.no_grad()
+    def init_pretrained(self, pretrained: "KgeEmbedder", self_ids,
+                        pretrained_ids, ensure_all: bool = False) -> None:
+        """Overwrite the rows whose external ids appear in ``pretrained``
+        (kge_tpu ``KgeEmbedder.init_pretrained``): rows are matched with
+        ``np.intersect1d``, read through the pretrained embedder's ``embed``
+        in eval mode (its compute dtype) and written into this table in its
+        dtype. Only a table named ``embeddings`` takes them, as in
+        kge_tpu."""
+        common, self_ind, pre_ind = np.intersect1d(
+            np.array(self_ids), np.array(pretrained_ids), return_indices=True
+        )
+        if ensure_all and len(common) != len(self_ids):
+            raise ValueError(
+                "pretrained embedder does not cover all ids "
+                f"({len(common)} of {len(self_ids)})"
+            )
+        table = self.param_tree()["embeddings"]
+        training = pretrained.training
+        pretrained.eval()
+        try:
+            rows = pretrained.embed(torch.as_tensor(pre_ind, device=table.device))
+        finally:
+            pretrained.train(training)
+        table[torch.as_tensor(self_ind, device=table.device)] = rows.to(table.dtype)
+
 
 class LookupEmbedder(KgeEmbedder):
     """Dense embedding table with normalization (reference
@@ -377,7 +412,7 @@ class LookupEmbedder(KgeEmbedder):
                 dropout = 0.0
         self.dropout = dropout
         self.embeddings = nn.Parameter(
-            torch.empty(vocab_size, self._dim, dtype=torch.float32,
+            torch.empty(vocab_size, self._dim, dtype=self.param_dtype,
                         device=device)
         )
 
@@ -387,14 +422,22 @@ class LookupEmbedder(KgeEmbedder):
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
-        self.initializer()(self.embeddings, generator)
-        self.postprocess_params()
+        """Draw the table in float32, normalize it, then store it in
+        ``param_dtype`` (kge_tpu's order)."""
+        table = self.embeddings
+        if table.dtype != torch.float32:
+            table = torch.empty_like(table, dtype=torch.float32)
+        self.initializer()(table, generator)
+        if self.normalize_p > 0:
+            table = self._normalize(table)
+        self.embeddings.copy_(table)
 
     def _normalize(self, table: torch.Tensor) -> torch.Tensor:
+        """Rows scaled to unit L_p norm, in the table's dtype."""
         norm = torch.linalg.vector_norm(
             table, ord=self.normalize_p, dim=-1, keepdim=True
         )
-        return table / norm.clamp_min(1e-12)
+        return table / norm.clamp_min(weak(1e-12, norm))
 
     @torch.no_grad()
     def postprocess_params(self) -> None:
@@ -410,15 +453,16 @@ class LookupEmbedder(KgeEmbedder):
         if table is None:
             table = self.embeddings
         indexes = torch.as_tensor(indexes, device=table.device)
-        return self._dropout(embedding_gather(table, indexes))
+        return self._dropout(
+            embedding_gather(table, indexes).to(self.compute_dtype))
 
     def embed_all(self) -> torch.Tensor:
-        return self._dropout(self.embeddings)
+        return self._dropout(self.embeddings.to(self.compute_dtype))
 
     def _abs_complex(self, parameters: torch.Tensor) -> torch.Tensor:
         re, im = torch.chunk(parameters, 2, dim=1)
         # epsilon inside the sqrt keeps the gradient finite at exactly 0
-        return torch.sqrt(re ** 2 + im ** 2 + 1e-14)
+        return torch.sqrt(re ** 2 + im ** 2 + weak(1e-14, re))
 
     def penalty(self, indexes=None, indexes_weight=None, num_index_rows=None,
                 **kwargs):
@@ -450,10 +494,10 @@ class LookupEmbedder(KgeEmbedder):
             parameters = table
             if self.regularize == "n3" and self.space == "complex":
                 parameters = self._abs_complex(parameters)
-                value = weight / p * torch.sum(parameters ** p)
+                total = torch.sum(parameters ** p)
             else:
-                value = weight / p * torch.sum(torch.abs(parameters) ** p)
-            result.append((name, value))
+                total = torch.sum(torch.abs(parameters) ** p)
+            result.append((name, weak(weight / p, total) * total))
         else:
             if indexes is None:
                 raise ValueError("weighted regularization requires batch indexes")
@@ -472,7 +516,12 @@ class LookupEmbedder(KgeEmbedder):
                     idx.shape[0], idx.numel() // max(idx.shape[0], 1)
                 ).reshape(-1)
                 contrib = contrib * w
-            value = weight / p * torch.sum(contrib) / num_index_rows
+            total = torch.sum(contrib)
+            value = weak(weight / p, total) * total
+            if isinstance(num_index_rows, torch.Tensor):
+                value = value / num_index_rows
+            else:
+                value = value / weak(num_index_rows, value)
             result.append((name, value))
         return result
 
@@ -522,7 +571,9 @@ class ProjectionEmbedder(KgeEmbedder):
                 "projection": self.projection}
 
     def _project(self, emb: torch.Tensor) -> torch.Tensor:
-        return self._dropout(emb @ self.projection.T)
+        # a compute-dtype embedding meets the float32 projection in float32
+        emb, projection = promote(emb, self.projection)
+        return self._dropout(emb @ projection.T)
 
     def embed(self, indexes, table=None) -> torch.Tensor:
         return self._project(self.base_embedder.embed(indexes, table))
@@ -601,7 +652,6 @@ class KgeModel(KgeBase):
                 dataset.num_relations(), init_for_load_only=init_for_load_only,
                 device=device,
             )
-            self._refuse_pretrained()
         if type(scorer) == type:
             self._scorer: RelationalScorer = scorer(
                 config=config, dataset=dataset,
@@ -621,25 +671,6 @@ class KgeModel(KgeBase):
             else:
                 self.model = config.get("model")
                 self.configuration_key = self.model
-
-    def _refuse_pretrained(self) -> None:
-        """kge_tpu copies pretrained rows into the tables when
-        ``<embedder>.pretrain.model_filename`` is set
-        (kge_tpu/models/base.py ``_apply_pretrained``); this package does
-        not yet, and refuses the setting rather than train from a random
-        table."""
-        for which in ("entity_embedder", "relation_embedder"):
-            key = f"{which}.pretrain.model_filename"
-            try:
-                filename = self.get_option(key)
-            except KeyError:
-                continue
-            if filename:
-                raise ValueError(
-                    f"{self.configuration_key}.{key}={filename!r}: "
-                    "pretrained initialization is not ported yet (ROADMAP "
-                    "A.5); unset it"
-                )
 
     # -- factories ------------------------------------------------------------
 
@@ -701,10 +732,50 @@ class KgeModel(KgeBase):
 
     def init_params(self, generator: torch.Generator) -> None:
         """Initialize the embedders, then the scorer's own parameters, from
-        ``generator``."""
+        ``generator``; then copy in pretrained rows where configured."""
         self._entity_embedder.init_params(generator)
         self._relation_embedder.init_params(generator)
         self._scorer.init_params(generator)
+        self._apply_pretrained()
+
+    def _apply_pretrained(self) -> None:
+        """Initialize embeddings from a trained model when configured
+        (``<embedder>.pretrain.model_filename``; kge_tpu
+        ``KgeModel._apply_pretrained``, reference kge_model.py:399-450):
+        the checkpoint is read with ``load_checkpoint`` (kge_tpu's or this
+        package's), its model built on this model's device, and the rows
+        matched by external id (``KgeEmbedder.init_pretrained``)."""
+
+        def option(which: str, key: str):
+            try:
+                return self.get_option(f"{which}.pretrain.{key}")
+            except KeyError:
+                return "" if key == "model_filename" else False
+
+        cache: Dict[str, "KgeModel"] = {}
+
+        def load(filename: str) -> "KgeModel":
+            if filename not in cache:
+                from kge_tpu_torch.utils.io import load_checkpoint
+
+                self.config.log(f"Initializing embeddings from {filename}")
+                cache[filename] = KgeModel.create_from(
+                    load_checkpoint(filename), device=self.device
+                )
+            return cache[filename]
+
+        for which, embedder_of, ids in (
+            ("entity_embedder", KgeModel.get_s_embedder, "entity_ids"),
+            ("relation_embedder", KgeModel.get_p_embedder, "relation_ids"),
+        ):
+            filename = option(which, "model_filename")
+            if filename:
+                source = load(filename)
+                embedder_of(self).init_pretrained(
+                    embedder_of(source), getattr(self.dataset, ids)(),
+                    getattr(source.dataset, ids)(),
+                    ensure_all=option(which, "ensure_all"),
+                )
 
     def postprocess_params(self) -> None:
         self._entity_embedder.postprocess_params()
@@ -808,12 +879,23 @@ class KgeModel(KgeBase):
     # relation table) pair used in place of the embedders' own tables (the
     # gathered mini-tables of the row-sparse training step).
 
+    def _promoted(self, *embs):
+        """The embeddings cast to the dtype that JAX computes their scores
+        in: their common dtype, promoted with that of the scorer's own
+        parameters (float32) where it has any. A bfloat16 embedding meets
+        a float32 one (a projection's output) or a neural scorer's
+        parameters in float32, as in kge_tpu; the upcast is exact."""
+        param = next(self._scorer.parameters(), None)
+        return promote(*embs, dtype=None if param is None else param.dtype)
+
     def score_spo(self, s, p, o, direction=None, tables=None) -> torch.Tensor:
         """Scores of the n triples (s_i, p_i, o_i); returns [n]."""
         ent, rel = tables if tables is not None else (None, None)
-        s_emb = self.get_s_embedder().embed(s, ent)
-        p_emb = self.get_p_embedder().embed(p, rel)
-        o_emb = self.get_o_embedder().embed(o, ent)
+        s_emb, p_emb, o_emb = self._promoted(
+            self.get_s_embedder().embed(s, ent),
+            self.get_p_embedder().embed(p, rel),
+            self.get_o_embedder().embed(o, ent),
+        )
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "spo").reshape(-1)
 
     def score_spo_neg(self, triples, samples, slot: int,
@@ -833,6 +915,7 @@ class KgeModel(KgeBase):
             ids = samples.reshape(-1) if i == slot else triples[:, i]
             e = embedders[i].embed(ids, slot_tables[i])
             embs.append(e.reshape(n, k, -1) if i == slot else e)
+        embs = self._promoted(*embs)
         return self._scorer.score_emb_neg(embs[0], embs[1], embs[2], slot)
 
     def score_spo_neg_pooled(self, triples, pool, sel, pool_factor: int,
@@ -869,6 +952,7 @@ class KgeModel(KgeBase):
             else embedders[i].embed(triples[:, i], slot_tables[i])
             for i in range(3)
         ]
+        pool_emb, *kept = self._promoted(pool_emb, *kept)
         mode = self.config.get_default("negative_sampling.pooled_kernel")
         if mode == "always" or (mode == "auto" and pool_emb.device.type == "cuda"):
             spec = self._scorer.pooled_kernel_queries(
@@ -895,19 +979,23 @@ class KgeModel(KgeBase):
     def score_sp(self, s, p, o=None, tables=None) -> torch.Tensor:
         """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m]."""
         ent, rel = tables if tables is not None else (None, None)
-        s_emb = self.get_s_embedder().embed(s, ent)
-        p_emb = self.get_p_embedder().embed(p, rel)
-        o_emb = (self.get_o_embedder().embed_all() if o is None
-                 else self.get_o_embedder().embed(o, ent))
+        s_emb, p_emb, o_emb = self._promoted(
+            self.get_s_embedder().embed(s, ent),
+            self.get_p_embedder().embed(p, rel),
+            self.get_o_embedder().embed_all() if o is None
+            else self.get_o_embedder().embed(o, ent),
+        )
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "sp_")
 
     def score_po(self, p, o, s=None, tables=None) -> torch.Tensor:
         """Scores of (*, p_i, o_i) against all (or the given) subjects; [n, m]."""
         ent, rel = tables if tables is not None else (None, None)
-        s_emb = (self.get_s_embedder().embed_all() if s is None
-                 else self.get_s_embedder().embed(s, ent))
-        p_emb = self.get_p_embedder().embed(p, rel)
-        o_emb = self.get_o_embedder().embed(o, ent)
+        s_emb, p_emb, o_emb = self._promoted(
+            self.get_s_embedder().embed_all() if s is None
+            else self.get_s_embedder().embed(s, ent),
+            self.get_p_embedder().embed(p, rel),
+            self.get_o_embedder().embed(o, ent),
+        )
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "_po")
 
     def score_so(self, s, o, p=None, tables=None) -> torch.Tensor:
@@ -917,6 +1005,7 @@ class KgeModel(KgeBase):
         o_emb = self.get_o_embedder().embed(o, ent)
         p_emb = (self.get_p_embedder().embed_all() if p is None
                  else self.get_p_embedder().embed(p, rel))
+        s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "s_o")
 
     def score_sp_po(self, s, p, o, entity_subset=None) -> torch.Tensor:
@@ -929,6 +1018,8 @@ class KgeModel(KgeBase):
             all_entities = self.get_s_embedder().embed(entity_subset)
         else:
             all_entities = self.get_s_embedder().embed_all()
+        s_emb, p_emb, o_emb, all_entities = self._promoted(
+            s_emb, p_emb, o_emb, all_entities)
         sp_scores = self._scorer.score_emb(s_emb, p_emb, all_entities, "sp_")
         po_scores = self._scorer.score_emb(all_entities, p_emb, o_emb, "_po")
         return torch.cat([sp_scores, po_scores], dim=1)
@@ -944,7 +1035,8 @@ class KgeModel(KgeBase):
         embedders = (
             self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
         )
-        embs = [embedders[i].embed(triples[:, i]) for i in range(3)]
+        embs = self._promoted(
+            *[embedders[i].embed(triples[:, i]) for i in range(3)])
         pos = self._scorer.score_emb_spo(embs[0], embs[1], embs[2])
         out = {}
         for slot in slots:
@@ -954,10 +1046,10 @@ class KgeModel(KgeBase):
                 return None
             q, target_map = fac[0], fac[1]
             score_map = fac[2] if len(fac) > 2 else None
-            t = embedders[slot].embed_all()
+            (t,) = self._promoted(embedders[slot].embed_all())
             if target_map is not None:
                 t = target_map(t)
-            out[slot] = (pos, q, t, score_map)
+            out[slot] = (pos, *promote(q, t), score_map)
         return out
 
     def score_all_grouped_multi(self, triples, slots, targets, tables=None):
@@ -983,9 +1075,9 @@ class KgeModel(KgeBase):
             self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
         )
         slot_tables = (ent, rel, ent)
-        embs = [
+        embs = self._promoted(*[
             embedders[i].embed(triples[:, i], slot_tables[i]) for i in range(3)
-        ]
+        ])
         pos = self._scorer.score_emb_spo(embs[0], embs[1], embs[2])
         out = {}
         for slot in slots:
@@ -999,8 +1091,10 @@ class KgeModel(KgeBase):
                 t = embedders[slot].embed_all()
             else:
                 t = embedders[slot].embed(targets[slot], slot_tables[slot])
+            (t,) = self._promoted(t)
             if target_map is not None:
                 t = target_map(t)
+            q, t = promote(q, t)
             dot = q @ t.T
             out[slot] = (pos, dot if score_map is None else score_map(dot))
         return out

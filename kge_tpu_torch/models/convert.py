@@ -13,7 +13,13 @@ leaves. This package keeps them in its modules, and each embedder and
 scorer gives its tree with tensor leaves (``param_tree``; a scorer without
 parameters gives an empty one, and the model's tree then has no
 ``"scorer"``). ``load_jax_params`` copies such a tree into a model,
-``to_jax_params`` reads one out, both through numpy.
+``to_jax_params`` reads one out, both through numpy. Leaves keep their
+dtype, float32 or bfloat16 (kge_tpu's dtype policy; other float leaves
+become float32). numpy has no bfloat16 without the ``ml_dtypes`` package,
+which this package does not use, so a bfloat16 leaf is read from kge_tpu's
+``ml_dtypes`` array through its 2-byte buffer and given out as a CPU
+``torch.bfloat16`` tensor; ``utils/io.py`` pickles such tensors as the
+arrays kge_tpu reads.
 
 kge_tpu's optimizer state is ``{"leaves": [state dict per parameter leaf],
 "step": int}`` with the leaves in its tree-flatten order: keys sorted at
@@ -64,6 +70,34 @@ def _name(path) -> str:
     return ".".join(str(key) for key in path)
 
 
+def leaf_tensor(value) -> torch.Tensor:
+    """A checkpoint leaf (numpy or array-like, a bfloat16 ``ml_dtypes``
+    array, or a tensor) as a CPU tensor: bfloat16 stays bfloat16, any other
+    float becomes float32."""
+    if isinstance(value, torch.Tensor):
+        tensor = value.detach().cpu()
+    else:
+        array = np.asarray(value)
+        if array.dtype.name == "bfloat16":  # ml_dtypes' type, read by bits
+            tensor = torch.from_numpy(
+                np.ascontiguousarray(array).view(np.uint16).astype(np.int16)
+            ).view(torch.bfloat16)
+        else:
+            tensor = torch.from_numpy(np.array(array, dtype=np.float32))
+    if tensor.dtype not in (torch.float32, torch.bfloat16):
+        tensor = tensor.float()
+    return tensor
+
+
+def _numpy_leaf(tensor: torch.Tensor):
+    """A leaf for a checkpoint: a numpy array, or a CPU bfloat16 tensor
+    (numpy has no bfloat16 here)."""
+    tensor = tensor.detach().cpu()
+    if tensor.dtype == torch.bfloat16:
+        return tensor.clone()
+    return tensor.numpy().copy()
+
+
 @torch.no_grad()
 def load_jax_params(model, tree: Dict[str, Any]) -> None:
     """Copy kge_tpu's parameter tree (numpy or array-like leaves) into
@@ -77,13 +111,16 @@ def load_jax_params(model, tree: Dict[str, Any]) -> None:
             f"{type(model).__name__}'s {[_name(p) for p, _ in own]}"
         )
     for (path, param), (_, leaf) in zip(own, given):
-        value = np.asarray(leaf, dtype=np.float32)
+        value = leaf_tensor(leaf)
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(
-                f"{_name(path)} has shape {value.shape}, the model "
+                f"{_name(path)} has shape {tuple(value.shape)}, the model "
                 f"expects {tuple(param.shape)}"
             )
-        param.copy_(torch.tensor(value))
+        if value.dtype == param.dtype:
+            param.copy_(value)
+        else:  # the leaf's dtype wins, as in kge_tpu
+            param.data = value.to(param.device)
 
 
 @torch.no_grad()
@@ -95,7 +132,7 @@ def to_jax_params(model) -> Dict[str, Any]:
             return {key: to_numpy(value) for key, value in tree.items()}
         if isinstance(tree, list):
             return [to_numpy(value) for value in tree]
-        return tree.detach().cpu().numpy().copy()
+        return _numpy_leaf(tree)
 
     return to_numpy(_model_tree(model))
 
@@ -118,13 +155,13 @@ def load_jax_opt_state(state: Dict[str, Any], leaves) -> Dict[str, Any]:
     for leaf_state, (path, param) in zip(state["leaves"], leaves):
         converted = {}
         for name, value in leaf_state.items():
-            value = np.asarray(value, dtype=np.float32)
+            value = leaf_tensor(value)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(
                     f"optimizer state {_name(path)}.{name} has shape "
-                    f"{value.shape}, the parameter {tuple(param.shape)}"
+                    f"{tuple(value.shape)}, the parameter {tuple(param.shape)}"
                 )
-            converted[name] = torch.tensor(value, device=param.device)
+            converted[name] = value.to(param.device, copy=True)
         out.append(converted)
     return {"leaves": out, "step": int(np.asarray(state["step"]))}
 
@@ -133,8 +170,7 @@ def to_jax_opt_state(state: Dict[str, Any]) -> Dict[str, Any]:
     """This package's optimizer state as kge_tpu's tree of numpy arrays."""
     return {
         "leaves": [
-            {name: value.detach().cpu().numpy().copy()
-             for name, value in leaf_state.items()}
+            {name: _numpy_leaf(value) for name, value in leaf_state.items()}
             for leaf_state in state["leaves"]
         ],
         "step": np.asarray(int(state["step"]), dtype=np.int32),

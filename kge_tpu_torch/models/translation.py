@@ -24,6 +24,12 @@ from torch.utils.checkpoint import checkpoint
 
 from kge_tpu_torch.models.base import KgeModel, RelationalScorer
 from kge_tpu_torch.ops.rank_kernel import NEG_SQRT_L2
+from kge_tpu_torch.utils.dtypes import weak
+
+
+def _sqrt_eps(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x + 1e-30), the epsilon in x's dtype as kge_tpu adds it."""
+    return torch.sqrt(x + weak(1e-30, x))
 
 
 def _p_norm(x: torch.Tensor, p: float, dim: int) -> torch.Tensor:
@@ -32,7 +38,7 @@ def _p_norm(x: torch.Tensor, p: float, dim: int) -> torch.Tensor:
         return torch.sum(torch.abs(x), dim=dim)
     if p == 2.0:
         # the epsilon keeps the gradient finite at 0
-        return torch.sqrt(torch.sum(x * x, dim=dim) + 1e-30)
+        return _sqrt_eps(torch.sum(x * x, dim=dim))
     return torch.sum(torch.abs(x) ** p, dim=dim) ** (1.0 / p)
 
 
@@ -41,7 +47,7 @@ def _p_norm_nonneg(x: torch.Tensor, p: float, dim: int) -> torch.Tensor:
     if p == 1.0:
         return torch.sum(x, dim=dim)
     if p == 2.0:
-        return torch.sqrt(torch.sum(x * x, dim=dim) + 1e-30)
+        return _sqrt_eps(torch.sum(x * x, dim=dim))
     return torch.sum(x ** p, dim=dim) ** (1.0 / p)
 
 
@@ -53,7 +59,7 @@ def _l2_expanded(query: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     q2 = torch.sum(query * query, dim=1, keepdim=True)
     t2 = torch.sum(targets * targets, dim=1)[None, :]
     sq = torch.clamp(q2 + t2 - 2.0 * cross, min=0.0)
-    return -torch.sqrt(sq + 1e-30)
+    return -_sqrt_eps(sq)
 
 
 #: columns of an augmented L2 operand are padded to a multiple of this
@@ -97,7 +103,7 @@ def _l2_expanded_neg(query: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     q2 = torch.sum(query * query, dim=1, keepdim=True)
     c2 = torch.sum(cand * cand, dim=2)
     sq = torch.clamp(q2 + c2 - 2.0 * cross, min=0.0)
-    return -torch.sqrt(sq + 1e-30)
+    return -_sqrt_eps(sq)
 
 
 # cap on the broadcasted [n, chunk, d] pairwise intermediate (f32 elements);
@@ -372,7 +378,7 @@ class RotatEScorer(RelationalScorer):
         return a_re * b_re - a_im * b_im, a_re * b_im + a_im * b_re
 
     def _modulus_norm(self, d_re, d_im, dim):
-        mod = torch.sqrt(d_re * d_re + d_im * d_im + 1e-30)
+        mod = _sqrt_eps(d_re * d_re + d_im * d_im)
         return -_p_norm_nonneg(mod, self._norm, dim=dim)
 
     def _entity_query(self, s_emb, p_emb, o_emb, slot):
@@ -491,4 +497,5 @@ class RotatE(KgeModel):
         super().postprocess_params()
         if self._normalize_phases:
             phases = self.get_p_embedder().embeddings
-            phases.add_(math.pi).remainder_(2.0 * math.pi).sub_(math.pi)
+            phases.add_(weak(math.pi, phases)).remainder_(
+                weak(2.0 * math.pi, phases)).sub_(weak(math.pi, phases))

@@ -16,6 +16,13 @@ pool in the sampler's layout: row ``j * pool_factor + f`` holds candidate
 - ``l1``:   ``score[i, j] = -sum_d |q[i, d] - c[i, j, d]|``          (TransE)
 - ``cmod``: ``score[i, j] = -sum_d sqrt(dre^2 + dim^2 + 1e-30)``     (RotatE)
 
+In bfloat16 (``parallel.compute_dtype: bfloat16``) the inputs and outputs
+are bfloat16: each difference, and each of ``cmod``'s squares, sums and
+square roots, is rounded to bfloat16 as kge_tpu's kernel rounds it, and the
+sum over d is taken in float32 and rounded once (kge_tpu sums in bfloat16
+across its d tiles; this is closer to the exact sum). The backward's
+factors and sums are float32 inside, each output rounded once.
+
 ``pooled_dist_scores`` is differentiable in the queries and the pool
 (``torch.autograd.Function``; the backward is a kernel too). Beside it
 stands ``pooled_dist_scores_plain``, the same function in plain PyTorch
@@ -32,8 +39,12 @@ from typing import Sequence
 
 import torch
 
+from kge_tpu_torch.utils.dtypes import strong32, weak
+
 _EPS = 1e-30
 _KINDS = {"l1": 0, "cmod": 1}
+#: added to the kind code for bfloat16 tensors (csrc/dist_pool.cu)
+_BF16 = 2
 
 # dpool's work units, as csrc/dist_pool.cu has them: a block of DPOOL_UNITS
 # warps, each the owner of DPOOL_UNIT_ROWS pool rows of one slot; the rows i
@@ -51,17 +62,23 @@ def pooled_dist_scores_plain(queries: Sequence[torch.Tensor],
                              kind: str) -> torch.Tensor:
     """Plain version: gather ``pool[j * pool_factor + sel]``, broadcast
     difference, reduce over d. ``sign(0) = 0`` and ``0 / sqrt(1e-30) = 0``
-    come out of autograd's ``abs`` and ``sqrt``."""
+    come out of autograd's ``abs`` and ``sqrt``. In bfloat16 the gather and
+    the subtraction run in float32, each difference is rounded to
+    bfloat16, and the sum over d is float32 rounded once; so autograd's
+    backward sums ``dq`` and ``dpool`` in float32 too."""
     _check(queries, pool_embs, sel, pool_factor, kind)
     K = sel.shape[1]
+    dtype = queries[0].dtype
     rows = (torch.arange(K, device=sel.device)[None, :] * int(pool_factor)
             + sel.long())
-    diffs = [q[:, None, :] - p[rows] for q, p in zip(queries, pool_embs)]
+    diffs = [(strong32(q)[:, None, :] - strong32(p)[rows]).to(dtype)
+             for q, p in zip(queries, pool_embs)]
     if kind == "l1":
-        return -torch.sum(torch.abs(diffs[0]), dim=2)
-    return -torch.sum(
-        torch.sqrt(diffs[0] * diffs[0] + diffs[1] * diffs[1] + _EPS), dim=2
-    )
+        dist = torch.abs(diffs[0])
+    else:
+        dist = torch.sqrt(diffs[0] * diffs[0] + diffs[1] * diffs[1]
+                          + weak(_EPS, diffs[0]))
+    return (-torch.sum(strong32(dist), dim=2)).to(dtype)
 
 
 def dpool_plan(n: int, K: int, F: int, d: int, parts: int):
@@ -109,6 +126,11 @@ def _check(queries, pool_embs, sel, pool_factor, kind):
         raise ValueError("sel must be [n, K] and pool_factor >= 1")
     n, K = sel.shape
     d = queries[0].shape[-1]
+    dtype = queries[0].dtype
+    if any(x.dtype != dtype for x in (*queries, *pool_embs)):
+        raise TypeError(
+            "pooled scores take queries and pools of one dtype, got "
+            f"{[x.dtype for x in (*queries, *pool_embs)]}")
     for q, p in zip(queries, pool_embs):
         if tuple(q.shape) != (n, d) or tuple(p.shape) != (K * int(pool_factor), d):
             raise ValueError(
@@ -146,6 +168,9 @@ def pooled_dist_scores(queries: Sequence[torch.Tensor],
 #: one count per backward, which launches dq and dpool)
 pooled_dist_scores.launches = 0
 pooled_dist_scores.backward_launches = 0
+#: of those, the launches on bfloat16 tensors
+pooled_dist_scores.bf16_launches = 0
+pooled_dist_scores.bf16_backward_launches = 0
 
 
 class _PooledScores(torch.autograd.Function):
@@ -169,12 +194,13 @@ class _PooledScores(torch.autograd.Function):
 
 
 def _rows(name, x, device):
-    """``x`` as float32 rows the kernels can stride over: unit stride
-    within a row (a column slice of a wider tensor serves as it is)."""
+    """``x`` as float32 or bfloat16 rows the kernels can stride over: unit
+    stride within a row (a column slice of a wider tensor serves as it
+    is)."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got {x.dtype}")
     if x.shape[0] > 0 and x.shape[1] > 1 and x.stride(1) != 1:
         raise ValueError(f"{name} must have unit stride within a row")
     return x
@@ -195,7 +221,8 @@ def _common_args(queries, pools, sel, pool_factor, kind):
     d = queries[0].shape[1]
     second = 1 if kind == "cmod" else 0
     args = [
-        _KINDS[kind], queries[0].data_ptr(), queries[second].data_ptr(),
+        _KINDS[kind] + (_BF16 if queries[0].dtype == torch.bfloat16 else 0),
+        queries[0].data_ptr(), queries[second].data_ptr(),
         queries[0].stride(0), pools[0].data_ptr(), pools[second].data_ptr(),
         pools[0].stride(0), sel.data_ptr(),
     ]
@@ -209,7 +236,7 @@ def _launch_forward(queries, pools, sel, pool_factor, kind):
 
     args, (n, K, F, d), _alive = _common_args(queries, pools, sel, pool_factor, kind)
     device = sel.device
-    out = torch.empty(n, K, dtype=torch.float32, device=device)
+    out = torch.empty(n, K, dtype=queries[0].dtype, device=device)
     if n == 0 or K == 0:
         return out
     lib = load_library("dist_pool")
@@ -221,6 +248,7 @@ def _launch_forward(queries, pools, sel, pool_factor, kind):
                       torch.cuda.current_stream(device).cuda_stream)
     check_launch(code, "pooled_scores")
     pooled_dist_scores.launches += 1
+    pooled_dist_scores.bf16_launches += out.dtype == torch.bfloat16
     return out
 
 
@@ -229,16 +257,20 @@ def _launch_backward(queries, pools, sel, grad, pool_factor, kind):
 
     args, (n, K, F, d), _alive = _common_args(queries, pools, sel, pool_factor, kind)
     device = sel.device
-    if grad.dtype != torch.float32 or grad.device != device:
-        raise TypeError("the scores' gradient must be float32 on the scores' device")
+    dtype = queries[0].dtype
+    if grad.dtype != dtype or grad.device != device:
+        raise TypeError(
+            f"the scores' gradient must be {dtype} on the scores' device")
     parts = len(queries)
-    dqs = [torch.empty(n, d, dtype=torch.float32, device=device)
-           for _ in range(parts)]
-    dpools = [torch.empty(K * F, d, dtype=torch.float32, device=device)
+    dqs = [torch.empty(n, d, dtype=dtype, device=device) for _ in range(parts)]
+    dpools = [torch.empty(K * F, d, dtype=dtype, device=device)
               for _ in range(parts)]
     if K == 0 or d == 0:
         return dqs, dpools
     plan = dpool_plan(n, K, F, d, parts)
+    if dtype == torch.bfloat16:  # the bfloat16 kernels take no chunks
+        plan = {**plan, "rows_per_chunk": max(n, 1), "chunks": 1,
+                "workspace_floats": 0, "counters": 0}
     ws = torch.empty(plan["workspace_floats"], dtype=torch.float32, device=device)
     counters = torch.zeros(plan["counters"], dtype=torch.int32, device=device)
     lib = load_library("dist_pool")
@@ -257,4 +289,5 @@ def _launch_backward(queries, pools, sel, grad, pool_factor, kind):
                       torch.cuda.current_stream(device).cuda_stream)
     check_launch(code, "pooled_scores_bwd")
     pooled_dist_scores.backward_launches += 1
+    pooled_dist_scores.bf16_backward_launches += dtype == torch.bfloat16
     return dqs, dpools

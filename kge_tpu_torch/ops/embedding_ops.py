@@ -26,13 +26,19 @@ Replaces the first part of kge_tpu/ops/pallas_ops.py:
 
 Beside each kernel stand its plain PyTorch version (``*_plain``: the path
 for tensors on the CPU, and the kernel's oracle on the card) and a launch
-counter on the wrapper (``.launches``). A CUDA tensor goes to the kernel or
+counter on the wrapper (``.launches``; ``.bf16_launches`` counts the
+bfloat16 launches among them). A CUDA tensor goes to the kernel or
 the wrapper raises; no path falls back to the plain version.
 
 The sort's route goes by size (``sort_route``): up to ``SORT_LIMIT`` ids the
 kernel sorts them itself; above it (shared memory holds no more) the wrapper
 sorts with a stable ``torch.sort`` and hands the kernel the sort, and
 ``sorted_scatter_add.torch_sorts`` counts those calls.
+
+In bfloat16 (``parallel.param_dtype: bfloat16``) the updates, the tables
+and the rows are bfloat16: the scatter sums in float32 and rounds each
+output row once (kge_tpu's kernel sums in float32 scratch and writes the
+updates' dtype), and the row write copies 2-byte rows.
 
 Differences from the TPU wrappers, both for the card: the kernels take
 int64 or int32 ids and return sorted ids and segment numbers as int32;
@@ -46,6 +52,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from kge_tpu_torch.utils.dtypes import strong32
 
 _gather_mode = "torch"  # "torch" | "kernel"
 
@@ -77,17 +85,24 @@ def sort_route(n: int) -> str:
     return "kernel" if n <= SORT_LIMIT else "torch"
 
 
+def _summed(num_rows: int, ids, upd):
+    """``zeros[num_rows, D].index_add_(0, ids, upd)`` summed in float32,
+    in the updates' dtype."""
+    wide = strong32(upd)
+    out = torch.zeros(num_rows, upd.shape[1], dtype=wide.dtype,
+                      device=upd.device)
+    return out.index_add_(0, ids.long(), wide).to(upd.dtype)
+
+
 def scatter_add_presorted_plain(ids_sorted, order, upd, num_rows: int):
     """Plain version: ``zeros[num_rows, D].index_add_(ids_sorted,
-    upd[order])``."""
-    out = torch.zeros(num_rows, upd.shape[1], dtype=upd.dtype, device=upd.device)
-    return out.index_add_(0, ids_sorted.long(), upd[order.long()])
+    upd[order])``, summed in float32."""
+    return _summed(num_rows, ids_sorted, upd[order.long()])
 
 
 def sorted_scatter_add_plain(ids, upd, num_rows: int):
-    """Plain version of ``sorted_scatter_add``."""
-    out = torch.zeros(num_rows, upd.shape[1], dtype=upd.dtype, device=upd.device)
-    return out.index_add_(0, ids.long(), upd)
+    """Plain version of ``sorted_scatter_add``, summed in float32."""
+    return _summed(num_rows, ids, upd)
 
 
 def sorted_segment_sums_plain(ids, upd, num_rows: int):
@@ -97,8 +112,7 @@ def sorted_segment_sums_plain(ids, upd, num_rows: int):
     first = torch.ones_like(rs, dtype=torch.bool)
     first[1:] = rs[1:] != rs[:-1]
     seg = torch.cumsum(first, 0) - 1
-    gsum = torch.zeros(upd.shape, dtype=upd.dtype, device=upd.device)
-    gsum.index_add_(0, seg, upd[order])
+    gsum = _summed(upd.shape[0], seg, upd[order])
     return rs.to(torch.int32), seg.to(torch.int32), gsum
 
 
@@ -145,8 +159,10 @@ def sorted_scatter_add(ids: torch.Tensor, upd: torch.Tensor,
     return scatter_launch(*_sorted_above_limit(ids, num_rows), upd, num_rows)[0]
 
 
-#: launches of the scatter kernel, through any wrapper
+#: launches of the scatter kernel, through any wrapper, and of those the
+#: launches on bfloat16 updates
 sorted_scatter_add.launches = 0
+sorted_scatter_add.bf16_launches = 0
 #: calls whose ids were too many for the kernel's sort and went to torch.sort
 sorted_scatter_add.torch_sorts = 0
 
@@ -196,7 +212,9 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     from kge_tpu_torch.ops.kernel_utils import check_launch, require
 
     device = upd.device
-    require("upd", upd, device, torch.float32)
+    if upd.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"upd must be float32 or bfloat16, got {upd.dtype}")
+    require("upd", upd, device, upd.dtype)
     for name, x in (("ids", ids), ("order", order)):
         if x is not None and x.dtype not in (torch.int64, torch.int32):
             raise TypeError(f"{name} must be int64 or int32, got {x.dtype}")
@@ -212,7 +230,7 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     lib = _scatter_library()
     if buffers is None:
         buffers = (
-            torch.empty(out_rows, D, dtype=torch.float32, device=device),
+            torch.empty(out_rows, D, dtype=upd.dtype, device=device),
             torch.empty(lib.scatter_add_work_ints(n, D), dtype=torch.int32,
                         device=device),
             torch.empty(-(-n // lib.scatter_add_chunk()), 2, D,
@@ -221,8 +239,10 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     out, work, partial = buffers
     if out_rows == 0 or D == 0:
         return buffers
+    launch = (lib.scatter_add_launch if upd.dtype == torch.float32
+              else lib.scatter_add_launch_bf16)
     with torch.cuda.device(device):
-        code = lib.scatter_add_launch(
+        code = launch(
             ids.data_ptr(), int(ids.dtype == torch.int64),
             ids.stride(0) if n else 1, None if order is None else order.data_ptr(),
             int(order is not None and order.dtype == torch.int64),
@@ -232,6 +252,7 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
         )
     check_launch(code, "scatter_add_sorted")
     sorted_scatter_add.launches += 1
+    sorted_scatter_add.bf16_launches += upd.dtype == torch.bfloat16
     return buffers
 
 
@@ -241,8 +262,8 @@ def _scatter_library():
     lib = load_library("scatter_add_sorted")
     if not getattr(lib, "_kge_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        typed(lib, "scatter_add_launch",
-              [p, i, i, p, i, p, i, i, i, i, p, i, p, p, i, p])
+        for name in ("scatter_add_launch", "scatter_add_launch_bf16"):
+            typed(lib, name, [p, i, i, p, i, p, i, i, i, i, p, i, p, p, i, p])
         typed(lib, "scatter_add_work_ints", [i, i])
         typed(lib, "scatter_add_chunk", [])
         if typed(lib, "scatter_add_sort_limit", [])() != SORT_LIMIT:
@@ -284,6 +305,7 @@ def rows_set(table: torch.Tensor, ids: torch.Tensor,
 
 
 rows_set.launches = 0
+rows_set.bf16_launches = 0
 
 
 def _launch_rows_set(table, ids, rows):
@@ -295,8 +317,10 @@ def _launch_rows_set(table, ids, rows):
     )
 
     device = table.device
-    require("table", table, device, torch.float32)
-    require("rows", rows, device, torch.float32)
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
+    require("table", table, device, table.dtype)
+    require("rows", rows, device, table.dtype)
     if ids.dtype == torch.int32:
         ids = ids.long()
     require("ids", ids, device, torch.int64)
@@ -305,7 +329,9 @@ def _launch_rows_set(table, ids, rows):
         return table
     lib = load_library("rows_set")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = typed(lib, "rows_set_launch", [p, p, p, i, i, ctypes.c_longlong, p])
+    launch = typed(lib, "rows_set_launch" if table.dtype == torch.float32
+                   else "rows_set_launch_bf16",
+                   [p, p, p, i, i, ctypes.c_longlong, p])
     with torch.cuda.device(device):
         code = launch(
             table.data_ptr(), ids.data_ptr(), rows.data_ptr(), m, D,
@@ -313,6 +339,7 @@ def _launch_rows_set(table, ids, rows):
         )
     check_launch(code, "rows_set")
     rows_set.launches += 1
+    rows_set.bf16_launches += table.dtype == torch.bfloat16
     return table
 
 

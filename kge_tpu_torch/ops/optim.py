@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from kge_tpu_torch.config import Config
+from kge_tpu_torch.utils.dtypes import strong32, weak
 
 #: a parameter leaf: its path in kge_tpu's parameter tree, and the tensor
 Leaf = Tuple[Tuple[str, ...], torch.Tensor]
@@ -69,7 +70,25 @@ def parameter_name(path: Sequence[str]) -> str:
 # every rule: init(param, args) -> state dict of tensors;
 #             update(grad, state, param, lr, step, args) -> (delta, new_state)
 # `delta` is the value to *add* to the parameter; `lr` is a float and `step`
-# an int (kge_tpu traces both).
+# an int (kge_tpu traces both). In bfloat16 the rules round where kge_tpu's
+# round: the learning rate is a float32 array there, so a term with it is
+# float32 (``strong32``), and every Python constant is weakly typed
+# (``weak``); states keep the dtype of what they are computed from.
+
+
+class KernelStep(int):
+    """The step count as kge_tpu's fused row-update kernel holds it: a
+    float32 array (kge_tpu/ops/pallas_ops.py ``_fused_update_kernel``), so
+    that Adam's bias corrections, which the dense step applies as weakly
+    typed constants, are float32 terms there. The two agree in float32."""
+
+
+def _bias_corrected(x: torch.Tensor, c: float, step) -> torch.Tensor:
+    """``x / c`` for a bias correction ``c`` computed from the step: in
+    x's dtype on the dense step, in float32 on the fused one."""
+    if isinstance(step, KernelStep):
+        return strong32(x) / c
+    return x / weak(c, x)
 
 
 def _pow_const(base: float, t: int) -> float:
@@ -84,7 +103,7 @@ def _one_minus_pow(base: float, t: int) -> float:
 def _wd(grad, param, args):
     wd = args.get("weight_decay", 0.0)
     if wd:
-        return grad + wd * param
+        return grad + weak(wd, param) * param
     return grad
 
 
@@ -99,7 +118,7 @@ def _adagrad_update(grad, state, param, lr, step, args):
     grad = _wd(grad, param, args)
     clr = _decayed_lr(lr, step, lr_decay)
     new_sum = state["sum"] + grad * grad
-    delta = -clr * grad / (torch.sqrt(new_sum) + eps)
+    delta = -clr * strong32(grad) / (torch.sqrt(new_sum) + weak(eps, new_sum))
     return delta, {"sum": new_sum}
 
 
@@ -117,14 +136,14 @@ def _adam_update(grad, state, param, lr, step, args, decoupled=False):
     wd = args.get("weight_decay", 0.0)
     if not decoupled:
         grad = _wd(grad, param, args)
-    m = b1 * state["m"] + (1 - b1) * grad
-    v = b2 * state["v"] + (1 - b2) * grad * grad
+    m = weak(b1, state["m"]) * state["m"] + weak(1 - b1, grad) * grad
+    v = weak(b2, state["v"]) * state["v"] + weak(1 - b2, grad) * grad * grad
     t = step + 1
-    m_hat = m / _one_minus_pow(b1, t)
-    v_hat = v / _one_minus_pow(b2, t)
-    delta = -lr * m_hat / (torch.sqrt(v_hat) + eps)
+    m_hat = _bias_corrected(m, _one_minus_pow(b1, t), step)
+    v_hat = _bias_corrected(v, _one_minus_pow(b2, t), step)
+    delta = -lr * strong32(m_hat) / (torch.sqrt(v_hat) + weak(eps, v_hat))
     if decoupled and wd:
-        delta = delta - lr * wd * param
+        delta = delta - lr * wd * strong32(param)
     return delta, {"m": m, "v": v}
 
 
@@ -136,11 +155,12 @@ def _adamax_update(grad, state, param, lr, step, args):
     b1, b2 = args.get("betas", (0.9, 0.999))
     eps = args.get("eps", 1e-8)
     grad = _wd(grad, param, args)
-    m = b1 * state["m"] + (1 - b1) * grad
-    u = torch.maximum(b2 * state["u"], torch.abs(grad) + eps)
+    m = weak(b1, state["m"]) * state["m"] + weak(1 - b1, grad) * grad
+    u = torch.maximum(weak(b2, state["u"]) * state["u"],
+                      torch.abs(grad) + weak(eps, grad))
     t = step + 1
     scale = float(np.float32(-lr) / np.float32(_one_minus_pow(b1, t)))
-    delta = scale * m / u
+    delta = scale * strong32(m) / u
     return delta, {"m": m, "u": u}
 
 
@@ -159,10 +179,11 @@ def _sgd_update(grad, state, param, lr, step, args):
         if step == 0:
             buf = grad
         else:
-            buf = momentum * state["momentum"] + (1 - dampening) * grad
-        d = grad + momentum * buf if nesterov else buf
-        return -lr * d, {"momentum": buf}
-    return -lr * grad, {}
+            buf = (weak(momentum, state["momentum"]) * state["momentum"]
+                   + weak(1 - dampening, grad) * grad)
+        d = grad + weak(momentum, buf) * buf if nesterov else buf
+        return -lr * strong32(d), {"momentum": buf}
+    return -lr * strong32(grad), {}
 
 
 def _rmsprop_init(param, args):
@@ -180,19 +201,20 @@ def _rmsprop_update(grad, state, param, lr, step, args):
     momentum = args.get("momentum", 0.0)
     centered = args.get("centered", False)
     grad = _wd(grad, param, args)
-    sq = alpha * state["sq"] + (1 - alpha) * grad * grad
+    sq = (weak(alpha, state["sq"]) * state["sq"]
+          + weak(1 - alpha, grad) * grad * grad)
     new_state = {"sq": sq}
     if centered:
-        avg = alpha * state["avg"] + (1 - alpha) * grad
-        denom = torch.sqrt(sq - avg * avg + eps)
+        avg = weak(alpha, state["avg"]) * state["avg"] + weak(1 - alpha, grad) * grad
+        denom = torch.sqrt(sq - avg * avg + weak(eps, sq))
         new_state["avg"] = avg
     else:
-        denom = torch.sqrt(sq) + eps
+        denom = torch.sqrt(sq) + weak(eps, sq)
     if momentum:
-        buf = momentum * state["momentum"] + grad / denom
+        buf = weak(momentum, state["momentum"]) * state["momentum"] + grad / denom
         new_state["momentum"] = buf
-        return -lr * buf, new_state
-    return -lr * grad / denom, new_state
+        return -lr * strong32(buf), new_state
+    return -lr * strong32(grad) / denom, new_state
 
 
 def _adadelta_init(param, args):
@@ -203,10 +225,12 @@ def _adadelta_update(grad, state, param, lr, step, args):
     rho = args.get("rho", 0.9)
     eps = args.get("eps", 1e-6)
     grad = _wd(grad, param, args)
-    sq = rho * state["sq"] + (1 - rho) * grad * grad
-    delta = torch.sqrt(state["acc"] + eps) / torch.sqrt(sq + eps) * grad
-    acc = rho * state["acc"] + (1 - rho) * delta * delta
-    return -lr * delta, {"sq": sq, "acc": acc}
+    sq = weak(rho, state["sq"]) * state["sq"] + weak(1 - rho, grad) * grad * grad
+    delta = (torch.sqrt(state["acc"] + weak(eps, state["acc"]))
+             / torch.sqrt(sq + weak(eps, sq)) * grad)
+    acc = (weak(rho, state["acc"]) * state["acc"]
+           + weak(1 - rho, delta) * delta * delta)
+    return -lr * strong32(delta), {"sq": sq, "acc": acc}
 
 
 _RULES = {
@@ -231,7 +255,8 @@ _FLAG_NESTEROV, _FLAG_FIRST_STEP, _FLAG_CENTERED, _FLAG_DECOUPLED = 1, 2, 4, 8
 def _kernel_hyper(opt_type: str, args: Dict[str, Any], lr: float, step: int):
     """(the 12 float hyperparameters of the kernel's ``Hyper``, flags):
     every scalar that the rule's plain version computes on the host,
-    computed the same way, so that both round alike."""
+    computed the same way, so that both round alike. The kernel's bfloat16
+    rules round the weakly typed ones to bfloat16 where kge_tpu's would."""
     h = dict.fromkeys(
         ("lr", "wd", "eps", "b1", "omb1", "b2", "omb2", "c1", "c2",
          "momentum", "omd", "lrwd"), 0.0)
@@ -295,11 +320,15 @@ def fused_sorted_update_plain(opt_type: str, args: Dict[str, Any],
                               states: Dict[str, torch.Tensor], lr: float,
                               step: int) -> Dict[str, torch.Tensor]:
     """Plain version of ``fused_sorted_update``: ``index_add_`` into a
-    dense zero gradient, then the rule of ``_RULES`` over the whole table,
-    written back into ``param`` and ``states``."""
+    dense float32 zero gradient, cast to the parameter's dtype, then the
+    rule of ``_RULES`` over the whole table, written back into ``param``
+    (rounded once to its dtype) and ``states``."""
     _check_fused(ids, upd, param, states)
-    grad = torch.zeros_like(param).index_add_(0, ids.long(), upd.to(param.dtype))
-    delta, new_states = _RULES[opt_type][1](grad, states, param, lr, step, args)
+    wide = torch.promote_types(param.dtype, torch.float32)
+    grad = torch.zeros(param.shape, dtype=wide, device=param.device)
+    grad = grad.index_add_(0, ids.long(), upd.to(wide)).to(param.dtype)
+    delta, new_states = _RULES[opt_type][1](
+        grad, states, param, lr, KernelStep(step), args)
     param.add_(delta)
     for name, value in new_states.items():
         states[name].copy_(value)
@@ -315,7 +344,8 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
 
     Semantically ``g = zeros_like(param).index_add_(0, ids, upd)`` followed
     by the rule ``opt_type`` of ``_RULES`` on ``param`` and ``states`` with
-    gradient ``g``: every row is updated, named by ``ids`` (duplicates,
+    gradient ``g`` (summed in float32, cast to the parameter's dtype; a
+    bfloat16 table and its states stay bfloat16): every row is updated, named by ``ids`` (duplicates,
     any order) or not, so Adam's moments decay and weight decay applies
     everywhere as on the dense step. The dense gradient is never held: the
     scatter kernel sorts the ids and sums duplicates into one gradient row
@@ -341,8 +371,9 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
     )
 
 
-#: launches of the fused row-update kernel
+#: launches of the fused row-update kernel, and of those on bfloat16 tables
 fused_sorted_update.launches = 0
+fused_sorted_update.bf16_launches = 0
 
 
 def segment_sums(ids: torch.Tensor, upd: torch.Tensor, num_rows: int):
@@ -373,11 +404,14 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     device = param.device
     if device.type != "cuda":
         raise ValueError(f"the fused update kernel takes CUDA tensors, got {device}")
+    dtype = param.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"param must be float32 or bfloat16, got {dtype}")
     keys = sorted(states)  # the kernel takes the states in sorted key order
-    require("param", param, device, torch.float32)
+    require("param", param, device, dtype)
     for name in keys:
-        require(f"state {name}", states[name], device, torch.float32)
-    require("gsum", gsum, device, torch.float32)
+        require(f"state {name}", states[name], device, dtype)
+    require("gsum", gsum, device, dtype)
     require("ids_sorted", ids_sorted, device, torch.int32)
     require("seg", seg, device, torch.int32)
     num_rows, D = param.shape
@@ -386,8 +420,9 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     hyper, flags = _kernel_hyper(opt_type, args, lr, step)
     lib = load_library("fused_row_update")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = typed(lib, "fused_row_update_launch",
-                    [i, p, p, p, i, i, ctypes.c_longlong, p, p, p, p, i, p, i, p])
+    launch = typed(lib, "fused_row_update_launch" if dtype == torch.float32
+                   else "fused_row_update_launch_bf16",
+                   [i, p, p, p, i, i, ctypes.c_longlong, p, p, p, p, i, p, i, p])
     state_ptrs = [states[name].data_ptr() for name in keys] + [None] * 3
     with torch.cuda.device(device):
         code = launch(
@@ -399,6 +434,7 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
         )
     check_launch(code, "fused_row_update")
     fused_sorted_update.launches += 1
+    fused_sorted_update.bf16_launches += dtype == torch.bfloat16
     return states
 
 
@@ -587,14 +623,17 @@ class KgeOptimizer:
         if grp.opt_type == "adagrad":
             eps = args.get("eps", 1e-10)
             srows = state_leaf["sum"][rs] + g * g
-            prows = param[rs] - clr * g / (torch.sqrt(srows) + eps)
-            new_state = {"sum": rows_set(state_leaf["sum"], rs, srows)}
+            prows = param[rs] - clr * strong32(g) / (
+                torch.sqrt(srows) + weak(eps, srows))
+            new_state = {"sum": rows_set(state_leaf["sum"], rs,
+                                         srows.to(state_leaf["sum"].dtype))}
         elif grp.opt_type == "sgd":
-            prows = param[rs] - clr * g
+            prows = param[rs] - clr * strong32(g)
             new_state = state_leaf
         else:  # pragma: no cover - guarded by supports_sparse_rows
             raise NotImplementedError(grp.opt_type)
-        rows_set(param, rs, prows)
+        # the table keeps its dtype: kge_tpu's row write casts the rows
+        rows_set(param, rs, prows.to(param.dtype))
         return new_state
 
     @torch.no_grad()
@@ -626,7 +665,13 @@ class KgeOptimizer:
             delta, new_s = update_fn(
                 g_leaf, s_leaf, param, float(lr[label]), step, grp.args
             )
-            param.add_(delta)
+            if delta.dtype == param.dtype:
+                param.add_(delta)
+            else:
+                # kge_tpu's p + delta is float32 when the learning rate
+                # promotes a bfloat16 leaf's delta: the leaf becomes float32
+                # (ROADMAP C.4), and so does its state from the next step
+                param.data = param + delta
             new_states.append(new_s)
         opt_state["leaves"] = new_states
         opt_state["step"] = step + 1

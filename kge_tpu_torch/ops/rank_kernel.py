@@ -21,7 +21,8 @@ and 0.28 ms for ``torch.matmul`` and the compares (PERF.md has the table).
 Beside the kernel stand its plain PyTorch version (``fused_rank_counts_plain``,
 the path for tensors on the CPU and the kernel's oracle on the card) and
 launch counters (``fused_rank_counts.launches``, and of those the launches
-with a score epilogue, ``fused_rank_counts.epilogue_launches``). A CUDA
+with a score epilogue, ``fused_rank_counts.epilogue_launches``, and those of
+the bfloat16 path, ``fused_rank_counts.bf16_launches``). A CUDA
 tensor goes to the kernel or the wrapper raises; no path falls back to the
 plain version.
 
@@ -47,11 +48,21 @@ Differences from the TPU kernel's interface, all for the card:
   value; the plain version calls it on the product. Any other callable
   raises.
 
-Precision is float32 throughout (the TPU kernel rounds its inputs to bf16):
-every score is one FMA chain over the embedding dimension in ascending
-order, whatever the plan, and the epilogue's float operations round one by
-one (the sqrt correctly rounded, as ``torch.sqrt``'s on the card), so the
-true entity ties with itself exactly under the epilogue too.
+Precision is float32 for float32 inputs (the TPU kernel rounds its inputs
+to bf16): every score is one FMA chain over the embedding dimension in
+ascending order, whatever the plan, and the epilogue's float operations
+round one by one (the sqrt correctly rounded, as ``torch.sqrt``'s on the
+card), so the true entity ties with itself exactly under the epilogue too.
+
+bfloat16 inputs (``parallel.compute_dtype: bfloat16``) take the kernel's
+bfloat16 path: the same float32 chain over the bfloat16 values (each
+product is exact in float32, so the chain is a sum of exact products in
+ascending order), each score rounded once to bfloat16, and the epilogue and
+the tie test computed in bfloat16 with a rounding after every operation, as
+kge_tpu's evaluation ranks its bfloat16 score matrix
+(kge_tpu/job/eval_entity_ranking.py ``_close_greater``). ``vals`` and the
+pivot are bfloat16 then. The plain version sums the same products in the
+same order (``chain_scores``), so its counts equal the kernel's.
 """
 
 from __future__ import annotations
@@ -60,6 +71,8 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from kge_tpu_torch.utils.dtypes import weak
 
 _KERNEL = "rank_counts"
 #: candidate columns per tile of the kernel (BN of csrc/rank_counts.cu)
@@ -85,7 +98,8 @@ class ScoreEpilogue:
 #: -||q - c||_2 from the augmented product -||q - c||^2, clamped at 0
 #: against cancellation (kge_tpu/models/translation.py ``_l2_factorization``)
 NEG_SQRT_L2 = ScoreEpilogue(
-    "neg_sqrt_l2", 1, lambda dot: -torch.sqrt(torch.clamp(-dot, min=0.0) + 1e-30)
+    "neg_sqrt_l2", 1,
+    lambda dot: -torch.sqrt(torch.clamp(-dot, min=0.0) + weak(1e-30, dot)),
 )
 
 
@@ -136,7 +150,8 @@ def close_greater(scores: torch.Tensor, true: torch.Tensor, atol: float,
     scores = torch.where(torch.isnan(scores), neg_inf, scores)
     true = torch.where(torch.isnan(true), neg_inf, true)
     finite = torch.isfinite(scores) | torch.isfinite(true)
-    is_close = (scores - true).abs() <= atol + rtol * true.abs()
+    is_close = (scores - true).abs() <= (
+        weak(atol, true) + weak(rtol, true) * true.abs())
     both_neg_inf = torch.isneginf(scores) & torch.isneginf(true)
     is_close = both_neg_inf | (is_close & finite)
     is_greater = (scores > true) & ~is_close
@@ -161,11 +176,28 @@ def csr_row_sums(row_ptr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (csum[ptr[1:]] - csum[ptr[:-1]]).to(torch.int32)
 
 
+def chain_scores(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``q @ targets.T`` for bfloat16 operands as the kernel computes it:
+    one float32 sum per score over k ascending (a product of two bfloat16
+    values is exact in float32, so an FMA and a multiply-then-add agree),
+    rounded once to bfloat16."""
+    qf, tf = q.float(), targets.float()
+    acc = torch.zeros(q.shape[0], targets.shape[0], dtype=torch.float32,
+                      device=q.device)
+    for k in range(q.shape[1]):
+        acc.addcmul_(qf[:, k, None], tf[None, :, k])
+    return acc.to(q.dtype)
+
+
 def fused_rank_counts_plain(q, targets, pivot, row_ptr, cols, num_valid: int,
                             atol: float, rtol: float, score_map=None,
                             pivot_cols=None):
-    """The plain PyTorch version: materializes the [n, num_valid] scores."""
-    scores = q @ targets[:num_valid].T
+    """The plain PyTorch version: materializes the [n, num_valid] scores
+    (bfloat16 ones by ``chain_scores``)."""
+    if q.dtype == torch.bfloat16:
+        scores = chain_scores(q, targets[:num_valid])
+    else:
+        scores = q @ targets[:num_valid].T
     if score_map is not None:
         scores = score_map(scores)
     if pivot_cols is not None:
@@ -185,6 +217,10 @@ def _check(q, targets, pivot, row_ptr, cols, num_valid, pivot_cols):
     n, D = q.shape
     if targets.dim() != 2 or targets.shape[1] != D:
         raise ValueError(f"targets {tuple(targets.shape)} do not match q {tuple(q.shape)}")
+    if targets.dtype != q.dtype:
+        raise TypeError(
+            f"fused_rank_counts takes q and targets of one dtype, got "
+            f"{q.dtype} and {targets.dtype}")
     if not 0 <= num_valid <= targets.shape[0]:
         raise ValueError(f"num_valid {num_valid} outside [0, {targets.shape[0]}]")
     if row_ptr.shape != (n + 1,) or cols.dim() != 1:
@@ -210,7 +246,8 @@ def fused_rank_counts(
     pivot_cols: Optional[torch.Tensor] = None,
     plan: Optional[Dict[str, int]] = None,
 ):
-    """(greater [n] int32, close [n] int32, vals [nnz] float32, pivot [n]).
+    """(greater [n] int32, close [n] int32, vals [nnz], pivot [n]); vals and
+    pivot in q's dtype (float32 or bfloat16).
 
     Scores are ``score_map(q @ targets.T)`` over the columns ``<
     num_valid``; counts are against the row's pivot under isclose tie
@@ -246,6 +283,8 @@ def fused_rank_counts(
 fused_rank_counts.launches = 0
 #: the launches among them with a score epilogue other than the identity
 fused_rank_counts.epilogue_launches = 0
+#: the launches among them of the bfloat16 path
+fused_rank_counts.bf16_launches = 0
 
 
 def _library():
@@ -254,10 +293,11 @@ def _library():
     lib = load_library(_KERNEL)
     if not getattr(lib, "_kge_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.rank_counts_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p, p,
-        ]
-        lib.rank_counts_launch.restype = i
+        for name in ("rank_counts_launch", "rank_counts_launch_bf16"):
+            getattr(lib, name).argtypes = [
+                p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p, p,
+            ]
+            getattr(lib, name).restype = i
         for name in ("rank_counts_tile_cols", "rank_counts_tile_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
@@ -273,9 +313,13 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
     from kge_tpu_torch.ops.kernel_utils import check_launch
 
     device = q.device
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_rank_counts: the kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
     tensors = {"q": q, "targets": targets, "row_ptr": row_ptr, "cols": cols,
                "pivot_cols": pivot_cols}
-    wanted = {"q": torch.float32, "targets": torch.float32,
+    wanted = {"q": dtype, "targets": dtype,
               "row_ptr": torch.int32, "cols": torch.int32,
               "pivot_cols": torch.int32}
     for name, x in tensors.items():
@@ -294,15 +338,17 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
         raise ValueError(f"fused_rank_counts: plan {plan} is not for {num_valid} columns")
     # the kernels write every element of the four outputs
     counts = torch.empty(2, n, dtype=torch.int32, device=device)
-    vals = torch.empty(cols.numel(), dtype=torch.float32, device=device)
-    pivot_out = torch.empty(n, dtype=torch.float32, device=device)
+    vals = torch.empty(cols.numel(), dtype=dtype, device=device)
+    pivot_out = torch.empty(n, dtype=dtype, device=device)
     if n == 0:
         return counts[0], counts[1], vals, pivot_out
     tile_ptr = torch.empty(n * (plan["num_tiles"] + 1), dtype=torch.int32,
                            device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.rank_counts_launch(
+        launch = (lib.rank_counts_launch if dtype == torch.float32
+                  else lib.rank_counts_launch_bf16)
+        code = launch(
             q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
             row_ptr.data_ptr(), cols.data_ptr(),
             n, D, int(num_valid), cols.numel(), float(atol), float(rtol),
@@ -313,4 +359,5 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
     check_launch(code, "rank_counts")
     fused_rank_counts.launches += 1
     fused_rank_counts.epilogue_launches += epilogue != 0
+    fused_rank_counts.bf16_launches += dtype == torch.bfloat16
     return counts[0], counts[1], vals, pivot_out

@@ -28,14 +28,12 @@ def check_parallel(config: Config) -> None:
     """Refuse the ``parallel.*`` settings this package cannot honour yet:
     a device mesh larger than its one card, with kge_tpu's message
     (kge_tpu/parallel/mesh.py ``DeviceCtx.create``; ROADMAP A.10), and a
-    parameter or compute dtype other than float32 (ROADMAP A.4).
-    ``parallel.data: -1`` and ``parallel.model: 1`` are one card."""
+    parameter or compute dtype other than float32 and bfloat16 (ROADMAP
+    A.11). ``parallel.data: -1`` and ``parallel.model: 1`` are one card."""
+    from kge_tpu_torch.utils.dtypes import torch_dtype
+
     for key in ("parallel.param_dtype", "parallel.compute_dtype"):
-        if str(config.get(key)) != "float32":
-            raise ValueError(
-                f"{key}={config.get(key)}: kge_tpu_torch computes in float32 "
-                "only; the dtype policy is not ported yet (ROADMAP A.4)"
-            )
+        torch_dtype(config, key)
     model = max(int(config.get("parallel.model")), 1)
     data = int(config.get("parallel.data"))
     data = data if data > 0 else max(1 // model, 1)
@@ -47,8 +45,8 @@ def check_parallel(config: Config) -> None:
 
 def device_of(config: Config) -> torch.device:
     """The torch device named by ``job.device``; raises when it names the
-    card and no card is present, or when ``parallel.*`` asks for what one
-    card in float32 cannot give (``check_parallel``)."""
+    card and no card is present, or when ``parallel.*`` asks for what this
+    package cannot give (``check_parallel``)."""
     check_parallel(config)
     name = str(config.get("job.device"))
     if name == "cpu":

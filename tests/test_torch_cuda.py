@@ -1058,3 +1058,169 @@ def test_conve_step_on_card_equals_cpu(tmp_path, train_type):
     np.testing.assert_allclose(results["cuda"][0], results["cpu"][0], rtol=1e-5)
     for got, want in zip(results["cuda"][1], results["cpu"][1], strict=True):
         assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+# -- the bfloat16 paths of the six kernels (parallel.*_dtype: bfloat16) ------------
+
+
+def _bf16(rng, *shape, scale=1.0, device="cuda"):
+    return torch.tensor(rng.normal(0.0, scale, shape).astype(np.float32),
+                        device=device).bfloat16()
+
+
+def _within(got, want, bound):
+    """|got - want| <= bound elementwise, NaNs where both are NaN."""
+    got, want = got.float(), want.float()
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    return bool(torch.all(both_nan | ((got - want).abs() <= bound)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [None, "l2"])
+@pytest.mark.parametrize("n,E,D", [(64, 1000, 64), (70, 300, 30)])
+def test_bf16_rank_kernel_counts_equal_plain_on_card(n, E, D, epilogue):
+    """K1's bfloat16 path: the counts equal the plain version's exactly, and
+    vals and the pivot bit for bit (one float32 chain per score, one
+    rounding, the tie test in bfloat16 on both sides)."""
+    device = _card()
+    q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(7, n, E, D))
+    q, T = q.bfloat16(), T.bfloat16()
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    before = fused_rank_counts.launches
+    g, c, vals, pivot = fused_rank_counts(q, T, None, row_ptr, cols, E, ATOL,
+                                          RTOL, score_map=score_map,
+                                          pivot_cols=true)
+    torch.cuda.synchronize()
+    assert fused_rank_counts.launches == before + 1
+    assert vals.dtype == pivot.dtype == torch.bfloat16
+    pg, pc, pvals, ppivot = rank_kernel.fused_rank_counts_plain(
+        q, T, None, row_ptr, cols, E, ATOL, RTOL, score_map=score_map,
+        pivot_cols=true)
+    assert torch.equal(g, pg) and torch.equal(c, pc)
+    assert torch.equal(vals.view(torch.int16), pvals.view(torch.int16))
+    assert torch.equal(pivot.view(torch.int16), ppivot.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_bf16_scatter_and_rows_set_match_plain_on_card():
+    """K2's bfloat16 path within two bfloat16 ulps of each row's summed
+    magnitude of the plain version (both sum in float32, in other orders,
+    and round once); the segment sums the same; K3 bit for bit, in place."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_segment_sums
+
+    device = _card()
+    rng = np.random.default_rng(11)
+    for n, rows, D in ((8192, 14541, 512), (129, 237, 30)):
+        ids = torch.tensor(rng.integers(0, rows, n), device=device)
+        upd = _bf16(rng, n, D)
+        before = sorted_scatter_add.launches
+        got = sorted_scatter_add(ids, upd, rows)
+        torch.cuda.synchronize()
+        assert sorted_scatter_add.launches == before + 1
+        assert got.dtype == torch.bfloat16
+        want = sorted_scatter_add_plain(ids, upd, rows)
+        magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
+        assert _within(got, want, 1e-6 + 2.0 ** -7 * magnitude)
+        rs, seg, gsum = sorted_segment_sums(ids, upd, rows)
+        distinct = torch.unique(ids)
+        assert gsum.dtype == torch.bfloat16
+        assert _within(gsum[:distinct.numel()], want[distinct],
+                       1e-6 + 2.0 ** -7 * magnitude[distinct])
+    table = _bf16(rng, 2000, 512)
+    ids = torch.tensor(rng.integers(0, 2000, 300), device=device)
+    rows = _bf16(rng, 300, 512)
+    rows = rows[torch.searchsorted(torch.unique(ids), ids)]  # equal duplicates
+    want = table.clone()
+    want[ids] = rows
+    storage = table.data_ptr()
+    rows_set(table, ids, rows)
+    assert table.data_ptr() == storage and torch.equal(table, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_type,args", [
+    ("adagrad", {}), ("adam", {}), ("adamw", {"weight_decay": 0.1}),
+    ("adamax", {}), ("sgd", {"momentum": 0.9, "nesterov": True}),
+    ("rmsprop", {"momentum": 0.5, "centered": True}), ("adadelta", {}),
+])
+def test_bf16_fused_update_matches_plain_on_card(opt_type, args):
+    """K4's bfloat16 path: table and states stay bfloat16 and agree with
+    the plain version within one bfloat16 ulp (the segment sums may round
+    differently; the updates share a sign so that no sum cancels)."""
+    from kge_tpu_torch.ops.optim import (
+        _RULES,
+        fused_sorted_update,
+        fused_sorted_update_plain,
+    )
+
+    device = _card()
+    rng = np.random.default_rng(5)
+    rows, D, n = 3000, 256, 1000
+    ids = torch.tensor(rng.integers(0, rows, n), device=device)
+    upd = _bf16(rng, n, D).abs()
+    param = _bf16(rng, rows, D)
+    states = {k: _bf16(rng, rows, D, scale=0.1).abs()
+              for k in _RULES[opt_type][0](param, args)}
+    ref_param = param.clone()
+    ref_states = {k: v.clone() for k, v in states.items()}
+    before = fused_sorted_update.launches
+    fused_sorted_update(opt_type, args, ids, upd, param, states, 0.01, 3)
+    torch.cuda.synchronize()
+    assert fused_sorted_update.launches == before + 1
+    fused_sorted_update_plain(opt_type, args, ids, upd, ref_param, ref_states,
+                              0.01, 3)
+    assert param.dtype == torch.bfloat16
+    assert _within(param, ref_param, 2.0 ** -7 * ref_param.float().abs())
+    for k in states:
+        assert states[k].dtype == torch.bfloat16
+        assert _within(states[k], ref_states[k],
+                       2.0 ** -7 * ref_states[k].float().abs()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_bf16_pooled_kernels_match_plain_on_card(kind):
+    """K5a and K5b in bfloat16 against the plain version (autograd): scores
+    within one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the
+    summed factor magnitudes (float32 sums in other orders, then one
+    rounding each)."""
+    from kge_tpu_torch.ops.dist_pool import (
+        pooled_dist_scores,
+        pooled_dist_scores_plain,
+    )
+
+    device = _card()
+    rng = np.random.default_rng(9)
+    n, K, F, d = 512, 64, 8, 128
+    parts = 1 if kind == "l1" else 2
+    qs = [_bf16(rng, n, d) for _ in range(parts)]
+    pools = [_bf16(rng, K * F, d) for _ in range(parts)]
+    sel = torch.tensor(rng.integers(0, F, (n, K)), device=device)
+    g = _bf16(rng, n, K)
+
+    def run(fn):
+        tensors = [x.clone().requires_grad_(True) for x in (*qs, *pools)]
+        out = fn(tensors[:parts], tensors[parts:], sel, F, kind)
+        out.backward(g)
+        return out.detach(), [t.grad for t in tensors]
+
+    launches = (pooled_dist_scores.launches,
+                pooled_dist_scores.backward_launches)
+    out, grads = run(pooled_dist_scores)
+    torch.cuda.synchronize()
+    assert (pooled_dist_scores.launches,
+            pooled_dist_scores.backward_launches) == (launches[0] + 1,
+                                                      launches[1] + 1)
+    ref, ref_grads = run(pooled_dist_scores_plain)
+    assert out.dtype == torch.bfloat16
+    assert _within(out, ref, 2.0 ** -7 * ref.float().abs() + 1e-6)
+    # every factor is at most 2 |g| in magnitude
+    dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
+    rows = (torch.arange(K, device=device)[None, :] * F + sel).reshape(-1)
+    dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
+        0, rows, 2 * g.float().abs().reshape(-1, 1))
+    for i, (got, want) in enumerate(zip(grads, ref_grads)):
+        mag = dq_mag if i < parts else dpool_mag
+        assert got.dtype == torch.bfloat16
+        assert _within(got, want, 2.0 ** -7 * want.float().abs()
+                       + 2.0 ** -12 * mag + 1e-6), i

@@ -1,12 +1,15 @@
-"""Settings that kge_tpu honours and the port does not yet: the port refuses
-them instead of ignoring them (ROADMAP C.1 and C.2), on the commands that
-found the faults (examples/toy-complex-train.yaml on dataset_test, on the
-CPU):
+"""The commands that found ROADMAP C.1 and C.2 (examples/toy-complex-train.yaml
+on dataset_test, on the CPU), once refused by the port:
 
-- ``<embedder>.pretrain.model_filename``: kge_tpu copies the pretrained rows
-  into the new tables; the port raises at model creation (ROADMAP A.5);
-- ``parallel.param_dtype`` / ``parallel.compute_dtype`` other than float32:
-  the port raises (ROADMAP A.4);
+- ``<embedder>.pretrain.model_filename``: both packages copy the pretrained
+  rows into the new table (ROADMAP A.5, done): the initial checkpoints'
+  tables are equal bit for bit;
+- ``parallel.param_dtype`` / ``parallel.compute_dtype`` in bfloat16: both
+  packages train (ROADMAP A.4, done), with losses within bfloat16
+  tolerances and checkpoints of the same dtypes; kge_tpu on
+  ``train.epoch_scan: never`` (its scanned KvsAll epoch fails on bfloat16
+  tables, ROADMAP C.4);
+- any other dtype (``float16``): the port raises (ROADMAP A.11);
 - a device mesh larger than one card (``parallel.data`` or
   ``parallel.model`` above 1): the port raises with kge_tpu's message, as
   kge_tpu does on one device.
@@ -17,8 +20,12 @@ CPU):
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
+from kge_tpu_torch.models.convert import leaf_tensor
+from kge_tpu_torch.utils.io import load_checkpoint
 from tests.test_torch_cli import EXAMPLES_DIR, _entries, _env, _run, _toy_cwd
 
 TOY = str(EXAMPLES_DIR / "toy-complex-train.yaml")
@@ -36,33 +43,78 @@ def pretrained(tmp_path_factory):
     return cwd, folder
 
 
+def _table(folder, checkpoint, embedder):
+    tree = load_checkpoint(str(folder / checkpoint))["model"][0]
+    return leaf_tensor(tree[embedder]["embeddings"])
+
+
 @pytest.mark.parametrize("embedder", ["entity_embedder", "relation_embedder"])
-def test_pretrained_initialization_is_refused(pretrained, embedder):
+def test_pretrained_initialization_matches_kge_tpu(pretrained, embedder):
+    """The refused command now trains; its initial table equals kge_tpu's
+    from the same command bit for bit, and F's rows."""
     cwd, folder = pretrained
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", TOY,
-                 "--job.device", "cpu", "--valid.every", "0",
-                 f"--complex.{embedder}.pretrain.model_filename",
-                 str(folder / "checkpoint_best.pt"),
-                 "--folder", str(cwd / f"pre_{embedder}")], cwd=cwd, check=False)
-    assert proc.returncode != 0
-    assert f"complex.{embedder}.pretrain.model_filename" in proc.stderr
-    assert "ROADMAP A.5" in proc.stderr
-    assert not (cwd / f"pre_{embedder}" / "checkpoint_00001.pt").exists()
+    source = folder / "checkpoint_best.pt"
+    runs = {}
+    for package in ("kge_tpu_torch", "kge_tpu"):
+        runs[package] = cwd / f"pre_{embedder}_{package}"
+        _run([sys.executable, "-m", package, "start", TOY,
+              "--job.device", "cpu", "--valid.every", "0",
+              f"--complex.{embedder}.pretrain.model_filename", str(source),
+              "--folder", str(runs[package])], cwd=cwd)
+    assert (runs["kge_tpu_torch"] / "checkpoint_00010.pt").exists()
+    got = _table(runs["kge_tpu_torch"], "checkpoint_00000.pt", embedder)
+    want = _table(runs["kge_tpu"], "checkpoint_00000.pt", embedder)
+    assert torch.equal(got, want)
+    assert torch.equal(got, _table(folder, "checkpoint_best.pt", embedder))
+
+
+@pytest.mark.parametrize("options", [
+    ["--parallel.compute_dtype", "bfloat16", "--parallel.param_dtype",
+     "bfloat16"],
+    ["--parallel.compute_dtype", "bfloat16"],
+], ids=["both", "compute"])
+def test_bfloat16_dtypes_train_as_kge_tpu_trains(tmp_path, options):
+    """The refused commands now train, two epochs each. kge_tpu resumes the
+    port's initial checkpoint (bfloat16 tables cross as ``ml_dtypes``
+    arrays) for the same two epochs: the epochs' losses agree within rtol
+    2e-2 (bfloat16 scores), and the last checkpoints hold leaves of the
+    same dtypes (float32 after the dense step, ROADMAP C.4)."""
+    import shutil
+
+    cwd = _toy_cwd(tmp_path)
+    port, jax_run = cwd / "port", cwd / "kge_tpu"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start", TOY, "--job.device",
+          "cpu", *options, "--train.max_epochs", "2", "--valid.every", "0",
+          "--folder", str(port)], cwd=cwd)
+    jax_run.mkdir()
+    for name in ("config.yaml", "checkpoint_00000.pt"):
+        shutil.copy(port / name, jax_run / name)
+    _run([sys.executable, "-m", "kge_tpu", "resume", str(jax_run),
+          "--train.epoch_scan", "never"], cwd=cwd)
+    losses = {folder.name: [e["avg_loss"] for e in
+                            _entries(folder, event="epoch_completed")]
+              for folder in (port, jax_run)}
+    assert len(losses["kge_tpu"]) == 2
+    np.testing.assert_allclose(losses["port"], losses["kge_tpu"], rtol=2e-2)
+    dtypes = {
+        folder.name: {key: leaf_tensor(leaf["embeddings"]).dtype
+                      for key, leaf in load_checkpoint(str(
+                          folder / "checkpoint_00002.pt"))["model"][0].items()}
+        for folder in (port, jax_run)}
+    assert dtypes["port"] == dtypes["kge_tpu"]
 
 
 @pytest.mark.parametrize("options,message", [
-    (["--parallel.compute_dtype", "bfloat16", "--parallel.param_dtype",
-      "bfloat16"], "parallel.param_dtype=bfloat16"),
-    (["--parallel.compute_dtype", "bfloat16"], "parallel.compute_dtype=bfloat16"),
     (["--parallel.param_dtype", "float16"], "parallel.param_dtype=float16"),
-], ids=["both", "compute", "param"])
+], ids=["param"])
 def test_dtypes_other_than_float32_are_refused(tmp_path, options, message):
+    """Dtypes other than float32 and bfloat16 (kge_tpu would run them)."""
     cwd = _toy_cwd(tmp_path)
     proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", TOY,
                  "--job.device", "cpu", *options, "--folder", str(cwd / "x")],
                 cwd=cwd, check=False)
     assert proc.returncode != 0
-    assert message in proc.stderr and "ROADMAP A.4" in proc.stderr
+    assert message in proc.stderr and "ROADMAP A.11" in proc.stderr
 
 
 @pytest.mark.parametrize("options,message", [
