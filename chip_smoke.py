@@ -247,7 +247,10 @@ Phases (any failure exits non-zero; nothing is caught):
    write at 16,642 rows into [200,000, 512] (exact; ``index_copy_``), Adam's
    fused update at 10,240 rows into [200,000, 1,024] (within an ulp), the
    pooled scores and their backward at ``cmod``, n 4,096, K 128, F 8, d 512
-   (within an ulp; dq and dpool plus 2^-12 of their summed magnitudes).
+   and at ``l1``, n 8,192, K 128, F 8, d 128 and 512 (within an ulp; dq and
+   dpool plus 2^-12 of their summed magnitudes; two launches bit-equal;
+   library for ``l1``: ``torch.cdist`` + gather in float32), and the fast
+   operations of their bfloat16 path against the IEEE ones, exhaustively.
    Then three runs through ``cli.main``, counts set to 0 before and read
    after each: X-complex in bfloat16 compute (``start`` one epoch and a
    validation, ``test``: every rank launch the bfloat16 path), its entity
@@ -257,7 +260,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the checkpoint); T-sparse with bfloat16 tables (one epoch: K3 4 times a
    step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
    states the bound), and the warm epochs of X-complex and P-rotate,
-   profiled (X-complex's GEMM milliseconds).
+   profiled (X-complex's GEMM milliseconds, P-rotate's K5b share).
 23. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
@@ -3134,30 +3137,50 @@ def bf16_fused_case(seed: int, device):
 
 
 def bf16_pooled_case(seed: int, device):
-    """K5a and K5b's bfloat16 paths at P-rotate's shape (cmod, n = 4,096,
-    K = 128, F = 8, d = 512 a part) against the plain version: scores
-    within one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the
-    summed factor magnitudes (2 |g| each). Returns (forward, backward)."""
+    """K5a and K5b's bfloat16 paths against the plain version at P-rotate's
+    shape (cmod, n = 4,096, K = 128, F = 8, d = 512 a part) and P-transe's
+    two (l1, n = 8,192, K = 128, F = 8, d = 128 and 512): scores within
+    one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the summed
+    factor magnitudes (2 |g| each); two launches bit-equal. Times of the
+    kernels, the plain version and, for l1, one library call: torch.cdist
+    (p = 1) + gather in float32 on the same inputs (no one call computes
+    cmod). Returns (forward cases, backward cases), P-rotate's first."""
+    forward, backward = [], []
+    generator = torch.Generator(device=device).manual_seed(seed + 26)
+    for case in (POOLED_CASES[2], POOLED_CASES[0], POOLED_CASES[1]):
+        fwd, bwd = bf16_pooled_shape(case, generator, device)
+        forward.append(fwd)
+        backward.append(bwd)
+    return forward, backward
+
+
+def bf16_pooled_shape(case, generator, device):
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
 
-    generator = torch.Generator(device=device).manual_seed(seed + 26)
-    name, kind, n, K, F, d, _, _ = POOLED_CASES[2]
+    name, kind, n, K, F, d, _, _ = case
     queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device)
     leaves = [x.bfloat16().requires_grad_(True) for x in queries + pools]
     g = torch.randn(n, K, generator=generator, device=device).bfloat16()
     parts = len(queries)
+    del queries, pools
 
-    def run(fn):
-        return fn(leaves[:parts], leaves[parts:], sel, F, kind)
+    def run(fn, tensors=leaves):
+        return fn(tensors[:parts], tensors[parts:], sel, F, kind)
 
-    out = run(pooled_dist_scores)
-    grads = torch.autograd.grad(out, leaves, g)
+    runs = []
+    for _ in range(2):
+        out = run(pooled_dist_scores)
+        runs.append((out.detach(), torch.autograd.grad(out, leaves, g)))
+    (out, grads), (out2, grads2) = runs
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+              for a, b in zip((out, *grads), (out2, *grads2))),
+          f"bf16 pooled kernels not bit-equal across launches ({name})")
     ref = run(pooled_dist_scores_plain)
     ref_grads = torch.autograd.grad(ref, leaves, g)
-    err = (out.detach().float() - ref.detach().float()).abs()
+    err = (out.float() - ref.detach().float()).abs()
     check(out.dtype == torch.bfloat16 and bool(
         (err <= 1e-6 + BF16_ULP * ref.float().abs()).all()),
-        "bf16 pooled scores differ from the plain version by more than an ulp")
+        f"bf16 pooled scores differ from the plain version by more than an ulp ({name})")
     fwd_err = float(err.max())
     rows = (torch.arange(K, device=device)[None, :] * F + sel.long()).reshape(-1)
     dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
@@ -3169,37 +3192,81 @@ def bf16_pooled_case(seed: int, device):
         e = (got.float() - want.float()).abs()
         check(got.dtype == torch.bfloat16 and bool(
             (e <= 1e-6 + BF16_ULP * want.float().abs() + 2.0 ** -12 * mag).all()),
-            f"bf16 pooled gradient {i} differs from the plain version")
+            f"bf16 pooled gradient {i} differs from the plain version ({name})")
         bwd_err = max(bwd_err, float(e.max()))
-    del out, grads, ref, ref_grads
+    del out, grads, out2, grads2, runs, ref, ref_grads, dq_mag, dpool_mag
+    # the library call in float32 on the same (bfloat16) inputs
+    leaves32 = [x.detach().float().requires_grad_(True) for x in leaves]
+    gather = rows.reshape(n, K)
+
+    def library(tensors=leaves32):
+        return -torch.cdist(tensors[0], tensors[parts], p=1).gather(1, gather)
+
     times = {}
-    for what, fn in (("kernel", pooled_dist_scores), ("plain", pooled_dist_scores_plain)):
+    for what, fn in (("kernel", lambda: run(pooled_dist_scores)),
+                     ("plain", lambda: run(pooled_dist_scores_plain)),
+                     ("library", library if kind == "l1" else None)):
+        if fn is None:
+            times[what] = (None, None)
+            continue
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: run(fn), reps=10)
-        scores = run(fn)
-        bwd_ms = time_ms(lambda: torch.autograd.grad(scores, leaves, g,
-                                                     retain_graph=True), reps=5)
-        times[what] = (fwd_ms, bwd_ms)
+            fwd_ms = time_ms(fn, reps=10)
+        scores = fn()
+        tensors = leaves32 if what == "library" else leaves
+        gs = g.float() if what == "library" else g
+
+        def backward_of(scores=scores, tensors=tensors, gs=gs):
+            return torch.autograd.grad(scores, tensors, gs, retain_graph=True)
+
+        times[what] = (fwd_ms, time_ms(backward_of, reps=5))
         del scores
     elements = float(n) * K * d
+    ops = 4.0 if kind == "l1" else 8.0
+    specials = elements if kind == "cmod" else 0.0
     read = 2.0 * (parts * (n * d + K * F * d)) + 4.0 * n * K
-    fwd = bf16_bound(read + 2.0 * n * K, flops=8.0 * elements, specials=elements)
-    bwd = bf16_bound(read + 2.0 * n * K + 2.0 * parts * (n * d + K * F * d),
-                     flops=16.0 * elements, specials=elements)
+    fwd_bound = bf16_bound(read + 2.0 * n * K, flops=ops * elements, specials=specials)
+    bwd_bound = bf16_bound(read + 2.0 * n * K + 2.0 * parts * (n * d + K * F * d),
+                           flops=2 * ops * elements, specials=specials)
+    library_name = ("torch.cdist(p=1) + gather in float32" if kind == "l1"
+                    else "none (no one call computes cmod)")
     out = []
     for label, index, (bound_ms, bound_by, term), max_err in (
-            ("pooled_scores", 0, fwd, fwd_err), ("pooled_scores_bwd", 1, bwd, bwd_err)):
+            ("pooled_scores", 0, fwd_bound, fwd_err),
+            ("pooled_scores_bwd", 1, bwd_bound, bwd_err)):
+        lib_ms = times["library"][index]
         log(f"  {label} bf16 {name} ({kind}) n={n} K={K} F={F} d={d}: "
             f"{times['kernel'][index]:.4f} ms, plain {times['plain'][index]:.4f} ms, "
-            f"library null (no one call computes cmod), bound {bound_ms:.4f} ms "
-            f"({bound_by}: {term}); max abs difference from plain {max_err:.3e}")
+            f"library ({library_name}) "
+            f"{'null' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {term}); max abs difference from plain "
+            f"{max_err:.3e}; two launches bit-equal")
         out.append({"shape": f"{name} ({kind}) n={n} K={K} F={F} d={d}",
-                    "ms": times["kernel"][index], "plain_ms": times["plain"][index],
-                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "bound_term": term, "max_abs_err": max_err})
-    del queries, pools, sel, leaves, g
+                    "ms": times["kernel"][index], "plain_ms": times["plain"][index], "library_ms": lib_ms,
+                    "library": library_name, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_term": term, "max_abs_err": max_err})
+    del leaves, leaves32, sel, g, rows, gather
     torch.cuda.empty_cache()
     return out
+
+
+def bf16_fast_ops_exact(device):
+    """The bfloat16 path's fast operations against the IEEE ones,
+    exhaustively (ops/dist_pool.py ``bf16_fast_ops_check``): no result may
+    differ where the kernels use them."""
+    from kge_tpu_torch.ops.dist_pool import bf16_fast_ops_check
+
+    start = time.perf_counter()
+    counts = bf16_fast_ops_check(device)
+    torch.cuda.synchronize()
+    differ = {k: v for k, v in counts.items()
+              if k.endswith("_differ") and v}
+    check(not differ and counts["sqrt_inputs"] == 29151
+          and counts["quotient_pairs"] == 515635208,
+          f"bf16 fast operations differ from the IEEE ones: {counts}")
+    log(f"  bf16 fast operations exact: sub/add/mul on all 2^32 pairs, "
+        f"{counts['sqrt_inputs']} square roots, {counts['quotient_pairs']} quotients "
+        f"({time.perf_counter() - start:.2f} s)")
+    return counts
 
 
 def card_vs_cpu_step(folder, checkpoint, lr, what):
@@ -3283,10 +3350,9 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str):
         "rows_set": [bf16_rows_set_case(seed, device)],
         "fused_row_update": [bf16_fused_case(seed, device)],
     }
-    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = (
-        [x] for x in bf16_pooled_case(seed, device))
+    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = bf16_pooled_case(seed, device)
     log(f"  {card_line()}")
-    out = {"kernels": kernels}
+    out = {"kernels": kernels, "bf16_fast_ops": bf16_fast_ops_exact(device)}
     num_train = FB15K237[2]
 
     # X-complex in bfloat16 compute, its entity table from T-dense's folder
@@ -3379,10 +3445,22 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str):
     step = card_vs_cpu_step(folder, "checkpoint_00001.pt", ROTATE_LR, "P-rotate bf16")
     job = resumed_job(folder, "checkpoint_00001.pt")
     timing = warm_epoch(job, num_train, "P-rotate bf16", warmup=False)
+    profile = timing["profile"]
+    kernels = profile["top"] + profile["own_kernels_below_top"]
+    k5b = {name: [(t["ms"], t["calls"]) for t in kernels
+                  if f"pooled_{name}_kernel" in t["name"]] for name in ("dq", "dpool")}
+    k5b_ms = sum(ms for rows in k5b.values() for ms, _ in rows)
+    if profile["device_busy_ms"]:
+        log(f"  P-rotate bf16: K5b {k5b_ms:.1f} ms (" + ", ".join(
+            f"{name} {ms:.1f} ms in {calls} launches" for name, rows in k5b.items()
+            for ms, calls in rows) + f") of the profiled epoch's "
+            f"{profile['device_busy_ms']:.1f} ms of device time "
+            f"({100 * k5b_ms / profile['device_busy_ms']:.1f}%)")
     del job
     torch.cuda.empty_cache()
     out["rotate"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
-                     "avg_loss": losses, "step_card_vs_cpu": step, "warm_epoch": timing}
+                     "avg_loss": losses, "step_card_vs_cpu": step, "warm_epoch": timing,
+                     "k5b_ms": k5b_ms}
 
     # T-sparse with bfloat16 tables
     steps = -(-num_train // TRAIN_BATCH)

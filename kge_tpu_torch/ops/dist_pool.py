@@ -21,7 +21,14 @@ are bfloat16: each difference, and each of ``cmod``'s squares, sums and
 square roots, is rounded to bfloat16 as kge_tpu's kernel rounds it, and the
 sum over d is taken in float32 and rounded once (kge_tpu sums in bfloat16
 across its d tiles; this is closer to the exact sum). The backward's
-factors and sums are float32 inside, each output rounded once.
+factors are rounded likewise and summed in float32, each output rounded
+once. The same kernels serve both dtypes, with the same tiles, row chunks
+and float32 workspace: they compute the roundings with bfloat16
+instructions that round once, which give the float32 operation rounded to
+bfloat16, and the square root and the quotient with the card's
+approximations, exact once rounded to bfloat16 (``csrc/dist_pool.cu`` says
+why; ``bf16_fast_ops_check`` holds them against the IEEE operations on the
+card, exhaustively).
 
 ``pooled_dist_scores`` is differentiable in the queries and the pool
 (``torch.autograd.Function``; the backward is a kernel too). Beside it
@@ -113,6 +120,46 @@ def dpool_plan(n: int, K: int, F: int, d: int, parts: int):
         "workspace_floats": chunks * parts * K * F * d if several else 0,
         "counters": unit_blocks * -(-d // 32) if several else 0,
     }
+
+
+def dpool_scratch(plan, device):
+    """The partial sums' workspace of ``plan`` (float32, whatever the
+    dtype of the tensors: the chunks' sums stay float32 until the last
+    block rounds them) and its zeroed counters."""
+    return (torch.empty(plan["workspace_floats"], dtype=torch.float32, device=device),
+            torch.zeros(plan["counters"], dtype=torch.int32, device=device))
+
+
+#: what ``bf16_fast_ops_check`` counts, in the order of the kernel's counts
+BF16_CHECK_COUNTS = (
+    "sub_differ", "add_differ", "mul_differ", "sqrt_differ", "sqrt_inputs",
+    "sqrt_differ_outside", "quotient_differ", "quotient_pairs",
+)
+
+
+def bf16_fast_ops_check(device) -> dict:
+    """The bfloat16 path's fast operations against the IEEE ones, on the
+    card, exhaustively (``csrc/dist_pool.cu`` ``bf16_ops_check_kernel``):
+    for all 2^32 pairs of bfloat16 values, the pairs whose one-rounding
+    difference, sum and product differ from the float32 operation's rounded
+    to bfloat16; for every non-negative bfloat16 t, the fast square roots
+    that differ from ``R(sqrt(t))`` where the kernels take them (t in
+    [R(1e-30), +inf]: ``sqrt_inputs`` of them) and elsewhere; for every g of
+    the fast quotient's range and every distance in [2^-50, 2^64] or +inf
+    (``quotient_pairs``), the quotients that differ from ``R(g / R(2
+    dist))``."""
+    from kge_tpu_torch.ops.kernel_utils import check_launch, load_library, typed
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"bf16_fast_ops_check runs on a CUDA card, not {device}")
+    counts = torch.zeros(len(BF16_CHECK_COUNTS), dtype=torch.int64, device=device)
+    lib = load_library("dist_pool")
+    launch = typed(lib, "bf16_fast_ops_check", [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = launch(counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    check_launch(code, "bf16_fast_ops_check")
+    return dict(zip(BF16_CHECK_COUNTS, counts.tolist()))
 
 
 def _check(queries, pool_embs, sel, pool_factor, kind):
@@ -268,11 +315,7 @@ def _launch_backward(queries, pools, sel, grad, pool_factor, kind):
     if K == 0 or d == 0:
         return dqs, dpools
     plan = dpool_plan(n, K, F, d, parts)
-    if dtype == torch.bfloat16:  # the bfloat16 kernels take no chunks
-        plan = {**plan, "rows_per_chunk": max(n, 1), "chunks": 1,
-                "workspace_floats": 0, "counters": 0}
-    ws = torch.empty(plan["workspace_floats"], dtype=torch.float32, device=device)
-    counters = torch.zeros(plan["counters"], dtype=torch.int32, device=device)
+    ws, counters = dpool_scratch(plan, device)
     lib = load_library("dist_pool")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     launch = typed(lib, "pooled_scores_bwd_launch",

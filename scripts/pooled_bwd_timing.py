@@ -8,9 +8,13 @@ as the model passes them). The whole call by CUDA events (chip_smoke.py
 the plain version in float64 (phase 10's rule; the forward's rows whose
 query equals a candidate also within ``1.01e-15 d`` of 0 at ``cmod``, and
 exactly 0 at ``l1``; ``bits`` is a hash of its scores, so that two builds
-can be compared bit for bit).
+can be compared bit for bit). With ``--bf16`` the bfloat16 path instead,
+forward and backward, at P-rotate's ``cmod`` shape and P-transe's two
+``l1`` shapes, against the plain version in bfloat16 (chip_smoke.py phase
+22's rule: scores within one bfloat16 ulp, dq and dpool within one ulp plus
+2^-12 of the summed factor magnitudes).
 
-    python3 scripts/pooled_bwd_timing.py [--forward] [--root DIR]
+    python3 scripts/pooled_bwd_timing.py [--forward | --bf16] [--root DIR]
                                          [--variant NAME=V,NAME=V]...
                                          [--swap OLD=>NEW]... [--sass FILE]
 
@@ -148,9 +152,64 @@ def time_forward(smoke, dist_pool, case, device, seed: int, stride_parts: bool):
             "bits": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]}
 
 
+def time_bf16(smoke, dist_pool, case, device, seed: int):
+    """The bfloat16 forward and backward of one shape: the whole call by
+    CUDA events, each launch from the profiler, both against the plain
+    version, and two launches bit for bit."""
+    name, kind, n, K, F, d = case[:6]
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    queries, pools, sel = smoke.pooled_inputs(kind, n, K, F, d, generator, device)
+    queries = [q.bfloat16() for q in queries]
+    pools = [p.bfloat16() for p in pools]
+    g = torch.randn(n, K, generator=generator, device=device).bfloat16()
+    parts = len(queries)
+
+    def forward():
+        return dist_pool._launch_forward(queries, pools, sel, F, kind)
+
+    def backward():
+        return dist_pool._launch_backward(queries, pools, sel, g, F, kind)
+
+    fwd_ms = smoke.time_ms(forward, reps=20)
+    bwd_ms = smoke.time_ms(backward, reps=20)
+    fwd_split = smoke.kernel_ms(forward, ("pooled_scores",))
+    bwd_split = smoke.kernel_ms(backward, ("pooled_dq", "pooled_dpool"))
+    out = forward()
+    dqs, dpools = backward()
+    first = [t.clone() for t in [out] + dqs + dpools]
+    dqs, dpools = backward()
+    same_bits = all(torch.equal(a, b) for a, b in zip(first, [forward()] + dqs + dpools))
+    leaves = [t.clone().requires_grad_(True) for t in queries + pools]
+    ref = dist_pool.pooled_dist_scores_plain(leaves[:parts], leaves[parts:], sel, F, kind)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    ulp = 2.0 ** -7
+    e = (out.float() - ref.detach().float()).abs()
+    fwd_ok = bool((e <= 1e-6 + ulp * ref.detach().float().abs()).all())
+    rows = (torch.arange(K, device=device)[None, :] * F + sel.long()).reshape(-1)
+    dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
+    dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
+        0, rows, 2 * g.float().abs().reshape(-1, 1))
+    bwd_err, bwd_ok = 0.0, True
+    for i, (got, want) in enumerate(zip(dqs + dpools, ref_grads)):
+        mag = dq_mag if i < parts else dpool_mag
+        err = (got.float() - want.float()).abs()
+        bwd_err = max(bwd_err, float(err.max()))
+        bwd_ok = bwd_ok and bool(
+            (err <= 1e-6 + ulp * want.float().abs() + 2.0 ** -12 * mag).all())
+    return {"shape": name, "kind": kind, "n": n, "K": K, "F": F, "d": d,
+            "dtype": "bfloat16", "fwd_ms": fwd_ms,
+            "fwd_kernel_ms": fwd_split["pooled_scores"], "bwd_ms": bwd_ms,
+            "dq_ms": bwd_split["pooled_dq"], "dpool_ms": bwd_split["pooled_dpool"],
+            "fwd_max_abs_err": float(e.max()), "fwd_within_tolerance": fwd_ok,
+            "bwd_max_abs_err": bwd_err, "bwd_within_tolerance": bwd_ok,
+            "bit_equal": same_bits}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--forward", action="store_true")
+    parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--variant", action="append", default=[])
     parser.add_argument("--swap", action="append", default=[])
@@ -199,9 +258,13 @@ def main():
         for k, v in {**defaults, **py}.items():
             setattr(dist_pool, k, v)
         for case, stride_parts in cases:
-            row = (time_forward(smoke, dist_pool, case, device, args.seed + 10,
-                                stride_parts) if args.forward
-                   else time_case(smoke, dist_pool, case, device, args.seed + 10))
+            if args.bf16:
+                row = time_bf16(smoke, dist_pool, case, device, args.seed + 10)
+            elif args.forward:
+                row = time_forward(smoke, dist_pool, case, device, args.seed + 10,
+                                   stride_parts)
+            else:
+                row = time_case(smoke, dist_pool, case, device, args.seed + 10)
             print(json.dumps({"root": os.path.abspath(args.root), "build": label,
                               **row}), flush=True)
     print(smoke.card_line())

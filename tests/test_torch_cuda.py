@@ -1177,13 +1177,38 @@ def test_bf16_fused_update_matches_plain_on_card(opt_type, args):
                        2.0 ** -7 * ref_states[k].float().abs()), k
 
 
+#: (n, K, F, d, pool parts as column halves of one table, sel partly
+#: outside [0, F)): chip_smoke.py's POOLED_CASES at their edges
+BF16_POOLED_CASES = [
+    (512, 64, 8, 128, False, False),
+    (512, 64, 8, 128, True, False),
+    (37, 5, 3, 100, True, False), (37, 5, 3, 51, True, False),  # scalar widths
+    (1024, 1024, 8, 256, False, False),  # K = 1,024
+    (1000, 128, 8, 128, False, False),   # several row chunks, n no multiple of one
+    (999, 64, 8, 256, True, False),
+    (300, 13, 8, 300, False, False),     # K no multiple of 8, d of the tile
+    (500, 64, 1, 128, False, False), (500, 40, 16, 192, True, False),  # F = 1, 16
+    (200, 6, 100, 128, True, False),     # dq's pool groups too large to stage
+    (300, 24, 8, 128, False, True), (300, 24, 8, 100, True, True),  # sel outside
+    (0, 16, 4, 64, False, False),        # no rows
+    # the forward's edges: n and K one past a block's 256 rows and 16
+    # slots, d = 132; F = 24 staged for l1 and not for cmod; F = 60 from L2
+    (257, 17, 8, 132, True, False), (300, 20, 24, 64, False, False),
+    (150, 9, 60, 40, False, False),
+]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,K,F,d,stride_parts,outside", BF16_POOLED_CASES)
 @pytest.mark.parametrize("kind", ["l1", "cmod"])
-def test_bf16_pooled_kernels_match_plain_on_card(kind):
+def test_bf16_pooled_kernels_match_plain_on_card(kind, n, K, F, d, stride_parts,
+                                                 outside):
     """K5a and K5b in bfloat16 against the plain version (autograd): scores
     within one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the
     summed factor magnitudes (float32 sums in other orders, then one
-    rounding each)."""
+    rounding each); bit-equal across two launches. A sel outside [0, F)
+    stands for a zero candidate and no pool row: the plain version runs on
+    pools with a zero row appended to every group."""
     from kge_tpu_torch.ops.dist_pool import (
         pooled_dist_scores,
         pooled_dist_scores_plain,
@@ -1191,36 +1216,118 @@ def test_bf16_pooled_kernels_match_plain_on_card(kind):
 
     device = _card()
     rng = np.random.default_rng(9)
-    n, K, F, d = 512, 64, 8, 128
     parts = 1 if kind == "l1" else 2
     qs = [_bf16(rng, n, d) for _ in range(parts)]
-    pools = [_bf16(rng, K * F, d) for _ in range(parts)]
+    if stride_parts and parts == 2:
+        pools = list(torch.chunk(_bf16(rng, K * F, 2 * d), 2, dim=1))
+    else:
+        pools = [_bf16(rng, K * F, d) for _ in range(parts)]
     sel = torch.tensor(rng.integers(0, F, (n, K)), device=device)
+    for i, j in ((0, 1), (3, K - 1)):  # distance exactly 0
+        if i < n:
+            for q, pool in zip(qs, pools):
+                q[i] = pool[j * F + sel[i, j]]
+    if outside:
+        sel[torch.tensor(rng.random((n, K)) < 0.1, device=device)] = -1
+        sel[torch.tensor(rng.random((n, K)) < 0.1, device=device)] = F
+        sel[torch.tensor(rng.random((n, K)) < 0.05, device=device)] = F + 7
     g = _bf16(rng, n, K)
 
-    def run(fn):
+    def kernel():
         tensors = [x.clone().requires_grad_(True) for x in (*qs, *pools)]
-        out = fn(tensors[:parts], tensors[parts:], sel, F, kind)
-        out.backward(g)
-        return out.detach(), [t.grad for t in tensors]
+        before = (pooled_dist_scores.bf16_launches,
+                  pooled_dist_scores.bf16_backward_launches)
+        out = pooled_dist_scores(tensors[:parts], tensors[parts:], sel, F, kind)
+        grads = torch.autograd.grad(out, tensors, g)
+        torch.cuda.synchronize()
+        assert (pooled_dist_scores.bf16_launches,
+                pooled_dist_scores.bf16_backward_launches) == (before[0] + (n > 0),
+                                                               before[1] + 1)
+        return out.detach(), list(grads)
 
-    launches = (pooled_dist_scores.launches,
-                pooled_dist_scores.backward_launches)
-    out, grads = run(pooled_dist_scores)
-    torch.cuda.synchronize()
-    assert (pooled_dist_scores.launches,
-            pooled_dist_scores.backward_launches) == (launches[0] + 1,
-                                                      launches[1] + 1)
-    ref, ref_grads = run(pooled_dist_scores_plain)
-    assert out.dtype == torch.bfloat16
+    (out, grads), (out2, grads2) = kernel(), kernel()
+    assert torch.equal(out.view(torch.int16), out2.view(torch.int16))
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(grads, grads2))
+    inside = (sel >= 0) & (sel < F)
+    sel_z = torch.where(inside, sel, torch.full_like(sel, F))
+    zero = torch.zeros(K, 1, d, dtype=torch.bfloat16, device=device)
+    tensors = [q.clone().requires_grad_(True) for q in qs] + [
+        torch.cat([p.reshape(K, F, d), zero], 1).reshape(K * (F + 1), d)
+        .requires_grad_(True) for p in pools]
+    ref = pooled_dist_scores_plain(tensors[:parts], tensors[parts:], sel_z, F + 1, kind)
+    ref_grads = list(torch.autograd.grad(ref, tensors, g))
+    ref_grads[parts:] = [x.reshape(K, F + 1, d)[:, :F].reshape(K * F, d)
+                         for x in ref_grads[parts:]]
+    assert out.dtype == torch.bfloat16 and out.shape == (n, K)
     assert _within(out, ref, 2.0 ** -7 * ref.float().abs() + 1e-6)
     # every factor is at most 2 |g| in magnitude
     dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
-    rows = (torch.arange(K, device=device)[None, :] * F + sel).reshape(-1)
+    rows = (torch.arange(K, device=device)[None, :] * F + sel)[inside]
     dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
-        0, rows, 2 * g.float().abs().reshape(-1, 1))
+        0, rows, 2 * g.float().abs()[inside].reshape(-1, 1))
     for i, (got, want) in enumerate(zip(grads, ref_grads)):
         mag = dq_mag if i < parts else dpool_mag
         assert got.dtype == torch.bfloat16
         assert _within(got, want, 2.0 ** -7 * want.float().abs()
                        + 2.0 ** -12 * mag + 1e-6), i
+
+
+@pytest.mark.cuda
+def test_bf16_pooled_scores_keep_the_plain_version_at_infinite_terms():
+    """``cmod`` in bfloat16 with terms of +inf (a difference whose square
+    overflows) and NaN: the scores the plain version gives, -inf and NaN in
+    the same places (the fast square root keeps +inf, and such pairs are
+    scored again with IEEE square roots), every other score within one
+    bfloat16 ulp."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
+
+    device = _card()
+    rng = np.random.default_rng(10)
+    n, K, F, d = 40, 20, 4, 36
+    qs = [_bf16(rng, n, d) for _ in range(2)]
+    pools = [_bf16(rng, K * F, d) for _ in range(2)]
+    qs[0][3, 5] = 3e19         # every pair of row 3: an infinite term
+    qs[1][7, 0] = float("nan")  # every pair of row 7: NaN
+    pools[0][2 * F + 1, 7] = -3e19  # the pairs (i, 2) that select it
+    sel = torch.tensor(rng.integers(0, F, (n, K)), device=device)
+    out = pooled_dist_scores(qs, pools, sel, F, "cmod")
+    plain = pooled_dist_scores_plain(qs, pools, sel, F, "cmod")
+    assert bool(torch.isinf(plain).any()) and bool(torch.isnan(plain).any())
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert torch.equal(torch.isinf(out), torch.isinf(plain))
+    assert torch.equal(out[torch.isinf(out)], plain[torch.isinf(plain)])
+    finite = torch.isfinite(plain)
+    assert _within(out[finite], plain[finite],
+                   2.0 ** -7 * plain[finite].float().abs() + 1e-6)
+
+
+def _bf16_count(low: float, high: float) -> int:
+    """Non-negative bfloat16 values in [low, high] (high may be inf)."""
+    bits = np.arange(0x8000, dtype=np.uint32) << 16
+    values = bits.view(np.float32)
+    return int(((values >= low) & (values <= high)).sum())
+
+
+@pytest.mark.cuda
+def test_bf16_fast_operations_are_exact_on_card():
+    """The bfloat16 path's fast operations against the IEEE ones,
+    exhaustively: sub/add/mul.rn.bf16x2 on all 2^32 pairs of bfloat16
+    values equal the float32 operations rounded to bfloat16; the fast square
+    root, rounded, equals R(sqrt(t)) for every t >= R(1e-30) the kernels can
+    give it (+inf too); the fast quotient equals R(g / R(2 dist)) for every
+    g of its range (0, or |g| in [2^-61, 2^77]) and every distance in
+    [2^-50, 2^64] or +inf."""
+    from kge_tpu_torch.ops.dist_pool import bf16_fast_ops_check
+
+    device = _card()
+    counts = bf16_fast_ops_check(device)
+    torch.cuda.synchronize()
+    eps = float(torch.tensor(1e-30).bfloat16())
+    assert counts["sub_differ"] == counts["add_differ"] == counts["mul_differ"] == 0
+    assert counts["sqrt_inputs"] == _bf16_count(eps, float("inf"))
+    assert counts["sqrt_differ"] == 0
+    fast_g = 2 * _bf16_count(2.0 ** -61, 2.0 ** 77) + 2  # both signs, and +-0
+    distances = _bf16_count(2.0 ** -50, 2.0 ** 64) + 1  # and +inf
+    assert counts["quotient_pairs"] == fast_g * distances
+    assert counts["quotient_differ"] == 0

@@ -238,3 +238,133 @@ def test_dpool_plan_fills_the_card_and_rejects_bad_sizes():
         dpool_plan(4, 4, 0, 8, 1)
     with pytest.raises(ValueError):
         dpool_plan(4, 4, 2, 8, 3)
+
+
+@pytest.mark.parametrize("n,K,F,d,parts", [
+    (4096, 128, 8, 512, 2), (8192, 128, 8, 128, 1), (8192, 128, 8, 512, 1),
+    (999, 64, 8, 256, 2), (1024, 1024, 8, 256, 2), (37, 5, 3, 51, 2),
+])
+def test_dpool_plan_serves_the_bfloat16_backward(n, K, F, d, parts):
+    """The bfloat16 backward takes dpool_plan's chunks as the float32 one
+    does (its vectors are 4 bfloat16, so the tiles keep their 128 columns):
+    the partial sums go to a float32 workspace within DPOOL_WORKSPACE_BYTES,
+    the counters start at zero, and at P-rotate's and P-transe's shapes the
+    rows come in several chunks."""
+    plan = dpool_plan(n, K, F, d, parts)
+    ws, counters = dist_pool.dpool_scratch(plan, torch.device("cpu"))
+    assert ws.dtype == torch.float32 and ws.numel() == plan["workspace_floats"]
+    assert ws.numel() * ws.element_size() <= dist_pool.DPOOL_WORKSPACE_BYTES
+    assert counters.dtype == torch.int32 and counters.numel() == plan["counters"]
+    assert not bool(counters.any())
+    if n >= 4096:
+        assert plan["chunks"] > 1 and ws.numel() == plan["chunks"] * parts * K * F * d
+
+
+# -- why the bfloat16 path's fast operations are exact (csrc/dist_pool.cu) ----------
+
+#: what the bfloat16 path's approximations err by at most, relative:
+#: sqrt.approx, and rcp.approx times one product, err by under 2^-22
+APPROX_ERROR = 2.0 ** -22
+
+
+def _bf16_values(first_bits: int, last_bits: int) -> np.ndarray:
+    """The bfloat16 values of the bit patterns [first_bits, last_bits], as
+    float64."""
+    bits = np.arange(first_bits, last_bits + 1, dtype=np.uint32) << 16
+    return bits.view(np.float32).astype(np.float64)
+
+
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """Positive float64 values of bfloat16's normal range rounded to
+    bfloat16 (8 significant bits), to nearest even."""
+    m, e = np.frexp(x)
+    return np.ldexp(np.rint(m * 256.0), e - 8)
+
+
+def _rounding_gap(x: np.ndarray) -> np.ndarray:
+    """The distance of positive float64 values from the nearest bfloat16
+    rounding boundary (a midpoint of two neighbours), relative to them."""
+    m, _ = np.frexp(x)
+    s = m * 256.0
+    return np.abs(s - (np.floor(s) + 0.5)) / s
+
+
+def _bits_of(value: float) -> int:
+    return int(torch.tensor(value).bfloat16().view(torch.int16)) & 0xFFFF
+
+
+def test_bf16_square_roots_lie_off_the_rounding_boundaries():
+    """In float64: for every finite bfloat16 t >= R(1e-30) (the kernels'
+    square roots take t = R(s + R(1e-30)) with s >= 0), sqrt(t) lies more
+    than 2^-19 (relative) from a bfloat16 rounding boundary, so an
+    approximation of relative error below that (sqrt.approx's is under
+    2^-22) gives the IEEE result once rounded to bfloat16. The rounding
+    here is torch's (float32 sqrt, then bfloat16)."""
+    t = _bf16_values(_bits_of(1e-30), 0x7F7F)
+    assert len(t) == 0x7F7F - 0x0DA2 + 1 and t[0] == float(torch.tensor(1e-30).bfloat16())
+    root = np.sqrt(t)
+    exact = _round_bf16(root)
+    torch_bf16 = torch.sqrt(torch.tensor(t, dtype=torch.float32).bfloat16())
+    np.testing.assert_array_equal(exact, torch_bf16.double().numpy())
+    gap = _rounding_gap(root)
+    assert gap.min() > 2.0 ** -19 > 4 * APPROX_ERROR
+    np.testing.assert_array_equal(_round_bf16(root * (1 - 2.0 ** -19)), exact)
+    np.testing.assert_array_equal(_round_bf16(root * (1 + 2.0 ** -19)), exact)
+    # the distances the backward divides by: [2^-50, 2^64]
+    assert exact.min() >= 2.0 ** -50 and exact.max() <= 2.0 ** 64
+
+
+def test_bf16_quotients_lie_off_the_rounding_boundaries():
+    """In float64: for every pair of bfloat16 significands (g's and the
+    distance's, which 2 dist keeps), the quotient lies more than 2^-17
+    (relative) from a bfloat16 rounding boundary. For |g| in [2^-61, 2^77]
+    and distances in [2^-50, 2^64] the quotient g / (2 dist) lies in
+    [2^-126, 2^126], bfloat16's normal range, where its rounding depends on
+    the significands alone; so there the reciprocal-and-product (relative
+    error under 2^-22) rounds as the IEEE quotient does."""
+    m = 1.0 + np.arange(128) / 128.0
+    quotient = m[:, None] / m[None, :]
+    exact = _round_bf16(quotient)
+    want = (torch.tensor(m, dtype=torch.float32)[:, None]
+            / torch.tensor(m, dtype=torch.float32)[None, :]).bfloat16()
+    np.testing.assert_array_equal(exact, want.double().numpy())
+    assert _rounding_gap(quotient).min() > 2.0 ** -17 > 4 * APPROX_ERROR
+    np.testing.assert_array_equal(_round_bf16(quotient * (1 - 2.0 ** -17)), exact)
+    np.testing.assert_array_equal(_round_bf16(quotient * (1 + 2.0 ** -17)), exact)
+    assert 2.0 ** -61 / (2 * 2.0 ** 64) == 2.0 ** -126
+    assert 2.0 ** 77 / (2 * 2.0 ** -50) == 2.0 ** 126
+
+
+def test_bf16_double_rounding_is_innocuous():
+    """In float64, on random pairs of bfloat16 values: a difference, sum or
+    product rounded once to bfloat16 (what sub/add/mul.rn.bf16x2 give)
+    equals the float32 operation's result rounded to bfloat16 (what the
+    plain version computes), as float32's 24 bits are at least 2 x 8 + 2.
+    The card test bf16_fast_ops_check takes all 2^32 pairs."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 1 << 16, size=(2, 1 << 18)).astype(np.uint32)
+    a, b = ((x << 16).view(np.float32) for x in bits)
+    # finite, in [2^-60, 2^60] and at most 40 binades apart: every exact
+    # result is a float64 and a normal bfloat16
+    keep = np.ones(a.shape, bool)
+    for x in (a, b):
+        keep &= (np.abs(x) >= 2.0 ** -60) & (np.abs(x) <= 2.0 ** 60)
+    a, b = a[keep], b[keep]
+    exp = np.frexp(np.stack([a, b]).astype(np.float64))[1]
+    a, b = a[np.abs(exp[0] - exp[1]) <= 40], b[np.abs(exp[0] - exp[1]) <= 40]
+    assert len(a) > 10000
+    for op in (np.subtract, np.add, np.multiply):
+        exact = op(a.astype(np.float64), b.astype(np.float64))  # exact in float64
+        nonzero = exact != 0
+        once = np.sign(exact[nonzero]) * _round_bf16(np.abs(exact[nonzero]))
+        twice = torch.tensor(op(a, b)[nonzero]).bfloat16().double().numpy()
+        np.testing.assert_array_equal(once, twice)
+
+
+def test_bf16_fast_ops_check_runs_only_on_a_card():
+    """The exhaustive check is a CUDA kernel: asked for the CPU it raises,
+    and it names its counts in the kernel's order."""
+    with pytest.raises(ValueError):
+        dist_pool.bf16_fast_ops_check("cpu")
+    assert dist_pool.BF16_CHECK_COUNTS[-1] == "quotient_pairs"
+    assert len(set(dist_pool.BF16_CHECK_COUNTS)) == 8

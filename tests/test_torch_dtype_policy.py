@@ -331,11 +331,23 @@ def test_pooled_scores_plain_match_kge_tpu(kind):
     rows and candidates of the backward) in float32 and rounds once;
     kge_tpu sums in bfloat16, so the tolerance is 4 bfloat16 ulps of the
     summed magnitudes."""
+    _pooled_plain_matches_kge_tpu(kind, 16, 8, 3, 64, seed=3)
+
+
+@pytest.mark.parametrize("n,K,F,d", [(5, 13, 1, 24), (33, 17, 1, 7), (12, 3, 5, 130)])
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_pooled_scores_plain_match_kge_tpu_at_edges(kind, n, K, F, d):
+    """The same at the forward kernel's edges (tests/test_torch_dist_pool.py
+    ``test_forward_matches_jax_at_edges``): K = 13 and 17, F = 1, d = 7 and
+    130, with the same tolerance."""
+    _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed=5)
+
+
+def _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed):
     from kge_tpu.ops.dist_pool import pooled_dist_scores as jax_pooled
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
 
-    rng = np.random.default_rng(3)
-    n, K, F, d = 16, 8, 3, 64
+    rng = np.random.default_rng(seed)
     parts = 1 if kind == "l1" else 2
     qs = [_bf16(rng, n, d) for _ in range(parts)]
     pools = [_bf16(rng, K * F, d) for _ in range(parts)]
