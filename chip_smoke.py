@@ -237,12 +237,19 @@ Phases (any failure exits non-zero; nothing is caught):
    the leaves of zero gradient the attention's key biases, the scatter
    kernel's shapes 512 ids at D = 320.
 22. The dtype policy (``parallel.compute_dtype`` / ``param_dtype``:
-   bfloat16). Each kernel's bfloat16 path against its plain version at the
+   bfloat16). First gamma_D of the rank kernel's bfloat16 certificate: the
+   kernel's own tensor-core sums (``bf16_tile_sums``) of 50 million dot
+   products at D = 132, 320 and 512 (Gaussian, cancelling, wide-exponent
+   and all-positive inputs) against float64; the largest |x - exact| / (N M)
+   must stay within gamma_D / 8. Each kernel's bfloat16 path against its
+   plain version at the
    main shapes, with its time, the plain version's, one library call's and
    the bound at bfloat16 bytes (and bf16 products over the tensor cores'
    989 TFLOP/s): the rank kernel at n = 256, |E| = 14,541, D = 512 and with
-   the L2 epilogue (counts equal, vals and pivots bit for bit; library:
-   cuBLAS's bf16 product and the compares), the scatter at 8,192 ids into
+   the L2 epilogue (counts equal, vals and pivots bit for bit, two launches
+   bit-equal, its count of undecided entries that of the PyTorch rule
+   ``certified_categories`` on its own sums, logged as the recount share;
+   library: cuBLAS's bf16 product and the compares), the scatter at 8,192 ids into
    [14,541, 512] (within an ulp of the sums; ``index_add_``), the row
    write at 16,642 rows into [200,000, 512] (exact; ``index_copy_``), Adam's
    fused update at 10,240 rows into [200,000, 1,024] (within an ulp), the
@@ -251,9 +258,13 @@ Phases (any failure exits non-zero; nothing is caught):
    dpool plus 2^-12 of their summed magnitudes; two launches bit-equal;
    library for ``l1``: ``torch.cdist`` + gather in float32), and the fast
    operations of their bfloat16 path against the IEEE ones, exhaustively.
-   Then three runs through ``cli.main``, counts set to 0 before and read
-   after each: X-complex in bfloat16 compute (``start`` one epoch and a
-   validation, ``test``: every rank launch the bfloat16 path), its entity
+   Then four runs through ``cli.main``, counts set to 0 before and read
+   after each: phase 14's T-transe-l2 ``test`` with ``--parallel.compute_dtype
+   bfloat16`` (every rank launch the bfloat16 path with the L2 epilogue);
+   X-complex in bfloat16 compute (``start`` one epoch and a
+   validation, ``test``: every rank launch the bfloat16 path; two test
+   batches' ranks through the kernel equal the plain version's, and the
+   warm test evaluation profiled, K1's device ms in it), its entity
    table pretrained from phase 6's folder (the initial table equals it bit
    for bit); P-rotate with both dtypes in bfloat16 (one epoch: every launch
    of K2, K4, K5a and K5b bfloat16; tables and Adam's moments bfloat16 in
@@ -2010,7 +2021,7 @@ def run_transe_l2(seed: int, data: str, transe_folder: str):
             "ranks_vs_plain": agree, "eval_profile": eval_profile,
             "warm_epoch": timing, "transe_l1_test_wall_s": l1_wall,
             "transe_l1_test_mrr_filtered": l1["mean_reciprocal_rank_filtered"],
-            "transe_l1_eval_profile": l1_profile}
+            "transe_l1_eval_profile": l1_profile, "folder": folder}
 
 
 # -- 1vsAll and KvsAll training, and the factorization family ----------------------
@@ -2937,6 +2948,9 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
     to bfloat16)."""
     from kge_tpu_torch.ops.rank_kernel import (
         NEG_SQRT_L2,
+        bf16_tile_sums,
+        certificate_bound,
+        certified_categories,
         csr_row_ids,
         fused_rank_counts,
         fused_rank_counts_plain,
@@ -2969,6 +2983,7 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
                                        RTOL, score_map=score_map, pivot_cols=true)
 
     g, c, vals, pivot = kernel()
+    recounted = int(fused_rank_counts.last_recounted)
     pg, pc, pvals, ppivot = plain()
     torch.cuda.synchronize()
     check(vals.dtype == torch.bfloat16 and pivot.dtype == torch.bfloat16)
@@ -2978,6 +2993,22 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
     check(torch.equal(vals.view(torch.int16), pvals.view(torch.int16))
           and torch.equal(pivot.view(torch.int16), ppivot.view(torch.int16)),
           "bf16 vals or pivots differ in bits from the plain version's")
+    second = kernel()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                          b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+              for a, b in zip((g, c, vals, pivot), second)),
+          "two launches of the bf16 rank kernel differ")
+    # the kernel leaves open exactly the entries the PyTorch rule leaves
+    # open on the kernel's own tensor-core sums and norm bounds
+    sums, nq, nt = bf16_tile_sums(q, targets)
+    rule = certified_categories(sums, certificate_bound(nq, nt, q.shape[1]), pivot,
+                                ATOL, RTOL, score_map)
+    check(recounted == int((rule < 0).sum()),
+          f"the kernel recounted {recounted} entries, the rule leaves "
+          f"{int((rule < 0).sum())} open")
+    del sums, rule
+    share = recounted / (n * E)
     rows = csr_row_ids(row_ptr)
     atol, rtol = weak(ATOL, q), weak(RTOL, q)
 
@@ -3000,12 +3031,70 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
     bound_ms, bound_by, term = bf16_bound(nbytes, tensor_flops=2.0 * n * E * D)
     what = "L2 epilogue" if epilogue else "identity"
     log(f"  rank_counts bf16 ({what}) n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library bf16 matmul + compares {library_ms:.4f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by}: {term}); counts equal the plain "
-        f"version's on all {n} rows, vals and pivots bit for bit")
+        f"recount share {share:.6f} ({recounted} of {n * E} entries left open by "
+        f"the certificate, as by the rule; {nnz} labels), plain {plain_ms:.4f} ms, "
+        f"library bf16 matmul + compares {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}: {term}); counts equal the plain version's on all {n} "
+        f"rows, vals and pivots bit for bit, two launches bit-equal")
     return {"shape": f"n={n} |E|={E} D={D} ({what})", "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_term": term, "max_abs_err": 0.0}
+            "bound_by": bound_by, "bound_term": term, "max_abs_err": 0.0,
+            "recounted": recounted, "recount_share": share, "labels": nnz}
+
+
+def bf16_gamma_check(seed: int, device):
+    """gamma_D of K1's bfloat16 certificate on the card: the kernel's own
+    tensor-core sums (``bf16_tile_sums``) of 512 x 8,192 dot products for
+    each D in {132, 320, 512} and each of four inputs (Gaussian, cancelling
+    alternating products, exponents spread over 2^-40..2^40, all products
+    positive: 50 million in all) against float64 sums (exact products;
+    their own error under D 2^-53 S). The largest |x - exact| / (N M), N
+    and M the kernel's norm bounds, must stay within gamma_D / 8."""
+    from kge_tpu_torch.ops.rank_kernel import bf16_tile_sums, certificate_gamma
+
+    generator = torch.Generator(device=device).manual_seed(seed + 2214)
+    n, m = 512, 8192
+
+    def inputs(kind, D):
+        def randn(rows):
+            return torch.randn(rows, D, generator=generator, device=device)
+
+        def rand(rows):
+            return torch.rand(rows, D, generator=generator, device=device)
+
+        if kind == "gaussian":
+            return randn(n), randn(m)
+        if kind == "cancellation":
+            sign = torch.where(torch.arange(D, device=device) % 2 == 0, 1.0, -1.0)
+            q = 4.0 + 1e-2 * randn(n)
+            return q, sign * (1.0 + rand(m)) + 1e-2 * randn(m)
+        if kind == "wide":
+            def spread(rows):
+                scale = torch.randint(-40, 41, (rows, D), generator=generator,
+                                      device=device).float()
+                return randn(rows) * torch.exp2(scale)
+            return spread(n), spread(m)
+        return 0.5 + rand(n), 0.5 + rand(m)  # positive: no error cancels
+
+    out = {}
+    for D in (132, 320, 512):
+        gamma = certificate_gamma(D)
+        for kind in ("gaussian", "cancellation", "wide", "positive"):
+            q, t = (x.bfloat16().contiguous() for x in inputs(kind, D))
+            sums, nq, nt = bf16_tile_sums(q, t)
+            exact = q.double() @ t.double().T
+            bound = nq.double()[:, None] * nt.double()[None, :]
+            ratio = float(((sums.double() - exact).abs() / bound).max())
+            check(np.isfinite(ratio) and ratio <= gamma / 8,
+                  f"gamma_D check: D={D} {kind}: max |x - exact| / (N M) = "
+                  f"{ratio:.3e} > gamma_D / 8 = {gamma / 8:.3e}")
+            out[f"D={D} {kind}"] = {"max_ratio": ratio, "gamma": gamma,
+                                    "margin": gamma / ratio if ratio else None}
+            log(f"  gamma_D check D={D} {kind}: max |x - exact| / (N M) "
+                f"{ratio:.4e}, gamma_D {gamma:.4e} ({gamma / ratio if ratio else float('inf'):.1f}"
+                f" times the largest), {n * m} dot products")
+            del sums, exact, bound
+    return out
 
 
 def bf16_scatter_case(seed: int, device):
@@ -3336,13 +3425,47 @@ def card_vs_cpu_step(folder, checkpoint, lr, what):
             "moved": moved, "elements_beyond": beyond, "elements": total}
 
 
-def run_dtype_policy(seed: int, data: str, dense_folder: str):
+def bf16_ranks_agree(folder: str, batches: int = 2):
+    """The first ``batches`` batches of the folder's test evaluation ranked
+    through the kernel and through its plain version: every per-triple rank
+    equal (the bfloat16 path's counts are exact). Then the warm test
+    evaluation, profiled; returns the profile and K1's device ms in it."""
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts_plain
+
+    job = test_job(folder)
+    with torch.inference_mode():
+        job._prepare()
+        job._is_prepared = True
+        job._evaluate()
+        _, device_batches = job._collate_cache
+        for triples, labels in device_batches[:batches]:
+            kernel, _ = job._rank_batch(triples, labels)
+            plain, _ = job._rank_batch(triples, labels,
+                                       rank_counts=fused_rank_counts_plain)
+            for r in kernel:
+                check(torch.equal(kernel[r], plain[r]),
+                      f"bf16 ranking {r}: kernel and plain ranks differ")
+        log(f"  {batches} test batches of {os.path.basename(folder)} in bf16: "
+            f"ranks through K1 equal the plain version's on every triple")
+        profile = profile_run(job._evaluate, "warm test eval in bf16 compute")
+    k1_ms = sum(t["ms"] for t in profile["top"] + profile["own_kernels_below_top"]
+                if "rank_" in t["name"] and "_kernel" in t["name"])
+    if profile["device_busy_ms"]:
+        log(f"  K1's launches (prologue, tiles, recount): {k1_ms:.3f} ms of the warm "
+            f"test eval's {profile['device_busy_ms']:.3f} ms of device time")
+    del job
+    torch.cuda.empty_cache()
+    return {"eval_profile": profile, "k1_ms": k1_ms}
+
+
+def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: str):
     """Phase 22; returns a summary dict."""
     from kge_tpu_torch import cli
     from kge_tpu_torch.models.convert import leaf_tensor
     from kge_tpu_torch.utils.io import load_checkpoint, save_checkpoint
 
     device = torch.device("cuda")
+    gamma = bf16_gamma_check(seed, device)
     kernels = {
         "rank_counts": [bf16_rank_case(seed, device, False),
                         bf16_rank_case(seed, device, True)],
@@ -3352,8 +3475,30 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str):
     }
     kernels["pooled_scores"], kernels["pooled_scores_bwd"] = bf16_pooled_case(seed, device)
     log(f"  {card_line()}")
-    out = {"kernels": kernels, "bf16_fast_ops": bf16_fast_ops_exact(device)}
+    out = {"kernels": kernels, "bf16_fast_ops": bf16_fast_ops_exact(device),
+           "gamma_check": gamma}
     num_train = FB15K237[2]
+
+    # T-transe-l2's test in bfloat16 compute: K1's bf16 path with the L2
+    # epilogue on a main path
+    test_batches = -(-NUM_TEST // BATCH)
+    reset_counters()
+    reset_bf16_counters()
+    start = time.perf_counter()
+    cli.main(["test", transe_l2_folder, "--eval.batch_size", str(BATCH),
+              "--parallel.compute_dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts, bf16 = read_counters(), read_bf16_counters()
+    check(bf16["rank_counts"] == counts["rank_counts"]
+          == counts["rank_counts_epilogue"] == 2 * test_batches, (counts, bf16))
+    entry = last_test_entry(transe_l2_folder)
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
+    log(f"  T-transe-l2 test in bf16 compute: {bf16['rank_counts']} K1 launches, all "
+        f"bf16 with the L2 epilogue; wall {wall:.3f} s; MRR filtered "
+        f"{entry['mean_reciprocal_rank_filtered']:.6f}")
+    out["transe_l2_test"] = {"launches": counts, "bf16_launches": bf16, "wall_s": wall,
+                             "mrr_filtered": entry["mean_reciprocal_rank_filtered"]}
 
     # X-complex in bfloat16 compute, its entity table from T-dense's folder
     folder = os.path.join(WORK, "train_xcomplex_bf16")
@@ -3393,6 +3538,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str):
               f"pretrained start: {key} equal to T-dense's: {same}")
     (entry,) = trace_entries(folder, event="eval_completed", split="test")
     check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
+    test_eval = bf16_ranks_agree(folder)
     log(f"  X-complex bf16 compute: start 1 epoch + validation and test, wall "
         f"{wall:.2f} s; avg_loss {losses}; K1 bf16 launches {bf16['rank_counts']} "
         f"(2 x ({valid_batches} + {test_batches})); test MRR filtered "
@@ -3408,6 +3554,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str):
     del job
     torch.cuda.empty_cache()
     out["xcomplex"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
+                       "test_eval": test_eval,
                        "avg_loss": losses, "step_card_vs_cpu": step,
                        "warm_epoch": timing, "gemm_ms": gemm,
                        "test_mrr_filtered": entry["mean_reciprocal_rank_filtered"]}
@@ -4004,7 +4151,8 @@ def main():
         "in bfloat16 compute from T-dense's entity table, P-rotate with both dtypes "
         "in bfloat16, T-sparse with bfloat16 tables")
     start = time.perf_counter()
-    dtype = run_dtype_policy(args.seed, data, os.path.join(WORK, "train_dense"))
+    dtype = run_dtype_policy(args.seed, data, os.path.join(WORK, "train_dense"),
+                             transe_l2["folder"])
     log(f"  phase 22 took {time.perf_counter() - start:.1f} s; {card}")
     bf16_cases = dtype["kernels"]
 
@@ -4071,7 +4219,10 @@ def main():
         for name, replaces, source, launches_bf16, more in (
             ("rank_counts", "kge_tpu/ops/rank_kernel.py:108", None,
              dtype["xcomplex"]["bf16_launches"]["rank_counts"],
-             {"epilogue": bf16_cases["rank_counts"][1]}),
+             {"epilogue": {**bf16_cases["rank_counts"][1], "launches":
+                           dtype["transe_l2_test"]["bf16_launches"]["rank_counts"]},
+              "recount_share": bf16_cases["rank_counts"][0]["recount_share"],
+              "gamma_check": dtype["gamma_check"]}),
             ("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120", None,
              dtype["rotate"]["bf16_launches"]["scatter_add_sorted"],
              {"launches_sparse": dtype["sparse"]["bf16_launches"][

@@ -9,8 +9,9 @@ a thread 8 x 8 accumulators; slices of both operands stream through a
 three-stage ``cp.async`` ring in shared memory) with the counts as its
 epilogue, after a small launch that computes the pivots. At evaluation
 shapes the fp32 CUDA-core rate bounds it (about 60 flops per byte of
-input). The grid is (row tiles) x (column ranges): ``rank_plan`` cuts the
-candidate columns into ranges of whole tiles (one tile each: many short
+input); the bfloat16 path's tiles run on the tensor cores (below). The
+grid is (row tiles) x (column ranges): ``rank_plan`` cuts the candidate
+columns into ranges of whole tiles (one tile each: many short
 blocks balance the SMs best), and the blocks of
 a row tile add their int32 counts with ``atomicAdd``, exact in any order, so
 the outputs are bit-equal across launches and across plans. Measured by
@@ -53,16 +54,29 @@ to bf16): every score is one FMA chain over the embedding dimension in
 ascending order, whatever the plan, and the epilogue's float operations
 round one by one (the sqrt correctly rounded, as ``torch.sqrt``'s on the
 card), so the true entity ties with itself exactly under the epilogue too.
+The float32 path leaves the tensor cores out for that reason.
 
 bfloat16 inputs (``parallel.compute_dtype: bfloat16``) take the kernel's
-bfloat16 path: the same float32 chain over the bfloat16 values (each
-product is exact in float32, so the chain is a sum of exact products in
-ascending order), each score rounded once to bfloat16, and the epilogue and
-the tie test computed in bfloat16 with a rounding after every operation, as
-kge_tpu's evaluation ranks its bfloat16 score matrix
-(kge_tpu/job/eval_entity_ranking.py ``_close_greater``). ``vals`` and the
-pivot are bfloat16 then. The plain version sums the same products in the
-same order (``chain_scores``), so its counts equal the kernel's.
+bfloat16 path. Its outputs are defined by the same float32 chain over the
+bfloat16 values (each product is exact in float32, so the chain is a sum of
+exact products in ascending order), each score rounded once to bfloat16,
+and the epilogue and the tie test computed in bfloat16 with a rounding
+after every operation, as kge_tpu's evaluation ranks its bfloat16 score
+matrix (kge_tpu/job/eval_entity_ranking.py ``_close_greater``). ``vals``
+and the pivot are bfloat16 then. The plain version sums the same products
+in the same order (``chain_scores``), so its counts equal the kernel's.
+The kernel multiplies the tiles on the tensor cores (``mma.sync`` on raw
+bfloat16 slices, float32 accumulators), whose sums are not the chain's
+bits, and keeps the chain's decisions by a certificate: each tensor-core
+sum lies within ``certificate_bound`` of its chain (a multiple of
+``||q_i|| ||t_j||``), and the category of an entry (below, close, greater)
+is a non-decreasing function of the chain's value. So where both ends of
+that interval fall in one category, the entry is counted from the tensor
+cores' sum; every other entry, and every label column, is recomputed by the
+chain (``certified_categories`` is the rule in PyTorch). The number of
+entries the certificate left undecided is
+``fused_rank_counts.last_recounted`` (a device tensor, read by the checks
+only).
 """
 
 from __future__ import annotations
@@ -79,6 +93,9 @@ _KERNEL = "rank_counts"
 TILE_COLS = 128
 #: query rows per block of the kernel (BM of csrc/rank_counts.cu)
 TILE_ROWS = 64
+#: entries of the bfloat16 path's recount worklist: the undecided entries
+#: of a block that finds it full are recounted by the block itself
+RECOUNT_CAPACITY = 1 << 20
 
 
 class ScoreEpilogue:
@@ -176,17 +193,113 @@ def csr_row_sums(row_ptr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (csum[ptr[1:]] - csum[ptr[:-1]]).to(torch.int32)
 
 
-def chain_scores(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """``q @ targets.T`` for bfloat16 operands as the kernel computes it:
-    one float32 sum per score over k ascending (a product of two bfloat16
-    values is exact in float32, so an FMA and a multiply-then-add agree),
-    rounded once to bfloat16."""
+def chain_sums(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The float32 chains of ``q @ targets.T`` for bfloat16 operands: one
+    sum per score over k ascending from 0 (a product of two bfloat16 values
+    is exact in float32, so an FMA and a multiply-then-add agree)."""
     qf, tf = q.float(), targets.float()
     acc = torch.zeros(q.shape[0], targets.shape[0], dtype=torch.float32,
                       device=q.device)
     for k in range(q.shape[1]):
         acc.addcmul_(qf[:, k, None], tf[None, :, k])
-    return acc.to(q.dtype)
+    return acc
+
+
+def chain_scores(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``q @ targets.T`` for bfloat16 operands as the kernel computes it:
+    ``chain_sums`` rounded once to bfloat16."""
+    return chain_sums(q, targets).to(q.dtype)
+
+
+# -- the certificate of the bfloat16 path (csrc/rank_counts.cu, header) -------
+#
+# The kernel computes these with directed roundings (__fmul_ru, __fmaf_ru,
+# __fsub_rd, __fadd_ru); the functions below give the same float32 results
+# from exact float64 intermediates.
+
+
+def certificate_gamma(D: int) -> float:
+    """gamma_D: the tensor cores' sum lies within gamma_D S of the chain,
+    S = sum_k |q_k t_k|; D16 2^-21 with D16 the depth rounded up to 16 (the
+    derivation is in csrc/rank_counts.cu)."""
+    return 16 * -(-D // 16) * 2.0 ** -21
+
+
+def certificate_eta(D: int) -> float:
+    """eta_D, the absolute term for values flushed below 2^-126."""
+    return 16 * -(-D // 16) * 2.0 ** -124
+
+
+def chain_error_factor(D: int) -> float:
+    """The chain's own part of gamma_D: (D - 1) u / (1 - (D - 1) u), u =
+    2^-24, the bound of recursive summation of D exact products."""
+    m = (max(D, 1) - 1) * 2.0 ** -24
+    return m / (1.0 - m)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """s + err == a + b exactly, s = fl(a + b) in float64 (Knuth)."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def _round_f32(hi: torch.Tensor, lo: torch.Tensor, up: bool) -> torch.Tensor:
+    """The float32 rounding of hi + lo (float64, |lo| at most half an ulp
+    of hi) upward or downward."""
+    r = hi.float()
+    r64 = r.double()
+    if up:
+        bump = (r64 < hi) | ((r64 == hi) & (lo > 0))
+    else:
+        bump = (r64 > hi) | ((r64 == hi) & (lo < 0))
+    toward = torch.full_like(r, float("inf") if up else float("-inf"))
+    return torch.where(bump, torch.nextafter(r, toward), r)
+
+
+def certificate_bound(norm_q: torch.Tensor, norm_t: torch.Tensor,
+                      D: int) -> torch.Tensor:
+    """E [n, m] as the kernel's epilogue computes it from the norm bounds
+    (float32 [n] and [m]): RU(gamma_D RU(N_i M_j) + eta_D), +inf where
+    RU(N_i M_j) exceeds 2^126 or is no number."""
+    prod = norm_q.double()[:, None] * norm_t.double()[None, :]  # exact
+    nm = _round_f32(prod, torch.zeros_like(prod), up=True)
+    scaled = nm.double() * certificate_gamma(D)  # exact: few bits each
+    eta = torch.full_like(scaled, certificate_eta(D))
+    e = _round_f32(*_two_sum(scaled, eta), up=True)
+    return torch.where(nm <= 2.0 ** 126, e, torch.full_like(e, float("inf")))
+
+
+def certified_categories(x: torch.Tensor, bound: torch.Tensor,
+                         pivot: torch.Tensor, atol: float, rtol: float,
+                         score_map=None) -> torch.Tensor:
+    """The certificate's rule, as the kernel's epilogue applies it: for
+    float32 sums ``x`` [n, m] that lie within ``bound`` of their chains, the
+    chain's category of each entry (int8: 0 below the pivot, 1 close, 2
+    greater, under ``close_greater`` against the bfloat16 ``pivot`` [n]
+    after the bfloat16 rounding and ``score_map``), or -1 where the rule
+    cannot settle it: lo = RD(x - bound) and hi = RU(x + bound) fall in
+    different categories, either is not finite, or the row's pivot or
+    tolerance is not finite. Not on any main path: the tests and
+    chip_smoke.py check the kernel's decisions with it."""
+    x64, b64 = x.double(), bound.double()
+    lo = _round_f32(*_two_sum(x64, -b64), up=False)
+    hi = _round_f32(*_two_sum(x64, b64), up=True)
+    p = pivot.to(torch.bfloat16)
+    p = torch.where(torch.isnan(p), torch.full_like(p, float("-inf")), p)
+    tol = weak(atol, p) + weak(rtol, p) * p.abs()
+    ok_row = (torch.isfinite(p) & torch.isfinite(tol))[:, None]
+
+    def category(v):
+        s = v.to(torch.bfloat16)
+        if score_map is not None:
+            s = score_map(s)
+        close, greater = close_greater(s, p[:, None], atol, rtol)
+        return close.to(torch.int8) + 2 * greater.to(torch.int8)
+
+    a, b = category(lo), category(hi)
+    decided = ok_row & torch.isfinite(lo) & torch.isfinite(hi) & (a == b)
+    return torch.where(decided, a, torch.full_like(a, -1))
 
 
 def fused_rank_counts_plain(q, targets, pivot, row_ptr, cols, num_valid: int,
@@ -285,6 +398,9 @@ fused_rank_counts.launches = 0
 fused_rank_counts.epilogue_launches = 0
 #: the launches among them of the bfloat16 path
 fused_rank_counts.bf16_launches = 0
+#: int64 [1] on the card: the entries that the last bfloat16 launch's
+#: certificate left undecided (recomputed by the chain); None before one
+fused_rank_counts.last_recounted = None
 
 
 def _library():
@@ -293,10 +409,11 @@ def _library():
     lib = load_library(_KERNEL)
     if not getattr(lib, "_kge_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("rank_counts_launch", "rank_counts_launch_bf16"):
-            getattr(lib, name).argtypes = [
-                p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p, p,
-            ]
+        launch = [p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p]
+        for name, args in (("rank_counts_launch", launch + [p]),
+                           ("rank_counts_launch_bf16", launch + [p, p, i, p, p]),
+                           ("rank_counts_bf16_tile_sums", [p, p, i, i, i, p, p, p])):
+            getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
         for name in ("rank_counts_tile_cols", "rank_counts_tile_rows"):
             getattr(lib, name).argtypes = []
@@ -346,18 +463,61 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
                            device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launch = (lib.rank_counts_launch if dtype == torch.float32
-                  else lib.rank_counts_launch_bf16)
-        code = launch(
+        args = [
             q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
             row_ptr.data_ptr(), cols.data_ptr(),
             n, D, int(num_valid), cols.numel(), float(atol), float(rtol),
             int(epilogue), plan["tiles_per_range"], tile_ptr.data_ptr(),
             counts[0].data_ptr(), counts[1].data_ptr(), vals.data_ptr(),
-            pivot_out.data_ptr(), stream,
-        )
+            pivot_out.data_ptr(),
+        ]
+        if dtype == torch.float32:
+            code = lib.rank_counts_launch(*args, stream)
+        else:
+            # the certificate's norm bounds and each row's category cuts,
+            # the recount launch's worklist, and the count of the entries it
+            # left undecided with the worklist's fill (written by the kernels)
+            norms = torch.empty(3 * n + int(num_valid), dtype=torch.float32,
+                                device=device)
+            capacity = min(n * int(num_valid), RECOUNT_CAPACITY)
+            work = torch.empty(2 * max(capacity, 1), dtype=torch.int32,
+                               device=device)
+            counters = torch.empty(2, dtype=torch.int64, device=device)
+            recounted = counters[:1]
+            code = lib.rank_counts_launch_bf16(
+                *args, norms.data_ptr(), work.data_ptr(), capacity,
+                counters.data_ptr(), stream)
     check_launch(code, "rank_counts")
     fused_rank_counts.launches += 1
     fused_rank_counts.epilogue_launches += epilogue != 0
-    fused_rank_counts.bf16_launches += dtype == torch.bfloat16
+    if dtype == torch.bfloat16:
+        fused_rank_counts.bf16_launches += 1
+        fused_rank_counts.last_recounted = recounted
     return counts[0], counts[1], vals, pivot_out
+
+
+def bf16_tile_sums(q: torch.Tensor, targets: torch.Tensor):
+    """For checks of the certificate on the card: the tensor cores' float32
+    sums ``q @ targets.T`` [n, m] of the bfloat16 kernel's own tile product
+    (its instruction sequence, not a library's), and the norm bounds of its
+    prologue for the rows of q [n] and of targets [m]. Not on any main path
+    and not counted as a launch."""
+    from kge_tpu_torch.ops.kernel_utils import check_launch, require
+
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError("bf16_tile_sums runs the CUDA kernel only")
+    for name, x in (("q", q), ("targets", targets)):
+        require(name, x, device, torch.bfloat16)
+    (n, D), m = q.shape, targets.shape[0]
+    if targets.shape[1] != D:
+        raise ValueError(f"targets {tuple(targets.shape)} do not match q {tuple(q.shape)}")
+    sums = torch.empty(n, m, dtype=torch.float32, device=device)
+    norms = torch.empty(n + m, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _library().rank_counts_bf16_tile_sums(
+            q.data_ptr(), targets.data_ptr(), n, D, m, sums.data_ptr(),
+            norms.data_ptr(), stream)
+    check_launch(code, "rank_counts_bf16_tile_sums")
+    return sums, norms[:n], norms[n:]

@@ -1075,30 +1075,164 @@ def _within(got, want, bound):
     return bool(torch.all(both_nan | ((got - want).abs() <= bound)))
 
 
+def _bf16_rank_outputs_equal(got, want):
+    """Counts equal, vals and pivots (bfloat16) equal in bits."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2].view(torch.int16), want[2].view(torch.int16))
+            and torch.equal(got[3].view(torch.int16), want[3].view(torch.int16)))
+
+
+def _undecided_by_the_rule(q, T, num_valid, pivot, score_map):
+    """The entries that the certificate leaves open by the PyTorch rule,
+    on the kernel's own tensor-core sums and norm bounds."""
+    sums, nq, nt = rank_kernel.bf16_tile_sums(q, T[:num_valid])
+    bound = rank_kernel.certificate_bound(nq, nt, q.shape[1])
+    cats = rank_kernel.certified_categories(sums, bound, pivot, ATOL, RTOL,
+                                            score_map)
+    return int((cats < 0).sum())
+
+
+def _check_bf16_rank(q, T, row_ptr, cols, num_valid, true, score_map):
+    """K1's bfloat16 path against its plain version: counts equal, vals and
+    pivots bit for bit; two launches and the plans of 1, 3 and every
+    range equal in bits; the undecided entries those of the rule. Returns
+    the kernel's count of undecided entries."""
+    before = fused_rank_counts.launches
+
+    def run(plan=None):
+        out = fused_rank_counts(q, T, None, row_ptr, cols, num_valid, ATOL,
+                                RTOL, score_map=score_map, pivot_cols=true,
+                                plan=plan)
+        torch.cuda.synchronize()
+        return out
+
+    first = run()
+    assert fused_rank_counts.launches == before + 1
+    assert first[2].dtype == first[3].dtype == torch.bfloat16
+    recounted = int(fused_rank_counts.last_recounted)
+    plain = rank_kernel.fused_rank_counts_plain(
+        q, T, None, row_ptr, cols, num_valid, ATOL, RTOL, score_map=score_map,
+        pivot_cols=true)
+    assert _bf16_rank_outputs_equal(first, plain)
+    n = q.shape[0]
+    for plan in (None, rank_kernel.rank_plan(n, num_valid, num_ranges=1),
+                 rank_kernel.rank_plan(n, num_valid, num_ranges=3),
+                 rank_kernel.rank_plan(n, num_valid, num_ranges=num_valid)):
+        assert _bf16_rank_outputs_equal(run(plan), first), plan
+        assert int(fused_rank_counts.last_recounted) == recounted
+    assert recounted == _undecided_by_the_rule(q, T, num_valid, first[3],
+                                               score_map)
+    return recounted
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("epilogue", [None, "l2"])
-@pytest.mark.parametrize("n,E,D", [(64, 1000, 64), (70, 300, 30)])
-def test_bf16_rank_kernel_counts_equal_plain_on_card(n, E, D, epilogue):
-    """K1's bfloat16 path: the counts equal the plain version's exactly, and
+@pytest.mark.parametrize("D", [30, 64, 132, 201, 320, 512])
+@pytest.mark.parametrize("n", [1, 70, 256])
+def test_bf16_rank_kernel_counts_equal_plain_on_card(n, D, epilogue):
+    """K1's bfloat16 path (tensor-core tiles, certified decisions, the
+    chain for the rest): the counts equal the plain version's exactly, and
     vals and the pivot bit for bit (one float32 chain per score, one
-    rounding, the tie test in bfloat16 on both sides)."""
+    rounding, the tie test in bfloat16 on both sides), across launches and
+    plans, at every staging width (D of 30, 201: plain loads; 132: 8-byte
+    copies; the others 16-byte), with num_valid not a multiple of 128."""
     device = _card()
+    E, num_valid = 1000, 937
     q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(7, n, E, D))
     q, T = q.bfloat16(), T.bfloat16()
+    true = true % num_valid
     score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
-    before = fused_rank_counts.launches
-    g, c, vals, pivot = fused_rank_counts(q, T, None, row_ptr, cols, E, ATOL,
-                                          RTOL, score_map=score_map,
-                                          pivot_cols=true)
-    torch.cuda.synchronize()
-    assert fused_rank_counts.launches == before + 1
-    assert vals.dtype == pivot.dtype == torch.bfloat16
-    pg, pc, pvals, ppivot = rank_kernel.fused_rank_counts_plain(
-        q, T, None, row_ptr, cols, E, ATOL, RTOL, score_map=score_map,
-        pivot_cols=true)
-    assert torch.equal(g, pg) and torch.equal(c, pc)
-    assert torch.equal(vals.view(torch.int16), pvals.view(torch.int16))
-    assert torch.equal(pivot.view(torch.int16), ppivot.view(torch.int16))
+    recounted = _check_bf16_rank(q, T, row_ptr, cols, num_valid, true,
+                                 score_map)
+    if n > 5:  # the NaN and infinite rows of _inputs are recomputed whole
+        assert recounted >= 2 * num_valid
+
+
+def _bf16_rank_case(case, n=70, E=1000, D=64):
+    rng = np.random.default_rng(len(case))
+    q = rng.normal(0, 0.3, (n, D))
+    T = rng.normal(0, 0.3, (E, D))
+    true = rng.integers(0, E // 2, n)
+    if case == "ties":
+        # copies of row 0's true row whose first coordinate steps by 2^-12
+        # (exact in bfloat16) through row 0's pivot, 0 (q[0] picks that
+        # coordinate), and the true row repeated as odd rows' true column
+        T[true[0], 0] = 0.0
+        T[E // 2:] = T[true[0]]
+        T[E // 2:, 0] = (np.arange(E - E // 2) - (E - E // 2) // 2) * 2.0 ** -12
+        true[1::2] = E // 2 + 7
+        q[0] = 0.0
+        q[0, 0] = 1.0
+    elif case == "cancellation":
+        q = np.repeat(np.abs(q[:, :1]), D, axis=1) * 4.0 + q * 1e-2
+        T = np.where(np.arange(D) % 2 == 0, 1.0, -1.0) * rng.uniform(
+            0.5, 2.0, (E, 1)) + rng.normal(0, 1e-2, (E, D))
+    elif case == "zero_rows":
+        q[::2] = 0.0
+        T *= 1e-4
+    elif case == "nonfinite":
+        q[1, 3], q[2, 0], q[3, 5] = np.inf, -np.inf, np.nan
+        T[true[4], 2], T[true[6], 1], T[9, 9], T[11, 0] = np.inf, np.nan, -np.inf, np.inf
+    elif case == "infinite_rows":
+        q[:, 0] = np.inf
+    per_row = [np.sort(rng.choice(E, size=int(rng.integers(0, 30)), replace=False))
+               for _ in range(n)]
+    row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in per_row])])
+    return [torch.tensor(a, dtype=dt) for a, dt in (
+        (q, torch.float32), (T, torch.float32), (row_ptr, torch.int32),
+        (np.concatenate(per_row), torch.int32), (true, torch.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [None, 64])
+@pytest.mark.parametrize("epilogue", [None, "l2"])
+@pytest.mark.parametrize("case", ["ties", "cancellation", "zero_rows", "nonfinite",
+                                  "infinite_rows"])
+def test_bf16_rank_kernel_data_cases_on_card(case, epilogue, capacity,
+                                             monkeypatch):
+    """K1's bfloat16 path where the certificate is hard: many bfloat16 ties
+    (duplicated candidates, the true row repeated, sums stepping across the
+    pivot's buckets: some entries are recounted), cancelling products,
+    zero queries (pivots in the atol region), infinities and NaN in q and
+    in t, and an infinity in every query row (every entry recounted); with
+    the default worklist and with one of 64 entries, so that blocks that
+    find it full recount their entries themselves."""
+    device = _card()
+    if capacity is not None:
+        monkeypatch.setattr(rank_kernel, "RECOUNT_CAPACITY", capacity)
+    E, num_valid = 1000, 997
+    q, T, row_ptr, cols, true = (x.to(device) for x in _bf16_rank_case(case))
+    q, T = q.bfloat16(), T.bfloat16()
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    recounted = _check_bf16_rank(q, T, row_ptr, cols, num_valid, true,
+                                 score_map)
+    if case == "ties":
+        assert recounted > 0
+    if case == "infinite_rows":
+        assert recounted == q.shape[0] * num_valid
+
+
+@pytest.mark.cuda
+def test_bf16_rank_tiles_run_on_the_tensor_cores():
+    """The built library's bfloat16 tile kernel holds HMMA (or HGMMA)
+    instructions, and the float32 tile kernel none."""
+    import re
+    import shutil
+    import subprocess
+
+    from kge_tpu_torch.ops import kernel_utils
+
+    _card()
+    path = kernel_utils.build("rank_counts")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    sections = [s.split("\n", 1) for s in re.split(r"\n\s*Function : ", sass)[1:]]
+    tc = [body for name, body in sections if "rank_tiles_tc_kernel" in name]
+    fp32 = [body for name, body in sections if "rank_tiles_kernel" in name]
+    assert tc and fp32
+    assert all(re.search(r"\bH(G)?MMA\b", body) for body in tc)
+    assert not any(re.search(r"\bH(G)?MMA\b", body) for body in fp32)
 
 
 @pytest.mark.cuda
