@@ -71,9 +71,9 @@ Phases (any failure exits non-zero; nothing is caught):
    touched rows within atol 1e-6 + rtol 1e-5, untouched rows bit-equal.
 8. Timings: the two kernels per call at the main shapes beside plain,
    library (``index_add_``, ``index_copy_``) and bound, the scatter
-   kernel's two launches (sort and zeros; sums) also alone, at d = 128 and
-   at the row-sparse step's 16,642 ids of 200,000 too, with the segment
-   sums and their sort alone; a warm epoch of
+   kernel's two launches (the sort; the sums and the zeros) also alone, at
+   d = 128 and at the row-sparse step's 16,642 ids of 200,000 too, with the
+   segment sums and their sort alone; a warm epoch of
    each training configuration (wall, triples/s) and a profile of it with
    the device's busy share.
 9. The fused row-update kernel (ops/optim.py ``fused_sorted_update``)
@@ -218,12 +218,16 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel's plain version's under phase 2's rule; the scatter kernel against
    its plain version as in phase 5 at the lookups' shapes (128 ids into the
    entity and the relation table, D = 201). One step on the card against the
-   same step on the CPU from the epoch-2 checkpoint with every dropout 0:
-   losses within rtol 1e-5, tables, scorer parameters, statistics and Adam's
-   moments within 1e-5 + 1e-4 |CPU| (cuDNN and cuBLAS sum in other orders),
-   except the leaves whose gradient is zero up to rounding (the
-   convolution's and the projection's biases, which batch norm follows),
-   within twice Adam's largest step, 2 (1 - beta1) / sqrt(1 - beta2) lr.
+   same step on the CPU from the epoch-2 checkpoint with every dropout 0
+   (``card_matches_cpu``): losses within rtol 1e-5; each leaf's gradient
+   norm-wise within 1e-4 of the CPU's (cuDNN, cuBLAS and the scatter sum in
+   other orders, which moves single cancelling elements, not the norm); the
+   CPU's optimizer rule applied to the card's own gradients and prior state
+   against the card's stepped leaves and Adam's moments, and the batch-norm
+   statistics, within 1e-5 + 1e-4 |CPU|; the leaves whose gradient is zero
+   up to rounding (the convolution's and the projection's biases, which
+   batch norm follows) within twice Adam's largest step, 2 (1 - beta1) /
+   sqrt(1 - beta2) lr.
    The warm epoch's wall and queries/s, the validation's and the test's
    walls, and a profiled window of 50 steps of a warm epoch: the
    leading kernels, the device's busy share of the profiled wall and its
@@ -250,7 +254,9 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-equal, its count of undecided entries that of the PyTorch rule
    ``certified_categories`` on its own sums, logged as the recount share;
    library: cuBLAS's bf16 product and the compares), the scatter at 8,192 ids into
-   [14,541, 512] (within an ulp of the sums; ``index_add_``), the row
+   [14,541, 512] and at 16,642 into [200,000, 512] (within an ulp of the sums;
+   ``index_add_``; each launch alone, the segment sums and their sort as in
+   phase 8), the row
    write at 16,642 rows into [200,000, 512] (exact; ``index_copy_``), Adam's
    fused update at 10,240 rows into [200,000, 1,024] (within an ulp), the
    pooled scores and their backward at ``cmod``, n 4,096, K 128, F 8, d 512
@@ -281,8 +287,9 @@ Phases (any failure exits non-zero; nothing is caught):
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14, and its launches in phases
    15-18, 20 and 21, the scatter kernel's its launches in phases 15, 16, 18,
-   19, 20 and 21. Six more entries (``*_bf16``) hold the bfloat16 paths of
-   phase 22, their launches from its runs. Then the card's name and power
+   19, 20 and 21 and its launches alone (``SCATTER_LAUNCH_KEYS``). Six more
+   entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
+   from its runs (the scatter's also its launches alone). Then the card's name and power
    limit, then the ``ok`` JSON line last.
 """
 
@@ -321,6 +328,8 @@ TRAIN_BATCH, NUM_NEGATIVES, SPARSE_ENTITIES = 8192, 128, 200000
 # pooled negatives: bench.py's transe_margin and rotate_selfadv workloads
 POOL_FACTOR, TRANSE_DIM, ROTATE_DIM, ROTATE_BATCH = 8, 128, 1024, 4096
 ROTATE_LR = 0.001
+# the scatter kernel's launches alone (``scatter_launch_times``)
+SCATTER_LAUNCH_KEYS = ("launch_a_ms", "launch_b_ms", "segment_sums_ms", "sort_alone_ms")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -2679,53 +2688,127 @@ def routes_agree(job):
 
 def card_matches_cpu(folder, checkpoint, no_dropout, zero_grad_leaves, lr):
     """One step on the card and on the CPU from ``checkpoint`` with every
-    dropout off, on the same batch: losses within rtol 1e-5; tables, scorer
-    parameters, statistics and Adam's moments within 1e-5 + 1e-4 |CPU|
-    (cuDNN and cuBLAS sum in other orders than the CPU), except the leaves
-    whose gradient is zero up to rounding (``zero_grad_leaves``: path ->
-    slice), where Adam turns each device's rounding into a step of its own:
-    those within twice the largest step Adam takes, 2 (1 - beta1) /
-    sqrt(1 - beta2) lr = 6.32 lr (Kingma and Ba 2015, section 2.1). Returns
-    the largest differences and the leaves' paths."""
+    dropout off, on the same batch, held in four parts:
+
+    - the losses within rtol 1e-5;
+    - the gradients, leaf by leaf, norm-wise: ``|g_card - g_cpu| <= 1e-4
+      |g_cpu|`` (2-norms over the leaf). cuDNN, cuBLAS and the scatter
+      kernel sum in other orders than the CPU. A float32 sum of K terms
+      moves by up to about K u of its summed magnitudes (u = 2^-24), which
+      can be the whole of an element whose terms cancel, but not of the
+      leaf's norm, which the elements that do not cancel carry: rounding
+      errors that add like a random walk give sqrt(K) u, about 6e-6 at the
+      10^4 terms of the deepest sums here, and 1e-4 leaves room above it.
+      The parts of zero gradient up to rounding (``zero_grad_leaves``: path
+      -> slice) are left out: there the gradient is all rounding;
+    - the optimizer's rule: the CPU's rule applied on the CPU to the card's
+      own gradients and prior leaves and state, against the card's stepped
+      leaves and Adam's moments, within 1e-5 + 1e-4 |CPU|. Both compute the
+      same elementwise rule on the same inputs;
+    - the leaves the step writes without a gradient (the batch-norm
+      statistics, merged after the update), card against CPU within 1e-5 +
+      1e-4 |CPU|, and the parts of zero gradient, where Adam turns each
+      device's rounding into a step of its own: card against CPU within
+      twice the largest step Adam takes, 2 (1 - beta1) / sqrt(1 - beta2) lr
+      = 6.32 lr (Kingma and Ba 2015, section 2.1).
+
+    An element of small |CPU| whose gradient cancels moves under Adam by up
+    to its step whatever the sums' order; held element-wise card against
+    CPU it would fail by chance, so the element-wise bounds hold the rule on
+    one gradient, and the gradients are held norm-wise. Returns the largest
+    differences and the leaves' paths."""
     jobs = {device: resumed_job(folder, checkpoint, **{"job.device": device,
                                                        **no_dropout})
             for device in ("cuda", "cpu")}
     batch = next(iter(jobs["cuda"]._batches()))
     variant = jobs["cuda"]._step_variant(batch)
+
+    def on_cpu(states):
+        return [{k: v.detach().cpu().clone() if torch.is_tensor(v) else v
+                 for k, v in leaf.items()} for leaf in states]
+
     out = {}
     for device, job in jobs.items():
+        seen = {}
+        update = job.optimizer.update
+
+        def capture(grads, opt_state, lrs, job=job, seen=seen, update=update):
+            seen["grads"] = [g.detach().cpu().clone() for g in grads]
+            seen["prior"] = ([p.detach().cpu().clone() for p in job.optimizer.params],
+                             on_cpu(opt_state["leaves"]), int(opt_state["step"]), lrs)
+            result = update(grads, opt_state, lrs)
+            seen["stepped"] = ([p.detach().cpu().clone() for p in job.optimizer.params],
+                               on_cpu(opt_state["leaves"]))
+            return result
+
+        job.optimizer.update = capture
         tensors = {k: torch.as_tensor(v).to(job.device) for k, v in batch.items()
                    if k != "true_size" and not isinstance(v, str)}
         cost, _ = job._train_step(tensors, job._current_lrs(), variant)
+        job.optimizer.update = update
         paths = [".".join(map(str, p)) for p in job.optimizer._paths]
-        leaves = [p.detach().cpu() for p in job.optimizer.params]
-        states = [{k: v.cpu() for k, v in s.items()} for s in job.opt_state["leaves"]]
-        out[device] = (float(cost), paths, leaves, states)
+        leaves = [p.detach().cpu().clone() for p in job.optimizer.params]
+        out[device] = (float(cost), paths, leaves, seen)
     torch.cuda.synchronize()
-    (cost_c, paths, leaves_c, states_c), (cost_h, _, leaves_h, states_h) = (
-        out["cuda"], out["cpu"])
+    (cost_c, paths, leaves_c, card), (cost_h, _, leaves_h, cpu) = out["cuda"], out["cpu"]
     check(abs(cost_c - cost_h) <= 1e-5 * abs(cost_h), (cost_c, cost_h))
+
+    # the CPU's rule on the card's gradients, prior leaves and state
+    prior_leaves, prior_states, step, lrs = card["prior"]
+    rule = jobs["cpu"].optimizer
+    with torch.no_grad():
+        for param, x in zip(rule.params, prior_leaves):
+            param.data = x.clone()
+    rule_state = {"leaves": prior_states, "step": step}
+    rule.update(card["grads"], rule_state, lrs)
+    rule_leaves = [p.detach() for p in rule.params]
+
     b1, b2 = 0.9, 0.999  # Adam's default betas, which both phases use
     step_bound = 2 * (1 - b1) / math.sqrt(1 - b2) * lr
-    worst = {"tables": 0.0, "zero_grad": 0.0}
-    for path, x, y, sx, sy in zip(paths, leaves_c, leaves_h, states_c, states_h):
-        pairs = [(x, y)] + [(sx[k], sy[k]) for k in sorted(sy)]
+    worst = {"gradient_norm": 0.0, "rule": 0.0, "statistics": 0.0, "zero_grad": 0.0}
+    stepped_c, states_c = card["stepped"]
+    for i, path in enumerate(paths):
+        part = zero_grad_leaves.get(path)
+        g_c, g_h = card["grads"][i].clone(), cpu["grads"][i].clone()
+        if part is not None:
+            g_c[part] = 0.0
+            g_h[part] = 0.0
+        apart = float(torch.linalg.vector_norm(g_c - g_h))
+        scale = float(torch.linalg.vector_norm(g_h))
+        check(apart <= 1e-4 * scale,
+              f"{path}: the gradients of card and CPU differ by {apart} in norm "
+              f"({scale})")
+        if scale > 0:
+            worst["gradient_norm"] = max(worst["gradient_norm"], apart / scale)
+        pairs = [(stepped_c[i], rule_leaves[i])] + [
+            (states_c[i][k], rule_state["leaves"][i][k]) for k in sorted(states_c[i])
+            if torch.is_tensor(states_c[i][k])]
         for a, b in pairs:
             err = (a - b).abs()
-            if path in zero_grad_leaves:
-                part = zero_grad_leaves[path]
-                check(bool((err[part] <= step_bound).all()),
-                      f"{path}: {float(err.max())}")
-                worst["zero_grad"] = max(worst["zero_grad"], float(err[part].max()))
-                err = err.clone()
-                err[part] = 0.0
             check(bool((err <= 1e-5 + 1e-4 * b.abs()).all()),
-                  f"card and CPU differ at {path}: {float(err.max())}")
-            worst["tables"] = max(worst["tables"], float(err.max()))
+                  f"{path}: the card's step differs from the CPU's rule on the card's "
+                  f"gradient by {float(err.max())}")
+            worst["rule"] = max(worst["rule"], float(err.max()))
+        if not torch.equal(leaves_c[i], stepped_c[i]):  # written after the update
+            err = (leaves_c[i] - leaves_h[i]).abs()
+            check(bool((err <= 1e-5 + 1e-4 * leaves_h[i].abs()).all()),
+                  f"{path}: card and CPU statistics differ by {float(err.max())}")
+            worst["statistics"] = max(worst["statistics"], float(err.max()))
+        if part is not None:
+            states_h = cpu["stepped"][1][i]
+            for a, b in [(leaves_c[i], leaves_h[i])] + [
+                    (states_c[i][k], states_h[k]) for k in sorted(states_h)
+                    if torch.is_tensor(states_h[k])]:
+                err = (a - b).abs()[part]
+                check(bool((err <= step_bound).all()), f"{path}: {float(err.max())}")
+                worst["zero_grad"] = max(worst["zero_grad"], float(err.max()))
     log(f"  one step on the card vs the CPU (dropout 0): loss {cost_c:.6f} vs "
-        f"{cost_h:.6f}; max abs difference {worst['tables']:.3e} (tolerance 1e-5 + "
-        f"1e-4 |CPU|), {worst['zero_grad']:.3e} on the leaves of zero gradient "
-        f"(tolerance {step_bound:.3e}, Adam's largest two steps)")
+        f"{cost_h:.6f}; gradients within {worst['gradient_norm']:.3e} of the CPU's "
+        f"norm (bound 1e-4); the CPU's rule on the card's gradients within "
+        f"{worst['rule']:.3e} of the card's step, statistics within "
+        f"{worst['statistics']:.3e} (tolerance 1e-5 + 1e-4 |CPU|); "
+        f"{worst['zero_grad']:.3e} on the parts of zero gradient (tolerance "
+        f"{step_bound:.3e}, Adam's largest two steps)")
     return {"loss_card": cost_c, "loss_cpu": cost_h, **worst}, paths
 
 
@@ -3098,45 +3181,58 @@ def bf16_gamma_check(seed: int, device):
 
 
 def bf16_scatter_case(seed: int, device):
-    """K2's bfloat16 path: 8,192 power-law ids into [14,541, 512], within
-    two bfloat16 ulps of each row's summed magnitude of the plain version
-    (both sum in float32, in other orders, and round once)."""
+    """K2's bfloat16 path at 8,192 power-law ids into [14,541, 512] (the
+    kernels line's shape) and at T-sparse's 16,642 ids into [200,000, 512]:
+    within two bfloat16 ulps of each row's summed magnitude of the plain
+    version (both sum in float32, in other orders, and round once); its
+    launches alone, the segment sums and their launch A as in phase 8."""
     from kge_tpu_torch.ops.embedding_ops import sorted_scatter_add, sorted_scatter_add_plain
 
     rng = np.random.default_rng(seed + 23)
-    n, rows, D = TRAIN_BATCH, NUM_ENTITIES, DIM
-    ids_np = power_law_ids(rng, rows, n, 0.8)
+    cases = [("entity lookups", power_law_ids(rng, NUM_ENTITIES, TRAIN_BATCH, 0.8),
+              NUM_ENTITIES),
+             ("row-sparse entity ids", rows_set_cases(rng)[0][2], SPARSE_ENTITIES)]
+    out = []
+    for name, ids_np, rows in cases:
+        n, D = len(ids_np), DIM
 
-    def make():
-        return (torch.tensor(ids_np, dtype=torch.int64, device=device),
-                torch.randn(n, D, device=device).bfloat16())
+        def make():
+            return (torch.tensor(ids_np, dtype=torch.int64, device=device),
+                    torch.randn(n, D, device=device).bfloat16())
 
-    pick = rotating(make)
-    ids, upd = pick()
-    got = sorted_scatter_add(ids, upd, rows)
-    want = sorted_scatter_add_plain(ids, upd, rows)
-    magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
-    err = (got.float() - want.float()).abs()
-    check(bool((err <= 1e-6 + BF16_ULP * magnitude).all()),
-          "bf16 scatter differs from its plain version beyond an ulp of the sums")
-    ms = time_ms(lambda: sorted_scatter_add(*pick(), rows))
-    plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), rows))
-
-    def library():
+        pick = rotating(make)
         ids, upd = pick()
-        return torch.zeros(rows, D, dtype=torch.bfloat16,
-                           device=device).index_add_(0, ids, upd)
+        got = sorted_scatter_add(ids, upd, rows)
+        want = sorted_scatter_add_plain(ids, upd, rows)
+        magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= 1e-6 + BF16_ULP * magnitude).all()),
+              f"bf16 scatter differs from its plain version beyond an ulp of the sums "
+              f"({name})")
+        ms = time_ms(lambda: sorted_scatter_add(*pick(), rows))
+        plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), rows))
+        launches = scatter_launch_times(pick, rows)
 
-    library_ms = time_ms(library)
-    bound_ms, bound_by, term = bf16_bound(2.0 * (n * D + rows * D) + 8.0 * n,
-                                          flops=float(n * D))
-    log(f"  scatter_add_sorted bf16 n={n} rows={rows} D={D}: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library index_add_ (bf16) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); max abs difference from plain "
-        f"{float(err.max()):.3e}")
-    return {"shape": f"n={n} rows={rows} D={D}", "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": float(err.max())}
+        def library():
+            ids, upd = pick()
+            return torch.zeros(rows, D, dtype=torch.bfloat16,
+                               device=device).index_add_(0, ids, upd)
+
+        library_ms = time_ms(library)
+        bound_ms, bound_by, term = bf16_bound(2.0 * (n * D + rows * D) + 8.0 * n,
+                                              flops=float(n * D))
+        log(f"  scatter_add_sorted bf16 {name} n={n} rows={rows} D={D}: {ms:.4f} ms "
+            f"(launch A alone {launches['launch_a_ms']:.4f} ms, launch B alone "
+            f"{launches['launch_b_ms']:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"index_add_ (bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); segment sums {launches['segment_sums_ms']:.4f} ms (their "
+            f"launch A {launches['sort_alone_ms']:.4f} ms); max abs difference from "
+            f"plain {float(err.max()):.3e}")
+        out.append({"shape": f"{name}: n={n} rows={rows} D={D}", "ms": ms,
+                    **launches, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": float(err.max())})
+    return out
 
 
 def bf16_rows_set_case(seed: int, device):
@@ -3469,7 +3565,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     kernels = {
         "rank_counts": [bf16_rank_case(seed, device, False),
                         bf16_rank_case(seed, device, True)],
-        "scatter_add_sorted": [bf16_scatter_case(seed, device)],
+        "scatter_add_sorted": bf16_scatter_case(seed, device),
         "rows_set": [bf16_rows_set_case(seed, device)],
         "fused_row_update": [bf16_fused_case(seed, device)],
     }
@@ -3721,17 +3817,34 @@ def time_rank(seed: int, device, first_batch):
     return out
 
 
+def scatter_launch_times(pick, num_rows):
+    """The scatter kernel's launches alone by CUDA events, on the rotating
+    inputs ``pick`` gives: launch A (the sort, the segment marks and the
+    bitmap of rows present) and launch B (the sums and the zeros) of the
+    scatter-add, the segment sums whole, and their launch A."""
+    from kge_tpu_torch.ops.embedding_ops import scatter_launch, sorted_segment_sums
+
+    ids, upd = pick()
+    buffers = scatter_launch(ids, None, upd, num_rows)
+    by_segment = scatter_launch(ids, None, upd, num_rows, by_segment=True)
+    return {
+        "launch_a_ms": time_ms(lambda: scatter_launch(
+            pick()[0], None, upd, num_rows, phases=1, buffers=buffers)),
+        "launch_b_ms": time_ms(lambda: scatter_launch(
+            ids, None, pick()[1], num_rows, phases=2, buffers=buffers)),
+        "segment_sums_ms": time_ms(lambda: sorted_segment_sums(*pick(), num_rows)),
+        "sort_alone_ms": time_ms(lambda: scatter_launch(
+            pick()[0], None, upd, num_rows, by_segment=True, phases=1,
+            buffers=by_segment)),
+    }
+
+
 def time_scatter(seed: int, device):
     """Scatter kernel per call at the three shapes of the dense step (the
     first is the kernels line's), at P-transe's d = 128 and at T-sparse's
     entity segment sum: the wrapper and its two launches alone, and the
-    segment sums with their launch A, the sort without zeros to write."""
-    from kge_tpu_torch.ops.embedding_ops import (
-        scatter_launch,
-        sorted_scatter_add,
-        sorted_scatter_add_plain,
-        sorted_segment_sums,
-    )
+    segment sums with their launch A alone."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_scatter_add, sorted_scatter_add_plain
 
     rng = np.random.default_rng(seed + 4)
     cases = [case + (DIM,) for case in scatter_cases(rng)[:3]] + [
@@ -3750,17 +3863,7 @@ def time_scatter(seed: int, device):
         pick = rotating(make)
         ms = time_ms(lambda: sorted_scatter_add(*pick(), num_rows))
         plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), num_rows))
-        ids, upd = pick()
-        buffers = scatter_launch(ids, None, upd, num_rows)
-        sort_ms = time_ms(lambda: scatter_launch(
-            pick()[0], None, upd, num_rows, phases=1, buffers=buffers))
-        sums_ms = time_ms(lambda: scatter_launch(
-            ids, None, pick()[1], num_rows, phases=2, buffers=buffers))
-        segments_ms = time_ms(lambda: sorted_segment_sums(*pick(), num_rows))
-        by_segment = scatter_launch(ids, None, upd, num_rows, by_segment=True)
-        sort_alone_ms = time_ms(lambda: scatter_launch(
-            pick()[0], None, upd, num_rows, by_segment=True, phases=1,
-            buffers=by_segment))
+        launches = scatter_launch_times(pick, num_rows)
 
         def library():
             ids, upd = pick()
@@ -3772,15 +3875,14 @@ def time_scatter(seed: int, device):
         bound_ms, bound_by, _ = bound(4.0 * (n * D + num_rows * D) + 8.0 * n,
                                    float(n * D))
         log(f"  scatter_add_sorted {name} n={n} rows={num_rows} D={D}: {ms:.4f} ms "
-            f"(launch A alone, the sort beside the zeros, {sort_ms:.4f} ms; launch "
-            f"B alone, the sums, {sums_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"library index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); segment sums {segments_ms:.4f} ms (their launch A, the "
-            f"sort without zeros, {sort_alone_ms:.4f} ms)")
+            f"(launch A alone, the sort, {launches['launch_a_ms']:.4f} ms; launch B "
+            f"alone, the sums and zeros, {launches['launch_b_ms']:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library index_add_ {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); segment sums "
+            f"{launches['segment_sums_ms']:.4f} ms (their launch A "
+            f"{launches['sort_alone_ms']:.4f} ms)")
         out.append({"shape": name, "n": n, "num_rows": num_rows, "dim": D, "ms": ms,
-                    "sort_and_zero_ms": sort_ms, "sums_ms": sums_ms,
-                    "segment_sums_ms": segments_ms, "sort_alone_ms": sort_alone_ms,
-                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    **launches, "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by})
     return out
 
@@ -4186,8 +4288,7 @@ def main():
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
-              sort_and_zero_ms=scatter_times[0]["sort_and_zero_ms"],
-              sums_ms=scatter_times[0]["sums_ms"],
+              **{k: scatter_times[0][k] for k in SCATTER_LAUNCH_KEYS},
               launches_sparse_epoch=sparse["launches"]["scatter_add_sorted"],
               launches_ocomplex_start=ocomplex["launches"]["scatter_add_sorted"],
               launches_kcomplex_start=kcomplex["launches"]["scatter_add_sorted"],
@@ -4226,7 +4327,9 @@ def main():
             ("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120", None,
              dtype["rotate"]["bf16_launches"]["scatter_add_sorted"],
              {"launches_sparse": dtype["sparse"]["bf16_launches"][
-                 "scatter_add_sorted"]}),
+                 "scatter_add_sorted"],
+              **{k: bf16_cases["scatter_add_sorted"][0][k]
+                 for k in SCATTER_LAUNCH_KEYS}}),
             ("rows_set", "kge_tpu/ops/pallas_ops.py:258", None,
              dtype["sparse"]["bf16_launches"]["rows_set"], {}),
             ("fused_row_update", "kge_tpu/ops/pallas_ops.py:402", None,

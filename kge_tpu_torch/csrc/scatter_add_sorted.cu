@@ -8,7 +8,7 @@
 //   out = zeros[num_rows, D];  out[ids[p]] += upd[p]  for p in [0, n)
 // (ids outside [0, num_rows) are skipped), or, "by segment", one summed row
 // per distinct id in ascending id order, which the row-sparse optimizer step
-// takes. The whole of out is written here, zeros included.
+// takes. Every row of out is written exactly once, zeros included.
 //
 // The TPU kernel sums a row tile's update range with one-hot matmuls and a
 // 3-way bf16 split to reach f32 accuracy on the MXU. Neither is carried
@@ -16,32 +16,41 @@
 //
 // Two launches on the caller's stream.
 //
-// Launch A, sort_and_zero_kernel. Block 0 sorts; the other blocks stream
-// zeros over out with 16-byte stores meanwhile, which takes about as long.
-//  - The sort is a stable least-significant-digit radix sort of (key,
-//    position) pairs by one block of 1,024 threads, on the
-//    ceil(log2(num_rows + 1)) bits that the keys have only (14 for 14,541
-//    rows, 18 for 200,000), 4 bits a pass. The key of an id outside the
-//    table is num_rows, so those sort last. The ids are read with
-//    neighbouring threads on neighbouring words and staged in shared memory;
-//    a thread then holds 1, 4, 8, 12 or 17 consecutive positions in
-//    registers (the smallest that holds n): key and position in one 32-bit
-//    word where their bits allow (14 + 13 for 8,192 ids of 14,541 rows),
-//    else a 32-bit key and a 16-bit position. They are ranked and exchanged
-//    through shared memory by cub::BlockRadixSort, a building block inside
-//    this kernel. 17 x 1,024 positions bound n at SORT_LIMIT; above it the
-//    caller sorts. The result equals a stable sort of the keys exactly.
-//    (Two hand-written sorts with up to 8 bits a pass were tried and were
-//    slower a pass by more than their fewer passes saved: one ranked with a
-//    warp vote per bit, and the votes were its cost; one counted into
-//    per-thread byte counters.)
-//  - Then the same block marks where a run of equal keys starts (the sorted
-//    keys are still in shared memory) and scans the marks, 1,024 positions
-//    at a time: seg[p], the number of the segment of sorted position p, and
-//    seg_begin[s], where segment s starts (seg_begin[segments] = n); every
-//    store has neighbouring threads on neighbouring words. A caller that
-//    holds a sort passes it in; block 0 then only converts it to 32 bits
-//    and scans.
+// Launch A, blocked_sort_kernel: a stable least-significant-digit radix sort
+// of (key, position) pairs spread over the SMs, one cooperative launch whose
+// phases meet at grid-wide barriers.
+//  - The key of an id is itself inside the table and num_rows outside it, so
+//    those sort last. The sort runs on the bits_of(num_rows) bits the keys
+//    have (14 for 14,541 rows, 18 for 200,000) in the fewest passes of at
+//    most 8 bits, the bits shared evenly: two passes of 7 bits at 14, three
+//    of 6 at 18, one at 237 rows.
+//  - The positions are cut into tiles of 256 x rounds consecutive positions,
+//    one tile a block, at most 128 tiles (rounds = 1 up to 32,768 ids). A
+//    pass: every block ranks its own tile by the pass's digit, stably (a
+//    warp groups equal digits with __match_any_sync; per-warp counts, scanned
+//    warp after warp, give each position its rank among the tile's equal
+//    digits). The tiles' digit counts, read digit-major and tile-minor, give
+//    each (digit, tile) its first place: the counts of all smaller digits
+//    plus those of the digit in earlier tiles. Each block then writes its
+//    keys and positions there, in ascending position within a digit, so the
+//    pass is stable, and counts for the next pass, by warp-aggregated
+//    integer atomics, the digits each tile of the new order receives; pass
+//    0's counts are written by the blocks themselves before the first
+//    barrier. Integer counts do not depend on the order of the atomics, so
+//    the sort is exact: it equals a stable sort of the keys.
+//  - Then every block marks where a run of equal keys starts in its tile of
+//    the sorted order, counts the starts, and after a last barrier numbers
+//    them from the counts of the tiles before it: seg[p], the number of the
+//    segment of sorted position p, and seg_begin[s], where segment s starts
+//    (seg_begin[segments] = n), meta[0] = segments. For the scatter-add each
+//    start also sets its key's bit in a bitmap of the table's rows, from
+//    which launch B knows the rows to zero.
+//  - Barriers: passes + 2 (four at 14 bits; none where one block holds all
+//    the ids). A caller that holds a sort passes it in; launch A then
+//    converts it to 32 bits and marks. Up to SORT_LIMIT ids: above about
+//    that many a stable torch.sort and launch A on its sort take as long.
+//  - The intermediate passes use seg and seg_begin as their buffer; both are
+//    written only once the sort is done.
 //
 // Launch B, segment_sums_kernel. Every output row is summed by one owner in
 // ascending sorted position, with no float atomics, so two launches on the
@@ -51,8 +60,8 @@
 // two fixed-order levels:
 //  1. The sorted positions are cut into chunks of CHUNK = 32. A block owns
 //     a chunk and a slab of up to 128 16-byte columns, one column a thread.
-//     It loads the update rows of 8 positions ahead of adding them, with
-//     the segment edges staged in shared memory, and sums each piece (a
+//     It has all the chunk's update rows in flight before the first add,
+//     with the segment edges staged in shared memory, and sums each piece (a
 //     maximal run of one key inside the chunk) in order. A piece that is a
 //     whole segment is written to out. A piece cut by a chunk edge goes to
 //     a scratch slot of its chunk: slot 0 for the chunk's first piece,
@@ -61,100 +70,142 @@
 //     last (a counter per segment, after a fence): it adds the scratch
 //     slots of the chunks the segment covers in ascending chunk order and
 //     writes the row. The order of the adds is the same whoever is last.
-// Present rows are written, not added, over launch A's zeros. By segment,
-// rows of out past the last segment are zeroed by extra blocks of launch B.
+// The rows no id names are zeroed by extra blocks of launch B, spread over
+// the table: a run of rows whose bits launch A left clear, or, by segment,
+// the rows past the last segment, each run's bytes stored by all the
+// block's threads in turn. So each row of out is written once: present rows
+// by their owner, the others by the extra blocks. Launch B is a
+// programmatic dependent launch: it waits for launch A in the kernel.
 //
 // Bound: bytes. Each update row is read once and each output row written
 // once; there is one add per element read. At n = 8,192, D = 512 and 14,541
 // rows that is 16.8 MB read and 29.8 MB written: 0.014 ms at the card's
-// memory rate. Measured on an NVIDIA H100 80GB HBM3 (700 W) at that shape:
-// about 0.038 ms a call, launch A 0.021 ms (the sort's latency on one SM;
-// the zeros alone take 0.011 ms) and launch B 0.011 to 0.015 ms (PERF.md has
-// the table).
+// memory rate in float32, 0.007 ms in bfloat16. Launch A moves few bytes
+// and is bound by latency: its launch, its grid barriers (about 1 us each,
+// 4.2 us of its 0.015 ms at that shape on an NVIDIA H100 80GB HBM3, 700 W,
+// measured by doubling them) and the memory round trips between them.
+// Launch B moves the bytes. PERF.md has the times launch by launch
+// (scripts/scatter_timing.py).
 //
 // bfloat16 (parallel.param_dtype: bfloat16; scatter_add_launch_bf16): upd
 // and out are bfloat16, the sums and the scratch float32, as kge_tpu's kernel
 // sums in float32 scratch and writes the updates' dtype. Launch B widens
 // each element as it loads it and rounds each output element once as it
-// stores it (4 columns a thread, 8-byte loads); the order of the adds is the
-// float32 path's. Half the bytes move, so the bound halves.
+// stores it, 8 columns a thread in 16-byte loads and stores (4 columns in 8
+// bytes where D is not a multiple of 8, 1 where it is not of 4); the order
+// of the adds is the float32 path's. Half the bytes move, so the bound
+// halves. Launch A is the same for both types.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cub/block/block_radix_sort.cuh>
-#include <type_traits>
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int CHUNK = 32;         // sorted positions per block of launch B
 constexpr int MAX_THREADS_B = 128;
-constexpr int AHEAD = 8;          // rows loaded ahead of their adds
-constexpr int SORT_THREADS = 1024;
-constexpr int MAX_ITEMS = 17;     // positions per thread of the largest sort
-constexpr int SORT_LIMIT = MAX_ITEMS * SORT_THREADS;  // the in-kernel sort's
+constexpr int AHEAD = 8;          // scratch rows loaded ahead of their adds
+constexpr int ZERO_BLOCKS_PER_SM = 4;  // launch B's blocks for absent rows
+constexpr int SORT_THREADS = 256; // threads of a block of launch A
+constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int MAX_DIGITS = 256;   // 8 bits a pass at most
+constexpr int MAX_TILES = 128;    // blocks of launch A
+constexpr int MAX_ROUNDS = 16;    // SORT_THREADS positions each, a tile
+constexpr int SORT_LIMIT = MAX_TILES * MAX_ROUNDS * SORT_THREADS;
+
+// 8 neighbouring columns, summed in float32
+struct float8 {
+  float4 a, b;
+};
 
 __device__ __forceinline__ float vzero(const float*) { return 0.f; }
 __device__ __forceinline__ float4 vzero(const float4*) {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
+__device__ __forceinline__ float8 vzero(const float8*) {
+  return {vzero((const float4*)nullptr), vzero((const float4*)nullptr)};
+}
 __device__ __forceinline__ void vadd(float& a, const float b) { a += b; }
-
-// Loads and stores of a V (float, or float4 of 4 neighbouring columns) at
-// element index 4 i (float4) or i (float) of a float or bfloat16 array: a
-// bfloat16 element widens exactly, and a sum is rounded once to bfloat16
-// (round to nearest even) where it is stored.
-template <typename V, typename T>
-struct Elem;
-template <>
-struct Elem<float, float> {
-  __device__ static float load(const float* p, size_t i) { return p[i]; }
-  __device__ static void store(float* p, size_t i, float v) { p[i] = v; }
-};
-template <>
-struct Elem<float4, float> {
-  __device__ static float4 load(const float* p, size_t i) {
-    return reinterpret_cast<const float4*>(p)[i];
-  }
-  __device__ static void store(float* p, size_t i, float4 v) {
-    reinterpret_cast<float4*>(p)[i] = v;
-  }
-};
-template <>
-struct Elem<float, __nv_bfloat16> {
-  __device__ static float load(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-  }
-  __device__ static void store(__nv_bfloat16* p, size_t i, float v) {
-    p[i] = __float2bfloat16_rn(v);
-  }
-};
-template <>
-struct Elem<float4, __nv_bfloat16> {
-  __device__ static float4 load(const __nv_bfloat16* p, size_t i) {
-    const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  __device__ static void store(__nv_bfloat16* p, size_t i, float4 v) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const unsigned*>(&a);
-    raw.y = *reinterpret_cast<const unsigned*>(&b);
-    reinterpret_cast<uint2*>(p)[i] = raw;
-  }
-};
 __device__ __forceinline__ void vadd(float4& a, const float4 b) {
   a.x += b.x;
   a.y += b.y;
   a.z += b.z;
   a.w += b.w;
 }
+__device__ __forceinline__ void vadd(float8& a, const float8& b) {
+  vadd(a.a, b.a);
+  vadd(a.b, b.b);
+}
+
+__device__ __forceinline__ float2 widen2(unsigned raw) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+}
+__device__ __forceinline__ unsigned narrow(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Loads and stores of a V (float, float4 or float8 of neighbouring columns)
+// at index i in units of V of a float or bfloat16 array. A load brings the
+// raw bytes (Raw) and widen() turns them into float32 where they are added:
+// a bfloat16 element widens exactly. A sum is rounded once to bfloat16
+// (round to nearest even) where it is stored.
+template <typename V, typename T>
+struct Elem;
+template <typename V>
+struct Elem<V, float> {
+  using Raw = V;
+  __device__ static Raw load(const float* p, size_t i) {
+    return reinterpret_cast<const V*>(p)[i];
+  }
+  __device__ static V widen(const Raw& r) { return r; }
+  __device__ static void store(float* p, size_t i, const V& v) {
+    reinterpret_cast<V*>(p)[i] = v;
+  }
+};
+template <>
+struct Elem<float, __nv_bfloat16> {
+  using Raw = __nv_bfloat16;
+  __device__ static Raw load(const __nv_bfloat16* p, size_t i) { return p[i]; }
+  __device__ static float widen(const Raw& r) { return __bfloat162float(r); }
+  __device__ static void store(__nv_bfloat16* p, size_t i, float v) {
+    p[i] = __float2bfloat16_rn(v);
+  }
+};
+template <>
+struct Elem<float4, __nv_bfloat16> {
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p, size_t i) {
+    return reinterpret_cast<const uint2*>(p)[i];
+  }
+  __device__ static float4 widen(const Raw& r) {
+    const float2 a = widen2(r.x), b = widen2(r.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static void store(__nv_bfloat16* p, size_t i, float4 v) {
+    reinterpret_cast<uint2*>(p)[i] = make_uint2(narrow(v.x, v.y), narrow(v.z, v.w));
+  }
+};
+template <>
+struct Elem<float8, __nv_bfloat16> {
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p, size_t i) {
+    return reinterpret_cast<const uint4*>(p)[i];
+  }
+  __device__ static float8 widen(const Raw& r) {
+    const float2 a = widen2(r.x), b = widen2(r.y), c = widen2(r.z),
+                 d = widen2(r.w);
+    return {make_float4(a.x, a.y, b.x, b.y), make_float4(c.x, c.y, d.x, d.y)};
+  }
+  __device__ static void store(__nv_bfloat16* p, size_t i, const float8& v) {
+    reinterpret_cast<uint4*>(p)[i] =
+        make_uint4(narrow(v.a.x, v.a.y), narrow(v.a.z, v.a.w),
+                   narrow(v.b.x, v.b.y), narrow(v.b.z, v.b.w));
+  }
+};
 
 __device__ __forceinline__ long long index_at(const void* a, bool wide,
                                               size_t i) {
@@ -200,159 +251,284 @@ __device__ __forceinline__ int block_exclusive_scan(int value, int* tmp,
   return base + incl - value;
 }
 
-// Index into a shared-memory buffer padded by one word in 32, so that
-// threads that read runs of consecutive words do not meet in one bank.
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+int bits_of(int value) {  // bits needed to hold 0..value
+  int bits = 1;
+  while ((value >> bits) != 0) ++bits;
+  return bits;
+}
 
-// The sorted keys of launch A, wherever they lie: in shared memory, padded,
-// or in device memory.
-struct SortedKeys {
-  const uint32_t* words;
-  bool pad;
-  __device__ __forceinline__ int operator()(int i) const {
-    return (int)words[pad ? padded(i) : i];
-  }
+// How launch A cuts the work: tiles of rounds x SORT_THREADS positions (one
+// block each), and passes of digit_bits bits (0 passes for a caller's sort).
+struct SortPlan {
+  int tiles, rounds, passes, digit_bits;
 };
 
-// Stable radix sort of (key, position) by the whole block; the sorted keys
-// and positions go to keys_sorted and order in device memory. A thread
-// holds ITEMS consecutive positions; positions past n take the largest key
-// and, coming last among equal keys, stay past n. PACKED: key and position
-// share one 32-bit word (the key above pos_bits bits of position), sorted
-// on the key's bits only, which halves what a pass ranks and exchanges;
-// else the positions ride along as 16-bit values.
-template <int ITEMS, bool PACKED>
-struct BlockSort {
-  using Sort = typename std::conditional<
-      PACKED, cub::BlockRadixSort<uint32_t, SORT_THREADS, ITEMS>,
-      cub::BlockRadixSort<uint32_t, SORT_THREADS, ITEMS, uint16_t>>::type;
-  static constexpr size_t TEMP_BYTES =
-      (sizeof(typename Sort::TempStorage) + 15) / 16 * 16;
-  static constexpr int WORDS = ITEMS * SORT_THREADS;
-  // the sort's scratch, then the sorted keys (padded by one word in 32)
-  static constexpr size_t BYTES = TEMP_BYTES + (WORDS + WORDS / 32) * 4;
+SortPlan sort_plan(int n, int num_keys, bool presorted) {
+  SortPlan plan;
+  plan.rounds = 1;
+  while ((long long)plan.rounds * SORT_THREADS * MAX_TILES < n) plan.rounds *= 2;
+  const int tile = plan.rounds * SORT_THREADS;
+  plan.tiles = n > 0 ? (n + tile - 1) / tile : 1;
+  const int key_bits = bits_of(num_keys);
+  plan.passes = presorted ? 0 : (key_bits + 7) / 8;
+  plan.digit_bits = plan.passes ? (key_bits + plan.passes - 1) / plan.passes : 1;
+  return plan;
+}
 
-  // Returns the shared-memory buffer of the sorted keys (padded).
-  static __device__ const uint32_t* run(const void* ids, bool wide,
-                                        int ids_stride, int n, int num_keys,
-                                        int key_bits, int pos_bits,
-                                        unsigned char* smem,
-                                        int32_t* __restrict__ keys_sorted,
-                                        int32_t* __restrict__ order) {
-    uint32_t* sorted = reinterpret_cast<uint32_t*>(smem + TEMP_BYTES);
-    typename Sort::TempStorage& temp =
-        *reinterpret_cast<typename Sort::TempStorage*>(smem);
-    const int tid = threadIdx.x;
-    // neighbouring threads read neighbouring ids; a thread then takes its
-    // run of ITEMS consecutive positions from shared memory
-    for (int i = tid; i < n; i += SORT_THREADS) {
-      sorted[padded(i)] =
-          (uint32_t)key_of(ids, wide, (size_t)i * ids_stride, num_keys);
+struct SortArgs {
+  const void* ids;
+  int ids_wide, ids_stride;
+  const void* order_in;  // a caller's sort, or null
+  int order_wide;
+  int n, num_keys;
+  SortPlan plan;
+  int32_t* keys_sorted;  // [n]
+  int32_t* order;        // [n]
+  int32_t* seg;          // [n]; keys of the intermediate passes before
+  int32_t* seg_begin;    // [n + 1]; positions of the intermediate passes before
+  int32_t* meta;         // [1]: the number of segments
+  int32_t* counts;       // [passes, tiles, 2^digit_bits]
+  int32_t* tile_starts;  // [tiles]
+  uint32_t* present;     // a bit per key below num_keys, or null (by segment)
+  int present_words;
+  int32_t* done;         // launch B's counters, zeroed here
+  int num_done;
+};
+
+// Rank the tile's keys (s_key, the first `len`) by the digit at `shift`:
+// s_rank[i] = how many of the tile's positions before i hold i's digit, and
+// s_run[d] = how many hold d. Stable: position order is round-major,
+// thread-minor, as the ranks count.
+__device__ __forceinline__ void rank_tile(const uint32_t* s_key, uint16_t* s_rank,
+                                          int* s_run, int (*s_wc)[MAX_DIGITS],
+                                          int len, int rounds, int shift,
+                                          int digits) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int d = tid; d < digits; d += SORT_THREADS) s_run[d] = 0;
+  for (int r = 0; r < rounds; ++r) {
+    for (int w = 0; w < SORT_WARPS; ++w)
+      for (int d = tid; d < digits; d += SORT_THREADS) s_wc[w][d] = 0;
+    __syncthreads();
+    const int i = r * SORT_THREADS + tid;
+    const bool valid = i < len;
+    const int digit = valid ? (int)((s_key[i] >> shift) & (digits - 1)) : MAX_DIGITS;
+    const unsigned peers = __match_any_sync(0xffffffffu, digit);
+    const int below = __popc(peers & ((1u << lane) - 1u));
+    if (valid && below == 0) s_wc[warp][digit] = __popc(peers);
+    __syncthreads();
+    // each digit's count before every warp of the round, warp after warp
+    for (int d = tid; d < digits; d += SORT_THREADS) {
+      int run = s_run[d];
+#pragma unroll
+      for (int w = 0; w < SORT_WARPS; ++w) {
+        const int c = s_wc[w][d];
+        s_wc[w][d] = run;
+        run += c;
+      }
+      s_run[d] = run;
     }
     __syncthreads();
-    uint32_t keys[ITEMS];
-    uint16_t pos[ITEMS];
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const int i = tid * ITEMS + k;
-      const uint32_t key = i < n ? sorted[padded(i)] : 0u;
-      if (PACKED) {
-        keys[k] = i < n ? (key << pos_bits) | (uint32_t)i : 0xffffffffu;
-      } else {
-        keys[k] = i < n ? key : 0xffffffffu;
-        pos[k] = (uint16_t)i;
-      }
-    }
-    __syncthreads();  // `sorted` is free for the result
-    if constexpr (PACKED) {
-      Sort(temp).SortBlockedToStriped(keys, pos_bits, pos_bits + key_bits);
-    } else {
-      Sort(temp).SortBlockedToStriped(keys, pos, 0, key_bits);
-    }
-#pragma unroll
-    for (int k = 0; k < ITEMS; ++k) {
-      const int i = k * SORT_THREADS + tid;
-      if (i < n) {
-        const uint32_t key = PACKED ? keys[k] >> pos_bits : keys[k];
-        sorted[padded(i)] = key;
-        keys_sorted[i] = (int32_t)key;
-        order[i] = (int32_t)(PACKED ? keys[k] & ((1u << pos_bits) - 1u)
-                                    : (uint32_t)pos[k]);
-      }
-    }
-    return sorted;
+    if (valid) s_rank[i] = (uint16_t)(s_wc[warp][digit] + below);
+    __syncthreads();  // s_wc is zeroed again by the next round
   }
-};
+}
 
-// Block 0: the sort (or the conversion of the caller's sort), then seg,
-// seg_begin, meta[0] = segments, and zeros over the `done` counters of
-// launch B. Blocks 1..: zeros over out.
-template <int ITEMS, bool PACKED>
-__global__ void __launch_bounds__(SORT_THREADS)
-sort_and_zero_kernel(const void* __restrict__ ids, int ids_wide,
-                     int ids_stride, const void* __restrict__ order_in,
-                     int order_wide, int n,
-                     int num_keys, int key_bits, int pos_bits,
-                     int32_t* __restrict__ keys_sorted,
-                     int32_t* __restrict__ order, int32_t* __restrict__ seg,
-                     int32_t* __restrict__ seg_begin,
-                     int32_t* __restrict__ meta, int32_t* __restrict__ done,
-                     int num_done, void* __restrict__ out, size_t out_units,
-                     int unit) {
-  extern __shared__ __align__(16) unsigned char sort_smem[];
-  __shared__ int tmp[33];
-  const int tid = threadIdx.x;
-  if (blockIdx.x > 0) {
-    const size_t first = (size_t)(blockIdx.x - 1) * SORT_THREADS + tid;
-    const size_t stride = (size_t)(gridDim.x - 1) * SORT_THREADS;
-    if (unit == 16) {
-      float4* out4 = reinterpret_cast<float4*>(out);
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (size_t i = first; i < out_units; i += stride) out4[i] = zero;
-    } else if (unit == 4) {
-      float* out1 = reinterpret_cast<float*>(out);
-      for (size_t i = first; i < out_units; i += stride) out1[i] = 0.f;
-    } else {
-      uint16_t* out2 = reinterpret_cast<uint16_t*>(out);
-      for (size_t i = first; i < out_units; i += stride) out2[i] = 0;
-    }
-    return;
-  }
-  for (int i = tid; i < num_done; i += SORT_THREADS) done[i] = 0;
-  SortedKeys key_at;
-  if constexpr (ITEMS > 0) {
-    key_at = {BlockSort<ITEMS, PACKED>::run(ids, ids_wide != 0, ids_stride, n,
-                                            num_keys, key_bits, pos_bits,
-                                            sort_smem, keys_sorted, order),
-              true};
+// A grid-wide barrier; a grid of one block needs only the block's.
+__device__ __forceinline__ void sync_grid(cg::grid_group& grid) {
+  if (gridDim.x == 1) {
+    __syncthreads();
   } else {
-    for (int i = tid; i < n; i += SORT_THREADS) {
-      keys_sorted[i] =
-          key_of(ids, ids_wide != 0, (size_t)i * ids_stride, num_keys);
-      order[i] = (int32_t)index_at(order_in, order_wide != 0, i);
-    }
-    key_at = {reinterpret_cast<const uint32_t*>(keys_sorted), false};
+    grid.sync();
   }
-  __syncthreads();  // the sorted keys are in place
-  // 1,024 positions at a time: mark where a run of equal keys starts, scan
-  // the marks over the block; neighbouring threads write neighbouring words
-  int segments = 0;
-  for (int base = 0; base < n; base += SORT_THREADS) {
-    const int i = base + tid;
-    const int starts =
-        i < n && (i == 0 || key_at(i) != key_at(i - 1)) ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(SORT_THREADS)
+blocked_sort_kernel(const SortArgs a) {
+  extern __shared__ __align__(16) unsigned char sort_smem[];
+  __shared__ int s_wc[SORT_WARPS][MAX_DIGITS];
+  __shared__ int s_run[MAX_DIGITS];
+  __shared__ int s_off[MAX_DIGITS];
+  __shared__ int tmp[33];
+  cg::grid_group grid = cg::this_grid();
+  const SortPlan& plan = a.plan;
+  const int tile = plan.rounds * SORT_THREADS;
+  uint32_t* s_key = reinterpret_cast<uint32_t*>(sort_smem);
+  int32_t* s_pos = reinterpret_cast<int32_t*>(s_key + tile);
+  uint16_t* s_rank = reinterpret_cast<uint16_t*>(s_pos + tile);
+  int* s_cnt = reinterpret_cast<int*>(s_rank + tile);  // [tiles, digits]
+  const int tid = threadIdx.x, t = blockIdx.x;
+  const int first = t * tile;
+  const int len = max(0, min(tile, a.n - first));
+  const int digits = 1 << plan.digit_bits;
+  const size_t per_pass = (size_t)plan.tiles * digits;
+
+  // zeros over launch B's counters, the bitmap and the counts that later
+  // passes add to
+  {
+    const size_t at = (size_t)t * SORT_THREADS + tid;
+    const size_t step = (size_t)gridDim.x * SORT_THREADS;
+    for (size_t i = at; i < (size_t)a.num_done; i += step) a.done[i] = 0;
+    if (a.present != nullptr)
+      for (size_t i = at; i < (size_t)a.present_words; i += step) a.present[i] = 0;
+    if (plan.passes > 1)
+      for (size_t i = at; i < (plan.passes - 1) * per_pass; i += step)
+        a.counts[per_pass + i] = 0;
+  }
+  if (plan.passes == 0) {
+    // a caller's sort: its keys and permutation, as they are
+    for (int i = tid; i < len; i += SORT_THREADS) {
+      const size_t p = (size_t)first + i;
+      a.keys_sorted[p] =
+          key_of(a.ids, a.ids_wide != 0, p * a.ids_stride, a.num_keys);
+      a.order[p] = (int32_t)index_at(a.order_in, a.order_wide != 0, p);
+    }
+    sync_grid(grid);
+  } else {
+    for (int i = tid; i < len; i += SORT_THREADS) {
+      const size_t p = (size_t)first + i;
+      s_key[i] = (uint32_t)key_of(a.ids, a.ids_wide != 0, p * a.ids_stride,
+                                  a.num_keys);
+      s_pos[i] = (int32_t)p;
+    }
+    __syncthreads();
+  }
+
+  for (int pass = 0; pass < plan.passes; ++pass) {
+    const int shift = pass * plan.digit_bits;
+    const bool last = pass + 1 == plan.passes;
+    // the pass's source and destination: the last pass ends in keys_sorted
+    // and order, the ones before alternate with seg and seg_begin
+    const bool to_final = ((plan.passes - 1 - pass) & 1) == 0;
+    int32_t* dst_key = to_final ? a.keys_sorted : a.seg;
+    int32_t* dst_pos = to_final ? a.order : a.seg_begin;
+    int32_t* counts = a.counts + pass * per_pass;
+    // every digit's first place in this tile: the counts of the smaller
+    // digits in all tiles, then of the digit in the tiles before this one;
+    // the tiles' counts are staged in shared memory, all loads in flight
+    const auto place_digits = [&]() {
+      if (per_pass % 4 == 0) {
+        const int4* from = reinterpret_cast<const int4*>(counts);
+        int4* to = reinterpret_cast<int4*>(s_cnt);
+#pragma unroll 8
+        for (size_t e = tid; e < per_pass / 4; e += SORT_THREADS) to[e] = __ldcg(from + e);
+      } else {
+#pragma unroll 8
+        for (size_t e = tid; e < per_pass; e += SORT_THREADS) s_cnt[e] = __ldcg(counts + e);
+      }
+      __syncthreads();
+      int total = 0, before = 0;
+      if (tid < digits) {
+        for (int u = 0; u < plan.tiles; ++u) {
+          const int c = s_cnt[u * digits + tid];
+          total += c;
+          before += u < t ? c : 0;
+        }
+      }
+      int all;
+      const int smaller = block_exclusive_scan(total, tmp, all);
+      if (tid < digits) s_off[tid] = smaller + before;
+    };
+    if (pass == 0) {
+      rank_tile(s_key, s_rank, s_run, s_wc, len, plan.rounds, shift, digits);
+      for (int d = tid; d < digits; d += SORT_THREADS)
+        counts[(size_t)t * digits + d] = s_run[d];
+      sync_grid(grid);
+      place_digits();
+    } else {
+      // the pass before counted this pass's digits; their loads overlap
+      // those of the tile's first round
+      const int32_t* src_key = to_final ? a.seg : a.keys_sorted;
+      const int32_t* src_pos = to_final ? a.seg_begin : a.order;
+      int key0 = 0, pos0 = 0;
+      if (tid < len) {
+        key0 = __ldcg(src_key + first + tid);
+        pos0 = __ldcg(src_pos + first + tid);
+      }
+      place_digits();
+      if (tid < len) {
+        s_key[tid] = (uint32_t)key0;
+        s_pos[tid] = pos0;
+      }
+      for (int i = tid + SORT_THREADS; i < len; i += SORT_THREADS) {
+        s_key[i] = (uint32_t)__ldcg(src_key + first + i);
+        s_pos[i] = __ldcg(src_pos + first + i);
+      }
+      __syncthreads();
+      rank_tile(s_key, s_rank, s_run, s_wc, len, plan.rounds, shift, digits);
+    }
+    __syncthreads();
+    int32_t* next = a.counts + (pass + 1) * per_pass;
+    for (int r = 0; r < plan.rounds; ++r) {
+      const int i = r * SORT_THREADS + tid;
+      const bool valid = i < len;
+      int tag = -1;
+      int32_t* slot = nullptr;
+      if (valid) {
+        const uint32_t key = s_key[i];
+        const int q = s_off[(key >> shift) & (digits - 1)] + s_rank[i];
+        dst_key[q] = (int32_t)key;
+        dst_pos[q] = s_pos[i];
+        if (!last) {
+          const int d2 = (int)((key >> (shift + plan.digit_bits)) & (digits - 1));
+          tag = (q / tile) * MAX_DIGITS + d2;
+          slot = next + (size_t)(q / tile) * digits + d2;
+        }
+      }
+      if (!last) {
+        // one atomic per group of equal (tile, digit) in a warp
+        const unsigned peers = __match_any_sync(0xffffffffu, tag);
+        if (valid && __popc(peers & ((1u << (tid & 31)) - 1u)) == 0)
+          atomicAdd(slot, __popc(peers));
+      }
+    }
+    sync_grid(grid);
+  }
+
+  // segment marks over the tile of the sorted order: count the starts, then,
+  // once every tile has, number them from the counts of the tiles before
+  unsigned marks = 0;  // bit r: the position of round r starts a segment
+  const auto starts_at = [&](int r) {
+    const int i = r * SORT_THREADS + tid;
+    if (r < 32) return ((marks >> r) & 1u) != 0;
+    const int p = first + i;
+    return i < len && (p == 0 || __ldcg(a.keys_sorted + p) !=
+                                     __ldcg(a.keys_sorted + p - 1));
+  };
+  int count = 0;
+  for (int r = 0; r < plan.rounds; ++r) {
+    const int i = r * SORT_THREADS + tid;
+    const int p = first + i;
+    bool starts = false;
+    if (i < len) {
+      const int key = __ldcg(a.keys_sorted + p);
+      starts = p == 0 || key != __ldcg(a.keys_sorted + p - 1);
+      if (starts && a.present != nullptr && key < a.num_keys)
+        atomicOr(a.present + (key >> 5), 1u << (key & 31));
+    }
+    if (r < 32) marks |= (starts ? 1u : 0u) << r;
+    count += __syncthreads_count(starts);
+  }
+  if (tid == 0) a.tile_starts[t] = count;
+  sync_grid(grid);
+  int earlier = 0;
+  for (int u = tid; u < t; u += SORT_THREADS) earlier += __ldcg(a.tile_starts + u);
+  int segment;  // the number of the tile's first segment
+  block_exclusive_scan(earlier, tmp, segment);
+  if (t == plan.tiles - 1 && tid == 0) {
+    a.seg_begin[segment + count] = a.n;
+    a.meta[0] = segment + count;
+  }
+  for (int r = 0; r < plan.rounds; ++r) {
+    const int i = r * SORT_THREADS + tid;
+    const bool starts = starts_at(r);
     int total;
-    const int before = block_exclusive_scan(starts, tmp, total);
-    if (i < n) {
-      const int s = segments + before + starts - 1;
-      seg[i] = s;
-      if (starts) seg_begin[s] = i;
+    const int s = segment + block_exclusive_scan(starts ? 1 : 0, tmp, total) +
+                  (starts ? 1 : 0) - 1;
+    if (i < len) {
+      a.seg[first + i] = s;
+      if (starts) a.seg_begin[s] = first + i;
     }
-    segments += total;
-  }
-  if (tid == 0) {
-    seg_begin[segments] = n;
-    meta[0] = segments;
+    segment += total;
   }
 }
 
@@ -360,9 +536,14 @@ __device__ __forceinline__ float load_global(const float* p) { return __ldcg(p);
 __device__ __forceinline__ float4 load_global(const float4* p) {
   return __ldcg(p);
 }
+__device__ __forceinline__ float8 load_global(const float8* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {__ldcg(q), __ldcg(q + 1)};
+}
 
 // Blocks [0, num_chunks) x slabs: the two-level sums. Blocks past
-// num_chunks (by segment only): zeros over the rows past the last segment.
+// num_chunks: zeros over the rows no id names (a clear bit of `present`),
+// or, by segment, over the rows past the last segment.
 // Dv is the row length in units of V; a thread owns one column of V.
 template <typename V, typename T>
 __global__ void __launch_bounds__(MAX_THREADS_B)
@@ -371,9 +552,13 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
                     const int32_t* __restrict__ seg_begin,
                     const int32_t* __restrict__ order,
                     const int32_t* __restrict__ meta,
+                    const uint32_t* __restrict__ present,
                     const T* __restrict__ upd, int n, int Dv, int out_rows,
                     int num_chunks, int by_segment, T* __restrict__ out,
                     V* partial, int32_t* done) {
+  // launched as a programmatic dependent of launch A: wait here for all of
+  // launch A (or whatever kernel ran before) and its writes
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   using E = Elem<V, T>;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
@@ -382,10 +567,35 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
   const V zero = vzero((const V*)nullptr);
 
   if (b >= num_chunks) {
+    // zeros over contiguous runs of absent rows, each run's units of V
+    // shared by the threads of all slabs: few instructions a store
     const int step = gridDim.x - num_chunks;
-    if (active) {
-      for (int row = meta[0] + (b - num_chunks); row < out_rows; row += step)
-        E::store(out, (size_t)row * Dv + col, zero);
+    const int lane = blockIdx.y * blockDim.x + tid;
+    const int lanes = gridDim.y * blockDim.x;
+    if (by_segment) {  // the rows past the last segment: one run
+      const size_t end = (size_t)out_rows * Dv;
+#pragma unroll 4
+      for (size_t e = (size_t)meta[0] * Dv + (size_t)(b - num_chunks) * lanes + lane;
+           e < end; e += (size_t)step * lanes)
+        E::store(out, e, zero);
+      return;
+    }
+    // groups of 32 rows, one word of the bitmap each; a run of clear bits
+    // is a run of rows to zero
+    const int groups = (out_rows + 31) / 32;
+    for (int g = b - num_chunks; g < groups; g += step) {
+      const int rows = min(32, out_rows - g * 32);
+      uint32_t absent = ~__ldcg(present + g) & (rows == 32 ? ~0u : (1u << rows) - 1u);
+      while (absent != 0u) {
+        const int r0 = __ffs(absent) - 1;
+        const uint32_t run = ~(absent >> r0);  // the first set bit ends the run
+        const int len = run == 0u ? 32 - r0 : __ffs(run) - 1;
+        absent &= len == 32 ? 0u : ~(((1u << len) - 1u) << r0);
+        const size_t end = (size_t)(g * 32 + r0 + len) * Dv;
+#pragma unroll 4
+        for (size_t e = (size_t)(g * 32 + r0) * Dv + lane; e < end; e += lanes)
+          E::store(out, e, zero);
+      }
     }
     return;
   }
@@ -413,31 +623,34 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
   if (active) {
     V acc = zero;
     int piece_start = 0;
-    for (int i0 = 0; i0 < len; i0 += AHEAD) {
-      V v[AHEAD];
+    // update rows in flight before the first of their adds: a whole chunk
+    // in float32, half of one in bfloat16, where widening them takes the
+    // registers of the other half
+    constexpr int ROWS_AHEAD = sizeof(T) == 4 ? CHUNK : CHUNK / 2;
+    for (int i0 = 0; i0 < len; i0 += ROWS_AHEAD) {
+      typename E::Raw v[ROWS_AHEAD];
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u)
+      for (int u = 0; u < ROWS_AHEAD; ++u)
         if (i0 + u < len) v[u] = E::load(upd, (size_t)s_src[i0 + u] * Dv + col);
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
+      for (int u = 0; u < ROWS_AHEAD; ++u) {
         const int i = i0 + u;
-        if (i < len) {
-          vadd(acc, v[u]);
-          if (s_edge[i]) {
-            const int row = s_row[i];
-            const bool whole =
-                (piece_start > 0 || starts) && (i + 1 < len || ends);
-            if (row >= 0 && row < out_rows) {
-              if (whole) {
-                E::store(out, (size_t)row * Dv + col, acc);
-              } else {
-                const int slot = piece_start > 0 ? 1 : 0;
-                partial[((size_t)b * 2 + slot) * Dv + col] = acc;
-              }
+        if (i >= len) break;
+        vadd(acc, E::widen(v[u]));
+        if (s_edge[i]) {
+          const int row = s_row[i];
+          const bool whole =
+              (piece_start > 0 || starts) && (i + 1 < len || ends);
+          if (row >= 0 && row < out_rows) {
+            if (whole) {
+              E::store(out, (size_t)row * Dv + col, acc);
+            } else {
+              const int slot = piece_start > 0 ? 1 : 0;
+              partial[((size_t)b * 2 + slot) * Dv + col] = acc;
             }
-            acc = zero;
-            piece_start = i + 1;
           }
+          acc = zero;
+          piece_start = i + 1;
         }
       }
     }
@@ -502,57 +715,60 @@ segment_sums_kernel(const int32_t* __restrict__ keys,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-int bits_of(int value) {  // bits needed to hold 0..value
-  int bits = 1;
-  while ((value >> bits) != 0) ++bits;
-  return bits;
-}
-
 int threads_for(int Dv) {
   const int t = (Dv + 31) / 32 * 32;
   return t < 32 ? 32 : (t > MAX_THREADS_B ? MAX_THREADS_B : t);
 }
 
+// Offsets (in int32 words) of the scratch `work`: keys_sorted [n], order
+// [n], seg [n], seg_begin [n + 1], meta [1], launch B's counters, launch A's
+// counts, its tiles' starts and the bitmap of keys present.
+struct WorkLayout {
+  size_t done, counts, tile_starts, present, words;
+  int present_words;
+};
+
+WorkLayout work_layout(int n, int D, int num_keys) {
+  const int num_chunks = (n + CHUNK - 1) / CHUNK;
+  const int threads = threads_for(D);
+  const SortPlan plan = sort_plan(n, num_keys, false);
+  WorkLayout w;
+  w.done = 4 * (size_t)n + 2;
+  w.counts = w.done + (size_t)num_chunks * ((D + threads - 1) / threads);
+  w.counts = (w.counts + 3) / 4 * 4;  // 16-byte aligned for vector loads
+  w.tile_starts = w.counts + (size_t)plan.passes * plan.tiles * (1 << plan.digit_bits);
+  w.present = w.tile_starts + plan.tiles;
+  w.present_words = num_keys / 32 + 1;
+  w.words = w.present + w.present_words;
+  return w;
+}
+
 template <typename V, typename T>
 int launch_sums(const int32_t* keys, const int32_t* seg,
                 const int32_t* seg_begin, const int32_t* order,
-                const int32_t* meta, const T* upd, int n, int Dv,
-                int out_rows, int num_chunks, int by_segment, T* out,
-                float* partial, int32_t* done, cudaStream_t stream) {
+                const int32_t* meta, const uint32_t* present, const T* upd,
+                int n, int Dv, int out_rows, int num_chunks, int by_segment,
+                int zero_blocks, T* out, float* partial, int32_t* done,
+                cudaStream_t stream) {
   const int threads = threads_for(Dv);
   const int slabs = (Dv + threads - 1) / threads;
-  const int tail = by_segment ? (out_rows < 128 ? out_rows : 128) : 0;
-  dim3 grid(num_chunks + tail, slabs);
-  segment_sums_kernel<V, T><<<grid, threads, 0, stream>>>(
-      keys, seg, seg_begin, order, meta, upd, n, Dv, out_rows,
-      num_chunks, by_segment, out, (V*)partial, done);
-  return (int)cudaGetLastError();
-}
-
-template <int ITEMS, bool PACKED, typename... Args>
-cudaError_t launch_sort_as(unsigned grid, size_t smem, cudaStream_t stream,
-                           Args... args) {
-  // static shared memory counts against the 48 KB that need no opt-in
-  if (smem > 40 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sort_and_zero_kernel<ITEMS, PACKED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  sort_and_zero_kernel<ITEMS, PACKED>
-      <<<grid, SORT_THREADS, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-template <int ITEMS, typename... Args>
-cudaError_t launch_sort(bool packed, unsigned grid, cudaStream_t stream,
-                        Args... args) {
-  if (packed) {
-    return launch_sort_as<ITEMS, true>(grid, BlockSort<ITEMS, true>::BYTES,
-                                       stream, args...);
-  }
-  return launch_sort_as<ITEMS, false>(grid, BlockSort<ITEMS, false>::BYTES,
-                                      stream, args...);
+  if (num_chunks + zero_blocks == 0) return 0;
+  // a programmatic dependent launch: its blocks may be launched as launch
+  // A's blocks exit, and wait in the kernel for A's writes, which narrows
+  // the gap between the two
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(num_chunks + zero_blocks, slabs);
+  config.blockDim = dim3(threads);
+  config.stream = stream;
+  cudaLaunchAttribute attribute;
+  attribute.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &attribute;
+  config.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&config, segment_sums_kernel<V, T>, keys, seg,
+                                 seg_begin, order, meta, present, upd, n, Dv,
+                                 out_rows, num_chunks, by_segment, out,
+                                 (V*)partial, done);
 }
 
 }  // namespace
@@ -568,73 +784,94 @@ int scatter_add_launch_as(const void* ids, int ids_wide, int ids_stride,
   if (order_in == nullptr && n > SORT_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int num_chunks = (n + CHUNK - 1) / CHUNK;
+  const WorkLayout layout = work_layout(n, D, num_keys);
   int32_t* keys_sorted = work;
   int32_t* order = work + n;
   int32_t* seg = work + 2 * (size_t)n;
   int32_t* seg_begin = work + 3 * (size_t)n;
   int32_t* meta = work + 4 * (size_t)n + 1;
-  int32_t* done = meta + 1;
-  // four columns a thread: 16-byte rows of upd and out in float32, 8-byte
-  // ones in bfloat16
-  const bool vec = D % 4 == 0 && aligned16(partial) &&
-                   ((uintptr_t)upd % (4 * sizeof(T))) == 0 &&
-                   ((uintptr_t)out % (4 * sizeof(T))) == 0;
-  const int Dv = vec ? D / 4 : D;
+  int32_t* done = work + layout.done;
+  uint32_t* present =
+      by_segment ? nullptr : reinterpret_cast<uint32_t*>(work + layout.present);
+  // 16-byte rows of upd and out: 4 float32 or 8 bfloat16 columns a thread;
+  // else 4 columns in 8 bytes (bfloat16), else one column
+  const bool rows16 = aligned16(partial) && aligned16(upd) && aligned16(out) &&
+                      (D * sizeof(T)) % 16 == 0;
+  const bool rows8 = sizeof(T) == 2 && D % 4 == 0 && aligned16(partial) &&
+                     ((uintptr_t)upd % 8) == 0 && ((uintptr_t)out % 8) == 0;
+  const int width = rows16 ? 16 / (int)sizeof(T) : rows8 ? 4 : 1;
+  const int Dv = D / width;
   const int threads = threads_for(Dv);
   const int num_done = num_chunks * ((Dv + threads - 1) / threads);
 
   if (phases & 1) {
+    SortArgs args;
+    args.ids = ids;
+    args.ids_wide = ids_wide;
+    args.ids_stride = ids_stride;
+    args.order_in = order_in;
+    args.order_wide = order_wide;
+    args.n = n;
+    args.num_keys = num_keys;
+    args.plan = sort_plan(n, num_keys, order_in != nullptr);
+    args.keys_sorted = keys_sorted;
+    args.order = order;
+    args.seg = seg;
+    args.seg_begin = seg_begin;
+    args.meta = meta;
+    args.counts = work + layout.counts;
+    args.tile_starts = work + layout.tile_starts;
+    args.present = present;
+    args.present_words = layout.present_words;
+    args.done = done;
+    args.num_done = num_done;
+    // the tile's keys, positions and ranks and all tiles' digit counts, for
+    // the passes only
+    const size_t smem =
+        args.plan.passes ? (size_t)args.plan.rounds * SORT_THREADS * 10 +
+                               ((size_t)args.plan.tiles * 4 << args.plan.digit_bits)
+                         : 0;
+    if (smem > 32 * 1024) {
+      // static shared memory counts against the 48 KB that need no opt-in
+      cudaError_t err = cudaFuncSetAttribute(
+          blocked_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    void* params[] = {&args};
+    cudaError_t err = cudaLaunchCooperativeKernel(
+        (const void*)blocked_sort_kernel, dim3(args.plan.tiles),
+        dim3(SORT_THREADS), params, smem, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (phases & 2) {
     // of the current device, asked at every call: a process may hold cards
     // of different sizes
     int device = 0, sm_count = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, device);
     if (sm_count <= 0) sm_count = 1;
-    size_t zero_blocks = 0;
-    const size_t out_floats = (size_t)out_rows * D * sizeof(T) / 4;
-    const size_t out_bytes = (size_t)out_rows * D * sizeof(T);
-    // zeros in 16-byte stores where the bytes allow, else one element each
-    const int unit = out_bytes % 16 == 0 && aligned16(out) ? 16 : (int)sizeof(T);
-    const size_t out_units = out_bytes / unit;
-    if (!by_segment) {
-      const size_t per_block = (size_t)SORT_THREADS * (vec ? 16 : 4);
-      zero_blocks = (out_floats + per_block - 1) / per_block;
-      if (zero_blocks > (size_t)2 * sm_count) zero_blocks = 2 * sm_count;
+    // the extra blocks for the rows no id names, up to ZERO_BLOCKS_PER_SM a
+    // multiprocessor: a group of 32 rows each, by segment 8 rows
+    int zero_blocks = (out_rows + (by_segment ? 7 : 31)) / (by_segment ? 8 : 32);
+    if (zero_blocks > ZERO_BLOCKS_PER_SM * sm_count)
+      zero_blocks = ZERO_BLOCKS_PER_SM * sm_count;
+    if constexpr (sizeof(T) == 2) {
+      if (width == 8) {
+        return launch_sums<float8, T>(keys_sorted, seg, seg_begin, order, meta,
+                                      present, upd, n, Dv, out_rows, num_chunks,
+                                      by_segment, zero_blocks, out, partial,
+                                      done, s);
+      }
     }
-    const unsigned grid = 1 + (unsigned)zero_blocks;
-    const int key_bits = bits_of(num_keys);
-    const int pos_bits = bits_of(n > 1 ? n - 1 : 1);
-    const bool packed = key_bits + pos_bits <= 32;
-#define KGE_SORT(ITEMS)                                                       \
-  launch_sort<ITEMS>(packed, grid, s, ids, ids_wide, ids_stride, order_in,    \
-                     order_wide, n, num_keys, key_bits, pos_bits, keys_sorted, \
-                     order, seg, seg_begin, meta, done, num_done, (void*)out, \
-                     out_units, unit)
-    // the smallest sort that holds n: its time goes by its size, not by n
-    cudaError_t err =
-        order_in != nullptr
-            ? launch_sort_as<0, false>(grid, 0, s, ids, ids_wide, ids_stride,
-                                       order_in, order_wide, n, num_keys, key_bits,
-                                       pos_bits, keys_sorted, order, seg,
-                                       seg_begin, meta, done, num_done,
-                                       (void*)out, out_units, unit)
-        : n <= SORT_THREADS      ? KGE_SORT(1)
-        : n <= 4 * SORT_THREADS  ? KGE_SORT(4)
-        : n <= 8 * SORT_THREADS  ? KGE_SORT(8)
-        : n <= 12 * SORT_THREADS ? KGE_SORT(12)
-                                 : KGE_SORT(MAX_ITEMS);
-#undef KGE_SORT
-    if (err != cudaSuccess) return (int)err;
-  }
-  if ((phases & 2) && num_chunks > 0) {
-    if (vec) {
+    if (width == 4) {
       return launch_sums<float4, T>(keys_sorted, seg, seg_begin, order, meta,
-                                    upd, n, Dv, out_rows, num_chunks,
-                                    by_segment, out, partial, done, s);
+                                    present, upd, n, Dv, out_rows, num_chunks,
+                                    by_segment, zero_blocks, out, partial, done, s);
     }
-    return launch_sums<float, T>(keys_sorted, seg, seg_begin, order, meta, upd,
-                                 n, Dv, out_rows, num_chunks, by_segment, out,
-                                 partial, done, s);
+    return launch_sums<float, T>(keys_sorted, seg, seg_begin, order, meta,
+                                 present, upd, n, Dv, out_rows, num_chunks,
+                                 by_segment, zero_blocks, out, partial, done, s);
   }
   return 0;
 }
@@ -648,12 +885,22 @@ int scatter_add_sort_limit() { return SORT_LIMIT; }
 // [ceil(n / chunk), 2, D] floats.
 int scatter_add_chunk() { return CHUNK; }
 
-// int32 words of the scratch `work`: keys_sorted [n], order [n], seg [n],
-// seg_begin [n + 1], meta [1], then launch B's counters.
-int scatter_add_work_ints(int n, int D) {
-  const int num_chunks = (n + CHUNK - 1) / CHUNK;
-  const int threads = threads_for(D);
-  return 4 * n + 2 + num_chunks * ((D + threads - 1) / threads);
+// Launch A's plan for n unsorted ids of a table of num_keys rows: tiles,
+// rounds of 256 positions a tile, passes and bits a pass, into plan[4].
+void scatter_add_sort_plan(int n, int num_keys, int32_t* plan) {
+  const SortPlan p = sort_plan(n, num_keys, false);
+  plan[0] = p.tiles;
+  plan[1] = p.rounds;
+  plan[2] = p.passes;
+  plan[3] = p.digit_bits;
+}
+
+// int32 words of the scratch `work` for n ids of a table of num_keys rows
+// and rows of D elements: keys_sorted [n], order [n], seg [n], seg_begin
+// [n + 1], meta [1], then launch B's counters and launch A's counts, its
+// tiles' segment starts and a bitmap of the keys present.
+int scatter_add_work_ints(int n, int D, int num_keys) {
+  return (int)work_layout(n, D, num_keys).words;
 }
 
 // Launches on `stream`; returns the CUDA error code of the first launch

@@ -6,17 +6,23 @@ Replaces the first part of kge_tpu/ops/pallas_ops.py:
 - ``sorted_scatter_add`` (there a sort and a Pallas kernel of sorted one-hot
   matmuls) is ``csrc/scatter_add_sorted.cu``: the ids go in UNSORTED and two
   launches do the whole job. Launch A sorts (id, position) pairs by a
-  stable radix sort inside one block (``cub::BlockRadixSort`` as a building
-  block), on the bits the table's row count needs, while the other blocks
-  zero the output; launch B is a deterministic two-level segmented sum in
-  float32 with no float atomics, eight update rows loaded ahead of their
-  adds, whose cut segments are finished by the last of their blocks. Bytes bound it (every update row
-  read once, every output row written once). ``sorted_segment_sums`` is the
-  same pair of launches with one output row per distinct id, which the
-  row-sparse optimizer step takes. Measured by ``chip_smoke.py`` on an
-  NVIDIA H100 80GB HBM3 (700 W) at 8,192 updates into [14,541, 512]: about
-  0.038 ms a call, against a bound of 0.014 ms and 0.044 ms for
-  ``index_add_`` (PERF.md has the table).
+  stable radix sort spread over the card's multiprocessors: one cooperative
+  launch whose blocks each rank a tile of positions by a digit of up to 8
+  bits, place them from the tiles' digit counts (digit-major, tile-minor)
+  and meet at grid-wide barriers between passes (``sort_plan`` cuts the
+  work; ``blocked_sort_plain`` is the same sort in plain PyTorch); it then
+  numbers the segments of equal ids and marks the rows present. Launch B is
+  a deterministic two-level segmented sum in float32 with no float
+  atomics, a chunk's update rows loaded ahead of their adds, whose cut
+  segments are finished by the last of their blocks, and whose extra blocks
+  zero the rows no id names: each row of the output is written once. It
+  waits for launch A inside the kernel (a programmatic dependent launch).
+  Bytes bound
+  it (every update row read once, every output row written once).
+  ``sorted_segment_sums`` is the same pair of launches with one output row
+  per distinct id, which the row-sparse optimizer step takes. PERF.md has
+  its times on an NVIDIA H100 80GB HBM3 (700 W) against its bound and
+  ``index_add_`` (``scripts/scatter_timing.py``, ``chip_smoke.py``).
 - ``rows_set`` (there per-row DMAs into the aliased table) is
   ``csrc/rows_set.cu``: ``table[ids] = rows`` on the table's own storage.
 - ``embedding_gather`` is ``table[ids]`` as a ``torch.autograd.Function``
@@ -31,9 +37,10 @@ bfloat16 launches among them). A CUDA tensor goes to the kernel or
 the wrapper raises; no path falls back to the plain version.
 
 The sort's route goes by size (``sort_route``): up to ``SORT_LIMIT`` ids the
-kernel sorts them itself; above it (shared memory holds no more) the wrapper
-sorts with a stable ``torch.sort`` and hands the kernel the sort, and
-``sorted_scatter_add.torch_sorts`` counts those calls.
+kernel sorts them itself; above it (128 tiles of 16 rounds of 256
+positions, about where a stable ``torch.sort`` and launch A on its sort
+take as long) the wrapper sorts with a stable ``torch.sort`` and hands the
+kernel the sort, and ``sorted_scatter_add.torch_sorts`` counts those calls.
 
 In bfloat16 (``parallel.param_dtype: bfloat16``) the updates, the tables
 and the rows are bfloat16: the scatter sums in float32 and rounds each
@@ -74,15 +81,66 @@ def gather_mode() -> str:
 
 # -- K2: scatter-add of row updates, the sort included --------------------------
 
+#: launch A's cut (csrc/scatter_add_sorted.cu): threads of a block, which
+#: ranks a tile of rounds x SORT_THREADS positions, and at most MAX_TILES
+#: tiles of at most MAX_ROUNDS rounds
+SORT_THREADS, MAX_TILES, MAX_ROUNDS = 256, 128, 16
 #: ids that the kernel sorts itself (SORT_LIMIT of csrc/scatter_add_sorted.cu)
-SORT_LIMIT = 17 * 1024
+SORT_LIMIT = MAX_TILES * MAX_ROUNDS * SORT_THREADS
 
 
 def sort_route(n: int) -> str:
-    """Who sorts ``n`` ids on the card: "kernel" (the radix sort inside
-    launch A) up to ``SORT_LIMIT``, "torch" (a stable ``torch.sort`` in the
+    """Who sorts ``n`` ids on the card: "kernel" (the radix sort of launch
+    A) up to ``SORT_LIMIT``, "torch" (a stable ``torch.sort`` in the
     wrapper) above it."""
     return "kernel" if n <= SORT_LIMIT else "torch"
+
+
+def sort_plan(n: int, num_rows: int) -> dict:
+    """How launch A cuts the sort of ``n`` ids of a table of ``num_rows``
+    rows (``sort_plan`` of csrc/scatter_add_sorted.cu): ``tiles`` of
+    ``rounds`` x SORT_THREADS consecutive positions, one block each, the
+    fewest rounds that keep the tiles at MAX_TILES; the keys' bits (those of
+    0..num_rows: an id outside the table reads as ``num_rows``) in the
+    fewest ``passes`` of at most 8 bits, ``digit_bits`` each."""
+    rounds = 1
+    while rounds * SORT_THREADS * MAX_TILES < n:
+        rounds *= 2
+    key_bits = max(1, int(num_rows).bit_length())
+    passes = -(-key_bits // 8)
+    return {"tiles": max(1, -(-n // (rounds * SORT_THREADS))), "rounds": rounds,
+            "passes": passes, "digit_bits": -(-key_bits // passes)}
+
+
+def blocked_sort_plain(ids, num_rows: int):
+    """(sorted keys, permutation) of launch A's sort in plain PyTorch, cut as
+    ``sort_plan`` cuts it: in every pass each tile ranks its positions by
+    the pass's digit (a position's rank among the tile's equal digits), the
+    tiles' digit counts are scanned digit-major and tile-minor, and every
+    position goes to its digit's and tile's first place plus its rank. An id
+    outside ``[0, num_rows)`` reads as ``num_rows``. Equal to a stable sort
+    of the keys: the model of the kernel's sort for the tests."""
+    plan = sort_plan(ids.shape[0], num_rows)
+    tile, digits = plan["rounds"] * SORT_THREADS, 1 << plan["digit_bits"]
+    keys = torch.where((ids < 0) | (ids >= num_rows), num_rows, ids).long()
+    pos = torch.arange(keys.shape[0])
+    tile_of = pos // tile
+    for k in range(plan["passes"]):
+        digit = (keys >> (k * plan["digit_bits"])) & (digits - 1)
+        rank = torch.empty_like(digit)
+        counts = torch.zeros(plan["tiles"], digits, dtype=torch.long)
+        for t in range(plan["tiles"]):
+            d = digit[t * tile:(t + 1) * tile]
+            onehot = torch.nn.functional.one_hot(d, digits)
+            rank[t * tile:(t + 1) * tile] = (onehot.cumsum(0) - onehot).gather(
+                1, d[:, None])[:, 0]
+            counts[t] = onehot.sum(0)
+        flat = counts.T.reshape(-1)  # digit-major, tile-minor
+        first = (flat.cumsum(0) - flat).view(digits, plan["tiles"]).T
+        dest = first[tile_of, digit] + rank
+        keys = torch.empty_like(keys).index_put_((dest,), keys)
+        pos = torch.empty_like(pos).index_put_((dest,), pos)
+    return keys.to(torch.int32), pos.to(torch.int32)
 
 
 def _summed(num_rows: int, ids, upd):
@@ -231,8 +289,8 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     if buffers is None:
         buffers = (
             torch.empty(out_rows, D, dtype=upd.dtype, device=device),
-            torch.empty(lib.scatter_add_work_ints(n, D), dtype=torch.int32,
-                        device=device),
+            torch.empty(lib.scatter_add_work_ints(n, D, num_rows),
+                        dtype=torch.int32, device=device),
             torch.empty(-(-n // lib.scatter_add_chunk()), 2, D,
                         dtype=torch.float32, device=device),
         )
@@ -264,7 +322,8 @@ def _scatter_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         for name in ("scatter_add_launch", "scatter_add_launch_bf16"):
             typed(lib, name, [p, i, i, p, i, p, i, i, i, i, p, i, p, p, i, p])
-        typed(lib, "scatter_add_work_ints", [i, i])
+        typed(lib, "scatter_add_work_ints", [i, i, i])
+        typed(lib, "scatter_add_sort_plan", [i, i, p])
         typed(lib, "scatter_add_chunk", [])
         if typed(lib, "scatter_add_sort_limit", [])() != SORT_LIMIT:
             raise RuntimeError(

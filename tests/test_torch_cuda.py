@@ -462,6 +462,104 @@ def test_scatter_kernel_ignores_ids_outside_the_table():
     assert torch.equal(got, want)
 
 
+def _skewed_ids(rng, n, num_rows):
+    """Power-law ids with a share outside the table on either side."""
+    w = 1.0 / np.arange(1, num_rows + 1) ** 0.8
+    ids = rng.choice(num_rows, n, p=rng.permutation(w / w.sum()))
+    ids[rng.random(n) < 0.03] = -7
+    ids[rng.random(n) < 0.03] = num_rows + 11
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_rows", [237, 14541, 200000])
+@pytest.mark.parametrize("n", [255, 256, 257, 513, 8191, 8192, 8193, 32768, 32769,
+                               65537])
+def test_kernel_sort_at_tile_edges(n, num_rows):
+    """Launch A's sort on either side of every tile edge (256 positions a
+    round, a second round a tile above 128 x 256): sorted keys, order and
+    segment numbers equal a stable torch.sort's in bits, for int64 ids and
+    for int32 ids read with a triple's stride, two launches bit-equal; the
+    plain model of the blocked sort (``blocked_sort_plain``) gives the same;
+    the kernel's plan is the wrapper's ``sort_plan``."""
+    import ctypes
+
+    device = _card()
+    rng = np.random.default_rng(n + num_rows)
+    ids_np = _skewed_ids(rng, n, num_rows)
+    ids64 = torch.tensor(ids_np, device=device)
+    triples = torch.zeros(n, 3, dtype=torch.int32, device=device)
+    triples[:, 1] = ids64.int()
+    strided = triples[:, 1]
+    assert strided.stride(0) == 3
+    upd = torch.zeros(n, 4, device=device)
+    outside = (ids64 < 0) | (ids64 >= num_rows)
+    keys, order = torch.sort(torch.where(outside, num_rows, ids64), stable=True)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    works = [embedding_ops.scatter_launch(ids, None, upd, num_rows, phases=1)[1][:3 * n]
+             for ids in (ids64, ids64, strided)]
+    torch.cuda.synchronize()
+    want = torch.cat([keys, order, seg]).int()
+    for work in works:
+        assert torch.equal(work, want)
+    plain_keys, plain_order = embedding_ops.blocked_sort_plain(ids64.cpu(), num_rows)
+    assert torch.equal(plain_keys, keys.int().cpu())
+    assert torch.equal(plain_order, order.int().cpu())
+    plan = (ctypes.c_int32 * 4)()
+    embedding_ops._scatter_library().scatter_add_sort_plan(
+        n, num_rows, ctypes.addressof(plan))
+    assert list(plan) == list(embedding_ops.sort_plan(n, num_rows).values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,num_rows,D", [
+    (8192, 14541, 512),   # the main shape: 16-byte rows, 8 bfloat16 columns a thread
+    (257, 300, 12),       # 4 bfloat16 columns a thread in 8 bytes
+    (513, 40, 7),         # one column a thread
+    (129, 14541, 128),    # one tile; most rows zeroed by launch B
+    (0, 50, 8),           # no ids: every row zeroed
+])
+def test_scatter_rows_written_once_on_card(n, num_rows, D, dtype):
+    """Every row of the scatter-add written once: a row no id names is +0.0
+    in every bit, a row of one update equals that update in bits, the others
+    within the float32 rule (1e-6 + 1e-5 S) or two bfloat16 ulps of the
+    summed magnitudes S; the segment sums' rows past the last segment zero;
+    two launches bit-equal; no torch.sort on the way."""
+    device = _card()
+    rng = np.random.default_rng(n + D)
+    ids = torch.tensor(_skewed_ids(rng, n, num_rows), device=device)
+    upd = torch.tensor(rng.normal(size=(n, D)).astype(np.float32), device=device).to(dtype)
+    sorts = []
+    real_sort = torch.sort
+    torch.sort = lambda *a, **k: sorts.append(1) or real_sort(*a, **k)
+    try:
+        got = sorted_scatter_add(ids, upd, num_rows)
+        again = sorted_scatter_add(ids, upd, num_rows)
+        rs, seg, gsum = embedding_ops.sorted_segment_sums(ids, upd, num_rows)
+        torch.cuda.synchronize()
+    finally:
+        torch.sort = real_sort
+    assert not sorts
+    assert got.dtype == dtype and torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    inside = ids[(ids >= 0) & (ids < num_rows)]
+    counts = torch.bincount(inside, minlength=num_rows)
+    assert bool((got[counts == 0].view(torch.uint8) == 0).all())
+    single = torch.nonzero(counts == 1)[:, 0]
+    at = torch.nonzero((ids[:, None] == single[None, :]).any(1))[:, 0]
+    assert torch.equal(got[ids[at]], upd[at])
+    ref = sorted_scatter_add_plain(inside, upd.double()[(ids >= 0) & (ids < num_rows)],
+                                   num_rows)
+    mag = sorted_scatter_add_plain(inside, upd.double().abs()[(ids >= 0) & (ids < num_rows)],
+                                   num_rows)
+    tol = 1e-6 + (1e-5 if dtype == torch.float32 else 2.0 ** -7) * mag
+    assert bool(((got.double() - ref).abs() <= tol).all())
+    segments = int(seg[-1]) + 1 if n else 0
+    assert bool((gsum[segments:].float() == 0).all())
+
+
 @pytest.mark.cuda
 def test_gather_backward_runs_the_kernel_on_card():
     device = _card()

@@ -199,10 +199,11 @@ def test_segment_sums_match_numpy_unique_and_add_at(case, dtype):
     (10 ** 6, "torch"),
 ])
 def test_sort_route_goes_by_size(n, route):
-    """Up to SORT_LIMIT ids the kernel sorts them itself; the batch shapes of
-    the training paths (8,192; 10,240; 16,642) lie below it."""
+    """Up to SORT_LIMIT ids (128 tiles of 16 rounds of 256 positions) the
+    kernel sorts them itself; the batch shapes of the training paths (8,192;
+    10,240; 16,642) lie below it, a million ids above."""
     assert embedding_ops.sort_route(n) == route
-    assert embedding_ops.SORT_LIMIT == 17 * 1024
+    assert embedding_ops.SORT_LIMIT == 128 * 16 * 256
 
 
 def test_cpu_scatter_counts_neither_launches_nor_torch_sorts():
