@@ -278,7 +278,28 @@ Phases (any failure exits non-zero; nothing is caught):
    step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
    states the bound), and the warm epochs of X-complex and P-rotate,
    profiled (X-complex's GEMM milliseconds, P-rotate's K5b share).
-23. One ``kernels`` JSON line: per kernel its time per call at the main
+23. Hyperparameter search and the tools that read its results, through
+   ``cli.main`` in ``build/chip_smoke`` (where ``data/`` names the
+   datasets): (a) a grid search over T-dense's configuration (lr 0.1 and
+   0.2; one epoch and one validation a trial; ``search.num_workers: 1``) in
+   this process: two trial folders with ``checkpoint_00001.pt`` and one
+   validation each, the scatter kernel 2 x 34 x 5 = 340 launches, the rank
+   kernel 2 x 2 x 69 = 276, ``search_completed`` naming the trial of the
+   larger filtered MRR, and the second trial ending with less than an
+   entity table more allocated than the first (each trial logs the
+   allocator); each trial's wall split into setup, epoch, validation and
+   the rest; (b) ``dump trace --search`` (two rows, each its trial's
+   validation), ``package`` of the best trial, ``dump checkpoint`` of the
+   package (the tables [14,541, 512] and [237, 512]), and ``test`` of the
+   package equal to ``test`` of its ``checkpoint_best.pt``, metric for
+   metric, 2 rank launches a test batch each; (c) an ``ax_search`` of 3
+   trials (2 Sobol) on phase 17's graph at d = 16 in two spawned worker
+   processes pinned to ``cuda:0``: every trial on the card in a worker, and
+   the search checkpoint resumed with the same three parameter sets; (d)
+   GraSH (``combined``, eta 2, 4 trials, d = 128, ``keep_pretrained``) on a
+   synthetic graph of 5,000 entities and 50,000 training triples: a round
+   on a k-core subset, every trial on the card, the best trial packaged.
+24. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -286,8 +307,9 @@ Phases (any failure exits non-zero; nothing is caught):
    it); every time in it is
    measured by this run; the rank kernel's entry also holds the L2
    epilogue's times and its launches in phase 14, and its launches in phases
-   15-18, 20 and 21, the scatter kernel's its launches in phases 15, 16, 18,
-   19, 20 and 21 and its launches alone (``SCATTER_LAUNCH_KEYS``). Six more
+   15-18, 20, 21 and 23 (a), the scatter kernel's its launches in phases 15,
+   16, 18, 19, 20, 21 and 23 (a) and its launches alone
+   (``SCATTER_LAUNCH_KEYS``). Six more
    entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
    from its runs (the scatter's also its launches alone). Then the card's name and power
    limit, then the ``ok`` JSON line last.
@@ -3734,6 +3756,333 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     return out
 
 
+# -- hyperparameter search, and the tools that read its results ------------------
+
+
+def search_trials(folder: str):
+    """The search folder's per-trial ``search_completed`` entries."""
+    return trace_entries(folder, event="search_completed", scope="train")
+
+
+def trial_log_lines(folder: str, marker: str):
+    with open(os.path.join(folder, "kge.log")) as f:
+        return [line.rstrip("\n") for line in f if marker in line]
+
+
+def allocated_mib(folder: str):
+    """(allocated, peak) MiB the trial logged when it was done."""
+    import re
+
+    (line,) = trial_log_lines(folder, " done: CUDA memory allocated ")
+    allocated, peak = re.search(r"allocated ([0-9.]+) MiB, peak ([0-9.]+) MiB",
+                                line).groups()
+    return float(allocated), float(peak)
+
+
+def dump_output(argv):
+    """What ``python -m kge_tpu_torch dump ...`` prints, run in process."""
+    import contextlib
+    import io
+
+    from kge_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["dump"] + argv)
+    return out.getvalue()
+
+
+def test_metrics(folder: str, checkpoint: str):
+    """``test <folder> --checkpoint <file>`` on the card: (metrics, K1
+    launches)."""
+    from kge_tpu_torch import cli
+
+    reset_counters()
+    cli.main(["test", folder, "--checkpoint", checkpoint, "--eval.batch_size",
+              str(BATCH)])
+    torch.cuda.synchronize()
+    entry = last_test_entry(folder)
+    metrics = {k: v for k, v in entry.items()
+               if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))
+               and not k.endswith("_with_test")}
+    check(metrics and all(np.isfinite(v) for v in metrics.values()), metrics)
+    return metrics, read_counters()["rank_counts"]
+
+
+def trial_split(search_folder: str, trial: dict, start: float):
+    """A trial's wall from the search's previous entry (``start``) to its
+    ``search_completed`` entry, split into setup (job, model and optimizer
+    up to the first step), the training epoch, the validation and the rest
+    (checkpoints, teardown), by the trace's timestamps."""
+    (epoch,) = trace_entries(trial["folder"], event="epoch_completed")
+    (valid,) = trace_entries(trial["folder"], event="eval_completed")
+    wall = trial["timestamp"] - start
+    setup = epoch["timestamp"] - epoch["epoch_time"] - start
+    rest = wall - setup - epoch["epoch_time"] - valid["epoch_time"]
+    return {"wall_s": wall, "setup_s": setup, "epoch_s": epoch["epoch_time"],
+            "validation_s": valid["epoch_time"], "rest_s": rest}
+
+
+def run_search_full_width(seed: int, data: str):
+    """Phase 23 (a) and (b), with ``data`` named as under ``data/`` of the
+    working directory; returns a summary dict."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    num_train, num_valid = FB15K237[2], FB15K237[3]
+    steps = -(-num_train // TRAIN_BATCH)
+    valid_batches = -(-num_valid // BATCH)
+    folder = os.path.join(WORK, "search_grid")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "search_grid.yaml")
+    lrs = [0.1, 0.2]
+    write_train_config(conf, data, seed, **{
+        "job.type": "search", "search.type": "grid_search",
+        "grid_search.parameters": {"train.optimizer.default.args.lr": lrs},
+        "search.num_workers": 1, "search.on_error": "abort",
+        "train.max_epochs": 1, "valid.every": 1,
+        "valid.metric": "mean_reciprocal_rank_filtered"})
+
+    # (a) the grid search in this process
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - start
+    counts = read_counters()
+    check(counts["scatter_add_sorted"] == 2 * steps * 5,
+          f"scatter launches {counts['scatter_add_sorted']} != 2 x {steps} x 5")
+    check(counts["rank_counts"] == 2 * 2 * valid_batches,
+          f"rank launches {counts['rank_counts']} != 2 x 2 x {valid_batches}")
+    trials = search_trials(folder)
+    check(sorted(t["train.optimizer.default.args.lr"] for t in trials) == lrs, trials)
+    start_ts = trace_entries(folder, event="job_created")[-1]["timestamp"]
+    splits, memory = [], []
+    for trial in trials:
+        check(os.path.isfile(os.path.join(trial["folder"], "checkpoint_00001.pt")))
+        valid = trace_entries(trial["folder"], job="eval", split="valid")
+        check(len(valid) == 1, f"{trial['folder']}: {len(valid)} validations")
+        check(trial["metric_value"] == valid[0][trial["metric_name"]])
+        (line,) = trial_log_lines(trial["folder"], " runs on ")
+        check(" runs on cuda" in line and line.endswith(f"process {os.getpid()}"), line)
+        splits.append(trial_split(folder, trial, start_ts))
+        start_ts = trial["timestamp"]
+        memory.append(allocated_mib(trial["folder"]))
+    (done,) = trace_entries(folder, event="search_completed", scope="search")
+    mrr = [t["mean_reciprocal_rank_filtered"] for t in
+           (trace_entries(t["folder"], job="eval")[0] for t in trials)]
+    best = int(np.argmax(mrr))
+    check(done["best_trial"] == best and done["metric_value"] == trials[best]["metric_value"],
+          f"search_completed {done} against filtered MRRs {mrr}")
+    table_mib = NUM_ENTITIES * DIM * 4 / 2 ** 20
+    check(memory[1][0] - memory[0][0] < table_mib,
+          f"the second trial ends holding {memory[1][0] - memory[0][0]:.1f} MiB more "
+          f"than the first (an entity table is {table_mib:.1f} MiB)")
+    log(f"  (a) grid search over lr {lrs} (2 trials, 1 epoch + 1 validation each) in "
+        f"this process: wall {wall_a:.2f} s; launches {counts}; K2 2 x {steps} x 5 = "
+        f"{counts['scatter_add_sorted']}, K1 2 x 2 x {valid_batches} = "
+        f"{counts['rank_counts']}")
+    for trial, split, (allocated, peak), value in zip(trials, splits, memory, mrr):
+        log(f"  trial {os.path.basename(trial['folder'])}: MRR filtered {value:.6f}; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; allocator after the trial {allocated:.1f} MiB, peak {peak:.1f} MiB")
+    log(f"  best trial {best} (search_completed names trial {done['best_trial']})")
+
+    # (b) the tools on that folder
+    start = time.perf_counter()
+    rows = [r for r in dump_output(["trace", folder, "--search", "-k", "folder",
+                                    "metric_value"]).splitlines()[1:] if r]
+    check(len(rows) == 2, rows)
+    for row in rows:
+        path, value = row.split(",")[-2:]
+        (trial,) = [t for t in trials if t["folder"] == path]
+        check(float(value) == trial["metric_value"], (row, trial))
+    best_folder = trials[best]["folder"]
+    cli.main(["package", best_folder])
+    package = os.path.join(best_folder, "model_best.pt")
+    check(load_checkpoint(package)["type"] == "package")
+    overview = yaml_load(dump_output(["checkpoint", package]))
+    shapes = overview["parameter_shapes"]
+    check(shapes == {"_entity_embedder._embeddings.weight": [NUM_ENTITIES, DIM],
+                     "_relation_embedder._embeddings.weight": [FB15K237[1], DIM]}
+          and overview["num_parameters"] == (NUM_ENTITIES + FB15K237[1]) * DIM,
+          overview)
+    test_batches = -(-NUM_TEST // BATCH)
+    packaged, launches_package = test_metrics(best_folder, package)
+    source, launches_source = test_metrics(
+        best_folder, os.path.join(best_folder, "checkpoint_best.pt"))
+    check(packaged == source, f"package {packaged} != checkpoint {source}")
+    check(launches_package == launches_source == 2 * test_batches,
+          (launches_package, launches_source))
+    wall_b = time.perf_counter() - start
+    log(f"  (b) dump trace --search: 2 rows, each the trial's validation; package "
+        f"-> {os.path.relpath(package, WORK)} ({shapes}); test of the package and of "
+        f"checkpoint_best.pt: {len(packaged)} metrics equal (MRR filtered "
+        f"{packaged['mean_reciprocal_rank_filtered']:.6f}), K1 {launches_package} "
+        f"launches each; wall {wall_b:.2f} s")
+    return {"wall_s": wall_a, "tools_wall_s": wall_b, "launches": counts,
+            "trials": splits, "allocated_mib": memory, "best_trial": best,
+            "test_launches": launches_package, "metrics_equal": len(packaged)}
+
+
+def yaml_load(text):
+    import yaml
+
+    return yaml.safe_load(text)
+
+
+def run_search_workers(seed: int):
+    """Phase 23 (c): an ax_search of 3 trials in two worker processes that
+    share the card; returns a summary dict."""
+    import yaml
+
+    from kge_tpu_torch.job import Job
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    data = "small_data"  # phase 17's graph
+    folder = os.path.join(WORK, "search_ax")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "search_ax.yaml")
+    options = {
+        "job": {"type": "search", "device": "cuda"},
+        "dataset": {"name": data}, "model": "complex",
+        "lookup_embedder": {"dim": 16},
+        "train": {"type": "KvsAll", "batch_size": 256, "max_epochs": 2,
+                  "optimizer": {"default": {"type": "Adagrad"}}},
+        "valid": {"every": 2}, "eval": {"batch_size": 64},
+        "random_seed": {"default": seed}, "console": {"quiet": True},
+        "search": {"type": "ax_search", "num_workers": 2, "on_error": "abort"},
+        "ax_search": {"num_trials": 3, "num_sobol_trials": 2, "parameters": [
+            {"name": "train.optimizer.default.args.lr", "type": "range",
+             "bounds": [0.01, 1.0], "log_scale": True},
+            {"name": "lookup_embedder.dropout", "type": "choice",
+             "values": [0.0, 0.2]}]},
+    }
+    with open(conf, "w") as f:
+        yaml.safe_dump(options, f)
+    from kge_tpu_torch import cli
+
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder, "--search.device_pool",
+              "cuda:0,cuda:0"])
+    wall = time.perf_counter() - start
+    locks = sorted(os.listdir(os.path.join(folder, ".device_locks")))
+    claimed = []
+    for name in locks:
+        with open(os.path.join(folder, ".device_locks", name)) as f:
+            claimed.append(f.read().split())
+    workers = {pid for pid, _ in claimed}
+    check([device for _, device in claimed] == ["cuda:0", "cuda:0"]
+          and len(workers) == 2 and str(os.getpid()) not in workers, claimed)
+    trials = search_trials(folder)
+    check(len(trials) == 3, trials)
+    ran = []
+    for trial in trials:
+        (line,) = trial_log_lines(trial["folder"], " runs on ")
+        pid = line.split()[-1]
+        check(" runs on cuda:0 in process " in line and pid in workers, line)
+        check(0.0 < trial["metric_value"] <= 1.0, trial)
+        ran.append(pid)
+    check(set(ran) == workers, f"trials ran in {ran}, workers {workers}")
+    checkpoint = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+    job = Job.create_from(checkpoint)
+    before = [dict(p) for p in job.parameters]
+    recorded = [{k: t[k] for k in p} for t, p in
+                zip(sorted(trials, key=lambda t: t["folder"]), before)]
+    check(len(before) == 3 and before == recorded, (before, recorded))
+    result = job.run()
+    check(job.parameters == before and len(search_trials(folder)) == 3,
+          "the resumed search proposed or ran trials again")
+    log(f"  (c) ax_search, 3 trials (2 Sobol, 1 model-based) in 2 worker processes "
+        f"{sorted(workers)} on cuda:0 (this process {os.getpid()}): wall {wall:.2f} s; "
+        f"trials ran in {ran}; resumed with the same 3 parameter sets, best "
+        f"{result['metric_value']:.6f}")
+    return {"wall_s": wall, "workers": len(workers), "parameters": before,
+            "best": result["metric_value"]}
+
+
+def run_search_grash(seed: int):
+    """Phase 23 (d): GraSH over k-core subsets of a synthetic graph of 5,000
+    entities and 50,000 training triples; returns a summary dict."""
+    import tempfile
+
+    import yaml
+
+    from kge_tpu_torch import cli
+
+    data = tempfile.mkdtemp(prefix="grash_", dir=os.path.join(WORK, "data"))
+    write_dataset(data, seed, sizes=(5000, 50, 50000, 2000, 2000))
+    folder = os.path.join(WORK, "search_grash")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "search_grash.yaml")
+    write_train_config(conf, os.path.basename(data), seed, **{
+        "job.type": "search", "search.type": "grash_search", "lookup_embedder.dim": 128,
+        "train.batch_size": 4096, "train.max_epochs": 2,
+        "grash_search": {"variant": "combined", "eta": 2, "num_trials": 4,
+                         "seed": seed, "keep_pretrained": True, "parameters": [
+                             {"name": "train.optimizer.default.args.lr",
+                              "type": "range", "bounds": [0.01, 1.0],
+                              "log_scale": True}]}})
+    with open(conf) as f:
+        check(yaml.safe_load(f)["job"]["device"] == "auto")
+    start = time.perf_counter()
+    reset_counters()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = read_counters()
+    rounds = trial_log_lines(folder, "GraSH round ")
+    check(len(rounds) == 2, rounds)
+    subsets = [line.split("subset=")[-1] for line in rounds]
+    check(any(s.endswith("-core") for s in subsets), subsets)
+    trial_folders = sorted(f for f in os.listdir(folder) if f.startswith("round"))
+    check(len(trial_folders) == 4 + 2, trial_folders)
+    for name in trial_folders:
+        (line,) = trial_log_lines(os.path.join(folder, name), " runs on ")
+        check(" runs on cuda" in line, line)
+    (done,) = trace_entries(folder, event="search_completed", scope="search")
+    best = [t for t in trace_entries(folder, event="search_completed",
+                                     scope="train", grash_round=1)
+            if t["metric_value"] == done["metric_value"]]
+    check(best, done)
+    best = best[0]
+    best_folder = os.path.join(folder, f"round1-trial{best['trial']:05d}")
+    check(os.path.isfile(os.path.join(best_folder, "model_best.pt")), best_folder)
+    check(counts["scatter_add_sorted"] > 0 and counts["rank_counts"] > 0, counts)
+    log(f"  (d) GraSH (combined, eta 2, 4 trials, d=128) on 5,000 entities / 50,000 "
+        f"triples: rounds on {[os.path.basename(s) for s in subsets]}; "
+        f"{len(trial_folders)} trials on the card; best trial {best['trial']} "
+        f"packaged ({done['metric_name']} {done['metric_value']:.6f}); launches "
+        f"{counts}; wall {wall:.2f} s")
+    shutil.rmtree(data)
+    return {"wall_s": wall, "subsets": [os.path.basename(s) for s in subsets],
+            "launches": counts, "best_trial": best["trial"]}
+
+
+def run_search(seed: int, data: str):
+    """Phase 23, run in ``WORK`` where ``data/`` names the datasets, as a
+    user's working directory does: trial folders, checkpoints and packages
+    name their dataset by the name its ``dataset.yaml`` gives it, and
+    ``test`` and ``package`` find it by that name. Returns a summary
+    dict."""
+    names = os.path.join(WORK, "data")
+    os.makedirs(names, exist_ok=True)
+    for folder in (data, os.path.join(WORK, "small_data")):
+        link = os.path.join(names, os.path.basename(folder))
+        if not os.path.lexists(link):
+            os.symlink(folder, link)
+    cwd = os.getcwd()
+    os.chdir(WORK)
+    try:
+        out = run_search_full_width(seed, os.path.basename(data))
+        out["workers"] = run_search_workers(seed)
+        out["grash"] = run_search_grash(seed)
+    finally:
+        os.chdir(cwd)
+    return out
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -4258,6 +4607,13 @@ def main():
     log(f"  phase 22 took {time.perf_counter() - start:.1f} s; {card}")
     bf16_cases = dtype["kernels"]
 
+    log("== phase 23: hyperparameter search: a grid search at T-dense's width, dump, "
+        "package and test of its best trial; ax_search in two worker processes; "
+        "GraSH on k-core subsets")
+    start = time.perf_counter()
+    search = run_search(args.seed, data)
+    log(f"  phase 23 took {time.perf_counter() - start:.1f} s; {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -4284,7 +4640,8 @@ def main():
               + xcomplex["resume_launches"]["rank_counts"],
               launches_factorization={k: v["rank_launches"] for k, v in family.items()},
               launches_conve=neural_launches(conve, "rank_counts"),
-              launches_hitter=neural_launches(hitter, "rank_counts")),
+              launches_hitter=neural_launches(hitter, "rank_counts"),
+              launches_search=search["launches"]["rank_counts"]),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
@@ -4297,7 +4654,8 @@ def main():
                   k: routes[k]["launches"]["scatter_add_sorted"]
                   for k in ("batch_per_row", "pool_host", "fused")},
               launches_conve=neural_launches(conve, "scatter_add_sorted"),
-              launches_hitter=neural_launches(hitter, "scatter_add_sorted")),
+              launches_hitter=neural_launches(hitter, "scatter_add_sorted"),
+              launches_search=search["launches"]["scatter_add_sorted"]),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -4349,6 +4707,7 @@ def main():
         "train_xcomplex": xcomplex, "other_routes": routes,
         "train_conve": conve, "train_hitter": hitter,
         "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
+        "search": search,
         "card": card}
     print(json.dumps(kernels))
     print(card)

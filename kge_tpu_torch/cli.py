@@ -6,9 +6,9 @@ config file, ``resume`` continues one, and ``eval`` / ``valid`` / ``test``
 are evaluation presets over resume. Folders and checkpoints written by
 kge_tpu or by this package serve alike. Any configuration key can be passed
 as ``--dotted.key value`` (or ``--dotted.key=value``) and is validated by
-the typed ``Config.set``. Jobs run on the CUDA card unless ``--job.device
-cpu`` is given. The verbs ``dump`` and ``package`` exit non-zero: they are
-not ported yet (see ROADMAP.md).
+the typed ``Config.set``. ``dump`` inspects traces, checkpoints and
+configs, and ``package`` exports a standalone model file. Jobs run on the
+CUDA card unless ``--job.device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ import yaml
 
 from kge_tpu_torch import Config, Dataset
 from kge_tpu_torch.misc import kge_base_dir
+from kge_tpu_torch.utils.dump import add_dump_parsers, dump
 from kge_tpu_torch.utils.io import get_checkpoint_file, load_checkpoint
+from kge_tpu_torch.utils.package import add_package_parser, package_model
 from kge_tpu_torch.utils.seed import apply_device_config, seed_from_config
 
 _TRUE_WORDS = frozenset(("yes", "true", "t", "y", "1"))
@@ -45,8 +47,6 @@ _EVAL_PRESETS = {
     "valid": {"job.type": "eval", "eval.split": "valid"},
     "test": {"job.type": "eval", "eval.split": "test"},
 }
-
-_NOT_PORTED = ("dump", "package")
 
 
 def argparse_bool_type(text):
@@ -98,9 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
             "--checkpoint", default="default",
             help="'default', 'last', 'best', an epoch number, or a file name",
         )
-    for verb in _NOT_PORTED:
-        verbs.add_parser(verb, help="not ported yet (see ROADMAP.md)",
-                         add_help=False)
+    add_dump_parsers(verbs)
+    add_package_parser(verbs)
     return parser
 
 
@@ -138,6 +137,8 @@ def apply_overrides(config: Config, pairs: List[Tuple[str, str]],
                 f"--{key} {value} conflicts with this command "
                 f"(which implies {key}={forced[key]})"
             )
+        if key == "search.device_pool" and isinstance(value, str):
+            value = value.split(",")
         try:
             entry = config.get(key)
         except KeyError:
@@ -165,13 +166,16 @@ def main(argv=None):
     parser = build_parser()
     args, leftover = parser.parse_known_args(argv)
     command = args.command
-    if command in _NOT_PORTED:
-        print(
-            f"kge_tpu_torch: '{command}' is not ported yet: see ROADMAP.md "
-            "(run it with `python -m kge_tpu`)",
-            file=sys.stderr,
-        )
-        sys.exit(2)
+    if command == "dump":
+        if leftover:
+            parser.parse_args(argv)  # reject the unknown arguments with usage
+        dump(args)
+        return
+    if command == "package":
+        if leftover:
+            parser.parse_args(argv)
+        package_model(args.checkpoint, args.file)
+        return
 
     overrides = collect_overrides(leftover)
     # the four short/long aliases argparse knows about join the override list

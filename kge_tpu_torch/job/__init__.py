@@ -1,6 +1,7 @@
 """Jobs: training by negative sampling, 1vsAll and KvsAll, filtered
-entity-ranking evaluation, the training-loss evaluation and kge_tpu's
-entity-pair placeholder (see ROADMAP.md for search)."""
+entity-ranking evaluation, the training-loss evaluation, kge_tpu's
+entity-pair placeholder, and hyperparameter search (manual, grid, Ax-style
+and GraSH)."""
 
 from kge_tpu_torch.job.job import Job, TrainingOrEvaluationJob
 from kge_tpu_torch.job.train import TrainingJob
@@ -11,6 +12,14 @@ from kge_tpu_torch.job.eval import EvaluationJob
 from kge_tpu_torch.job.eval_entity_ranking import EntityRankingJob
 from kge_tpu_torch.job.eval_entity_pair_ranking import EntityPairRankingJob
 from kge_tpu_torch.job.eval_training_loss import TrainingLossEvaluationJob
+from kge_tpu_torch.job.search_grash import GraSHSearchJob
+from kge_tpu_torch.job.search import (
+    AutoSearchJob,
+    AxSearchJob,
+    GridSearchJob,
+    ManualSearchJob,
+    SearchJob,
+)
 
 __all__ = [
     "Job",
@@ -23,4 +32,10 @@ __all__ = [
     "EntityRankingJob",
     "EntityPairRankingJob",
     "TrainingLossEvaluationJob",
+    "SearchJob",
+    "ManualSearchJob",
+    "GridSearchJob",
+    "AutoSearchJob",
+    "AxSearchJob",
+    "GraSHSearchJob",
 ]

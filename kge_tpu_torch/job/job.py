@@ -4,8 +4,8 @@ Mirrors the reference job lifecycle (kge/job/job.py) as kge_tpu does
 (kge_tpu/job/job.py): uuid job ids, parent/resumed-from lineage, creation
 hooks (trace + per-job config snapshot), ``run()`` = pre hooks + ``_run`` +
 post hooks, and the training-or-evaluation hook surface (pre/post batch/epoch
-hooks plus a ``current_trace`` dict that hooks may mutate). Training and
-evaluation jobs are ported; search jobs raise (see ROADMAP.md).
+hooks plus a ``current_trace`` dict that hooks may mutate). ``job.type``
+is ``train``, ``eval`` or ``search`` (job/search.py, job/search_grash.py).
 """
 
 from __future__ import annotations
@@ -72,8 +72,9 @@ class Job(Configurable):
     def create(config: Config, dataset: Optional[Dataset] = None,
                parent_job: Optional["Job"] = None, model=None,
                forward_only: bool = False) -> "Job":
-        """Create a job by ``job.type`` (``train`` and ``eval`` are ported)."""
+        """Create a job by ``job.type``."""
         from kge_tpu_torch.job.eval import EvaluationJob
+        from kge_tpu_torch.job.search import SearchJob
         from kge_tpu_torch.job.train import TrainingJob
 
         if dataset is None:
@@ -88,15 +89,17 @@ class Job(Configurable):
             return EvaluationJob.create(
                 config, dataset, parent_job=parent_job, model=model
             )
-        raise NotImplementedError(
-            f"job.type={job_type} is not ported yet: see ROADMAP.md"
-        )
+        elif job_type == "search":
+            return SearchJob.create(config, dataset, parent_job=parent_job)
+        raise ValueError(f"unknown job type {job_type}")
 
     @staticmethod
     def create_from(checkpoint: Dict, new_config: Optional[Config] = None,
                     dataset: Optional[Dataset] = None,
                     parent_job: Optional["Job"] = None) -> "Job":
-        """Create a job for the given checkpoint (reference job.py:94-144)."""
+        """Create a job for the given checkpoint (reference job.py:94-144): a
+        training or evaluation job for a ``train`` or ``package`` checkpoint,
+        a search job for a ``search`` one."""
         from kge_tpu_torch.models import KgeModel
 
         config = Config.create_from(checkpoint)

@@ -785,8 +785,9 @@ def _detach(aux):
 
 def _best_index(values: List[float], metric_max: bool) -> int:
     """Index of the best value (the first one among equals)."""
-    values = list(values)
-    return values.index(max(values) if metric_max else min(values))
+    from kge_tpu_torch.utils.metric import Metric
+
+    return Metric(metric_max).best_index(values)
 
 
 def _check_validation_route(config: Config, model: KgeModel) -> None:

@@ -69,8 +69,7 @@ def init_from(class_name: str, module_names: List[str], *args, **kwargs):
         if hasattr(module, class_name):
             return getattr(module, class_name)(*args, **kwargs)
     raise ValueError(
-        "class {} not found in modules {} (search is not ported yet: see "
-        "ROADMAP.md)".format(class_name, looked_in)
+        "class {} not found in modules {}".format(class_name, looked_in)
     )
 
 

@@ -11,6 +11,7 @@ only an explicit ``cpu`` runs on the host.
 from __future__ import annotations
 
 import hashlib
+import os
 import random
 
 import numpy as np
@@ -27,19 +28,48 @@ def _derived_seed(base: int, name: str) -> int:
 def check_parallel(config: Config) -> None:
     """Refuse the ``parallel.*`` settings this package cannot honour yet:
     a device mesh larger than its one card, with kge_tpu's message
-    (kge_tpu/parallel/mesh.py ``DeviceCtx.create``; ROADMAP A.10), and a
-    parameter or compute dtype other than float32 and bfloat16 (ROADMAP
-    A.11). ``parallel.data: -1`` and ``parallel.model: 1`` are one card."""
+    (kge_tpu/parallel/mesh.py ``DeviceCtx.create``; ROADMAP A.10), a run
+    over several processes (``check_distributed``), and a parameter or
+    compute dtype other than float32 and bfloat16 (ROADMAP A.11).
+    ``parallel.data: -1`` and ``parallel.model: 1`` are one card."""
     from kge_tpu_torch.utils.dtypes import torch_dtype
 
     for key in ("parallel.param_dtype", "parallel.compute_dtype"):
         torch_dtype(config, key)
+    check_distributed(config)
     model = max(int(config.get("parallel.model")), 1)
     data = int(config.get("parallel.data"))
     data = data if data > 0 else max(1 // model, 1)
     if data * model > 1:
         raise ValueError(
             f"mesh {data}x{model} needs {data * model} devices, have 1"
+        )
+
+
+def check_distributed(config: Config) -> None:
+    """Refuse ``parallel.distributed.*`` where it asks for a run over
+    several processes, read as kge_tpu reads it
+    (kge_tpu/parallel/distributed.py ``maybe_initialize``): ``auto``, or a
+    coordinator address with more than one process, from the config or,
+    when the config names no address, from ``KGE_COORDINATOR_ADDRESS`` /
+    ``KGE_NUM_PROCESSES``. One process, or none named, runs alone."""
+    if config.get("parallel.distributed.auto"):
+        raise ValueError(
+            "parallel.distributed.auto: runs over several processes are not "
+            "ported yet (ROADMAP A.10)"
+        )
+    address = config.get("parallel.distributed.coordinator_address") or None
+    processes = config.get("parallel.distributed.num_processes")
+    source = "parallel.distributed"
+    if address is None:
+        address = os.environ.get("KGE_COORDINATOR_ADDRESS") or None
+        if address:
+            processes = os.environ.get("KGE_NUM_PROCESSES", "")
+            source = "KGE_COORDINATOR_ADDRESS / KGE_NUM_PROCESSES"
+    if address and processes not in ("", None) and int(processes) > 1:
+        raise ValueError(
+            f"{source}: {int(processes)} processes at {address}; runs over "
+            "several processes are not ported yet (ROADMAP A.10)"
         )
 
 

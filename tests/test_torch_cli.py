@@ -133,10 +133,16 @@ def test_auto_device_without_card_fails(trained):
 
 @pytest.mark.parametrize("verb", ["dump", "package"])
 def test_verbs_not_ported_exit_nonzero(tmp_path, verb):
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", verb, "x.yaml"],
-                cwd=tmp_path, check=False)
-    assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
+    """``dump`` and ``package`` are ported (tests/test_torch_dump.py): on a
+    file that is not there they exit non-zero for that reason, as kge_tpu's
+    do, and no longer as verbs not ported."""
+    argv = {"dump": ["dump", "config", "x.yaml"], "package": ["package", "x.pt"]}
+    for package in ("kge_tpu_torch", "kge_tpu"):
+        proc = _run([sys.executable, "-m", package, *argv[verb]],
+                    cwd=tmp_path, check=False)
+        assert proc.returncode != 0
+        assert "not ported yet" not in proc.stderr
+        assert "FileNotFoundError" in proc.stderr, (package, proc.stderr[-2000:])
 
 
 # -- training through the command line, and checkpoints both ways ---------------

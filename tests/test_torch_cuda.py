@@ -1563,3 +1563,52 @@ def test_bf16_fast_operations_are_exact_on_card():
     distances = _bf16_count(2.0 ** -50, 2.0 ** 64) + 1  # and +inf
     assert counts["quotient_pairs"] == fast_g * distances
     assert counts["quotient_differ"] == 0
+
+
+@pytest.mark.cuda
+def test_two_worker_grid_search_runs_its_trials_on_card(tmp_path):
+    """The toy grid search (examples/toy-complex-search-grid.yaml, 4 trials)
+    with ``search.num_workers: 2`` and ``--search.device_pool
+    cuda:0,cuda:0``: both worker processes pin the card and run their
+    trials on it, each trial's log names the card and a worker's process,
+    and the parent writes every trial's search entry."""
+    import os
+    import pathlib
+    import shutil
+    import subprocess
+    import sys
+
+    import yaml
+
+    _card()
+    root = pathlib.Path(__file__).resolve().parent.parent
+    shutil.copytree(root / "tests" / "data" / "dataset_test",
+                    tmp_path / "data" / "dataset_test")
+    folder = tmp_path / "grid"
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "kge_tpu_torch", "start",
+         str(root / "examples" / "toy-complex-search-grid.yaml"),
+         "--job.device", "cuda", "--train.max_epochs", "2",
+         "--search.num_workers", "2", "--search.device_pool", "cuda:0,cuda:0",
+         "--folder", str(folder)],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    locks = sorted((folder / ".device_locks").iterdir())
+    assert [path.read_text().split()[1] for path in locks] == ["cuda:0", "cuda:0"]
+    workers = {path.read_text().split()[0] for path in locks}
+    assert len(workers) == 2 and str(os.getpid()) not in workers
+    trials = sorted(folder.glob("tra_*"))
+    assert len(trials) == 4
+    for trial in trials:
+        (line,) = [l for l in (trial / "kge.log").read_text().splitlines()
+                   if " runs on " in l]
+        assert " runs on cuda:0 in process " in line, line
+        assert line.split()[-1] in workers
+        with open(trial / "config.yaml") as f:
+            assert yaml.safe_load(f)["job"]["device"] == "cuda:0"
+    with open(folder / "trace.yaml") as f:
+        entries = [yaml.safe_load(line) for line in f]
+    done = [e for e in entries if e.get("event") == "search_completed"
+            and e.get("scope") == "train"]
+    assert len(done) == 4 and all(0.0 < e["metric_value"] <= 1.0 for e in done)

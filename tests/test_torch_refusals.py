@@ -15,6 +15,12 @@ on dataset_test, on the CPU), once refused by the port:
   kge_tpu does on one device.
 
 ``parallel.data: -1`` and ``parallel.model: 1`` (the defaults) still train.
+
+The command that found ROADMAP C.5, where the port trained alone:
+``parallel.distributed.*`` (a coordinator with more than one process,
+``auto``, or the ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
+``KGE_PROCESS_ID`` environment) is refused, naming ROADMAP A.10; one
+process, or none named, still trains.
 """
 
 import subprocess
@@ -150,3 +156,47 @@ def test_one_card_in_float32_still_trains(tmp_path):
           "--parallel.param_dtype", "float32", "--parallel.compute_dtype",
           "float32", "--folder", str(folder)], cwd=cwd)
     assert [e["epoch"] for e in _entries(folder, event="epoch_completed")] == [1, 2]
+
+
+_COORDINATOR = ["--parallel.distributed.coordinator_address", "127.0.0.1:9999",
+                "--parallel.distributed.process_id", "0"]
+
+
+@pytest.mark.parametrize("options,environment,message", [
+    (_COORDINATOR + ["--parallel.distributed.num_processes", "2"], {},
+     "parallel.distributed: 2 processes at 127.0.0.1:9999"),
+    (["--parallel.distributed.auto", "true"], {}, "parallel.distributed.auto"),
+    ([], {"KGE_COORDINATOR_ADDRESS": "127.0.0.1:9999", "KGE_NUM_PROCESSES": "2",
+          "KGE_PROCESS_ID": "0"},
+     "KGE_COORDINATOR_ADDRESS / KGE_NUM_PROCESSES: 2 processes at 127.0.0.1:9999"),
+], ids=["coordinator", "auto", "environment"])
+def test_runs_over_several_processes_are_refused(tmp_path, options, environment,
+                                                 message):
+    """ROADMAP C.5's command and its two other forms: the port exits
+    non-zero naming ROADMAP A.10 before it trains."""
+    cwd = _toy_cwd(tmp_path)
+    env = {**_env(), **environment}
+    proc = subprocess.run(
+        [sys.executable, "-m", "kge_tpu_torch", "start", TOY, "--job.device",
+         "cpu", "--train.max_epochs", "1", *options, "--folder", str(cwd / "x")],
+        cwd=str(cwd), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0
+    assert f"ValueError: {message}" in proc.stderr, proc.stderr[-2000:]
+    assert "ROADMAP A.10" in proc.stderr
+    assert not (cwd / "x" / "checkpoint_00001.pt").exists()
+
+
+def test_one_process_still_trains(tmp_path):
+    """A coordinator of one process, and the environment naming one, run
+    alone as before."""
+    cwd = _toy_cwd(tmp_path)
+    folder = cwd / "one"
+    env = {**_env(), "KGE_COORDINATOR_ADDRESS": "127.0.0.1:9999",
+           "KGE_NUM_PROCESSES": "1", "KGE_PROCESS_ID": "0"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "kge_tpu_torch", "start", TOY, "--job.device",
+         "cpu", "--train.max_epochs", "1", "--valid.every", "0", *_COORDINATOR,
+         "--parallel.distributed.num_processes", "1", "--folder", str(folder)],
+        cwd=str(cwd), env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert [e["epoch"] for e in _entries(folder, event="epoch_completed")] == [1]
