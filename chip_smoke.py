@@ -6,7 +6,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every CUDA kernel of the package from ``csrc/`` (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together) and, beside them, of the host
+   library ``native/kge_native.cpp`` with ``g++`` (the run fails if it does
+   not build).
 2. The rank kernel (ops/rank_kernel.py) against its plain PyTorch version on
    the card at n = 256, 1,024 and 242 (the last test batch), |E| = 14,541,
    D = 512, and at D = 510 (no multiple of 4: the 4-byte copy route), with
@@ -299,7 +301,27 @@ Phases (any failure exits non-zero; nothing is caught):
    GraSH (``combined``, eta 2, 4 trials, d = 128, ``keep_pretrained``) on a
    synthetic graph of 5,000 entities and 50,000 training triples: a round
    on a k-core subset, every trial on the card, the best trial packaged.
-24. One ``kernels`` JSON line: per kernel its time per call at the main
+24. Data preparation on the host, on raw splits: (a) ``train.txt``,
+   ``valid.txt`` and ``test.txt`` at FB15k-237's sizes, named as its are
+   (``/m/0...`` entities, ``/film/...``-style relation paths), the last 12
+   entities and 2 relations in valid and test only; their sha256; the wall
+   of ``Dataset.create`` with ``dataset.from_dir`` and
+   ``dataset.from_dir_checksum``, which preprocesses the folder in place
+   (the native parser must have run), and every triple of train, valid and
+   test mapped back through ``entity_ids.del`` / ``relation_ids.del`` to its
+   raw line; (b) the parse of ``train.del`` by the library against its
+   numpy version (host clock, equal arrays); (c) the published config
+   (``examples/fb15k-237-complex-1vsall.yaml``) given the raw folder and its
+   checksum: ``start`` for one epoch and one validation (K2 4 x 532, K1 2 x
+   69), ``test`` (K1 2 x 80), a warm epoch; (d) T-dense with 128 per-row
+   negatives for s and o, filtered (``filtering.s``/``o``, ``fast``; ``auto``
+   gives ``all`` with host draws): ``start`` for 2 epochs (the native
+   filter exactly 2 x 34 x 2 calls, K2 3 x 34 x 2), a warm epoch profiled,
+   then the batch filter's host milliseconds a step by the library and by
+   its numpy version on 4 fixed batches, the replacements a step (the
+   library's count equal to the colliding samples), and no sample of either
+   route a training positive of its row.
+25. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -311,8 +333,10 @@ Phases (any failure exits non-zero; nothing is caught):
    16, 18, 19, 20, 21 and 23 (a) and its launches alone
    (``SCATTER_LAUNCH_KEYS``). Six more
    entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
-   from its runs (the scatter's also its launches alone). Then the card's name and power
-   limit, then the ``ok`` JSON line last.
+   from its runs (the scatter's also its launches alone). The rank and scatter
+   kernels' entries hold their launches in phase 24 (``launches_preprocessed``),
+   and the line phase 24's numbers (``data_prep``). Then the card's name and
+   power limit, then the ``ok`` JSON line last.
 """
 
 from __future__ import annotations
@@ -4083,6 +4107,295 @@ def run_search(seed: int, data: str):
     return out
 
 
+# -- phase 24: data preparation on the host ---------------------------------------
+
+RAW_UNSEEN = (12, 2)  # entities and relations of the raw splits seen only in valid/test
+FILTER_TIMED_BATCHES = 4  # batches through each route of the batch filter, timed
+
+
+def raw_names(num_entities: int, num_relations: int):
+    """Names as FB15k-237 spells them: Freebase mids for entities, relation
+    paths for relations."""
+    entities = np.array([f"/m/0{np.base_repr(46656 + 7919 * i, 36).lower()}"
+                         for i in range(num_entities)])
+    kinds = ("film/film", "people/person", "music/artist", "location/location")
+    relations = np.array([f"/{kinds[r % len(kinds)]}/relation_{r}"
+                          for r in range(num_relations)])
+    return entities, relations
+
+
+def write_raw_splits(folder: str, seed: int):
+    """Raw train/valid/test.txt (names separated by tabs) at FB15k-237's
+    sizes, drawn with power-law popularity as ``write_dataset`` draws; the
+    last ``RAW_UNSEEN`` entities and relations occur in valid and test
+    only. Returns the splits as [n, 3] arrays of names."""
+    num_entities, num_relations, num_train, num_valid, num_test = FB15K237
+    unseen_e, unseen_r = RAW_UNSEEN
+    rng = np.random.default_rng(seed + 24)
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+
+    def popularity(k, a):
+        w = 1.0 / np.arange(1, k + 1) ** a
+        return rng.permutation(w / w.sum())
+
+    def draw(n, ents, rels):
+        pe, pr = popularity(ents, 0.8), popularity(rels, 1.0)
+        return np.stack([rng.choice(ents, n, p=pe), rng.choice(rels, n, p=pr),
+                         rng.choice(ents, n, p=pe)], axis=1)
+
+    train = draw(num_train, num_entities - unseen_e, num_relations - unseen_r)
+    train[:num_entities - unseen_e, 0] = np.arange(num_entities - unseen_e)
+    train[:num_relations - unseen_r, 1] = np.arange(num_relations - unseen_r)
+    valid = draw(num_valid, num_entities, num_relations)
+    test = draw(num_test, num_entities, num_relations)
+    valid[:unseen_e, 0] = np.arange(num_entities - unseen_e, num_entities)
+    test[:unseen_r, 1] = np.arange(num_relations - unseen_r, num_relations)
+    entities, relations = raw_names(num_entities, num_relations)
+    out = {}
+    for name, ids in (("train", train), ("valid", valid), ("test", test)):
+        names = np.stack([entities[ids[:, 0]], relations[ids[:, 1]],
+                          entities[ids[:, 2]]], axis=1)
+        with open(os.path.join(folder, f"{name}.txt"), "w") as f:
+            f.write("".join(f"{s}\t{p}\t{o}\n" for s, p, o in names.tolist()))
+        out[name] = names
+    return out
+
+
+def sha256_of(paths):
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def ingest_raw(seed: int):
+    """Phase 24 (a) and (b): the raw splits through ``Dataset.create`` with
+    ``dataset.from_dir`` and its checksum (preprocessed in place), every
+    written triple mapped back to its raw line, then the parse of
+    ``train.del`` by the library against its numpy version."""
+    from kge_tpu_torch import Config, Dataset, native
+
+    raw = os.path.join(WORK, "fb15k237_raw")
+    names = write_raw_splits(raw, seed)
+    files = [os.path.join(raw, f"{s}.txt") for s in ("train", "valid", "test")]
+    digest = sha256_of(files)
+    config = Config()
+    config.set("console.quiet", True)
+    config.set("dataset.name", "fb15k237_raw")
+    config.set("dataset.from_dir", raw)
+    config.set("dataset.from_dir_checksum", digest)
+    native.parse_triples.calls = 0
+    start = time.perf_counter()
+    dataset = Dataset.create(config)
+    ingest_wall = time.perf_counter() - start
+    parse_calls = native.parse_triples.calls
+    check(parse_calls >= 3, f"the native parser ran {parse_calls} times in the ingest")
+    check(os.path.isfile(os.path.join(raw, "dataset.yaml")), "no dataset.yaml written")
+    check((dataset.num_entities(), dataset.num_relations()) == FB15K237[:2],
+          (dataset.num_entities(), dataset.num_relations()))
+    entity_names = np.array(dataset.entity_ids())
+    relation_names = np.array(dataset.relation_ids())
+    for split, size in zip(("train", "valid", "test"), FB15K237[2:]):
+        triples = dataset.split(split)
+        check(len(triples) == size, f"{split}: {len(triples)} triples, not {size}")
+        mapped = np.stack([entity_names[triples[:, 0]], relation_names[triples[:, 1]],
+                           entity_names[triples[:, 2]]], axis=1)
+        check(np.array_equal(mapped, names[split]),
+              f"{split}.del does not map back to {split}.txt")
+    unseen = {s: len(dataset.split(f"{s}_without_unseen")) for s in ("valid", "test")}
+    check(unseen["valid"] < FB15K237[3] and unseen["test"] < FB15K237[4], unseen)
+    log(f"  raw splits at FB15k-237's sizes, sha256 {digest}; ingest through "
+        f"Dataset.create (dataset.from_dir + checksum, preprocessed in place): wall "
+        f"{ingest_wall:.3f} s, {parse_calls} native parses; every triple of train, "
+        f"valid and test maps back to its raw line; valid/test without unseen "
+        f"{unseen['valid']} / {unseen['test']}")
+
+    train_del = os.path.join(raw, "train.del")
+    calls = native.parse_triples.calls
+    native_ms = min(timed_ms(native.parse_triples, train_del) for _ in range(3))
+    numpy_ms = min(timed_ms(native.parse_triples_numpy, train_del) for _ in range(3))
+    check(native.parse_triples.calls == calls + 3, "parse_triples did not count its calls")
+    check(np.array_equal(native.parse_triples(train_del),
+                         native.parse_triples_numpy(train_del)),
+          "the native parse and its numpy version differ")
+    log(f"  parse of train.del ({FB15K237[2]} lines): native {native_ms:.3f} ms, numpy "
+        f"version {numpy_ms:.3f} ms (host clock, best of 3), arrays equal")
+    return raw, digest, {
+        "raw_sha256": digest, "ingest_wall_s": ingest_wall,
+        "ingest_native_parses": parse_calls, "without_unseen": unseen,
+        "parse_train_native_ms": native_ms, "parse_train_numpy_ms": numpy_ms,
+        "native_build": dict(native.build_info)}
+
+
+def timed_ms(fn, *args):
+    start = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - start) * 1e3
+
+
+def run_ocomplex_raw(seed: int, raw: str, digest: str):
+    """Phase 24 (c): the published ComplEx config on the raw folder, ``start``
+    for one epoch and one validation, ``test``, and a warm epoch."""
+    from kge_tpu_torch import cli
+
+    num_train, num_valid, num_test = FB15K237[2:]
+    steps = -(-num_train // ALL_BATCH)
+    valid_batches, test_batches = -(-num_valid // BATCH), -(-num_test // BATCH)
+    folder = os.path.join(WORK, "train_ocomplex_raw")
+    shutil.rmtree(folder, ignore_errors=True)
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["start", OCOMPLEX_EXAMPLE, "--folder", folder,
+              "--dataset.from_dir", raw, "--dataset.from_dir_checksum", digest,
+              "--train.max_epochs", "1", "--valid.every", "1",
+              "--random_seed.default", str(seed), "--console.quiet", "True"])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    check(counts["scatter_add_sorted"] == 4 * steps,
+          f"scatter launches {counts['scatter_add_sorted']} != 4 x {steps}")
+    check(counts["rank_counts"] == 2 * valid_batches,
+          f"rank launches {counts['rank_counts']} != 2 x {valid_batches}")
+    losses = check_losses(folder, [1])
+    (valid,) = trace_entries(folder, event="eval_completed")
+    check(0.0 < valid["mean_reciprocal_rank_filtered"] <= 1.0, valid)
+    with open(os.path.join(folder, "kge.log")) as f:
+        check("dataset.from_dir checksum verified" in f.read(), "checksum not verified")
+    reset_counters()
+    start = time.perf_counter()
+    cli.main(["test", folder])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - start
+    tested = read_counters()
+    check(tested["rank_counts"] == 2 * test_batches, tested)
+    entry = last_test_entry(folder)
+    check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0, entry)
+    log(f"  (c) O-complex on the raw folder: start (1 epoch, 1 validation) wall "
+        f"{start_wall:.2f} s, K2 4 x {steps} = {counts['scatter_add_sorted']}, K1 2 x "
+        f"{valid_batches} = {counts['rank_counts']}, avg_loss {losses}; test wall "
+        f"{test_wall:.3f} s, K1 {tested['rank_counts']}, MRR filtered "
+        f"{entry['mean_reciprocal_rank_filtered']:.6f}")
+    job = resumed_job(folder, "checkpoint_00001.pt")
+    # ``start`` ran this configuration's epoch in this process: no warm-up
+    timing = warm_epoch(job, num_train, "O-complex from raw splits", profiled=False,
+                        warmup=False)
+    del job
+    return {"launches": counts, "test_launches": tested, "start_wall_s": start_wall,
+            "test_wall_s": test_wall, "avg_loss": losses,
+            "valid_mrr_filtered": valid["mean_reciprocal_rank_filtered"],
+            "test_mrr_filtered": entry["mean_reciprocal_rank_filtered"],
+            "warm_epoch": timing}
+
+
+def positive_hits(samples, triples, slot, train_keys, num_entities, num_relations):
+    """How many samples are training positives of their row: each (row,
+    sample) as a triple, looked up among all training triples."""
+    s, p, o = (triples[:, i:i + 1].astype(np.int64) for i in range(3))
+    if slot == 0:
+        s = samples
+    else:
+        o = samples
+    keys = (s * num_relations + p) * num_entities + o
+    return int(np.isin(keys, train_keys).sum())
+
+
+def run_filtered(seed: int, raw: str, digest: str):
+    """Phase 24 (d): T-dense with 128 filtered per-row negatives for s and o
+    on the raw folder (``auto`` gives ``all`` with host draws, filtered by
+    the native library), then both routes of the batch filter on the same
+    fixed batches."""
+    from kge_tpu_torch import cli, native
+
+    num_entities, num_relations, num_train = FB15K237[:3]
+    steps = -(-num_train // TRAIN_BATCH)
+    folder = os.path.join(WORK, "train_filtered")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_filtered.yaml")
+    write_train_config(conf, "fb15k237_raw", seed, **{
+        "dataset.from_dir": raw, "dataset.from_dir_checksum": digest,
+        "negative_sampling.shared": False,
+        "negative_sampling.filtering.s": True, "negative_sampling.filtering.o": True,
+        "negative_sampling.filtering.implementation": "fast",
+        "valid.every": 0, "valid.last": False})
+    reset_counters()
+    native.filter_resample.calls = 0
+    start = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - start
+    counts = read_counters()
+    filter_calls = native.filter_resample.calls
+    check(filter_calls == 2 * steps * 2,
+          f"native filter calls {filter_calls} != 2 slots x {steps} x 2")
+    check(counts["scatter_add_sorted"] == 3 * steps * 2,
+          f"scatter launches {counts['scatter_add_sorted']} != 3 x {steps} x 2")
+    check(counts["rank_counts"] == 0, counts)
+    losses = check_losses(folder, [1, 2])
+    check(losses[1] < losses[0], f"loss did not fall: {losses}")
+    job = resumed_job(folder, "checkpoint_00002.pt")
+    check(job._implementation == "all" and not job._on_device,
+          (job._implementation, job._on_device))
+    log(f"  (d) filtered negatives (T-dense, 128 + 128 per-row, filtering.s/o fast): "
+        f"start (2 epochs) wall {start_wall:.2f} s; native filter {filter_calls} calls, "
+        f"K2 3 x {steps} x 2 = {counts['scatter_add_sorted']}; avg_loss {losses}")
+    # ``start`` ran this configuration's epochs in this process: no warm-up
+    timing = warm_epoch(job, num_train, "filtered negatives", warmup=False)
+
+    # both routes of the batch filter on the same fixed batches
+    sampler = job._sampler
+    train = job.dataset.split("train").astype(np.int64)
+    train_keys = np.unique((train[:, 0] * num_relations + train[:, 1]) * num_entities
+                           + train[:, 2])
+    routes_ms = {"native": 0.0, "numpy": 0.0}
+    replaced, hits_before = 0, 0
+    for b in range(FILTER_TIMED_BATCHES):
+        triples = train[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
+        for slot in (0, 2):
+            samples = sampler._sample(triples, slot, NUM_NEGATIVES)
+            hits = positive_hits(samples, triples, slot, train_keys, num_entities,
+                                 num_relations)
+            hits_before += hits
+            start = time.perf_counter()
+            fast = sampler._filter_and_resample_fast(samples.copy(), slot, triples)
+            routes_ms["native"] += (time.perf_counter() - start) * 1e3
+            start = time.perf_counter()
+            plain = sampler._filter_and_resample_numpy(
+                samples.copy(), slot, triples, *sampler._positives_csr(slot, triples))
+            routes_ms["numpy"] += (time.perf_counter() - start) * 1e3
+            count = native.filter_resample(
+                samples.copy(), *sampler._positives_csr(slot, triples),
+                num_entities, seed=seed)
+            check(count == hits, f"the native filter replaced {count} of {hits} "
+                  "colliding samples")
+            replaced += count
+            for out, route in ((fast, "native"), (plain, "numpy")):
+                check(positive_hits(out, triples, slot, train_keys, num_entities,
+                                    num_relations) == 0,
+                      f"a sample of the {route} route is a training positive of its row")
+    per_step = {k: v / FILTER_TIMED_BATCHES for k, v in routes_ms.items()}
+    log(f"  host ms a step in the batch filter (s and o, {FILTER_TIMED_BATCHES} fixed "
+        f"batches): native {per_step['native']:.3f}, numpy {per_step['numpy']:.3f}; "
+        f"{replaced / FILTER_TIMED_BATCHES:.1f} replacements a step; no sample a "
+        f"training positive of its row")
+    del job
+    return {"launches": counts, "native_filter_calls": filter_calls,
+            "start_wall_s": start_wall, "avg_loss": losses, "warm_epoch": timing,
+            "filter_ms_per_step": per_step,
+            "replacements_per_step": replaced / FILTER_TIMED_BATCHES}
+
+
+def run_data_prep(seed: int):
+    """Phase 24; returns a summary dict."""
+    raw, digest, ingest = ingest_raw(seed)
+    ocomplex = run_ocomplex_raw(seed, raw, digest)
+    filtered = run_filtered(seed, raw, digest)
+    return {**ingest, "ocomplex": ocomplex, "filtered": filtered}
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -4436,7 +4749,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA card available")
 
-    from kge_tpu_torch import cli
+    from kge_tpu_torch import cli, native
     from kge_tpu_torch.ops import kernel_utils
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
@@ -4448,10 +4761,14 @@ def main():
     log("== phase 1: card and build")
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     start = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        native_built = pool.submit(native.available)
         list(pool.map(kernel_utils.build, KERNELS))
-    log(f"  built {len(KERNELS)} kernels side by side in "
-        f"{time.perf_counter() - start:.2f} s")
+        check(native_built.result(), "the native host library did not build")
+    log(f"  built {len(KERNELS)} kernels and the native host library side by side in "
+        f"{time.perf_counter() - start:.2f} s; native/kge_native.cpp: g++ "
+        f"{native.build_info.get('seconds', 0.0):.2f} s, OpenMP "
+        f"{native.build_info.get('openmp', 'unknown (built before this run)')}")
     for name in KERNELS:
         kernel_utils.load_library(name)
         log(f"  csrc/{name}.cu: nvcc {kernel_utils.build_seconds[name]:.2f} s")
@@ -4614,6 +4931,14 @@ def main():
     search = run_search(args.seed, data)
     log(f"  phase 23 took {time.perf_counter() - start:.1f} s; {card}")
 
+    log("== phase 24: data preparation on the host: raw splits of FB15k-237's sizes "
+        "ingested by dataset.from_dir; the published ComplEx config on them; filtered "
+        "per-row negatives through the native filter")
+    start = time.perf_counter()
+    data_prep = run_data_prep(args.seed)
+    data_prep["wall_s"] = time.perf_counter() - start
+    log(f"  phase 24 took {data_prep['wall_s']:.1f} s; {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -4641,7 +4966,10 @@ def main():
               launches_factorization={k: v["rank_launches"] for k, v in family.items()},
               launches_conve=neural_launches(conve, "rank_counts"),
               launches_hitter=neural_launches(hitter, "rank_counts"),
-              launches_search=search["launches"]["rank_counts"]),
+              launches_search=search["launches"]["rank_counts"],
+              launches_preprocessed={
+                  "start": data_prep["ocomplex"]["launches"]["rank_counts"],
+                  "test": data_prep["ocomplex"]["test_launches"]["rank_counts"]}),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
@@ -4655,7 +4983,10 @@ def main():
                   for k in ("batch_per_row", "pool_host", "fused")},
               launches_conve=neural_launches(conve, "scatter_add_sorted"),
               launches_hitter=neural_launches(hitter, "scatter_add_sorted"),
-              launches_search=search["launches"]["scatter_add_sorted"]),
+              launches_search=search["launches"]["scatter_add_sorted"],
+              launches_preprocessed={
+                  "ocomplex_start": data_prep["ocomplex"]["launches"]["scatter_add_sorted"],
+                  "filtered_start": data_prep["filtered"]["launches"]["scatter_add_sorted"]}),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -4707,7 +5038,7 @@ def main():
         "train_xcomplex": xcomplex, "other_routes": routes,
         "train_conve": conve, "train_hitter": hitter,
         "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
-        "search": search,
+        "search": search, "data_prep": data_prep,
         "card": card}
     print(json.dumps(kernels))
     print(card)

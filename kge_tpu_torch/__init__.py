@@ -13,7 +13,12 @@ checkpoints and trace records, and runs
   reciprocal relations model, TransE, TransH and RotatE, with any of
   kge_tpu's losses and optimizer rules;
 - filtered entity-ranking evaluation (``eval|valid|test``) of every ported
-  model.
+  model;
+- data preparation on the host: raw splits turned into ``.del`` files
+  (``data/preprocess.py``, and ``dataset.from_dir`` in place), published
+  datasets fetched (``data/download.py``), and the ``.del`` parser and the
+  filtered-negative resampler in a C++ library built with ``g++`` on first
+  use (``native/``), each with a numpy version.
 
 Every kernel that kge_tpu writes in Pallas for the TPU is rewritten by hand
 in CUDA C++ under ``csrc/`` and bound in ``ops/``: the rank kernel

@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from kge_tpu_torch import misc
+from kge_tpu_torch import misc, native
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.indexing import create_default_index_functions
 
@@ -185,11 +185,11 @@ class Dataset(Configurable):
         if preprocessed:
             return from_dir
         if all(os.path.isfile(p) for p in raw):
-            raise IOError(
-                f"dataset.from_dir {from_dir} holds raw splits only; "
-                "preprocessing is not ported yet (see ROADMAP.md): run "
-                "`python -m kge_tpu.data.preprocess` on it first"
-            )
+            from kge_tpu_torch.data.preprocess import preprocess_default
+
+            config.log(f"Preprocessing raw splits in {from_dir} ...")
+            preprocess_default(from_dir)
+            return from_dir
         raise IOError(
             f"dataset.from_dir {from_dir} holds neither dataset.yaml nor "
             "raw train/valid/test.txt splits"
@@ -310,15 +310,32 @@ class Dataset(Configurable):
 
     @staticmethod
     def _load_triples_file(filename: str, delimiter: str = "\t") -> np.ndarray:
+        """An [N, 3] int32 array of a triple file. With a tab (or no)
+        delimiter, the grammar of ``native.parse_triples``: integers
+        separated by spaces or tabs, columns after the third ignored, blank
+        lines skipped, a malformed line a ValueError; the library parses
+        where it is built, else its numpy version. Any other delimiter
+        splits each line on it and takes the first three columns."""
         if os.path.getsize(filename) == 0:
             return np.empty((0, 3), dtype=np.int32)
+        if delimiter in ("\t", None):
+            triples = native.parse_triples(filename)
+            if triples is None:
+                triples = native.parse_triples_numpy(filename)
+            return triples
         rows = []
         with open(filename, "r") as f:
-            for line in f:
+            for number, line in enumerate(f, 1):
+                line = line.rstrip("\r\n")
+                if not line:
+                    continue
                 fields = line.split(delimiter)
-                if len(fields) >= 3:
-                    rows.append(fields[:3])
-        return np.ascontiguousarray(np.array(rows, dtype=np.int32))
+                if len(fields) < 3:
+                    raise ValueError(
+                        f"{filename}, line {number}: fewer than 3 columns"
+                    )
+                rows.append(fields[:3])
+        return np.ascontiguousarray(np.array(rows, dtype=np.int32).reshape(-1, 3))
 
     def load_map(
         self,

@@ -1,16 +1,14 @@
 """Negative sampling on the host.
 
 A copy of kge_tpu/ops/sampler.py (a re-design of the reference sampler,
-kge/util/sampler.py), which is plain numpy: sampling and filtering run
-host-side, and every product is a *fixed-shape* array. Dynamic quantities
-like the number of distinct shared samples are resolved into padded arrays
-plus gather maps on the host, so the device computation never changes
-shape. Training jobs take this route under ``negative_sampling.on_device:
-never`` and whenever positives are filtered.
-
-Differs from kge_tpu's file in one place: batch-level filtering
-(``_filter_and_resample_fast``) keeps the numpy route only; kge_tpu's
-native C++ filter is not ported.
+kge/util/sampler.py): sampling and filtering run host-side, and every
+product is a *fixed-shape* array. Dynamic quantities like the number of
+distinct shared samples are resolved into padded arrays plus gather maps on
+the host, so the device computation never changes shape. Training jobs
+take this route under ``negative_sampling.on_device: never`` and whenever
+positives are filtered. Batch-level filtering (``_filter_and_resample_fast``)
+resamples in the package's native C++ filter (``kge_tpu_torch/native``)
+where it is built, with kge_tpu's draws, and in numpy passes otherwise.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from kge_tpu_torch import native
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.dataset import Dataset
 from kge_tpu_torch.indexing import where_in
@@ -176,14 +175,39 @@ class KgeSampler(Configurable):
 
     def _filter_and_resample_fast(self, negative_samples, slot, positive_triples):
         """Batch-level filtering: find all sample positions that collide with
-        a known positive and resample them until clean, in whole-batch
-        numpy passes."""
+        a known positive and resample them until clean. Uses the native C++
+        filter when it is built (``kge_tpu_torch/native``, as kge_tpu uses
+        its own), otherwise whole-batch numpy passes. The native route takes
+        one seed from the generator, and only when the library is there, so
+        that the draws equal kge_tpu's with the library and without it."""
+        rows_idx, offsets, values = self._positives_csr(slot, positive_triples)
+        if native.available():
+            samples = np.ascontiguousarray(negative_samples, dtype=np.int64)
+            cdf = self._cdf[slot] if hasattr(self, "_cdf") else None
+            native.filter_resample(
+                samples, rows_idx, offsets, values,
+                int(self.vocabulary_size[slot]),
+                seed=int(self._rng.integers(0, 2**63)), cdf=cdf,
+            )
+            return samples
+        return self._filter_and_resample_numpy(
+            negative_samples, slot, positive_triples, rows_idx, offsets, values
+        )
+
+    def _positives_csr(self, slot, positive_triples):
+        """Per row of the batch, its row of the positives index (-1 when it
+        has none), and the index's CSR offsets and values."""
         index = self._positives_index(slot)
         cols = [[P, O], [S, O], [S, P]][slot]
         pairs = positive_triples[:, cols]
-        n, m = negative_samples.shape
         rows_idx = index.lookup_rows(pairs[:, 0], pairs[:, 1])
-        keys, offsets, values = index.csr()
+        _, offsets, values = index.csr()
+        return rows_idx, offsets, values
+
+    def _filter_and_resample_numpy(self, negative_samples, slot, positive_triples,
+                                   rows_idx, offsets, values):
+        """The batch filter without the library (kge_tpu's numpy passes)."""
+        n, m = negative_samples.shape
 
         def collision_mask(samples):
             # for each (row, sample): is sample among the row's positives?

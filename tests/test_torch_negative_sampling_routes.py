@@ -184,19 +184,28 @@ def test_localized_batch_skips_the_unique(monkeypatch):
             assert len(torch.unique(local["neg_samples_0"])) == 24
 
 
-def test_filtered_negatives_train_epochs_as_kge_tpu(monkeypatch):
+@pytest.mark.parametrize("sampling_type", ["uniform", "frequency"])
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_filtered_negatives_train_epochs_as_kge_tpu(monkeypatch, route, sampling_type):
     """``filtering.o``: ``auto`` resolves to ``all`` in both packages, the
     host sampler draws the same filtered per-row samples, and whole epochs
-    through ``run_epoch`` agree. kge_tpu filters with its numpy route here:
-    its native filter, which the port does not have, resamples from other
-    draws of the generator."""
-    from kge_tpu import native
+    through ``run_epoch`` agree: with each package's native filter (the
+    same draws) and with both libraries switched off (the same numpy
+    passes), for uniform samples and for the frequency sampler's cdf."""
+    from kge_tpu import native as jnative
+    from kge_tpu_torch import native as tnative
 
-    monkeypatch.setattr(native, "available", lambda: False)
-    options = _options("complex", {"negative_sampling.filtering.o": True})
+    if route == "numpy":
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    else:
+        assert jnative.available() and tnative.available()
+    options = _options("complex", {"negative_sampling.filtering.o": True,
+                                   "negative_sampling.sampling_type": sampling_type})
     jjob, tjob = make_job_pair(DATASET_DIR, "dataset_test", options)
     assert tjob._implementation == jjob._implementation == "all"
     assert not tjob._on_device and not jjob._on_device
+    calls = tnative.filter_resample.calls
     for epoch in (1, 2):
         jjob.epoch = tjob.epoch = epoch
         jentry = jjob.run_epoch()
@@ -204,6 +213,7 @@ def test_filtered_negatives_train_epochs_as_kge_tpu(monkeypatch):
         np.testing.assert_allclose(tentry["avg_loss"], jentry["avg_loss"], rtol=1e-4)
         assert set(jentry) - set(tentry) <= {"scanned"}
     assert_same_state(jjob, tjob)
+    assert (tnative.filter_resample.calls > calls) == (route == "native")
 
 
 # -- the fused step ---------------------------------------------------------------
