@@ -321,7 +321,39 @@ Phases (any failure exits non-zero; nothing is caught):
    its numpy version on 4 fixed batches, the replacements a step (the
    library's count equal to the colliding samples), and no sample of either
    route a training positive of its row.
-25. One ``kernels`` JSON line: per kernel its time per call at the main
+25. M-complex, the (data, model) mesh over ranks: (a) whether this
+   machine's NCCL accepts two ranks on ``cuda:0`` (two processes sum a
+   tensor); (b) K1 over column shards against K1 whole, in float32 and
+   bfloat16, without and with the L2 epilogue, the targets cut into 2, 4
+   and 8 shards, on phase 2's skewed labels and edge rows: the pivots of
+   ``rank_pivots`` summed over the shards, the counts of the tile launch
+   with that pivot summed, and the label values equal the whole launch bit
+   for bit; (a) and (b) timed alone at a rank's validation shape (256 rows,
+   1,200,000 columns, d = 128) and held there against K1 whole on the
+   rank's columns (bit for bit) and against their plain versions (phase
+   2's rules); (c) ``examples/wikidata5m-complex-sharded.yaml``
+   on a synthetic graph of 4,800,000 entities and 822 relations (power-law
+   popularity; train cut to 262,144 triples, 32 batches of 8,192; valid and
+   test 5,000 each): ``start`` for 2 epochs with a validation each through
+   ``cli.main`` (what ``python -m kge_tpu_torch`` runs) as 8 rank processes
+   (2 x 4, ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
+   ``KGE_PROCESS_ID``, every rank on ``cuda:0``); 8 shard files beside
+   ``checkpoint_00002.pt``; the same job in one process on ``cuda:0``
+   through the package's API, without checkpoints (the card's disk takes
+   about 45 GB of writes a call, a checkpoint is 4.9 GB): its epochs'
+   losses against the ranks' within rtol 1e-4, atol 1e-5, its tables after
+   epoch 1 against the ranks' ``checkpoint_00001.pt`` within
+   ``MESH_TABLE_ATOL`` but for Adagrad's first-step flips
+   (``MESH_FLIP_SHARE`` of the entries, at most ``MESH_FLIPS_PER_ROW`` in a
+   row) and its Adagrad sums within ``MESH_SUM_RTOL``, then epoch 3 from the ranks'
+   ``checkpoint_00002.pt``, against the ranks' ``resume`` to epoch 3; the
+   backend the ranks chose; each rank's entity rows and Adagrad sums
+   (their shapes and ``row_range``, read from its job); each rank's launches (K2 and K3 equal to the
+   single process's, K1's tile launch and ``rank_pivots`` as many as its
+   whole launch) and peak allocation; ``test`` of the checkpoint over the
+   8 ranks and in one process equal metric for metric. Every rank has a
+   wall-clock limit; any rank that fails fails the phase.
+26. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -335,8 +367,11 @@ Phases (any failure exits non-zero; nothing is caught):
    entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
    from its runs (the scatter's also its launches alone). The rank and scatter
    kernels' entries hold their launches in phase 24 (``launches_preprocessed``),
-   and the line phase 24's numbers (``data_prep``). Then the card's name and
-   power limit, then the ``ok`` JSON line last.
+   and the line phase 24's numbers (``data_prep``); the rank kernel's its
+   launches on a rank of phase 25 (``launches_sharded``) and the times of
+   ``rank_pivots`` and of the tile launch with a given pivot
+   (``sharded``), and the line phase 25's numbers (``mesh``). Then the
+   card's name and power limit, then the ``ok`` JSON line last.
 """
 
 from __future__ import annotations
@@ -378,6 +413,14 @@ ROTATE_LR = 0.001
 SCATTER_LAUNCH_KEYS = ("launch_a_ms", "launch_b_ms", "segment_sums_ms", "sort_alone_ms")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+
+
+def disk_used_gb() -> float:
+    """GB in use on the checkout's file system: a lower bound of what the
+    run has written there (the card's machine takes about 45 GB of writes
+    a call, files deleted again included)."""
+    st = os.statvfs(ROOT)
+    return (st.f_blocks - st.f_bfree) * st.f_frsize / 1e9
 
 
 def log(*args):
@@ -4396,6 +4439,684 @@ def run_data_prep(seed: int):
     return {**ingest, "ocomplex": ocomplex, "filtered": filtered}
 
 
+# -- phase 25: the (data, model) mesh over ranks ------------------------------------
+
+#: M-complex: examples/wikidata5m-complex-sharded.yaml on a synthetic graph of
+#: Wikidata5M's entity and relation counts (train cut to 32 batches)
+MESH_SIZES = (4_800_000, 822, 262_144, 5_000, 5_000)
+MESH_SHAPE = (2, 4)
+MESH_DIM = 128  # the example's entity_embedder.dim
+MESH_EXAMPLE = os.path.join(ROOT, "examples", "wikidata5m-complex-sharded.yaml")
+#: wall-clock limit of every rank process of phase 25
+RANK_TIMEOUT_S = 600
+#: the bound on |sharded - alone| of M-complex's tables after epoch 1. Each
+#: rank scores half of a batch, so the card's matrix products run at other
+#: shapes than one process's (and may sum in another order), and a shared
+#: negative's row gradient is the sum of the two data ranks' partial sums:
+#: the gradients agree to a few units in the last place, not in every bit.
+#: An Adagrad step lr g / (sqrt(G) + eps) changes by lr |dg| / sqrt(G) for a
+#: change dg once an entry has a sum G, far below MESH_TABLE_ATOL = lr / 200.
+#: An entry's first step is lr g / (|g| + eps), about lr sign(g): where g
+#: lies within rounding of 0 the two runs may step an entry 2 lr apart.
+#: Such a flip is a decision of one entry, at the first step that touches
+#: it (later steps may grow its sum G). So every entry stays within
+#: MESH_TABLE_ATOL but for at most MESH_FLIP_SHARE of the tables' entries
+#: (about 3x the 367 of 614,505,216 measured on an H100), which stay
+#: within 2 lr of each other, and at most MESH_FLIPS_PER_ROW of them lie
+#: in one row (about 3x the 11 measured): an update lost, counted twice
+#: or given to the next row moves every entry of a touched row by about
+#: lr, 128 of 128 (a rare row's too, whose Adagrad sums are far below the
+#: limit below). The Adagrad sums G (continuous in g) stay within
+#: MESH_SUM_RTOL of the largest sum, about 8x the difference measured on an
+#: H100 (1.2e-5): a shared negative's gradient sums 8,192 rows' terms that
+#: cancel, so its rounding is a larger share of its g.
+MESH_TABLE_ATOL = 1e-3
+MESH_FLIP_SHARE = 2e-6
+MESH_FLIPS_PER_ROW = 32
+MESH_SUM_RTOL = 1e-4
+MESH_LR = 0.2  # the example's Adagrad learning rate
+#: a rank's command: ``cli.main`` (what ``python -m kge_tpu_torch`` runs),
+#: then as one line its kernels' launches, the card's peak allocation, and
+#: the shapes of its job's entity table and of that table's Adagrad sums
+#: (None where the job has no optimizer) and the rows it holds
+RANK_RUNNER = """
+import json, sys, torch
+from kge_tpu_torch import cli
+from kge_tpu_torch.job import Job
+from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+from kge_tpu_torch.ops.rank_kernel import fused_rank_counts, rank_pivots
+jobs = []
+Job.job_created_hooks.append(jobs.append)
+cli.main(sys.argv[1:])
+job = ([j for j in jobs if getattr(j, "opt_state", None) is not None] + jobs)[0]
+entity = job.model.get_s_embedder()
+state = getattr(job, "opt_state", None)
+print("RANK_STATS " + json.dumps({
+    "entity_table": list(entity.embeddings.shape),
+    "entity_adagrad_sums": None if state is None
+    else list(state["leaves"][0]["sum"].shape),
+    "row_range": entity.row_range and list(entity.row_range),
+    "rank_counts": fused_rank_counts.launches,
+    "rank_counts_sharded": fused_rank_counts.sharded_launches,
+    "rank_pivots": rank_pivots.launches,
+    "scatter_add_sorted": sorted_scatter_add.launches,
+    "rows_set": rows_set.launches,
+    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_mesh_dataset(folder: str, seed: int):
+    """A graph of MESH_SIZES with power-law popularity (the other phases'
+    exponents); entity and relation ids name themselves."""
+    num_entities, num_relations, num_train, num_valid, num_test = MESH_SIZES
+    rng = np.random.default_rng(seed + 25)
+    os.makedirs(folder, exist_ok=True)
+
+    def draw(k, a, size):
+        # inverse-CDF draws of a Zipf-like popularity over a random order
+        w = 1.0 / np.arange(1, k + 1) ** a
+        cdf = np.cumsum(w / w.sum())
+        order = rng.permutation(k)
+        return order[np.minimum(np.searchsorted(cdf, rng.random(size)), k - 1)]
+
+    total = num_train + num_valid + num_test
+    triples = np.stack([draw(num_entities, 0.8, total),
+                        draw(num_relations, 1.0, total),
+                        draw(num_entities, 0.8, total)], axis=1)
+    triples[:num_relations, 1] = np.arange(num_relations)
+    splits = {"train": triples[:num_train],
+              "valid": triples[num_train:num_train + num_valid],
+              "test": triples[num_train + num_valid:]}
+    for name, arr in splits.items():
+        np.savetxt(os.path.join(folder, f"{name}.del"), arr, fmt="%d", delimiter="\t")
+    for name, num in (("entity_ids", num_entities), ("relation_ids", num_relations)):
+        with open(os.path.join(folder, f"{name}.del"), "w") as f:
+            f.write("".join(f"{i}\t{name[0]}{i}\n" for i in range(num)))
+    with open(os.path.join(folder, "dataset.yaml"), "w") as f:
+        f.write(f"dataset:\n  name: {os.path.basename(folder)}\n"
+                f"  num_entities: {num_entities}\n  num_relations: {num_relations}\n")
+
+
+def run_ranks(argv, ranks: int, logs: str):
+    """``argv`` through RANK_RUNNER as ``ranks`` processes on ``cuda:0``,
+    brought up by the KGE_* environment (one process alone without it);
+    returns each rank's RANK_STATS. Any rank that fails or outlives
+    RANK_TIMEOUT_S fails the phase, after every rank is stopped."""
+    os.makedirs(logs, exist_ok=True)
+    port = free_port()
+    procs, files = [], []
+    for rank in range(ranks):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        if ranks > 1:
+            env.update(KGE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       KGE_NUM_PROCESSES=str(ranks), KGE_PROCESS_ID=str(rank),
+                       KGE_DISTRIBUTED_TIMEOUT=str(RANK_TIMEOUT_S))
+        out = open(os.path.join(logs, f"rank{rank}.log"), "w")
+        files.append(out)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_RUNNER, *argv, "--job.device", "cuda:0"],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    failed = None
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {rank} outlived {RANK_TIMEOUT_S} s"
+                break
+            if code != 0:
+                failed = f"rank {rank} exited with {code}"
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for out in files:
+            out.close()
+    stats = []
+    for rank in range(ranks):
+        with open(os.path.join(logs, f"rank{rank}.log")) as f:
+            text = f.read()
+        if failed:
+            log(f"  rank {rank} of {' '.join(argv[:2])}: ...{text[-3000:]}")
+        lines = [l for l in text.splitlines() if l.startswith("RANK_STATS ")]
+        stats.append(json.loads(lines[-1][len("RANK_STATS "):]) if lines else None)
+    check(failed is None, f"phase 25: {' '.join(argv[:2])}: {failed}")
+    return stats
+
+
+def nccl_probe() -> str:
+    """Whether this machine's NCCL accepts two ranks on ``cuda:0``: two
+    processes bring up ``nccl`` there and sum a tensor. "accepted", or
+    "refused: <the error's last line>"."""
+    code = (
+        "import sys, datetime, torch, torch.distributed as dist\n"
+        "rank = int(sys.argv[1])\n"
+        "torch.cuda.set_device(0)\n"
+        "dist.init_process_group('nccl', init_method='tcp://127.0.0.1:' + sys.argv[2],"
+        " world_size=2, rank=rank, timeout=datetime.timedelta(seconds=60))\n"
+        "t = torch.ones(1, device='cuda')\n"
+        "dist.all_reduce(t)\n"
+        "torch.cuda.synchronize()\n"
+        "assert t.item() == 2.0, t.item()\n"
+        "dist.destroy_process_group()\n"
+    )
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append(proc.communicate()[0] + "\n(timed out)")
+    if all(p.returncode == 0 for p in procs):
+        return "accepted"
+    lines = [l.strip() for out in outs for l in out.splitlines()]
+    said = ([l for l in lines if "Duplicate GPU" in l]
+            or [l for l in lines if "Error" in l and "Last error" not in l]
+            or [l for l in lines if "timed out" in l])
+    return "refused: " + (said[0][:300] if said else "exit codes "
+                          + str([p.returncode for p in procs]))
+
+
+def cut_labels(row_ptr, cols, lo, hi):
+    """CSR labels of the columns [lo, hi), as columns of that range, and the
+    positions of those labels among all."""
+    from kge_tpu_torch.ops.rank_kernel import csr_row_ids
+
+    rows = csr_row_ids(row_ptr)
+    keep = (cols >= lo) & (cols < hi)
+    counts = torch.bincount(rows[keep], minlength=row_ptr.numel() - 1)
+    ptr = torch.zeros_like(row_ptr)
+    ptr[1:] = torch.cumsum(counts, 0).to(row_ptr.dtype)
+    return ptr, (cols[keep] - lo).contiguous(), keep.nonzero()[:, 0]
+
+
+def same_bits(a, b) -> bool:
+    """Equal in every bit, NaN payloads aside."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.all(both_nan | (a.view(view) == b.view(view))))
+
+
+def sharded_rank_check(seed: int, device):
+    """K1 over column shards against K1 whole in one process: for float32
+    and bfloat16, with and without the L2 epilogue, the targets cut into 2,
+    4 and 8 shards; rank_pivots of every shard summed (in float32) is the
+    whole launch's pivot, and the tile launch of every shard against that
+    pivot sums to its counts and gives its label values, bit for bit. The
+    inputs are phase 2's: skewed labels, and rows with NaN, -inf and +inf
+    pivots."""
+    from kge_tpu_torch.ops.rank_kernel import NEG_SQRT_L2, fused_rank_counts, rank_pivots
+
+    rng = np.random.default_rng(seed + 25)
+    E, n, D = NUM_ENTITIES - NUM_ENTITIES % 8, 256, DIM
+    targets32 = torch.tensor(rng.normal(0, 0.05, (E, D)).astype(np.float32),
+                             device=device)
+    t0 = targets32[:, 0].cpu().numpy()
+    true_np = rng.integers(0, E, n).astype(np.int32)
+    qn = rng.normal(0, 0.05, (n, D)).astype(np.float32)
+    qn[2] = np.nan
+    for row, sign in ((5, -1.0), (6, 1.0)):
+        qn[row] = 0.0
+        qn[row, 0] = sign * np.inf * np.sign(t0[true_np[row]])
+    q32 = torch.tensor(qn, device=device)
+    row_ptr, cols = skewed_labels(rng, n, E, device, true=true_np)
+    true = torch.tensor(true_np, device=device)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, targets = q32.to(dtype), targets32.to(dtype)
+        for score_map in (None, NEG_SQRT_L2):
+            whole = fused_rank_counts(q, targets, None, row_ptr, cols, E, ATOL, RTOL,
+                                      score_map=score_map, pivot_cols=true)
+            for shards in (2, 4, 8):
+                per = E // shards
+                pivot = torch.full((n,), -0.0, dtype=torch.float32, device=device)
+                for m in range(shards):
+                    pivot += rank_pivots(q, targets[m * per:(m + 1) * per].contiguous(),
+                                         true, m * per, score_map=score_map).float()
+                pivot = pivot.to(dtype)
+                g = torch.zeros_like(whole[0])
+                c = torch.zeros_like(whole[1])
+                vals = torch.zeros_like(whole[2])
+                for m in range(shards):
+                    ptr, shard_cols, at = cut_labels(row_ptr, cols, m * per, (m + 1) * per)
+                    gm, cm, vm, pm = fused_rank_counts(
+                        q, targets[m * per:(m + 1) * per].contiguous(), pivot, ptr,
+                        shard_cols, per, ATOL, RTOL, score_map=score_map)
+                    check(same_bits(pm, pivot), "the given pivot is not returned as it is")
+                    g += gm
+                    c += cm
+                    vals[at] = vm
+                what = (f"{dtype} {'L2 epilogue' if score_map else 'no epilogue'}, "
+                        f"{shards} shards")
+                check(same_bits(pivot, whole[3]), f"sharded pivots differ: {what}")
+                check(torch.equal(g, whole[0]) and torch.equal(c, whole[1]),
+                      f"sharded counts differ: {what}")
+                check(same_bits(vals, whole[2]), f"sharded label values differ: {what}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"  K1 over column shards: {cases} cases (float32 and bfloat16, without and "
+        f"with the L2 epilogue, 2, 4 and 8 shards of {E} columns, n={n}, D={D}): "
+        "pivots, summed counts and label values equal the whole launch bit for bit")
+    return cases
+
+
+def time_sharded_rank(seed: int, device, rows: int, columns: int, dim: int):
+    """rank_pivots (a) and the tile launch with a given pivot (b) alone, in
+    float32, at one rank's shape of M-complex's validation (``rows`` of an
+    evaluation batch against ``columns`` entity rows, d = ``dim``), with
+    their plain versions and the library's matmul and compares. At that
+    shape, (a)'s pivots are K1 whole's on the same columns and (b)'s counts
+    and label values K1 whole's with that pivot, bit for bit; against their
+    plain versions (cuBLAS's products, in another order) the pivots and
+    label values agree within phase 2's tolerance and the counts on every
+    row away from a tie boundary."""
+    from kge_tpu_torch.ops.rank_kernel import (
+        csr_row_ids,
+        fused_rank_counts,
+        fused_rank_counts_plain,
+        rank_pivots,
+        rank_pivots_plain,
+    )
+
+    rng = np.random.default_rng(seed + 26)
+    generator = torch.Generator(device=device).manual_seed(seed + 26)
+    lo = columns  # the second shard of the table
+    targets = torch.randn(columns, dim, generator=generator, device=device) * 0.05
+    q = torch.randn(rows, dim, generator=generator, device=device) * 0.05
+    true_np = rng.integers(lo, lo + columns, rows).astype(np.int32)
+    true = torch.tensor(true_np, device=device)
+    row_ptr, cols = skewed_labels(rng, rows, columns, device,
+                                  true=true_np - lo)
+    nnz = cols.numel()
+
+    # (a) and (b) against K1 whole on these columns and their plain versions
+    pivot = rank_pivots(q, targets, true, lo)
+    g, c, vals, _ = fused_rank_counts(q, targets, pivot, row_ptr, cols, columns,
+                                      ATOL, RTOL)
+    whole = fused_rank_counts(q, targets, None, row_ptr, cols, columns, ATOL, RTOL,
+                              pivot_cols=true - lo)
+    check(same_bits(pivot, whole[3]), "rank_pivots differs from K1 whole's pivots "
+          "at a rank's shape")
+    check(torch.equal(g, whole[0]) and torch.equal(c, whole[1])
+          and same_bits(vals, whole[2]),
+          "K1 with a given pivot differs from K1 whole at a rank's shape")
+    plain_pivot = rank_pivots_plain(q, targets, true, lo)
+    pg, pc, pvals, _ = fused_rank_counts_plain(q, targets, pivot, row_ptr, cols,
+                                               columns, ATOL, RTOL)
+    err = max(float((pivot - plain_pivot).abs().max()),
+              float((vals - pvals).abs().max()))
+    check(bool(torch.all((pivot - plain_pivot).abs()
+                         <= 1e-6 + 1e-5 * plain_pivot.abs()))
+          and bool(torch.all((vals - pvals).abs() <= 1e-6 + 1e-5 * pvals.abs())),
+          f"(a) or (b) disagrees with its plain version at a rank's shape: {err:.3e}")
+    differ = (g != pg) | (c != pc)
+    near = boundary_rows(q, targets, pivot, columns)
+    check(not bool((differ & ~near).any()),
+          f"(b)'s counts disagree with its plain version on {int(differ.sum())} rows "
+          f"({int((differ & ~near).sum())} away from a tie boundary)")
+    out = {"rows": rows, "columns": columns, "dim": dim, "nnz": nnz,
+           "max_abs_err": err, "rows_at_a_tie_boundary": int(near.sum()),
+           "rows_excluded": int(differ.sum())}
+    del whole, plain_pivot, pg, pc, pvals, near
+    torch.cuda.empty_cache()
+
+    out["pivots_ms"] = time_ms(lambda: rank_pivots(q, targets, true, lo))
+    out["pivots_plain_ms"] = time_ms(
+        lambda: rank_pivots_plain(q, targets, true, lo), reps=3)
+    # q and the n pivot rows of the table read, the pivots written
+    out["pivots_bound_ms"], out["pivots_bound_by"], _ = bound(
+        4.0 * (2 * rows * dim + 2 * rows), 2.0 * rows * dim)
+    out["tiles_ms"] = time_ms(lambda: fused_rank_counts(
+        q, targets, pivot, row_ptr, cols, columns, ATOL, RTOL), reps=10)
+    out["tiles_plain_ms"] = time_ms(lambda: fused_rank_counts_plain(
+        q, targets, pivot, row_ptr, cols, columns, ATOL, RTOL), reps=3)
+    rows_of = csr_row_ids(row_ptr)
+
+    def library():
+        scores = torch.matmul(q, targets.T)
+        close = torch.isclose(scores, pivot[:, None], rtol=RTOL, atol=ATOL)
+        greater = (scores > pivot[:, None]) & ~close
+        return greater.sum(1), close.sum(1), scores[rows_of, cols.long()]
+
+    out["tiles_library_ms"] = time_ms(library, reps=3)
+    out["tiles_bound_ms"], out["tiles_bound_by"], _ = bound(
+        4.0 * (rows * dim + columns * dim + (rows + 1) + nnz + rows + 2 * rows + nnz),
+        2.0 * rows * columns * dim)
+    log(f"  K1 alone at a rank's validation shape (n={rows}, {columns} columns, "
+        f"D={dim}, {nnz} labels): (a)'s pivots and (b)'s counts and label values "
+        f"equal K1 whole's on these columns bit for bit; against the plain "
+        f"versions max |error| {err:.3e}, counts equal on {rows - out['rows_excluded']}"
+        f" of {rows} rows ({out['rows_at_a_tie_boundary']} at a tie boundary); "
+        f"(a) rank_pivots {out['pivots_ms']:.4f} ms (plain "
+        f"{out['pivots_plain_ms']:.4f}, bound {out['pivots_bound_ms']:.4f} ms, "
+        f"{out['pivots_bound_by']}); (b) the tiles with a given pivot "
+        f"{out['tiles_ms']:.4f} ms (plain {out['tiles_plain_ms']:.4f}, library "
+        f"matmul + compares {out['tiles_library_ms']:.4f}, bound "
+        f"{out['tiles_bound_ms']:.4f} ms, {out['tiles_bound_by']})")
+    return out
+
+
+def mesh_losses(folder):
+    return {e["epoch"]: e["avg_loss"]
+            for e in trace_entries(folder, event="epoch_completed")}
+
+
+def mesh_metrics(folder):
+    entries = [e for e in trace_entries(folder, event="eval_completed")
+               if e.get("scope") == "epoch"]
+    entry = entries[-1]
+    return {k: v for k, v in entry.items()
+            if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))}
+
+
+def run_mesh(seed: int):
+    """Phase 25; returns a summary dict. The card's disk takes about 45 GB of
+    writes a call and a checkpoint of M-complex holds 4.9 GB (the table and
+    its Adagrad sums), so only the ranks' runs write checkpoints: the one
+    process runs the same job through the package's API (SINGLE_RUNNER),
+    compares its tables after epoch 1 with the ranks' checkpoint and
+    resumes their epoch-2 checkpoint without writing one."""
+    root = os.path.join(WORK, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    summary = {"sizes": dict(zip(("entities", "relations", "train", "valid", "test"),
+                                 MESH_SIZES)), "mesh": list(MESH_SHAPE)}
+    start = time.perf_counter()
+    summary["nccl_two_ranks_on_one_card"] = nccl_probe()
+    summary["nccl_probe_s"] = time.perf_counter() - start
+    log(f"  NCCL with two ranks on cuda:0: {summary['nccl_two_ranks_on_one_card']}")
+    summary["k1_sharded_cases"] = sharded_rank_check(seed, torch.device("cuda"))
+    data_axis, model_axis = MESH_SHAPE
+    ranks = data_axis * model_axis
+    E = MESH_SIZES[0]
+    summary["k1_sharded_times"] = time_sharded_rank(
+        seed, torch.device("cuda"), 512 // data_axis, E // model_axis, 128)
+    torch.cuda.empty_cache()
+    summary["k1_s"] = time.perf_counter() - start - summary["nccl_probe_s"]
+
+    start = time.perf_counter()
+    data = os.path.join(root, "wikidata5m_synthetic")
+    write_mesh_dataset(data, seed)
+    summary["write_data_s"] = time.perf_counter() - start
+    common = ["--dataset.name", data, "--random_seed.default", str(seed),
+              "--console.quiet", "true", "--train.checkpoint.every", "1"]
+    sharded = os.path.join(root, "sharded")
+    start = time.perf_counter()
+    rank_stats = run_ranks(
+        ["start", MESH_EXAMPLE, "--folder", sharded, "--train.max_epochs", "2",
+         "--valid.every", "1", *common], ranks, os.path.join(root, "logs_start"))
+    summary["sharded_start_s"] = time.perf_counter() - start
+    shards = sorted(f for f in os.listdir(sharded)
+                    if f.startswith("checkpoint_00002.pt.shard"))
+    check(len(shards) == ranks, f"{len(shards)} shard files beside checkpoint_00002.pt")
+
+    start = time.perf_counter()
+    single = run_single(seed, data, os.path.join(root, "single"), sharded)
+    summary["single_s"] = time.perf_counter() - start
+    start = time.perf_counter()
+    resume_stats = run_ranks(
+        ["resume", sharded, "--train.max_epochs", "3", "--valid.every", "0"], ranks,
+        os.path.join(root, "logs_resume"))
+    summary["sharded_resume_s"] = time.perf_counter() - start
+    log(f"  walls: NCCL probe {summary['nccl_probe_s']:.1f} s, K1 check and times "
+        f"{summary['k1_s']:.1f} s, data {summary['write_data_s']:.1f} s, start over 8 ranks "
+        f"{summary['sharded_start_s']:.1f} s, the single process's run "
+        f"{summary['single_s']:.1f} s, resume over 8 ranks "
+        f"{summary['sharded_resume_s']:.1f} s")
+
+    # the backend, each rank's rows, launches and memory
+    with open(os.path.join(sharded, "kge.log")) as f:
+        mesh_line = [l for l in f if "Mesh 2x4" in l]
+    check(mesh_line, "the sharded run logged no mesh")
+    summary["backend_line"] = mesh_line[0].split(" ", 2)[-1].strip()
+    steps = 2 * -(-MESH_SIZES[2] // 8192)
+    single_stats = single["launches"]
+    per_step = {k: single_stats[k] / steps for k in ("scatter_add_sorted", "rows_set")}
+    for r, stats in enumerate(rank_stats):
+        check(stats["rank_counts_sharded"] == stats["rank_counts"] > 0
+              and stats["rank_pivots"] == stats["rank_counts"],
+              f"rank {r}: K1 launches {stats}")
+        check(stats["rank_counts"] == single_stats["rank_counts"],
+              f"rank {r}: {stats['rank_counts']} K1 launches, the single process "
+              f"{single_stats['rank_counts']}")
+        for k in ("scatter_add_sorted", "rows_set"):
+            check(stats[k] == single_stats[k] > 0,
+                  f"rank {r}: {stats[k]} {k} launches, the single process {single_stats[k]}")
+    per = E // model_axis
+    for what, all_stats in (("start", rank_stats), ("resume", resume_stats)):
+        for r, stats in enumerate(all_stats):
+            lo = (r % model_axis) * per
+            check(stats["entity_table"] == stats["entity_adagrad_sums"]
+                  == [per, MESH_DIM] and stats["row_range"] == [lo, lo + per],
+                  f"rank {r} of {what}: entity table {stats['entity_table']}, "
+                  f"Adagrad sums {stats['entity_adagrad_sums']}, rows "
+                  f"{stats['row_range']}")
+    summary["entity_rows_per_rank"] = [
+        {k: s[k] for k in ("entity_table", "entity_adagrad_sums", "row_range")}
+        for s in rank_stats]
+    summary["launches_single"] = single_stats
+    summary["launches_per_rank"] = rank_stats
+    summary["per_step"] = per_step
+    summary["k1_per_validation"] = single_stats["rank_counts"] / 2
+    summary["max_memory_allocated"] = {
+        "single": single["max_memory_allocated"],
+        "ranks": [s["max_memory_allocated"] for s in rank_stats]}
+    log(f"  {summary['backend_line']}; entity table x Adagrad sums [rows) per rank: "
+        + ", ".join(f"{r}: {s['entity_table']} x {s['entity_adagrad_sums']} "
+                    f"{s['row_range']}" for r, s in enumerate(rank_stats))
+        + f"; per step K2 {per_step['scatter_add_sorted']:g} and "
+        f"K3 {per_step['rows_set']:g} launches on every rank and in one process; per "
+        f"validation K1 {summary['k1_per_validation']:g} launches of (a) and of (b) "
+        "on every rank (the single process: as many of the whole launch)")
+    log("  peak allocation (torch.cuda.max_memory_allocated, start): single process "
+        f"{single['max_memory_allocated'] / 2**30:.2f} GiB; ranks "
+        + ", ".join(f"{s['max_memory_allocated'] / 2**30:.2f}" for s in rank_stats)
+        + " GiB")
+
+    # one process against eight ranks: losses, tables, metrics, the resume
+    sharded_losses = mesh_losses(sharded)
+    summary["losses"] = {"sharded": sharded_losses, "single": single["losses"]}
+    for epoch in (1, 2, 3):
+        check(math.isclose(sharded_losses[epoch], single["losses"][str(epoch)],
+                           rel_tol=1e-4, abs_tol=1e-5),
+              f"epoch {epoch}: avg_loss {sharded_losses[epoch]} over ranks, "
+              f"{single['losses'][str(epoch)]} alone")
+    # the validations rank tables that differ by rounding, so their metrics
+    # are reported, not held equal (test below holds one checkpoint's)
+    mrr = "mean_reciprocal_rank_filtered_with_test"
+    summary["validation_mrr"] = {
+        "sharded": [e.get(mrr) for e in trace_entries(sharded, event="eval_completed")
+                    if e.get("scope") == "epoch"],
+        "single": [v.get(mrr) for v in single["validations"]]}
+    diffs = single["epoch1_max_abs_diff"]
+    beyond, entries = single["epoch1_beyond"], single["epoch1_entries"]
+    in_a_row = single["epoch1_most_beyond_in_a_row"]
+    summary["epoch1_max_abs_diff"] = diffs
+    summary["epoch1_entries_beyond_atol"] = beyond
+    summary["epoch1_most_beyond_in_a_row"] = in_a_row
+    summary["epoch1_largest_sum_at_a_flip"] = single["epoch1_largest_sum_at_a_flip"]
+    check(beyond <= MESH_FLIP_SHARE * entries and in_a_row <= MESH_FLIPS_PER_ROW
+          and max(diffs["entity table"], diffs["relation table"])
+          <= 2 * MESH_LR + MESH_TABLE_ATOL
+          and all(diffs[k] <= MESH_SUM_RTOL * single["epoch1_max_abs"][k]
+                  for k in ("entity Adagrad sums", "relation Adagrad sums")),
+          f"tables after epoch 1: {beyond} of {entries} entries differ beyond "
+          f"{MESH_TABLE_ATOL}, at most {in_a_row} in a row; max |difference| {diffs}")
+    walls = {"single": single["epoch_s"]["2"],
+             "sharded": trace_entries(sharded, event="epoch_completed")[1]["epoch_time"]}
+    summary["warm_epoch_s"] = walls
+    log(f"  avg_loss over 2 x 4 ranks {sharded_losses}, alone {single['losses']} (epoch "
+        f"3 alone from the ranks' 8 shard files); filtered MRR with test of the "
+        f"validations {summary['validation_mrr']}; after epoch 1, {beyond} of "
+        f"{entries} table entries differ by more than {MESH_TABLE_ATOL}, at most "
+        f"{in_a_row} in a row, where one process's Adagrad sums are at most "
+        f"{summary['epoch1_largest_sum_at_a_flip']:.3e}; max |difference| (of max |value|): " + ", ".join(
+            f"{k} {v:.3e} ({single['epoch1_max_abs'][k]:.3e})"
+            for k, v in diffs.items())
+        + f"; warm epoch walls {walls['single']:.2f} s alone and "
+        f"{walls['sharded']:.2f} s over 8 ranks time-slicing one card")
+
+    # test of the ranks' checkpoint over the ranks and alone
+    start = time.perf_counter()
+    test_stats = run_ranks(["test", sharded], ranks, os.path.join(root, "logs_test"))
+    over_ranks = mesh_metrics(sharded)
+    alone_stats = run_ranks(
+        ["test", sharded, "--parallel.data", "1", "--parallel.model", "1"], 1,
+        os.path.join(root, "logs_test_alone"))
+    alone_metrics = mesh_metrics(sharded)
+    for r, stats in enumerate(test_stats):
+        lo = (r % model_axis) * per
+        check(stats["entity_table"] == [per, MESH_DIM]
+              and stats["row_range"] == [lo, lo + per],
+              f"rank {r} of test: entity table {stats['entity_table']}, rows "
+              f"{stats['row_range']}")
+    check(alone_stats[0]["entity_table"] == [E, MESH_DIM]
+          and alone_stats[0]["row_range"] is None,
+          f"test alone: entity table {alone_stats[0]['entity_table']}")
+    summary["test_s"] = time.perf_counter() - start
+    check(over_ranks == alone_metrics and len(alone_metrics) > 10,
+          f"test metrics differ: {over_ranks} over ranks, {alone_metrics} alone")
+    check(0.0 <= alone_metrics["mean_reciprocal_rank_filtered"] <= 1.0)
+    summary["test_metrics"] = alone_metrics
+    summary["launches_sharded_test"] = test_stats
+    summary["launches_sharded_resume"] = resume_stats
+    log(f"  test of checkpoint_best.pt over 2 x 4 ranks (each with its "
+        f"{test_stats[0]['entity_table'][0]} entity rows) and alone (all "
+        f"{alone_stats[0]['entity_table'][0]}) ({summary['test_s']:.1f}"
+        f" s): equal on all {len(alone_metrics)} metrics (filtered MRR "
+        f"{alone_metrics['mean_reciprocal_rank_filtered']:.6f})")
+    summary["disk_used_gb"] = disk_used_gb()
+    log(f"  disk in use at the end of phase 25: {summary['disk_used_gb']:.1f} GB")
+    return summary
+
+
+#: the single process of phase 25: the ranks' job (the example, 1 x 1)
+#: through the package's API on cuda:0, without checkpoints: two epochs
+#: with a validation each, its tables after epoch 1 against the ranks'
+#: checkpoint_00001.pt, then epoch 3 from the ranks' checkpoint_00002.pt
+SINGLE_RUNNER = """
+import json, sys, time
+import numpy as np, torch
+from kge_tpu_torch import Config, Dataset
+from kge_tpu_torch.job import Job, TrainingJob
+from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+from kge_tpu_torch.utils.io import load_checkpoint
+from kge_tpu_torch.utils.seed import seed_from_config
+example, data, seed, folder, sharded, atol = sys.argv[1:7]
+config = Config()
+config.load(example)
+for key, value in (("dataset.name", data), ("random_seed.default", int(seed)),
+                   ("console.quiet", True), ("train.max_epochs", 2),
+                   ("valid.every", 1), ("job.device", "cuda:0"),
+                   ("parallel.data", 1), ("parallel.model", 1)):
+    config.set(key, value)
+config.folder = folder
+config.init_folder()
+seed_from_config(config)
+dataset = Dataset.create(config)
+job = TrainingJob.create(config, dataset)
+job._prepare()
+job._is_prepared = True
+out = {"losses": {}, "epoch_s": {}, "validations": []}
+metric_keys = ("mean_rank", "mean_reciprocal_rank", "hits_at_")
+for epoch in (1, 2):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    job.epoch = epoch
+    out["losses"][epoch] = job.run_epoch()["avg_loss"]
+    torch.cuda.synchronize()
+    out["epoch_s"][epoch] = time.perf_counter() - start
+    if epoch == 1:
+        theirs = load_checkpoint(sharded + "/checkpoint_00001.pt")
+        diffs, scales, beyond, entries, in_a_row = {}, {}, 0, 0, 0
+        flips = {}
+        for what, leaf, mine in (
+            ("entity table", theirs["model"][0]["entity_embedder"]["embeddings"],
+             job.model.get_s_embedder().embeddings),
+            ("relation table", theirs["model"][0]["relation_embedder"]["embeddings"],
+             job.model.get_p_embedder().embeddings),
+            ("entity Adagrad sums", theirs["optimizer_state"]["leaves"][0]["sum"],
+             job.opt_state["leaves"][0]["sum"]),
+            ("relation Adagrad sums", theirs["optimizer_state"]["leaves"][1]["sum"],
+             job.opt_state["leaves"][1]["sum"])):
+            d = np.abs(np.asarray(leaf) - mine.detach().cpu().numpy())
+            diffs[what] = float(d.max())
+            scales[what] = float(np.abs(np.asarray(leaf)).max())
+            if "table" in what:
+                flips[what.split()[0]] = flipped = d > float(atol)
+                beyond += int(np.count_nonzero(flipped))
+                in_a_row = max(in_a_row, int(flipped.sum(1).max()))
+                entries += d.size
+            else:
+                flipped = flips[what.split()[0]]
+                at_flips = np.asarray(mine.detach().cpu().numpy())[flipped]
+                flips[what] = float(at_flips.max()) if at_flips.size else 0.0
+        del theirs, d
+        out.update(epoch1_max_abs_diff=diffs, epoch1_max_abs=scales,
+                   epoch1_beyond=beyond, epoch1_entries=entries,
+                   epoch1_most_beyond_in_a_row=in_a_row,
+                   epoch1_largest_sum_at_a_flip=max(
+                       flips["entity Adagrad sums"], flips["relation Adagrad sums"]))
+    job.valid_job.epoch = epoch
+    entry = job.valid_job.run()
+    out["validations"].append({k: v for k, v in entry.items()
+                               if k.startswith(metric_keys)})
+out["launches"] = {"rank_counts": fused_rank_counts.launches,
+                   "scatter_add_sorted": sorted_scatter_add.launches,
+                   "rows_set": rows_set.launches}
+out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+del job
+torch.cuda.empty_cache()
+checkpoint = load_checkpoint(sharded + "/checkpoint_00002.pt")
+resumed = Job.create_from(checkpoint, new_config=config, dataset=dataset)
+del checkpoint
+resumed._prepare()
+resumed._is_prepared = True
+resumed.epoch = 3
+out["losses"][3] = resumed.run_epoch()["avg_loss"]
+print("SINGLE " + json.dumps(out), flush=True)
+"""
+
+
+def run_single(seed: int, data: str, folder: str, sharded: str):
+    """SINGLE_RUNNER in a process of its own; returns its summary."""
+    logs = folder + ".log"
+    with open(logs, "w") as out:
+        proc = subprocess.run(
+            [sys.executable, "-c", SINGLE_RUNNER, MESH_EXAMPLE, data, str(seed),
+             folder, sharded, str(MESH_TABLE_ATOL)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+            stderr=subprocess.STDOUT, timeout=RANK_TIMEOUT_S)
+    with open(logs) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        log(f"  the single process: ...{text[-3000:]}")
+    check(proc.returncode == 0, f"phase 25: the single process exited with {proc.returncode}")
+    line = [l for l in text.splitlines() if l.startswith("SINGLE ")][-1]
+    return json.loads(line[len("SINGLE "):])
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -4939,6 +5660,15 @@ def main():
     data_prep["wall_s"] = time.perf_counter() - start
     log(f"  phase 24 took {data_prep['wall_s']:.1f} s; {card}")
 
+    log("== phase 25: M-complex, examples/wikidata5m-complex-sharded.yaml on a "
+        "synthetic graph of 4,800,000 entities, trained, validated, checkpointed, "
+        "resumed and tested by 2 x 4 ranks on cuda:0 against one process; K1 over "
+        "column shards")
+    start = time.perf_counter()
+    mesh = run_mesh(args.seed)
+    mesh["wall_s"] = time.perf_counter() - start
+    log(f"  phase 25 took {mesh['wall_s']:.1f} s; {card}")
+
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
         return dict(
@@ -4969,7 +5699,15 @@ def main():
               launches_search=search["launches"]["rank_counts"],
               launches_preprocessed={
                   "start": data_prep["ocomplex"]["launches"]["rank_counts"],
-                  "test": data_prep["ocomplex"]["test_launches"]["rank_counts"]}),
+                  "test": data_prep["ocomplex"]["test_launches"]["rank_counts"]},
+              launches_sharded={
+                  "tiles_per_rank_start": mesh["launches_per_rank"][0][
+                      "rank_counts_sharded"],
+                  "rank_pivots_per_rank_start": mesh["launches_per_rank"][0][
+                      "rank_pivots"],
+                  "tiles_per_rank_test": mesh["launches_sharded_test"][0][
+                      "rank_counts_sharded"]},
+              sharded=mesh["k1_sharded_times"]),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
               shapes=scatter_times,
@@ -5038,7 +5776,7 @@ def main():
         "train_xcomplex": xcomplex, "other_routes": routes,
         "train_conve": conve, "train_hitter": hitter,
         "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
-        "search": search, "data_prep": data_prep,
+        "search": search, "data_prep": data_prep, "mesh": mesh,
         "card": card}
     print(json.dumps(kernels))
     print(card)

@@ -225,8 +225,15 @@ def main(argv=None):
         config.folder = args.folder or _fresh_experiment_folder(args.config)
 
     try:
+        # the ranks of a run over several processes come up before anything
+        # touches the card or seeds (kge_tpu/cli.py); rank 0 alone creates
+        # the folder, which the others write their checkpoint shards into
+        from kge_tpu_torch.parallel import distributed
+
+        distributed.maybe_initialize(config)
         if command == "start" and not config.init_folder():
             raise ValueError(f"output folder {config.folder} exists already")
+        distributed.barrier("init_folder")
         config.log(f"Using folder: {config.folder}")
 
         checkpoint_file = None
@@ -245,7 +252,12 @@ def main(argv=None):
 
         dataset = Dataset.create(config)
         if command == "resume" and checkpoint_file is not None:
-            checkpoint = load_checkpoint(checkpoint_file)
+            # a rank of a model axis reads its rows of a sharded checkpoint
+            from kge_tpu_torch.parallel.mesh import entity_shard
+
+            shard = entity_shard(config, dataset.num_entities())
+            checkpoint = load_checkpoint(
+                checkpoint_file, rows=None if shard is None else shard[:2])
             job = Job.create_from(checkpoint, new_config=config, dataset=dataset)
         else:
             job = Job.create(config, dataset)
@@ -257,6 +269,8 @@ def main(argv=None):
         config.log(yaml.dump(config.options, default_flow_style=False),
                    prefix="  ", echo=False)
         job.run()
+        # every rank ends here after the job's last collective
+        distributed.shutdown()
     except BaseException:
         config.log(traceback.format_exc(), echo=False)
         raise

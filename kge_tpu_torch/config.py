@@ -23,6 +23,19 @@ import yaml
 from kge_tpu_torch import misc
 
 
+def _is_primary_process() -> bool:
+    """True unless this is a rank other than 0 of a run over several
+    processes (parallel/distributed.py): only rank 0 owns the experiment
+    folder, its log, trace and config, and the console, as in kge_tpu
+    (kge_tpu/config.py ``_is_primary_process``)."""
+    import sys
+
+    dist = sys.modules.get("torch.distributed")
+    if dist is None or not dist.is_available() or not dist.is_initialized():
+        return True
+    return dist.get_rank() == 0
+
+
 class _Trace:
     """Cheap single-line-yaml trace writer (see Config.trace)."""
 
@@ -371,7 +384,10 @@ class Config:
     # -- LOGGING AND TRACING --------------------------------------------------
 
     def log(self, msg: str, echo: bool = True, prefix: str = ""):
-        """Add a message to the default log file (and optionally console)."""
+        """Add a message to the default log file (and optionally console);
+        only rank 0 of a run over several processes writes or echoes."""
+        if not _is_primary_process():
+            return
         with open(self.logfile(), "a") as file:
             for line in msg.splitlines():
                 if prefix:
@@ -383,8 +399,8 @@ class Config:
                 file.write(f"{datetime.datetime.now()} {line}\n")
 
     def print(self, *args, **kwargs):
-        """Print unless quiet."""
-        if not self.get("console.quiet"):
+        """Print unless quiet or a rank other than 0."""
+        if not self.get("console.quiet") and _is_primary_process():
             print(*args, **kwargs)
 
     def trace(
@@ -406,15 +422,19 @@ class Config:
             else:
                 for part in msg.splitlines():
                     self.print(echo_prefix + part)
-        with open(self.tracefile(), "a") as file:
-            file.write(line + "\n")
+        if _is_primary_process():
+            with open(self.tracefile(), "a") as file:
+                file.write(line + "\n")
         return kwargs
 
     # -- FOLDERS AND CHECKPOINTS ----------------------------------------------
 
     def init_folder(self) -> bool:
         """Initialize the output folder (write config.yaml). Returns True if
-        the folder was newly created."""
+        the folder was newly created. Rank 0 alone creates it; every other
+        rank of a run over several processes returns True."""
+        if not _is_primary_process():
+            return True
         if not os.path.exists(self.folder):
             os.makedirs(self.folder)
             os.makedirs(os.path.join(self.folder, "config"))

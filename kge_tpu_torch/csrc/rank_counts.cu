@@ -396,10 +396,15 @@ __device__ void category_cuts(float p, float tol, int epilogue, int lane,
 }
 
 // Blocks [0, pivot_blocks): one warp per query row computes its pivot and
-// zeroes its counts. The warp stages the row of q and the pivot's row of t
-// in shared memory with coalesced loads, all in flight at once; lane 0 then
-// runs the tiles' FMA chain over them in ascending k (a chain has one
-// order, so one lane); for bfloat16 the warp then writes the row's category
+// zeroes its counts (greater_out non-null). The warp stages the row of q
+// and the pivot's row of t, t[pivot_cols[row] - col_lo], in shared memory
+// with coalesced loads, all in flight at once; lane 0 then runs the tiles'
+// FMA chain over them in ascending k (a chain has one order, so one lane).
+// A pivot column outside [0, num_valid) after the shift gives -0.0, the
+// neutral element of a sum: the columns of a row-sharded table (col_lo the
+// shard's first row) leave the pivot to the rank that holds it. With
+// pivot_in the pivot is given, as the scores' own values, and no chain
+// runs. For bfloat16 with norms the warp then writes the row's category
 // cuts (category_cuts) to norms[n + num_valid + 2 row + {0, 1}].
 // Then, for bfloat16 only, norm_blocks blocks: one warp per vector writes
 // norm_bound of the rows of q to norms[0, n) and of the candidates to
@@ -409,6 +414,7 @@ template <typename T>
 __global__ void __launch_bounds__(PROLOGUE_THREADS)
 rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
                      const int32_t* __restrict__ pivot_cols,
+                     const T* __restrict__ pivot_in, int col_lo,
                      const int32_t* __restrict__ row_ptr,
                      const int32_t* __restrict__ cols, int n, int D,
                      int num_valid, int num_tiles, int nnz, int pivot_blocks,
@@ -425,31 +431,43 @@ rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int row = blockIdx.x * PIVOT_ROWS + warp;
     if (row >= n) return;
-    const T* qr = q + (size_t)row * D;
-    const T* tr = t + (size_t)pivot_cols[row] * D;
-    float p = 0.0f;
-    for (int d0 = 0; d0 < D; d0 += PIVOT_CHUNK) {
-      const int len = min(PIVOT_CHUNK, D - d0);
-      for (int d = lane; d < len; d += 32) {
-        s_q[warp][d] = Prec<T>::load(qr + d0 + d);
-        s_t[warp][d] = Prec<T>::load(tr + d0 + d);
-      }
-      __syncwarp();
-      if (lane == 0) {
+    float score;
+    if (pivot_in != nullptr) {
+      score = Prec<T>::load(pivot_in + row);
+    } else {
+      const int col = pivot_cols[row] - col_lo;
+      const bool held = col >= 0 && col < num_valid;
+      const T* qr = q + (size_t)row * D;
+      const T* tr = t + (size_t)(held ? col : 0) * D;
+      float p = 0.0f;
+      for (int d0 = 0; held && d0 < D; d0 += PIVOT_CHUNK) {
+        const int len = min(PIVOT_CHUNK, D - d0);
+        for (int d = lane; d < len; d += 32) {
+          s_q[warp][d] = Prec<T>::load(qr + d0 + d);
+          s_t[warp][d] = Prec<T>::load(tr + d0 + d);
+        }
+        __syncwarp();
+        if (lane == 0) {
 #pragma unroll 8
-        for (int d = 0; d < len; ++d)
-          p = __fmaf_rn(s_q[warp][d], s_t[warp][d], p);
+          for (int d = 0; d < len; ++d)
+            p = __fmaf_rn(s_q[warp][d], s_t[warp][d], p);
+        }
+        __syncwarp();
       }
-      __syncwarp();
+      score = __shfl_sync(0xffffffffu,
+                          held ? Prec<T>::score(p, epilogue) : -0.0f, 0);
     }
     if (lane == 0) {
-      Prec<T>::store(pivot_out + row, Prec<T>::score(p, epilogue));
-      greater_out[row] = 0;
-      close_out[row] = 0;
+      Prec<T>::store(pivot_out + row, score);
+      if (greater_out != nullptr) {
+        greater_out[row] = 0;
+        close_out[row] = 0;
+      }
     }
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (norms == nullptr) return;
       // the row's category cuts for the certificate, after its norm bounds
-      float s = __shfl_sync(0xffffffffu, Prec<T>::score(p, epilogue), 0);
+      float s = score;
       s = isnan(s) ? -INFINITY : s;
       const float tol = Prec<T>::tol(atol, rtol, s);
       float cut1 = NAN, cut2 = NAN;
@@ -1421,8 +1439,28 @@ struct SumsLaunch {
 
 }  // namespace
 
+// The pivot blocks of the prologue alone (rank_pivots): each row's chain
+// score at column pivot_cols[row] - col_lo of t [num_valid, D], -0.0 where
+// that column lies outside [0, num_valid).
+template <typename T>
+int rank_pivots_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
+                          int n, int D, int num_valid, int col_lo,
+                          int epilogue, T* pivot_out, void* stream) {
+  if (n <= 0) return 0;
+  if (epilogue != EPILOGUE_NONE && epilogue != EPILOGUE_NEG_SQRT_L2)
+    return (int)cudaErrorInvalidValue;
+  const int pivot_blocks = (n + PIVOT_ROWS - 1) / PIVOT_ROWS;
+  rank_prologue_kernel<T><<<pivot_blocks, PROLOGUE_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      q, t, pivot_cols, nullptr, col_lo, nullptr, nullptr, n, D, num_valid,
+      0, 0, pivot_blocks, 0, epilogue, 0.0f, 0.0f, pivot_out, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
+                          const T* pivot_in,
                           const int32_t* row_ptr, const int32_t* cols, int n,
                           int D, int num_valid, int nnz, float atol,
                           float rtol, int epilogue, int tiles_per_range,
@@ -1447,9 +1485,10 @@ int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
   if (fill_blocks > 4096) fill_blocks = 4096;
   rank_prologue_kernel<T><<<pivot_blocks + norm_blocks + (unsigned)fill_blocks,
                          PROLOGUE_THREADS, 0, s>>>(
-      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, num_tiles, nnz,
-      pivot_blocks, norm_blocks, epilogue, atol, rtol, pivot_out, greater_out,
-      close_out, tile_ptr, vals_out, norms, recounted);
+      q, t, pivot_cols, pivot_in, 0, row_ptr, cols, n, D, num_valid,
+      num_tiles, nnz, pivot_blocks, norm_blocks, epilogue, atol, rtol,
+      pivot_out, greater_out, close_out, tile_ptr, vals_out, norms,
+      recounted);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || num_tiles == 0) return (int)err;
   const int ranges = (num_tiles + tiles_per_range - 1) / tiles_per_range;
@@ -1499,21 +1538,24 @@ int rank_counts_tile_rows() { return BM; }
 
 // Launches both kernels on `stream`; returns the CUDA error code of the
 // first launch that failed (0 = ok). `epilogue` names the score epilogue
-// (EPILOGUE_*). The pivot of row i is its own score at column pivot_cols[i]
-// and is written to pivot_out. Every output is written
+// (EPILOGUE_*). The pivot of row i is its own score at column pivot_cols[i],
+// or pivot_in[i] where pivot_in is given (pivot_cols is then unread), and
+// is written to pivot_out. Every output is written
 // here, zeros included: greater, close [n], vals [nnz], pivot_out [n].
 // tile_ptr: scratch of n * (ceil(num_valid / tile_cols) + 1) int32. The plan:
 // the columns cut into ranges of tiles_per_range tiles, one block per (row
 // tile, range).
 int rank_counts_launch(const float* q, const float* t,
-                       const int32_t* pivot_cols, const int32_t* row_ptr,
+                       const int32_t* pivot_cols, const float* pivot_in,
+                       const int32_t* row_ptr,
                        const int32_t* cols, int n, int D, int num_valid,
                        int nnz, float atol, float rtol, int epilogue,
                        int tiles_per_range, int32_t* tile_ptr,
                        int32_t* greater_out, int32_t* close_out,
                        float* vals_out, float* pivot_out, void* stream) {
   return rank_counts_launch_as<float>(
-      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, nnz, atol, rtol,
+      q, t, pivot_cols, pivot_in, row_ptr, cols, n, D, num_valid, nnz, atol,
+      rtol,
       epilogue, tiles_per_range, tile_ptr, greater_out, close_out, vals_out,
       pivot_out, nullptr, nullptr, 0, nullptr, stream);
 }
@@ -1528,7 +1570,9 @@ int rank_counts_launch(const float* q, const float* t,
 // blocks reserved on the worklist (both written here). A third launch
 // recounts the worklist.
 int rank_counts_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
-                            const int32_t* pivot_cols, const int32_t* row_ptr,
+                            const int32_t* pivot_cols,
+                            const __nv_bfloat16* pivot_in,
+                            const int32_t* row_ptr,
                             const int32_t* cols, int n, int D, int num_valid,
                             int nnz, float atol, float rtol, int epilogue,
                             int tiles_per_range, int32_t* tile_ptr,
@@ -1537,9 +1581,32 @@ int rank_counts_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
                             float* norms, int32_t* work, int work_capacity,
                             unsigned long long* recounted, void* stream) {
   return rank_counts_launch_as<__nv_bfloat16>(
-      q, t, pivot_cols, row_ptr, cols, n, D, num_valid, nnz, atol, rtol,
+      q, t, pivot_cols, pivot_in, row_ptr, cols, n, D, num_valid, nnz, atol,
+      rtol,
       epilogue, tiles_per_range, tile_ptr, greater_out, close_out, vals_out,
       pivot_out, norms, work, work_capacity, recounted, stream);
+}
+
+// rank_pivots: each row's chain score (after the epilogue) at column
+// pivot_cols[row] - col_lo of t [num_valid, D] into pivot_out [n], -0.0
+// where that column lies outside [0, num_valid): over the column shards of
+// a table, one rank holds each pivot and the others' -0.0 leave the sum
+// equal to it in every bit. The prologue's pivot blocks alone.
+int rank_pivots_launch(const float* q, const float* t,
+                       const int32_t* pivot_cols, int n, int D, int num_valid,
+                       int col_lo, int epilogue, float* pivot_out,
+                       void* stream) {
+  return rank_pivots_launch_as<float>(q, t, pivot_cols, n, D, num_valid,
+                                      col_lo, epilogue, pivot_out, stream);
+}
+
+int rank_pivots_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
+                            const int32_t* pivot_cols, int n, int D,
+                            int num_valid, int col_lo, int epilogue,
+                            __nv_bfloat16* pivot_out, void* stream) {
+  return rank_pivots_launch_as<__nv_bfloat16>(q, t, pivot_cols, n, D,
+                                              num_valid, col_lo, epilogue,
+                                              pivot_out, stream);
 }
 
 // For checks of the certificate: the tensor cores' float32 sums of

@@ -46,6 +46,21 @@ test in bfloat16), and the score matrix and the label recounts compare in
 bfloat16 with kge_tpu's roundings. Scorers with float32 parameters of their
 own (ConvE, the Transformer) and models with a float32 projection score in
 float32, as JAX promotes.
+
+Under a (data, model) mesh of ranks (parallel/mesh.py) every data rank
+ranks its rows of each batch, and the ranks' results are gathered over the
+data group, so every rank computes every metric. On the rank kernel's
+route a model axis splits the candidates: each rank counts against the
+entity rows it holds, its query rows gathered from the shards (linear in
+the gathered rows), its labels those of its columns. The pivot comes from
+the rank that holds the true column (``rank_pivots``: the others give
+-0.0, so the sum over the model group is that rank's value in every bit),
+and the greater and close counts and the label counts that the filters
+subtract are summed over the model group. Counts are integer sums of
+per-column decisions that do not depend on the shard, so every metric is
+the single process's exactly. The score matrix's route computes every
+column on every rank of a model group, from rows gathered from the
+shards.
 """
 
 from __future__ import annotations
@@ -65,7 +80,9 @@ from kge_tpu_torch.ops.rank_kernel import (
     close_greater,
     csr_row_sums,
     fused_rank_counts,
+    rank_pivots,
 )
+from kge_tpu_torch.parallel.mesh import DeviceCtx
 from kge_tpu_torch.utils.dtypes import weak
 
 S, P, O = 0, 1, 2
@@ -221,6 +238,9 @@ class EntityRankingJob(EvaluationJob):
         from kge_tpu_torch.utils.seed import apply_device_config
 
         apply_device_config(self.config)
+        self.device_ctx = DeviceCtx.create(self.config)
+        #: the entity rows [lo, hi) this rank holds under a model axis
+        self.row_range = getattr(self.model.get_s_embedder(), "row_range", None)
         self.triples = self.dataset.split(self.eval_split)
         for split in self.filter_splits:
             self.dataset.index(f"{split}_sp_to_o")
@@ -263,20 +283,25 @@ class EntityRankingJob(EvaluationJob):
         packed = np.unique(packed)
         return packed // (2 * E), packed % (2 * E)
 
-    def _direction_labels(self, coords, union_member, n: int):
+    def _direction_labels(self, coords, union_member, n: int,
+                          columns=None):
         """Split [0, 2E) coords into the per-direction CSR labels the rank
         kernel takes: {"o": (row_ptr, cols, rows, in_filt), "s": (...)};
         rows is each label's row (so that the device pass never waits for
         the host to size it), in_filt marks the coords that also belong to
         the ``_filt`` ranking (None when there is no ``_filt_test``
-        ranking)."""
+        ranking). ``columns`` = (lo, hi) keeps the labels of the candidate
+        columns [lo, hi), as columns of that range."""
         E = self.dataset.num_entities()
+        lo, hi = columns if columns is not None else (0, E)
         rows, cols = coords
         out = {}
-        for key, is_side, offset in (("o", cols < E, 0), ("s", cols >= E, E)):
+        for key, offset in (("o", 0), ("s", E)):
+            col = cols - offset
+            is_side = (col >= lo) & (col < hi)
             r = rows[is_side]
             member = None if union_member is None else union_member[is_side]
-            out[key] = (_csr(r, n), (cols[is_side] - offset).astype(np.int32),
+            out[key] = (_csr(r, n), (col[is_side] - lo).astype(np.int32),
                         r.astype(np.int64), member)
         return out
 
@@ -284,9 +309,11 @@ class EntityRankingJob(EvaluationJob):
 
     def _rank_batch(self, triples: torch.Tensor, labels,
                     rank_counts=fused_rank_counts) -> Tuple[Dict, torch.Tensor]:
-        """Rank one batch. ``labels`` maps direction ("o": candidates for
-        the object, "s": for the subject) to CSR (row_ptr, cols, rows,
-        in_filt).
+        """Rank one batch (this rank's rows of it under a data axis).
+        ``labels`` maps direction ("o": candidates for the object, "s": for
+        the subject) to CSR (row_ptr, cols, rows, in_filt), of this rank's
+        candidate columns where the model factorizes under a model axis
+        (``_prepare_batches``).
         Returns per-ranking [4, n] (s_rank, s_ties, o_rank, o_ties) plus the
         largest excess of |pivot - true score| over the tie tolerance. The
         route is the rank kernel when the model factorizes, else the score
@@ -294,6 +321,7 @@ class EntityRankingJob(EvaluationJob):
         rank kernel's plain version."""
         E = self.dataset.num_entities()
         fac = self.model.factorized_queries(triples, (0, 2))
+        sharded = fac is not None and self.row_range is not None
         atol, rtol = self.tie_atol, self.tie_rtol
         raw, filt, filt_test, excess = {}, {}, {}, []
         s, p, o = triples[:, S], triples[:, P], triples[:, O]
@@ -301,11 +329,24 @@ class EntityRankingJob(EvaluationJob):
             row_ptr, cols, rows, in_filt = labels[key]
             if fac is not None:
                 pos, q, targets, score_map = fac[slot]
-                g, c, vals, pivot = rank_counts(
-                    q.contiguous(), targets.contiguous(), None, row_ptr, cols,
-                    E, atol, rtol, score_map=score_map,
-                    pivot_cols=true.to(torch.int32).contiguous(),
-                )
+                true_cols = true.to(torch.int32).contiguous()
+                if sharded:
+                    # targets are this rank's rows [lo, hi); the pivot is
+                    # the value of the rank that holds the true column
+                    lo, hi = self.row_range
+                    pivot = rank_pivots(q.contiguous(), targets.contiguous(),
+                                        true_cols, lo, score_map=score_map)
+                    pivot = self.device_ctx.model_sum(pivot)
+                    g, c, vals, pivot = rank_counts(
+                        q.contiguous(), targets.contiguous(), pivot, row_ptr,
+                        cols, hi - lo, atol, rtol, score_map=score_map,
+                    )
+                else:
+                    g, c, vals, pivot = rank_counts(
+                        q.contiguous(), targets.contiguous(), None, row_ptr,
+                        cols, E, atol, rtol, score_map=score_map,
+                        pivot_cols=true_cols,
+                    )
             else:
                 # the true score that kge_tpu's flat route checks against:
                 # the sp_/_po form at the batch's own answers
@@ -326,22 +367,27 @@ class EntityRankingJob(EvaluationJob):
                 (pivot - pos).abs() - (weak(atol, pos) + weak(rtol, pos) * pos.abs())
             ).float())
             lab_close, lab_greater = close_greater(vals, pivot[rows], atol, rtol)
-            raw[key] = (g, c)
-
-            def minus(keep=None):
+            # the counts and, per ranking, the label counts to subtract;
+            # under a model axis each rank's share, summed over the group
+            parts = [g, c]
+            keeps = [None] if in_filt is None else [in_filt, None]
+            for keep in keeps:
                 gm, cm = lab_greater, lab_close
                 if keep is not None:
                     gm, cm = gm & keep, cm & keep
-                return (
-                    torch.clamp_min(g - csr_row_sums(row_ptr, gm), 0),
-                    torch.clamp_min(c - csr_row_sums(row_ptr, cm), 0),
-                )
-
-            if in_filt is None:
-                filt[key] = minus()
-            else:
-                filt[key] = minus(in_filt)
-                filt_test[key] = minus()
+                parts += [csr_row_sums(row_ptr, gm), csr_row_sums(row_ptr, cm)]
+            if sharded:
+                parts = list(self.device_ctx.reduce_model(torch.stack(parts)))
+            g, c = parts[0], parts[1]
+            raw[key] = (g, c)
+            filtered = [
+                (torch.clamp_min(g - parts[i], 0),
+                 torch.clamp_min(c - parts[i + 1], 0))
+                for i in range(2, len(parts), 2)
+            ]
+            filt[key] = filtered[0]
+            if in_filt is not None:
+                filt_test[key] = filtered[1]
         results = {"_raw": raw, "_filt": filt}
         if filt_test:
             results["_filt_test"] = filt_test
@@ -349,11 +395,23 @@ class EntityRankingJob(EvaluationJob):
             r: torch.stack([v["s"][0], v["s"][1], v["o"][0], v["o"][1]])
             for r, v in results.items()
         }
-        return results, torch.max(torch.stack(excess))
+        excess = torch.max(torch.stack(excess))
+        if self.device_ctx.data > 1:
+            # every rank gets every data rank's rows, in row order
+            names = sorted(results)
+            stacked = self.device_ctx.gather_data(
+                torch.stack([results[r] for r in names]))  # [D, R, 4, n/D]
+            stacked = stacked.permute(1, 2, 0, 3).reshape(
+                len(names), 4, -1)
+            results = dict(zip(names, stacked))
+            excess = torch.max(self.device_ctx.gather_data(excess))
+        return results, excess
 
     def _entity_range(self, start: int, stop: int):
-        """The entity ids [start, stop), or None for all of them."""
-        if start == 0 and stop == self.dataset.num_entities():
+        """The entity ids [start, stop), or None for all of them (not on a
+        row shard, whose ``embed_all`` gives its own rows)."""
+        if (start == 0 and stop == self.dataset.num_entities()
+                and self.row_range is None):
             return None
         return torch.arange(start, stop, device=self.model.device)
 
@@ -487,10 +545,22 @@ class EntityRankingJob(EvaluationJob):
         and build its per-direction CSR labels on the model's device; cached
         when no per-batch hooks are registered."""
         device = self.model.device
-        n = self.batch_size
+        ctx = self.device_ctx
+        # a multiple of the data axis, every data rank taking its rows
+        n = -(-self.batch_size // ctx.data) * ctx.data
+        start, stop = ctx.batch_rows(n)
+        # a model that factorizes ranks a row shard's candidate columns
+        # (_rank_batch), one that does not the whole vocabulary's
+        columns = None
+        if self.row_range is not None and len(self.triples):
+            with torch.no_grad():
+                probe = torch.as_tensor(self.triples[:1].astype(np.int64),
+                                        device=device)
+                if self.model.factorized_queries(probe, (0, 2)) is not None:
+                    columns = self.row_range
         batches, device_batches = [], []
-        for batch_number in range(0, len(self.triples), n):
-            batch = self.triples[batch_number : batch_number + n]
+        for batch_number in range(0, len(self.triples), self.batch_size):
+            batch = self.triples[batch_number : batch_number + self.batch_size]
             n_true = len(batch)
             padded = np.concatenate(
                 [batch, np.repeat(batch[-1:], n - n_true, axis=0)]
@@ -499,12 +569,14 @@ class EntityRankingJob(EvaluationJob):
 
             self.current_trace["batch"] = dict(
                 type="entity_ranking", scope="batch", split=self.eval_split,
-                epoch=self.epoch, batch=batch_number // n, size=n_true,
+                epoch=self.epoch, batch=batch_number // self.batch_size,
+                size=n_true,
             )
             for f in self.pre_batch_hooks:
                 f(self)
 
-            filt = self._label_coords(padded, self.filter_splits)
+            mine = padded[start:stop]
+            filt = self._label_coords(mine, self.filter_splits)
             if filter_with_test:
                 # _filt_test filters the union of filter_splits and test
                 # (the reference applies test labels on top of the already
@@ -512,19 +584,23 @@ class EntityRankingJob(EvaluationJob):
                 # kernel pass over the union serves both rankings, split
                 # by a membership mask
                 E2 = 2 * self.dataset.num_entities()
-                coords = self._label_coords(padded, self.filter_splits + ["test"])
+                coords = self._label_coords(mine, self.filter_splits + ["test"])
                 member = np.isin(coords[0] * E2 + coords[1],
                                  filt[0] * E2 + filt[1])
             else:
                 coords, member = filt, None
-            labels = {
-                key: tuple(
-                    None if a is None else torch.as_tensor(a, device=device)
-                    for a in value
-                )
-                for key, value in self._direction_labels(coords, member, n).items()
-            }
-            triples = torch.as_tensor(padded, device=device)
+            def on_device(labels):
+                return {
+                    key: tuple(
+                        None if a is None else torch.as_tensor(a, device=device)
+                        for a in value
+                    )
+                    for key, value in labels.items()
+                }
+
+            labels = on_device(
+                self._direction_labels(coords, member, stop - start, columns))
+            triples = torch.as_tensor(mine, device=device)
             batches.append((batch, n_true, padded))
             device_batches.append((triples, labels))
 

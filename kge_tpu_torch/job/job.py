@@ -30,8 +30,11 @@ def _trace_job_creation(job: "Job"):
 
 
 def _save_job_config(job: "Job"):
-    """Save a copy of the job's config in the experiment folder."""
-    if job.config.folder and os.path.isdir(
+    """Save a copy of the job's config in the experiment folder (rank 0 of a
+    run over several processes alone)."""
+    from kge_tpu_torch.parallel import distributed
+
+    if distributed.is_primary() and job.config.folder and os.path.isdir(
         os.path.join(job.config.folder, "config")
     ):
         job.config.save(

@@ -31,6 +31,16 @@ rule; ``negative_sampling.fused_scoring: always`` localizes each batch on
 the dense step too, so that each table's gradient is written once.
 kge_tpu's ``auto`` ladder and refusals are kept, so a configuration
 resolves to the same implementation in both packages.
+
+Under a data axis (parallel/mesh.py) every rank draws the whole batch's
+negatives, from generators in lockstep, before it takes its rows
+(``_complete_batch``): shared samples and pools are the same on every rank,
+and per-row samples the rank's rows of the whole draw. The row-sparse step
+localizes the whole batch on every rank, so that the mini-tables, gathered
+from the entity table's shards, have one layout everywhere, takes the loss
+of the rank's rows, sums the row gradients over the data group and updates
+the rows the rank holds. Under a model axis the implementations ``batch``
+and ``triple`` run (utils/seed.py ``check_mesh_routes``).
 """
 
 from __future__ import annotations
@@ -155,6 +165,13 @@ class TrainingJobNegativeSampling(TrainingJob):
                 "embedders, implementation != 'all', and a model without "
                 "internal id arithmetic (no reciprocal wrapper)"
             )
+        if self.device_ctx.active:
+            from kge_tpu_torch.utils.seed import check_mesh_routes
+
+            check_mesh_routes(
+                self.config, self.device_ctx.data, self.device_ctx.model,
+                implementation=self._implementation, fused=self._fused,
+            )
         if self._fused:
             self.config.log("Using fused (localized single-gather) scoring")
 
@@ -211,8 +228,28 @@ class TrainingJobNegativeSampling(TrainingJob):
             yield batch
 
     def _batch_wide(self, key):
-        """A shared sample row and a pool serve every row of the batch."""
-        return key.startswith(("neg_unique_", "neg_pool_"))
+        """A shared sample row, a pool and the distinct ids of the batch's
+        per-row samples serve every row of the batch."""
+        return key.startswith(("neg_unique_", "neg_pool_", "neg_distinct_"))
+
+    def _complete_batch(self, batch):
+        """The whole batch's negatives, drawn before a rank takes its rows;
+        for per-row samples scored against their distinct ids (``batch``)
+        also those ids (``neg_distinct_*``) and each sample's position among
+        them (``neg_position_*``), so that every rank scores the whole
+        batch's list, as one process does."""
+        batch = self._with_negatives(batch)
+        if self._implementation in ("batch", "pool"):
+            for slot in self._active_slots:
+                samples = batch.get(f"neg_samples_{slot}")
+                if samples is None:
+                    continue
+                vocab = int(self._sampler.vocabulary_size[slot])
+                uniq, inv = _bounded_unique(
+                    samples.reshape(-1), min(samples.numel(), vocab))
+                batch[f"neg_distinct_{slot}"] = uniq
+                batch[f"neg_position_{slot}"] = inv.reshape(samples.shape)
+        return batch
 
     def _draw_negatives_on_device(self, triples, slot):
         """Negatives drawn on the job's device from its generator (uniform
@@ -358,6 +395,10 @@ class TrainingJobNegativeSampling(TrainingJob):
             all_scores = self._score_targets(triples, slot, flat, tables)
             cols = torch.arange(n * num, device=flat.device).reshape(n, num)
             return picked_scores(all_scores, cols)
+        if f"neg_distinct_{slot}" in batch:
+            all_scores = self._score_targets(
+                triples, slot, batch[f"neg_distinct_{slot}"], tables)
+            return picked_scores(all_scores, batch[f"neg_position_{slot}"])
         vocab = int(self._sampler.vocabulary_size[slot])
         uniq, inv = _bounded_unique(flat, min(flat.numel(), vocab))
         all_scores = self._score_targets(triples, slot, uniq, tables)
@@ -626,11 +667,16 @@ class TrainingJobNegativeSampling(TrainingJob):
         from the row gradients: row writes where zero-gradient rows are
         fixed points of the rule, one fused pass over the table
         otherwise."""
-        self._enter_step()
-        params = self.optimizer.params
         local_batch, ent_ids, rel_ids = self._localize_batch(batch)
+        # the whole batch is localized on every rank, so the mini-tables'
+        # rows are the same everywhere; each rank takes its rows' loss
+        local_batch, rows = self._data_shard(local_batch)
+        self._enter_step(rows)
+        params = self.optimizer.params
+        entity_embedder = self.model.get_s_embedder()
         with torch.no_grad():
-            ent_rows = params[self._ent_leaf][ent_ids]
+            # from the shards of the entity table under a model axis
+            ent_rows = entity_embedder.lookup(ent_ids)
             rel_rows = params[self._rel_leaf][rel_ids]
         ent_rows.requires_grad_(True)
         rel_rows.requires_grad_(True)
@@ -640,6 +686,13 @@ class TrainingJobNegativeSampling(TrainingJob):
         g_ent_rows, g_rel_rows = torch.autograd.grad(
             loss_value, [ent_rows, rel_rows]
         )
+        self.device_ctx.reduce_data(g_ent_rows)
+        self.device_ctx.reduce_data(g_rel_rows)
+        if entity_embedder.row_range is not None:
+            # the rows this rank holds, as local ids
+            lo, hi = entity_embedder.row_range
+            own = (ent_ids >= lo) & (ent_ids < hi)
+            ent_ids, g_ent_rows = ent_ids[own] - lo, g_ent_rows[own]
         self._optimizer_wrote = True
         self.optimizer.update_with_sparse_leaves(
             [None] * len(params), self.opt_state, lr,

@@ -15,8 +15,10 @@ statistics collector ``KgeModel.collect_stats``), and what filtered
 entity-ranking evaluation and negative-sampling, 1vsAll and KvsAll
 training need, kge_tpu's dtype policy (``parallel.param_dtype`` /
 ``parallel.compute_dtype``, utils/dtypes.py) and pretrained initialization
-(``<embedder>.pretrain``). The ring-sharded scoring path is not ported yet
-(see ROADMAP.md).
+(``<embedder>.pretrain``). Under a (data, model) mesh of ranks
+(parallel/mesh.py) the entity table is row-sharded over the model axis
+(``LookupEmbedder``); kge_tpu's ring-sharded scoring path
+(parallel/ring.py) is not ported yet (see ROADMAP.md).
 
 Where kge_tpu swaps gathered mini-tables into the parameter tree for the
 row-sparse training step, the embedders here own their tables, so ``embed``
@@ -152,20 +154,57 @@ class KgeBase(nn.Module, Configurable):
 
     #: the generator of dropout masks, set by the training job
     dropout_generator: Optional[torch.Generator] = None
+    #: (first row, rows, batch rows) of the batch rows whose loss this rank
+    #: computes under a data axis, set by the training job at each step
+    #: (job/train.py ``_enter_step``); None for the whole batch
+    dropout_rows: Optional[Tuple[int, int, int]] = None
 
-    def _dropout(self, x: torch.Tensor, rate: Optional[float] = None
-                 ) -> torch.Tensor:
+    def _dropout(self, x: torch.Tensor, rate: Optional[float] = None,
+                 whole: bool = False) -> torch.Tensor:
         """Inverted dropout (torch.nn.Dropout semantics, elementwise) at
         ``rate`` (default ``self.dropout``) in train mode, drawn from
-        ``dropout_generator``."""
+        ``dropout_generator``. Under ``dropout_rows``, a tensor of the
+        batch's rows (leading size m times the rank's rows) takes its rows
+        of the mask drawn for the whole batch, and one that serves the
+        whole batch (``whole``: candidate lists, the whole vocabulary) the
+        whole mask, so that every rank draws what one process draws."""
         rate = self.dropout if rate is None else rate
         if not self.training or rate <= 0.0:
             return x
         keep = 1.0 - rate
+        shape, rows = tuple(x.shape), None
+        if self.dropout_rows is not None and not whole:
+            offset, local, total = self.dropout_rows
+            if shape[0] % local != 0:
+                raise ValueError(
+                    f"dropout of a [{shape[0]}, ...] tensor in a step over "
+                    f"{local} of {total} batch rows: its rows are not the "
+                    "batch's"
+                )
+            m = shape[0] // local
+            rows = slice(offset * m, (offset + local) * m)
+            shape = (total * m,) + shape[1:]
         mask = torch.rand(
-            x.shape, generator=self.dropout_generator, device=x.device
+            shape, generator=self.dropout_generator, device=x.device
         ) < keep
+        if rows is not None:
+            mask = mask[rows]
         return torch.where(mask, x / weak(keep, x), torch.zeros_like(x))
+
+
+class _ModelSum(torch.autograd.Function):
+    """Sum over the mesh's model group in the forward pass
+    (``DeviceCtx.model_sum``), identity in the backward pass: every rank of
+    the group computes the same loss from the sum, so each holds the whole
+    gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.model_sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 # -- scorers -------------------------------------------------------------------
@@ -333,9 +372,11 @@ class KgeEmbedder(KgeBase):
     def init_params(self, generator: torch.Generator) -> None:
         raise NotImplementedError
 
-    def embed(self, indexes: torch.Tensor, table=None) -> torch.Tensor:
+    def embed(self, indexes: torch.Tensor, table=None,
+              whole: bool = False) -> torch.Tensor:
         """Embeddings of the given vocabulary indexes, [n, dim]; ``table``
-        stands in for the embedder's own table when given."""
+        stands in for the embedder's own table when given. ``whole``: the
+        indexes serve every row of the batch (``KgeBase._dropout``)."""
         raise NotImplementedError
 
     def penalty(self, **kwargs):
@@ -378,7 +419,11 @@ class KgeEmbedder(KgeBase):
             rows = pretrained.embed(torch.as_tensor(pre_ind, device=table.device))
         finally:
             pretrained.train(training)
-        table[torch.as_tensor(self_ind, device=table.device)] = rows.to(table.dtype)
+        ids = torch.as_tensor(self_ind, device=table.device)
+        # a row shard (LookupEmbedder.row_range) takes its own rows
+        lo, hi = getattr(self, "row_range", None) or (0, table.shape[0])
+        keep = (ids >= lo) & (ids < hi)
+        table[ids[keep] - lo] = rows[keep].to(table.dtype)
 
 
 class LookupEmbedder(KgeEmbedder):
@@ -411,8 +456,19 @@ class LookupEmbedder(KgeEmbedder):
                 )
                 dropout = 0.0
         self.dropout = dropout
+        from kge_tpu_torch.parallel.mesh import DeviceCtx, entity_shard
+
+        #: under a model axis above 1 (parallel/mesh.py), the entity rows
+        #: [lo, hi) this rank holds, and its mesh; None, None otherwise
+        self.row_range, self._mesh = None, None
+        rows = vocab_size
+        if DeviceCtx.param_spec(f"{configuration_key}/embeddings") == "model":
+            shard = entity_shard(config, vocab_size)
+            if shard is not None:
+                lo, hi, self._mesh = shard
+                self.row_range, rows = (lo, hi), hi - lo
         self.embeddings = nn.Parameter(
-            torch.empty(vocab_size, self._dim, dtype=self.param_dtype,
+            torch.empty(rows, self._dim, dtype=self.param_dtype,
                         device=device)
         )
 
@@ -423,11 +479,17 @@ class LookupEmbedder(KgeEmbedder):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Draw the table in float32, normalize it, then store it in
-        ``param_dtype`` (kge_tpu's order)."""
+        ``param_dtype`` (kge_tpu's order). A row shard draws the whole
+        table, as one process does, and keeps its rows."""
         table = self.embeddings
-        if table.dtype != torch.float32:
+        if self.row_range is not None:
+            table = torch.empty(self.vocab_size, self._dim,
+                                dtype=torch.float32, device=table.device)
+        elif table.dtype != torch.float32:
             table = torch.empty_like(table, dtype=torch.float32)
         self.initializer()(table, generator)
+        if self.row_range is not None:
+            table = table[self.row_range[0]:self.row_range[1]]
         if self.normalize_p > 0:
             table = self._normalize(table)
         self.embeddings.copy_(table)
@@ -447,17 +509,42 @@ class LookupEmbedder(KgeEmbedder):
     def param_tree(self) -> Dict[str, Any]:
         return {"embeddings": self.embeddings}
 
-    def embed(self, indexes, table=None) -> torch.Tensor:
+    def embed(self, indexes, table=None, whole=False) -> torch.Tensor:
         from kge_tpu_torch.ops.embedding_ops import embedding_gather
 
         if table is None:
-            table = self.embeddings
+            rows = self.lookup(indexes)
+        else:
+            rows = embedding_gather(
+                table, torch.as_tensor(indexes, device=table.device))
+        return self._dropout(rows.to(self.compute_dtype), whole=whole)
+
+    def lookup(self, indexes) -> torch.Tensor:
+        """The table's rows at ``indexes`` (no dropout, the table's dtype).
+        On a row shard: the rows this rank holds, -0.0 elsewhere, summed
+        over the model group (``_ModelSum``); every row has one term that is
+        not -0.0, the neutral element of the sum, so the rows are exact. The
+        backward of the local gather is the scatter kernel on local ids, as
+        on one card."""
+        from kge_tpu_torch.ops.embedding_ops import embedding_gather
+
+        table = self.embeddings
         indexes = torch.as_tensor(indexes, device=table.device)
-        return self._dropout(
-            embedding_gather(table, indexes).to(self.compute_dtype))
+        if self.row_range is None:
+            return embedding_gather(table, indexes)
+        lo, hi = self.row_range
+        local = indexes.long() - lo
+        own = (local >= 0) & (local < hi - lo)
+        rows = embedding_gather(table, torch.where(own, local, 0))
+        rows = torch.where(own.unsqueeze(-1), rows,
+                           torch.full((), -0.0, dtype=rows.dtype,
+                                      device=rows.device))
+        return _ModelSum.apply(rows, self._mesh)
 
     def embed_all(self) -> torch.Tensor:
-        return self._dropout(self.embeddings.to(self.compute_dtype))
+        """All rows' embeddings; on a row shard the rows this rank holds
+        (``row_range``), which only the evaluation asks for."""
+        return self._dropout(self.embeddings.to(self.compute_dtype), whole=True)
 
     def _abs_complex(self, parameters: torch.Tensor) -> torch.Tensor:
         re, im = torch.chunk(parameters, 2, dim=1)
@@ -475,8 +562,6 @@ class LookupEmbedder(KgeEmbedder):
         zeroes padded rows; ``num_index_rows`` overrides the denominator
         (the true number of index rows when the batch is padded).
         """
-        from kge_tpu_torch.ops.embedding_ops import embedding_gather
-
         result = []
         weight = float(self.get_option("regularize_weight"))
         if self.regularize == "" or weight == 0.0:
@@ -497,6 +582,10 @@ class LookupEmbedder(KgeEmbedder):
                 total = torch.sum(parameters ** p)
             else:
                 total = torch.sum(torch.abs(parameters) ** p)
+            if self.row_range is not None:
+                # the shards' partial sums; each rank's rows keep their own
+                # gradient
+                total = _ModelSum.apply(total, self._mesh)
             result.append((name, weak(weight / p, total) * total))
         else:
             if indexes is None:
@@ -504,7 +593,7 @@ class LookupEmbedder(KgeEmbedder):
             idx = torch.as_tensor(indexes, device=table.device)
             if num_index_rows is None:
                 num_index_rows = idx.shape[0]
-            parameters = embedding_gather(table, idx.reshape(-1))
+            parameters = self.lookup(idx.reshape(-1))
             if self.regularize == "n3" and self.space == "complex":
                 parameters = self._abs_complex(parameters)
             elif p % 2 == 1 and self.regularize != "n3":
@@ -570,16 +659,17 @@ class ProjectionEmbedder(KgeEmbedder):
         return {"base": self.base_embedder.param_tree(),
                 "projection": self.projection}
 
-    def _project(self, emb: torch.Tensor) -> torch.Tensor:
+    def _project(self, emb: torch.Tensor, whole: bool) -> torch.Tensor:
         # a compute-dtype embedding meets the float32 projection in float32
         emb, projection = promote(emb, self.projection)
-        return self._dropout(emb @ projection.T)
+        return self._dropout(emb @ projection.T, whole=whole)
 
-    def embed(self, indexes, table=None) -> torch.Tensor:
-        return self._project(self.base_embedder.embed(indexes, table))
+    def embed(self, indexes, table=None, whole=False) -> torch.Tensor:
+        return self._project(self.base_embedder.embed(indexes, table, whole),
+                             whole)
 
     def embed_all(self) -> torch.Tensor:
-        return self._project(self.base_embedder.embed_all())
+        return self._project(self.base_embedder.embed_all(), True)
 
     def postprocess_params(self) -> None:
         self.base_embedder.postprocess_params()
@@ -793,9 +883,17 @@ class KgeModel(KgeBase):
 
     def num_parameters(self) -> int:
         """The size of kge_tpu's parameter tree, statistics included."""
-        from kge_tpu_torch.models.convert import param_leaves
+        from kge_tpu_torch.models.convert import leaf_row_ranges, param_leaves
 
-        return sum(int(t.numel()) for _, t in param_leaves(self))
+        shards = leaf_row_ranges(self)
+        total = 0
+        for path, t in param_leaves(self):
+            if path in shards:  # a row shard counts the whole table
+                lo, hi, rows = shards[path]
+                total += int(t.numel()) // (hi - lo) * rows
+            else:
+                total += int(t.numel())
+        return total
 
     @contextlib.contextmanager
     def collect_stats(self):
@@ -888,6 +986,15 @@ class KgeModel(KgeBase):
         param = next(self._scorer.parameters(), None)
         return promote(*embs, dtype=None if param is None else param.dtype)
 
+    @staticmethod
+    def _candidates(embedder, ids, table=None) -> torch.Tensor:
+        """The embeddings of a candidate list that serves every row of the
+        batch (``ids``), or of the whole vocabulary (None): lookups whose
+        dropout masks are drawn whole on every rank (``whole``)."""
+        if ids is None:
+            return embedder.embed_all()
+        return embedder.embed(ids, table, whole=True)
+
     def score_spo(self, s, p, o, direction=None, tables=None) -> torch.Tensor:
         """Scores of the n triples (s_i, p_i, o_i); returns [n]."""
         ent, rel = tables if tables is not None else (None, None)
@@ -946,7 +1053,7 @@ class KgeModel(KgeBase):
             self.get_s_embedder(), self.get_p_embedder(), self.get_o_embedder()
         )
         slot_tables = (ent, rel, ent)
-        pool_emb = embedders[slot].embed(pool, slot_tables[slot])
+        pool_emb = embedders[slot].embed(pool, slot_tables[slot], whole=True)
         kept = [
             None if i == slot
             else embedders[i].embed(triples[:, i], slot_tables[i])
@@ -979,23 +1086,19 @@ class KgeModel(KgeBase):
     def score_sp(self, s, p, o=None, tables=None) -> torch.Tensor:
         """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m]."""
         ent, rel = tables if tables is not None else (None, None)
-        s_emb, p_emb, o_emb = self._promoted(
-            self.get_s_embedder().embed(s, ent),
-            self.get_p_embedder().embed(p, rel),
-            self.get_o_embedder().embed_all() if o is None
-            else self.get_o_embedder().embed(o, ent),
-        )
+        s_emb = self.get_s_embedder().embed(s, ent)
+        p_emb = self.get_p_embedder().embed(p, rel)
+        o_emb = self._candidates(self.get_o_embedder(), o, ent)
+        s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "sp_")
 
     def score_po(self, p, o, s=None, tables=None) -> torch.Tensor:
         """Scores of (*, p_i, o_i) against all (or the given) subjects; [n, m]."""
         ent, rel = tables if tables is not None else (None, None)
-        s_emb, p_emb, o_emb = self._promoted(
-            self.get_s_embedder().embed_all() if s is None
-            else self.get_s_embedder().embed(s, ent),
-            self.get_p_embedder().embed(p, rel),
-            self.get_o_embedder().embed(o, ent),
-        )
+        s_emb = self._candidates(self.get_s_embedder(), s, ent)
+        p_emb = self.get_p_embedder().embed(p, rel)
+        o_emb = self.get_o_embedder().embed(o, ent)
+        s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "_po")
 
     def score_so(self, s, o, p=None, tables=None) -> torch.Tensor:
@@ -1003,8 +1106,7 @@ class KgeModel(KgeBase):
         ent, rel = tables if tables is not None else (None, None)
         s_emb = self.get_s_embedder().embed(s, ent)
         o_emb = self.get_o_embedder().embed(o, ent)
-        p_emb = (self.get_p_embedder().embed_all() if p is None
-                 else self.get_p_embedder().embed(p, rel))
+        p_emb = self._candidates(self.get_p_embedder(), p, rel)
         s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "s_o")
 
@@ -1014,10 +1116,7 @@ class KgeModel(KgeBase):
         s_emb = self.get_s_embedder().embed(s)
         p_emb = self.get_p_embedder().embed(p)
         o_emb = self.get_o_embedder().embed(o)
-        if entity_subset is not None:
-            all_entities = self.get_s_embedder().embed(entity_subset)
-        else:
-            all_entities = self.get_s_embedder().embed_all()
+        all_entities = self._candidates(self.get_s_embedder(), entity_subset)
         s_emb, p_emb, o_emb, all_entities = self._promoted(
             s_emb, p_emb, o_emb, all_entities)
         sp_scores = self._scorer.score_emb(s_emb, p_emb, all_entities, "sp_")
@@ -1087,10 +1186,8 @@ class KgeModel(KgeBase):
                 return None
             q, target_map = fac[0], fac[1]
             score_map = fac[2] if len(fac) > 2 else None
-            if targets[slot] is None:
-                t = embedders[slot].embed_all()
-            else:
-                t = embedders[slot].embed(targets[slot], slot_tables[slot])
+            t = self._candidates(embedders[slot], targets[slot],
+                                 slot_tables[slot])
             (t,) = self._promoted(t)
             if target_map is not None:
                 t = target_map(t)

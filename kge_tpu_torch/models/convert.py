@@ -32,6 +32,11 @@ each (which their zero gradient leaves at zero under Adam without weight
 decay); the training step overwrites them after the update. ``param_leaves``
 lists a model's parameters in that order, and ``load_jax_opt_state`` /
 ``to_jax_opt_state`` carry the state across, again through numpy.
+
+Under a model axis (parallel/mesh.py) a model holds the rows ``[lo, hi)``
+of its entity table (``leaf_row_ranges``): a whole leaf or state read from
+a checkpoint keeps those rows, and ``to_jax_params`` gives the shard, which
+utils/io.py writes in kge_tpu's sharded schema.
 """
 
 from __future__ import annotations
@@ -70,6 +75,28 @@ def _name(path) -> str:
     return ".".join(str(key) for key in path)
 
 
+def leaf_row_ranges(model) -> Dict[Tuple[Any, ...], Tuple[int, int, int]]:
+    """{path: (lo, hi, rows)} of the leaves that hold the rows [lo, hi) of
+    a table of ``rows`` rows (the entity table under a model axis)."""
+    embedder = model.get_s_embedder()
+    shard = getattr(embedder, "row_range", None)
+    if shard is None:
+        return {}
+    return {("entity_embedder", "embeddings"):
+            (shard[0], shard[1], embedder.vocab_size)}
+
+
+def _own_rows(value: torch.Tensor, rows) -> torch.Tensor:
+    """A whole leaf cut to a shard's rows ``(lo, hi, total)`` (None: as
+    it is); a leaf of the shard's size is taken as the shard."""
+    if rows is None:
+        return value
+    lo, hi, total = rows
+    if value.shape[0] == total and total != hi - lo:
+        return value[lo:hi]
+    return value
+
+
 def leaf_tensor(value) -> torch.Tensor:
     """A checkpoint leaf (numpy or array-like, a bfloat16 ``ml_dtypes``
     array, or a tensor) as a CPU tensor: bfloat16 stays bfloat16, any other
@@ -105,13 +132,14 @@ def load_jax_params(model, tree: Dict[str, Any]) -> None:
     on."""
     own = _flatten(_model_tree(model))
     given = _flatten(tree)
+    shards = leaf_row_ranges(model)
     if [path for path, _ in given] != [path for path, _ in own]:
         raise ValueError(
             f"parameters {[_name(p) for p, _ in given]} do not match "
             f"{type(model).__name__}'s {[_name(p) for p, _ in own]}"
         )
     for (path, param), (_, leaf) in zip(own, given):
-        value = leaf_tensor(leaf)
+        value = _own_rows(leaf_tensor(leaf), shards.get(path))
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(
                 f"{_name(path)} has shape {tuple(value.shape)}, the model "
@@ -143,9 +171,13 @@ def param_leaves(model) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     return _flatten(_model_tree(model))
 
 
-def load_jax_opt_state(state: Dict[str, Any], leaves) -> Dict[str, Any]:
+def load_jax_opt_state(state: Dict[str, Any], leaves,
+                       row_ranges=None) -> Dict[str, Any]:
     """kge_tpu's optimizer state (numpy or array-like leaves) as this
-    package's: tensors on the device of the parameter each belongs to."""
+    package's: tensors on the device of the parameter each belongs to; the
+    state of a row shard (``row_ranges``, of ``leaf_row_ranges``) keeps its
+    rows."""
+    row_ranges = row_ranges or {}
     if len(state["leaves"]) != len(leaves):
         raise ValueError(
             f"optimizer state has {len(state['leaves'])} leaves, the model "
@@ -155,7 +187,7 @@ def load_jax_opt_state(state: Dict[str, Any], leaves) -> Dict[str, Any]:
     for leaf_state, (path, param) in zip(state["leaves"], leaves):
         converted = {}
         for name, value in leaf_state.items():
-            value = leaf_tensor(value)
+            value = _own_rows(leaf_tensor(value), row_ranges.get(path))
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(
                     f"optimizer state {_name(path)}.{name} has shape "

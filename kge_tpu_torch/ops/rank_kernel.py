@@ -35,9 +35,13 @@ Differences from the TPU kernel's interface, all for the card:
   block would multiply by n.
 - ``pivot_cols`` asks for the pivot to be the row's own score at that
   column, computed with the same float32 FMA chain as the tile, so the true
-  entity ties with itself exactly. The pivot used is returned. The kernel
-  takes the pivot only this way; an explicit ``pivot``, as the TPU kernel
-  takes it, is for CPU tensors (the plain version).
+  entity ties with itself exactly. The pivot used is returned. An explicit
+  ``pivot``, as the TPU kernel takes it, serves the candidates of a
+  row-sharded table (the model axis of parallel/mesh.py): ``rank_pivots``
+  computes the pivot by the prologue's chain on the rank that holds the
+  true column, the ranks sum it, and each ranks its own columns against it
+  (``fused_rank_counts.sharded_launches``). The counts, pivots and label
+  values summed over the shards are the unsharded launch's in every bit.
 
 - ``score_map``, the TPU kernel's score epilogue, is a Python callable
   there. A callable cannot cross into CUDA, so here it must be a named
@@ -326,6 +330,74 @@ def fused_rank_counts_plain(q, targets, pivot, row_ptr, cols, num_valid: int,
     return g, c, vals, pivot
 
 
+def rank_pivots_plain(q, targets, pivot_cols, col_lo: int, score_map=None):
+    """The plain version of ``rank_pivots``: the scores of
+    ``fused_rank_counts_plain`` at the columns held, -0.0 elsewhere."""
+    local = pivot_cols.long() - col_lo
+    held = (local >= 0) & (local < targets.shape[0])
+    if q.dtype == torch.bfloat16:
+        scores = chain_scores(q, targets)
+    else:
+        scores = q @ targets.T
+    if score_map is not None:
+        scores = score_map(scores)
+    if targets.shape[0] == 0:
+        return torch.full((q.shape[0],), -0.0, dtype=q.dtype, device=q.device)
+    picked = scores.gather(1, torch.where(held, local, 0)[:, None])[:, 0]
+    return torch.where(held, picked, torch.full_like(picked, -0.0))
+
+
+def rank_pivots(q: torch.Tensor, targets: torch.Tensor,
+                pivot_cols: torch.Tensor, col_lo: int, score_map=None):
+    """The pivots of the rows of ``q`` [n, D] whose true column
+    ``pivot_cols[i]`` (an id of the whole table) lies among the rows
+    ``[col_lo, col_lo + len(targets))`` that ``targets`` holds: the chain
+    score of ``fused_rank_counts`` at that column, after ``score_map``; -0.0
+    for the other rows, so that the sum over the shards of a table is the
+    pivot in every bit. On the card the prologue's pivot launch alone of
+    csrc/rank_counts.cu (``rank_pivots.launches``); on the CPU the plain
+    version."""
+    if score_map is not None and not isinstance(score_map, ScoreEpilogue):
+        raise NotImplementedError(
+            f"rank_pivots: score_map {score_map!r} is not a named epilogue")
+    n, D = q.shape
+    if targets.dim() != 2 or targets.shape[1] != D or targets.dtype != q.dtype:
+        raise ValueError(f"targets {tuple(targets.shape)} {targets.dtype} do "
+                         f"not match q {tuple(q.shape)} {q.dtype}")
+    if pivot_cols.shape != (n,):
+        raise ValueError(f"pivot_cols must have shape ({n},)")
+    if q.device.type == "cpu":
+        return rank_pivots_plain(q, targets, pivot_cols, col_lo, score_map)
+    if q.device.type != "cuda":
+        raise ValueError(f"rank_pivots: unsupported device {q.device}")
+    from kge_tpu_torch.ops.kernel_utils import check_launch, require
+
+    dtype = q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rank_pivots takes float32 or bfloat16, got {dtype}")
+    require("q", q, q.device, dtype)
+    require("targets", targets, q.device, dtype)
+    require("pivot_cols", pivot_cols, q.device, torch.int32)
+    out = torch.empty(n, dtype=dtype, device=q.device)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        launch = (lib.rank_pivots_launch if dtype == torch.float32
+                  else lib.rank_pivots_launch_bf16)
+        code = launch(q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
+                      n, D, targets.shape[0], int(col_lo),
+                      0 if score_map is None else score_map.code,
+                      out.data_ptr(), stream)
+    check_launch(code, "rank_pivots")
+    rank_pivots.launches += 1
+    return out
+
+
+rank_pivots.launches = 0
+
+
 def _check(q, targets, pivot, row_ptr, cols, num_valid, pivot_cols):
     n, D = q.shape
     if targets.dim() != 2 or targets.shape[1] != D:
@@ -366,9 +438,9 @@ def fused_rank_counts(
     num_valid``; counts are against the row's pivot under isclose tie
     semantics; ``vals`` holds the score at each CSR label column (0 where the
     column is ``>= num_valid``). ``score_map`` is None or a ``ScoreEpilogue``.
-    Give either ``pivot`` [n] or ``pivot_cols`` [n], the column whose own
-    score is the pivot; on the card only ``pivot_cols``. ``plan`` (of
-    ``rank_plan``) sets the kernel's grid; the outputs do not depend on it.
+    Give either ``pivot`` [n] (in q's dtype) or ``pivot_cols`` [n], the
+    column whose own score is the pivot. ``plan`` (of ``rank_plan``) sets
+    the kernel's grid; the outputs do not depend on it.
     """
     if score_map is not None and not isinstance(score_map, ScoreEpilogue):
         raise NotImplementedError(
@@ -383,14 +455,10 @@ def fused_rank_counts(
         )
     if q.device.type != "cuda":
         raise ValueError(f"fused_rank_counts: unsupported device {q.device}")
-    if pivot_cols is None:
-        raise ValueError(
-            "fused_rank_counts: the CUDA kernel takes the pivot from "
-            "pivot_cols, not as an explicit pivot"
-        )
     return _launch(q, targets, row_ptr, cols, num_valid, atol, rtol,
                    pivot_cols, plan,
-                   epilogue=0 if score_map is None else score_map.code)
+                   epilogue=0 if score_map is None else score_map.code,
+                   pivot=pivot)
 
 
 fused_rank_counts.launches = 0
@@ -398,6 +466,8 @@ fused_rank_counts.launches = 0
 fused_rank_counts.epilogue_launches = 0
 #: the launches among them of the bfloat16 path
 fused_rank_counts.bf16_launches = 0
+#: the launches among them with a given pivot (a column shard's)
+fused_rank_counts.sharded_launches = 0
 #: int64 [1] on the card: the entries that the last bfloat16 launch's
 #: certificate left undecided (recomputed by the chain); None before one
 fused_rank_counts.last_recounted = None
@@ -409,9 +479,12 @@ def _library():
     lib = load_library(_KERNEL)
     if not getattr(lib, "_kge_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        launch = [p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p]
+        launch = [p, p, p, p, p, p, i, i, i, i, f, f, i, i, p, p, p, p, p]
+        pivots = [p, p, p, i, i, i, i, i, p, p]
         for name, args in (("rank_counts_launch", launch + [p]),
                            ("rank_counts_launch_bf16", launch + [p, p, i, p, p]),
+                           ("rank_pivots_launch", pivots),
+                           ("rank_pivots_launch_bf16", pivots),
                            ("rank_counts_bf16_tile_sums", [p, p, i, i, i, p, p, p])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
@@ -426,7 +499,7 @@ def _library():
 
 
 def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
-            plan=None, epilogue=0):
+            plan=None, epilogue=0, pivot=None):
     from kge_tpu_torch.ops.kernel_utils import check_launch
 
     device = q.device
@@ -435,11 +508,13 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
         raise TypeError(f"fused_rank_counts: the kernel takes float32 or "
                         f"bfloat16, got {dtype}")
     tensors = {"q": q, "targets": targets, "row_ptr": row_ptr, "cols": cols,
-               "pivot_cols": pivot_cols}
+               "pivot_cols": pivot_cols, "pivot": pivot}
     wanted = {"q": dtype, "targets": dtype,
               "row_ptr": torch.int32, "cols": torch.int32,
-              "pivot_cols": torch.int32}
+              "pivot_cols": torch.int32, "pivot": dtype}
     for name, x in tensors.items():
+        if x is None:
+            continue
         if x.device != device:
             raise ValueError(f"fused_rank_counts: {name} is on {x.device}, q on {device}")
         if x.dtype != wanted[name]:
@@ -464,7 +539,9 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         args = [
-            q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
+            q.data_ptr(), targets.data_ptr(),
+            None if pivot_cols is None else pivot_cols.data_ptr(),
+            None if pivot is None else pivot.data_ptr(),
             row_ptr.data_ptr(), cols.data_ptr(),
             n, D, int(num_valid), cols.numel(), float(atol), float(rtol),
             int(epilogue), plan["tiles_per_range"], tile_ptr.data_ptr(),
@@ -490,6 +567,7 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
     check_launch(code, "rank_counts")
     fused_rank_counts.launches += 1
     fused_rank_counts.epilogue_launches += epilogue != 0
+    fused_rank_counts.sharded_launches += pivot is not None
     if dtype == torch.bfloat16:
         fused_rank_counts.bf16_launches += 1
         fused_rank_counts.last_recounted = recounted

@@ -1,0 +1,175 @@
+"""The (data, model) device mesh over ranks.
+
+The port of kge_tpu/parallel/mesh.py. kge_tpu lays its devices out as a 2-D
+mesh ``(data, model)``: batches shard over ``data``, the entity table's
+rows over ``model``, and GSPMD inserts the collectives. Here every device
+is a rank of ``torch.distributed`` (parallel/distributed.py), laid out
+row-major as ``np.array(ranks).reshape(data, model)``, so rank ``r`` sits at
+``divmod(r, model)``. The ranks of one mesh row share their batch rows and
+hold the entity table between them (the row's *model group*); the ranks of
+one mesh column hold the same entity rows and split the batch (the
+column's *data group*). Every rank creates every group, in one order.
+
+Only the entity table (and, with it, its optimizer state) is row-sharded
+(``param_spec``); everything else is replicated. A rank holds the entity
+rows ``[lo, hi)`` of its model coordinate and ranks the batch rows of its
+data coordinate (``batch_rows``). With one rank every spec is replicated
+and the context is inactive.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from kge_tpu_torch.parallel import distributed
+
+#: groups of each mesh shape, created once per process: (data, model) ->
+#: (model groups by data coordinate, data groups by model coordinate)
+_GROUPS: Dict[Tuple[int, int], Tuple[list, list]] = {}
+#: mesh shapes already logged by rank 0
+_LOGGED = set()
+
+
+class DeviceCtx:
+    """This rank's place in the (data, model) mesh and its groups."""
+
+    def __init__(self, data: int = 1, model: int = 1, rank: int = 0,
+                 data_group=None, model_group=None):
+        self.data, self.model = data, model
+        self.rank = rank
+        self.data_index, self.model_index = divmod(rank, model)
+        self.data_group, self.model_group = data_group, model_group
+
+    @property
+    def active(self) -> bool:
+        return self.data * self.model > 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
+
+    @staticmethod
+    def create(config, batch_divisor: Optional[int] = None) -> "DeviceCtx":
+        """The mesh of ``parallel.data`` x ``parallel.model`` over the ranks
+        of this run, with kge_tpu's rules: ``model <= 0`` is 1, ``data <=
+        0`` (auto) is the ranks over ``model``, shrunk until it divides
+        ``batch_divisor`` (the batch size). A mesh needs exactly the run's
+        ranks: more raises kge_tpu's message, fewer leaves a rank without a
+        place."""
+        distributed.maybe_initialize(config)
+        n = distributed.world_size()
+        data = int(config.get("parallel.data"))
+        model = int(config.get("parallel.model"))
+        if model <= 0:
+            model = 1
+        if data <= 0:
+            data = max(n // model, 1)
+            if batch_divisor is not None:
+                while data > 1 and batch_divisor % data != 0:
+                    data -= 1
+        if data * model > n:
+            raise ValueError(
+                f"mesh {data}x{model} needs {data * model} devices, have {n}"
+            )
+        if data * model < n:
+            raise ValueError(
+                f"mesh {data}x{model} holds {data * model} of the {n} "
+                "processes; every process needs a place in the mesh"
+            )
+        if n == 1:
+            return DeviceCtx()
+        rank = distributed.process_index()
+        model_groups, data_groups = _groups(data, model)
+        ctx = DeviceCtx(data, model, rank, data_groups[rank % model],
+                        model_groups[rank // model])
+        if (data, model) not in _LOGGED:
+            _LOGGED.add((data, model))
+            config.log(
+                f"Mesh {data}x{model} (data x model) over {n} processes, "
+                f"backend {distributed.backend}"
+                + (" (ranks share a card, which NCCL refuses)"
+                   if distributed.shared_card else "")
+            )
+        return ctx
+
+    # -- sharding ------------------------------------------------------------
+
+    @staticmethod
+    def param_spec(path_key: str) -> Optional[str]:
+        """"model" for the leaves whose rows shard over the model axis (the
+        entity table, by its path in kge_tpu's parameter tree), None for
+        replicated ones."""
+        if "entity_embedder" in path_key and path_key.endswith("embeddings"):
+            return "model"
+        return None
+
+    def entity_rows(self, num_entities: int) -> Tuple[int, int]:
+        """The entity rows ``[lo, hi)`` this rank holds."""
+        per = num_entities // self.model
+        return self.model_index * per, (self.model_index + 1) * per
+
+    def batch_rows(self, n: int) -> Tuple[int, int]:
+        """The rows ``[start, stop)`` of an ``n``-row batch this rank takes."""
+        per = n // self.data
+        return self.data_index * per, (self.data_index + 1) * per
+
+    def reduce_data(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` in place over the data group."""
+        if self.data > 1:
+            distributed.all_reduce(tensor, self.data_group)
+        return tensor
+
+    def reduce_model(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum ``tensor`` in place over the model group."""
+        if self.model > 1:
+            distributed.all_reduce(tensor, self.model_group)
+        return tensor
+
+    def model_sum(self, values: torch.Tensor) -> torch.Tensor:
+        """``values`` summed over the model group, as a new tensor of their
+        dtype; floats narrower than float32 are summed in float32, exact
+        where one rank's term is not -0.0, the neutral element of the sum
+        (a row shard's lookups, ``rank_pivots``)."""
+        narrow = values.dtype in (torch.bfloat16, torch.float16)
+        out = values.float() if narrow else values.clone()
+        return self.reduce_model(out).to(values.dtype)
+
+    def gather_data(self, piece: torch.Tensor) -> torch.Tensor:
+        """The pieces of the data group stacked on a new first axis, in
+        data-coordinate order."""
+        return distributed.all_gather(piece, self.data, self.data_group)
+
+
+def _groups(data: int, model: int):
+    """The model group of every mesh row and the data group of every mesh
+    column, created by every rank in this order."""
+    import torch.distributed as dist
+
+    if (data, model) not in _GROUPS:
+        rows = [dist.new_group([d * model + m for m in range(model)])
+                for d in range(data)]
+        cols = [dist.new_group([d * model + m for d in range(data)])
+                for m in range(model)]
+        _GROUPS[(data, model)] = (rows, cols)
+    return _GROUPS[(data, model)]
+
+
+def entity_shard(config, num_entities: int):
+    """(lo, hi, ctx) of this rank's entity rows where the mesh's model axis
+    is above 1, else None. Raises kge_tpu's message where the entity count
+    does not divide."""
+    if int(config.get("parallel.model")) <= 1:
+        return None
+    ctx = DeviceCtx.create(config)
+    if ctx.model <= 1:
+        return None
+    if num_entities % ctx.model != 0:
+        raise ValueError(
+            f"num_entities={num_entities} must be divisible by the model "
+            f"mesh axis ({ctx.model}) for row-sharded entity tables "
+            "(pad the vocabulary or adjust parallel.model)"
+        )
+    lo, hi = ctx.entity_rows(num_entities)
+    return lo, hi, ctx

@@ -14,6 +14,15 @@ that package nor a numpy bfloat16: it reads such an array as a CPU
 ``torch.bfloat16`` tensor from its raw 2-byte buffer, and writes a
 bfloat16 tensor as the pickle of such an array, naming ``ml_dtypes`` by
 name only, so that kge_tpu reads it back.
+
+Sharded checkpoints keep kge_tpu's schema (kge_tpu/utils/io.py): under a
+model axis every rank writes ``<file>.shardNNNNN`` holding ``{"process":
+rank, "shards": {path id: [(index, array)]}}`` (the ranks of data row 0
+their rows of the entity table and of its optimizer state, the others
+nothing), and after a barrier rank 0 writes the main file, in which those
+leaves are ``__kge_sharded_leaf__`` markers, with ``num_shard_files``.
+Loading reassembles the whole leaves from the shard files, whichever
+package wrote them.
 """
 
 from __future__ import annotations
@@ -152,12 +161,179 @@ def _reconstruct_global():
     return np.ndarray.__reduce__(np.empty(0))[0]
 
 
-def save_checkpoint(checkpoint: Dict[str, Any], filename: str):
-    """Atomically write a checkpoint (single process)."""
+SHARDED_MARKER = "__kge_sharded_leaf__"
+
+
+def shard_filename(filename: str, process: int) -> str:
+    return f"{filename}.shard{process:05d}"
+
+
+def _dump(obj, filename: str) -> None:
+    """Pickle ``obj`` to ``filename`` atomically (through a temporary)."""
     tmpfile = filename + ".tmp"
     with open(tmpfile, "wb") as f:
-        _PortPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(checkpoint)
+        _PortPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
     os.replace(tmpfile, filename)
+
+
+def _tree_map(fn, tree, path=()):
+    """``fn(path, leaf)`` over nested dicts, lists and tuples, the path's
+    elements dict keys and list positions (kge_tpu's ``_leaf_path_id``
+    parts)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            _tree_map(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _path_id(prefix: str, path) -> str:
+    return prefix + "/".join(str(p) for p in path)
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).replace("torch.", "")
+    return str(np.asarray(leaf).dtype)
+
+
+def save_checkpoint(checkpoint: Dict[str, Any], filename: str,
+                    row_shards: Optional[Dict[str, Any]] = None):
+    """Atomically write a checkpoint. ``row_shards`` (a training job's
+    ``_row_shards``) names the leaves that are this rank's row shards,
+    ``{"paths": {path id: (lo, hi, rows)}, "write": bool}``: they go to the
+    rank's shard file as kge_tpu's sharded leaves (an empty one where
+    ``write`` is false), and rank 0 publishes the main file with their
+    markers once every rank's shard file is on disk."""
+    from kge_tpu_torch.parallel import distributed
+
+    if row_shards:
+        paths, local = row_shards["paths"], {}
+
+        def split(prefix):
+            def visit(path, leaf):
+                path_id = _path_id(prefix, path)
+                if path_id not in paths:
+                    return leaf
+                lo, hi, rows = paths[path_id]
+                if row_shards["write"]:
+                    index = ((lo, hi),) + ((None, None),) * (leaf.ndim - 1)
+                    local[path_id] = [(index, leaf)]
+                return {SHARDED_MARKER: True,
+                        "shape": (rows,) + tuple(leaf.shape[1:]),
+                        "dtype": _dtype_name(leaf), "path": path_id}
+            return visit
+
+        params, meta = checkpoint["model"]
+        checkpoint["model"] = (_tree_map(split("model/"), params), meta)
+        if checkpoint.get("optimizer_state") is not None:
+            checkpoint["optimizer_state"] = _tree_map(
+                split("opt/"), checkpoint["optimizer_state"])
+        rank = distributed.process_index()
+        _dump({"process": rank, "shards": local},
+              shard_filename(filename, rank))
+        checkpoint["num_shard_files"] = distributed.world_size()
+        # rank 0 publishes the main file (after which the caller may
+        # delete the previous checkpoint) only once every shard is written
+        distributed.barrier(f"save_checkpoint:{os.path.basename(filename)}")
+    if not distributed.is_primary():
+        return
+    if row_shards:
+        missing = [shard_filename(filename, p)
+                   for p in range(checkpoint["num_shard_files"])
+                   if not os.path.isfile(shard_filename(filename, p))]
+        if missing:
+            raise RuntimeError(
+                f"checkpoint shard files missing: {missing}; refusing to "
+                "publish an unloadable checkpoint")
+    _dump(checkpoint, filename)
+
+
+def _is_marker(leaf) -> bool:
+    return isinstance(leaf, dict) and leaf.get(SHARDED_MARKER) is True
+
+
+def _walk(fn, tree):
+    """``fn`` on the markers and leaves of nested dicts, lists and tuples."""
+    if _is_marker(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _reassemble_sharded(checkpoint: Dict, checkpoint_file: str,
+                        rows=None) -> Dict:
+    """Resolve kge_tpu's sharded-leaf markers from the per-process shard
+    files next to the checkpoint (kge_tpu/utils/io.py
+    ``_reassemble_sharded``): whole numpy arrays, or CPU bfloat16 tensors.
+    ``rows`` = (lo, hi) keeps rows [lo, hi) of every sharded leaf (they
+    shard by rows, the entity table and its optimizer state) and nothing
+    else of it."""
+    num = checkpoint.pop("num_shard_files", 0)
+    if not num:
+        return checkpoint
+    markers = {}
+
+    def collect(leaf):
+        if _is_marker(leaf):
+            markers[leaf["path"]] = leaf
+        return leaf
+
+    _walk(collect, (checkpoint.get("model"), checkpoint.get("optimizer_state")))
+    lo, hi = rows if rows is not None else (0, None)
+    assembled = {}
+    for path_id, marker in markers.items():
+        shape = tuple(marker["shape"])
+        if rows is not None:
+            shape = (hi - lo,) + shape[1:]
+        if marker["dtype"] == "bfloat16":
+            assembled[path_id] = torch.empty(shape, dtype=torch.bfloat16)
+        else:
+            assembled[path_id] = np.empty(shape, dtype=np.dtype(marker["dtype"]))
+    for p in range(num):
+        shard_file = shard_filename(checkpoint_file, p)
+        if not os.path.isfile(shard_file):
+            raise FileNotFoundError(
+                f"missing checkpoint shard file {shard_file} ({num} "
+                "expected; was the checkpoint copied without its shard "
+                "files?)"
+            )
+        with open(shard_file, "rb") as f:
+            payload = _resolve(_PortUnpickler(f).load(), {})
+        for path_id, shards in payload["shards"].items():
+            target = assembled.get(path_id)
+            if target is None:
+                continue
+            for index, data in shards:
+                at = tuple(slice(a, b) for a, b in index)
+                if rows is not None:
+                    # the piece's rows that fall in [lo, hi), moved by lo
+                    first = at[0].start or 0
+                    last = first + len(data)
+                    a, b = max(first, lo), min(last, hi)
+                    if a >= b:
+                        continue
+                    data = data[a - first:b - first]
+                    at = (slice(a - lo, b - lo),) + at[1:]
+                if isinstance(target, torch.Tensor):
+                    target[at] = torch.as_tensor(data)
+                else:
+                    target[at] = np.asarray(data)
+
+    def resolve(leaf):
+        return assembled[leaf["path"]] if _is_marker(leaf) else leaf
+
+    if checkpoint.get("model") is not None:
+        params, *meta = checkpoint["model"]
+        checkpoint["model"] = (_walk(resolve, params), *meta)
+    if checkpoint.get("optimizer_state") is not None:
+        checkpoint["optimizer_state"] = _walk(
+            resolve, checkpoint["optimizer_state"])
+    return checkpoint
 
 
 def get_checkpoint_file(config: Config, checkpoint_arg: str = "default") -> Optional[str]:
@@ -187,16 +363,15 @@ def get_checkpoint_file(config: Config, checkpoint_arg: str = "default") -> Opti
         return checkpoint_arg
 
 
-def load_checkpoint(checkpoint_file: str) -> Dict:
+def load_checkpoint(checkpoint_file: str, rows=None) -> Dict:
     """Load a checkpoint; adds its file/folder for downstream resume logic
-    (reference kge/util/io.py:36-47)."""
+    (reference kge/util/io.py:36-47). A sharded one (kge_tpu's multi-host
+    runs, or a model axis here) is reassembled from its shard files; with
+    ``rows`` = (lo, hi) only those rows of its sharded leaves, which is
+    what a rank of a model axis holds."""
     with open(checkpoint_file, "rb") as f:
         checkpoint = _resolve(_PortUnpickler(f).load(), {})
-    if checkpoint.pop("num_shard_files", 0):
-        raise NotImplementedError(
-            f"{checkpoint_file} is sharded over hosts; loading sharded "
-            "checkpoints is not ported yet (see ROADMAP.md)"
-        )
+    checkpoint = _reassemble_sharded(checkpoint, checkpoint_file, rows)
     config = checkpoint.get("config")
     if isinstance(config, Config) and "modules" in config.options:
         config.options["modules"] = [

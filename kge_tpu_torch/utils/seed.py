@@ -11,7 +11,6 @@ only an explicit ``cpu`` runs on the host.
 from __future__ import annotations
 
 import hashlib
-import os
 import random
 
 import numpy as np
@@ -26,58 +25,88 @@ def _derived_seed(base: int, name: str) -> int:
 
 
 def check_parallel(config: Config) -> None:
-    """Refuse the ``parallel.*`` settings this package cannot honour yet:
-    a device mesh larger than its one card, with kge_tpu's message
-    (kge_tpu/parallel/mesh.py ``DeviceCtx.create``; ROADMAP A.10), a run
-    over several processes (``check_distributed``), and a parameter or
-    compute dtype other than float32 and bfloat16 (ROADMAP A.11).
-    ``parallel.data: -1`` and ``parallel.model: 1`` are one card."""
+    """Refuse the ``parallel.*`` settings this package cannot honour yet: a
+    device mesh larger than the run's processes, with kge_tpu's message
+    (kge_tpu/parallel/mesh.py ``DeviceCtx.create``): one process is one
+    device, so a mesh above 1 x 1 needs as many ranks
+    (parallel/distributed.py); ``parallel.distributed.auto``
+    (``check_distributed``); and a parameter or compute dtype other than
+    float32 and bfloat16 (ROADMAP A.11). ``parallel.data: -1`` takes the
+    ranks over ``parallel.model``. Routes that the mesh does not run yet are
+    refused by the training job (``check_mesh_routes``)."""
+    from kge_tpu_torch.parallel import distributed
     from kge_tpu_torch.utils.dtypes import torch_dtype
 
     for key in ("parallel.param_dtype", "parallel.compute_dtype"):
         torch_dtype(config, key)
     check_distributed(config)
+    world = distributed.world_size()
     model = max(int(config.get("parallel.model")), 1)
     data = int(config.get("parallel.data"))
-    data = data if data > 0 else max(1 // model, 1)
-    if data * model > 1:
+    data = data if data > 0 else max(world // model, 1)
+    if data * model > world:
         raise ValueError(
-            f"mesh {data}x{model} needs {data * model} devices, have 1"
+            f"mesh {data}x{model} needs {data * model} devices, have {world}"
         )
 
 
 def check_distributed(config: Config) -> None:
-    """Refuse ``parallel.distributed.*`` where it asks for a run over
-    several processes, read as kge_tpu reads it
-    (kge_tpu/parallel/distributed.py ``maybe_initialize``): ``auto``, or a
-    coordinator address with more than one process, from the config or,
-    when the config names no address, from ``KGE_COORDINATOR_ADDRESS`` /
-    ``KGE_NUM_PROCESSES``. One process, or none named, runs alone."""
+    """Refuse ``parallel.distributed.auto`` (kge_tpu's TPU pod
+    auto-detection, ROADMAP A.10). A coordinator address with its number of
+    processes and process id, from the config or from
+    ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
+    ``KGE_PROCESS_ID``, brings the ranks up (parallel/distributed.py)."""
     if config.get("parallel.distributed.auto"):
         raise ValueError(
-            "parallel.distributed.auto: runs over several processes are not "
-            "ported yet (ROADMAP A.10)"
-        )
-    address = config.get("parallel.distributed.coordinator_address") or None
-    processes = config.get("parallel.distributed.num_processes")
-    source = "parallel.distributed"
-    if address is None:
-        address = os.environ.get("KGE_COORDINATOR_ADDRESS") or None
-        if address:
-            processes = os.environ.get("KGE_NUM_PROCESSES", "")
-            source = "KGE_COORDINATOR_ADDRESS / KGE_NUM_PROCESSES"
-    if address and processes not in ("", None) and int(processes) > 1:
-        raise ValueError(
-            f"{source}: {int(processes)} processes at {address}; runs over "
-            "several processes are not ported yet (ROADMAP A.10)"
+            "parallel.distributed.auto: the port brings ranks up from a "
+            "coordinator address, num_processes and process_id; TPU pod "
+            "auto-detection is not ported (ROADMAP A.10)"
         )
 
 
-def device_of(config: Config) -> torch.device:
+def check_mesh_routes(config: Config, data: int, model: int, *,
+                      implementation: str = "", fused: bool = False,
+                      collects_stats: bool = False) -> None:
+    """Refuse the training routes that a (data, model) mesh does not run
+    yet (ROADMAP A.10). Under a model axis: 1vsAll, KvsAll and negative
+    sampling's ``all`` and ``pool`` (full-vocabulary scores or the whole
+    table on one rank) and ``fused_scoring: always``. Under a data axis:
+    models that collect statistics (ConvE's batch norm: a statistic of a
+    rank's rows is not kge_tpu's of the batch) and ``train.subbatch_size``
+    (subbatches draw their own negatives, which no slice of a batch can
+    keep in step with one process)."""
+    train_type = config.get("train.type")
+    if model > 1:
+        what = None
+        if train_type in ("1vsAll", "KvsAll"):
+            what = f"train.type={train_type}"
+        elif implementation in ("all", "pool"):
+            what = f"negative_sampling.implementation={implementation}"
+        elif fused:
+            what = "negative_sampling.fused_scoring=always"
+        if what is not None:
+            raise ValueError(
+                f"{what} under parallel.model={model}: the model axis runs "
+                "negative sampling with implementation batch or triple; "
+                "the other routes are not ported yet (ROADMAP A.10)"
+            )
+    if data > 1:
+        if collects_stats:
+            raise ValueError(
+                f"parallel.data={data}: the model collects batch "
+                "statistics, which a rank's rows cannot give for the whole "
+                "batch; not ported yet (ROADMAP A.10)"
+            )
+        if int(config.get("train.subbatch_size")) > 0:
+            raise ValueError(
+                f"train.subbatch_size under parallel.data={data} is not "
+                "ported yet (ROADMAP A.10)"
+            )
+
+
+def resolve_device(config: Config) -> torch.device:
     """The torch device named by ``job.device``; raises when it names the
-    card and no card is present, or when ``parallel.*`` asks for what this
-    package cannot give (``check_parallel``)."""
-    check_parallel(config)
+    card and no card is present."""
     name = str(config.get("job.device"))
     if name == "cpu":
         return torch.device("cpu")
@@ -94,6 +123,13 @@ def device_of(config: Config) -> torch.device:
             "none is available; pass --job.device cpu to run on the host"
         )
     return torch.device(name)
+
+
+def device_of(config: Config) -> torch.device:
+    """The torch device named by ``job.device`` (``resolve_device``), after
+    ``check_parallel``."""
+    check_parallel(config)
+    return resolve_device(config)
 
 
 def apply_device_config(config: Config) -> torch.device:

@@ -124,12 +124,61 @@ def test_wrapper_raises_instead_of_falling_back():
     with pytest.raises(ValueError):  # on another device
         fused_rank_counts(q, T.cpu(), None, row_ptr, cols, 50, ATOL, RTOL,
                           pivot_cols=true)
-    with pytest.raises(ValueError):  # the kernel takes no explicit pivot
-        fused_rank_counts(q, T, torch.zeros(8, device=device), row_ptr, cols,
-                          50, ATOL, RTOL)
+    with pytest.raises(TypeError):  # a given pivot of another dtype
+        fused_rank_counts(q, T, torch.zeros(8, device=device, dtype=torch.float64),
+                          row_ptr, cols, 50, ATOL, RTOL)
     with pytest.raises(NotImplementedError):  # an epilogue without a name
         fused_rank_counts(q, T, None, row_ptr, cols, 50, ATOL, RTOL,
                           score_map=torch.sqrt, pivot_cols=true)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", [False, True], ids=["plain", "l2"])
+@pytest.mark.parametrize("shards", [2, 4, 8])
+def test_rank_kernel_over_column_shards_on_card(dtype, epilogue, shards):
+    """``rank_pivots`` of every column shard summed (in float32: one term
+    is the pivot, the others -0.0) is the whole launch's pivot, and the tile
+    launch of every shard against it sums to the whole launch's counts and
+    gives its label values, bit for bit (NaN and +inf pivots among the
+    rows)."""
+    device = _card()
+    n, E, D = 70, 2400, 64
+    q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(5, n, E, D))
+    q, T = q.to(dtype), T.to(dtype)
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    g, c, vals, pivot = fused_rank_counts(q, T, None, row_ptr, cols, E, ATOL, RTOL,
+                                          score_map=score_map, pivot_cols=true)
+    per = E // shards
+    summed = torch.full((n,), -0.0, device=device)
+    before = rank_kernel.rank_pivots.launches
+    for m in range(shards):
+        summed += rank_kernel.rank_pivots(q, T[m * per:(m + 1) * per].contiguous(),
+                                          true, m * per, score_map=score_map).float()
+    assert rank_kernel.rank_pivots.launches == before + shards
+    shard_pivot = summed.to(dtype)
+    rows = rank_kernel.csr_row_ids(row_ptr)
+    g_sum, c_sum, vals_sum = torch.zeros_like(g), torch.zeros_like(c), torch.zeros_like(vals)
+    sharded = fused_rank_counts.sharded_launches
+    for m in range(shards):
+        keep = (cols >= m * per) & (cols < (m + 1) * per)
+        ptr = torch.zeros_like(row_ptr)
+        ptr[1:] = torch.cumsum(torch.bincount(rows[keep], minlength=n), 0)
+        gm, cm, vm, _ = fused_rank_counts(
+            q, T[m * per:(m + 1) * per].contiguous(), shard_pivot, ptr,
+            (cols[keep] - m * per).contiguous(), per, ATOL, RTOL, score_map=score_map)
+        g_sum += gm
+        c_sum += cm
+        vals_sum[keep] = vm
+    assert fused_rank_counts.sharded_launches == sharded + shards
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+
+    def bits(x):
+        return torch.where(torch.isnan(x), torch.zeros_like(x.view(view)), x.view(view))
+
+    assert torch.equal(bits(shard_pivot), bits(pivot))
+    assert torch.equal(g_sum, g) and torch.equal(c_sum, c)
+    assert torch.equal(bits(vals_sum), bits(vals))
 
 
 @pytest.mark.cuda

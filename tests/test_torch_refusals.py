@@ -17,9 +17,14 @@ on dataset_test, on the CPU), once refused by the port:
 ``parallel.data: -1`` and ``parallel.model: 1`` (the defaults) still train.
 
 The command that found ROADMAP C.5, where the port trained alone:
-``parallel.distributed.*`` (a coordinator with more than one process,
-``auto``, or the ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
-``KGE_PROCESS_ID`` environment) is refused, naming ROADMAP A.10; one
+``parallel.distributed.*`` (a coordinator with more than one process, or
+the ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``
+environment) now brings up one rank a process (ROADMAP A.10's first part;
+tests/test_torch_parallel.py). What the mesh does not run yet is refused on
+every rank, naming ROADMAP A.10: ``parallel.distributed.auto``, the model
+axis with 1vsAll, KvsAll, negative sampling's ``all`` and ``pool`` and
+``fused_scoring: always``, and the data axis with ConvE's batch
+statistics; a mesh that does not fit the ranks is refused too. One
 process, or none named, still trains.
 """
 
@@ -160,29 +165,75 @@ def test_one_card_in_float32_still_trains(tmp_path):
 
 _COORDINATOR = ["--parallel.distributed.coordinator_address", "127.0.0.1:9999",
                 "--parallel.distributed.process_id", "0"]
+CONVE = str(EXAMPLES_DIR / "toy-conve-train.yaml")
+TWO_ON_MODEL = ["--dataset.name", "synth", "--parallel.model", "2",
+                "--parallel.data", "1"]
 
 
-@pytest.mark.parametrize("options,environment,message", [
-    (_COORDINATOR + ["--parallel.distributed.num_processes", "2"], {},
-     "parallel.distributed: 2 processes at 127.0.0.1:9999"),
-    (["--parallel.distributed.auto", "true"], {}, "parallel.distributed.auto"),
-    ([], {"KGE_COORDINATOR_ADDRESS": "127.0.0.1:9999", "KGE_NUM_PROCESSES": "2",
-          "KGE_PROCESS_ID": "0"},
-     "KGE_COORDINATOR_ADDRESS / KGE_NUM_PROCESSES: 2 processes at 127.0.0.1:9999"),
-], ids=["coordinator", "auto", "environment"])
-def test_runs_over_several_processes_are_refused(tmp_path, options, environment,
-                                                 message):
-    """ROADMAP C.5's command and its two other forms: the port exits
-    non-zero naming ROADMAP A.10 before it trains."""
+@pytest.mark.parametrize("config,options,ranks,by,message", [
+    (TOY, ["--parallel.data", "1", "--parallel.model", "1"], 2, "config",
+     "mesh 1x1 holds 1 of the 2 processes"),
+    (TOY, ["--parallel.distributed.auto", "true"], 1, None,
+     "parallel.distributed.auto"),
+    (TOY, TWO_ON_MODEL + ["--train.type", "1vsAll"], 2, "environment",
+     "train.type=1vsAll under parallel.model=2"),
+    (TOY, TWO_ON_MODEL + ["--train.type", "KvsAll"], 2, "environment",
+     "train.type=KvsAll under parallel.model=2"),
+    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
+                          "--negative_sampling.implementation", "all",
+                          "--negative_sampling.shared", "false"], 2, "environment",
+     "negative_sampling.implementation=all under parallel.model=2"),
+    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
+                          "--negative_sampling.implementation", "pool",
+                          "--negative_sampling.shared", "false"], 2, "environment",
+     "negative_sampling.implementation=pool under parallel.model=2"),
+    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
+                          "--negative_sampling.shared", "true",
+                          "--negative_sampling.fused_scoring", "always"], 2,
+     "environment", "negative_sampling.fused_scoring=always under parallel.model=2"),
+    (CONVE, ["--parallel.data", "2"], 2, "environment",
+     "parallel.data=2: the model collects batch statistics"),
+], ids=["coordinator", "auto", "environment", "KvsAll", "all", "pool", "fused",
+        "conve_statistics"])
+def test_runs_over_several_processes_are_refused(tmp_path, config, options, ranks,
+                                                 by, message):
+    """Runs over several processes now train (tests/test_torch_parallel.py);
+    what the mesh does not run yet is refused on every rank before it
+    trains, naming ROADMAP A.10: ``parallel.distributed.auto``, the model
+    axis with 1vsAll, KvsAll, ``all``, ``pool`` and ``fused_scoring:
+    always`` (full-vocabulary scores or the whole table on one rank), and
+    the data axis with ConvE's batch statistics. The ranks come up from the
+    ``parallel.distributed`` keys ("coordinator") or the ``KGE_*``
+    environment; a mesh that leaves a rank without a place is refused with
+    kge_tpu's kind of message."""
+    from tests.torch_mesh import free_port
+    from tests.util import make_synthetic_dataset
+
     cwd = _toy_cwd(tmp_path)
-    env = {**_env(), **environment}
-    proc = subprocess.run(
-        [sys.executable, "-m", "kge_tpu_torch", "start", TOY, "--job.device",
-         "cpu", "--train.max_epochs", "1", *options, "--folder", str(cwd / "x")],
-        cwd=str(cwd), env=env, capture_output=True, text=True, timeout=600)
-    assert proc.returncode != 0
-    assert f"ValueError: {message}" in proc.stderr, proc.stderr[-2000:]
-    assert "ROADMAP A.10" in proc.stderr
+    make_synthetic_dataset(cwd / "data" / "synth")
+    port = str(free_port())
+    procs = []
+    for rank in range(ranks):
+        env, argv = _env(), list(options)
+        env["KGE_DISTRIBUTED_TIMEOUT"] = "60"
+        if by == "config":
+            argv += ["--parallel.distributed.coordinator_address", f"127.0.0.1:{port}",
+                     "--parallel.distributed.num_processes", str(ranks),
+                     "--parallel.distributed.process_id", str(rank)]
+        elif by == "environment":
+            env.update(KGE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       KGE_NUM_PROCESSES=str(ranks), KGE_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "kge_tpu_torch", "start", config, "--job.device",
+             "cpu", "--train.max_epochs", "1", *argv, "--folder", str(cwd / "x")],
+            cwd=str(cwd), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    for proc in procs:
+        _, stderr = proc.communicate(timeout=300)
+        assert proc.returncode != 0
+        assert f"ValueError: {message}" in stderr, stderr[-2000:]
+        if by != "config":
+            assert "ROADMAP A.10" in stderr
     assert not (cwd / "x" / "checkpoint_00001.pt").exists()
 
 
