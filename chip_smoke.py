@@ -206,8 +206,9 @@ Phases (any failure exits non-zero; nothing is caught):
 20. C-conve: the reciprocal relations model over ConvE at the ConvE paper's
    widths (d = 200 as a 10 x 20 map stacked to 20 x 20, 32 filters of 3 x 3,
    flat size 10,368, the yaml's dropouts 0.2 / 0.2 / 0.3), KvsAll with
-   ``bce`` and label smoothing 0.1, Adam lr 0.003, batch 128, on the
-   FB15k-237-sized graph: ``start`` for one epoch with a validation through
+   ``bce`` and label smoothing 0.1, Adam lr 0.003, batch 128, on a graph
+   of FB15k-237's sizes with the training split cut to a quarter
+   (``NEURAL_SIZES``; valid and test whole): ``start`` for one epoch with a validation through
    the rank kernel (D = 201), ``resume`` to epoch 2 (the warm epoch), ``test``,
    then ``valid --eval.type training_loss`` on the folder. The scatter kernel
    must launch 2 times a step (the query's two keys), the rank kernel twice a
@@ -333,7 +334,7 @@ Phases (any failure exits non-zero; nothing is caught):
    rank's columns (bit for bit) and against their plain versions (phase
    2's rules); (c) ``examples/wikidata5m-complex-sharded.yaml``
    on a synthetic graph of 4,800,000 entities and 822 relations (power-law
-   popularity; train cut to 262,144 triples, 32 batches of 8,192; valid and
+   popularity; train cut to 131,072 triples, 16 batches of 8,192; valid and
    test 5,000 each): ``start`` for 2 epochs with a validation each through
    ``cli.main`` (what ``python -m kge_tpu_torch`` runs) as 8 rank processes
    (2 x 4, ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
@@ -353,7 +354,31 @@ Phases (any failure exits non-zero; nothing is caught):
    whole launch) and peak allocation; ``test`` of the checkpoint over the
    8 ranks and in one process equal metric for metric. Every rank has a
    wall-clock limit; any rank that fails fails the phase.
-26. One ``kernels`` JSON line: per kernel its time per call at the main
+26. The model axis on the full-vocabulary routes with kge_tpu's ring
+   (``parallel/ring.py``), every rank on ``cuda:0`` over gloo (the ring's
+   point-to-point steps staged through the host), each against one process
+   (``ROUTES_RUNNER``: a rank's tasks in one process): (a) O-complex,
+   ``examples/fb15k-237-complex-1vsall.yaml`` at full width, over 2 x 3
+   ranks on a synthetic graph of FB15k-237's 14,541 entities (3 x 4,847)
+   and 237 relations, train cut to 24 batches of 512 and valid and test to
+   2,560 triples each: ``start`` for 2 epochs with a validation, ``resume``
+   to 3, ``test``; the losses of every epoch against one process's
+   (``ROUTES_LOSS_RTOL``: the run is chaotic), a step from the ranks'
+   ``checkpoint_00002.pt`` against the same step in one process (its loss
+   within rtol 1e-6, the tables after it by ``check_route_step``),
+   ``test`` of the ranks' checkpoint over the ranks and alone equal metric
+   for metric; the ring 2 calls a step on every rank, its columns of the
+   first batch's rows equal to ``parallel.ring_scoring never``'s in every
+   bit, an epoch under ``never`` within rtol 1e-6 of the ranks' epoch 3
+   from the same checkpoint, the widest
+   tensor of a rank's batch rows in a step 4,847 columns (14,541 alone), K2
+   and K1 (a)/(b) launches as alone's; (b) K-complex over 2 x 3, (c)
+   P-rotate's pool over 1 x 2 (200,000 entities, K5a, K5b, K4 and K2
+   launches a step as alone's: 2 + 2, 2 and 14), (d) ``implementation:
+   all`` at X-complex's shape and ``fused_scoring: always`` at T-dense's
+   over 2 x 3 (b, c and d through the package's API, one epoch each, no
+   checkpoints), each loss within rtol 1e-4 of one process's.
+27. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -370,8 +395,11 @@ Phases (any failure exits non-zero; nothing is caught):
    and the line phase 24's numbers (``data_prep``); the rank kernel's its
    launches on a rank of phase 25 (``launches_sharded``) and the times of
    ``rank_pivots`` and of the tile launch with a given pivot
-   (``sharded``), and the line phase 25's numbers (``mesh``). Then the
-   card's name and power limit, then the ``ok`` JSON line last.
+   (``sharded``), and the line phase 25's numbers (``mesh``). K1, K2, K4,
+   K5a and K5b hold each rank's launches in phase 26's tasks
+   (``launches_mesh_routes``), and the line phase 26's numbers
+   (``mesh_routes``). Then the card's name and power limit, then the
+   ``ok`` JSON line last.
 """
 
 from __future__ import annotations
@@ -599,10 +627,12 @@ def compare_kernel(seed: int, device):
 # -- the main path -------------------------------------------------------------
 
 
-def write_dataset(folder: str, seed: int, sizes=FB15K237):
+def write_dataset(folder: str, seed: int, sizes=FB15K237, cover: bool = True):
     """Synthetic triples of the given sizes (default FB15k-237's); entities
     and relations are drawn with power-law popularity so that some queries
-    hold many answers, as in the real graph."""
+    hold many answers, as in the real graph. ``cover``: every entity and
+    relation is the subject or the relation of a leading triple (the
+    triples must outnumber the entities)."""
     num_entities, num_relations, num_train, num_valid, num_test = sizes
     rng = np.random.default_rng(seed)
     os.makedirs(folder, exist_ok=True)
@@ -619,7 +649,8 @@ def write_dataset(folder: str, seed: int, sizes=FB15K237):
         rng.choice(num_relations, total, p=pr),
         rng.choice(num_entities, total, p=pe),
     ], axis=1)
-    triples[:num_entities, 0] = np.arange(num_entities)
+    if cover:
+        triples[:num_entities, 0] = np.arange(num_entities)
     triples[:num_relations, 1] = np.arange(num_relations)
     splits = {
         "train": triples[:num_train],
@@ -2676,6 +2707,9 @@ HITTER = {
 }
 HITTER_NO_DROPOUT = {"transformer.encoder.dropout": 0.0}
 PROFILED_STEPS = 50  # the profiled window of a warm epoch of C-conve, C-hitter
+#: C-conve's and C-hitter's graph: FB15k-237's sizes with the training split
+#: cut to a quarter (the run's time limit), valid and test whole
+NEURAL_SIZES = FB15K237[:2] + (FB15K237[2] // 4,) + FB15K237[3:]
 
 
 def write_neural_config(path: str, data: str, seed: int, options):
@@ -4442,8 +4476,8 @@ def run_data_prep(seed: int):
 # -- phase 25: the (data, model) mesh over ranks ------------------------------------
 
 #: M-complex: examples/wikidata5m-complex-sharded.yaml on a synthetic graph of
-#: Wikidata5M's entity and relation counts (train cut to 32 batches)
-MESH_SIZES = (4_800_000, 822, 262_144, 5_000, 5_000)
+#: Wikidata5M's entity and relation counts (train cut to 16 batches)
+MESH_SIZES = (4_800_000, 822, 131_072, 5_000, 5_000)
 MESH_SHAPE = (2, 4)
 MESH_DIM = 128  # the example's entity_embedder.dim
 MESH_EXAMPLE = os.path.join(ROOT, "examples", "wikidata5m-complex-sharded.yaml")
@@ -4546,11 +4580,11 @@ def write_mesh_dataset(folder: str, seed: int):
                 f"  num_entities: {num_entities}\n  num_relations: {num_relations}\n")
 
 
-def run_ranks(argv, ranks: int, logs: str):
-    """``argv`` through RANK_RUNNER as ``ranks`` processes on ``cuda:0``,
-    brought up by the KGE_* environment (one process alone without it);
-    returns each rank's RANK_STATS. Any rank that fails or outlives
-    RANK_TIMEOUT_S fails the phase, after every rank is stopped."""
+def launch_ranks(args, ranks: int, logs: str, what: str):
+    """``python -c <args>`` as ``ranks`` processes on ``cuda:0``, brought up
+    by the KGE_* environment (one process alone without it); returns each
+    rank's output. Any rank that fails or outlives RANK_TIMEOUT_S fails the
+    phase (``what``), after every rank is stopped."""
     os.makedirs(logs, exist_ok=True)
     port = free_port()
     procs, files = [], []
@@ -4562,9 +4596,8 @@ def run_ranks(argv, ranks: int, logs: str):
                        KGE_DISTRIBUTED_TIMEOUT=str(RANK_TIMEOUT_S))
         out = open(os.path.join(logs, f"rank{rank}.log"), "w")
         files.append(out)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", RANK_RUNNER, *argv, "--job.device", "cuda:0"],
-            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+        procs.append(subprocess.Popen([sys.executable, "-c", *args], cwd=ROOT, env=env,
+                                      stdout=out, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + RANK_TIMEOUT_S
     failed = None
     try:
@@ -4584,15 +4617,25 @@ def run_ranks(argv, ranks: int, logs: str):
                 proc.wait()
         for out in files:
             out.close()
-    stats = []
+    texts = []
     for rank in range(ranks):
         with open(os.path.join(logs, f"rank{rank}.log")) as f:
-            text = f.read()
+            texts.append(f.read())
         if failed:
-            log(f"  rank {rank} of {' '.join(argv[:2])}: ...{text[-3000:]}")
+            log(f"  rank {rank} of {what}: ...{texts[-1][-3000:]}")
+    check(failed is None, f"{what}: {failed}")
+    return texts
+
+
+def run_ranks(argv, ranks: int, logs: str):
+    """``argv`` through RANK_RUNNER as ``ranks`` processes on ``cuda:0``
+    (``launch_ranks``); returns each rank's RANK_STATS."""
+    texts = launch_ranks([RANK_RUNNER, *argv, "--job.device", "cuda:0"], ranks, logs,
+                         f"phase 25: {' '.join(argv[:2])}")
+    stats = []
+    for text in texts:
         lines = [l for l in text.splitlines() if l.startswith("RANK_STATS ")]
         stats.append(json.loads(lines[-1][len("RANK_STATS "):]) if lines else None)
-    check(failed is None, f"phase 25: {' '.join(argv[:2])}: {failed}")
     return stats
 
 
@@ -5117,6 +5160,524 @@ def run_single(seed: int, data: str, folder: str, sharded: str):
     return json.loads(line[len("SINGLE "):])
 
 
+# -- phase 26: the model axis on the full-vocabulary routes ----------------------
+
+#: (a) and (b): O-complex's example and K-complex over a 2 x 3 mesh, on a graph
+#: of FB15k-237's entity and relation counts (14,541 = 3 x 4,847 entities:
+#: the model axis divides them) with train cut to 24 batches of 512 and
+#: valid and test to 10 evaluation batches each
+ROUTES_MESH = (2, 3)
+ROUTES_SIZES = (FB15K237[0], FB15K237[1], 24 * ALL_BATCH, 10 * BATCH, 10 * BATCH)
+#: (c): P-rotate's pool over 1 x 2: 200,000 = 2 x 100,000 entities, train cut
+#: to 4 batches of 4,096
+ROTATE_ROUTE_MESH = (1, 2)
+ROTATE_ROUTE_SIZES = (SPARSE_ENTITIES, FB15K237[1], 4 * ROTATE_BATCH, BATCH, BATCH)
+#: (d): ``implementation: all`` at X-complex's shape and ``fused_scoring:
+#: always`` at T-dense's, over (a)'s 2 x 3 ranks (FB15k-237's 14,541
+#: entities are odd, so a model axis of 2 cannot divide them), train cut to
+#: 4 batches of 8,192
+DENSE_ROUTE_SIZES = (FB15K237[0], FB15K237[1], 4 * TRAIN_BATCH, BATCH, BATCH)
+#: the bound on |ranks - one process| of O-complex's tables after one step
+#: from the ranks' checkpoint (``check_route_step``): on an H100 the largest
+#: difference was 5.5e-6 (entities) and 4.6e-6 (relations), no entry beyond
+#: ROUTES_STEP_ATOL = 1e-4 of 16,346,112, the Adagrad sums within 6.3e-9
+#: (3.5e-7 of the largest); PERF.md, PR 19
+ROUTES_STEP_ATOL = 1e-4
+ROUTES_STEP_SHARE = 1e-6
+ROUTES_SUM_RTOL = 1e-5
+ROUTES_LR = 0.3  # the example's Adagrad learning rate
+#: O-complex's epochs over the ranks against one process. The example's
+#: first steps score with the random initial tables (a loss near 250) and
+#: step every entry by about lr = 0.3: the run is chaotic, and a difference
+#: in the last place of a few entries' gradients grows by a factor of about
+#: 3 a step. On the CPU (tests/torch_mesh.py ``drift``: the same graph, 1 x
+#: 3 against one process) the losses of steps 1-3 are equal in every bit,
+#: step 4 differs by 1.4e-6 relative and step 6 by 1.1e-5; the epochs by
+#: 2.4e-4, 5.8e-4 and 1.0e-2 (2 x 3; one process against itself in
+#: subbatches of 128, 2.3e-5 at epoch 1); on an H100 2.1e-4, 3.3e-3 and
+#: 7.2e-4. So the epochs are held only within ROUTES_LOSS_RTOL, 3x the
+#: largest of these readings; what must agree closely is a step from one
+#: state (``check_route_step``, rtol 1e-6 on its loss)
+ROUTES_LOSS_RTOL = 3e-2
+
+#: a rank of phase 26 (and its one process): the spec's tasks in one
+#: process, which keeps its process group from one command to the next
+#: (``cli.main`` would leave it after each). A "cli" task runs ``cli.main``;
+#: a "probe" task builds the checkpoint's job under ``parallel.ring_scoring``
+#: auto and never, compares the ring's scores of the first batch's rows with
+#: the unfused schedule's in every bit, records the widest tensor of the
+#: rank's batch rows in one step, and trains one epoch under ``never``; an
+#: "epoch" task trains one epoch of a config through the package's API,
+#: without checkpoints (P-rotate's would write 2.4 GB each). Each task
+#: prints one line: the kernels' launches and the ring's calls in it.
+ROUTES_RUNNER = """
+import json, os, sys, time
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from kge_tpu_torch import Config, Dataset, cli
+from kge_tpu_torch.job import Job, TrainingJob
+from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+from kge_tpu_torch.ops.optim import fused_sorted_update
+from kge_tpu_torch.ops.rank_kernel import fused_rank_counts, rank_pivots
+from kge_tpu_torch.parallel import distributed
+from kge_tpu_torch.parallel.mesh import entity_shard
+from kge_tpu_torch.parallel.ring import ring_all_scores
+from kge_tpu_torch.utils.io import load_checkpoint
+
+COUNTERS = ((fused_rank_counts, "launches", "rank_counts"),
+            (fused_rank_counts, "sharded_launches", "rank_counts_sharded"),
+            (rank_pivots, "launches", "rank_pivots"),
+            (sorted_scatter_add, "launches", "scatter_add_sorted"),
+            (rows_set, "launches", "rows_set"),
+            (fused_sorted_update, "launches", "fused_row_update"),
+            (pooled_dist_scores, "launches", "pooled_scores"),
+            (pooled_dist_scores, "backward_launches", "pooled_scores_bwd"),
+            (ring_all_scores, "calls", "ring_calls"))
+
+
+class Widest(TorchDispatchMode):
+    def __init__(self, rows):
+        super().__init__()
+        self.rows, self.columns = rows, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if (isinstance(t, torch.Tensor) and t.dim() == 2 and t.is_floating_point()
+                    and t.shape[0] == self.rows):
+                self.columns = max(self.columns, int(t.shape[1]))
+        return out
+
+
+def job_on(folder, checkpoint, probe, mode, options):
+    config = Config()
+    config.load(os.path.join(folder, "config.yaml"))
+    config.set("job.device", "cuda:0")
+    config.set("parallel.ring_scoring", mode)
+    for key, value in options.items():
+        config.set(key, value)
+    config.folder = probe
+    if distributed.is_primary():
+        config.init_folder()
+    distributed.barrier("probe folder")
+    dataset = Dataset.create(config)
+    shard = entity_shard(config, dataset.num_entities())
+    saved = load_checkpoint(os.path.join(folder, checkpoint),
+                            rows=None if shard is None else shard[:2])
+    job = Job.create_from(saved, new_config=config, dataset=dataset)
+    job._prepare()
+    job._is_prepared = True
+    return job
+
+
+def probe(task):
+    jobs = {mode: job_on(task["folder"], task["checkpoint"],
+                         task["folder"] + task.get("tag", "") + "-probe-" + mode, mode,
+                         task.get("options", {}))
+            for mode in ("auto", "never")}
+    out = {}
+    batch = next(iter(jobs["auto"]._batches()))
+    batch = {k: torch.as_tensor(v).to("cuda:0") for k, v in batch.items()
+             if k != "true_size" and not isinstance(v, str)}
+    local, rows = jobs["auto"]._data_shard(batch)
+    s, p, o = (local["triples"][:, i] for i in range(3))
+    calls = ring_all_scores.calls
+    with torch.no_grad():
+        for name, call in (("sp", lambda m: m.score_sp(s, p)),
+                           ("po", lambda m: m.score_po(p, o))):
+            ring, flat = call(jobs["auto"].model), call(jobs["never"].model)
+            out[name + "_shape"] = list(ring.shape)
+            out[name + "_bits_equal"] = bool(torch.equal(ring.view(torch.int32),
+                                                         flat.view(torch.int32)))
+            out[name + "_max_abs"] = float(flat.abs().max())
+    out["probe_ring_calls"] = ring_all_scores.calls - calls
+    widest = Widest(local["triples"].shape[0])
+    with widest:
+        _, aux = jobs["auto"]._train_step(batch, jobs["auto"]._current_lrs())
+    torch.cuda.synchronize()
+    out["rows"], out["widest"] = widest.rows, widest.columns
+    out["step_loss"] = float(jobs["auto"].device_ctx.reduce_data(aux["avg_loss"].clone()))
+    # the tables and Adagrad sums after the step, this rank's entity rows
+    job = jobs["auto"]
+    entity = job.model.get_s_embedder()
+    numpy = lambda t: t.detach().cpu().numpy()
+    np.savez(task["folder"] + task.get("tag", "") + f"-step-rank{distributed.process_index()}.npz",
+             lo=(entity.row_range or (0, 0))[0], entity=numpy(entity.embeddings),
+             relation=numpy(job.model.get_p_embedder().embeddings),
+             entity_sums=numpy(job.opt_state["leaves"][0]["sum"]),
+             relation_sums=numpy(job.opt_state["leaves"][1]["sum"]))
+    never = jobs["never"]
+    calls = ring_all_scores.calls
+    never.epoch += 1
+    out["never_epoch"] = never.epoch
+    out["never_loss"] = never.run_epoch()["avg_loss"]
+    out["never_ring_calls"] = ring_all_scores.calls - calls
+    return out
+
+
+def epoch(task):
+    config = Config()
+    config.load(task["config"])
+    for key, value in task["options"].items():
+        config.set(key, value)
+    config.set("job.device", "cuda:0")
+    config.folder = task["folder"]
+    distributed.maybe_initialize(config)
+    if distributed.is_primary():
+        config.init_folder()
+    distributed.barrier("epoch folder")
+    job = TrainingJob.create(config, Dataset.create(config))
+    job._prepare()
+    job._is_prepared = True
+    job.epoch = 1
+    entry = job.run_epoch()
+    return {"avg_loss": entry["avg_loss"], "batches": entry["batches"]}
+
+
+spec = json.load(open(sys.argv[1]))
+leave = distributed.shutdown
+distributed.shutdown = lambda: None
+for task in spec["tasks"]:
+    for obj, attr, _ in COUNTERS:
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    if task["kind"] == "cli":
+        cli.main(task["argv"] + ["--job.device", "cuda:0"])
+        result = {}
+    elif task["kind"] == "epoch":
+        result = epoch(task)
+    else:
+        result = probe(task)
+    torch.cuda.synchronize()
+    result["wall_s"] = time.perf_counter() - start
+    result["launches"] = {name: getattr(obj, attr) for obj, attr, name in COUNTERS}
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print("RESULT " + json.dumps({"name": task["name"], **result}), flush=True)
+distributed.barrier("end")
+leave()
+"""
+
+
+def run_route_ranks(tasks, ranks: int, logs: str):
+    """``tasks`` through ROUTES_RUNNER as ``ranks`` processes on ``cuda:0``
+    (``launch_ranks``); returns {task name: [each rank's result]}."""
+    os.makedirs(logs, exist_ok=True)
+    spec = os.path.join(logs, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"tasks": tasks}, f)
+    texts = launch_ranks([ROUTES_RUNNER, spec], ranks, logs,
+                         f"phase 26: {os.path.basename(logs)}")
+    results = {}
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("RESULT "):
+                entry = json.loads(line[len("RESULT "):])
+                results.setdefault(entry.pop("name"), []).append(entry)
+    for name, got in results.items():
+        check(len(got) == ranks, f"phase 26: {name}: {len(got)} of {ranks} results")
+    return results
+
+
+def route_args(config: str, folder: str, data: str, seed: int, mesh, *extra):
+    """A ``start`` of ``config`` on ``data`` over ``mesh`` (1 x 1 alone)."""
+    return ["start", config, "--folder", folder, "--dataset.name", data,
+            "--random_seed.default", str(seed), "--console.quiet", "true",
+            "--parallel.data", str(mesh[0]), "--parallel.model", str(mesh[1]),
+            *extra]
+
+
+def route_step_diffs(ranks_prefix: str, alone_file: str, ranks: int):
+    """|ranks - one process| of O-complex's tables and Adagrad sums after one
+    step from the ranks' ``checkpoint_00002.pt`` (each rank's entity rows
+    against the same rows of one process): the largest differences, the
+    entries beyond ROUTES_STEP_ATOL, and the largest and smallest Adagrad
+    sums of one process at such an entry."""
+    alone = np.load(alone_file)
+    out = {"max_abs_diff": {}, "max_abs": {}, "beyond": 0, "entries": 0,
+           "sums_at_beyond": [math.inf, 0.0]}
+    for r in range(ranks):
+        got = np.load(f"{ranks_prefix}{r}.npz")
+        lo = int(got["lo"])
+        for what in ("entity", "relation"):
+            mine = got[what]
+            want = alone[what][lo:lo + len(mine)] if what == "entity" else alone[what]
+            sums = (alone[what + "_sums"][lo:lo + len(mine)] if what == "entity"
+                    else alone[what + "_sums"])
+            for key, a_, b_ in ((what + " table", mine, want),
+                                (what + " Adagrad sums", got[what + "_sums"], sums)):
+                d = float(np.abs(a_ - b_).max())
+                out["max_abs_diff"][key] = max(out["max_abs_diff"].get(key, 0.0), d)
+                out["max_abs"][key] = float(np.abs(b_).max())
+            beyond = np.abs(mine - want) > ROUTES_STEP_ATOL
+            out["beyond"] += int(beyond.sum())
+            out["entries"] += int(beyond.size)
+            if beyond.any():
+                out["sums_at_beyond"] = [min(out["sums_at_beyond"][0], float(sums[beyond].min())),
+                                         max(out["sums_at_beyond"][1], float(sums[beyond].max()))]
+    return out
+
+
+def check_route_step(diffs):
+    """The tables after one step from the ranks' checkpoint, over 2 x 3
+    ranks and in one process. The ranks compute each row's scores in three
+    column shards, its logsumexp from three partial sums and each query's
+    gradient from three partial products, and each data rank half of the
+    batch, so the gradients agree to a few units in the last place, not in
+    every bit. An Adagrad step lr g / (sqrt(G) + eps) then differs by about
+    lr |dg| / sqrt(G): below ROUTES_STEP_ATOL wherever the sum G has grown
+    beyond (lr |dg| / ROUTES_STEP_ATOL)^2. An entry whose sum is still
+    near eps^2 (1e-20: it has never had a gradient above 1e-10) steps by
+    lr g / (|g| + eps), whose relative change is that of g: a gradient of
+    such size is a sum that cancels, so its rounding is a large share of
+    it. Such an entry may move by up to lr more or less. After 48 steps
+    few sums are that small: at most ROUTES_STEP_SHARE of the entries lie
+    beyond the bound, all within lr of each other, and the Adagrad sums
+    within ROUTES_SUM_RTOL of the largest."""
+    tables = [v for k, v in diffs["max_abs_diff"].items() if "table" in k]
+    sums_ok = all(diffs["max_abs_diff"][k] <= ROUTES_SUM_RTOL * diffs["max_abs"][k]
+                  for k in diffs["max_abs_diff"] if "sums" in k)
+    check(diffs["beyond"] <= ROUTES_STEP_SHARE * diffs["entries"]
+          and max(tables) <= ROUTES_LR and sums_ok,
+          f"O-complex's tables after a step from the ranks' checkpoint, over 2 x 3 "
+          f"ranks against one process: {diffs}")
+
+
+def run_mesh_routes(seed: int):
+    """Phase 26; returns a summary dict."""
+    root = os.path.join(WORK, "mesh_routes")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    summary = {}
+    start = time.perf_counter()
+    data = os.path.join(root, "fb15k237_cut")
+    write_dataset(data, seed + 26, sizes=ROUTES_SIZES)
+    rotate_data = os.path.join(root, "sparse_cut")
+    write_dataset(rotate_data, seed + 27, sizes=ROTATE_ROUTE_SIZES, cover=False)
+    dense_data = os.path.join(root, "fb15k237_dense_cut")
+    write_dataset(dense_data, seed + 28, sizes=DENSE_ROUTE_SIZES)
+    configs = {}
+    for name, overrides in (
+            ("kcomplex", {"train.type": "KvsAll", "train.batch_size": ALL_BATCH}),
+            ("rotate", pooled_config("rotate")),
+            ("all", {"negative_sampling.shared": False,
+                     "negative_sampling.implementation": "all", "valid.every": 0}),
+            ("fused", {"negative_sampling.fused_scoring": "always", "valid.every": 0})):
+        configs[name] = os.path.join(root, f"{name}.yaml")
+        write_train_config(configs[name], data, seed, **overrides)
+    summary["write_data_s"] = time.perf_counter() - start
+    mesh, single = ROUTES_MESH, (1, 1)
+    ranks_folder = os.path.join(root, "ocomplex_ranks")
+    alone_folder = os.path.join(root, "ocomplex_alone")
+    keep = ["--train.checkpoint.every", "1", "--train.checkpoint.keep", "3"]
+
+    def ocomplex(folder, m):
+        return [
+            {"name": "start", "kind": "cli", "argv": route_args(
+                OCOMPLEX_EXAMPLE, folder, data, seed, m, "--train.max_epochs", "2",
+                "--valid.every", "2", *keep)},
+            {"name": "resume", "kind": "cli",
+             "argv": ["resume", folder, "--train.max_epochs", "3", *keep]},
+            {"name": "test", "kind": "cli", "argv": ["test", folder]},
+            {"name": "probe", "kind": "probe", "folder": folder,
+             "checkpoint": "checkpoint_00002.pt"},
+        ]
+
+    def one_epoch(name, config, data_of, m):
+        return {"name": name, "kind": "epoch", "config": config,
+                "folder": os.path.join(root, f"{name}_{m[0]}x{m[1]}"),
+                "options": {"dataset.name": data_of, "random_seed.default": seed,
+                            "console.quiet": True, "parallel.data": m[0],
+                            "parallel.model": m[1], "valid.every": 0}}
+
+    def routes(m):
+        """(b) and (d) over ``m``."""
+        return [one_epoch("kcomplex", configs["kcomplex"], data, m)] + [
+            one_epoch(name, configs[name], dense_data, m) for name in ("all", "fused")]
+
+    walls = {}
+    start = time.perf_counter()
+    ranks = run_route_ranks(ocomplex(ranks_folder, mesh) + routes(mesh),
+                            mesh[0] * mesh[1], os.path.join(root, "logs_ranks"))
+    walls["ranks_2x3"] = time.perf_counter() - start
+    start = time.perf_counter()
+    rotate_mesh = ROTATE_ROUTE_MESH
+    ranks.update(run_route_ranks(
+        [one_epoch("rotate", configs["rotate"], rotate_data, rotate_mesh)],
+        rotate_mesh[0] * rotate_mesh[1], os.path.join(root, "logs_rotate")))
+    walls["ranks_1x2"] = time.perf_counter() - start
+    start = time.perf_counter()
+    alone = run_route_ranks(
+        ocomplex(alone_folder, single)
+        + [{"name": "test_ranks_folder", "kind": "cli",
+            "argv": ["test", ranks_folder, "--parallel.data", "1",
+                     "--parallel.model", "1"]},
+           {"name": "probe_ranks_folder", "kind": "probe", "folder": ranks_folder,
+            "checkpoint": "checkpoint_00002.pt", "tag": "-alone",
+            "options": {"parallel.data": 1, "parallel.model": 1}}]
+        + routes(single) + [one_epoch("rotate", configs["rotate"], rotate_data, single)],
+        1, os.path.join(root, "logs_alone"))
+    walls["alone"] = time.perf_counter() - start
+    summary["walls_s"] = walls
+    log("  walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+    # (a) O-complex over 2 x 3 against one process
+    with open(os.path.join(ranks_folder, "kge.log")) as f:
+        mesh_line = [l for l in f if "Mesh 2x3" in l]
+    check(mesh_line and "stage through host memory" in mesh_line[0],
+          f"the ranks logged no mesh line with the ring's staging: {mesh_line}")
+    summary["backend_line"] = mesh_line[0].split(" ", 2)[-1].strip()
+    ranks_losses, alone_losses = mesh_losses(ranks_folder), mesh_losses(alone_folder)
+    summary["ocomplex_avg_loss"] = {"ranks": ranks_losses, "alone": alone_losses}
+    summary["ocomplex_epoch2_s"] = {
+        name: trace_entries(folder, event="epoch_completed")[1]["epoch_time"]
+        for name, folder in (("ranks", ranks_folder), ("alone", alone_folder))}
+    summary["ocomplex_loss_rel_diff"] = {
+        epoch: abs(ranks_losses[epoch] - alone_losses[epoch]) / alone_losses[epoch]
+        for epoch in (1, 2, 3)}
+    for epoch in (1, 2, 3):
+        check(math.isclose(ranks_losses[epoch], alone_losses[epoch],
+                           rel_tol=ROUTES_LOSS_RTOL),
+              f"O-complex epoch {epoch}: avg_loss {ranks_losses[epoch]} over 2 x 3 "
+              f"ranks, {alone_losses[epoch]} alone")
+    tested = [e for e in trace_entries(ranks_folder, event="eval_completed")
+              if e.get("split") == "test"]
+    check(len(tested) == 2, f"{len(tested)} tests of the ranks' folder")
+    metrics = [{k: v for k, v in e.items()
+                if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))}
+               for e in tested]
+    check(metrics[0] == metrics[1] and len(metrics[0]) > 10
+          and 0.0 < metrics[0]["mean_reciprocal_rank_filtered"] <= 1.0,
+          f"test metrics differ over 2 x 3 ranks and alone: {metrics}")
+    summary["ocomplex_test_metrics"] = metrics[0]
+    per = ROUTES_SIZES[0] // mesh[1]
+    probe_alone = alone["probe"][0]
+    for r, got in enumerate(ranks["probe"]):
+        check(got["sp_bits_equal"] and got["po_bits_equal"],
+              f"rank {r}: the ring's scores differ from the unfused schedule's: {got}")
+        check(got["sp_shape"] == got["po_shape"] == [ALL_BATCH // mesh[0], per]
+              and got["probe_ring_calls"] == 2, f"rank {r}: probe {got}")
+        check(got["rows"] == ALL_BATCH // mesh[0] and got["widest"] == per,
+              f"rank {r}: the widest tensor of its {got['rows']} batch rows has "
+              f"{got['widest']} columns, not {per}")
+        check(got["never_ring_calls"] == 0 and got["never_epoch"] == 3,
+              f"rank {r}: {got}")
+        check(math.isclose(got["never_loss"], ranks_losses[3], rel_tol=1e-6),
+              f"rank {r}: epoch 3 under ring_scoring never {got['never_loss']}, "
+              f"under auto {ranks_losses[3]}")
+    check(probe_alone["widest"] == ROUTES_SIZES[0] and probe_alone["probe_ring_calls"] == 0,
+          f"one process's probe: {probe_alone}")
+    # the ranks' checkpoint of epoch 2 in one process: its first step and
+    # its epoch 3 against the ranks'
+    on_ranks = alone["probe_ranks_folder"][0]
+    summary["step_from_ranks_checkpoint"] = {
+        "ranks": ranks["probe"][0]["step_loss"], "alone": on_ranks["step_loss"],
+        "epoch3_ranks_never": ranks["probe"][0]["never_loss"],
+        "epoch3_alone": on_ranks["never_loss"]}
+    for r, got in enumerate(ranks["probe"]):
+        check(math.isclose(got["step_loss"], on_ranks["step_loss"], rel_tol=1e-6),
+              f"rank {r}: a step from the ranks' checkpoint {got['step_loss']}, alone "
+              f"{on_ranks['step_loss']}")
+    diffs = route_step_diffs(ranks_folder + "-step-rank",
+                             ranks_folder + "-alone-step-rank0.npz", mesh[0] * mesh[1])
+    summary["ocomplex_step_tables"] = diffs
+    check_route_step(diffs)
+    epoch_steps = ROUTES_SIZES[2] // ALL_BATCH
+    steps = {"start": 2 * epoch_steps, "resume": epoch_steps}
+    for r in range(mesh[0] * mesh[1]):
+        for verb in ("start", "resume"):
+            got, want = ranks[verb][r]["launches"], alone[verb][0]["launches"]
+            # two ring calls a step (s, p and o, p + |R|), none alone
+            check(got["ring_calls"] == 2 * steps[verb] and want["ring_calls"] == 0,
+                  f"rank {r} {verb}: ring calls {got['ring_calls']}")
+            check(got["scatter_add_sorted"] == want["scatter_add_sorted"] > 0,
+                  f"rank {r} {verb}: K2 {got['scatter_add_sorted']}, alone "
+                  f"{want['scatter_add_sorted']}")
+        for verb in ("start", "test"):
+            got, want = ranks[verb][r]["launches"], alone[verb][0]["launches"]
+            check(got["rank_counts_sharded"] == got["rank_counts"]
+                  == got["rank_pivots"] == want["rank_counts"] > 0,
+                  f"rank {r} {verb}: K1 {got}, alone {want}")
+    summary["ocomplex_launches"] = {
+        verb: {"rank0": ranks[verb][0]["launches"], "alone": alone[verb][0]["launches"]}
+        for verb in ("start", "resume", "test")}
+    summary["probe"] = {"ranks": ranks["probe"], "alone": probe_alone}
+    summary["max_memory_allocated"] = {
+        "start_ranks": [g["max_memory_allocated"] for g in ranks["start"]],
+        "start_alone": alone["start"][0]["max_memory_allocated"]}
+    log(f"  (a) O-complex over 2 x 3 ranks on cuda:0 ({summary['backend_line']}): "
+        f"avg_loss {ranks_losses}, alone {alone_losses}; test equal on all "
+        f"{len(metrics[0])} metrics (filtered MRR "
+        f"{metrics[0]['mean_reciprocal_rank_filtered']:.6f}); per rank and step 2 ring "
+        f"calls and K2 {ranks['start'][0]['launches']['scatter_add_sorted'] / steps['start']:g} "
+        f"launches (alone "
+        f"{alone['start'][0]['launches']['scatter_add_sorted'] / steps['start']:g}); "
+        f"K1 (a) and (b) {ranks['test'][0]['launches']['rank_pivots']} launches a test "
+        f"on each rank ({alone['test'][0]['launches']['rank_counts']} alone); epoch 2's "
+        f"wall {summary['ocomplex_epoch2_s']['ranks']:.3f} s over the ranks, "
+        f"{summary['ocomplex_epoch2_s']['alone']:.3f} s alone; peak allocation a rank "
+        f"{max(summary['max_memory_allocated']['start_ranks']) / 2**30:.3f} GiB, alone "
+        f"{summary['max_memory_allocated']['start_alone'] / 2**30:.3f} GiB")
+    log(f"  (a) ring against ring_scoring never on the first batch's rows: "
+        f"[{ALL_BATCH // mesh[0]}, {per}] columns a rank, equal in every bit on every rank "
+        f"(sp_ and _po); epoch 3 under never {ranks['probe'][0]['never_loss']}, under "
+        f"auto {ranks_losses[3]}; widest tensor of a rank's {ALL_BATCH // mesh[0]} "
+        f"batch rows in a step: {ranks['probe'][0]['widest']} columns "
+        f"(one process: {probe_alone['widest']})")
+    log(f"  (a) a step from the ranks' checkpoint_00002.pt: loss "
+        f"{ranks['probe'][0]['step_loss']} over the ranks, {on_ranks['step_loss']} "
+        f"alone; then {diffs['beyond']} of {diffs['entries']} table entries beyond "
+        f"{ROUTES_STEP_ATOL}"
+        + (f" (one process's Adagrad sums there {diffs['sums_at_beyond'][0]:.3e} to "
+           f"{diffs['sums_at_beyond'][1]:.3e})" if diffs["beyond"] else "")
+        + "; max "
+        f"|difference| (of max |value|): " + ", ".join(
+            f"{k} {v:.3e} ({diffs['max_abs'][k]:.3e})"
+            for k, v in diffs["max_abs_diff"].items())
+        + "; epochs' relative loss differences "
+        + ", ".join(f"{v:.2e}" for v in summary["ocomplex_loss_rel_diff"].values()))
+
+    # (b), (c), (d): one epoch each over its mesh against one process
+    summary["routes"] = {}
+    for name in ("kcomplex", "rotate", "all", "fused"):
+        got, want = ranks[name], alone[name][0]
+        check(all(g["avg_loss"] == got[0]["avg_loss"] for g in got)
+              and math.isclose(got[0]["avg_loss"], want["avg_loss"], rel_tol=1e-4),
+              f"{name}: avg_loss {[g['avg_loss'] for g in got]} over the ranks, "
+              f"{want['avg_loss']} alone")
+        steps_of = want["batches"]
+        per_step = {"ranks": [{k: v / steps_of for k, v in g["launches"].items() if v}
+                              for g in got],
+                    "alone": {k: v / steps_of for k, v in want["launches"].items() if v}}
+        for r, launches in enumerate(per_step["ranks"]):
+            for k in ("scatter_add_sorted", "fused_row_update", "pooled_scores",
+                      "pooled_scores_bwd"):
+                check(launches.get(k, 0) == per_step["alone"].get(k, 0),
+                      f"{name}, rank {r}: {k} {launches.get(k, 0)} a step, alone "
+                      f"{per_step['alone'].get(k, 0)}")
+        summary["routes"][name] = {
+            "avg_loss": {"ranks": got[0]["avg_loss"], "alone": want["avg_loss"]},
+            "steps": steps_of, "per_step": per_step,
+            "wall_s": {"ranks": got[0]["wall_s"], "alone": want["wall_s"]}}
+        log(f"  ({'b' if name == 'kcomplex' else 'c' if name == 'rotate' else 'd'}) "
+            f"{name}: avg_loss {got[0]['avg_loss']} over the ranks, "
+            f"{want['avg_loss']} alone; launches a step on rank 0 "
+            f"{per_step['ranks'][0]}, alone {per_step['alone']}")
+    rotate = summary["routes"]["rotate"]["per_step"]["alone"]
+    check(rotate.get("pooled_scores") == 2 and rotate.get("pooled_scores_bwd") == 2
+          and rotate.get("fused_row_update") == 2
+          and rotate.get("scatter_add_sorted") == 14,
+          f"P-rotate's launches a step alone {rotate}, phase 12's 2 + 2, 2 and 14")
+    summary["launches_ranks"] = {name: [g["launches"] for g in got]
+                                 for name, got in ranks.items()}
+    summary["disk_used_gb"] = disk_used_gb()
+    return summary
+
+
+
 # -- kernel timings ---------------------------------------------------------------
 
 
@@ -5620,20 +6181,22 @@ def main():
     log(f"  phase 19 took {time.perf_counter() - start:.1f} s; {card}")
 
     log("== phase 20: C-conve (reciprocal ConvE d=200, 32 filters of 3x3, KvsAll "
-        "bce with label smoothing, Adam, FB15k-237 sizes)")
+        "bce with label smoothing, Adam, FB15k-237 sizes, train cut to a quarter)")
     start = time.perf_counter()
+    neural_data = os.path.join(WORK, "fb15k237_neural")
+    write_dataset(neural_data, args.seed + 20, sizes=NEURAL_SIZES)
     conve = run_neural("conve", CONVE, CONVE_NO_DROPOUT,
                        {"scorer.conv_b": slice(None), "scorer.proj_b": slice(None)},
-                       2, args.seed, data)
+                       2, args.seed, neural_data)
     log(f"  phase 20 took {time.perf_counter() - start:.1f} s; {card}")
 
     log("== phase 21: C-hitter (reciprocal Transformer d=320, 8 heads, 3 layers, "
-        "1vsAll kl, Adam, FB15k-237 sizes)")
+        "1vsAll kl, Adam, FB15k-237 sizes, train cut to a quarter)")
     start = time.perf_counter()
     hitter = run_neural("hitter", HITTER, HITTER_NO_DROPOUT,
                         {f"scorer.layers.{i}.in_proj_b": slice(320, 640)
                          for i in range(3)},
-                        4, args.seed, data)
+                        4, args.seed, neural_data)
     log(f"  phase 21 took {time.perf_counter() - start:.1f} s; {card}")
 
     log("== phase 22: the dtype policy: the six kernels' bfloat16 paths; X-complex "
@@ -5668,6 +6231,21 @@ def main():
     mesh = run_mesh(args.seed)
     mesh["wall_s"] = time.perf_counter() - start
     log(f"  phase 25 took {mesh['wall_s']:.1f} s; {card}")
+
+    log("== phase 26: the model axis on the full-vocabulary routes with kge_tpu's ring: "
+        "O-complex (start, resume, test) and K-complex over 2 x 3 ranks, P-rotate's pool "
+        "over 1 x 2, implementation all and fused_scoring always over 2 x 3, each on "
+        "cuda:0 against one process")
+    start = time.perf_counter()
+    routes_mesh = run_mesh_routes(args.seed)
+    routes_mesh["wall_s"] = time.perf_counter() - start
+    log(f"  phase 26 took {routes_mesh['wall_s']:.1f} s; {card}")
+    ranks26 = routes_mesh["launches_ranks"]
+
+    def launches26(kernel, *tasks):
+        """A kernel's launches on each rank of phase 26's tasks."""
+        return {task: [got[kernel] for got in ranks26[task]] for task in tasks
+                if any(got[kernel] for got in ranks26[task])}
 
     def entry(name, replaces, count, max_abs_err, times, source=None, **more):
         main_shape = times[0]
@@ -5707,6 +6285,9 @@ def main():
                       "rank_pivots"],
                   "tiles_per_rank_test": mesh["launches_sharded_test"][0][
                       "rank_counts_sharded"]},
+              launches_mesh_routes={
+                  "tiles": launches26("rank_counts_sharded", "start", "test"),
+                  "rank_pivots": launches26("rank_pivots", "start", "test")},
               sharded=mesh["k1_sharded_times"]),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
@@ -5724,21 +6305,27 @@ def main():
               launches_search=search["launches"]["scatter_add_sorted"],
               launches_preprocessed={
                   "ocomplex_start": data_prep["ocomplex"]["launches"]["scatter_add_sorted"],
-                  "filtered_start": data_prep["filtered"]["launches"]["scatter_add_sorted"]}),
+                  "filtered_start": data_prep["filtered"]["launches"]["scatter_add_sorted"]},
+              launches_mesh_routes=launches26(
+                  "scatter_add_sorted", "start", "resume", "probe", "kcomplex", "rotate",
+                  "all", "fused")),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
         entry("fused_row_update", "kge_tpu/ops/pallas_ops.py:402",
               rotate["launches"]["fused_row_update"], fused_err, fused_times,
-              shapes=fused_times),
+              shapes=fused_times,
+              launches_mesh_routes=launches26("fused_row_update", "rotate")),
         entry("pooled_scores", "kge_tpu/ops/dist_pool.py:279",
               rotate["launches"]["pooled_scores"], pooled_err, pooled_fwd_times,
               source="dist_pool", shapes=pooled_fwd_times,
-              launches_transe_start=transe["launches"]["pooled_scores"]),
+              launches_transe_start=transe["launches"]["pooled_scores"],
+              launches_mesh_routes=launches26("pooled_scores", "rotate")),
         entry("pooled_scores_bwd", "kge_tpu/ops/dist_pool.py:248",
               rotate["launches"]["pooled_scores_bwd"], pooled_grad_err,
               pooled_bwd_times, source="dist_pool", shapes=pooled_bwd_times,
-              launches_transe_start=transe["launches"]["pooled_scores_bwd"]),
+              launches_transe_start=transe["launches"]["pooled_scores_bwd"],
+              launches_mesh_routes=launches26("pooled_scores_bwd", "rotate")),
     ] + [
         # the bfloat16 paths: launches in phase 22's runs
         entry(f"{name}_bf16", replaces, launches_bf16,
@@ -5777,6 +6364,7 @@ def main():
         "train_conve": conve, "train_hitter": hitter,
         "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
         "search": search, "data_prep": data_prep, "mesh": mesh,
+        "mesh_routes": {k: v for k, v in routes_mesh.items() if k != "launches_ranks"},
         "card": card}
     print(json.dumps(kernels))
     print(card)

@@ -50,14 +50,23 @@ are summed over the data group; penalties are those of data row 0 with the
 whole batch. Under a model axis the entity table and its optimizer state
 hold the rows of the rank's model coordinate (models/base.py
 ``LookupEmbedder``), and checkpoints are written in kge_tpu's sharded
-schema (utils/io.py). Every rank validates, since validation issues
-collectives; rank 0 alone writes the log, the trace and the checkpoint's
-main file.
+schema (utils/io.py). Every rank of a model group computes the same loss
+of its batch rows: full-vocabulary scores are the rank's own columns
+(models/base.py ``vocab_shard``), their losses sums and logsumexps over the
+group (ops/losses.py). The model-group sums of the gradients run in the backward
+pass, where a tensor that the ranks hold alike meets their columns
+(parallel/mesh.py ``ModelCopy``; the ring's own backward,
+parallel/ring.py): the entity shard's gradient is its rows' whole
+gradient, and the relation table's and the scorer's gradients are one
+process's share of the rank's batch rows, so the dense step's sum over the
+data group makes every leaf's gradient one process's. Every rank validates,
+since validation issues collectives; rank 0 alone writes the log, the
+trace and the checkpoint's main file.
 
 Not ported (see ROADMAP.md): kge_tpu's scanned epoch (``train.epoch_scan``
 is accepted and has nothing to select: epochs run in kge_tpu's unscanned
 order, and ``parallel.partition_edges``, which only that epoch reads, has
-no effect either), the ring schedule of the model axis.
+no effect either).
 """
 
 from __future__ import annotations

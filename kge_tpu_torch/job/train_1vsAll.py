@@ -6,7 +6,10 @@ loss of each direction is the loss of the row against its true index,
 weighted by the padding mask and divided by the true batch size. The two
 [batch, |E|] score matrices are plain matrix products; every lookup's
 backward is the scatter kernel when the job selects it (four lookups a step
-on the reciprocal relations model: s, p, o and p + |R|).
+on the reciprocal relations model: s, p, o and p + |R|). Under a model axis
+a rank scores its batch rows against the entity rows it holds, [batch / D,
+|E| / M] (kge_tpu's ring schedule where it engages, parallel/ring.py), and
+the loss of each row is taken over the column shards (ops/losses.py).
 """
 
 from __future__ import annotations
@@ -71,4 +74,5 @@ class TrainingJob1vsAll(TrainingJob):
 
     def _row_loss(self, scores, labels, mask):
         """The loss of each row against its label, masked and summed."""
-        return torch.sum(self.loss.rows(scores.float(), labels) * mask)
+        rows = self.loss.rows(scores.float(), labels, shard=self.model.vocab_shard)
+        return torch.sum(rows * mask)

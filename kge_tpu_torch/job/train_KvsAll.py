@@ -5,7 +5,11 @@ Examples are the unique (s, p), (p, o) and, if enabled, (s, o) queries of
 the training split; each is scored against its whole candidate vocabulary
 with a multi-hot label row. Labels come as coordinate lists from the KvsAll
 index (bucketed to a multiple of 256, padded coordinates pointing at the
-dropped row ``batch_size``) and are made dense on the device.
+dropped row ``batch_size``) and are made dense on the device. Under a model
+axis the entity queries (sp_, _po) score a rank's batch rows against the
+entity rows it holds, and the labels are cut to those columns: a rank never
+holds a [batch, |E|] matrix; the loss is taken over the column shards
+(ops/losses.py), label smoothing counting the whole vocabulary.
 
 Batches are homogeneous in query type, as in kge_tpu: each type's queries
 are shuffled, cut into batches, and the batches of all types come in one
@@ -158,23 +162,29 @@ class TrainingJobKvsAll(TrainingJob):
         subbatch takes them all and keeps its own rows."""
         return key in ("label_rows", "label_cols")
 
-    def _dense_labels(self, batch, qtype: str,
-                      dtype=torch.float32) -> torch.Tensor:
+    def _dense_labels(self, batch, qtype: str, dtype=torch.float32,
+                      columns=None) -> torch.Tensor:
         """The batch's [batch_size, vocab] 0/1 label matrix in ``dtype``
         (the scores'): the coordinates set in a matrix with one extra row,
         which takes the padded coordinates and is dropped. In a subbatch
         the coordinates' rows refer to the whole batch and are moved by
         ``__row_offset__``; rows outside the subbatch go to the dropped row
-        too."""
+        too. ``columns`` (lo, hi): the label matrix of those columns only,
+        the coordinates of the others sent to the dropped row."""
         bs = batch["queries"].shape[0]
+        lo, hi = columns or (0, self._vocab_size(qtype))
         labels = torch.zeros(
-            (bs + 1, self._vocab_size(qtype)), dtype=dtype,
-            device=batch["queries"].device,
+            (bs + 1, hi - lo), dtype=dtype, device=batch["queries"].device,
         )
         rows = batch["label_rows"].long() - batch.get("__row_offset__", 0)
-        rows = torch.where((rows >= 0) & (rows < bs), rows, bs)
+        cols = batch["label_cols"].long()
+        keep = (rows >= 0) & (rows < bs)
+        if columns is not None:
+            keep = keep & (cols >= lo) & (cols < hi)
+            cols = torch.where(keep, cols - lo, 0)
+        rows = torch.where(keep, rows, bs)
         labels.index_put_(
-            (rows, batch["label_cols"].long()),
+            (rows, cols),
             torch.ones((), dtype=labels.dtype, device=labels.device),
         )
         return labels[:bs]
@@ -194,11 +204,14 @@ class TrainingJobKvsAll(TrainingJob):
         else:
             raise ValueError(f"not a KvsAll query type: {qtype!r}")
 
+        # under a model axis the entity queries' columns are the rank's
+        shard = None if qtype == "s_o" else self.model.vocab_shard
         # in the scores' dtype, smoothed there, as kge_tpu builds them
-        labels = self._dense_labels(batch, qtype, scores.dtype)
+        labels = self._dense_labels(batch, qtype, scores.dtype,
+                                    None if shard is None else shard[:2])
         if self.label_smoothing > 0 and qtype != "s_o":
             labels = weak(1.0 - self.label_smoothing, labels) * labels + weak(
                 1.0 / self.dataset.num_entities(), labels)
 
-        per_row = self.loss.rows(scores.float(), labels.float())
+        per_row = self.loss.rows(scores.float(), labels.float(), shard=shard)
         return torch.sum(per_row * mask) / batch_size, {}

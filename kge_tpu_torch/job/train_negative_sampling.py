@@ -39,8 +39,13 @@ and per-row samples the rank's rows of the whole draw. The row-sparse step
 localizes the whole batch on every rank, so that the mini-tables, gathered
 from the entity table's shards, have one layout everywhere, takes the loss
 of the rank's rows, sums the row gradients over the data group and updates
-the rows the rank holds. Under a model axis the implementations ``batch``
-and ``triple`` run (utils/seed.py ``check_mesh_routes``).
+the rows the rank holds. Under a model axis every implementation runs:
+lookups (candidate lists and pools among them) gather their rows from the
+entity table's shards; ``all`` scores a rank's batch rows against the
+entity rows it holds and picks each row's samples on the rank that holds
+them (``ops/pick.py`` ``picked_scores_columns``); the fused step assembles
+its entity mini-table from the shards (``LookupEmbedder.lookup``), whose
+backward returns each shard's rows their gradient.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 
 from kge_tpu_torch.job.job import Job
 from kge_tpu_torch.job.train import TrainingJob, _detach
-from kge_tpu_torch.ops.pick import picked_scores
+from kge_tpu_torch.ops.pick import picked_scores, picked_scores_columns
 from kge_tpu_torch.ops.sampler import SLOT_STR, KgeSampler
 
 S, P, O = 0, 1, 2
@@ -164,13 +169,6 @@ class TrainingJobNegativeSampling(TrainingJob):
                 "negative_sampling.fused_scoring=always requires lookup "
                 "embedders, implementation != 'all', and a model without "
                 "internal id arithmetic (no reciprocal wrapper)"
-            )
-        if self.device_ctx.active:
-            from kge_tpu_torch.utils.seed import check_mesh_routes
-
-            check_mesh_routes(
-                self.config, self.device_ctx.data, self.device_ctx.model,
-                implementation=self._implementation, fused=self._fused,
             )
         if self._fused:
             self.config.log("Using fused (localized single-gather) scoring")
@@ -383,7 +381,7 @@ class TrainingJobNegativeSampling(TrainingJob):
         if self._implementation == "all":
             # every row against the whole vocabulary, then its own columns
             all_scores = self._score_targets(triples, slot, None, tables)
-            return picked_scores(all_scores, samples)
+            return self._pick_all(all_scores, samples, slot)
         # batch, and host-drawn samples of pool: score against the DISTINCT
         # ids of the batch's samples, then pick each row's own columns (the
         # reference's dedup, kge/util/sampler.py:307-344)
@@ -403,6 +401,15 @@ class TrainingJobNegativeSampling(TrainingJob):
         uniq, inv = _bounded_unique(flat, min(flat.numel(), vocab))
         all_scores = self._score_targets(triples, slot, uniq, tables)
         return picked_scores(all_scores, inv.reshape(n, num))
+
+    def _pick_all(self, all_scores, samples, slot):
+        """Each row's samples from its scores against the whole vocabulary
+        of ``slot``; under a model axis the entity slots' scores are the
+        rank's columns, picked where they are held."""
+        shard = self.model.vocab_shard if slot != P else None
+        if shard is None:
+            return picked_scores(all_scores, samples)
+        return picked_scores_columns(all_scores, samples, shard[0], shard[2])
 
     def _score_targets(self, triples, slot, targets, tables):
         if slot == S:
@@ -478,8 +485,15 @@ class TrainingJobNegativeSampling(TrainingJob):
             from kge_tpu_torch.ops.embedding_ops import embedding_gather
 
             batch, ent_ids, rel_ids = self._localize_batch(batch)
+            entity_embedder = self.model.get_s_embedder()
+            if entity_embedder.row_range is not None:
+                # assembled from the shards; the backward returns each
+                # shard's rows their gradient
+                ent_table = entity_embedder.lookup(ent_ids)
+            else:
+                ent_table = embedding_gather(entity_embedder.embeddings, ent_ids)
             tables = (
-                embedding_gather(self.model.get_s_embedder().embeddings, ent_ids),
+                ent_table,
                 embedding_gather(self.model.get_p_embedder().embeddings, rel_ids),
             )
         batch = self._with_negatives(batch)
@@ -507,7 +521,8 @@ class TrainingJobNegativeSampling(TrainingJob):
             if grouped is not None:
                 pos_flat, all_scores = grouped[slot]
                 if kind == "all":
-                    neg = picked_scores(all_scores, batch[f"neg_samples_{slot}"])
+                    neg = self._pick_all(all_scores, batch[f"neg_samples_{slot}"],
+                                         slot)
                 elif kind == "pool":
                     neg = self._neg_from_pool_scores(all_scores, batch, slot, num)
                 else:

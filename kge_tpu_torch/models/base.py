@@ -17,8 +17,11 @@ training need, kge_tpu's dtype policy (``parallel.param_dtype`` /
 ``parallel.compute_dtype``, utils/dtypes.py) and pretrained initialization
 (``<embedder>.pretrain``). Under a (data, model) mesh of ranks
 (parallel/mesh.py) the entity table is row-sharded over the model axis
-(``LookupEmbedder``); kge_tpu's ring-sharded scoring path
-(parallel/ring.py) is not ported yet (see ROADMAP.md).
+(``LookupEmbedder``): scores against the whole vocabulary (``score_sp`` /
+``score_po`` without candidates) are the rank's own columns, through
+kge_tpu's ring schedule (parallel/ring.py) where its rule engages it
+(``_ring_score``), else through the scorer with ``ModelCopy`` on what every
+rank holds alike (``_score_columns``).
 
 Where kge_tpu swaps gathered mini-tables into the parameter tree for the
 row-sparse training step, the embedders here own their tables, so ``embed``
@@ -41,6 +44,7 @@ from torch import nn
 from kge_tpu_torch import misc
 from kge_tpu_torch.config import Config, Configurable
 from kge_tpu_torch.dataset import Dataset
+from kge_tpu_torch.parallel.mesh import ModelCopy, ModelSum
 from kge_tpu_torch.utils.dtypes import promote, torch_dtype, weak
 
 S, P, O = 0, 1, 2
@@ -160,20 +164,27 @@ class KgeBase(nn.Module, Configurable):
     dropout_rows: Optional[Tuple[int, int, int]] = None
 
     def _dropout(self, x: torch.Tensor, rate: Optional[float] = None,
-                 whole: bool = False) -> torch.Tensor:
+                 whole: bool = False,
+                 vocab: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Inverted dropout (torch.nn.Dropout semantics, elementwise) at
         ``rate`` (default ``self.dropout``) in train mode, drawn from
         ``dropout_generator``. Under ``dropout_rows``, a tensor of the
         batch's rows (leading size m times the rank's rows) takes its rows
         of the mask drawn for the whole batch, and one that serves the
         whole batch (``whole``: candidate lists, the whole vocabulary) the
-        whole mask, so that every rank draws what one process draws."""
+        whole mask, so that every rank draws what one process draws. A row
+        shard's vocabulary (``vocab``: its first row and the vocabulary's
+        size) takes its rows of the mask drawn for the whole vocabulary."""
         rate = self.dropout if rate is None else rate
         if not self.training or rate <= 0.0:
             return x
         keep = 1.0 - rate
         shape, rows = tuple(x.shape), None
-        if self.dropout_rows is not None and not whole:
+        if vocab is not None:
+            lo, total = vocab
+            rows = slice(lo, lo + shape[0])
+            shape = (total,) + shape[1:]
+        elif self.dropout_rows is not None and not whole:
             offset, local, total = self.dropout_rows
             if shape[0] % local != 0:
                 raise ValueError(
@@ -190,21 +201,6 @@ class KgeBase(nn.Module, Configurable):
         if rows is not None:
             mask = mask[rows]
         return torch.where(mask, x / weak(keep, x), torch.zeros_like(x))
-
-
-class _ModelSum(torch.autograd.Function):
-    """Sum over the mesh's model group in the forward pass
-    (``DeviceCtx.model_sum``), identity in the backward pass: every rank of
-    the group computes the same loss from the sum, so each holds the whole
-    gradient of it."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.model_sum(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
 
 
 # -- scorers -------------------------------------------------------------------
@@ -244,6 +240,11 @@ class RelationalScorer(KgeBase):
         tree of this scorer (nested dicts and lists with tensor leaves);
         empty for scorers without parameters."""
         return {}
+
+    def forward(self, s_emb, p_emb, o_emb, combine: str) -> torch.Tensor:
+        """``score_emb``: the call that ``torch.func.functional_call`` makes
+        with stand-ins for the scorer's parameters."""
+        return self.score_emb(s_emb, p_emb, o_emb, combine)
 
     def score_emb_spo(self, s_emb, p_emb, o_emb) -> torch.Tensor:
         return self.score_emb(s_emb, p_emb, o_emb, "spo").reshape(-1)
@@ -387,6 +388,12 @@ class KgeEmbedder(KgeBase):
         """Embeddings of all vocabulary members, [vocab_size, dim]."""
         raise NotImplementedError
 
+    @property
+    def vocab_shard(self):
+        """(lo, hi, mesh) where ``embed_all`` gives the rows ``[lo, hi)`` of
+        a row shard over the mesh's model axis, None where it gives all."""
+        return None
+
     def postprocess_params(self) -> None:
         """Post-batch parameter transform (e.g. L_p renormalization)."""
 
@@ -522,7 +529,7 @@ class LookupEmbedder(KgeEmbedder):
     def lookup(self, indexes) -> torch.Tensor:
         """The table's rows at ``indexes`` (no dropout, the table's dtype).
         On a row shard: the rows this rank holds, -0.0 elsewhere, summed
-        over the model group (``_ModelSum``); every row has one term that is
+        over the model group (``ModelSum``); every row has one term that is
         not -0.0, the neutral element of the sum, so the rows are exact. The
         backward of the local gather is the scatter kernel on local ids, as
         on one card."""
@@ -539,12 +546,23 @@ class LookupEmbedder(KgeEmbedder):
         rows = torch.where(own.unsqueeze(-1), rows,
                            torch.full((), -0.0, dtype=rows.dtype,
                                       device=rows.device))
-        return _ModelSum.apply(rows, self._mesh)
+        return ModelSum.apply(rows, self._mesh)
 
     def embed_all(self) -> torch.Tensor:
         """All rows' embeddings; on a row shard the rows this rank holds
-        (``row_range``), which only the evaluation asks for."""
-        return self._dropout(self.embeddings.to(self.compute_dtype), whole=True)
+        (``row_range``), with their rows of the dropout mask drawn for the
+        whole vocabulary."""
+        vocab = None
+        if self.row_range is not None:
+            vocab = (self.row_range[0], self.vocab_size)
+        return self._dropout(self.embeddings.to(self.compute_dtype), whole=True,
+                             vocab=vocab)
+
+    @property
+    def vocab_shard(self):
+        if self.row_range is None:
+            return None
+        return self.row_range[0], self.row_range[1], self._mesh
 
     def _abs_complex(self, parameters: torch.Tensor) -> torch.Tensor:
         re, im = torch.chunk(parameters, 2, dim=1)
@@ -585,7 +603,7 @@ class LookupEmbedder(KgeEmbedder):
             if self.row_range is not None:
                 # the shards' partial sums; each rank's rows keep their own
                 # gradient
-                total = _ModelSum.apply(total, self._mesh)
+                total = ModelSum.apply(total, self._mesh)
             result.append((name, weak(weight / p, total) * total))
         else:
             if indexes is None:
@@ -659,17 +677,31 @@ class ProjectionEmbedder(KgeEmbedder):
         return {"base": self.base_embedder.param_tree(),
                 "projection": self.projection}
 
-    def _project(self, emb: torch.Tensor, whole: bool) -> torch.Tensor:
+    def _project(self, emb: torch.Tensor, whole: bool, vocab=None,
+                 projection=None) -> torch.Tensor:
         # a compute-dtype embedding meets the float32 projection in float32
-        emb, projection = promote(emb, self.projection)
-        return self._dropout(emb @ projection.T, whole=whole)
+        emb, projection = promote(
+            emb, self.projection if projection is None else projection)
+        return self._dropout(emb @ projection.T, whole=whole, vocab=vocab)
 
     def embed(self, indexes, table=None, whole=False) -> torch.Tensor:
         return self._project(self.base_embedder.embed(indexes, table, whole),
                              whole)
 
     def embed_all(self) -> torch.Tensor:
-        return self._project(self.base_embedder.embed_all(), True)
+        shard = self.vocab_shard
+        if shard is None:
+            return self._project(self.base_embedder.embed_all(), True)
+        # the rank's rows meet the projection that every rank holds alike:
+        # its gradient from them is the share of the rank's columns
+        # (``ModelCopy``)
+        return self._project(self.base_embedder.embed_all(), True,
+                             (shard[0], self.vocab_size),
+                             ModelCopy.apply(self.projection, shard[2]))
+
+    @property
+    def vocab_shard(self):
+        return self.base_embedder.vocab_shard
 
     def postprocess_params(self) -> None:
         self.base_embedder.postprocess_params()
@@ -1084,22 +1116,121 @@ class KgeModel(KgeBase):
         return self._scorer.score_emb_neg(embs[0], embs[1], embs[2], slot)
 
     def score_sp(self, s, p, o=None, tables=None) -> torch.Tensor:
-        """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m]."""
+        """Scores of (s_i, p_i, *) against all (or the given) objects; [n, m].
+        Against all objects on a row shard: this rank's columns."""
+        if o is None and tables is None:
+            ring = self._ring_score(s, p, 2)
+            if ring is not None:
+                return ring
         ent, rel = tables if tables is not None else (None, None)
         s_emb = self.get_s_embedder().embed(s, ent)
         p_emb = self.get_p_embedder().embed(p, rel)
         o_emb = self._candidates(self.get_o_embedder(), o, ent)
         s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
+        if o is None:
+            return self._score_columns(s_emb, p_emb, o_emb, "sp_")
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "sp_")
 
     def score_po(self, p, o, s=None, tables=None) -> torch.Tensor:
-        """Scores of (*, p_i, o_i) against all (or the given) subjects; [n, m]."""
+        """Scores of (*, p_i, o_i) against all (or the given) subjects; [n, m].
+        Against all subjects on a row shard: this rank's columns."""
+        if s is None and tables is None:
+            ring = self._ring_score(o, p, 0)
+            if ring is not None:
+                return ring
         ent, rel = tables if tables is not None else (None, None)
         s_emb = self._candidates(self.get_s_embedder(), s, ent)
         p_emb = self.get_p_embedder().embed(p, rel)
         o_emb = self.get_o_embedder().embed(o, ent)
         s_emb, p_emb, o_emb = self._promoted(s_emb, p_emb, o_emb)
+        if s is None:
+            return self._score_columns(s_emb, p_emb, o_emb, "_po")
         return self._scorer.score_emb(s_emb, p_emb, o_emb, "_po")
+
+    @property
+    def vocab_shard(self):
+        """(lo, hi, mesh) of the entity columns that this rank's scores
+        against the whole vocabulary hold under a model axis (the rows of
+        its entity shard), None where they hold every column."""
+        return self.get_o_embedder().vocab_shard
+
+    def _score_columns(self, s_emb, p_emb, o_emb, combine: str):
+        """``score_emb`` against the whole entity vocabulary: on a row shard
+        the rank's own columns, the kept slots' embeddings and the scorer's
+        parameters passing ``ModelCopy``, so that the gradient of what
+        every rank of the model group holds alike is summed over the
+        group's columns."""
+        shard = self.vocab_shard
+        if shard is None:
+            return self._scorer.score_emb(s_emb, p_emb, o_emb, combine)
+        mesh = shard[2]
+
+        def copy(t):
+            return ModelCopy.apply(t, mesh)
+
+        if combine == "sp_":
+            s_emb, p_emb = copy(s_emb), copy(p_emb)
+        else:
+            p_emb, o_emb = copy(p_emb), copy(o_emb)
+        params = {name: copy(param)
+                  for name, param in self._scorer.named_parameters()}
+        return torch.func.functional_call(self._scorer, params,
+                                          (s_emb, p_emb, o_emb, combine))
+
+    def _ring_score(self, ent_ids, rel_ids, slot: int):
+        """This rank's columns of the scores of ``slot`` (2: objects, 0:
+        subjects) against the whole vocabulary through kge_tpu's ring
+        schedule (parallel/ring.py), or None where kge_tpu's rule does not
+        engage it (kge_tpu/models/base.py ``_ring_score``): no model axis,
+        ``parallel.ring_scoring: never``, an entity embedder that is not a
+        ``LookupEmbedder``, embedding dropout in train mode, a scorer with
+        parameters, or a scorer that does not factorize the slot. (kge_tpu's
+        last condition, an entity count that the model axis divides, holds
+        on every row shard: parallel/mesh.py ``entity_shard`` refuses the
+        others.)"""
+        ent_embedder = self.get_s_embedder()
+        rel_embedder = self.get_p_embedder()
+        if type(ent_embedder) is not LookupEmbedder or ent_embedder.row_range is None:
+            return None
+        if self.config.check("parallel.ring_scoring", ["auto", "never"]) == "never":
+            return None
+        if ent_embedder.training and (
+                ent_embedder.dropout > 0 or getattr(rel_embedder, "dropout", 0.0) > 0):
+            # the ring bypasses embed(); keep its dropout draws
+            return None
+        if next(self._scorer.parameters(), None) is not None:
+            return None
+        table = ent_embedder.embeddings
+        cdtype = ent_embedder.compute_dtype
+        rel_emb = rel_embedder.embed(rel_ids)
+        # the scorer's (static) factorization of the slot
+        dummy_e = torch.zeros((1, table.shape[-1]), dtype=cdtype, device=table.device)
+        dummy_r = torch.zeros((1, rel_emb.shape[-1]), dtype=rel_emb.dtype,
+                              device=rel_emb.device)
+        args = (dummy_e, dummy_r, None) if slot == 2 else (None, dummy_r, dummy_e)
+        fac = self._scorer.factorize_slot(*args, slot)
+        if fac is None:
+            return None
+        target_map = fac[1]
+        score_map = fac[2] if len(fac) > 2 else None
+        scorer = self._scorer
+
+        def make_query(rows, rel):
+            rows, rel = promote(rows.to(cdtype), rel)
+            kept = (rows, rel, None) if slot == 2 else (None, rel, rows)
+            return scorer.factorize_slot(*kept, slot)[0]
+
+        def map_targets(tbl):
+            t = tbl.to(cdtype)
+            return target_map(t) if target_map is not None else t
+
+        from kge_tpu_torch.parallel.ring import ring_all_scores
+
+        out = ring_all_scores(
+            ent_embedder._mesh, table, torch.as_tensor(ent_ids, device=table.device),
+            rel_emb, make_query, map_targets, lo=ent_embedder.row_range[0],
+        )
+        return out if score_map is None else score_map(out)
 
     def score_so(self, s, o, p=None, tables=None) -> torch.Tensor:
         """Scores of (s_i, *, o_i) against all (or the given) relations; [n, m]."""
@@ -1192,6 +1323,10 @@ class KgeModel(KgeBase):
             if target_map is not None:
                 t = target_map(t)
             q, t = promote(q, t)
+            shard = embedders[slot].vocab_shard if targets[slot] is None else None
+            if shard is not None:
+                # the rank's own columns of the whole vocabulary
+                q = ModelCopy.apply(q, shard[2])
             dot = q @ t.T
             out[slot] = (pos, dot if score_map is None else score_map(dot))
         return out

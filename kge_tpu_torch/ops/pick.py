@@ -20,6 +20,11 @@ matrix: on CUDA that path sorts the linear indices with a stable radix sort
 and sums each index's duplicates in the sorted (so the original) order, so
 two launches give the same bits, one order for every output element as the
 package's kernels keep. On the CPU it is a sequential loop in index order.
+
+Under a model axis a rank holds its columns of the score matrix only
+(parallel/mesh.py): ``picked_scores_columns`` picks each row's columns on
+the rank that holds them, -0.0 on the others, and sums the picks over the
+model group, so every rank holds the whole [n, K] picks.
 """
 
 from __future__ import annotations
@@ -42,6 +47,23 @@ class _PickedScores(torch.autograd.Function):
         rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
         dS.index_put_((rows, idx), grad, accumulate=True)
         return dS, None
+
+
+def picked_scores_columns(S: torch.Tensor, idx: torch.Tensor, lo: int,
+                          mesh) -> torch.Tensor:
+    """``picked_scores`` of the whole row where ``S`` [n, m] holds a rank's
+    columns ``[lo, lo + m)`` of it: the rank that holds a column gives its
+    value, the others -0.0, the neutral element of the model group's sum
+    (``ModelSum``: identity backward, so each rank's gradient reaches its
+    own columns)."""
+    from kge_tpu_torch.parallel.mesh import ModelSum
+
+    local = idx.long() - lo
+    own = (local >= 0) & (local < S.shape[1])
+    got = picked_scores(S, torch.where(own, local, 0))
+    got = torch.where(own, got, torch.full((), -0.0, dtype=got.dtype,
+                                           device=got.device))
+    return ModelSum.apply(got, mesh)
 
 
 def picked_scores(S: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

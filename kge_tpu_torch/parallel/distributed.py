@@ -15,8 +15,10 @@ NCCL refuses two ranks on one card ("Duplicate GPU detected"), so before
 the process group comes up every rank publishes its host name and its
 card's UUID to the store; where two ranks share a card every rank takes
 ``gloo``, which takes CUDA tensors for ``all_reduce``, ``all_gather``
-and ``broadcast`` (``choose_backend``). Rank 0 logs the decision once, when the job's
-mesh comes up (parallel/mesh.py).
+and ``broadcast`` (``choose_backend``) but CPU tensors only for ``send``
+and ``recv``: the ring's point-to-point steps (``exchange``) stage their
+buffers through host memory there. Rank 0 logs the decision once, when the
+job's mesh comes up (parallel/mesh.py).
 
 Every collective of the package runs with a timeout (the environment's
 ``KGE_DISTRIBUTED_TIMEOUT`` seconds, 900 by default), so that a rank that
@@ -180,6 +182,43 @@ def all_reduce(tensor: torch.Tensor, group=None) -> torch.Tensor:
 
     dist.all_reduce(tensor, group=group)
     return tensor
+
+
+def all_reduce_max(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Take the elementwise maximum of ``tensor`` in place over ``group``
+    (the world by default)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(tensor, op=dist.ReduceOp.MAX, group=group)
+    return tensor
+
+
+def exchange(tensor: torch.Tensor, send_to: int, recv_from: int,
+             group=None) -> torch.Tensor:
+    """Send ``tensor`` to the rank ``send_to`` while receiving one of its
+    shape and dtype from the rank ``recv_from`` (global ranks of
+    ``group``), as one ``batch_isend_irecv``: a step of a ring. Gloo sends
+    and receives CPU tensors only, so under gloo a tensor on the card is
+    staged through host memory both ways; that staging is the transport,
+    and a failed send or receive raises. Gloo's waits keep the package's
+    timeout; NCCL's work runs under the process group's."""
+    import torch.distributed as dist
+
+    staged = backend == "gloo" and tensor.device.type != "cpu"
+    out = tensor.detach().contiguous()
+    if staged:
+        out = out.cpu()
+    buf = torch.empty_like(out)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, out, send_to, group),
+        dist.P2POp(dist.irecv, buf, recv_from, group),
+    ])
+    for work in works:
+        if backend == "gloo":
+            work.wait(timeout())
+        else:
+            work.wait()
+    return buf.to(tensor.device) if staged else buf
 
 
 def all_gather(piece: torch.Tensor, count: int, group=None) -> torch.Tensor:

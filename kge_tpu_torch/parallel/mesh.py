@@ -15,6 +15,18 @@ Only the entity table (and, with it, its optimizer state) is row-sharded
 rows ``[lo, hi)`` of its model coordinate and ranks the batch rows of its
 data coordinate (``batch_rows``). With one rank every spec is replicated
 and the context is inactive.
+
+Two operators carry gradients across the model group (Megatron-LM's "g"
+and "f"). ``ModelSum`` sums a tensor over the group in the forward pass
+and is the identity in the backward pass: a row shard's lookups, and the
+sums of a rank's columns into a row's total, whose result every rank of
+the group uses alike. ``ModelCopy`` is the identity in the forward pass
+and sums the gradient over the group in the backward pass: a tensor that
+every rank holds alike (a query, relation rows, a scorer's parameters)
+where it meets the rank's own columns of a score matrix, each rank's part
+of its gradient coming from its columns only. With both, every rank of a
+group computes the same loss, and every replicated tensor's gradient is
+one process's (up to the order of the sums).
 """
 
 from __future__ import annotations
@@ -89,7 +101,9 @@ class DeviceCtx:
             config.log(
                 f"Mesh {data}x{model} (data x model) over {n} processes, "
                 f"backend {distributed.backend}"
-                + (" (ranks share a card, which NCCL refuses)"
+                + (" (ranks share a card, which NCCL refuses; the ring's "
+                   "point-to-point steps stage through host memory, since "
+                   "gloo sends CPU tensors only)"
                    if distributed.shared_card else "")
             )
         return ctx
@@ -136,10 +150,66 @@ class DeviceCtx:
         out = values.float() if narrow else values.clone()
         return self.reduce_model(out).to(values.dtype)
 
+    def model_max(self, values: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``values`` over the model group, as a
+        new tensor without gradient."""
+        out = values.detach().clone()
+        if self.model > 1:
+            distributed.all_reduce_max(out, self.model_group)
+        return out
+
+    def sum_columns(self, values: torch.Tensor) -> torch.Tensor:
+        """[n] sums of the rows of ``values`` [n, columns of this rank] over
+        every rank's columns (``ModelSum``): the same on every rank of the
+        group, each rank's gradient that of its own columns."""
+        return ModelSum.apply(torch.sum(values, dim=1), self)
+
+    def logsumexp_columns(self, values: torch.Tensor) -> torch.Tensor:
+        """[n] logsumexp of each row over every rank's columns: the rows'
+        maximum over the group (without gradient), then the sum of the
+        exponentials over the group; each rank's gradient is the softmax on
+        its own columns."""
+        top = self.model_max(torch.max(values, dim=1).values)
+        top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+        total = self.sum_columns(torch.exp(values - top[:, None]))
+        return top + torch.log(total)
+
     def gather_data(self, piece: torch.Tensor) -> torch.Tensor:
         """The pieces of the data group stacked on a new first axis, in
         data-coordinate order."""
         return distributed.all_gather(piece, self.data, self.data_group)
+
+
+class ModelSum(torch.autograd.Function):
+    """Sum over the mesh's model group in the forward pass
+    (``DeviceCtx.model_sum``), identity in the backward pass: every rank of
+    the group computes the same loss from the sum, so each holds the whole
+    gradient of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.model_sum(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ModelCopy(torch.autograd.Function):
+    """The conjugate of ``ModelSum``: identity in the forward pass, the
+    gradient summed over the mesh's model group in the backward pass. A
+    tensor that every rank of the group holds alike passes it where it meets
+    the rank's own columns: each rank's gradient of it is the share of its
+    columns, and the sum is the whole gradient, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.model_sum(grad.contiguous()), None
 
 
 def _groups(data: int, model: int):

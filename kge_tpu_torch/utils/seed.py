@@ -52,7 +52,7 @@ def check_parallel(config: Config) -> None:
 
 def check_distributed(config: Config) -> None:
     """Refuse ``parallel.distributed.auto`` (kge_tpu's TPU pod
-    auto-detection, ROADMAP A.10). A coordinator address with its number of
+    auto-detection, ROADMAP A.10c). A coordinator address with its number of
     processes and process id, from the config or from
     ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
     ``KGE_PROCESS_ID``, brings the ranks up (parallel/distributed.py)."""
@@ -60,47 +60,29 @@ def check_distributed(config: Config) -> None:
         raise ValueError(
             "parallel.distributed.auto: the port brings ranks up from a "
             "coordinator address, num_processes and process_id; TPU pod "
-            "auto-detection is not ported (ROADMAP A.10)"
+            "auto-detection is not ported (ROADMAP A.10c)"
         )
 
 
 def check_mesh_routes(config: Config, data: int, model: int, *,
-                      implementation: str = "", fused: bool = False,
                       collects_stats: bool = False) -> None:
     """Refuse the training routes that a (data, model) mesh does not run
-    yet (ROADMAP A.10). Under a model axis: 1vsAll, KvsAll and negative
-    sampling's ``all`` and ``pool`` (full-vocabulary scores or the whole
-    table on one rank) and ``fused_scoring: always``. Under a data axis:
-    models that collect statistics (ConvE's batch norm: a statistic of a
-    rank's rows is not kge_tpu's of the batch) and ``train.subbatch_size``
-    (subbatches draw their own negatives, which no slice of a batch can
-    keep in step with one process)."""
-    train_type = config.get("train.type")
-    if model > 1:
-        what = None
-        if train_type in ("1vsAll", "KvsAll"):
-            what = f"train.type={train_type}"
-        elif implementation in ("all", "pool"):
-            what = f"negative_sampling.implementation={implementation}"
-        elif fused:
-            what = "negative_sampling.fused_scoring=always"
-        if what is not None:
-            raise ValueError(
-                f"{what} under parallel.model={model}: the model axis runs "
-                "negative sampling with implementation batch or triple; "
-                "the other routes are not ported yet (ROADMAP A.10)"
-            )
+    yet (ROADMAP A.10c), all of them under a data axis: models that collect
+    statistics (ConvE's batch norm: a statistic of a rank's rows is not
+    kge_tpu's of the batch) and ``train.subbatch_size`` (subbatches draw
+    their own negatives, which no slice of a batch can keep in step with
+    one process). The model axis runs every route."""
     if data > 1:
         if collects_stats:
             raise ValueError(
                 f"parallel.data={data}: the model collects batch "
                 "statistics, which a rank's rows cannot give for the whole "
-                "batch; not ported yet (ROADMAP A.10)"
+                "batch; not ported yet (ROADMAP A.10c)"
             )
         if int(config.get("train.subbatch_size")) > 0:
             raise ValueError(
                 f"train.subbatch_size under parallel.data={data} is not "
-                "ported yet (ROADMAP A.10)"
+                "ported yet (ROADMAP A.10c)"
             )
 
 

@@ -10,9 +10,10 @@ tests/test_multiprocess.py).
   metric. The epochs' losses equal one process's within rtol 1e-4, atol
   1e-5.
 - kge_tpu's two-process run on its 2 x 2 mesh (tests/test_multiprocess.py's
-  worker) writes a sharded checkpoint; the port loads it, its tables equal
-  to kge_tpu's reassembly, and resumes it in one process and over 4 ranks,
-  whose epochs' losses agree within rtol 1e-4.
+  worker, with negative sampling and with 1vsAll) writes a sharded
+  checkpoint; the port loads it, its tables equal to kge_tpu's reassembly,
+  and resumes it in one process and over 4 ranks, whose epochs' losses
+  agree within rtol 1e-4.
 """
 
 import os
@@ -107,12 +108,14 @@ def test_cli_over_four_ranks_computes_one_process(tmp_path):
 
 
 @pytest.mark.timeout(600)
-def test_kge_tpu_sharded_checkpoint_resumes_in_the_port(tmp_path):
+@pytest.mark.parametrize("train_type", ["negative_sampling", "1vsAll"])
+def test_kge_tpu_sharded_checkpoint_resumes_in_the_port(tmp_path, train_type):
     """kge_tpu's two processes on its 2 x 2 mesh write checkpoint_00002.pt
-    and two shard files (tests/test_multiprocess.py ``WORKER_PART``); the
-    port reassembles the tables as kge_tpu does and resumes the checkpoint
-    in one process and over 4 ranks (per-row negatives scored as ``batch``,
-    since the model axis does not run kge_tpu's ``pool`` yet)."""
+    and two shard files (tests/test_multiprocess.py ``WORKER_PART``, its
+    training type replaced by ``train_type``); the port reassembles the
+    tables as kge_tpu does and resumes the checkpoint in one process and
+    over 4 ranks, negative sampling with kge_tpu's ``auto`` (``pool``, which
+    the model axis now runs)."""
     from kge_tpu.utils.io import load_checkpoint as kge_tpu_load
     from kge_tpu_torch.models.convert import leaf_tensor
     from kge_tpu_torch.utils.io import load_checkpoint
@@ -121,7 +124,10 @@ def test_kge_tpu_sharded_checkpoint_resumes_in_the_port(tmp_path):
     data = make_synthetic_dataset(tmp_path / "synth_mp", seed=4)
     out = tmp_path / "exp_kge_tpu"
     script = tmp_path / "worker_part.py"
-    script.write_text(WORKER_PART.format(repo=str(REPO)))
+    worker = WORKER_PART.format(repo=str(REPO))
+    assert 'config.set("train.type", "negative_sampling")' in worker
+    script.write_text(worker.replace('config.set("train.type", "negative_sampling")',
+                                     f'config.set("train.type", "{train_type}")'))
     port = str(torch_mesh.free_port())
     env = {k: v for k, v in os.environ.items() if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     procs = [subprocess.Popen([sys.executable, str(script), str(pid), "2", port,
@@ -147,10 +153,7 @@ def test_kge_tpu_sharded_checkpoint_resumes_in_the_port(tmp_path):
                "parallel.distributed.coordinator_address": "",
                "parallel.distributed.num_processes": -1,
                "parallel.distributed.process_id": -1,
-               "dataset.name": str(data), "console.quiet": True,
-               # kge_tpu's run drew pools (``auto`` without shared
-               # negatives); the model axis runs per-row ``batch``
-               "negative_sampling.implementation": "batch"}
+               "dataset.name": str(data), "console.quiet": True}
     task = {"name": "resume", "kind": "resume", "checkpoint": str(checkpoint_file)}
     alone = torch_mesh.TASKS["resume"](
         {**task, "options": {**options, "parallel.data": 1, "parallel.model": 1}},

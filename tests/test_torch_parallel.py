@@ -68,7 +68,8 @@ ROUTES = {
     "1vsAll": {"train.type": "1vsAll"},
     "KvsAll": {"train.type": "KvsAll"},
 }
-#: the routes each mesh runs: the model axis runs negative sampling only
+#: the routes each mesh runs here (the model axis's full-vocabulary routes:
+#: tests/test_torch_mesh_routes.py)
 MESH_ROUTES = {
     "dp2": list(ROUTES),
     "mp2": ["dense", "sparse_adagrad", "sparse_adam", "dropout_per_row"],

@@ -21,9 +21,8 @@ The command that found ROADMAP C.5, where the port trained alone:
 the ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``
 environment) now brings up one rank a process (ROADMAP A.10's first part;
 tests/test_torch_parallel.py). What the mesh does not run yet is refused on
-every rank, naming ROADMAP A.10: ``parallel.distributed.auto``, the model
-axis with 1vsAll, KvsAll, negative sampling's ``all`` and ``pool`` and
-``fused_scoring: always``, and the data axis with ConvE's batch
+every rank, naming ROADMAP A.10c: ``parallel.distributed.auto``, and the
+data axis with ``train.subbatch_size`` or ConvE's batch
 statistics; a mesh that does not fit the ranks is refused too. One
 process, or none named, still trains.
 """
@@ -166,8 +165,6 @@ def test_one_card_in_float32_still_trains(tmp_path):
 _COORDINATOR = ["--parallel.distributed.coordinator_address", "127.0.0.1:9999",
                 "--parallel.distributed.process_id", "0"]
 CONVE = str(EXAMPLES_DIR / "toy-conve-train.yaml")
-TWO_ON_MODEL = ["--dataset.name", "synth", "--parallel.model", "2",
-                "--parallel.data", "1"]
 
 
 @pytest.mark.parametrize("config,options,ranks,by,message", [
@@ -175,37 +172,22 @@ TWO_ON_MODEL = ["--dataset.name", "synth", "--parallel.model", "2",
      "mesh 1x1 holds 1 of the 2 processes"),
     (TOY, ["--parallel.distributed.auto", "true"], 1, None,
      "parallel.distributed.auto"),
-    (TOY, TWO_ON_MODEL + ["--train.type", "1vsAll"], 2, "environment",
-     "train.type=1vsAll under parallel.model=2"),
-    (TOY, TWO_ON_MODEL + ["--train.type", "KvsAll"], 2, "environment",
-     "train.type=KvsAll under parallel.model=2"),
-    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
-                          "--negative_sampling.implementation", "all",
-                          "--negative_sampling.shared", "false"], 2, "environment",
-     "negative_sampling.implementation=all under parallel.model=2"),
-    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
-                          "--negative_sampling.implementation", "pool",
-                          "--negative_sampling.shared", "false"], 2, "environment",
-     "negative_sampling.implementation=pool under parallel.model=2"),
-    (TOY, TWO_ON_MODEL + ["--train.type", "negative_sampling",
-                          "--negative_sampling.shared", "true",
-                          "--negative_sampling.fused_scoring", "always"], 2,
-     "environment", "negative_sampling.fused_scoring=always under parallel.model=2"),
+    (TOY, ["--parallel.data", "2", "--parallel.model", "1", "--train.subbatch_size",
+           "2"], 2, "environment",
+     "train.subbatch_size under parallel.data=2 is not ported yet (ROADMAP A.10c)"),
     (CONVE, ["--parallel.data", "2"], 2, "environment",
      "parallel.data=2: the model collects batch statistics"),
-], ids=["coordinator", "auto", "environment", "KvsAll", "all", "pool", "fused",
-        "conve_statistics"])
+], ids=["coordinator", "auto", "environment", "conve_statistics"])
 def test_runs_over_several_processes_are_refused(tmp_path, config, options, ranks,
                                                  by, message):
     """Runs over several processes now train (tests/test_torch_parallel.py);
     what the mesh does not run yet is refused on every rank before it
-    trains, naming ROADMAP A.10: ``parallel.distributed.auto``, the model
-    axis with 1vsAll, KvsAll, ``all``, ``pool`` and ``fused_scoring:
-    always`` (full-vocabulary scores or the whole table on one rank), and
-    the data axis with ConvE's batch statistics. The ranks come up from the
-    ``parallel.distributed`` keys ("coordinator") or the ``KGE_*``
-    environment; a mesh that leaves a rank without a place is refused with
-    kge_tpu's kind of message."""
+    trains, naming ROADMAP A.10c: ``parallel.distributed.auto``, and the
+    data axis with ``train.subbatch_size`` or ConvE's batch statistics (the
+    model axis runs every route: tests/test_torch_mesh_routes.py). The
+    ranks come up from the ``parallel.distributed`` keys ("coordinator")
+    or the ``KGE_*`` environment; a mesh that leaves a rank without a place
+    is refused with kge_tpu's kind of message."""
     from tests.torch_mesh import free_port
     from tests.util import make_synthetic_dataset
 
@@ -233,7 +215,7 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
         assert proc.returncode != 0
         assert f"ValueError: {message}" in stderr, stderr[-2000:]
         if by != "config":
-            assert "ROADMAP A.10" in stderr
+            assert "ROADMAP A.10c" in stderr
     assert not (cwd / "x" / "checkpoint_00001.pt").exists()
 
 

@@ -1,5 +1,5 @@
 """Rank processes of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_multiprocess.py).
+tests/test_torch_mesh_routes.py, tests/test_torch_multiprocess.py).
 
 ``launch`` starts one process per rank of ``python tests/torch_mesh.py
 <spec.json>``, brought up by ``KGE_COORDINATOR_ADDRESS`` /
@@ -74,17 +74,56 @@ def launch(spec, ranks: int, workdir, timeout: float = 240, env_extra=None,
             for name, by_rank in results.items()}
 
 
+def drift(task, mesh, workdir, timeout: float = 240):
+    """How far a "steps" task (``task_steps``; ``config``, ``data`` and
+    files relative to the working directory) over the ranks of ``mesh``
+    drifts from the same task in this process with one rank and no
+    subbatches: both losses and their relative differences. For example
+    O-complex's first steps over 1 x 3 ranks on chip_smoke.py phase 26's
+    graph::
+
+        python -c "import chip_smoke; from tests import torch_mesh
+        chip_smoke.write_dataset('build/drift/data', 26, sizes=chip_smoke.ROUTES_SIZES)
+        print(torch_mesh.drift({'name': 'drift', 'kind': 'steps', 'steps': 6,
+            'config': 'examples/fb15k-237-complex-1vsall.yaml', 'data': 'build/drift/data',
+            'options': {'dataset.name': 'data', 'valid.every': 0}}, (1, 3),
+            'build/drift', timeout=3600))"
+
+    A 1 x 1 ``mesh`` with ``train.subbatch_size`` in the options compares
+    one process with itself in subbatches."""
+    workdir = pathlib.Path(workdir).resolve()
+    task = dict(task, data=str(pathlib.Path(task["data"]).resolve()))
+    if task.get("config"):
+        task["config"] = str(pathlib.Path(task["config"]).resolve())
+    options = {**task["options"], "parallel.data": mesh[0], "parallel.model": mesh[1]}
+    if mesh[0] * mesh[1] > 1:
+        other = launch({"tasks": [dict(task, options=options)]}, mesh[0] * mesh[1],
+                       workdir, timeout=timeout)[task["name"]][0]
+    else:
+        other = task_steps(dict(task, options=options), workdir / "other")
+    alone = task_steps(dict(task, options={**options, "parallel.data": 1,
+                                           "parallel.model": 1,
+                                           "train.subbatch_size": 0}),
+                       workdir / "alone")
+    return {"alone": alone, "other": other, "relative_difference": {
+        k: [abs(a - b) / abs(b) for a, b in zip(other[k], alone[k])]
+        for k in ("steps", "epochs")}}
+
+
 # -- in a rank process -----------------------------------------------------------
 
 
-def make_config(options, folder):
+def make_config(options, folder, config_file=None):
     from kge_tpu_torch import Config
 
     config = Config()
+    if config_file is not None:
+        config.load(str(config_file))
     config.set("console.quiet", True)
     config.set("job.device", "cpu")
     config.set("random_seed.default", 0)
-    config.load_options({"model": options.get("model", "complex")})
+    if config_file is None:
+        config.load_options({"model": options.get("model", "complex")})
     for key, value in options.items():
         if key != "model":
             config.set(key, value, create=True)
@@ -98,7 +137,7 @@ def make_job(task, folder, model=None):
     from kge_tpu_torch.job import TrainingJob
     from kge_tpu_torch.parallel import distributed
 
-    config = make_config(task["options"], folder)
+    config = make_config(task["options"], folder, task.get("config"))
     distributed.barrier("folder")
     dataset = Dataset.create(config, folder=task["data"])
     job = TrainingJob.create(config, dataset, model=model)
@@ -134,14 +173,82 @@ def entity_rows(job):
     return lo, embedder.embeddings.detach().tolist()
 
 
+class WidestRows:
+    """A dispatch mode that records, of every tensor an operation returns
+    (the backward pass's among them), the most columns of a 2-D floating
+    tensor with ``rows`` rows: the widest score matrix of a batch's rows."""
+
+    def __init__(self, rows):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        widest = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in out if isinstance(out, (tuple, list)) else (out,):
+                    if (hasattr(t, "dim") and t.dim() == 2 and t.is_floating_point()
+                            and t.shape[0] == rows):
+                        widest.columns = max(widest.columns, int(t.shape[1]))
+                return out
+
+        self.columns = 0
+        self.mode = Mode()
+
+
+def resumed_job(task, folder):
+    """The job of ``task["checkpoint"]`` on this mesh, with the task's
+    options (and its ``data`` folder, where given) over the checkpoint's."""
+    from kge_tpu_torch import Config
+    from kge_tpu_torch.job import Job
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    checkpoint = load_checkpoint(task["checkpoint"])
+    new_config = Config.create_from(checkpoint)
+    options = dict(task["options"])
+    if "data" in task:
+        options["dataset.name"] = task["data"]
+    for key, value in options.items():
+        new_config.set(key, value, create=True)
+    new_config.folder = str(folder)
+    new_config.init_folder()
+    job = Job.create_from(checkpoint, new_config=new_config)
+    job._prepare()
+    job._is_prepared = True
+    return job
+
+
 def task_epochs(task, folder):
-    """Train ``epochs`` epochs; the losses, then (``valid``) the metrics,
-    and (``save``) a checkpoint with this rank's entity rows."""
-    job = make_job(task, folder)
-    out = {"losses": []}
-    for epoch in range(1, task.get("epochs", 2) + 1):
-        job.epoch = epoch
-        out["losses"].append(job.run_epoch()["avg_loss"])
+    """Train ``epochs`` epochs, from the start or from ``checkpoint`` (its
+    epoch is ``start``); the losses, then (``valid``) the metrics, and
+    (``save``) a checkpoint with this rank's entity rows. ``widths``: also
+    the widest 2-D tensor of the rank's batch rows that any operation of
+    the epochs returned (``WidestRows``) and the ring's calls."""
+    import contextlib
+
+    from kge_tpu_torch.parallel.ring import ring_all_scores
+
+    if task.get("checkpoint"):
+        job = resumed_job(task, folder)
+    else:
+        job = make_job(task, folder)
+    start = job.epoch
+    out = {"start": start, "losses": []}
+    widest = None
+    mode = contextlib.nullcontext()
+    if task.get("widths"):
+        rows = job.batch_size // job.device_ctx.data
+        widest = WidestRows(rows)
+        mode = widest.mode
+        out["rows"] = rows
+    ring_calls = ring_all_scores.calls
+    with mode:
+        for epoch in range(start + 1, start + task.get("epochs", 2) + 1):
+            job.epoch = epoch
+            out["losses"].append(job.run_epoch()["avg_loss"])
+    out["ring_calls"] = ring_all_scores.calls - ring_calls
+    if widest is not None:
+        out["widest"] = widest.columns
     if task.get("valid"):
         out["metrics"] = evaluate(job.config, job.dataset, job.model)
     if task.get("save"):
@@ -185,30 +292,58 @@ def task_parity(task, folder):
     load_jax_params(model, arrays["params"])
     job = make_job(task, folder, model=model)
     losses = []
-    for batch in arrays["batches"]:
+    variants = arrays.get("variants") or [None] * len(arrays["batches"])
+    for batch, variant in zip(arrays["batches"], variants):
         _, aux = job._train_step({k: torch.tensor(v) for k, v in batch.items()},
-                                 job._current_lrs())
+                                 job._current_lrs(), variant)
         losses.append(float(job.device_ctx.reduce_data(aux["avg_loss"].clone())))
+    if "final_params" not in arrays:
+        return {"losses": losses}
     load_jax_params(model, arrays["final_params"])
     return {"losses": losses, "metrics": evaluate(config, dataset, model)}
 
 
 def task_resume(task, folder):
     """Resume a checkpoint on this mesh and train one more epoch."""
-    from kge_tpu_torch import Config
-    from kge_tpu_torch.job import Job
-    from kge_tpu_torch.utils.io import load_checkpoint
+    return task_epochs({"epochs": 1, **task}, folder)
 
-    checkpoint = load_checkpoint(task["checkpoint"])
-    new_config = Config.create_from(checkpoint)
-    for key, value in task["options"].items():
-        new_config.set(key, value, create=True)
-    new_config.folder = str(folder)
-    new_config.init_folder()
-    job = Job.create_from(checkpoint, new_config=new_config)
-    start = job.epoch
-    job.epoch = start + 1
-    return {"start": start, "losses": [job.run_epoch()["avg_loss"]]}
+
+def task_steps(task, folder):
+    """How far a mesh drifts from one process, step by step: the first
+    ``steps`` batches of epoch 1 through the train step as ``run_epoch``
+    takes them, each step's loss over the whole batch, then ``epochs``
+    epochs (a fresh epoch order: the steps drew the first epoch's). With
+    ``tables`` (a path prefix): every parameter leaf and its optimizer
+    state after the steps, to ``<tables>-rank<r>.npz`` (a row shard's rows
+    from ``lo``, saved as ``lo``)."""
+    import numpy as np
+    import torch
+
+    from kge_tpu_torch.parallel import distributed
+
+    job = make_job(task, folder)
+    out = {"steps": [], "epochs": []}
+    job.epoch = 1
+    for _, batch in zip(range(task.get("steps", 0)), job._batches()):
+        variant = job._step_variant(batch)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()
+                 if k != "true_size" and not isinstance(v, str)}
+        _, aux = job._step_with_retries(batch, job._current_lrs(), variant)
+        out["steps"].append(float(job.device_ctx.reduce_data(aux["avg_loss"].clone())))
+    if task.get("tables"):
+        arrays = {"lo": entity_rows(job)[0]}
+        for path, param, state in zip(job.optimizer._paths, job.optimizer.params,
+                                      job.opt_state["leaves"]):
+            name = "/".join(path)
+            arrays[name] = param.detach().numpy()
+            for key, value in state.items():
+                arrays[f"{name}:{key}"] = value.numpy()
+        out["tables"] = f"{task['tables']}-rank{distributed.process_index()}.npz"
+        np.savez(out["tables"], **arrays)
+    for epoch in range(1, task.get("epochs", 0) + 1):
+        job.epoch = epoch
+        out["epochs"].append(job.run_epoch()["avg_loss"])
+    return out
 
 
 def task_collectives(task, folder):
@@ -226,9 +361,116 @@ def task_collectives(task, folder):
             "gathered": ctx.gather_data(torch.tensor(10 * rank)).tolist()}
 
 
+def task_ring(task, folder):
+    """kge_tpu's ring check (tests/test_parallel.py
+    ``test_ring_scoring_engages_and_matches``) on a 1vsAll job under
+    ``parallel.ring_scoring`` auto and never, from the same initial
+    weights: whether ``_ring_score`` engages, the ring's columns of ids 0..7
+    with relation 0 against the unfused schedule's (``never``) in every
+    bit, the largest differences of the entity shard's and the relation
+    table's gradients of the first batch's loss, and one epoch's loss of
+    each."""
+    import torch
+
+    from kge_tpu_torch.models.convert import param_leaves
+    from kge_tpu_torch.parallel.ring import ring_all_scores
+
+    jobs = {mode: make_job(dict(task, options={**task["options"],
+                                              "parallel.ring_scoring": mode}),
+                           pathlib.Path(f"{folder}-{mode}"))
+            for mode in ("auto", "never")}
+    ids = torch.arange(8)
+    rel = torch.zeros(8, dtype=torch.long)
+    out = {}
+    with torch.no_grad():
+        calls = ring_all_scores.calls
+        ring = jobs["auto"].model._ring_score(ids, rel, 2)
+        out["auto_engages"] = ring is not None and ring_all_scores.calls == calls + 1
+        out["never_engages"] = jobs["never"].model._ring_score(ids, rel, 2) is not None
+        flat = jobs["never"].model.score_sp(ids, rel)
+        po_ring = jobs["auto"].model.score_po(rel, ids)
+        po_flat = jobs["never"].model.score_po(rel, ids)
+    out["shape"] = list(ring.shape)
+    out["bits_equal"] = bool(torch.equal(ring.view(torch.int32), flat.view(torch.int32)))
+    out["po_bits_equal"] = bool(torch.equal(po_ring.view(torch.int32),
+                                            po_flat.view(torch.int32)))
+    grads = {}
+    for mode, job in jobs.items():
+        # each job's own first batch (its epoch order draws from its rng)
+        batch = next(iter(job._batches()))
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()
+                 if k != "true_size" and not isinstance(v, str)}
+        local, rows = job._data_shard(batch)
+        job._enter_step(rows)
+        calls = ring_all_scores.calls
+        _, _, got = job._loss_fn(local, None, job.optimizer.params)
+        out[f"{mode}_step_ring_calls"] = ring_all_scores.calls - calls
+        names = [path for path, _ in param_leaves(job.model)]
+        grads[mode] = dict(zip(names, got))
+    diffs = {}
+    for path, g in grads["auto"].items():
+        diffs["/".join(map(str, path))] = float((g - grads["never"][path]).abs().max())
+    out["grad_max_abs_diff"] = diffs
+    out["grad_max_abs"] = {"/".join(map(str, p)): float(g.abs().max())
+                           for p, g in grads["never"].items()}
+    for mode, job in jobs.items():
+        job.epoch = 1
+        out[f"{mode}_loss"] = job.run_epoch()["avg_loss"]
+    return out
+
+
+def task_losses(task, folder):
+    """Every loss over the column shards of this rank's model group against
+    the loss of the whole rows in this process, on [n, E] scores drawn from
+    a seed (the same on every rank): per loss and kind of labels (global
+    indexes, or a multi-hot matrix with label smoothing), the largest
+    difference of the rows' terms and of the gradient of their sum on the
+    rank's columns."""
+    import torch
+
+    from kge_tpu_torch.ops import losses
+    from kge_tpu_torch.parallel.mesh import DeviceCtx
+
+    config = make_config(task["options"], folder)
+    ctx = DeviceCtx.create(config)
+    n, E = 12, 40
+    lo, hi = ctx.entity_rows(E)
+    generator = torch.Generator().manual_seed(3)
+    scores = torch.randn(n, E, generator=generator, dtype=torch.float64) * 3
+    index = torch.randint(0, E, (n,), generator=generator)
+    matrix = (torch.rand(n, E, generator=generator) < 0.15).double()
+    matrix[0] = 0.0  # a row without a positive (a padded row's)
+    matrix[1, 5] = 1.0
+    smoothed = matrix * 0.9 + 1.0 / E
+    out = {}
+    for name in task["losses"]:
+        config.set("train.loss", name)
+        config.set("train.loss_arg", float("nan"))
+        config.set("train.type", "negative_sampling" if name == "margin_ranking"
+                   else "KvsAll")
+        loss = losses.KgeLoss.create(config)
+        kinds = {"index": (index, index)}
+        if name != "margin_ranking":
+            kinds["matrix"] = (smoothed, smoothed[:, lo:hi])
+        for kind, (whole_labels, local_labels) in kinds.items():
+            whole = scores.clone().requires_grad_()
+            want = loss.rows(whole, whole_labels)
+            want.sum().backward()
+            local = scores[:, lo:hi].clone().requires_grad_()
+            got = loss.rows(local, local_labels, shard=(lo, hi, ctx))
+            got.sum().backward()
+            out[f"{name}/{kind}"] = {
+                "rows": float((got - want).abs().max()),
+                "grad": float((local.grad - whole.grad[:, lo:hi]).abs().max()),
+                "scale": float(want.abs().max()),
+            }
+    return out
+
+
 TASKS = {"epochs": task_epochs, "lockstep": task_lockstep,
-         "parity": task_parity, "resume": task_resume,
-         "collectives": task_collectives}
+         "parity": task_parity, "resume": task_resume, "steps": task_steps,
+         "collectives": task_collectives, "ring": task_ring,
+         "losses": task_losses}
 
 
 def main(spec_file):
