@@ -207,7 +207,7 @@ Phases (any failure exits non-zero; nothing is caught):
    widths (d = 200 as a 10 x 20 map stacked to 20 x 20, 32 filters of 3 x 3,
    flat size 10,368, the yaml's dropouts 0.2 / 0.2 / 0.3), KvsAll with
    ``bce`` and label smoothing 0.1, Adam lr 0.003, batch 128, on a graph
-   of FB15k-237's sizes with the training split cut to a quarter
+   of FB15k-237's sizes with the training split cut to an eighth
    (``NEURAL_SIZES``; valid and test whole): ``start`` for one epoch with a validation through
    the rank kernel (D = 201), ``resume`` to epoch 2 (the warm epoch), ``test``,
    then ``valid --eval.type training_loss`` on the folder. The scatter kernel
@@ -334,7 +334,7 @@ Phases (any failure exits non-zero; nothing is caught):
    rank's columns (bit for bit) and against their plain versions (phase
    2's rules); (c) ``examples/wikidata5m-complex-sharded.yaml``
    on a synthetic graph of 4,800,000 entities and 822 relations (power-law
-   popularity; train cut to 131,072 triples, 16 batches of 8,192; valid and
+   popularity; train cut to 65,536 triples, 8 batches of 8,192; valid and
    test 5,000 each): ``start`` for 2 epochs with a validation each through
    ``cli.main`` (what ``python -m kge_tpu_torch`` runs) as 8 rank processes
    (2 x 4, ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
@@ -378,7 +378,36 @@ Phases (any failure exits non-zero; nothing is caught):
    all`` at X-complex's shape and ``fused_scoring: always`` at T-dense's
    over 2 x 3 (b, c and d through the package's API, one epoch each, no
    checkpoints), each loss within rtol 1e-4 of one process's.
-27. One ``kernels`` JSON line: per kernel its time per call at the main
+27. The data axis for ConvE's batch statistics and for subbatches, and
+   ``parallel.distributed.auto`` (``ROUTES_RUNNER``, every rank on
+   ``cuda:0`` over gloo, each against one process): (a) C-conve's
+   configuration (phase 20: reciprocal ConvE d = 200, KvsAll ``bce`` with
+   label smoothing 0.1, Adam, batch 128, dropout on) on a graph of
+   FB15k-237's 14,541 entities and 237 relations, train cut to 2,048
+   triples and valid and test to 1,280, over 2 x 1 and 2 x 3 ranks:
+   ``start`` for an epoch with a validation, ``resume`` to 2, ``test``; K2 2
+   a step and K1 (over 2 x 3: (a) and (b)) 2 a validation batch on every
+   rank; ``test`` of the ranks' checkpoint over the ranks and alone equal
+   metric for metric; a step from the ranks' ``checkpoint_00002.pt`` over
+   the ranks and alone: its loss within rtol 1e-6, the tables by
+   ``step_table_diffs`` (``conv_b`` and ``proj_b``, whose gradients are zero
+   up to rounding, within Adam's largest two steps), the batch-norm
+   statistics equal in every bit on every rank and within
+   ``DATA_STATS_RTOL`` of one process's (``check_step_statistics``); (b)
+   K-complex in subbatches of 128 and T-dense (its negatives drawn for the
+   whole batch) in subbatches of 2,048 over 2 x 1, one step from the
+   initial weights against one process's unsubbatched step (loss within
+   rtol 1e-6, tables by ``step_table_diffs``: Adagrad's first-step flips
+   at most ``DATA_FLIP_SHARE`` of the entries), K2 as many times a subbatch
+   as alone a step; (c) two ranks started by ``python -m
+   torch.distributed.run --standalone`` with ``--parallel.distributed.auto
+   true --job.device auto`` (the 2 x 1 ranks of (a) and (b) are these, each
+   task of theirs on ``auto``): the placement rank 0 logged (both on
+   ``cuda:0``, sharing it), T-dense's epoch of 4 steps within rtol 1e-4 of
+   one process's; (d) phase 25's peak allocation a rank, the entity table
+   drawn in blocks of 65,536 rows, below the 2.86 GiB a rank took when
+   every rank drew the whole table.
+28. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
    fp32 operations over 67 TFLOP/s and, for ``cmod``, square roots over
@@ -398,14 +427,18 @@ Phases (any failure exits non-zero; nothing is caught):
    (``sharded``), and the line phase 25's numbers (``mesh``). K1, K2, K4,
    K5a and K5b hold each rank's launches in phase 26's tasks
    (``launches_mesh_routes``), and the line phase 26's numbers
-   (``mesh_routes``). Then the card's name and power limit, then the
+   (``mesh_routes``); K1 and K2 each rank's launches in phase 27's tasks
+   (``launches_data_axis``), and the line phase 27's numbers
+   (``data_axis``). Then the card's name and power limit, then the
    ``ok`` JSON line last.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import glob
 import itertools
 import json
 import math
@@ -416,6 +449,7 @@ import sys
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -451,7 +485,15 @@ def disk_used_gb() -> float:
     return (st.f_blocks - st.f_bfree) * st.f_frsize / 1e9
 
 
+#: the script's start, for the seconds at which each phase begins
+STARTED = time.perf_counter()
+
+
 def log(*args):
+    """Print a line; a phase's heading ("== ...") with the seconds since the
+    script started."""
+    if args and str(args[0]).startswith("== "):
+        args = (f"{args[0]} [at {time.perf_counter() - STARTED:.1f} s]",) + args[1:]
     print(*args, flush=True)
 
 
@@ -1188,22 +1230,50 @@ def check_tables_close(a, b, what):
     return worst
 
 
-def warm_epoch(job, num_train: int, what: str, unit: str = "triples",
+#: a warm epoch's warm-up and its profile cover at most its first
+#: PROFILE_WINDOW steps: the profiler's reduction of O-complex's and
+#: K-complex's whole epochs (532 and 618 steps) took longer than the epochs
+#: (the run's time limit)
+PROFILE_WINDOW = 100
+
+
+@contextlib.contextmanager
+def first_steps(job, steps: int):
+    """The job's epochs cut to their first ``steps`` batches, inside."""
+    own = vars(job).get("_batches")
+    batches = job._batches
+    job._batches = lambda: itertools.islice(batches(), steps)
+    try:
+        yield
+    finally:
+        if own is None:
+            del job._batches
+        else:
+            job._batches = own
+
+
+def warm_epoch(job, num_train: Optional[int], what: str, unit: str = "triples",
                profiled: bool = True, warmup: bool = True):
     """A warm epoch of a prepared job: wall by the host clock around work
-    that ends in a synchronize, then (``profiled``) the same under the
-    profiler. ``num_train`` examples an epoch, counted in ``unit``. Without
-    ``warmup`` no epoch runs before the timed one (for a job whose steps
-    already ran)."""
+    that ends in a synchronize, after (``warmup``) the first PROFILE_WINDOW
+    steps of an epoch, then (``profiled``) its first PROFILE_WINDOW steps
+    (all of a shorter epoch) under the profiler. ``num_train``
+    examples an epoch, counted in ``unit`` (None: the epoch's own count, for
+    an epoch cut by ``first_steps``). Without ``warmup`` no step runs before
+    the timed epoch (for a job whose steps already ran)."""
     if warmup:
+        # warms allocator and caches: the first PROFILE_WINDOW steps (not a
+        # whole epoch: the run's time limit)
         job.epoch += 1
-        job.run_epoch()  # warms allocator and caches
+        with first_steps(job, PROFILE_WINDOW):
+            job.run_epoch()
     torch.cuda.synchronize()
     start = time.perf_counter()
     job.epoch += 1
     entry = job.run_epoch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
+    num_train = entry["size"] if num_train is None else num_train
     log(f"  warm epoch of {what}: wall {wall:.3f} s ({num_train / wall:.1f} "
         f"{unit}/s), {entry['batches']} batches, avg_loss {entry['avg_loss']:.4f}")
 
@@ -1213,7 +1283,12 @@ def warm_epoch(job, num_train: int, what: str, unit: str = "triples",
             job.epoch += 1
             job.run_epoch()
 
-        out["profile"] = profile_run(epoch, f"warm epoch of {what}")
+        window = min(entry["batches"], PROFILE_WINDOW)
+        with first_steps(job, window):
+            out["profile"] = profile_run(
+                epoch, f"warm epoch of {what}" if window == entry["batches"]
+                else f"{window} steps of a warm epoch of {what}")
+        out["profile"]["steps"] = window
     return out
 
 
@@ -2666,13 +2741,15 @@ def run_other_routes(seed: int, data: str, kcomplex_folder: str):
     log(f"  one KvsAll step in 4 subbatches of {ALL_BATCH // 4} vs whole: losses {costs}, tables "
         f"within {sub_err:.3e}; scatter launches 2 and 8")
     del jobs[0]
-    out["kvsall_subbatch"] = {
-        "losses": costs, "max_abs_diff": sub_err,
-        # wall only: the profile of 2,472 launches of each kind costs more
-        # than the epoch; no warm-up epoch either (the job's step ran above),
-        # which keeps the whole run near half its time limit
-        "warm_epoch": warm_epoch(jobs[0], jobs[0].num_examples, "subbatched KvsAll",
-                                 unit="queries", profiled=False, warmup=False)}
+    # wall only: the profile of 2,472 launches of each kind costs more than
+    # the epoch; no warm-up epoch either (the job's step ran above), and the
+    # epoch's first PROFILE_WINDOW steps alone (the run's time limit)
+    with first_steps(jobs[0], PROFILE_WINDOW):
+        timing = warm_epoch(jobs[0], None,
+                            f"subbatched KvsAll, its first {PROFILE_WINDOW} steps",
+                            unit="queries", profiled=False, warmup=False)
+    out["kvsall_subbatch"] = {"losses": costs, "max_abs_diff": sub_err,
+                              "warm_epoch": timing}
     return out
 
 
@@ -2706,10 +2783,10 @@ HITTER = {
     "train.optimizer.default.type": "Adam", "train.optimizer.default.args.lr": 0.001,
 }
 HITTER_NO_DROPOUT = {"transformer.encoder.dropout": 0.0}
-PROFILED_STEPS = 50  # the profiled window of a warm epoch of C-conve, C-hitter
+PROFILED_STEPS = 25  # the profiled window of a warm epoch of C-conve, C-hitter
 #: C-conve's and C-hitter's graph: FB15k-237's sizes with the training split
-#: cut to a quarter (the run's time limit), valid and test whole
-NEURAL_SIZES = FB15K237[:2] + (FB15K237[2] // 4,) + FB15K237[3:]
+#: cut to an eighth (the run's time limit), valid and test whole
+NEURAL_SIZES = FB15K237[:2] + (FB15K237[2] // 8,) + FB15K237[3:]
 
 
 def write_neural_config(path: str, data: str, seed: int, options):
@@ -4476,8 +4553,9 @@ def run_data_prep(seed: int):
 # -- phase 25: the (data, model) mesh over ranks ------------------------------------
 
 #: M-complex: examples/wikidata5m-complex-sharded.yaml on a synthetic graph of
-#: Wikidata5M's entity and relation counts (train cut to 16 batches)
-MESH_SIZES = (4_800_000, 822, 131_072, 5_000, 5_000)
+#: Wikidata5M's entity and relation counts (train cut to 8 batches: the run's
+#: time limit)
+MESH_SIZES = (4_800_000, 822, 65_536, 5_000, 5_000)
 MESH_SHAPE = (2, 4)
 MESH_DIM = 128  # the example's entity_embedder.dim
 MESH_EXAMPLE = os.path.join(ROOT, "examples", "wikidata5m-complex-sharded.yaml")
@@ -4509,9 +4587,17 @@ MESH_FLIP_SHARE = 2e-6
 MESH_FLIPS_PER_ROW = 32
 MESH_SUM_RTOL = 1e-4
 MESH_LR = 0.2  # the example's Adagrad learning rate
-#: a rank's command: ``cli.main`` (what ``python -m kge_tpu_torch`` runs),
-#: then as one line its kernels' launches, the card's peak allocation, and
-#: the shapes of its job's entity table and of that table's Adagrad sums
+#: the device of the ranks and single processes of phases 25 and 27, and of
+#: torchrun's ranks of phase 27 (c), which ``job.device: auto`` maps to their
+#: local ranks' cards
+RANK_DEVICE = "cuda:0"
+AUTO_DEVICE = "auto"
+#: a rank's commands, separated by ``--then``: each through ``cli.main``
+#: (what ``python -m kge_tpu_torch`` runs) in one process, which keeps its
+#: process group from one to the next (``cli.main`` would leave it after
+#: each), every counter and the peak allocation set to 0 before each; then,
+#: after each, as one line its kernels' launches, the card's peak allocation,
+#: and the shapes of its job's entity table and of that table's Adagrad sums
 #: (None where the job has no optimizer) and the rows it holds
 RANK_RUNNER = """
 import json, sys, torch
@@ -4519,24 +4605,45 @@ from kge_tpu_torch import cli
 from kge_tpu_torch.job import Job
 from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
 from kge_tpu_torch.ops.rank_kernel import fused_rank_counts, rank_pivots
+from kge_tpu_torch.parallel import distributed
+COUNTERS = ((fused_rank_counts, "launches", "rank_counts"),
+            (fused_rank_counts, "sharded_launches", "rank_counts_sharded"),
+            (rank_pivots, "launches", "rank_pivots"),
+            (sorted_scatter_add, "launches", "scatter_add_sorted"),
+            (rows_set, "launches", "rows_set"))
+CUDA = torch.cuda.is_available()
 jobs = []
 Job.job_created_hooks.append(jobs.append)
-cli.main(sys.argv[1:])
-job = ([j for j in jobs if getattr(j, "opt_state", None) is not None] + jobs)[0]
-entity = job.model.get_s_embedder()
-state = getattr(job, "opt_state", None)
-print("RANK_STATS " + json.dumps({
-    "entity_table": list(entity.embeddings.shape),
-    "entity_adagrad_sums": None if state is None
-    else list(state["leaves"][0]["sum"].shape),
-    "row_range": entity.row_range and list(entity.row_range),
-    "rank_counts": fused_rank_counts.launches,
-    "rank_counts_sharded": fused_rank_counts.sharded_launches,
-    "rank_pivots": rank_pivots.launches,
-    "scatter_add_sorted": sorted_scatter_add.launches,
-    "rows_set": rows_set.launches,
-    "max_memory_allocated": torch.cuda.max_memory_allocated(),
-}), flush=True)
+leave = distributed.shutdown
+distributed.shutdown = lambda: None
+commands = [[]]
+for arg in sys.argv[1:]:
+    if arg == "--then":
+        commands.append([])
+    else:
+        commands[-1].append(arg)
+for argv in commands:
+    jobs.clear()
+    for obj, attr, _ in COUNTERS:
+        setattr(obj, attr, 0)
+    if CUDA:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cli.main(argv)
+    job = ([j for j in jobs if getattr(j, "opt_state", None) is not None] + jobs)[0]
+    entity = job.model.get_s_embedder()
+    state = getattr(job, "opt_state", None)
+    print("RANK_STATS " + json.dumps({
+        "entity_table": list(entity.embeddings.shape),
+        "entity_adagrad_sums": None if state is None
+        else list(state["leaves"][0]["sum"].shape),
+        "row_range": entity.row_range and list(entity.row_range),
+        **{name: getattr(obj, attr) for obj, attr, name in COUNTERS},
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if CUDA else 0,
+    }), flush=True)
+    job = entity = state = None
+distributed.barrier("end")
+leave()
 """
 
 
@@ -4627,16 +4734,22 @@ def launch_ranks(args, ranks: int, logs: str, what: str):
     return texts
 
 
-def run_ranks(argv, ranks: int, logs: str):
-    """``argv`` through RANK_RUNNER as ``ranks`` processes on ``cuda:0``
-    (``launch_ranks``); returns each rank's RANK_STATS."""
-    texts = launch_ranks([RANK_RUNNER, *argv, "--job.device", "cuda:0"], ranks, logs,
-                         f"phase 25: {' '.join(argv[:2])}")
-    stats = []
+def run_ranks(commands, ranks: int, logs: str):
+    """The ``commands`` (argv lists) one after the other through RANK_RUNNER
+    as ``ranks`` processes on RANK_DEVICE (``launch_ranks``); returns for
+    each command each rank's RANK_STATS."""
+    args = []
+    for argv in commands:
+        args += (["--then"] if args else []) + [*argv, "--job.device", RANK_DEVICE]
+    texts = launch_ranks([RANK_RUNNER, *args], ranks, logs,
+                         "phase 25: " + ", ".join(argv[0] for argv in commands))
+    per_rank = []
     for text in texts:
         lines = [l for l in text.splitlines() if l.startswith("RANK_STATS ")]
-        stats.append(json.loads(lines[-1][len("RANK_STATS "):]) if lines else None)
-    return stats
+        check(len(lines) == len(commands), f"phase 25: {len(lines)} of "
+                                           f"{len(commands)} RANK_STATS lines")
+        per_rank.append([json.loads(l[len("RANK_STATS "):]) for l in lines])
+    return [[stats[i] for stats in per_rank] for i in range(len(commands))]
 
 
 def nccl_probe() -> str:
@@ -4904,11 +5017,17 @@ def run_mesh(seed: int):
     common = ["--dataset.name", data, "--random_seed.default", str(seed),
               "--console.quiet", "true", "--train.checkpoint.every", "1"]
     sharded = os.path.join(root, "sharded")
+    # start, resume and test over the ranks in one launch of 8 processes (not
+    # three: the run's time limit); the single process then reads the
+    # checkpoints of epochs 1 and 2 and tests
     start = time.perf_counter()
-    rank_stats = run_ranks(
-        ["start", MESH_EXAMPLE, "--folder", sharded, "--train.max_epochs", "2",
-         "--valid.every", "1", *common], ranks, os.path.join(root, "logs_start"))
-    summary["sharded_start_s"] = time.perf_counter() - start
+    rank_stats, resume_stats, test_stats = run_ranks(
+        [["start", MESH_EXAMPLE, "--folder", sharded, "--train.max_epochs", "2",
+          "--valid.every", "1", *common],
+         ["resume", sharded, "--train.max_epochs", "3", "--valid.every", "0"],
+         ["test", sharded]], ranks, os.path.join(root, "logs_ranks"))
+    summary["sharded_s"] = time.perf_counter() - start
+    over_ranks = mesh_metrics(sharded)
     shards = sorted(f for f in os.listdir(sharded)
                     if f.startswith("checkpoint_00002.pt.shard"))
     check(len(shards) == ranks, f"{len(shards)} shard files beside checkpoint_00002.pt")
@@ -4916,16 +5035,11 @@ def run_mesh(seed: int):
     start = time.perf_counter()
     single = run_single(seed, data, os.path.join(root, "single"), sharded)
     summary["single_s"] = time.perf_counter() - start
-    start = time.perf_counter()
-    resume_stats = run_ranks(
-        ["resume", sharded, "--train.max_epochs", "3", "--valid.every", "0"], ranks,
-        os.path.join(root, "logs_resume"))
-    summary["sharded_resume_s"] = time.perf_counter() - start
+    alone_metrics = mesh_metrics(sharded)
     log(f"  walls: NCCL probe {summary['nccl_probe_s']:.1f} s, K1 check and times "
-        f"{summary['k1_s']:.1f} s, data {summary['write_data_s']:.1f} s, start over 8 ranks "
-        f"{summary['sharded_start_s']:.1f} s, the single process's run "
-        f"{summary['single_s']:.1f} s, resume over 8 ranks "
-        f"{summary['sharded_resume_s']:.1f} s")
+        f"{summary['k1_s']:.1f} s, data {summary['write_data_s']:.1f} s, start, resume "
+        f"and test over 8 ranks {summary['sharded_s']:.1f} s, the single process's run "
+        f"and test {summary['single_s']:.1f} s")
 
     # the backend, each rank's rows, launches and memory
     with open(os.path.join(sharded, "kge.log")) as f:
@@ -4989,7 +5103,7 @@ def run_mesh(seed: int):
     mrr = "mean_reciprocal_rank_filtered_with_test"
     summary["validation_mrr"] = {
         "sharded": [e.get(mrr) for e in trace_entries(sharded, event="eval_completed")
-                    if e.get("scope") == "epoch"],
+                    if e.get("scope") == "epoch" and e.get("split") == "valid"],
         "single": [v.get(mrr) for v in single["validations"]]}
     diffs = single["epoch1_max_abs_diff"]
     beyond, entries = single["epoch1_beyond"], single["epoch1_entries"]
@@ -5020,23 +5134,16 @@ def run_mesh(seed: int):
         f"{walls['sharded']:.2f} s over 8 ranks time-slicing one card")
 
     # test of the ranks' checkpoint over the ranks and alone
-    start = time.perf_counter()
-    test_stats = run_ranks(["test", sharded], ranks, os.path.join(root, "logs_test"))
-    over_ranks = mesh_metrics(sharded)
-    alone_stats = run_ranks(
-        ["test", sharded, "--parallel.data", "1", "--parallel.model", "1"], 1,
-        os.path.join(root, "logs_test_alone"))
-    alone_metrics = mesh_metrics(sharded)
+    alone_test = single["test"]
     for r, stats in enumerate(test_stats):
         lo = (r % model_axis) * per
         check(stats["entity_table"] == [per, MESH_DIM]
               and stats["row_range"] == [lo, lo + per],
               f"rank {r} of test: entity table {stats['entity_table']}, rows "
               f"{stats['row_range']}")
-    check(alone_stats[0]["entity_table"] == [E, MESH_DIM]
-          and alone_stats[0]["row_range"] is None,
-          f"test alone: entity table {alone_stats[0]['entity_table']}")
-    summary["test_s"] = time.perf_counter() - start
+    check(alone_test["entity_table"] == [E, MESH_DIM] and alone_test["row_range"] is None
+          and alone_test["rank_counts"] == test_stats[0]["rank_counts"],
+          f"test alone: {alone_test}, over the ranks {test_stats[0]}")
     check(over_ranks == alone_metrics and len(alone_metrics) > 10,
           f"test metrics differ: {over_ranks} over ranks, {alone_metrics} alone")
     check(0.0 <= alone_metrics["mean_reciprocal_rank_filtered"] <= 1.0)
@@ -5045,8 +5152,8 @@ def run_mesh(seed: int):
     summary["launches_sharded_resume"] = resume_stats
     log(f"  test of checkpoint_best.pt over 2 x 4 ranks (each with its "
         f"{test_stats[0]['entity_table'][0]} entity rows) and alone (all "
-        f"{alone_stats[0]['entity_table'][0]}) ({summary['test_s']:.1f}"
-        f" s): equal on all {len(alone_metrics)} metrics (filtered MRR "
+        f"{alone_test['entity_table'][0]}): equal on all {len(alone_metrics)} metrics "
+        "(filtered MRR "
         f"{alone_metrics['mean_reciprocal_rank_filtered']:.6f})")
     summary["disk_used_gb"] = disk_used_gb()
     log(f"  disk in use at the end of phase 25: {summary['disk_used_gb']:.1f} GB")
@@ -5054,24 +5161,28 @@ def run_mesh(seed: int):
 
 
 #: the single process of phase 25: the ranks' job (the example, 1 x 1)
-#: through the package's API on cuda:0, without checkpoints: two epochs
-#: with a validation each, its tables after epoch 1 against the ranks'
-#: checkpoint_00001.pt, then epoch 3 from the ranks' checkpoint_00002.pt
+#: through the package's API on the given device, without checkpoints: two
+#: epochs with a validation each, its tables after epoch 1 against the
+#: ranks' checkpoint_00001.pt, then epoch 3 from the ranks'
+#: checkpoint_00002.pt; then ``test`` of the ranks' folder in this process
+#: through ``cli.main``
 SINGLE_RUNNER = """
 import json, sys, time
 import numpy as np, torch
-from kge_tpu_torch import Config, Dataset
+from kge_tpu_torch import Config, Dataset, cli
 from kge_tpu_torch.job import Job, TrainingJob
 from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
 from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 from kge_tpu_torch.utils.io import load_checkpoint
 from kge_tpu_torch.utils.seed import seed_from_config
-example, data, seed, folder, sharded, atol = sys.argv[1:7]
+example, data, seed, folder, sharded, atol, device = sys.argv[1:8]
+CUDA = torch.cuda.is_available()
+sync = torch.cuda.synchronize if CUDA else (lambda: None)
 config = Config()
 config.load(example)
 for key, value in (("dataset.name", data), ("random_seed.default", int(seed)),
                    ("console.quiet", True), ("train.max_epochs", 2),
-                   ("valid.every", 1), ("job.device", "cuda:0"),
+                   ("valid.every", 1), ("job.device", device),
                    ("parallel.data", 1), ("parallel.model", 1)):
     config.set(key, value)
 config.folder = folder
@@ -5084,11 +5195,11 @@ job._is_prepared = True
 out = {"losses": {}, "epoch_s": {}, "validations": []}
 metric_keys = ("mean_rank", "mean_reciprocal_rank", "hits_at_")
 for epoch in (1, 2):
-    torch.cuda.synchronize()
+    sync()
     start = time.perf_counter()
     job.epoch = epoch
     out["losses"][epoch] = job.run_epoch()["avg_loss"]
-    torch.cuda.synchronize()
+    sync()
     out["epoch_s"][epoch] = time.perf_counter() - start
     if epoch == 1:
         theirs = load_checkpoint(sharded + "/checkpoint_00001.pt")
@@ -5128,9 +5239,10 @@ for epoch in (1, 2):
 out["launches"] = {"rank_counts": fused_rank_counts.launches,
                    "scatter_add_sorted": sorted_scatter_add.launches,
                    "rows_set": rows_set.launches}
-out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if CUDA else 0
 del job
-torch.cuda.empty_cache()
+if CUDA:
+    torch.cuda.empty_cache()
 checkpoint = load_checkpoint(sharded + "/checkpoint_00002.pt")
 resumed = Job.create_from(checkpoint, new_config=config, dataset=dataset)
 del checkpoint
@@ -5138,6 +5250,18 @@ resumed._prepare()
 resumed._is_prepared = True
 resumed.epoch = 3
 out["losses"][3] = resumed.run_epoch()["avg_loss"]
+del resumed
+if CUDA:
+    torch.cuda.empty_cache()
+jobs = []
+Job.job_created_hooks.append(jobs.append)
+fused_rank_counts.launches = 0
+cli.main(["test", sharded, "--parallel.data", "1", "--parallel.model", "1",
+          "--job.device", device])
+entity = jobs[-1].model.get_s_embedder()
+out["test"] = {"entity_table": list(entity.embeddings.shape),
+               "row_range": entity.row_range and list(entity.row_range),
+               "rank_counts": fused_rank_counts.launches}
 print("SINGLE " + json.dumps(out), flush=True)
 """
 
@@ -5148,7 +5272,7 @@ def run_single(seed: int, data: str, folder: str, sharded: str):
     with open(logs, "w") as out:
         proc = subprocess.run(
             [sys.executable, "-c", SINGLE_RUNNER, MESH_EXAMPLE, data, str(seed),
-             folder, sharded, str(MESH_TABLE_ATOL)],
+             folder, sharded, str(MESH_TABLE_ATOL), RANK_DEVICE],
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
             stderr=subprocess.STDOUT, timeout=RANK_TIMEOUT_S)
     with open(logs) as f:
@@ -5208,8 +5332,11 @@ ROUTES_LOSS_RTOL = 3e-2
 #: the unfused schedule's in every bit, records the widest tensor of the
 #: rank's batch rows in one step, and trains one epoch under ``never``; an
 #: "epoch" task trains one epoch of a config through the package's API,
-#: without checkpoints (P-rotate's would write 2.4 GB each). Each task
-#: prints one line: the kernels' launches and the ring's calls in it.
+#: without checkpoints (P-rotate's would write 2.4 GB each); a "step" task
+#: (phase 27) takes one step of a job from its start or from a checkpoint
+#: and saves its tables. A task runs on ``cuda:0`` unless it names another
+#: ``device``. Each task prints one line: the kernels' launches and the
+#: ring's calls in it.
 ROUTES_RUNNER = """
 import json, os, sys, time
 import numpy as np
@@ -5251,10 +5378,10 @@ class Widest(TorchDispatchMode):
         return out
 
 
-def job_on(folder, checkpoint, probe, mode, options):
+def job_on(folder, checkpoint, probe, mode, options, device="cuda:0"):
     config = Config()
     config.load(os.path.join(folder, "config.yaml"))
-    config.set("job.device", "cuda:0")
+    config.set("job.device", device)
     config.set("parallel.ring_scoring", mode)
     for key, value in options.items():
         config.set(key, value)
@@ -5317,12 +5444,12 @@ def probe(task):
     return out
 
 
-def epoch(task):
+def fresh_job(task):
     config = Config()
     config.load(task["config"])
     for key, value in task["options"].items():
         config.set(key, value)
-    config.set("job.device", "cuda:0")
+    config.set("job.device", task.get("device", "cuda:0"))
     config.folder = task["folder"]
     distributed.maybe_initialize(config)
     if distributed.is_primary():
@@ -5331,31 +5458,75 @@ def epoch(task):
     job = TrainingJob.create(config, Dataset.create(config))
     job._prepare()
     job._is_prepared = True
+    return job
+
+
+def epoch(task):
+    job = fresh_job(task)
     job.epoch = 1
     entry = job.run_epoch()
     return {"avg_loss": entry["avg_loss"], "batches": entry["batches"]}
 
 
+def step(task):
+    # one step of the first batch of a job, from the start of "config" or
+    # from "checkpoint" of "folder" (this rank's rows of a sharded one),
+    # every negative drawn for the whole batch before it: the step's loss
+    # over the whole batch, and every leaf and optimizer state after it to
+    # <tables>-rank<r>.npz (a row shard's entity rows from "lo")
+    if task.get("checkpoint"):
+        job = job_on(task["folder"], task["checkpoint"], task["probe"], "auto",
+                     task.get("options", {}), task.get("device", "cuda:0"))
+    else:
+        job = fresh_job(task)
+    job.epoch += 1
+    batch = next(iter(job._batches()))
+    variant = job._step_variant(batch)
+    batch = {k: torch.as_tensor(v).to(job.device) for k, v in batch.items()
+             if k != "true_size" and not isinstance(v, str)}
+    if hasattr(job, "_with_negatives"):
+        batch = job._with_negatives(batch)
+    _, aux = job._step_with_retries(batch, job._current_lrs(), variant)
+    entity = job.model.get_s_embedder()
+    arrays = {"lo": (entity.row_range or (0, 0))[0]}
+    for path, param, state in zip(job.optimizer._paths, job.optimizer.params,
+                                  job.opt_state["leaves"]):
+        name = "/".join(map(str, path))
+        arrays[name] = param.detach().cpu().numpy()
+        for key, value in state.items():
+            if torch.is_tensor(value):
+                arrays[f"{name}:{key}"] = value.cpu().numpy()
+    np.savez(f"{task['tables']}-rank{distributed.process_index()}.npz", **arrays)
+    return {"step_loss": float(job.device_ctx.reduce_data(aux["avg_loss"].clone())),
+            "subbatch_size": job._subbatch_size, "mesh": [job.device_ctx.data,
+                                                         job.device_ctx.model]}
+
+
 spec = json.load(open(sys.argv[1]))
 leave = distributed.shutdown
 distributed.shutdown = lambda: None
+CUDA = torch.cuda.is_available()
 for task in spec["tasks"]:
     for obj, attr, _ in COUNTERS:
         setattr(obj, attr, 0)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
+    if CUDA:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
     start = time.perf_counter()
     if task["kind"] == "cli":
-        cli.main(task["argv"] + ["--job.device", "cuda:0"])
+        cli.main(task["argv"] + ["--job.device", task.get("device", "cuda:0")])
         result = {}
     elif task["kind"] == "epoch":
         result = epoch(task)
+    elif task["kind"] == "step":
+        result = step(task)
     else:
         result = probe(task)
-    torch.cuda.synchronize()
+    if CUDA:
+        torch.cuda.synchronize()
     result["wall_s"] = time.perf_counter() - start
     result["launches"] = {name: getattr(obj, attr) for obj, attr, name in COUNTERS}
-    result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated() if CUDA else 0
     print("RESULT " + json.dumps({"name": task["name"], **result}), flush=True)
 distributed.barrier("end")
 leave()
@@ -5446,8 +5617,10 @@ def check_route_step(diffs):
           f"ranks against one process: {diffs}")
 
 
-def run_mesh_routes(seed: int):
-    """Phase 26; returns a summary dict."""
+def run_mesh_routes(seed: int, extra_2x3=()):
+    """Phase 26; returns a summary dict. ``extra_2x3``: tasks of another
+    phase that its launch of 2 x 3 ranks runs after its own (phase 27's
+    C-conve), their results under ``extra_2x3``."""
     root = os.path.join(WORK, "mesh_routes")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -5500,9 +5673,11 @@ def run_mesh_routes(seed: int):
 
     walls = {}
     start = time.perf_counter()
-    ranks = run_route_ranks(ocomplex(ranks_folder, mesh) + routes(mesh),
+    ranks = run_route_ranks(ocomplex(ranks_folder, mesh) + routes(mesh) + list(extra_2x3),
                             mesh[0] * mesh[1], os.path.join(root, "logs_ranks"))
-    walls["ranks_2x3"] = time.perf_counter() - start
+    walls["ranks_2x3" + (" (and phase 27's C-conve)" if extra_2x3 else "")] = (
+        time.perf_counter() - start)
+    summary["extra_2x3"] = {task["name"]: ranks.pop(task["name"]) for task in extra_2x3}
     start = time.perf_counter()
     rotate_mesh = ROTATE_ROUTE_MESH
     ranks.update(run_route_ranks(
@@ -5676,6 +5851,462 @@ def run_mesh_routes(seed: int):
     summary["disk_used_gb"] = disk_used_gb()
     return summary
 
+
+
+# -- phase 27: the data axis for ConvE and subbatches; parallel.distributed.auto --
+
+#: (a): C-conve's configuration (phase 20) on a graph of FB15k-237's 14,541
+#: entities (3 x 4,847) and 237 relations, train cut to 2,048 triples (about
+#: 30 KvsAll steps of 128 queries an epoch) and valid and test to 5
+#: evaluation batches each, over each of DATA_AXIS_MESHES against one process
+DATA_AXIS_SIZES = (FB15K237[0], FB15K237[1], 2_048, 5 * BATCH, 5 * BATCH)
+DATA_AXIS_MESHES = ((2, 1), (2, 3))
+#: (b): K-complex in subbatches of 128 and T-dense in subbatches of 2,048 over
+#: 2 x 1, on phase 26's dense graph (train 4 batches of 8,192); (c) two ranks
+#: under torchrun train T-dense's epoch of 4 steps there
+SUBBATCH_MESH = (2, 1)
+KCOMPLEX_SUB, TDENSE_SUB = 128, 2_048
+#: a step from one state over the ranks against one process, entry by entry:
+#: every entry within DATA_STEP_ATOL but for a share of the entries, at most
+#: MESH_FLIPS_PER_ROW in a row, which lie within the rule's largest step
+#: (Adam's largest two steps 6.32 lr, phase 20; Adagrad's first step at a
+#: gradient within rounding of 0 is about lr sign(g), so two runs may be 2 lr
+#: apart there); each optimizer state within DATA_STATE_RTOL of its largest.
+#: The share: DATA_STEP_SHARE for C-conve's Adam step from its checkpoint (no
+#: entry beyond on an H100); DATA_FLIP_SHARE for Adagrad's first step
+#: of (b) (a flip is a decision of one entry at the first step that touches
+#: it, as in phase 25: on an H100 T-dense in subbatches over 2 x 1 flipped 50
+#: of the two ranks' 15,132,672 entries, 3.3e-6; the bound is 3x that). ConvE's
+#: conv_b and proj_b (and their moments) have gradients that are zero up to
+#: rounding: they are held by the rule's largest step alone. The batch-norm
+#: statistics: equal in every bit on every rank of a mesh, within
+#: DATA_STATS_RTOL of their largest against one process
+DATA_STEP_ATOL = 1e-4
+DATA_STEP_SHARE = 1e-6
+DATA_FLIP_SHARE = 1e-5
+DATA_STATE_RTOL = 1e-4
+DATA_STATS_RTOL = 1e-5
+CONVE_ZERO_GRAD = ("scorer/conv_b", "scorer/proj_b")
+CONVE_STATS = ("scorer/bn1_mean", "scorer/bn1_var", "scorer/bn2_mean", "scorer/bn2_var")
+#: the peak allocation of a rank of phase 25 when every rank drew the whole
+#: entity table at initialization (an H100 80GB HBM3), which the drawing in
+#: row blocks must beat
+MESH_PEAK_WHOLE_DRAW = 2.86 * 2 ** 30
+
+
+def step_table_diffs(prefix: str, alone_file: str, ranks: int, largest_step: float,
+                     share: float, zero_grad=(), apart=()):
+    """A step's tables over ``ranks`` ranks (``<prefix><r>.npz``) against one
+    process's (``alone_file``), each rank's entity rows against the same rows
+    alone: per leaf and state its largest difference and largest value
+    alone, over the leaves the entries beyond DATA_STEP_ATOL, the most of
+    them in one row, and one process's largest Adagrad sum at such an entry.
+    Checked: at most ``share`` of the leaves' entries beyond, at most
+    MESH_FLIPS_PER_ROW in a row, every entry within ``largest_step`` +
+    DATA_STEP_ATOL, the optimizer states within DATA_STATE_RTOL of their
+    largest; ``zero_grad`` leaves (and their states) within ``largest_step``
+    alone. The ``apart`` leaves (batch-norm statistics, which the step writes
+    without a gradient) are left to ``check_step_statistics``."""
+    alone = np.load(alone_file)
+    out = {"max_abs_diff": {}, "max_abs": {}, "beyond": 0, "entries": 0,
+           "most_beyond_in_a_row": 0, "largest_sum_at_beyond": 0.0}
+    for r in range(ranks):
+        got = np.load(f"{prefix}{r}.npz")
+        lo = int(got["lo"])
+        for key in got.files:
+            if key == "lo" or key.split(":")[0] in apart:
+                continue
+            mine, want = got[key], alone[key]
+            if mine.shape != want.shape:  # a row shard
+                want = want[lo:lo + len(mine)]
+            diff = np.abs(mine.astype(np.float64) - want)
+            out["max_abs_diff"][key] = max(out["max_abs_diff"].get(key, 0.0),
+                                           float(diff.max(initial=0.0)))
+            out["max_abs"][key] = float(np.abs(want).max(initial=0.0))
+            if ":" in key or key in zero_grad:
+                continue
+            beyond = diff > DATA_STEP_ATOL
+            out["beyond"] += int(beyond.sum())
+            out["entries"] += int(diff.size)
+            if beyond.any():
+                rows = beyond.reshape(len(beyond), -1).sum(axis=1)
+                out["most_beyond_in_a_row"] = max(out["most_beyond_in_a_row"],
+                                                  int(rows.max()))
+                if f"{key}:sum" in got.files:
+                    sums = alone[f"{key}:sum"]
+                    sums = sums[lo:lo + len(mine)] if sums.shape != mine.shape else sums
+                    out["largest_sum_at_beyond"] = max(out["largest_sum_at_beyond"],
+                                                       float(sums[beyond].max()))
+    for key, d in out["max_abs_diff"].items():
+        leaf = key.split(":")[0]
+        if leaf in zero_grad:
+            bound = largest_step
+        elif ":" in key:
+            bound = DATA_STATE_RTOL * out["max_abs"][key]
+        else:
+            bound = largest_step + DATA_STEP_ATOL
+        check(d <= bound, f"{key}: ranks and one process {d} apart after a step "
+                          f"(bound {bound}); {out}")
+    check(out["beyond"] <= share * out["entries"]
+          and out["most_beyond_in_a_row"] <= MESH_FLIPS_PER_ROW,
+          f"{out['beyond']} of {out['entries']} entries beyond {DATA_STEP_ATOL}, at "
+          f"most {out['most_beyond_in_a_row']} in a row: {out}")
+    return out
+
+
+def check_step_statistics(prefix: str, alone_file: str, ranks: int):
+    """ConvE's running statistics after a step: equal in every bit on every
+    rank, within DATA_STATS_RTOL of their largest against one process, and
+    moved from 0 and 1; returns their largest differences."""
+    alone = np.load(alone_file)
+    runs = [np.load(f"{prefix}{r}.npz") for r in range(ranks)]
+    out = {}
+    for key in CONVE_STATS:
+        for r, got in enumerate(runs):
+            check(got[key].tobytes() == runs[0][key].tobytes(),
+                  f"{key} differs between rank 0 and rank {r}")
+        d = float(np.abs(runs[0][key].astype(np.float64) - alone[key]).max())
+        scale = float(np.abs(alone[key]).max())
+        check(d <= DATA_STATS_RTOL * scale, f"{key}: {d} from one process's ({scale})")
+        moved = float(np.abs(alone[key] - (1.0 if key.endswith("var") else 0.0)).max())
+        check(moved > 1e-3, f"{key} did not move in the step")
+        out[key] = {"max_abs_diff": d, "max_abs": scale}
+    return out
+
+
+def torchrun_ranks(tasks, ranks: int, logs: str, device: str):
+    """``tasks`` through ROUTES_RUNNER, each on ``device``, as ``ranks``
+    processes started by ``python -m torch.distributed.run --standalone``,
+    which gives them its variables alone (and its agent's store); returns
+    {task name: [each rank's result]}. The launcher and its ranks are
+    stopped at RANK_TIMEOUT_S."""
+    import signal
+
+    os.makedirs(logs, exist_ok=True)
+    runner, spec = os.path.join(logs, "runner.py"), os.path.join(logs, "spec.json")
+    with open(runner, "w") as f:
+        f.write(ROUTES_RUNNER)
+    with open(spec, "w") as f:
+        json.dump({"tasks": [dict(task, device=device) for task in tasks]}, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KGE_")}
+    env.update(PYTHONPATH=ROOT, KGE_DISTRIBUTED_TIMEOUT=str(RANK_TIMEOUT_S))
+    # each rank's output to a file of its own (--redirects 3), so that the
+    # ranks' lines do not interleave
+    rank_logs = os.path.join(logs, "ranks")
+    out_file = os.path.join(logs, "torchrun.log")
+    with open(out_file, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(ranks), "--redirects", "3", "--log-dir", rank_logs,
+             runner, spec], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            code = proc.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            code = f"outlived {RANK_TIMEOUT_S} s"
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    texts = []
+    for r in range(ranks):
+        text = ""
+        for name in ("stdout", "stderr"):
+            for path in glob.glob(os.path.join(rank_logs, "*", "attempt_*", str(r),
+                                               f"{name}.log")):
+                with open(path) as f:
+                    text += f.read()
+        texts.append(text)
+    if code != 0:
+        with open(out_file) as f:
+            log(f"  torchrun: ...{f.read()[-3000:]}")
+        for r, text in enumerate(texts):
+            log(f"  torchrun's rank {r}: ...{text[-3000:]}")
+    check(code == 0, f"phase 27: torchrun's ranks: {code}")
+    results = {}
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("RESULT "):
+                entry = json.loads(line[len("RESULT "):])
+                results.setdefault(entry.pop("name"), []).append(entry)
+    for name, got in results.items():
+        check(len(got) == ranks, f"phase 27: {name}: {len(got)} of {ranks} results")
+    return results
+
+
+def data_axis_setup(seed: int):
+    """Phase 27's graphs and configs, and its tasks of C-conve over 2 x 3 ranks,
+    which phase 26's launch of 2 x 3 ranks runs beside its own (one launch
+    of six processes fewer: the run's time limit)."""
+    root = os.path.join(WORK, "data_axis")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    start = time.perf_counter()
+    data = os.path.join(root, "fb15k237_conve_cut")
+    write_dataset(data, seed + 29, sizes=DATA_AXIS_SIZES, cover=False)
+    dense_data = os.path.join(root, "fb15k237_dense_cut")
+    write_dataset(dense_data, seed + 28, sizes=DENSE_ROUTE_SIZES)
+    conve_config = os.path.join(root, "conve.yaml")
+    write_neural_config(conve_config, data, seed, CONVE)
+    configs = {}
+    for name, overrides in (
+            ("kcomplex", {"train.type": "KvsAll", "train.batch_size": ALL_BATCH,
+                          "valid.every": 0}),
+            ("tdense", {"valid.every": 0})):
+        configs[name] = os.path.join(root, f"{name}.yaml")
+        write_train_config(configs[name], dense_data, seed, **overrides)
+    setup = {"root": root, "data": data, "dense_data": dense_data,
+             "conve_config": conve_config, "configs": configs,
+             "write_data_s": time.perf_counter() - start}
+    setup["tasks_2x3"] = conve_tasks(setup, DATA_AXIS_MESHES[1])
+    return setup
+
+
+#: the checkpoints C-conve keeps in phase 27
+CONVE_KEEP = ["--train.checkpoint.every", "1", "--train.checkpoint.keep", "3"]
+
+
+def conve_folder(setup, m):
+    return os.path.join(setup["root"], f"conve_{m[0]}x{m[1]}")
+
+
+def conve_tasks(setup, m):
+    """Phase 27 (a)'s tasks of C-conve over the mesh ``m``."""
+    folder = conve_folder(setup, m)
+    mesh_args = ["--parallel.data", str(m[0]), "--parallel.model", str(m[1])]
+    return [
+        {"name": "conve_start", "kind": "cli", "device": RANK_DEVICE,
+         "argv": ["start", setup["conve_config"], "--folder", folder, *mesh_args,
+                  *CONVE_KEEP]},
+        {"name": "conve_resume", "kind": "cli", "device": RANK_DEVICE,
+         "argv": ["resume", folder, "--train.max_epochs", "2", *CONVE_KEEP]},
+        {"name": "conve_test", "kind": "cli", "device": RANK_DEVICE,
+         "argv": ["test", folder]},
+        {"name": "conve_step", "kind": "step", "device": RANK_DEVICE, "folder": folder,
+         "checkpoint": "checkpoint_00002.pt", "probe": folder + "-step",
+         "tables": folder + "-step"},
+    ]
+
+
+def run_data_axis(seed: int, mesh_summary, setup, ranks_2x3):
+    """Phase 27 on ``data_axis_setup``'s graphs, with the results of its
+    tasks of 2 x 3 ranks (``ranks_2x3``, from phase 26's launch); returns a
+    summary dict."""
+    root, dense_data = setup["root"], setup["dense_data"]
+    conve_config, configs = setup["conve_config"], setup["configs"]
+    summary = {"sizes": dict(zip(("entities", "relations", "train", "valid", "test"),
+                                 DATA_AXIS_SIZES)), "write_data_s": setup["write_data_s"]}
+    lr = CONVE["train.optimizer.default.args.lr"]
+    adam_step = 2 * (1 - 0.9) / math.sqrt(1 - 0.999) * lr
+
+    def sub_step(name, config, m, sub):
+        tag = f"{name}_{m[0]}x{m[1]}_sub{sub}"
+        return {"name": name, "kind": "step", "device": RANK_DEVICE, "config": config,
+                "folder": os.path.join(root, tag), "tables": os.path.join(root, tag),
+                "options": {"random_seed.default": seed, "console.quiet": True,
+                            "parallel.data": m[0], "parallel.model": m[1],
+                            "train.subbatch_size": sub}}
+
+    # the 2 x 1 ranks are torchrun's (c): its first task brings them up from
+    # torchrun's variables (parallel.distributed.auto), the others keep them
+    walls = {}
+    ranks = {}
+    start = time.perf_counter()
+    m = SUBBATCH_MESH
+    auto_folder = os.path.join(root, "tdense_auto")
+    ranks[m] = torchrun_ranks(
+        [{"name": "auto", "kind": "cli",
+          "argv": route_args(configs["tdense"], auto_folder, dense_data, seed, m,
+                             "--parallel.distributed.auto", "true",
+                             "--train.max_epochs", "1")}]
+        + conve_tasks(setup, m)
+        + [sub_step("kcomplex", configs["kcomplex"], m, KCOMPLEX_SUB),
+           sub_step("tdense", configs["tdense"], m, TDENSE_SUB)],
+        m[0] * m[1], os.path.join(root, "logs_torchrun_2x1"), AUTO_DEVICE)
+    walls["torchrun_2x1"] = time.perf_counter() - start
+    ranks[DATA_AXIS_MESHES[1]] = ranks_2x3
+
+    # one process: the ranks' checkpoints tested and stepped, the unsubbatched
+    # steps of (b), T-dense's epoch of (c), and C-conve's own epochs
+    start = time.perf_counter()
+    alone_tasks = []
+    for m in DATA_AXIS_MESHES:
+        folder = conve_folder(setup, m)
+        alone_tasks += [
+            {"name": f"test_{m[0]}x{m[1]}", "kind": "cli", "device": RANK_DEVICE,
+             "argv": ["test", folder, "--parallel.data", "1", "--parallel.model", "1"]},
+            {"name": f"step_{m[0]}x{m[1]}", "kind": "step", "device": RANK_DEVICE,
+             "folder": folder, "checkpoint": "checkpoint_00002.pt",
+             "probe": folder + "-alone-step", "tables": folder + "-alone-step",
+             "options": {"parallel.data": 1, "parallel.model": 1}}]
+    alone_folder = os.path.join(root, "conve_alone")
+    alone_tasks += [
+        sub_step("kcomplex", configs["kcomplex"], (1, 1), 0),
+        sub_step("tdense", configs["tdense"], (1, 1), 0),
+        {"name": "tdense_epoch", "kind": "epoch", "device": RANK_DEVICE,
+         "config": configs["tdense"], "folder": os.path.join(root, "tdense_alone"),
+         "options": {"dataset.name": dense_data, "random_seed.default": seed,
+                     "console.quiet": True, "parallel.data": 1, "parallel.model": 1}},
+        {"name": "conve_start", "kind": "cli", "device": RANK_DEVICE,
+         "argv": ["start", conve_config, "--folder", alone_folder, *CONVE_KEEP]},
+        {"name": "conve_resume", "kind": "cli", "device": RANK_DEVICE,
+         "argv": ["resume", alone_folder, "--train.max_epochs", "2", *CONVE_KEEP]}]
+    alone = {k: v[0] for k, v in run_route_ranks(
+        alone_tasks, 1, os.path.join(root, "logs_alone")).items()}
+    walls["alone"] = time.perf_counter() - start
+    summary["walls_s"] = walls
+    log("  walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+
+    # (a) C-conve over each mesh
+    valid_batches = -(-DATA_AXIS_SIZES[3] // BATCH)
+    test_batches = -(-DATA_AXIS_SIZES[4] // BATCH)
+    summary["conve"] = {}
+    alone_losses = mesh_losses(alone_folder)
+    # a process logs a mesh and its placement once: the 2 x 1 ranks did in
+    # (c)'s folder, the 2 x 3 ranks in phase 26's O-complex folder
+    logged_in = {SUBBATCH_MESH: auto_folder,
+                 DATA_AXIS_MESHES[1]: os.path.join(WORK, "mesh_routes", "ocomplex_ranks")}
+    for m in DATA_AXIS_MESHES:
+        tag, folder, got = f"{m[0]}x{m[1]}", conve_folder(setup, m), ranks[m]
+        n = m[0] * m[1]
+        with open(os.path.join(logged_in[m], "kge.log")) as f:
+            lines = [l.split(" ", 2)[-1].strip() for l in f
+                     if f"Mesh {tag}" in l or "Ranks on devices" in l]
+        check(len(lines) == 2, f"the ranks of {tag} logged no mesh and placement: {lines}")
+        losses = mesh_losses(folder)
+        check(sorted(losses) == [1, 2] and all(np.isfinite(v) for v in losses.values()),
+              f"C-conve over {tag}: losses {losses}")
+        steps = trace_entries(folder, event="epoch_completed")[0]["batches"]
+        for r in range(n):
+            for verb in ("start", "resume"):
+                k2 = got[f"conve_{verb}"][r]["launches"]["scatter_add_sorted"]
+                check(k2 == 2 * steps, f"rank {r} of {tag} {verb}: K2 {k2}, not 2 x {steps}")
+            for verb, batches in (("start", valid_batches), ("resume", valid_batches),
+                                  ("test", test_batches)):
+                launches = got[f"conve_{verb}"][r]["launches"]
+                if m[1] > 1:
+                    check(launches["rank_counts_sharded"] == launches["rank_pivots"]
+                          == launches["rank_counts"] == 2 * batches,
+                          f"rank {r} of {tag} {verb}: K1 {launches}")
+                else:
+                    check(launches["rank_counts"] == 2 * batches
+                          and launches["rank_pivots"] == 0,
+                          f"rank {r} of {tag} {verb}: K1 {launches}")
+        tested = [e for e in trace_entries(folder, event="eval_completed")
+                  if e.get("split") == "test"]
+        check(len(tested) == 2, f"{len(tested)} tests of {tag}'s folder")
+        metrics = [{k: v for k, v in e.items()
+                    if k.startswith(("mean_rank", "mean_reciprocal_rank", "hits_at_"))}
+                   for e in tested]
+        check(metrics[0] == metrics[1] and len(metrics[0]) > 10
+              and 0.0 < metrics[0]["mean_reciprocal_rank_filtered"] <= 1.0,
+              f"C-conve's test over {tag} and alone: {metrics}")
+        step_loss = [g["step_loss"] for g in got["conve_step"]]
+        alone_step = alone[f"step_{tag}"]["step_loss"]
+        check(all(v == step_loss[0] for v in step_loss)
+              and math.isclose(step_loss[0], alone_step, rel_tol=1e-6),
+              f"C-conve's step over {tag}: loss {step_loss}, alone {alone_step}")
+        diffs = step_table_diffs(folder + "-step-rank", folder + "-alone-step-rank0.npz",
+                                 n, adam_step, DATA_STEP_SHARE, CONVE_ZERO_GRAD,
+                                 CONVE_STATS)
+        stats = check_step_statistics(folder + "-step-rank",
+                                      folder + "-alone-step-rank0.npz", n)
+        summary["conve"][tag] = {
+            "losses": losses, "steps_per_epoch": steps, "placement": lines,
+            "test_metrics": metrics[0], "step_loss": {"ranks": step_loss[0],
+                                                      "alone": alone_step},
+            "step_tables": diffs, "step_statistics": stats,
+            "launches_rank0": {verb: got[f"conve_{verb}"][0]["launches"]
+                               for verb in ("start", "resume", "test")},
+            "epoch2_s": trace_entries(folder, event="epoch_completed")[1]["epoch_time"],
+            "max_memory_allocated": [g["max_memory_allocated"]
+                                     for g in got["conve_start"]]}
+        log(f"  (a) C-conve over {tag} ranks ({lines[0]}): avg_loss "
+            f"{losses}, alone {alone_losses}; test equal on all {len(metrics[0])} "
+            f"metrics (filtered MRR {metrics[0]['mean_reciprocal_rank_filtered']:.6f}); "
+            f"per rank K2 2 a step ({steps} steps an epoch), K1 "
+            + ("(a) and (b) " if m[1] > 1 else "")
+            + f"2 x {valid_batches} a validation; a step from checkpoint_00002.pt: loss "
+            f"{step_loss[0]} over the ranks, {alone_step} alone, {diffs['beyond']} of "
+            f"{diffs['entries']} entries beyond {DATA_STEP_ATOL}, max |difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs["max_abs_diff"].items()
+                        if ":" not in k)
+            + "; statistics equal on every rank, from one process's "
+            + ", ".join(f"{k.split('/')[1]} {v['max_abs_diff']:.3e}"
+                        for k, v in stats.items()))
+        log(f"  {lines[1]}")
+    summary["conve_alone_losses"] = alone_losses
+
+    # (b) subbatched steps over 2 x 1 against one process's unsubbatched step
+    m, tag = SUBBATCH_MESH, f"{SUBBATCH_MESH[0]}x{SUBBATCH_MESH[1]}"
+    summary["subbatches"] = {}
+    for name, sub, step_lr in (("kcomplex", KCOMPLEX_SUB, 0.1), ("tdense", TDENSE_SUB, 0.1)):
+        got, want = ranks[m][name], alone[name]
+        prefix = os.path.join(root, f"{name}_{tag}_sub{sub}-rank")
+        losses = [g["step_loss"] for g in got]
+        check(all(g["subbatch_size"] == sub and g["mesh"] == list(m) for g in got)
+              and want["subbatch_size"] == 0, f"{name}: {got}, {want}")
+        check(all(v == losses[0] for v in losses)
+              and math.isclose(losses[0], want["step_loss"], rel_tol=1e-6),
+              f"{name} in subbatches of {sub} over {tag}: loss {losses}, one "
+              f"process unsubbatched {want['step_loss']}")
+        diffs = step_table_diffs(prefix, os.path.join(root, f"{name}_1x1_sub0-rank0.npz"),
+                                 m[0] * m[1], 2 * step_lr, DATA_FLIP_SHARE)
+        n_sub = (ALL_BATCH if name == "kcomplex" else TRAIN_BATCH) // sub
+        for r, g in enumerate(got):
+            k2 = g["launches"]["scatter_add_sorted"]
+            check(k2 == n_sub * want["launches"]["scatter_add_sorted"] > 0,
+                  f"{name}, rank {r}: K2 {k2} in a step of {n_sub} subbatches, one "
+                  f"process {want['launches']['scatter_add_sorted']} unsubbatched")
+        summary["subbatches"][name] = {
+            "subbatch_size": sub, "step_loss": {"ranks": losses[0],
+                                                "alone": want["step_loss"]},
+            "step_tables": diffs, "k2_per_step": {
+                "ranks": got[0]["launches"]["scatter_add_sorted"],
+                "alone": want["launches"]["scatter_add_sorted"]}}
+        log(f"  (b) {name} in {n_sub} subbatches of {sub} over {tag} against one "
+            f"process's unsubbatched step: loss {losses[0]} and {want['step_loss']}; "
+            f"{diffs['beyond']} of {diffs['entries']} entries beyond {DATA_STEP_ATOL} "
+            f"(Adagrad's first-step flips; at most {diffs['most_beyond_in_a_row']} in "
+            f"a row, one process's Adagrad sums there at most "
+            f"{diffs['largest_sum_at_beyond']:.3e}), max |difference| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs["max_abs_diff"].items())
+            + f"; K2 {got[0]['launches']['scatter_add_sorted']} a step on each rank "
+            f"({want['launches']['scatter_add_sorted']} unsubbatched)")
+
+    # (c) parallel.distributed.auto under torchrun
+    lines = summary["conve"]["2x1"]["placement"]
+    check(lines[1].count("cuda:0") == 2 and "share" in lines[1],
+          f"torchrun's ranks logged {lines}")
+    auto_losses = mesh_losses(auto_folder)
+    want = alone["tdense_epoch"]
+    check(math.isclose(auto_losses[1], want["avg_loss"], rel_tol=1e-4),
+          f"T-dense over torchrun's 2 ranks {auto_losses}, alone {want['avg_loss']}")
+    for r, g in enumerate(ranks[SUBBATCH_MESH]["auto"]):
+        check(g["launches"]["scatter_add_sorted"] == want["launches"]["scatter_add_sorted"],
+              f"torchrun rank {r}: K2 {g['launches']}, alone {want['launches']}")
+    summary["auto"] = {"lines": lines, "avg_loss": {"ranks": auto_losses[1],
+                                                    "alone": want["avg_loss"]},
+                       "steps": want["batches"]}
+    log(f"  (c) 2 ranks from torchrun's variables alone (--parallel.distributed.auto "
+        f"true --job.device auto): {lines[0]}; {lines[1]}; T-dense's epoch of "
+        f"{want['batches']} steps avg_loss {auto_losses[1]} over the ranks, "
+        f"{want['avg_loss']} alone")
+
+    # (d) phase 25's peak per rank with the table drawn in row blocks
+    peaks = mesh_summary["max_memory_allocated"]["ranks"]
+    check(max(peaks) < MESH_PEAK_WHOLE_DRAW,
+          f"phase 25's peak per rank {max(peaks)} not below {MESH_PEAK_WHOLE_DRAW}, "
+          "when every rank drew the whole table")
+    summary["mesh_peak_per_rank"] = peaks
+    log(f"  (d) phase 25's peak allocation a rank, the entity table drawn in blocks of "
+        f"65,536 rows: {max(peaks) / 2**30:.3f} GiB (the whole table drawn: 2.86 GiB)")
+    summary["launches_ranks"] = {
+        f"{tag}_{name}": [g["launches"] for g in got]
+        for m, results in ranks.items() for tag in [f"{m[0]}x{m[1]}"]
+        for name, got in results.items()}
+    summary["disk_used_gb"] = disk_used_gb()
+    return summary
 
 
 # -- kernel timings ---------------------------------------------------------------
@@ -6181,7 +6812,7 @@ def main():
     log(f"  phase 19 took {time.perf_counter() - start:.1f} s; {card}")
 
     log("== phase 20: C-conve (reciprocal ConvE d=200, 32 filters of 3x3, KvsAll "
-        "bce with label smoothing, Adam, FB15k-237 sizes, train cut to a quarter)")
+        "bce with label smoothing, Adam, FB15k-237 sizes, train cut to an eighth)")
     start = time.perf_counter()
     neural_data = os.path.join(WORK, "fb15k237_neural")
     write_dataset(neural_data, args.seed + 20, sizes=NEURAL_SIZES)
@@ -6191,7 +6822,7 @@ def main():
     log(f"  phase 20 took {time.perf_counter() - start:.1f} s; {card}")
 
     log("== phase 21: C-hitter (reciprocal Transformer d=320, 8 heads, 3 layers, "
-        "1vsAll kl, Adam, FB15k-237 sizes, train cut to a quarter)")
+        "1vsAll kl, Adam, FB15k-237 sizes, train cut to an eighth)")
     start = time.perf_counter()
     hitter = run_neural("hitter", HITTER, HITTER_NO_DROPOUT,
                         {f"scorer.layers.{i}.in_proj_b": slice(320, 640)
@@ -6235,12 +6866,30 @@ def main():
     log("== phase 26: the model axis on the full-vocabulary routes with kge_tpu's ring: "
         "O-complex (start, resume, test) and K-complex over 2 x 3 ranks, P-rotate's pool "
         "over 1 x 2, implementation all and fused_scoring always over 2 x 3, each on "
-        "cuda:0 against one process")
+        "cuda:0 against one process (its 2 x 3 ranks run phase 27's C-conve too)")
     start = time.perf_counter()
-    routes_mesh = run_mesh_routes(args.seed)
+    data_axis_ready = data_axis_setup(args.seed)  # phase 27's C-conve over 2 x 3
+    routes_mesh = run_mesh_routes(args.seed, data_axis_ready["tasks_2x3"])
     routes_mesh["wall_s"] = time.perf_counter() - start
     log(f"  phase 26 took {routes_mesh['wall_s']:.1f} s; {card}")
     ranks26 = routes_mesh["launches_ranks"]
+
+    log("== phase 27: the data axis for ConvE's batch statistics and for subbatches, "
+        "and parallel.distributed.auto: C-conve over 2 x 1 and 2 x 3 ranks (start, "
+        "resume, test, a step), K-complex and T-dense in subbatches over 2 x 1, two "
+        "ranks from torchrun's variables, each on cuda:0 against one process; phase "
+        "25's peak a rank")
+    start = time.perf_counter()
+    data_axis = run_data_axis(args.seed, mesh, data_axis_ready,
+                              routes_mesh.pop("extra_2x3"))
+    data_axis["wall_s"] = time.perf_counter() - start
+    log(f"  phase 27 took {data_axis['wall_s']:.1f} s; {card}")
+    ranks27 = data_axis["launches_ranks"]
+
+    def launches27(kernel, *tasks):
+        """A kernel's launches on each rank of phase 27's tasks."""
+        return {task: [got[kernel] for got in ranks27[task]] for task in tasks
+                if any(got[kernel] for got in ranks27[task])}
 
     def launches26(kernel, *tasks):
         """A kernel's launches on each rank of phase 26's tasks."""
@@ -6288,6 +6937,13 @@ def main():
               launches_mesh_routes={
                   "tiles": launches26("rank_counts_sharded", "start", "test"),
                   "rank_pivots": launches26("rank_pivots", "start", "test")},
+              launches_data_axis={
+                  "whole": launches27("rank_counts", "2x1_conve_start", "2x1_conve_resume",
+                                      "2x1_conve_test"),
+                  "tiles": launches27("rank_counts_sharded", "2x3_conve_start",
+                                      "2x3_conve_resume", "2x3_conve_test"),
+                  "rank_pivots": launches27("rank_pivots", "2x3_conve_start",
+                                            "2x3_conve_resume", "2x3_conve_test")},
               sharded=mesh["k1_sharded_times"]),
         entry("scatter_add_sorted", "kge_tpu/ops/pallas_ops.py:120",
               dense["launches"]["scatter_add_sorted"], scatter_err, scatter_times,
@@ -6308,7 +6964,11 @@ def main():
                   "filtered_start": data_prep["filtered"]["launches"]["scatter_add_sorted"]},
               launches_mesh_routes=launches26(
                   "scatter_add_sorted", "start", "resume", "probe", "kcomplex", "rotate",
-                  "all", "fused")),
+                  "all", "fused"),
+              launches_data_axis=launches27(
+                  "scatter_add_sorted", "2x1_auto", "2x1_conve_start", "2x1_conve_resume",
+                  "2x1_conve_step", "2x1_kcomplex", "2x1_tdense", "2x3_conve_start",
+                  "2x3_conve_resume", "2x3_conve_step")),
         entry("rows_set", "kge_tpu/ops/pallas_ops.py:258",
               sparse["launches"]["rows_set"], rows_set_err, rows_set_times,
               shapes=rows_set_times),
@@ -6365,6 +7025,7 @@ def main():
         "dtype_policy": {k: v for k, v in dtype.items() if k != "kernels"},
         "search": search, "data_prep": data_prep, "mesh": mesh,
         "mesh_routes": {k: v for k, v in routes_mesh.items() if k != "launches_ranks"},
+        "data_axis": {k: v for k, v in data_axis.items() if k != "launches_ranks"},
         "card": card}
     print(json.dumps(kernels))
     print(card)

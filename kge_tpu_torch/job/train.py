@@ -43,11 +43,14 @@ ranks of ``torch.distributed``: every rank holds the same host batches,
 negatives, dropout masks and initial tables (drawn from generators in
 lockstep), and takes the rows of each batch of its data coordinate
 (``_data_shard``), the whole batch's mask sum normalizing the loss, the
-``__denom__`` route of subbatches. Only sums are split: the dense step sums
-every gradient leaf over the data group before the optimizer runs, the
-row-sparse step its row gradients, and the epoch's losses and penalties
-are summed over the data group; penalties are those of data row 0 with the
-whole batch. Under a model axis the entity table and its optimizer state
+``__denom__`` route of subbatches. Subbatches are those of the whole
+batch's rows, each drawn for on every rank and cut to the rank's rows
+(``_subbatch_shard``); batch statistics are the whole batch's or
+subbatch's, summed over the data group (models/neural.py). Only sums are
+split: the dense step sums every gradient leaf over the data group before
+the optimizer runs, the row-sparse step its row gradients, and the epoch's
+losses and penalties are summed over the data group; penalties are those
+of data row 0 with the whole batch. Under a model axis the entity table and its optimizer state
 hold the rows of the rank's model coordinate (models/base.py
 ``LookupEmbedder``), and checkpoints are written in kge_tpu's sharded
 schema (utils/io.py). Every rank of a model group computes the same loss
@@ -361,15 +364,18 @@ class TrainingJob(TrainingOrEvaluationJob):
 
     def _check_shardable(self):
         """kge_tpu's divisibility rules of the mesh, with its messages
-        (kge_tpu/job/train.py ``_check_shardable``), and the routes the mesh
-        does not run yet (utils/seed.py ``check_mesh_routes``)."""
-        from kge_tpu_torch.utils.seed import check_mesh_routes
-
+        (kge_tpu/job/train.py ``_check_shardable``); subbatches, which each
+        rank takes its rows of, divide over the data axis too."""
         data, model = self.device_ctx.data, self.device_ctx.model
         if self.batch_size % data != 0:
             raise ValueError(
                 f"train.batch_size={self.batch_size} must be divisible by "
                 f"the data mesh axis ({data})"
+            )
+        if self._subbatch_size > 0 and self._subbatch_size % data != 0:
+            raise ValueError(
+                f"train.subbatch_size={self._subbatch_size} must be divisible "
+                f"by the data mesh axis ({data})"
             )
         if model > 1:
             E = self.dataset.num_entities()
@@ -379,10 +385,6 @@ class TrainingJob(TrainingOrEvaluationJob):
                     f"axis ({model}) for row-sharded entity tables "
                     "(pad the vocabulary or adjust parallel.model)"
                 )
-        check_mesh_routes(
-            self.config, data, model,
-            collects_stats=any(True for _ in self.model.get_scorer().buffers()),
-        )
 
     def _prepare_data(self):
         """Subclasses: materialize examples for epoch iteration."""
@@ -422,11 +424,15 @@ class TrainingJob(TrainingOrEvaluationJob):
         subbatch (``_subbatches``) and each subbatch's gradient is taken
         before the next one runs; aux is then kge_tpu's subbatched aux,
         ``avg_loss`` and the penalties without the strategy's own keys (so
-        without statistics: kge_tpu's subbatched step drops them too)."""
+        without statistics: kge_tpu's subbatched step drops them too).
+        Under a data axis ``batch`` is then the whole batch, and each
+        subbatch of its rows is drawn for on every rank and cut to the
+        rank's rows (``_subbatch_shard``)."""
         grads = None
         if self._subbatch_size > 0:
             loss_value = torch.zeros((), device=self.device)
             for subbatch in self._subbatches(batch):
+                subbatch = self._subbatch_shard(subbatch)
                 sub_loss, _ = self._batch_loss(subbatch, variant)
                 if params is not None:
                     grads = _add_grads(grads, _grad(sub_loss, params))
@@ -469,12 +475,13 @@ class TrainingJob(TrainingOrEvaluationJob):
         Under a data axis: entries whose leading size is the batch size
         (but ``_batch_wide`` ones) keep the rows of the rank's data
         coordinate, ``__denom__`` holds the whole batch's mask sum and
-        ``__row_offset__`` the first row's position, as in a subbatch, and
-        ``__penalty_batch__`` the whole batch's triples and mask; the place
-        (first row, rows, batch rows) goes to ``_enter_step``, so that the
-        modules draw dropout masks for the whole batch and keep the rank's
-        rows (models/base.py ``KgeBase.dropout_rows``). Alone: the batch
-        and None."""
+        ``__row_offset__`` the first row's position in the whole batch (a
+        subbatch's carry both already), and ``__penalty_batch__`` the
+        batch's triples and mask; the place (first row, rows, batch rows)
+        goes to ``_set_batch_rows``, so that the modules draw dropout masks
+        for all of the batch's rows and keep the rank's
+        (models/base.py ``KgeBase.dropout_rows``). Alone: the batch and
+        None."""
         if self.device_ctx.data <= 1:
             return batch, None
         bs = batch["mask"].shape[0]
@@ -484,11 +491,33 @@ class TrainingJob(TrainingOrEvaluationJob):
             if (isinstance(v, torch.Tensor) and v.dim() > 0
                     and v.shape[0] == bs and not self._batch_wide(k)):
                 local[k] = v[start:stop]
-        local["__denom__"] = torch.sum(batch["mask"])
-        local["__row_offset__"] = start
+        local["__denom__"] = batch.get("__denom__", torch.sum(batch["mask"]))
+        local["__row_offset__"] = batch.get("__row_offset__", 0) + start
         local["__penalty_batch__"] = {
             k: batch[k] for k in ("triples", "mask") if k in batch}
         return local, (start, stop - start, bs)
+
+    def _step_shard(self, batch):
+        """What a step passes to ``_loss_fn``, and its rows: the rank's rows
+        of the batch (``_data_shard``); under subbatches the whole batch,
+        whose subbatches ``_loss_fn`` cuts to the rank's rows one by
+        one."""
+        if self._subbatch_size > 0:
+            return batch, None
+        return self._data_shard(batch)
+
+    def _subbatch_shard(self, subbatch):
+        """A subbatch of the whole batch as this rank computes it: under a
+        data axis, what every rank draws for all of the subbatch's rows
+        (``_complete_batch``, in the order one process draws it for its
+        subbatch), then the rank's rows of it, whose dropout masks the
+        modules draw for the whole subbatch (``_set_batch_rows``); alone,
+        the subbatch."""
+        if self.device_ctx.data <= 1:
+            return subbatch
+        subbatch, rows = self._data_shard(self._complete_batch(subbatch))
+        self._set_batch_rows(rows)
+        return subbatch
 
     def _complete_batch(self, batch):
         """The batch with what every rank must draw for all of its rows
@@ -501,7 +530,9 @@ class TrainingJob(TrainingOrEvaluationJob):
         leading size is the batch size are cut into ``subbatch_size`` rows,
         the others (and those ``_batch_wide`` names) are shared by every
         subbatch; each subbatch holds the whole batch's mask sum
-        (``__denom__``) and its first row's position (``__row_offset__``)."""
+        (``__denom__``) and its first row's position (``__row_offset__``).
+        Under a data axis these are subbatches of the whole batch's rows,
+        as kge_tpu's ``reshape(n_sub, sub)`` of the batch-sharded array."""
         sub = self._subbatch_size
         bs = batch["mask"].shape[0]
         if bs % sub != 0:
@@ -537,7 +568,7 @@ class TrainingJob(TrainingOrEvaluationJob):
         zero gradient. The statistics the step collected then overwrite
         theirs (kge_tpu/job/train.py:355-360). Returns (cost, aux) as
         detached tensors."""
-        batch, rows = self._data_shard(batch)
+        batch, rows = self._step_shard(batch)
         self._enter_step(rows)
         params = self.optimizer.params
         cost, aux, grads = self._loss_fn(batch, variant, params)
@@ -556,7 +587,7 @@ class TrainingJob(TrainingOrEvaluationJob):
 
     def _enter_step(self, rows=None):
         """Train mode, dropout drawn from this job's generator for the
-        batch rows ``rows`` (``_data_shard``), and this job's
+        batch rows ``rows`` (``_set_batch_rows``), and this job's
         lookup-gradient mode; nothing written by the optimizer yet.
         A forward-only job (the training-loss evaluation) shares the model
         with the job that trains it, so each job sets both at every
@@ -567,15 +598,26 @@ class TrainingJob(TrainingOrEvaluationJob):
         for module in self.model.modules():
             if hasattr(module, "dropout_generator"):
                 module.dropout_generator = self._generator
-                module.dropout_rows = rows
+        self._set_batch_rows(rows)
         embedding_ops.set_gather_mode(self._gather_mode)
         self._optimizer_wrote = False
+
+    def _set_batch_rows(self, rows):
+        """Tell the modules which rows of the batch (or subbatch) this rank
+        computes (``_data_shard``; None: all of them): they draw dropout
+        masks for all rows and keep theirs, and take batch statistics over
+        the mesh's data group."""
+        mesh = self.device_ctx if rows is not None else None
+        for module in self.model.modules():
+            if hasattr(module, "dropout_generator"):
+                module.dropout_rows = rows
+                module.batch_mesh = mesh
 
     def _forward_step(self, batch, variant=None):
         """The loss of a batch in train mode, as kge_tpu's forward-only
         step computes it; it writes no parameter, statistic or optimizer
         state."""
-        batch, rows = self._data_shard(batch)
+        batch, rows = self._step_shard(batch)
         self._enter_step(rows)
         with torch.no_grad():
             cost, aux, _ = self._loss_fn(batch, variant)
@@ -589,7 +631,8 @@ class TrainingJob(TrainingOrEvaluationJob):
         while True:
             rng_state = self._generator.get_state() if self._auto_tune else None
             try:
-                if self.device_ctx.data > 1:
+                if self.device_ctx.data > 1 and self._subbatch_size <= 0:
+                    # (subbatches are completed one by one, _subbatch_shard)
                     batch = self._complete_batch(batch)
                 if self.is_forward_only:
                     return self._forward_step(batch, variant)

@@ -64,8 +64,10 @@ def _fans(shape) -> Tuple[int, int]:
 
 def make_initializer(initialize: str, initialize_args: Dict[str, Any]):
     """Map a torch.nn.init-style name + args to an in-place init
-    ``fn(tensor, generator)``; the automatic ``a = -b`` rule for uniform_ is
-    applied by the caller (``KgeBase.initializer``)."""
+    ``fn(tensor, generator, shape=None)``; ``shape``, where given, is that
+    of the whole tensor of which ``tensor`` is a block (the scale of xavier
+    and kaiming depends on it). The automatic ``a = -b`` rule for uniform_
+    is applied by the caller (``KgeBase.initializer``)."""
     args = dict(initialize_args or {})
     args.pop("+++", None)
 
@@ -75,16 +77,16 @@ def make_initializer(initialize: str, initialize_args: Dict[str, Any]):
     if initialize == "normal_":
         mean = float(args.get("mean", 0.0))
         std = float(args.get("std", 1.0))
-        return lambda t, g: t.normal_(mean, std, generator=g)
+        return lambda t, g, shape=None: t.normal_(mean, std, generator=g)
     elif initialize == "uniform_":
         a = float(args.get("a", 0.0))
         b = float(args.get("b", 1.0))
-        return lambda t, g: uniform(t, g, a, b)
+        return lambda t, g, shape=None: uniform(t, g, a, b)
     elif initialize == "xavier_uniform_":
         gain = float(args.get("gain", 1.0))
 
-        def init(t, g):
-            fan_in, fan_out = _fans(t.shape)
+        def init(t, g, shape=None):
+            fan_in, fan_out = _fans(shape or t.shape)
             bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
             return uniform(t, g, -bound, bound)
 
@@ -92,8 +94,8 @@ def make_initializer(initialize: str, initialize_args: Dict[str, Any]):
     elif initialize == "xavier_normal_":
         gain = float(args.get("gain", 1.0))
 
-        def init(t, g):
-            fan_in, fan_out = _fans(t.shape)
+        def init(t, g, shape=None):
+            fan_in, fan_out = _fans(shape or t.shape)
             return t.normal_(0.0, gain * math.sqrt(2.0 / (fan_in + fan_out)),
                              generator=g)
 
@@ -101,19 +103,19 @@ def make_initializer(initialize: str, initialize_args: Dict[str, Any]):
     elif initialize == "kaiming_uniform_":
         a = float(args.get("a", 0.0))
 
-        def init(t, g):
-            fan_in, _ = _fans(t.shape)
+        def init(t, g, shape=None):
+            fan_in, _ = _fans(shape or t.shape)
             bound = math.sqrt(2.0 / (1 + a ** 2)) * math.sqrt(3.0 / fan_in)
             return uniform(t, g, -bound, bound)
 
         return init
     elif initialize == "constant_":
         val = float(args.get("val", 0.0))
-        return lambda t, g: t.fill_(val)
+        return lambda t, g, shape=None: t.fill_(val)
     elif initialize == "ones_":
-        return lambda t, g: t.fill_(1.0)
+        return lambda t, g, shape=None: t.fill_(1.0)
     elif initialize == "zeros_":
-        return lambda t, g: t.zero_()
+        return lambda t, g, shape=None: t.zero_()
     raise ValueError(f"invalid initializer: {initialize}")
 
 
@@ -162,6 +164,9 @@ class KgeBase(nn.Module, Configurable):
     #: computes under a data axis, set by the training job at each step
     #: (job/train.py ``_enter_step``); None for the whole batch
     dropout_rows: Optional[Tuple[int, int, int]] = None
+    #: the mesh whose data group holds the batch's other rows, set with
+    #: ``dropout_rows`` (batch statistics sum over that group)
+    batch_mesh = None
 
     def _dropout(self, x: torch.Tensor, rate: Optional[float] = None,
                  whole: bool = False,
@@ -433,6 +438,11 @@ class KgeEmbedder(KgeBase):
         table[ids[keep] - lo] = rows[keep].to(table.dtype)
 
 
+#: the rows of an entity or relation table drawn at a time at initialization
+#: (``LookupEmbedder.init_params``): 65,536 rows of d = 128 are 32 MiB
+INIT_BLOCK_ROWS = 65536
+
+
 class LookupEmbedder(KgeEmbedder):
     """Dense embedding table with normalization (reference
     kge/model/embedder/lookup_embedder.py): one parameter ``embeddings``
@@ -486,20 +496,28 @@ class LookupEmbedder(KgeEmbedder):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Draw the table in float32, normalize it, then store it in
-        ``param_dtype`` (kge_tpu's order). A row shard draws the whole
-        table, as one process does, and keeps its rows."""
-        table = self.embeddings
-        if self.row_range is not None:
-            table = torch.empty(self.vocab_size, self._dim,
-                                dtype=torch.float32, device=table.device)
-        elif table.dtype != torch.float32:
-            table = torch.empty_like(table, dtype=torch.float32)
-        self.initializer()(table, generator)
-        if self.row_range is not None:
-            table = table[self.row_range[0]:self.row_range[1]]
-        if self.normalize_p > 0:
-            table = self._normalize(table)
-        self.embeddings.copy_(table)
+        ``param_dtype`` (kge_tpu's order), in blocks of ``INIT_BLOCK_ROWS``
+        rows drawn one after the other into one scratch buffer, each
+        initializer scaled by the whole table's shape. A row shard draws
+        every block, as one process does, and keeps its rows: its start
+        equals the single one in every bit, and no rank holds the whole
+        table."""
+        init = self.initializer()
+        lo, hi = self.row_range or (0, self.vocab_size)
+        shape = (self.vocab_size, self._dim)
+        scratch = torch.empty(min(INIT_BLOCK_ROWS, self.vocab_size), self._dim,
+                              dtype=torch.float32, device=self.embeddings.device)
+        for start in range(0, self.vocab_size, INIT_BLOCK_ROWS):
+            stop = min(start + INIT_BLOCK_ROWS, self.vocab_size)
+            block = scratch[:stop - start]
+            init(block, generator, shape)
+            first, last = max(start, lo), min(stop, hi)
+            if first >= last:
+                continue
+            rows = block[first - start:last - start]
+            if self.normalize_p > 0:
+                rows = self._normalize(rows)
+            self.embeddings[first - lo:last - lo] = rows
 
     def _normalize(self, table: torch.Tensor) -> torch.Tensor:
         """Rows scaled to unit L_p norm, in the table's dtype."""

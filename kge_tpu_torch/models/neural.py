@@ -18,7 +18,9 @@ Each model mirrors kge_tpu's computation op for op rather than calling
   training step's collector (``RelationalScorer.stats``): several scoring
   calls of one step do not chain, the last one's update wins, and the step
   writes it after the optimizer update. In eval mode the stored statistics
-  normalize.
+  normalize. Under a data axis a rank holds only its rows of the batch:
+  the statistics are the whole batch's, summed over the data group
+  (``_whole_batch_moments``), and equal in every bit on every rank.
 - The convolution is ``F.conv2d`` on NCHW (kge_tpu convolves NHWC with the
   kernel stored OIHW); the feature maps are flattened in torch's
   [N, C, H, W] order, as kge_tpu transposes to. Feature-map dropout is
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kge_tpu_torch.models.base import KgeModel, RelationalScorer, make_initializer
+from kge_tpu_torch.parallel.mesh import DataSum
 
 
 def _variance(x: torch.Tensor, dims) -> torch.Tensor:
@@ -58,6 +61,23 @@ def _variance(x: torch.Tensor, dims) -> torch.Tensor:
     deviations from the mean."""
     centered = x - torch.mean(x, dim=dims, keepdim=True)
     return torch.mean(centered * centered, dim=dims)
+
+
+def _whole_batch_moments(x: torch.Tensor, dims, mesh):
+    """(mean, biased variance, count) over ``dims`` of the batch whose rows
+    (dimension 0) the ranks of ``mesh``'s data group hold in equal parts,
+    ``x`` this rank's: kge_tpu's ``jnp.mean`` and ``jnp.var`` of the
+    batch-sharded array, which GSPMD takes over the whole batch. The mean is
+    the group's sum of the ranks' sums over the whole count, the variance
+    the group's sum of squared deviations from it over the whole count
+    (``DataSum``: the same in every bit on every rank, the gradient summed
+    over the group)."""
+    n = math.prod(x.shape[d] for d in dims) * mesh.data
+    mean = DataSum.apply(torch.sum(x, dim=dims), mesh) / n
+    shape = [1 if i in dims else x.shape[i] for i in range(x.dim())]
+    centered = x - mean.reshape(shape)
+    var = DataSum.apply(torch.sum(centered * centered, dim=dims), mesh) / n
+    return mean, var, n
 
 
 class ConvEScorer(RelationalScorer):
@@ -165,14 +185,17 @@ class ConvEScorer(RelationalScorer):
     def _batch_norm(self, x, mean_key: str, var_key: str, dims, eps=1e-5,
                     momentum=0.1):
         """kge_tpu's ``_batch_norm`` over ``dims`` (all but the channel
-        dimension); see the module's docstring."""
+        dimension); see the module's docstring. Where the rank holds only
+        its rows of the batch (``dropout_rows`` under a data axis), the
+        statistics are the whole batch's (``_whole_batch_moments``)."""
         if self.training:
-            mean = torch.mean(x, dim=dims)
-            var = _variance(x, dims)
+            if self.dropout_rows is not None and self.batch_mesh is not None:
+                mean, var, n = _whole_batch_moments(x, dims, self.batch_mesh)
+            else:
+                mean = torch.mean(x, dim=dims)
+                var = _variance(x, dims)
+                n = math.prod(x.shape[d] for d in dims)
             if self.stats is not None:
-                n = 1
-                for d in dims:
-                    n *= x.shape[d]
                 unbiased = var.detach() * n / max(n - 1, 1)
                 self.stats[mean_key] = (
                     (1 - momentum) * getattr(self, mean_key)

@@ -3,12 +3,17 @@
 The port of kge_tpu/parallel/distributed.py. kge_tpu runs one process per
 host that drives every local device; this package runs one process per
 rank, each on the one device that ``job.device`` names (``cuda:N`` or
-``cpu``), which is the torch idiom. Ranks come up from the keys kge_tpu
-reads: ``parallel.distributed.coordinator_address`` / ``num_processes`` /
+``cpu``; ``auto`` is the card of the rank's local rank, ``card_index``),
+which is the torch idiom. Ranks come up from the keys kge_tpu reads:
+``parallel.distributed.coordinator_address`` / ``num_processes`` /
 ``process_id``, or, when the config names no address,
-``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``.
-They meet at a TCP store on the coordinator's address, and
-``init_process_group`` runs on that store with the world size and rank.
+``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``;
+or, under ``parallel.distributed.auto``, from the launcher's environment
+(``detect_launcher``), which overrides both, as kge_tpu's call of
+``jax.distributed.initialize()`` without arguments does. They meet at a TCP
+store on the coordinator's address (under torchrun's agent store, the
+agent's), and ``init_process_group`` runs on that store with the world size
+and rank.
 
 The backend is ``nccl`` between distinct cards and ``gloo`` on the CPU.
 NCCL refuses two ranks on one card ("Duplicate GPU detected"), so before
@@ -17,8 +22,8 @@ card's UUID to the store; where two ranks share a card every rank takes
 ``gloo``, which takes CUDA tensors for ``all_reduce``, ``all_gather``
 and ``broadcast`` (``choose_backend``) but CPU tensors only for ``send``
 and ``recv``: the ring's point-to-point steps (``exchange``) stage their
-buffers through host memory there. Rank 0 logs the decision once, when the
-job's mesh comes up (parallel/mesh.py).
+buffers through host memory there. Rank 0 logs the decision and every
+rank's device once, when the job's mesh comes up (parallel/mesh.py).
 
 Every collective of the package runs with a timeout (the environment's
 ``KGE_DISTRIBUTED_TIMEOUT`` seconds, 900 by default), so that a rank that
@@ -31,8 +36,9 @@ from __future__ import annotations
 
 import datetime
 import os
+import re
 import socket
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +47,102 @@ _initialized = False
 backend: Optional[str] = None
 #: whether two ranks share a card (and so the backend is gloo on the card)
 shared_card = False
+#: this rank's index among the ranks of its host (0 alone)
+_local_rank = 0
+#: every rank's (host, device), in rank order; empty alone
+placement: List[Tuple[str, str]] = []
+
+
+class Launch(NamedTuple):
+    """Where and as what a process joins a run over several processes."""
+
+    address: str
+    num_processes: int
+    process_id: int
+    #: the rank's index among its host's ranks; None where the launcher
+    #: does not say (the ranks' host names in the store then give it)
+    local_id: Optional[int] = None
+    #: torchrun's agent serves the store at ``address`` already
+    agent_store: bool = False
+
+
+#: jax's coordinator port of Open MPI and SLURM jobs: one in the top 2^12
+#: ephemeral ports, from the job's id
+_PORT_BASE = 65535 - 2 ** 12 + 1
+
+
+def _ompi_launch(env) -> Launch:
+    """jax's ``OmpiCluster``: the launcher's first IP address in
+    ``OMPI_MCA_orte_hnp_uri`` and a port from its job id."""
+    uri = env["OMPI_MCA_orte_hnp_uri"]
+    port = env.get("JAX_COORDINATOR_PORT")
+    if not port:
+        # the job id is a multiple of 2^12
+        port = str(int(uri.split(".", 1)[0]) // 2 ** 12 % 2 ** 12 + _PORT_BASE)
+    found = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if found is None:
+        raise RuntimeError(
+            "Could not parse coordinator IP address from Open MPI environment.")
+    host = next(g for g in found.groups() if g is not None)
+    return Launch(f"{host}:{port}", int(env["OMPI_COMM_WORLD_SIZE"]),
+                  int(env["OMPI_COMM_WORLD_RANK"]),
+                  int(env["OMPI_COMM_WORLD_LOCAL_RANK"]))
+
+
+def _slurm_launch(env) -> Launch:
+    """jax's ``SlurmCluster``: the step's first node (``node001``,
+    ``node001,host2``, ``node[001-015],host2``, ``node[001,007-015]``) and a
+    port from the job id."""
+    port = env.get("JAX_COORDINATOR_PORT") or str(
+        int(env["SLURM_JOB_ID"]) % 2 ** 12 + _PORT_BASE)
+    nodes = env["SLURM_STEP_NODELIST"]
+    cut = next((i for i, ch in enumerate(nodes) if ch in ",["), len(nodes))
+    if cut == len(nodes) or nodes[cut] == ",":
+        host = nodes[:cut]
+    else:
+        suffix = nodes[cut + 1:]
+        end = next((i for i, ch in enumerate(suffix) if ch in ",-"), None)
+        host = nodes[:cut] + suffix[:end]
+    return Launch(f"{host}:{port}", int(env["SLURM_NTASKS"]),
+                  int(env["SLURM_PROCID"]), int(env["SLURM_LOCALID"]))
+
+
+def _torchrun_launch(env) -> Launch:
+    """torchrun's (and ``torch.distributed``'s env://) variables; under
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` the agent serves the store."""
+    local = env.get("LOCAL_RANK")
+    return Launch(f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                  int(env["WORLD_SIZE"]), int(env["RANK"]),
+                  None if local in (None, "") else int(local),
+                  env.get("TORCHELASTIC_USE_AGENT_STORE") == "True")
+
+
+#: the launchers ``parallel.distributed.auto`` recognises, the variables
+#: that mark each and its reader, in the order it looks for them: jax's
+#: (Open MPI, then SLURM; jax/_src/clusters), with torchrun where jax looks
+#: for a TPU pod
+LAUNCHERS = (
+    ("Open MPI", ("OMPI_MCA_orte_hnp_uri",), _ompi_launch),
+    ("SLURM", ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+               "SLURM_PROCID", "SLURM_LOCALID"), _slurm_launch),
+    ("torchrun", ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"),
+     _torchrun_launch),
+)
+
+
+def detect_launcher(env=None) -> Launch:
+    """The launch described by the first launcher environment of
+    ``LAUNCHERS`` present in ``env`` (the process's by default); raises a
+    ValueError naming what it looked for where there is none, as
+    ``jax.distributed.initialize()`` raises."""
+    env = os.environ if env is None else env
+    for _, marks, launch in LAUNCHERS:
+        if all(mark in env for mark in marks):
+            return launch(env)
+    looked = "; ".join(f"{name} ({', '.join(marks)})" for name, marks, _ in LAUNCHERS)
+    raise ValueError(
+        "parallel.distributed.auto: no launcher environment found; looked "
+        f"for {looked}")
 
 
 def timeout() -> datetime.timedelta:
@@ -49,9 +151,13 @@ def timeout() -> datetime.timedelta:
         seconds=float(os.environ.get("KGE_DISTRIBUTED_TIMEOUT", "900")))
 
 
-def _settings(config) -> Tuple[Optional[str], Optional[int], Optional[int]]:
-    """(address, number of processes, process id) as kge_tpu reads them
-    (kge_tpu/parallel/distributed.py ``maybe_initialize``)."""
+def _settings(config) -> Optional[Launch]:
+    """The launch as kge_tpu reads it (kge_tpu/parallel/distributed.py
+    ``maybe_initialize``): the launcher's environment under
+    ``parallel.distributed.auto``, else the coordinator keys, else the
+    ``KGE_*`` environment; None where none names a coordinator."""
+    if config is not None and config.get("parallel.distributed.auto"):
+        return detect_launcher()
     address = num_processes = process_id = None
     if config is not None:
         address = config.get("parallel.distributed.coordinator_address") or None
@@ -67,13 +173,24 @@ def _settings(config) -> Tuple[Optional[str], Optional[int], Optional[int]]:
             num_processes = int(os.environ["KGE_NUM_PROCESSES"])
             process_id = int(os.environ["KGE_PROCESS_ID"])
     if address is None:
-        return None, None, None
+        return None
     if num_processes is None or process_id is None:
         raise ValueError(
             f"coordinator address {address} given without num_processes "
             "and process_id"
         )
-    return address, int(num_processes), int(process_id)
+    return Launch(address, int(num_processes), int(process_id))
+
+
+def card_index(local_rank: int, cards: int) -> int:
+    """The card of a rank with ``job.device: auto``: its local rank's,
+    modulo the host's cards (local ranks beyond the cards share them)."""
+    return local_rank % cards
+
+
+def local_rank() -> int:
+    """This rank's index among the ranks of its host (0 alone)."""
+    return _local_rank
 
 
 def choose_backend(device_type: str, peers: Sequence[Tuple[str, str]]) -> str:
@@ -87,48 +204,67 @@ def choose_backend(device_type: str, peers: Sequence[Tuple[str, str]]) -> str:
     return "nccl"
 
 
-def _device_of(config) -> torch.device:
-    from kge_tpu_torch.utils.seed import resolve_device
-
-    return resolve_device(config)
+def placement_line() -> Optional[str]:
+    """Every rank's host and device, and whether ranks share a card; None
+    alone."""
+    if not placement:
+        return None
+    ranks = ", ".join(f"{r}: {host} {device}"
+                      for r, (host, device) in enumerate(placement))
+    shared = len(set(placement)) < len(placement) and any(
+        device.startswith("cuda") for _, device in placement)
+    return f"Ranks on devices: {ranks}" + (
+        " (local ranks outnumber the cards and share them)" if shared else "")
 
 
 def maybe_initialize(config=None) -> bool:
     """Bring up the process group when the config or the environment names
     a coordinator; True when this run spans several processes. Safe to call
     again. Runs before seeding and before anything else touches the card."""
-    global _initialized, backend, shared_card
+    global _initialized, backend, shared_card, _local_rank, placement
     if _initialized:
         return is_multiprocess()
     import torch.distributed as dist
 
-    if config is not None:
-        from kge_tpu_torch.utils.seed import check_distributed
+    from kge_tpu_torch.utils.seed import resolve_device
 
-        check_distributed(config)
-    address, world, rank = _settings(config)
+    launch = _settings(config)
     _initialized = True
-    if address is None or world is None or world <= 1:
+    if launch is None or launch.num_processes <= 1:
         return False
+    world, rank = launch.num_processes, launch.process_id
     if not 0 <= rank < world:
         raise ValueError(f"process_id {rank} outside [0, {world})")
-    host, _, port = address.rpartition(":")
+    host, _, port = launch.address.rpartition(":")
     if not host or not port.isdigit():
         raise ValueError(
-            f"coordinator address {address!r} is not host:port")
-    device = _device_of(config) if config is not None else torch.device("cpu")
-    store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+            f"coordinator address {launch.address!r} is not host:port")
+    if config is not None:
+        resolve_device(config, local_rank=0)  # no card named without one
+    store = dist.TCPStore(host, int(port), world,
+                          is_master=rank == 0 and not launch.agent_store,
                           timeout=timeout())
+    if launch.agent_store:
+        # the agent's store outlives a restart of its workers
+        store = dist.PrefixStore(
+            "kge/" + os.environ.get("TORCHELASTIC_RESTART_COUNT", "0"), store)
+    name = socket.gethostname()
+    store.set(f"kge_host/{rank}", name)
+    hosts = [store.get(f"kge_host/{r}").decode() for r in range(world)]
+    _local_rank = (launch.local_id if launch.local_id is not None
+                   else sum(1 for h in hosts[:rank] if h == name))
+    device = (resolve_device(config, local_rank=_local_rank)
+              if config is not None else torch.device("cpu"))
     if device.type == "cuda":
         torch.cuda.set_device(device)
         card = str(torch.cuda.get_device_properties(device).uuid)
     else:
         card = "cpu"
-    store.set(f"kge_card/{rank}", f"{socket.gethostname()}\t{card}")
-    peers = [
-        tuple(store.get(f"kge_card/{r}").decode().split("\t", 1))
-        for r in range(world)
-    ]
+    store.set(f"kge_card/{rank}", f"{card}\t{device}")
+    cards = [store.get(f"kge_card/{r}").decode().split("\t", 1)
+             for r in range(world)]
+    peers = [(h, c) for h, (c, _) in zip(hosts, cards)]
+    placement = [(h, d) for h, (_, d) in zip(hosts, cards)]
     backend = choose_backend(device.type, peers)
     dist.init_process_group(backend, store=store, world_size=world, rank=rank,
                             timeout=timeout())
@@ -242,10 +378,13 @@ def fetch(tensor: torch.Tensor) -> torch.Tensor:
 
 def shutdown() -> None:
     """Leave the process group (at the end of a run or after an error)."""
-    global _initialized, backend
+    global _initialized, backend, shared_card, _local_rank, placement
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _initialized = False
     backend = None
+    shared_card = False
+    _local_rank = 0
+    placement = []

@@ -26,7 +26,9 @@ every rank holds alike (a query, relation rows, a scorer's parameters)
 where it meets the rank's own columns of a score matrix, each rank's part
 of its gradient coming from its columns only. With both, every rank of a
 group computes the same loss, and every replicated tensor's gradient is
-one process's (up to the order of the sums).
+one process's (up to the order of the sums). ``DataSum`` sums over the data
+group in both passes: the batch statistics of ConvE's batch norm
+(models/neural.py), taken over every rank's rows of the batch.
 """
 
 from __future__ import annotations
@@ -106,6 +108,9 @@ class DeviceCtx:
                    "gloo sends CPU tensors only)"
                    if distributed.shared_card else "")
             )
+            placed = distributed.placement_line()
+            if placed:
+                config.log(placed)
         return ctx
 
     # -- sharding ------------------------------------------------------------
@@ -210,6 +215,24 @@ class ModelCopy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.mesh.model_sum(grad.contiguous()), None
+
+
+class DataSum(torch.autograd.Function):
+    """Sum over the mesh's data group in both passes (SyncBatchNorm's rule):
+    a statistic of the whole batch from each rank's sums over its rows. Each
+    rank's loss is its rows' share of the batch's, and every rank's rows
+    feed the statistic, so a rank's gradient of it is the sum of every
+    rank's; the dense step's data-group sum of the parameter gradients then
+    gives one process's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.reduce_data(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.reduce_data(grad.clone()), None
 
 
 def _groups(data: int, model: int):

@@ -4,7 +4,8 @@ Derives per-PRNG seeds from ``random_seed.default`` + the PRNG name (as the
 reference does with md5 hashing, kge/util/seed.py), seeds python and numpy,
 and returns the seed of the root ``torch.Generator`` that all randomness of
 a job is drawn from. ``job.device`` names the device the job's tensors live
-on: ``auto`` and ``cuda`` mean the CUDA card and fail when there is none;
+on: ``auto`` and ``cuda`` mean the CUDA card (``auto`` on a rank of a run
+over several processes: its local rank's card) and fail when there is none;
 only an explicit ``cpu`` runs on the host.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import random
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,17 +31,14 @@ def check_parallel(config: Config) -> None:
     device mesh larger than the run's processes, with kge_tpu's message
     (kge_tpu/parallel/mesh.py ``DeviceCtx.create``): one process is one
     device, so a mesh above 1 x 1 needs as many ranks
-    (parallel/distributed.py); ``parallel.distributed.auto``
-    (``check_distributed``); and a parameter or compute dtype other than
+    (parallel/distributed.py); and a parameter or compute dtype other than
     float32 and bfloat16 (ROADMAP A.11). ``parallel.data: -1`` takes the
-    ranks over ``parallel.model``. Routes that the mesh does not run yet are
-    refused by the training job (``check_mesh_routes``)."""
+    ranks over ``parallel.model``."""
     from kge_tpu_torch.parallel import distributed
     from kge_tpu_torch.utils.dtypes import torch_dtype
 
     for key in ("parallel.param_dtype", "parallel.compute_dtype"):
         torch_dtype(config, key)
-    check_distributed(config)
     world = distributed.world_size()
     model = max(int(config.get("parallel.model")), 1)
     data = int(config.get("parallel.data"))
@@ -50,49 +49,18 @@ def check_parallel(config: Config) -> None:
         )
 
 
-def check_distributed(config: Config) -> None:
-    """Refuse ``parallel.distributed.auto`` (kge_tpu's TPU pod
-    auto-detection, ROADMAP A.10c). A coordinator address with its number of
-    processes and process id, from the config or from
-    ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` /
-    ``KGE_PROCESS_ID``, brings the ranks up (parallel/distributed.py)."""
-    if config.get("parallel.distributed.auto"):
-        raise ValueError(
-            "parallel.distributed.auto: the port brings ranks up from a "
-            "coordinator address, num_processes and process_id; TPU pod "
-            "auto-detection is not ported (ROADMAP A.10c)"
-        )
-
-
-def check_mesh_routes(config: Config, data: int, model: int, *,
-                      collects_stats: bool = False) -> None:
-    """Refuse the training routes that a (data, model) mesh does not run
-    yet (ROADMAP A.10c), all of them under a data axis: models that collect
-    statistics (ConvE's batch norm: a statistic of a rank's rows is not
-    kge_tpu's of the batch) and ``train.subbatch_size`` (subbatches draw
-    their own negatives, which no slice of a batch can keep in step with
-    one process). The model axis runs every route."""
-    if data > 1:
-        if collects_stats:
-            raise ValueError(
-                f"parallel.data={data}: the model collects batch "
-                "statistics, which a rank's rows cannot give for the whole "
-                "batch; not ported yet (ROADMAP A.10c)"
-            )
-        if int(config.get("train.subbatch_size")) > 0:
-            raise ValueError(
-                f"train.subbatch_size under parallel.data={data} is not "
-                "ported yet (ROADMAP A.10c)"
-            )
-
-
-def resolve_device(config: Config) -> torch.device:
+def resolve_device(config: Config, local_rank: Optional[int] = None) -> torch.device:
     """The torch device named by ``job.device``; raises when it names the
-    card and no card is present."""
+    card and no card is present. ``auto`` is the card; a rank of a run over
+    several processes takes its local rank's card (``local_rank``, by
+    default the rank's own: parallel/distributed.py ``card_index``)."""
+    from kge_tpu_torch.parallel import distributed
+
     name = str(config.get("job.device"))
     if name == "cpu":
         return torch.device("cpu")
-    if name == "auto":
+    auto = name == "auto"
+    if auto:
         name = "cuda"
     if not name.startswith("cuda"):
         raise ValueError(
@@ -104,6 +72,10 @@ def resolve_device(config: Config) -> torch.device:
             f"job.device={config.get('job.device')!r} needs a CUDA card and "
             "none is available; pass --job.device cpu to run on the host"
         )
+    if auto and (distributed.is_multiprocess() or local_rank is not None):
+        local = distributed.local_rank() if local_rank is None else local_rank
+        return torch.device(
+            f"cuda:{distributed.card_index(local, torch.cuda.device_count())}")
     return torch.device(name)
 
 

@@ -4,8 +4,9 @@ sampling's ``all``, ``pool`` and ``fused_scoring: always``, and kge_tpu's
 ring schedule (kge_tpu_torch/parallel/ring.py).
 
 The rank processes (tests/torch_mesh.py; one launch for each mesh shape,
-with every task of that shape) run at mp2 (1 x 2) and dp2 x mp2 (2 x 2) on
-tests/util.py's synthetic graph, ComplEx d = 16, batch 64:
+with every task of that shape) run at mp2 (1 x 2) and dp2 x mp2 (2 x 2), and
+reciprocal ConvE KvsAll at dp2 (2 x 1) too, on tests/util.py's synthetic
+graph, ComplEx d = 16, batch 64:
 
 - each route's two epochs' losses within rtol 1e-4, atol 1e-5 of one
   process's, equal on every rank; ``pool`` is TransE-L1 d = 16 scored
@@ -19,14 +20,19 @@ tests/util.py's synthetic graph, ComplEx d = 16, batch 64:
 - ComplEx 1vsAll with embedding dropout (the unfused schedule, the whole
   vocabulary's dropout mask) and with a projection embedder (a projection
   that every rank holds alike, met by its own entity rows), and reciprocal
-  ConvE KvsAll at mp2 (a scorer's parameters across the column shards);
+  ConvE KvsAll with dropout at every mesh (a scorer's parameters across the
+  column shards; its batch statistics over the data group); after one
+  step over a data axis ConvE's running statistics are equal in every bit
+  on every rank and within 1e-6 of one process's (of their largest);
 - no rank ever holds more than its |E| / M columns of a batch's scores:
   the widest 2-D tensor of the rank's batch rows that any operation of the
   epochs returns, backward passes included, has |E| / M columns on the
   full-vocabulary routes (|E| in one process) and no more on the others;
-- 1vsAll and KvsAll with kge_tpu's initial weights and batches through the
-  raw train step, against kge_tpu's steps on its virtual mesh of the same
-  shape (losses within rtol 1e-4), the counterpart of
+- 1vsAll, KvsAll, KvsAll in subbatches of 16 and ConvE KvsAll (dropout
+  off: kge_tpu draws its own masks) with kge_tpu's initial weights and
+  batches through the raw train step, against kge_tpu's steps on its
+  virtual mesh of the same shape (losses within rtol 1e-4), the
+  counterpart of
   tests/test_parallel.py's ``test_sharded_matches_single_device`` and
   ``test_kvsall_sharded``;
 - at 2 x 2, the counterpart of tests/test_parallel.py's
@@ -47,7 +53,7 @@ import pytest
 from tests import torch_mesh
 from tests.util import make_synthetic_dataset
 
-MESHES = {"mp2": (1, 2), "dp2xmp2": (2, 2)}
+MESHES = {"dp2": (2, 1), "mp2": (1, 2), "dp2xmp2": (2, 2)}
 NUM_ENTITIES = 64  # tests/util.py's synthetic graph
 
 BASE = {
@@ -64,6 +70,14 @@ BASE = {
     "random_seed.default": 5,
 }
 
+CONVE = {"model": "reciprocal_relations_model",
+         "reciprocal_relations_model.base_model.type": "conve",
+         "conve.entity_embedder.dim": 32, "conve.relation_embedder.dim": 32,
+         "train.type": "KvsAll"}
+CONVE_NO_DROPOUT = {"conve.entity_embedder.dropout": 0.0,
+                    "conve.relation_embedder.dropout": 0.0,
+                    "conve.feature_map_dropout": 0.0, "conve.projection_dropout": 0.0}
+STATS = ("bn1_mean", "bn1_var", "bn2_mean", "bn2_var")
 POOL = {"model": "transe", "transe.l_norm": 1.0,
         "transe.entity_embedder.dim": 16, "transe.relation_embedder.dim": 16,
         "negative_sampling.shared": False,
@@ -100,16 +114,23 @@ ROUTES = {
         "train.sparse_embedding_update": "always",
         "train.optimizer.default.type": "Adam",
         "train.optimizer.default.args.lr": 0.01},
-    # a scorer with parameters (and batch-norm statistics, so no data
-    # axis): ConvE's parameters pass ``ModelCopy`` on the unfused schedule
-    "conve_KvsAll": {"model": "reciprocal_relations_model",
-                     "reciprocal_relations_model.base_model.type": "conve",
-                     "conve.entity_embedder.dim": 32, "conve.relation_embedder.dim": 32,
-                     "train.type": "KvsAll"},
+    # a scorer with parameters and batch-norm statistics: ConvE's parameters
+    # pass ``ModelCopy`` on the unfused schedule, its statistics are the
+    # whole batch's over the data group (``DataSum``)
+    "conve_KvsAll": CONVE,
+    # the same without dropout, for kge_tpu's mesh (it draws its own masks)
+    "conve_KvsAll_nodrop": {**CONVE, **CONVE_NO_DROPOUT},
+    # subbatches of the whole batch's rows, for kge_tpu's mesh: the label
+    # coordinates of a rank's rows of each subbatch
+    "KvsAll_sub16": {"train.type": "KvsAll", "train.subbatch_size": 16},
 }
-#: the routes each mesh runs: ConvE's statistics refuse a data axis
-MESH_ROUTES = {"mp2": list(ROUTES),
-               "dp2xmp2": [route for route in ROUTES if route != "conve_KvsAll"]}
+#: the routes that only kge_tpu's mesh runs (tests/test_torch_data_axis.py
+#: holds subbatches against one process)
+PARITY_ONLY = ("conve_KvsAll_nodrop", "KvsAll_sub16")
+#: the routes each mesh runs; the data axis alone runs ConvE's
+MESH_ROUTES = {"dp2": ["conve_KvsAll"],
+               "mp2": [route for route in ROUTES if route not in PARITY_ONLY],
+               "dp2xmp2": [route for route in ROUTES if route not in PARITY_ONLY]}
 #: the routes that score every batch row against the whole vocabulary
 FULL_VOCABULARY = ("1vsAll", "1vsAll_dropout", "1vsAll_projection", "KvsAll", "all")
 #: ``pool`` with Adagrad under a data axis: its two epochs start from one
@@ -127,7 +148,9 @@ POOL_DATA_AXIS = ("dp2xmp2", "pool")
 #: of the batch's 64 float32 terms leaves, 64 x 2^-24 of the largest
 STEP_ATOL = 1e-6
 ZERO_GRADIENT = 64 * 2.0 ** -24
-PARITY_ROUTES = ("1vsAll", "KvsAll")
+PARITY_ROUTES = ("1vsAll", "KvsAll", "conve_KvsAll_nodrop", "KvsAll_sub16")
+#: ConvE's running statistics over a data axis against one process's
+STATS_RTOL = 1e-6
 PARITY_STEPS = 6
 LOSSES = ["bce", "bce_mean", "bce_self_adversarial", "kl", "soft_margin", "se",
           "margin_ranking"]
@@ -219,6 +242,10 @@ def mesh_run(synth, tmp_path_factory):
             kge[route] = kge_tpu_batches(synth, mesh, route, arrays)
             tasks.append({"name": f"parity-{route}", "kind": "parity", "data": synth,
                           "arrays": str(arrays), "options": options(mesh, route)})
+        if mesh[0] > 1:
+            tasks.append({"name": "conve_step", "kind": "steps", "data": synth,
+                          "steps": 1, "tables": str(work / "conve_step"),
+                          "options": options(mesh, "conve_KvsAll")})
         if mesh == (2, 2):
             tasks.append({"name": "ring", "kind": "ring", "data": synth,
                           "options": options(mesh, "1vsAll")})
@@ -285,6 +312,31 @@ def first_step_differences(tables, want):
             "max_g_beyond_alone": float(theirs[beyond].max(initial=0.0)),
             "max_g_alone": float(theirs.max())}
     return out
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("name", ["dp2", "dp2xmp2"])
+def test_conve_statistics_are_the_whole_batch_statistics(mesh_run, name):
+    """ConvE's batch-norm running statistics after one step over a data
+    axis (dropout on): the whole batch's, summed over the data group, so
+    equal in every bit on every rank and within STATS_RTOL of one process's
+    (relative to each leaf's largest magnitude: a mean near 0 is a sum of
+    terms that cancel); the step's loss within rtol 1e-6."""
+    ranks, alone, _ = mesh_run(name)
+    want = np.load(alone["conve_step"]["tables"])
+    got = [np.load(r["tables"]) for r in ranks["conve_step"]]
+    for rank, tables in enumerate(got):
+        np.testing.assert_allclose(ranks["conve_step"][rank]["steps"],
+                                   alone["conve_step"]["steps"], rtol=1e-6)
+        for stat in STATS:
+            leaf = f"scorer/{stat}"
+            assert tables[leaf].tobytes() == got[0][leaf].tobytes(), (rank, leaf)
+            scale = np.abs(want[leaf]).max()
+            np.testing.assert_allclose(tables[leaf], want[leaf], rtol=STATS_RTOL,
+                                       atol=STATS_RTOL * scale,
+                                       err_msg=f"rank {rank} {leaf}")
+            # the step moved them from 0 and 1
+            assert np.abs(tables[leaf] - (stat.endswith("var"))).max() > 1e-3
 
 
 @pytest.mark.timeout(600)

@@ -17,14 +17,15 @@ on dataset_test, on the CPU), once refused by the port:
 ``parallel.data: -1`` and ``parallel.model: 1`` (the defaults) still train.
 
 The command that found ROADMAP C.5, where the port trained alone:
-``parallel.distributed.*`` (a coordinator with more than one process, or
-the ``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``
-environment) now brings up one rank a process (ROADMAP A.10's first part;
-tests/test_torch_parallel.py). What the mesh does not run yet is refused on
-every rank, naming ROADMAP A.10c: ``parallel.distributed.auto``, and the
-data axis with ``train.subbatch_size`` or ConvE's batch
-statistics; a mesh that does not fit the ranks is refused too. One
-process, or none named, still trains.
+``parallel.distributed.*`` (a coordinator with more than one process, the
+``KGE_COORDINATOR_ADDRESS`` / ``KGE_NUM_PROCESSES`` / ``KGE_PROCESS_ID``
+environment, or ``parallel.distributed.auto`` under a launcher) now brings
+up one rank a process (ROADMAP A.10; tests/test_torch_parallel.py,
+tests/test_torch_distributed_auto.py), the data axis with
+``train.subbatch_size`` and ConvE's batch statistics included. ``auto``
+without a launcher's environment is refused, as kge_tpu's
+``jax.distributed.initialize()`` refuses it, and so is a mesh that does not
+fit the ranks. One process, or none named, still trains.
 """
 
 import subprocess
@@ -171,23 +172,26 @@ CONVE = str(EXAMPLES_DIR / "toy-conve-train.yaml")
     (TOY, ["--parallel.data", "1", "--parallel.model", "1"], 2, "config",
      "mesh 1x1 holds 1 of the 2 processes"),
     (TOY, ["--parallel.distributed.auto", "true"], 1, None,
-     "parallel.distributed.auto"),
+     "parallel.distributed.auto: no launcher environment found"),
+    (TOY, ["--parallel.distributed.auto", "true", "--parallel.data", "2"], 2,
+     "torchrun", None),
     (TOY, ["--parallel.data", "2", "--parallel.model", "1", "--train.subbatch_size",
-           "2"], 2, "environment",
-     "train.subbatch_size under parallel.data=2 is not ported yet (ROADMAP A.10c)"),
-    (CONVE, ["--parallel.data", "2"], 2, "environment",
-     "parallel.data=2: the model collects batch statistics"),
-], ids=["coordinator", "auto", "environment", "conve_statistics"])
+           "2"], 2, "environment", None),
+    (CONVE, ["--parallel.data", "2"], 2, "environment", None),
+], ids=["coordinator", "auto", "auto_torchrun", "environment", "conve_statistics"])
 def test_runs_over_several_processes_are_refused(tmp_path, config, options, ranks,
                                                  by, message):
-    """Runs over several processes now train (tests/test_torch_parallel.py);
-    what the mesh does not run yet is refused on every rank before it
-    trains, naming ROADMAP A.10c: ``parallel.distributed.auto``, and the
-    data axis with ``train.subbatch_size`` or ConvE's batch statistics (the
-    model axis runs every route: tests/test_torch_mesh_routes.py). The
-    ranks come up from the ``parallel.distributed`` keys ("coordinator")
-    or the ``KGE_*`` environment; a mesh that leaves a rank without a place
-    is refused with kge_tpu's kind of message."""
+    """Runs over several processes train (tests/test_torch_parallel.py),
+    those that ROADMAP A.10c once refused among them: ``auto`` under a
+    launcher (torchrun's variables alone), the data axis with
+    ``train.subbatch_size`` and with ConvE's batch statistics
+    (tests/test_torch_data_axis.py, tests/test_torch_mesh_routes.py); each
+    writes its checkpoint. What is refused, on every rank before it trains
+    (``message``): ``auto`` without a launcher environment, and a mesh that
+    leaves a rank without a place, with kge_tpu's kind of message. The
+    ranks come up from the ``parallel.distributed`` keys ("config"), the
+    ``KGE_*`` environment or torchrun's variables."""
+    from tests.test_torch_distributed_auto import LAUNCH_VARIABLES
     from tests.torch_mesh import free_port
     from tests.util import make_synthetic_dataset
 
@@ -197,6 +201,8 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
     procs = []
     for rank in range(ranks):
         env, argv = _env(), list(options)
+        for name in LAUNCH_VARIABLES:
+            env.pop(name, None)
         env["KGE_DISTRIBUTED_TIMEOUT"] = "60"
         if by == "config":
             argv += ["--parallel.distributed.coordinator_address", f"127.0.0.1:{port}",
@@ -205,6 +211,9 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
         elif by == "environment":
             env.update(KGE_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                        KGE_NUM_PROCESSES=str(ranks), KGE_PROCESS_ID=str(rank))
+        elif by == "torchrun":
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                       WORLD_SIZE=str(ranks), RANK=str(rank), LOCAL_RANK=str(rank))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "kge_tpu_torch", "start", config, "--job.device",
              "cpu", "--train.max_epochs", "1", *argv, "--folder", str(cwd / "x")],
@@ -212,11 +221,13 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
             text=True))
     for proc in procs:
         _, stderr = proc.communicate(timeout=300)
-        assert proc.returncode != 0
-        assert f"ValueError: {message}" in stderr, stderr[-2000:]
-        if by != "config":
-            assert "ROADMAP A.10c" in stderr
-    assert not (cwd / "x" / "checkpoint_00001.pt").exists()
+        if message is None:
+            assert proc.returncode == 0, stderr[-2000:]
+        else:
+            assert proc.returncode != 0
+            assert f"ValueError: {message}" in stderr, stderr[-2000:]
+            assert "ROADMAP A.10c" not in stderr
+    assert (cwd / "x" / "checkpoint_00001.pt").exists() == (message is None)
 
 
 def test_one_process_still_trains(tmp_path):

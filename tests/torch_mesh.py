@@ -467,7 +467,22 @@ def task_losses(task, folder):
     return out
 
 
-TASKS = {"epochs": task_epochs, "lockstep": task_lockstep,
+def task_init_rows(task, folder):
+    """This rank's initial entity rows, to ``<rows>-rank<r>.npz`` with the
+    first one's id (``lo``)."""
+    import numpy as np
+
+    from kge_tpu_torch.parallel import distributed
+
+    job = make_job(task, folder)
+    embedder = job.model.get_s_embedder()
+    path = f"{task['rows']}-rank{distributed.process_index()}.npz"
+    np.savez(path, lo=(embedder.row_range or (0, 0))[0],
+             rows=embedder.embeddings.detach().numpy())
+    return {"rows": path}
+
+
+TASKS = {"epochs": task_epochs, "lockstep": task_lockstep, "init_rows": task_init_rows,
          "parity": task_parity, "resume": task_resume, "steps": task_steps,
          "collectives": task_collectives, "ring": task_ring,
          "losses": task_losses}
