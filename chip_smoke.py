@@ -281,6 +281,24 @@ Phases (any failure exits non-zero; nothing is caught):
    step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
    states the bound), and the warm epochs of X-complex and P-rotate,
    profiled (X-complex's GEMM milliseconds, P-rotate's K5b share).
+   Then float16 (ROADMAP A.11a; ``run_float16``): the float16 paths of the
+   rank kernel (identity and L2 epilogue, as above: counts equal, vals and
+   pivots bit for bit, two launches bit-equal; library: cuBLAS's fp16
+   product and the compares), of ``rank_pivots`` on one 1,200,000-column
+   shard (equal in bits, -0.0 off the shard), of the scatter (within a
+   float16 ulp of the sums; ``index_add_`` in float16) and of the row write
+   (exact; ``index_copy_``) at the bfloat16 rows' shapes, the bound at
+   float16 bytes and fp16 products over 989 TFLOP/s; then through
+   ``cli.main``, counts set to 0 before and read after each: T-transe-l2's
+   ``test`` and phase 3's ``test`` with ``--parallel.compute_dtype float16``
+   (every rank launch the float16 path, with the L2 epilogue in the
+   first; two test batches' ranks of the second through the kernel equal
+   the plain version's), T-sparse with both dtypes in float16 for one epoch
+   (K3 4 and K2 7 times a step, all float16; tables float16 in the
+   checkpoint; if Adagrad from a zero accumulator gives kge_tpu's NaN there,
+   it is logged and the epoch runs from ``initial_accumulator_value`` 0.1),
+   and P-rotate's config in float16, which must be refused naming ROADMAP
+   A.11b.
 23. Hyperparameter search and the tools that read its results, through
    ``cli.main`` in ``build/chip_smoke`` (where ``data/`` names the
    datasets): (a) a grid search over T-dense's configuration (lr 0.1 and
@@ -419,7 +437,10 @@ Phases (any failure exits non-zero; nothing is caught):
    16, 18, 19, 20, 21 and 23 (a) and its launches alone
    (``SCATTER_LAUNCH_KEYS``). Six more
    entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
-   from its runs (the scatter's also its launches alone). The rank and scatter
+   from its runs (the scatter's also its launches alone), and four more
+   the float16 paths of phase 22 (``rank_counts_f16`` with ``rank_pivots``'
+   times, ``rank_counts_l2_f16``, ``scatter_add_sorted_f16``,
+   ``rows_set_f16``), their launches from its float16 runs. The rank and scatter
    kernels' entries hold their launches in phase 24 (``launches_preprocessed``),
    and the line phase 24's numbers (``data_prep``); the rank kernel's its
    launches on a rank of phase 25 (``launches_sharded``) and the times of
@@ -756,9 +777,9 @@ def write_checkpoint(folder: str, data: str, seed: int, device: str, dim: int,
     return config.checkpoint_file("best")
 
 
-def test_job(folder: str):
+def test_job(folder: str, **overrides):
     """An evaluation job on the test split of the experiment ``folder``,
-    as the ``test`` verb builds it."""
+    as the ``test`` verb builds it, with the config keys ``overrides``."""
     from kge_tpu_torch import Config
     from kge_tpu_torch.job import EvaluationJob
     from kge_tpu_torch.utils.io import load_checkpoint
@@ -767,6 +788,8 @@ def test_job(folder: str):
     config.load(os.path.join(folder, "config.yaml"))
     config.folder = folder
     config.set("eval.split", "test")
+    for key, value in overrides.items():
+        config.set(key, value)
     return EvaluationJob.create_from(
         load_checkpoint(Config.best_or_last_checkpoint_file(folder)),
         new_config=config,
@@ -3181,8 +3204,11 @@ def run_neural(name: str, options, no_dropout, zero_grad_leaves, scatter_per_ste
 
 # -- phase 22: the dtype policy (parallel.*_dtype: bfloat16) ---------------------
 
-BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 on the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 (and fp16) on the tensor cores
 BF16_ULP = 2.0 ** -7           # the spacing of bfloat16 relative to a value, at most
+F16_ULP = 2.0 ** -10           # the spacing of float16 relative to a value, at most
+#: the narrow dtypes' names in logs and their spacing
+NARROW = {torch.bfloat16: ("bf16", BF16_ULP), torch.float16: ("f16", F16_ULP)}
 
 
 def reset_bf16_counters():
@@ -3213,22 +3239,24 @@ def read_bf16_counters():
 
 
 def bf16_bound(nbytes: float, tensor_flops: float = 0.0, flops: float = 0.0,
-               specials: float = 0.0):
-    """``bound`` with bfloat16 products on the tensor cores as a fourth term:
-    bytes over the memory rate, bf16 multiply-adds over 989 TFLOP/s, other
-    fp32 operations and square roots over their rates."""
+               specials: float = 0.0, name: str = "bf16"):
+    """``bound`` with bfloat16 (or float16: ``name`` "f16") products on the
+    tensor cores as a fourth term: bytes over the memory rate, multiply-adds
+    of the narrow type over 989 TFLOP/s, other fp32 operations and square
+    roots over their rates."""
     bound_ms, bound_by, term = bound(nbytes, flops, specials)
     tensor_ms = tensor_flops / BF16_FLOPS_PER_S * 1e3
     if tensor_ms > bound_ms:
-        return tensor_ms, "operations", "bf16 tensor cores"
+        return tensor_ms, "operations", f"{name} tensor cores"
     return bound_ms, bound_by, term
 
 
-def bf16_rank_case(seed: int, device, epilogue: bool):
-    """K1's bfloat16 path against its plain version: the counts exactly,
-    vals and the pivot bit for bit; times at n = 256, |E| = 14,541, D = 512
-    (with the L2 epilogue: TransE-L2's augmented operands, d = 128, cast
-    to bfloat16)."""
+def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
+    """K1's bfloat16 (or float16) path against its plain version: the
+    counts exactly, vals and the pivot bit for bit; times at n = 256, |E| =
+    14,541, D = 512 (with the L2 epilogue: TransE-L2's augmented operands,
+    d = 128, cast to the dtype). bfloat16 only: the entries the certificate
+    left open are those of its rule on the kernel's own tensor-core sums."""
     from kge_tpu_torch.ops.rank_kernel import (
         NEG_SQRT_L2,
         bf16_tile_sums,
@@ -3240,17 +3268,18 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
     )
     from kge_tpu_torch.utils.dtypes import weak
 
+    name = NARROW[dtype][0]
     rng = np.random.default_rng(seed + 22)
     E, n = NUM_ENTITIES, BATCH
     if epilogue:
         q, targets = l2_inputs(seed, device)[:2]
-        q, targets = q.bfloat16().contiguous(), targets.bfloat16().contiguous()
+        q, targets = q.to(dtype).contiguous(), targets.to(dtype).contiguous()
         score_map = NEG_SQRT_L2
     else:
         q = torch.tensor(rng.normal(0, 0.05, (n, DIM)).astype(np.float32),
-                         device=device).bfloat16()
+                         device=device).to(dtype)
         targets = torch.tensor(rng.normal(0, 0.05, (E, DIM)).astype(np.float32),
-                               device=device).bfloat16()
+                               device=device).to(dtype)
         score_map = None
     D = q.shape[1]
     true_np = rng.integers(0, E, n).astype(np.int32)
@@ -3266,37 +3295,39 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
                                        RTOL, score_map=score_map, pivot_cols=true)
 
     g, c, vals, pivot = kernel()
-    recounted = int(fused_rank_counts.last_recounted)
+    bf16 = dtype == torch.bfloat16
+    recounted = int(fused_rank_counts.last_recounted) if bf16 else 0
     pg, pc, pvals, ppivot = plain()
     torch.cuda.synchronize()
-    check(vals.dtype == torch.bfloat16 and pivot.dtype == torch.bfloat16)
+    check(vals.dtype == dtype and pivot.dtype == dtype)
     check(torch.equal(g, pg) and torch.equal(c, pc),
-          f"bf16 rank counts differ from the plain version's on "
+          f"{name} rank counts differ from the plain version's on "
           f"{int(((g != pg) | (c != pc)).sum())} rows")
     check(torch.equal(vals.view(torch.int16), pvals.view(torch.int16))
           and torch.equal(pivot.view(torch.int16), ppivot.view(torch.int16)),
-          "bf16 vals or pivots differ in bits from the plain version's")
+          f"{name} vals or pivots differ in bits from the plain version's")
     second = kernel()
     torch.cuda.synchronize()
-    check(all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
-                          b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    check(all(torch.equal(a.view(torch.int16) if a.dtype == dtype else a,
+                          b.view(torch.int16) if b.dtype == dtype else b)
               for a, b in zip((g, c, vals, pivot), second)),
-          "two launches of the bf16 rank kernel differ")
-    # the kernel leaves open exactly the entries the PyTorch rule leaves
-    # open on the kernel's own tensor-core sums and norm bounds
-    sums, nq, nt = bf16_tile_sums(q, targets)
-    rule = certified_categories(sums, certificate_bound(nq, nt, q.shape[1]), pivot,
-                                ATOL, RTOL, score_map)
-    check(recounted == int((rule < 0).sum()),
-          f"the kernel recounted {recounted} entries, the rule leaves "
-          f"{int((rule < 0).sum())} open")
-    del sums, rule
+          f"two launches of the {name} rank kernel differ")
+    if bf16:
+        # the kernel leaves open exactly the entries the PyTorch rule leaves
+        # open on the kernel's own tensor-core sums and norm bounds
+        sums, nq, nt = bf16_tile_sums(q, targets)
+        rule = certified_categories(sums, certificate_bound(nq, nt, q.shape[1]),
+                                    pivot, ATOL, RTOL, score_map)
+        check(recounted == int((rule < 0).sum()),
+              f"the kernel recounted {recounted} entries, the rule leaves "
+              f"{int((rule < 0).sum())} open")
+        del sums, rule
     share = recounted / (n * E)
     rows = csr_row_ids(row_ptr)
     atol, rtol = weak(ATOL, q), weak(RTOL, q)
 
     def library():
-        # cuBLAS's bf16 product (its own order of sums), then the tie test
+        # cuBLAS's bf16 or f16 product (its own order of sums), then the tie test
         scores = torch.matmul(q, targets.T)
         if score_map is not None:
             scores = score_map(scores)
@@ -3311,14 +3342,17 @@ def bf16_rank_case(seed: int, device, epilogue: bool):
     nnz = cols.numel()
     nbytes = 2.0 * (n * D + E * D) + 4.0 * ((n + 1) + nnz + n + 2 * n) \
         + 2.0 * (nnz + n)
-    bound_ms, bound_by, term = bf16_bound(nbytes, tensor_flops=2.0 * n * E * D)
+    bound_ms, bound_by, term = bf16_bound(nbytes, tensor_flops=2.0 * n * E * D,
+                                          name=name)
     what = "L2 epilogue" if epilogue else "identity"
-    log(f"  rank_counts bf16 ({what}) n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms, "
-        f"recount share {share:.6f} ({recounted} of {n * E} entries left open by "
-        f"the certificate, as by the rule; {nnz} labels), plain {plain_ms:.4f} ms, "
-        f"library bf16 matmul + compares {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}: {term}); counts equal the plain version's on all {n} "
-        f"rows, vals and pivots bit for bit, two launches bit-equal")
+    recount = (f"recount share {share:.6f} ({recounted} of {n * E} entries left "
+               f"open by the certificate, as by the rule; {nnz} labels)" if bf16
+               else f"{nnz} labels")
+    log(f"  rank_counts {name} ({what}) n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms, "
+        f"{recount}, plain {plain_ms:.4f} ms, library {name} matmul + compares "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {term}); counts "
+        f"equal the plain version's on all {n} rows, vals and pivots bit for bit, "
+        f"two launches bit-equal")
     return {"shape": f"n={n} |E|={E} D={D} ({what})", "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_term": term, "max_abs_err": 0.0,
@@ -3380,25 +3414,27 @@ def bf16_gamma_check(seed: int, device):
     return out
 
 
-def bf16_scatter_case(seed: int, device):
-    """K2's bfloat16 path at 8,192 power-law ids into [14,541, 512] (the
-    kernels line's shape) and at T-sparse's 16,642 ids into [200,000, 512]:
-    within two bfloat16 ulps of each row's summed magnitude of the plain
-    version (both sum in float32, in other orders, and round once); its
-    launches alone, the segment sums and their launch A as in phase 8."""
+def narrow_scatter_case(seed: int, device, dtype=torch.bfloat16):
+    """K2's bfloat16 (or float16) path at 8,192 power-law ids into [14,541,
+    512] (the kernels line's shape) and at T-sparse's 16,642 ids into
+    [200,000, 512]: within one ulp of the dtype (2^-7 or 2^-10 relative) of
+    each row's summed magnitude of the plain version (both sum in float32,
+    in other orders, and round once); its launches alone, the segment sums
+    and their launch A as in phase 8."""
     from kge_tpu_torch.ops.embedding_ops import sorted_scatter_add, sorted_scatter_add_plain
 
+    name, ulp = NARROW[dtype]
     rng = np.random.default_rng(seed + 23)
     cases = [("entity lookups", power_law_ids(rng, NUM_ENTITIES, TRAIN_BATCH, 0.8),
               NUM_ENTITIES),
              ("row-sparse entity ids", rows_set_cases(rng)[0][2], SPARSE_ENTITIES)]
     out = []
-    for name, ids_np, rows in cases:
+    for what, ids_np, rows in cases:
         n, D = len(ids_np), DIM
 
         def make():
             return (torch.tensor(ids_np, dtype=torch.int64, device=device),
-                    torch.randn(n, D, device=device).bfloat16())
+                    torch.randn(n, D, device=device).to(dtype))
 
         pick = rotating(make)
         ids, upd = pick()
@@ -3406,44 +3442,46 @@ def bf16_scatter_case(seed: int, device):
         want = sorted_scatter_add_plain(ids, upd, rows)
         magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
         err = (got.float() - want.float()).abs()
-        check(bool((err <= 1e-6 + BF16_ULP * magnitude).all()),
-              f"bf16 scatter differs from its plain version beyond an ulp of the sums "
-              f"({name})")
+        check(bool((err <= 1e-6 + ulp * magnitude).all()),
+              f"{name} scatter differs from its plain version beyond an ulp of the "
+              f"sums ({what})")
         ms = time_ms(lambda: sorted_scatter_add(*pick(), rows))
         plain_ms = time_ms(lambda: sorted_scatter_add_plain(*pick(), rows))
         launches = scatter_launch_times(pick, rows)
 
         def library():
             ids, upd = pick()
-            return torch.zeros(rows, D, dtype=torch.bfloat16,
+            return torch.zeros(rows, D, dtype=dtype,
                                device=device).index_add_(0, ids, upd)
 
         library_ms = time_ms(library)
         bound_ms, bound_by, term = bf16_bound(2.0 * (n * D + rows * D) + 8.0 * n,
-                                              flops=float(n * D))
-        log(f"  scatter_add_sorted bf16 {name} n={n} rows={rows} D={D}: {ms:.4f} ms "
+                                              flops=float(n * D), name=name)
+        log(f"  scatter_add_sorted {name} {what} n={n} rows={rows} D={D}: {ms:.4f} ms "
             f"(launch A alone {launches['launch_a_ms']:.4f} ms, launch B alone "
             f"{launches['launch_b_ms']:.4f} ms), plain {plain_ms:.4f} ms, library "
-            f"index_add_ (bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"index_add_ ({name}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}); segment sums {launches['segment_sums_ms']:.4f} ms (their "
             f"launch A {launches['sort_alone_ms']:.4f} ms); max abs difference from "
             f"plain {float(err.max()):.3e}")
-        out.append({"shape": f"{name}: n={n} rows={rows} D={D}", "ms": ms,
+        out.append({"shape": f"{what}: n={n} rows={rows} D={D}", "ms": ms,
                     **launches, "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "max_abs_err": float(err.max())})
     return out
 
 
-def bf16_rows_set_case(seed: int, device):
-    """K3's bfloat16 path: 16,642 rows into [200,000, 512], exact."""
+def narrow_rows_set_case(seed: int, device, dtype=torch.bfloat16):
+    """K3's bfloat16 (or float16) path: 16,642 rows into [200,000, 512],
+    exact."""
     from kge_tpu_torch.ops.embedding_ops import rows_set, rows_set_plain
 
+    name = NARROW[dtype][0]
     rng = np.random.default_rng(seed + 24)
     _, num_rows, ids_np = rows_set_cases(rng)[0]
     m = len(ids_np)
-    table = torch.zeros(num_rows, DIM, dtype=torch.bfloat16, device=device)
-    values = torch.randn(num_rows, DIM, device=device).bfloat16()
+    table = torch.zeros(num_rows, DIM, dtype=dtype, device=device)
+    values = torch.randn(num_rows, DIM, device=device).to(dtype)
 
     def make():
         ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
@@ -3455,12 +3493,12 @@ def bf16_rows_set_case(seed: int, device):
     storage = table.data_ptr()
     rows_set(table, ids, rows)
     check(table.data_ptr() == storage and torch.equal(table, want),
-          "bf16 rows_set differs from its plain version")
+          f"{name} rows_set differs from its plain version")
     ms = time_ms(lambda: rows_set(table, *pick()))
     plain_ms = time_ms(lambda: rows_set_plain(table, *pick()))
     library_ms = time_ms(lambda: table.index_copy_(0, *pick()))
     bound_ms = (2.0 * 2 * m * DIM + 8.0 * m) / HBM_BYTES_PER_S * 1e3
-    log(f"  rows_set bf16 m={m} into [{num_rows}, {DIM}]: {ms:.4f} ms, plain "
+    log(f"  rows_set {name} m={m} into [{num_rows}, {DIM}]: {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library index_copy_ {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms (bytes); equal to the plain version")
     return {"shape": f"m={m} into [{num_rows}, {DIM}]", "ms": ms, "plain_ms": plain_ms,
@@ -3754,7 +3792,8 @@ def bf16_ranks_agree(folder: str, batches: int = 2):
     return {"eval_profile": profile, "k1_ms": k1_ms}
 
 
-def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: str):
+def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: str,
+                     eval_folder: str):
     """Phase 22; returns a summary dict."""
     from kge_tpu_torch import cli
     from kge_tpu_torch.models.convert import leaf_tensor
@@ -3763,10 +3802,10 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     device = torch.device("cuda")
     gamma = bf16_gamma_check(seed, device)
     kernels = {
-        "rank_counts": [bf16_rank_case(seed, device, False),
-                        bf16_rank_case(seed, device, True)],
-        "scatter_add_sorted": bf16_scatter_case(seed, device),
-        "rows_set": [bf16_rows_set_case(seed, device)],
+        "rank_counts": [narrow_rank_case(seed, device, False),
+                        narrow_rank_case(seed, device, True)],
+        "scatter_add_sorted": narrow_scatter_case(seed, device),
+        "rows_set": [narrow_rows_set_case(seed, device)],
         "fused_row_update": [bf16_fused_case(seed, device)],
     }
     kernels["pooled_scores"], kernels["pooled_scores_bwd"] = bf16_pooled_case(seed, device)
@@ -3931,6 +3970,209 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     step = card_vs_cpu_step(folder, "checkpoint_00001.pt", 0.1, "T-sparse bf16 tables")
     out["sparse"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
                      "avg_loss": losses, "step_card_vs_cpu": step}
+    out["f16"] = run_float16(seed, eval_folder, transe_l2_folder)
+    return out
+
+
+# -- phase 22, float16 (parallel.*_dtype: float16): K1, K2 and K3 -----------------
+
+
+def reset_f16_counters():
+    from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+
+    for fn in (fused_rank_counts, sorted_scatter_add, rows_set):
+        fn.f16_launches = 0
+
+
+def read_f16_counters():
+    """The float16 launches among each wrapper's launches."""
+    from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
+
+    return {"rank_counts": fused_rank_counts.f16_launches,
+            "scatter_add_sorted": sorted_scatter_add.f16_launches,
+            "rows_set": rows_set.f16_launches}
+
+
+def f16_pivots_case(seed: int, device, rows: int = BATCH, columns: int = 1_200_000,
+                    dim: int = TRANSE_DIM):
+    """``rank_pivots``' float16 path on one 1,200,000-column shard (the
+    second of a table; M-complex's rank shape, d = 128) against its plain
+    version, equal in bits: the chain's score at each row's true column, and
+    -0.0 for the rows whose true column another shard holds."""
+    from kge_tpu_torch.ops.rank_kernel import rank_pivots, rank_pivots_plain
+
+    rng = np.random.default_rng(seed + 29)
+    generator = torch.Generator(device=device).manual_seed(seed + 29)
+    lo = columns
+    targets = (torch.randn(columns, dim, generator=generator, device=device)
+               * 0.05).half()
+    q = (torch.randn(rows, dim, generator=generator, device=device) * 0.05).half()
+    true_np = rng.integers(lo, lo + columns, rows).astype(np.int32)
+    true_np[:rows // 8] = rng.integers(0, lo, rows // 8)  # held by another shard
+    true = torch.tensor(true_np, device=device)
+    got = rank_pivots(q, targets, true, lo)
+    want = rank_pivots_plain(q, targets, true, lo)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float16
+          and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+          "f16 rank_pivots differ in bits from the plain version's")
+    check(bool(torch.all(torch.signbit(got[:rows // 8]) & (got[:rows // 8] == 0))),
+          "f16 rank_pivots: a row of another shard is not -0.0")
+    ms = time_ms(lambda: rank_pivots(q, targets, true, lo))
+    plain_ms = time_ms(lambda: rank_pivots_plain(q, targets, true, lo), reps=3)
+    # q and the pivot rows read, the pivots written, in float16
+    bound_ms, bound_by, term = bf16_bound(2.0 * (2 * rows * dim + rows) + 4.0 * rows,
+                                          tensor_flops=2.0 * rows * dim, name="f16")
+    log(f"  rank_pivots f16 n={rows}, one shard of {columns} columns, D={dim}: "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"equal to the plain version in bits, -0.0 off the shard")
+    del targets
+    torch.cuda.empty_cache()
+    return {"shape": f"n={rows} one shard of {columns} columns D={dim}", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": 0.0}
+
+
+def f16_ranks_agree(folder: str, batches: int = 2):
+    """The first ``batches`` batches of the folder's test evaluation in
+    float16 compute, ranked through K1's float16 path and through its plain
+    version: every per-triple rank equal."""
+    from kge_tpu_torch.ops.rank_kernel import fused_rank_counts, fused_rank_counts_plain
+
+    job = test_job(folder, **{"parallel.compute_dtype": "float16"})
+    with torch.inference_mode():
+        job._prepare()
+        job._is_prepared = True
+        job._evaluate()
+        _, device_batches = job._collate_cache
+        before = fused_rank_counts.f16_launches
+        for triples, labels in device_batches[:batches]:
+            kernel, _ = job._rank_batch(triples, labels)
+            plain, _ = job._rank_batch(triples, labels,
+                                       rank_counts=fused_rank_counts_plain)
+            for r in kernel:
+                check(torch.equal(kernel[r], plain[r]),
+                      f"f16 ranking {r}: kernel and plain ranks differ")
+        check(fused_rank_counts.f16_launches == before + 2 * batches,
+              "f16 ranking: the batches did not take K1's float16 path")
+    log(f"  {batches} test batches of {os.path.basename(folder)} in f16: ranks "
+        f"through K1 equal the plain version's on every triple")
+    del job
+    torch.cuda.empty_cache()
+
+
+def run_float16(seed: int, eval_folder: str, transe_l2_folder: str):
+    """Phase 22's float16 part (ROADMAP A.11a): K1 (identity and L2
+    epilogue, rank_pivots on a shard), K2 and K3 against their plain
+    versions and timed; T-transe-l2's and the eval folder's ``test`` in
+    float16 compute, T-sparse with both dtypes in float16, and P-rotate's
+    refusal. Returns a summary dict."""
+    from kge_tpu_torch import cli
+    from kge_tpu_torch.models.convert import leaf_tensor
+    from kge_tpu_torch.utils.io import load_checkpoint
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    f16 = torch.float16
+    kernels = {
+        "rank_counts": [narrow_rank_case(seed, device, False, f16),
+                        narrow_rank_case(seed, device, True, f16)],
+        "rank_pivots": [f16_pivots_case(seed, device)],
+        "scatter_add_sorted": narrow_scatter_case(seed, device, f16),
+        "rows_set": [narrow_rows_set_case(seed, device, f16)],
+    }
+    log(f"  {card_line()}")
+    out = {"kernels": kernels}
+    test_batches = -(-NUM_TEST // BATCH)
+
+    # the tests in float16 compute: every K1 launch on its float16 path
+    for name, folder, epilogue in (("transe_l2_test", transe_l2_folder, True),
+                                   ("eval_test", eval_folder, False)):
+        reset_counters()
+        reset_f16_counters()
+        begin = time.perf_counter()
+        cli.main(["test", folder, "--eval.batch_size", str(BATCH),
+                  "--parallel.compute_dtype", "float16"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        counts, half = read_counters(), read_f16_counters()
+        check(half["rank_counts"] == counts["rank_counts"] == 2 * test_batches
+              and counts["rank_counts_epilogue"] == (2 * test_batches if epilogue
+                                                      else 0), (name, counts, half))
+        entry = last_test_entry(folder)
+        check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
+        log(f"  {os.path.basename(folder)} test in f16 compute: {half['rank_counts']} K1 "
+            f"launches, all f16{' with the L2 epilogue' if epilogue else ''}; wall "
+            f"{wall:.3f} s; MRR filtered {entry['mean_reciprocal_rank_filtered']:.6f}")
+        out[name] = {"launches": counts, "f16_launches": half, "wall_s": wall,
+                     "mrr_filtered": entry["mean_reciprocal_rank_filtered"]}
+    f16_ranks_agree(eval_folder)
+
+    # T-sparse with both dtypes in float16: the row-sparse write in float16
+    rotate_data = os.path.join(WORK, "sparse_synthetic")
+    steps = -(-FB15K237[2] // TRAIN_BATCH)
+    folder = os.path.join(WORK, "train_sparse_f16")
+    conf = os.path.join(WORK, "train_sparse_f16.yaml")
+    both = {"parallel.param_dtype": "float16", "parallel.compute_dtype": "float16"}
+    out["sparse"] = {}
+    for accumulator in (None, 0.1):
+        extra = {} if accumulator is None else {
+            "train.optimizer.default.args.initial_accumulator_value": accumulator}
+        shutil.rmtree(folder, ignore_errors=True)
+        write_train_config(conf, rotate_data, seed, **{
+            "train.max_epochs": 1, "valid.every": 0, **both, **extra})
+        reset_counters()
+        reset_f16_counters()
+        begin = time.perf_counter()
+        try:
+            cli.main(["start", conf, "--folder", folder])
+        except FloatingPointError as e:
+            check(accumulator is None, f"T-sparse f16: {e}")
+            log(f"  T-sparse f16 with Adagrad from a zero accumulator: {e} (kge_tpu's "
+                f"eps 1e-10 is 0 in float16, and a gradient entry that is 0 in float16, "
+                f"an underflow below 2^-24 among them, makes 0/0); again from "
+                f"initial_accumulator_value 0.1")
+            out["sparse"]["zero_accumulator"] = str(e)
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        launches, half = read_counters(), read_f16_counters()
+        check(launches["rows_set"] == half["rows_set"] == 4 * steps
+              and launches["scatter_add_sorted"] == half["scatter_add_sorted"]
+              == 7 * steps, ("T-sparse f16", launches, half))
+        saved = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+        for leaf in saved["model"][0].values():
+            check(leaf_tensor(leaf["embeddings"]).dtype == torch.float16,
+                  "T-sparse f16: a table is not float16")
+        losses = check_losses(folder, [1])
+        log(f"  T-sparse f16 tables and compute: start 1 epoch, wall {wall:.2f} s, "
+            f"avg_loss {losses}; launches {launches}; f16 {half} (K3 4 and K2 7 a "
+            f"step, all float16); tables float16 in the checkpoint")
+        out["sparse"].update({"launches": launches, "f16_launches": half,
+                              "wall_s": wall, "avg_loss": losses,
+                              "initial_accumulator_value": accumulator or 0.0})
+        break
+
+    # P-rotate in float16: the fused row update and the pooled kernels have
+    # no float16 path yet, so the job refuses it
+    folder = os.path.join(WORK, "train_rotate_f16")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_rotate_f16.yaml")
+    write_train_config(conf, rotate_data, seed, **pooled_config("rotate"), **both)
+    try:
+        cli.main(["start", conf, "--folder", folder])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "ROADMAP A.11b" in refusal,
+          f"P-rotate in float16 was not refused naming A.11b: {refusal}")
+    log(f"  P-rotate in f16 refused: {refusal}")
+    out["rotate_refusal"] = refusal
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - start
+    log(f"  float16 part of phase 22: {out['wall_s']:.1f} s")
     return out
 
 
@@ -6832,12 +7074,16 @@ def main():
 
     log("== phase 22: the dtype policy: the six kernels' bfloat16 paths; X-complex "
         "in bfloat16 compute from T-dense's entity table, P-rotate with both dtypes "
-        "in bfloat16, T-sparse with bfloat16 tables")
+        "in bfloat16, T-sparse with bfloat16 tables; K1, K2 and K3's float16 paths, "
+        "the tests of T-transe-l2 and of the eval folder in float16 compute, "
+        "T-sparse in float16, P-rotate's float16 refusal")
     start = time.perf_counter()
     dtype = run_dtype_policy(args.seed, data, os.path.join(WORK, "train_dense"),
-                             transe_l2["folder"])
+                             transe_l2["folder"], folder)
     log(f"  phase 22 took {time.perf_counter() - start:.1f} s; {card}")
     bf16_cases = dtype["kernels"]
+    f16 = dtype["f16"]
+    f16_cases = f16.pop("kernels")
 
     log("== phase 23: hyperparameter search: a grid search at T-dense's width, dump, "
         "package and test of its best trial; ax_search in two worker processes; "
@@ -7012,6 +7258,24 @@ def main():
              dtype["rotate"]["bf16_launches"]["pooled_scores"], {}),
             ("pooled_scores_bwd", "kge_tpu/ops/dist_pool.py:248", "dist_pool",
              dtype["rotate"]["bf16_launches"]["pooled_scores_bwd"], {}),
+        )
+    ] + [
+        # the float16 paths of K1, K2 and K3: launches in phase 22's float16 runs
+        entry(name, replaces, launches_f16, cases[0]["max_abs_err"], cases,
+              source=source, shapes=cases, **more)
+        for name, replaces, source, launches_f16, cases, more in (
+            ("rank_counts_f16", "kge_tpu/ops/rank_kernel.py:108", "rank_counts",
+             f16["eval_test"]["f16_launches"]["rank_counts"],
+             f16_cases["rank_counts"][:1], {"pivots": f16_cases["rank_pivots"][0]}),
+            ("rank_counts_l2_f16", "kge_tpu/ops/rank_kernel.py:108", "rank_counts",
+             f16["transe_l2_test"]["f16_launches"]["rank_counts"],
+             f16_cases["rank_counts"][1:], {}),
+            ("scatter_add_sorted_f16", "kge_tpu/ops/pallas_ops.py:120",
+             "scatter_add_sorted", f16["sparse"]["f16_launches"]["scatter_add_sorted"],
+             f16_cases["scatter_add_sorted"],
+             {k: f16_cases["scatter_add_sorted"][0][k] for k in SCATTER_LAUNCH_KEYS}),
+            ("rows_set_f16", "kge_tpu/ops/pallas_ops.py:258", "rows_set",
+             f16["sparse"]["f16_launches"]["rows_set"], f16_cases["rows_set"], {}),
         )
     ], "eval_wall_s": wall, "eval_warm_wall_s": warm_wall, "profile": profile,
         "filtered_triples_per_s": NUM_TEST / wall,

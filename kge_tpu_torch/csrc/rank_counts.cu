@@ -159,8 +159,31 @@
 // larger gamma costs recounts, never a wrong count. eta_D = D16 2^-124
 // covers products and partial sums that the tensor cores flush below 2^-126
 // (and the chain's own underflow), which a relative bound cannot.
+//
+// float16 path (rank_counts_launch_f16, rank_pivots_launch_f16;
+// parallel.compute_dtype: float16), as kge_tpu's evaluation ranks its
+// float16 score matrix. Its outputs are defined as the bfloat16 path's with
+// float16 in its place: the float32 chain over the float16 values (a
+// product of two float16 values has at most 22 significant bits and lies
+// between 2^-48 and 2^32, so it is exact in float32 and each FMA is one
+// rounded add), each score rounded once to float16, and the epilogue and
+// the tie test in float16 with a rounding after every operation and the
+// Python constants rounded to float16 first (Prec<__half>). float16's range
+// is narrow: a score of 65,520 or more in magnitude rounds to an infinity,
+// which the tie rule then treats as kge_tpu's does (+inf against a +inf
+// pivot is neither close nor greater, -inf against -inf is close); the L2
+// epilogue's 1e-30 rounds to 0, so a product at or above 0 scores -0.0; the
+// default atol 1e-5 is a float16 subnormal. The tiles are the float32
+// path's (rank_tiles_kernel<__half>): the same FMA chains on the CUDA cores,
+// over float16 slices widened as they are stored in shared memory
+// (Stager<__half>: 8-byte loads into registers before a slice's product,
+// widened and stored after it), so the counts, vals and pivots are the
+// chain's in every entry and need no certificate. The tile launch reads half
+// the bytes of the float32 path and does its operations, so the fp32
+// CUDA-core rate bounds it as it does the float32 path.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -280,6 +303,36 @@ struct Prec<__nv_bfloat16> {
     return R(__fadd_rn(R(atol), R(__fmul_rn(R(rtol), fabsf(p)))));
   }
   __device__ static float diff(float s, float p) { return R(__fsub_rn(s, p)); }
+};
+
+// Prec<__half> is the float16 path (header, "float16 path"): R16 rounds every
+// result to float16. A float32 result of float16 operands rounded to float16
+// is the correctly rounded float16 operation (24 >= 2 x 11 + 2 bits: the
+// double rounding is innocuous), as torch and XLA compute float16 on the
+// CPU.
+__device__ __forceinline__ float R16(float x) {
+  return __half2float(__float2half_rn(x));
+}
+
+template <>
+struct Prec<__half> {
+  __device__ static float load(const __half* p) { return __half2float(*p); }
+  __device__ static void store(__half* p, float v) {
+    *p = __float2half_rn(v);  // v is a float16 value already
+  }
+  __device__ static float score(float acc, int epilogue) {
+    const float s = R16(acc);
+    if (epilogue == EPILOGUE_NEG_SQRT_L2) {
+      float x = -s;
+      x = x < 0.0f ? 0.0f : x;
+      return -R16(__fsqrt_rn(R16(__fadd_rn(x, R16(1e-30f)))));
+    }
+    return s;
+  }
+  __device__ static float tol(float atol, float rtol, float p) {
+    return R16(__fadd_rn(R16(atol), R16(__fmul_rn(R16(rtol), fabsf(p)))));
+  }
+  __device__ static float diff(float s, float p) { return R16(__fsub_rn(s, p)); }
 };
 
 // The tie rule of kge_tpu's _close_greater, with each float operation
@@ -546,6 +599,80 @@ __device__ __forceinline__ void stage_slice(float* st, const float* q,
   }
 }
 
+// Fills the ring for rank_tiles_kernel: load() stages a slice, flush()
+// completes what load() left in registers. float32 slices go straight to
+// shared memory by cp.async (stage_slice), and flush() has nothing to do.
+// float16 slices must be widened, which cp.async cannot do: load() brings
+// each thread's 8-byte pieces (4 values each) into registers, and flush(),
+// called after the current slice's product, widens them (exactly) and stores
+// them as floats in the slice's layout, where the next barriers publish
+// them. Without vec (D not a multiple of 4, or rows not 8-byte aligned) the
+// values are loaded and stored one by one in load(). Entries past n,
+// num_valid or D are zeros.
+template <typename T>
+struct Stager;
+
+template <>
+struct Stager<float> {
+  __device__ void load(float* st, const float* q, const float* t, int row0,
+                       int c0, int k0, int n, int num_valid, int D, bool vec) {
+    stage_slice(st, q, t, row0, c0, k0, n, num_valid, D, vec);
+  }
+  __device__ void flush() {}
+};
+
+template <>
+struct Stager<__half> {
+  static constexpr int CH = BK / 4;  // 4-value pieces of a row of the slice
+  static constexpr int PER = (BM + BN) * CH / THREADS;
+  static_assert((BM + BN) * CH % THREADS == 0, "pieces per thread");
+  uint2 raw[PER];
+  float* dst = nullptr;
+
+  __device__ void load(float* st, const __half* q, const __half* t, int row0,
+                       int c0, int k0, int n, int num_valid, int D, bool vec) {
+    if (!vec) {
+      for (int idx = threadIdx.x; idx < (BM + BN) * BK; idx += THREADS) {
+        const int r = idx / BK;
+        const int kk = idx - r * BK;
+        const bool is_q = r < BM;
+        const int line = is_q ? row0 + r : c0 + r - BM;
+        const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
+        st[r * LDS + kk] =
+            ok ? __half2float((is_q ? q : t)[(size_t)line * D + k0 + kk]) : 0.0f;
+      }
+      return;
+    }
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = threadIdx.x + u * THREADS;
+      const int r = idx / CH;
+      const int kk = (idx - r * CH) * 4;
+      const bool is_q = r < BM;
+      const int line = is_q ? row0 + r : c0 + r - BM;
+      const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
+      raw[u] = ok ? __ldg(reinterpret_cast<const uint2*>(
+                        (is_q ? q : t) + (size_t)line * D + k0 + kk))
+                  : make_uint2(0u, 0u);
+    }
+    dst = st;
+  }
+
+  __device__ void flush() {
+    if (dst == nullptr) return;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = threadIdx.x + u * THREADS;
+      const int r = idx / CH;
+      const int kk = (idx - r * CH) * 4;
+      const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw[u].x));
+      const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw[u].y));
+      *reinterpret_cast<float4*>(dst + r * LDS + kk) = make_float4(a.x, a.y, b.x, b.y);
+    }
+    dst = nullptr;
+  }
+};
+
 // acc[i][j] += sum over the slice's k, ascending, of q[row i][k] t[col j][k]
 __device__ __forceinline__ void multiply_slice(float (&acc)[RPT][CPT],
                                                const float* as,
@@ -597,10 +724,11 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
   const int row0 = blockIdx.x * BM;
   const int tile_lo = blockIdx.y * tiles_per_range;
   const int tile_hi = min(tile_lo + tiles_per_range, num_tiles);
-  // 16-byte copies need 16-byte aligned rows: 4 floats or 8 bfloat16
-  const bool vec = (D & (16 / (int)sizeof(T) - 1)) == 0 &&
+  // pieces of 4 values (16-byte copies of floats, 8-byte loads of float16)
+  // need rows aligned to a piece
+  const bool vec = (D & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(t)) & 15) == 0;
+                     reinterpret_cast<uintptr_t>(t)) & (4 * sizeof(T) - 1)) == 0;
   const int n_ks = max(1, (D + BK - 1) / BK);
   const int total = (tile_hi - tile_lo) * n_ks;
 
@@ -615,10 +743,11 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
 
   // the next slice to stage: (ld_tile, ld_ks) into ring buffer ld_stage
   int ld_tile = tile_lo, ld_ks = 0, ld_stage = 0;
+  Stager<T> stager;
   auto stage_next = [&]() {
     if (ld_tile < tile_hi) {
-      stage_slice(smem + ld_stage * STAGE_FLOATS, q, t, row0,
-                      ld_tile * BN, ld_ks * BK, n, num_valid, D, vec);
+      stager.load(smem + ld_stage * STAGE_FLOATS, q, t, row0, ld_tile * BN,
+                  ld_ks * BK, n, num_valid, D, vec);
       if (++ld_ks == n_ks) {
         ld_ks = 0;
         ++ld_tile;
@@ -628,7 +757,10 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
     cp_async_commit();  // an empty group keeps the count of groups uniform
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) stage_next();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    stage_next();
+    stager.flush();
+  }
 
   float acc[RPT][CPT];
 #pragma unroll
@@ -646,6 +778,7 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
     stage_next();
     const float* as = smem + stage * STAGE_FLOATS;
     multiply_slice(acc, as, as + BM * LDS, ty, tx);
+    stager.flush();  // the slice after next, into a buffer no one reads now
     stage = stage + 1 == STAGES ? 0 : stage + 1;
     if (++ks < n_ks) continue;
 
@@ -1587,6 +1720,23 @@ int rank_counts_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
       pivot_out, norms, work, work_capacity, recounted, stream);
 }
 
+// The same for float16 q and t: the float16 path of the header, the float32
+// path's tiles over widened float16 values; vals_out and pivot_out are
+// float16 [nnz] and [n].
+int rank_counts_launch_f16(const __half* q, const __half* t,
+                           const int32_t* pivot_cols, const __half* pivot_in,
+                           const int32_t* row_ptr, const int32_t* cols, int n,
+                           int D, int num_valid, int nnz, float atol,
+                           float rtol, int epilogue, int tiles_per_range,
+                           int32_t* tile_ptr, int32_t* greater_out,
+                           int32_t* close_out, __half* vals_out,
+                           __half* pivot_out, void* stream) {
+  return rank_counts_launch_as<__half>(
+      q, t, pivot_cols, pivot_in, row_ptr, cols, n, D, num_valid, nnz, atol,
+      rtol, epilogue, tiles_per_range, tile_ptr, greater_out, close_out,
+      vals_out, pivot_out, nullptr, nullptr, 0, nullptr, stream);
+}
+
 // rank_pivots: each row's chain score (after the epilogue) at column
 // pivot_cols[row] - col_lo of t [num_valid, D] into pivot_out [n], -0.0
 // where that column lies outside [0, num_valid): over the column shards of
@@ -1607,6 +1757,14 @@ int rank_pivots_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
   return rank_pivots_launch_as<__nv_bfloat16>(q, t, pivot_cols, n, D,
                                               num_valid, col_lo, epilogue,
                                               pivot_out, stream);
+}
+
+int rank_pivots_launch_f16(const __half* q, const __half* t,
+                           const int32_t* pivot_cols, int n, int D,
+                           int num_valid, int col_lo, int epilogue,
+                           __half* pivot_out, void* stream) {
+  return rank_pivots_launch_as<__half>(q, t, pivot_cols, n, D, num_valid,
+                                       col_lo, epilogue, pivot_out, stream);
 }
 
 // For checks of the certificate: the tensor cores' float32 sums of

@@ -17,9 +17,10 @@
 // scalar otherwise; 8 rows per block so that the grid covers every SM.
 // Ids outside the table are skipped.
 //
-// bfloat16 tables (parallel.param_dtype: bfloat16) take rows_set_launch_bf16:
-// the same copy of 2-byte elements, 16 bytes (8 elements) at a time when D
-// is a multiple of 8, else one element at a time. Nothing is converted.
+// bfloat16 and float16 tables (parallel.param_dtype: bfloat16 or float16)
+// take rows_set_launch_bf16 and rows_set_launch_f16: the same copy of 2-byte
+// elements, 16 bytes (8 elements) at a time when D is a multiple of 8, else
+// one element at a time. Nothing is converted, so the write is exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +47,23 @@ __global__ void rows_set_kernel(V* __restrict__ table,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
+// A table of 2-byte elements (bfloat16 or float16), copied as raw bits.
+int rows_set_launch_2byte(uint16_t* table, const int64_t* ids,
+                          const uint16_t* rows, int m, int D,
+                          long long num_rows, void* stream) {
+  if (m <= 0 || D <= 0) return 0;
+  const int blocks = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D % 8 == 0 && aligned16(table) && aligned16(rows)) {
+    rows_set_kernel<uint4><<<blocks, THREADS, 0, s>>>(
+        (uint4*)table, ids, (const uint4*)rows, m, D / 8, (int64_t)num_rows);
+  } else {
+    rows_set_kernel<uint16_t><<<blocks, THREADS, 0, s>>>(
+        table, ids, rows, m, D, (int64_t)num_rows);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -71,17 +89,13 @@ int rows_set_launch(float* table, const int64_t* ids, const float* rows,
 int rows_set_launch_bf16(uint16_t* table, const int64_t* ids,
                          const uint16_t* rows, int m, int D,
                          long long num_rows, void* stream) {
-  if (m <= 0 || D <= 0) return 0;
-  const int blocks = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D % 8 == 0 && aligned16(table) && aligned16(rows)) {
-    rows_set_kernel<uint4><<<blocks, THREADS, 0, s>>>(
-        (uint4*)table, ids, (const uint4*)rows, m, D / 8, (int64_t)num_rows);
-  } else {
-    rows_set_kernel<uint16_t><<<blocks, THREADS, 0, s>>>(
-        table, ids, rows, m, D, (int64_t)num_rows);
-  }
-  return (int)cudaGetLastError();
+  return rows_set_launch_2byte(table, ids, rows, m, D, num_rows, stream);
+}
+
+int rows_set_launch_f16(uint16_t* table, const int64_t* ids,
+                        const uint16_t* rows, int m, int D,
+                        long long num_rows, void* stream) {
+  return rows_set_launch_2byte(table, ids, rows, m, D, num_rows, stream);
 }
 
 }  // extern "C"

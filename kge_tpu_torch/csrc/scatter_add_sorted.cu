@@ -94,10 +94,17 @@
 // stores it, 8 columns a thread in 16-byte loads and stores (4 columns in 8
 // bytes where D is not a multiple of 8, 1 where it is not of 4); the order
 // of the adds is the float32 path's. Half the bytes move, so the bound
-// halves. Launch A is the same for both types.
+// halves. Launch A is the same for every type.
+//
+// float16 (parallel.param_dtype: float16; scatter_add_launch_f16): the same
+// as bfloat16, with float16 in its place. A float16 element widens to
+// float32 exactly too, and each output element is rounded once, so a sum
+// above 65,504 in magnitude stores as an infinity, as kge_tpu's float16
+// output does.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,23 +147,46 @@ __device__ __forceinline__ void vadd(float8& a, const float8& b) {
   vadd(a.b, b.b);
 }
 
-__device__ __forceinline__ float2 widen2(unsigned raw) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-}
-__device__ __forceinline__ unsigned narrow(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
+// The 2-byte element types, bfloat16 and float16: a value widens to float32
+// exactly, and a float32 sum rounds to nearest even where it is stored.
+template <typename T>
+struct Two;
+template <>
+struct Two<__nv_bfloat16> {
+  __device__ static float widen(__nv_bfloat16 r) { return __bfloat162float(r); }
+  __device__ static __nv_bfloat16 narrow(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  __device__ static float2 widen2(unsigned raw) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+  }
+  __device__ static unsigned narrow2(float x, float y) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+};
+template <>
+struct Two<__half> {
+  __device__ static float widen(__half r) { return __half2float(r); }
+  __device__ static __half narrow(float v) { return __float2half_rn(v); }
+  __device__ static float2 widen2(unsigned raw) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&raw));
+  }
+  __device__ static unsigned narrow2(float x, float y) {
+    const __half2 v = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
+};
 
 // Loads and stores of a V (float, float4 or float8 of neighbouring columns)
-// at index i in units of V of a float or bfloat16 array. A load brings the
-// raw bytes (Raw) and widen() turns them into float32 where they are added:
-// a bfloat16 element widens exactly. A sum is rounded once to bfloat16
-// (round to nearest even) where it is stored.
-template <typename V, typename T>
+// at index i in units of V of a float, bfloat16 or float16 array. A load
+// brings the raw bytes (Raw) and widen() turns them into float32 where they
+// are added: a 2-byte element widens exactly. A sum is rounded once to the
+// 2-byte type (round to nearest even) where it is stored.
+template <typename V, typename T, bool NARROW = sizeof(T) == 2>
 struct Elem;
 template <typename V>
-struct Elem<V, float> {
+struct Elem<V, float, false> {
   using Raw = V;
   __device__ static Raw load(const float* p, size_t i) {
     return reinterpret_cast<const V*>(p)[i];
@@ -166,44 +196,45 @@ struct Elem<V, float> {
     reinterpret_cast<V*>(p)[i] = v;
   }
 };
-template <>
-struct Elem<float, __nv_bfloat16> {
-  using Raw = __nv_bfloat16;
-  __device__ static Raw load(const __nv_bfloat16* p, size_t i) { return p[i]; }
-  __device__ static float widen(const Raw& r) { return __bfloat162float(r); }
-  __device__ static void store(__nv_bfloat16* p, size_t i, float v) {
-    p[i] = __float2bfloat16_rn(v);
+template <typename T>
+struct Elem<float, T, true> {
+  using Raw = T;
+  __device__ static Raw load(const T* p, size_t i) { return p[i]; }
+  __device__ static float widen(const Raw& r) { return Two<T>::widen(r); }
+  __device__ static void store(T* p, size_t i, float v) {
+    p[i] = Two<T>::narrow(v);
   }
 };
-template <>
-struct Elem<float4, __nv_bfloat16> {
+template <typename T>
+struct Elem<float4, T, true> {
   using Raw = uint2;
-  __device__ static Raw load(const __nv_bfloat16* p, size_t i) {
+  __device__ static Raw load(const T* p, size_t i) {
     return reinterpret_cast<const uint2*>(p)[i];
   }
   __device__ static float4 widen(const Raw& r) {
-    const float2 a = widen2(r.x), b = widen2(r.y);
+    const float2 a = Two<T>::widen2(r.x), b = Two<T>::widen2(r.y);
     return make_float4(a.x, a.y, b.x, b.y);
   }
-  __device__ static void store(__nv_bfloat16* p, size_t i, float4 v) {
-    reinterpret_cast<uint2*>(p)[i] = make_uint2(narrow(v.x, v.y), narrow(v.z, v.w));
+  __device__ static void store(T* p, size_t i, float4 v) {
+    reinterpret_cast<uint2*>(p)[i] =
+        make_uint2(Two<T>::narrow2(v.x, v.y), Two<T>::narrow2(v.z, v.w));
   }
 };
-template <>
-struct Elem<float8, __nv_bfloat16> {
+template <typename T>
+struct Elem<float8, T, true> {
   using Raw = uint4;
-  __device__ static Raw load(const __nv_bfloat16* p, size_t i) {
+  __device__ static Raw load(const T* p, size_t i) {
     return reinterpret_cast<const uint4*>(p)[i];
   }
   __device__ static float8 widen(const Raw& r) {
-    const float2 a = widen2(r.x), b = widen2(r.y), c = widen2(r.z),
-                 d = widen2(r.w);
+    const float2 a = Two<T>::widen2(r.x), b = Two<T>::widen2(r.y),
+                 c = Two<T>::widen2(r.z), d = Two<T>::widen2(r.w);
     return {make_float4(a.x, a.y, b.x, b.y), make_float4(c.x, c.y, d.x, d.y)};
   }
-  __device__ static void store(__nv_bfloat16* p, size_t i, const float8& v) {
-    reinterpret_cast<uint4*>(p)[i] =
-        make_uint4(narrow(v.a.x, v.a.y), narrow(v.a.z, v.a.w),
-                   narrow(v.b.x, v.b.y), narrow(v.b.z, v.b.w));
+  __device__ static void store(T* p, size_t i, const float8& v) {
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(
+        Two<T>::narrow2(v.a.x, v.a.y), Two<T>::narrow2(v.a.z, v.a.w),
+        Two<T>::narrow2(v.b.x, v.b.y), Two<T>::narrow2(v.b.z, v.b.w));
   }
 };
 
@@ -939,6 +970,18 @@ int scatter_add_launch_bf16(const void* ids, int ids_wide, int ids_stride,
                             int out_rows, int32_t* work, float* partial,
                             int phases, void* stream) {
   return scatter_add_launch_as<__nv_bfloat16>(
+      ids, ids_wide, ids_stride, order_in, order_wide, upd, n, D, num_keys,
+      by_segment, out, out_rows, work, partial, phases, stream);
+}
+
+// The same for float16 upd and out, rounded once to float16 when stored.
+int scatter_add_launch_f16(const void* ids, int ids_wide, int ids_stride,
+                           const void* order_in, int order_wide,
+                           const __half* upd, int n, int D, int num_keys,
+                           int by_segment, __half* out, int out_rows,
+                           int32_t* work, float* partial, int phases,
+                           void* stream) {
+  return scatter_add_launch_as<__half>(
       ids, ids_wide, ids_stride, order_in, order_wide, upd, n, D, num_keys,
       by_segment, out, out_rows, work, partial, phases, stream);
 }

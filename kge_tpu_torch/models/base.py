@@ -302,6 +302,11 @@ class RelationalScorer(KgeBase):
         kernel form for this scorer, slot or norm."""
         return None
 
+    def pooled_kernel_kind(self, slot: int):
+        """The kind ("l1" or "cmod") that ``pooled_kernel_queries`` gives
+        for ``slot``, or None."""
+        return None
+
     def score_emb_neg(self, s_emb, p_emb, o_emb, slot: int) -> torch.Tensor:
         """Score each row against its own k candidates in the corrupted
         ``slot`` (0=s, 1=p, 2=o): that slot's embeddings are [n, k, d*], the

@@ -14,8 +14,8 @@ scorer gives its tree with tensor leaves (``param_tree``; a scorer without
 parameters gives an empty one, and the model's tree then has no
 ``"scorer"``). ``load_jax_params`` copies such a tree into a model,
 ``to_jax_params`` reads one out, both through numpy. Leaves keep their
-dtype, float32 or bfloat16 (kge_tpu's dtype policy; other float leaves
-become float32). numpy has no bfloat16 without the ``ml_dtypes`` package,
+dtype, float32, bfloat16 or float16 (kge_tpu's dtype policy; other leaves
+become float32). float16 is numpy's own ``float16``. numpy has no bfloat16 without the ``ml_dtypes`` package,
 which this package does not use, so a bfloat16 leaf is read from kge_tpu's
 ``ml_dtypes`` array through its 2-byte buffer and given out as a CPU
 ``torch.bfloat16`` tensor; ``utils/io.py`` pickles such tensors as the
@@ -99,8 +99,8 @@ def _own_rows(value: torch.Tensor, rows) -> torch.Tensor:
 
 def leaf_tensor(value) -> torch.Tensor:
     """A checkpoint leaf (numpy or array-like, a bfloat16 ``ml_dtypes``
-    array, or a tensor) as a CPU tensor: bfloat16 stays bfloat16, any other
-    float becomes float32."""
+    array, or a tensor) as a CPU tensor: bfloat16 and float16 stay as they
+    are, any other float becomes float32."""
     if isinstance(value, torch.Tensor):
         tensor = value.detach().cpu()
     else:
@@ -109,9 +109,11 @@ def leaf_tensor(value) -> torch.Tensor:
             tensor = torch.from_numpy(
                 np.ascontiguousarray(array).view(np.uint16).astype(np.int16)
             ).view(torch.bfloat16)
+        elif array.dtype == np.float16:
+            tensor = torch.from_numpy(np.array(array, dtype=np.float16))
         else:
             tensor = torch.from_numpy(np.array(array, dtype=np.float32))
-    if tensor.dtype not in (torch.float32, torch.bfloat16):
+    if tensor.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         tensor = tensor.float()
     return tensor
 

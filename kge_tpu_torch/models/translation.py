@@ -188,10 +188,13 @@ class TransEScorer(RelationalScorer):
             return _l2_expanded_neg(query, cand)
         return -_p_norm(query[:, None, :] - cand, self._norm, dim=2)
 
+    def pooled_kernel_kind(self, slot):
+        return "l1" if self._norm == 1.0 else None
+
     def pooled_kernel_queries(self, s_emb, p_emb, o_emb, slot):
         """(kind, queries) for ``pooled_dist_scores``, or None when the
         slot's score is not a plain difference norm the kernel knows."""
-        if self._norm != 1.0:
+        if self.pooled_kernel_kind(slot) is None:
             return None
         return "l1", (self._query(s_emb, p_emb, o_emb, slot),)
 
@@ -437,10 +440,13 @@ class RotatEScorer(RelationalScorer):
             d_im = q_im[:, None, :] - c_im
         return self._modulus_norm(d_re, d_im, dim=2)
 
-    def pooled_kernel_queries(self, s_emb, p_emb, o_emb, slot):
+    def pooled_kernel_kind(self, slot):
         # relation corruptions multiply the candidate into s, which is not
         # a plain difference: they keep the select route
-        if self._norm != 1.0 or slot == 1:
+        return "cmod" if self._norm == 1.0 and slot != 1 else None
+
+    def pooled_kernel_queries(self, s_emb, p_emb, o_emb, slot):
+        if self.pooled_kernel_kind(slot) is None:
             return None
         return "cmod", self._entity_query(s_emb, p_emb, o_emb, slot)
 

@@ -32,9 +32,10 @@ Replaces the first part of kge_tpu/ops/pallas_ops.py:
 
 Beside each kernel stand its plain PyTorch version (``*_plain``: the path
 for tensors on the CPU, and the kernel's oracle on the card) and a launch
-counter on the wrapper (``.launches``; ``.bf16_launches`` counts the
-bfloat16 launches among them). A CUDA tensor goes to the kernel or
-the wrapper raises; no path falls back to the plain version.
+counter on the wrapper (``.launches``; ``.bf16_launches`` and
+``.f16_launches`` count the bfloat16 and the float16 launches among them).
+A CUDA tensor goes to the kernel or the wrapper raises; no path falls back
+to the plain version.
 
 The sort's route goes by size (``sort_route``): up to ``SORT_LIMIT`` ids the
 kernel sorts them itself; above it (128 tiles of 16 rounds of 256
@@ -42,10 +43,12 @@ positions, about where a stable ``torch.sort`` and launch A on its sort
 take as long) the wrapper sorts with a stable ``torch.sort`` and hands the
 kernel the sort, and ``sorted_scatter_add.torch_sorts`` counts those calls.
 
-In bfloat16 (``parallel.param_dtype: bfloat16``) the updates, the tables
-and the rows are bfloat16: the scatter sums in float32 and rounds each
-output row once (kge_tpu's kernel sums in float32 scratch and writes the
-updates' dtype), and the row write copies 2-byte rows.
+In bfloat16 or float16 (``parallel.param_dtype``) the updates, the tables
+and the rows are of that dtype: the scatter sums in float32 and rounds each
+output element once (kge_tpu's kernel sums a chunk of updates in float32
+scratch and adds it into the output in the updates' dtype, so a row whose
+updates span its chunks is rounded once a chunk there), and the row write
+copies 2-byte rows.
 
 Differences from the TPU wrappers, both for the card: the kernels take
 int64 or int32 ids and return sorted ids and segment numbers as int32;
@@ -60,6 +63,7 @@ import ctypes
 
 import torch
 
+from kge_tpu_torch.ops.kernel_utils import ENTRY_SUFFIX as _SUFFIX
 from kge_tpu_torch.utils.dtypes import strong32
 
 _gather_mode = "torch"  # "torch" | "kernel"
@@ -218,9 +222,10 @@ def sorted_scatter_add(ids: torch.Tensor, upd: torch.Tensor,
 
 
 #: launches of the scatter kernel, through any wrapper, and of those the
-#: launches on bfloat16 updates
+#: launches on bfloat16 and on float16 updates
 sorted_scatter_add.launches = 0
 sorted_scatter_add.bf16_launches = 0
+sorted_scatter_add.f16_launches = 0
 #: calls whose ids were too many for the kernel's sort and went to torch.sort
 sorted_scatter_add.torch_sorts = 0
 
@@ -270,8 +275,8 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     from kge_tpu_torch.ops.kernel_utils import check_launch, require
 
     device = upd.device
-    if upd.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"upd must be float32 or bfloat16, got {upd.dtype}")
+    if upd.dtype not in _SUFFIX:
+        raise TypeError(f"upd must be float32, bfloat16 or float16, got {upd.dtype}")
     require("upd", upd, device, upd.dtype)
     for name, x in (("ids", ids), ("order", order)):
         if x is not None and x.dtype not in (torch.int64, torch.int32):
@@ -297,8 +302,7 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     out, work, partial = buffers
     if out_rows == 0 or D == 0:
         return buffers
-    launch = (lib.scatter_add_launch if upd.dtype == torch.float32
-              else lib.scatter_add_launch_bf16)
+    launch = getattr(lib, "scatter_add_launch" + _SUFFIX[upd.dtype])
     with torch.cuda.device(device):
         code = launch(
             ids.data_ptr(), int(ids.dtype == torch.int64),
@@ -311,6 +315,7 @@ def scatter_launch(ids, order, upd, num_rows: int, by_segment: bool = False,
     check_launch(code, "scatter_add_sorted")
     sorted_scatter_add.launches += 1
     sorted_scatter_add.bf16_launches += upd.dtype == torch.bfloat16
+    sorted_scatter_add.f16_launches += upd.dtype == torch.float16
     return buffers
 
 
@@ -320,7 +325,7 @@ def _scatter_library():
     lib = load_library("scatter_add_sorted")
     if not getattr(lib, "_kge_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("scatter_add_launch", "scatter_add_launch_bf16"):
+        for name in ("scatter_add_launch" + x for x in _SUFFIX.values()):
             typed(lib, name, [p, i, i, p, i, p, i, i, i, i, p, i, p, p, i, p])
         typed(lib, "scatter_add_work_ints", [i, i, i])
         typed(lib, "scatter_add_sort_plan", [i, i, p])
@@ -365,6 +370,7 @@ def rows_set(table: torch.Tensor, ids: torch.Tensor,
 
 rows_set.launches = 0
 rows_set.bf16_launches = 0
+rows_set.f16_launches = 0
 
 
 def _launch_rows_set(table, ids, rows):
@@ -376,8 +382,9 @@ def _launch_rows_set(table, ids, rows):
     )
 
     device = table.device
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
+    if table.dtype not in _SUFFIX:
+        raise TypeError(
+            f"table must be float32, bfloat16 or float16, got {table.dtype}")
     require("table", table, device, table.dtype)
     require("rows", rows, device, table.dtype)
     if ids.dtype == torch.int32:
@@ -388,8 +395,7 @@ def _launch_rows_set(table, ids, rows):
         return table
     lib = load_library("rows_set")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = typed(lib, "rows_set_launch" if table.dtype == torch.float32
-                   else "rows_set_launch_bf16",
+    launch = typed(lib, "rows_set_launch" + _SUFFIX[table.dtype],
                    [p, p, p, i, i, ctypes.c_longlong, p])
     with torch.cuda.device(device):
         code = launch(
@@ -399,6 +405,7 @@ def _launch_rows_set(table, ids, rows):
     check_launch(code, "rows_set")
     rows_set.launches += 1
     rows_set.bf16_launches += table.dtype == torch.bfloat16
+    rows_set.f16_launches += table.dtype == torch.float16
     return table
 
 

@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict
 
+import torch
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
@@ -28,6 +30,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+#: the suffix of a kernel's entry points by the element type of the path
+#: they run (``rank_counts_launch`` + ``"_f16"``): K1, K2 and K3 have all
+#: three, K4 and K5 the first two
+ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

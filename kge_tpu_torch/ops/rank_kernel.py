@@ -23,7 +23,8 @@ Beside the kernel stand its plain PyTorch version (``fused_rank_counts_plain``,
 the path for tensors on the CPU and the kernel's oracle on the card) and
 launch counters (``fused_rank_counts.launches``, and of those the launches
 with a score epilogue, ``fused_rank_counts.epilogue_launches``, and those of
-the bfloat16 path, ``fused_rank_counts.bf16_launches``). A CUDA
+the bfloat16 and the float16 paths, ``fused_rank_counts.bf16_launches`` and
+``fused_rank_counts.f16_launches``). A CUDA
 tensor goes to the kernel or the wrapper raises; no path falls back to the
 plain version.
 
@@ -81,6 +82,18 @@ chain (``certified_categories`` is the rule in PyTorch). The number of
 entries the certificate left undecided is
 ``fused_rank_counts.last_recounted`` (a device tensor, read by the checks
 only).
+
+float16 inputs (``parallel.compute_dtype: float16``) take the kernel's
+float16 path, defined as the bfloat16 path is with float16 in its place (a
+product of two float16 values is exact in float32 as well): the float32
+chain, each score rounded once to float16, the epilogue and the tie test in
+float16 after every operation, ``vals`` and the pivot in float16. float16's
+range ends at 65,504: a larger score becomes an infinity, which the tie
+rule treats as kge_tpu's does, and the L2 epilogue's 1e-30 rounds to 0, so
+a product at or above 0 scores -0.0. The kernel runs the float32 path's
+FMA tiles over the float16 values (widened exactly as they are staged), so
+every entry is the chain's and no certificate is needed; ``chain_scores``
+is its plain version's product.
 """
 
 from __future__ import annotations
@@ -90,6 +103,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from kge_tpu_torch.ops.kernel_utils import ENTRY_SUFFIX as _SUFFIX
 from kge_tpu_torch.utils.dtypes import weak
 
 _KERNEL = "rank_counts"
@@ -100,6 +114,8 @@ TILE_ROWS = 64
 #: entries of the bfloat16 path's recount worklist: the undecided entries
 #: of a block that finds it full are recounted by the block itself
 RECOUNT_CAPACITY = 1 << 20
+#: the dtypes whose scores are rounded chains (``chain_scores``)
+_CHAINED = (torch.bfloat16, torch.float16)
 
 
 class ScoreEpilogue:
@@ -198,9 +214,10 @@ def csr_row_sums(row_ptr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def chain_sums(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """The float32 chains of ``q @ targets.T`` for bfloat16 operands: one
-    sum per score over k ascending from 0 (a product of two bfloat16 values
-    is exact in float32, so an FMA and a multiply-then-add agree)."""
+    """The float32 chains of ``q @ targets.T`` for bfloat16 or float16
+    operands: one sum per score over k ascending from 0 (a product of two
+    bfloat16 or two float16 values is exact in float32, so an FMA and a
+    multiply-then-add agree)."""
     qf, tf = q.float(), targets.float()
     acc = torch.zeros(q.shape[0], targets.shape[0], dtype=torch.float32,
                       device=q.device)
@@ -210,8 +227,8 @@ def chain_sums(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def chain_scores(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """``q @ targets.T`` for bfloat16 operands as the kernel computes it:
-    ``chain_sums`` rounded once to bfloat16."""
+    """``q @ targets.T`` for bfloat16 or float16 operands as the kernel
+    computes it: ``chain_sums`` rounded once to q's dtype."""
     return chain_sums(q, targets).to(q.dtype)
 
 
@@ -310,8 +327,8 @@ def fused_rank_counts_plain(q, targets, pivot, row_ptr, cols, num_valid: int,
                             atol: float, rtol: float, score_map=None,
                             pivot_cols=None):
     """The plain PyTorch version: materializes the [n, num_valid] scores
-    (bfloat16 ones by ``chain_scores``)."""
-    if q.dtype == torch.bfloat16:
+    (bfloat16 and float16 ones by ``chain_scores``)."""
+    if q.dtype in _CHAINED:
         scores = chain_scores(q, targets[:num_valid])
     else:
         scores = q @ targets[:num_valid].T
@@ -335,7 +352,7 @@ def rank_pivots_plain(q, targets, pivot_cols, col_lo: int, score_map=None):
     ``fused_rank_counts_plain`` at the columns held, -0.0 elsewhere."""
     local = pivot_cols.long() - col_lo
     held = (local >= 0) & (local < targets.shape[0])
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _CHAINED:
         scores = chain_scores(q, targets)
     else:
         scores = q @ targets.T
@@ -373,8 +390,9 @@ def rank_pivots(q: torch.Tensor, targets: torch.Tensor,
     from kge_tpu_torch.ops.kernel_utils import check_launch, require
 
     dtype = q.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rank_pivots takes float32 or bfloat16, got {dtype}")
+    if dtype not in _SUFFIX:
+        raise TypeError(
+            f"rank_pivots takes float32, bfloat16 or float16, got {dtype}")
     require("q", q, q.device, dtype)
     require("targets", targets, q.device, dtype)
     require("pivot_cols", pivot_cols, q.device, torch.int32)
@@ -384,8 +402,7 @@ def rank_pivots(q: torch.Tensor, targets: torch.Tensor,
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        launch = (lib.rank_pivots_launch if dtype == torch.float32
-                  else lib.rank_pivots_launch_bf16)
+        launch = getattr(lib, "rank_pivots_launch" + _SUFFIX[dtype])
         code = launch(q.data_ptr(), targets.data_ptr(), pivot_cols.data_ptr(),
                       n, D, targets.shape[0], int(col_lo),
                       0 if score_map is None else score_map.code,
@@ -432,7 +449,7 @@ def fused_rank_counts(
     plan: Optional[Dict[str, int]] = None,
 ):
     """(greater [n] int32, close [n] int32, vals [nnz], pivot [n]); vals and
-    pivot in q's dtype (float32 or bfloat16).
+    pivot in q's dtype (float32, bfloat16 or float16).
 
     Scores are ``score_map(q @ targets.T)`` over the columns ``<
     num_valid``; counts are against the row's pivot under isclose tie
@@ -464,8 +481,9 @@ def fused_rank_counts(
 fused_rank_counts.launches = 0
 #: the launches among them with a score epilogue other than the identity
 fused_rank_counts.epilogue_launches = 0
-#: the launches among them of the bfloat16 path
+#: the launches among them of the bfloat16 and of the float16 path
 fused_rank_counts.bf16_launches = 0
+fused_rank_counts.f16_launches = 0
 #: the launches among them with a given pivot (a column shard's)
 fused_rank_counts.sharded_launches = 0
 #: int64 [1] on the card: the entries that the last bfloat16 launch's
@@ -483,8 +501,10 @@ def _library():
         pivots = [p, p, p, i, i, i, i, i, p, p]
         for name, args in (("rank_counts_launch", launch + [p]),
                            ("rank_counts_launch_bf16", launch + [p, p, i, p, p]),
+                           ("rank_counts_launch_f16", launch + [p]),
                            ("rank_pivots_launch", pivots),
                            ("rank_pivots_launch_bf16", pivots),
+                           ("rank_pivots_launch_f16", pivots),
                            ("rank_counts_bf16_tile_sums", [p, p, i, i, i, p, p, p])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
@@ -504,9 +524,9 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
 
     device = q.device
     dtype = q.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_rank_counts: the kernel takes float32 or "
-                        f"bfloat16, got {dtype}")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"fused_rank_counts: the kernel takes float32, "
+                        f"bfloat16 or float16, got {dtype}")
     tensors = {"q": q, "targets": targets, "row_ptr": row_ptr, "cols": cols,
                "pivot_cols": pivot_cols, "pivot": pivot}
     wanted = {"q": dtype, "targets": dtype,
@@ -548,8 +568,8 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
             counts[0].data_ptr(), counts[1].data_ptr(), vals.data_ptr(),
             pivot_out.data_ptr(),
         ]
-        if dtype == torch.float32:
-            code = lib.rank_counts_launch(*args, stream)
+        if dtype != torch.bfloat16:
+            code = getattr(lib, "rank_counts_launch" + _SUFFIX[dtype])(*args, stream)
         else:
             # the certificate's norm bounds and each row's category cuts,
             # the recount launch's worklist, and the count of the entries it
@@ -568,6 +588,7 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
     fused_rank_counts.launches += 1
     fused_rank_counts.epilogue_launches += epilogue != 0
     fused_rank_counts.sharded_launches += pivot is not None
+    fused_rank_counts.f16_launches += dtype == torch.float16
     if dtype == torch.bfloat16:
         fused_rank_counts.bf16_launches += 1
         fused_rank_counts.last_recounted = recounted

@@ -13,7 +13,9 @@ bfloat16 leaves (``parallel.param_dtype: bfloat16``) are numpy arrays of
 that package nor a numpy bfloat16: it reads such an array as a CPU
 ``torch.bfloat16`` tensor from its raw 2-byte buffer, and writes a
 bfloat16 tensor as the pickle of such an array, naming ``ml_dtypes`` by
-name only, so that kge_tpu reads it back.
+name only, so that kge_tpu reads it back. float16 leaves
+(``parallel.param_dtype: float16``) are numpy's own ``float16`` arrays in
+both packages' checkpoints and need no such stand-in.
 
 Sharded checkpoints keep kge_tpu's schema (kge_tpu/utils/io.py): under a
 model axis every rank writes ``<file>.shardNNNNN`` holding ``{"process":

@@ -32,7 +32,7 @@ def check_parallel(config: Config) -> None:
     (kge_tpu/parallel/mesh.py ``DeviceCtx.create``): one process is one
     device, so a mesh above 1 x 1 needs as many ranks
     (parallel/distributed.py); and a parameter or compute dtype other than
-    float32 and bfloat16 (ROADMAP A.11). ``parallel.data: -1`` takes the
+    float32, bfloat16 and float16. ``parallel.data: -1`` takes the
     ranks over ``parallel.model``."""
     from kge_tpu_torch.parallel import distributed
     from kge_tpu_torch.utils.dtypes import torch_dtype

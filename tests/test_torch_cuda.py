@@ -133,7 +133,7 @@ def test_wrapper_raises_instead_of_falling_back():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("epilogue", [False, True], ids=["plain", "l2"])
 @pytest.mark.parametrize("shards", [2, 4, 8])
 def test_rank_kernel_over_column_shards_on_card(dtype, epilogue, shards):
@@ -171,7 +171,7 @@ def test_rank_kernel_over_column_shards_on_card(dtype, epilogue, shards):
         c_sum += cm
         vals_sum[keep] = vm
     assert fused_rank_counts.sharded_launches == sharded + shards
-    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    view = torch.int32 if dtype == torch.float32 else torch.int16
 
     def bits(x):
         return torch.where(torch.isnan(x), torch.zeros_like(x.view(view)), x.view(view))
@@ -1661,3 +1661,126 @@ def test_two_worker_grid_search_runs_its_trials_on_card(tmp_path):
     done = [e for e in entries if e.get("event") == "search_completed"
             and e.get("scope") == "train"]
     assert len(done) == 4 and all(0.0 < e["metric_value"] <= 1.0 for e in done)
+
+
+# -- the float16 paths of K1, K2 and K3 (parallel.*_dtype: float16) ----------------
+
+
+def _f16_rank_outputs_equal(got, want):
+    """Counts equal, vals and pivots (float16) equal in bits."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2].view(torch.int16), want[2].view(torch.int16))
+            and torch.equal(got[3].view(torch.int16), want[3].view(torch.int16)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [None, "l2"])
+@pytest.mark.parametrize("D", [30, 64, 132, 201, 512])
+@pytest.mark.parametrize("n", [1, 70, 256])
+@pytest.mark.parametrize("scale", [1.0, 600.0], ids=["unit", "overflow"])
+def test_f16_rank_kernel_counts_equal_plain_on_card(n, D, epilogue, scale):
+    """K1's float16 path (the float32 path's FMA tiles over float16 values
+    widened as they are staged): counts equal the plain version's, vals
+    and pivots equal in bits, across launches and plans, at D of 30 and 201
+    (loads of one value) and 64, 132, 512 (8-byte loads), with the NaN and
+    infinite rows of ``_inputs``; at scale 600 (both operands) many scores
+    overflow float16's range to +-inf (and the L2 epilogue's products below
+    -65,504 score -inf)."""
+    device = _card()
+    E, num_valid = 1000, 937
+    q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(7, n, E, D))
+    q, T = (q * scale).half(), (T * scale).half()
+    true = true % num_valid
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    before = fused_rank_counts.launches, fused_rank_counts.f16_launches
+
+    def run(plan=None):
+        out = fused_rank_counts(q, T, None, row_ptr, cols, num_valid, ATOL,
+                                RTOL, score_map=score_map, pivot_cols=true,
+                                plan=plan)
+        torch.cuda.synchronize()
+        return out
+
+    first = run()
+    assert (fused_rank_counts.launches, fused_rank_counts.f16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert first[2].dtype == first[3].dtype == torch.float16
+    plain = rank_kernel.fused_rank_counts_plain(
+        q, T, None, row_ptr, cols, num_valid, ATOL, RTOL, score_map=score_map,
+        pivot_cols=true)
+    assert _f16_rank_outputs_equal(first, plain)
+    for plan in (None, rank_kernel.rank_plan(n, num_valid, num_ranges=1),
+                 rank_kernel.rank_plan(n, num_valid, num_ranges=3),
+                 rank_kernel.rank_plan(n, num_valid, num_ranges=num_valid)):
+        assert _f16_rank_outputs_equal(run(plan), first), plan
+    if scale > 1 and n > 5:
+        assert bool(torch.isinf(plain[3]).any())
+
+
+@pytest.mark.cuda
+def test_f16_scatter_and_rows_set_match_plain_on_card():
+    """K2's float16 path within one float16 ulp (2^-10 relative) of each
+    row's summed magnitude of the plain version (both sum in float32, in
+    other orders, and round once), at the main shape (16-byte rows) and
+    at D = 30 (4-byte rows); the segment sums the same; a sum past
+    65,504 an infinity in both. K3 bit for bit, in place."""
+    from kge_tpu_torch.ops.embedding_ops import sorted_segment_sums
+
+    device = _card()
+    rng = np.random.default_rng(13)
+    for n, rows, D, scale in ((8192, 14541, 512, 1.0), (129, 237, 30, 1.0),
+                              (4096, 3, 64, 4000.0)):
+        ids = torch.tensor(rng.integers(0, rows, n), device=device)
+        upd = (torch.tensor(rng.normal(0.0, 1.0, (n, D)), device=device)
+               .abs() * scale).half()
+        before = sorted_scatter_add.launches, sorted_scatter_add.f16_launches
+        got = sorted_scatter_add(ids, upd, rows)
+        torch.cuda.synchronize()
+        assert (sorted_scatter_add.launches, sorted_scatter_add.f16_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert got.dtype == torch.float16
+        want = sorted_scatter_add_plain(ids, upd, rows)
+        magnitude = sorted_scatter_add_plain(ids, upd.float().abs(), rows)
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        finite = torch.isfinite(want)
+        assert _within(got[finite], want[finite], 1e-6 + 2.0 ** -10 * magnitude[finite])
+        if scale > 1:
+            assert bool(torch.isinf(got).all())
+        rs, seg, gsum = sorted_segment_sums(ids, upd, rows)
+        distinct = torch.unique(ids)
+        assert gsum.dtype == torch.float16
+        assert torch.equal(torch.isinf(gsum[:distinct.numel()]),
+                           torch.isinf(want[distinct]))
+    table = torch.randn(2000, 512, device=device).half()
+    ids = torch.tensor(rng.integers(0, 2000, 300), device=device)
+    rows = torch.randn(300, 512, device=device).half()
+    rows = rows[torch.searchsorted(torch.unique(ids), ids)]  # equal duplicates
+    want = table.clone()
+    want[ids] = rows
+    storage = table.data_ptr()
+    before = rows_set.f16_launches
+    rows_set(table, ids, rows)
+    assert table.data_ptr() == storage and torch.equal(table, want)
+    assert rows_set.f16_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_f16_stays_out_of_k4_and_k5_on_card():
+    """The fused row update (K4) and the pooled distance kernels (K5a,
+    K5b) have no float16 path yet (ROADMAP A.11b): a float16 CUDA tensor
+    raises there, before a launch."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+    from kge_tpu_torch.ops.optim import fused_sorted_update
+
+    device = _card()
+    ids = torch.tensor([0, 3, 3], device=device)
+    param = torch.zeros(8, 16, device=device).half()
+    states = {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_sorted_update("adam", {}, ids, torch.ones(3, 16, device=device).half(),
+                            param, states, 0.1, 1)
+    q = torch.zeros(4, 16, device=device).half()
+    pool = torch.zeros(6, 16, device=device).half()
+    sel = torch.zeros(4, 3, dtype=torch.int64, device=device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pooled_dist_scores((q,), (pool,), sel, 2, "l1")

@@ -1,6 +1,7 @@
 """kge_tpu's dtype policy in kge_tpu_torch, against kge_tpu on the CPU:
 ``parallel.compute_dtype: bfloat16`` (tables in float32) and both dtypes in
-bfloat16.
+bfloat16; the same in float16 ("f16_compute", "f16_both") on the routes of
+the kernels that have a float16 path (K1, K2, K3: ROADMAP A.11a).
 
 - Training: every ``train.type`` (negative sampling with ComplEx, 1vsAll,
   KvsAll with label smoothing), TransE-L1 with the pool through the pooled
@@ -15,11 +16,14 @@ bfloat16.
   2^-8 each relative, at the tables' magnitudes of 0.1 to 1 and the
   batch-norm variances' of 10 to 30; the two packages sum bfloat16
   products in other orders, and a rounding that differs once moves a later
-  step's result by an ulp).
+  step's result by an ulp). In float16 (negative sampling, 1vsAll, KvsAll,
+  TransE-L1 on the row-sparse write, ConvE): losses rtol 5e-3, tables atol
+  5e-3 plus rtol 5e-3, about five float16 ulps (2^-10 relative) at the
+  tables' magnitudes of 0.1 to 1, for the same reason.
 - Each kernel's plain bfloat16 version against kge_tpu's function, run as
   kge_tpu's own tests run it (interpret mode on the CPU): the scatter (K2),
   the row write (K3), the fused row update (K4), the pooled distance scores
-  and their backward (K5a, K5b).
+  and their backward (K5a, K5b); the plain float16 versions of K2 and K3.
 - Evaluation of one bfloat16 model by both packages: ranks are equal on
   every (row, direction) whose bfloat16 score row equals kge_tpu's bit for
   bit, and differ elsewhere by no more than the count of differing entries.
@@ -50,12 +54,23 @@ SETTINGS = {
     "compute": {"parallel.compute_dtype": "bfloat16"},
     "both": {"parallel.compute_dtype": "bfloat16",
              "parallel.param_dtype": "bfloat16"},
+    "f16_compute": {"parallel.compute_dtype": "float16"},
+    "f16_both": {"parallel.compute_dtype": "float16",
+                 "parallel.param_dtype": "float16"},
 }
 
 #: bfloat16 tolerances of the training comparison (module docstring)
 LOSS_RTOL = 2e-2
 TABLE_ATOL = 2e-2
 TABLE_RTOL = 2e-2
+#: float16 tolerances: (loss rtol, table atol, table rtol)
+TOLERANCES = {"bfloat16": (LOSS_RTOL, TABLE_ATOL, TABLE_RTOL),
+              "float16": (5e-3, 5e-3, 5e-3)}
+
+
+def _dtype_of(setting) -> str:
+    """The narrow dtype a setting names."""
+    return "float16" if str(setting).startswith("f16") else "bfloat16"
 
 #: Adagrad from a non-zero accumulator and smooth losses: from a zero
 #: accumulator Adagrad's first step is +-lr times the sign of each gradient
@@ -82,6 +97,15 @@ CASES = {
 ROTATE_FUSED = pooled_options(
     "rotate", **{"negative_sampling.pooled_kernel": "always",
                  "train.sparse_embedding_update": "always"})
+
+#: the routes float16 trains on: those of K1, K2 and K3 (K4 and K5 are
+#: refused in float16, ROADMAP A.11b)
+F16_CASES = ("1vsAll", "KvsAll", "negative_sampling", "transe_rows")
+#: (case, setting) of the training comparison
+TRAINING = [(case, setting) for setting in ("both", "compute")
+            for case in sorted(CASES)] + [
+    (case, setting) for setting in ("f16_both", "f16_compute")
+    for case in F16_CASES]
 
 #: reciprocal ConvE, 1vsAll with Adagrad
 CONVE = neural_options("conve", **{
@@ -123,28 +147,30 @@ def _step(jjob, tjob, kind, step):
     return run_batch_steps(jjob, tjob, steps=1)[0]
 
 
-def _assert_tables_close(jjob, tjob):
+def _assert_tables_close(jjob, tjob, dtype="bfloat16"):
+    _, atol, rtol = TOLERANCES[dtype]
     for t, j in zip(tjob.optimizer.params, jax_tables(jjob), strict=True):
-        np.testing.assert_allclose(_np(t), _np(j), atol=TABLE_ATOL,
-                                   rtol=TABLE_RTOL)
+        np.testing.assert_allclose(_np(t), _np(j), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("setting", sorted(SETTINGS))
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case,setting", TRAINING,
+                         ids=[f"{c}-{s}" for c, s in TRAINING])
 def test_training_matches_kge_tpu(case, setting):
     options, kind = CASES[case]
+    dtype = _dtype_of(setting)
+    loss_rtol = TOLERANCES[dtype][0]
     jjob, tjob = make_job_pair(DATASET_DIR, "dataset_test",
                                _options(options, setting))
     want, got = _leaf_dtypes(jjob, tjob)
     assert got == want
-    param_dtype = "bfloat16" if setting == "both" else "float32"
+    param_dtype = dtype if setting.endswith("both") else "float32"
     assert want[0][0] == param_dtype  # the entity table, before a step
     for step in range(3):
         jloss, tloss = _step(jjob, tjob, kind, step)
-        np.testing.assert_allclose(tloss, jloss, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(tloss, jloss, rtol=loss_rtol)
         want, got = _leaf_dtypes(jjob, tjob)
         assert got == want, step
-    _assert_tables_close(jjob, tjob)
+    _assert_tables_close(jjob, tjob, dtype)
 
 
 def test_fused_row_update_keeps_bfloat16_tables():
@@ -186,9 +212,14 @@ def test_conve_computes_in_float32_where_kge_tpu_raises(synth, setting):
     """ConvE's float32 scorer parameters meet the bfloat16 embeddings in
     float32 in the port, as JAX promotes mixed operands; kge_tpu's
     convolution refuses the mix (``lax.conv_general_dilated requires
-    arguments to have the same dtypes``, ROADMAP C.4). The port's steps agree
-    with kge_tpu's float32 steps from the same weights within the bfloat16
-    tolerances, and its leaves have the policy's dtypes."""
+    arguments to have the same dtypes``, ROADMAP C.4), in bfloat16 and in
+    float16. The port's steps agree with kge_tpu's float32 steps from the
+    same weights within the bfloat16 tolerances, and its leaves have the
+    policy's dtypes. What differs is the rounding of the embeddings to the
+    narrow dtype, which batch norm amplifies; float16 rounds 8 times finer
+    than bfloat16, so the bfloat16 tolerances bound it too (float16 tables
+    come within 9e-3 of the float32 steps, beyond the float16 parity
+    tolerance of the other routes, which compare float16 with float16)."""
     options = _options({**CONVE, "train.batch_size": 32}, setting)
     jjob16, tjob = make_job_pair(synth, synth.name, options)
     with pytest.raises(TypeError, match="same dtypes"):
@@ -216,58 +247,94 @@ def _bf16(rng, *shape, scale=1.0):
     return x, torch.tensor(x).bfloat16(), jnp.asarray(x, jnp.bfloat16)
 
 
-def _close_in_bf16(got: torch.Tensor, want, magnitude, ulps: int = 2):
+def _f16(rng, *shape, scale=1.0):
+    """The same in float16."""
+    x = rng.normal(0.0, scale, shape).astype(np.float16).astype(np.float32)
+    return x, torch.tensor(x).half(), jnp.asarray(x, jnp.float16)
+
+
+#: per dtype: (its unit roundoff, the values of _bf16 / _f16, torch dtype)
+NARROW = {"bfloat16": (2.0 ** -8, _bf16, torch.bfloat16),
+          "float16": (2.0 ** -11, _f16, torch.float16)}
+
+
+def _close_in_bf16(got: torch.Tensor, want, magnitude, ulps: int = 2,
+                   unit: float = 2.0 ** -8):
     """|got - want| <= ulps bfloat16 ulps of ``magnitude`` (the summed
     absolute terms of each entry) plus 1e-6: two float32 sums of the same
-    bfloat16 terms in other orders, each rounded once."""
+    bfloat16 terms in other orders, each rounded once. ``unit``: the unit
+    roundoff, float16's for float16."""
     got, want = _np(got), _np(want)
-    bound = 1e-6 + ulps * 2.0 ** -8 * np.asarray(magnitude, np.float32)
+    bound = 1e-6 + ulps * unit * np.asarray(magnitude, np.float32)
     assert np.all(np.abs(got - want) <= bound), float(
         np.max(np.abs(got - want) - bound))
 
 
-def test_scatter_plain_matches_kge_tpu():
-    """K2: bfloat16 updates summed in float32 and rounded once to
-    bfloat16, against kge_tpu's kernel in interpret mode."""
+def _scatter_plain_matches_kge_tpu(dtype):
     from kge_tpu.ops import pallas_ops
     from kge_tpu_torch.ops.embedding_ops import (
         sorted_scatter_add,
         sorted_segment_sums,
     )
 
+    unit, values, tdtype = NARROW[dtype]
     rng = np.random.default_rng(0)
     n, rows, d = 300, 40, 128
     ids = rng.integers(0, rows, n)
-    upd, upd_t, upd_j = _bf16(rng, n, d)
+    upd, upd_t, upd_j = values(rng, n, d)
     want = pallas_ops.sorted_scatter_add(jnp.asarray(ids), upd_j, rows,
                                          interpret=True)
     got = sorted_scatter_add(torch.tensor(ids), upd_t, rows)
-    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.dtype == tdtype and want.dtype == jnp.dtype(dtype)
     magnitude = np.zeros((rows, d), np.float32)
     np.add.at(magnitude, ids, np.abs(upd))
-    _close_in_bf16(got, want, magnitude)
+    _close_in_bf16(got, want, magnitude, unit=unit)
     rs, seg, gsum = sorted_segment_sums(torch.tensor(ids), upd_t, rows)
-    assert gsum.dtype == torch.bfloat16
+    assert gsum.dtype == tdtype
     distinct = np.unique(ids)
     _close_in_bf16(gsum[:len(distinct)], np.asarray(want, np.float32)[distinct],
-                   magnitude[distinct])
+                   magnitude[distinct], unit=unit)
 
 
-def test_rows_set_plain_matches_kge_tpu():
-    """K3: 2-byte rows into a bfloat16 table, bit for bit."""
+def test_scatter_plain_matches_kge_tpu():
+    """K2: bfloat16 updates summed in float32 and rounded once to
+    bfloat16, against kge_tpu's kernel in interpret mode."""
+    _scatter_plain_matches_kge_tpu("bfloat16")
+
+
+def test_scatter_plain_matches_kge_tpu_in_float16():
+    """K2 in float16, as in bfloat16: the port rounds each output element
+    once; kge_tpu adds each chunk's float32 sum into its float16 output, so
+    a row whose updates span chunks is rounded once a chunk: within two
+    float16 ulps (2^-11 relative each) of the summed magnitudes."""
+    _scatter_plain_matches_kge_tpu("float16")
+
+
+def _rows_set_plain_matches_kge_tpu(dtype):
     from kge_tpu.ops import pallas_ops
     from kge_tpu_torch.ops.embedding_ops import rows_set
 
+    _, values, tdtype = NARROW[dtype]
     rng = np.random.default_rng(1)
-    _, table_t, table_j = _bf16(rng, 50, 128)
-    _, rows_t, rows_j = _bf16(rng, 4, 128)
+    _, table_t, table_j = values(rng, 50, 128)
+    _, rows_t, rows_j = values(rng, 4, 128)
     rows_t[2] = rows_t[1]
     rows_j = rows_j.at[2].set(rows_j[1])
     ids = np.array([4, 9, 9, 30])
     want = pallas_ops.rows_set(table_j, jnp.asarray(ids), rows_j, interpret=True)
     got = rows_set(table_t.clone(), torch.tensor(ids), rows_t)
-    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.dtype == tdtype and want.dtype == jnp.dtype(dtype)
     assert np.array_equal(_np(got), _np(want))
+
+
+def test_rows_set_plain_matches_kge_tpu():
+    """K3: 2-byte rows into a bfloat16 table, bit for bit."""
+    _rows_set_plain_matches_kge_tpu("bfloat16")
+
+
+def test_rows_set_plain_matches_kge_tpu_in_float16():
+    """K3: 2-byte rows into a float16 table, bit for bit."""
+    _rows_set_plain_matches_kge_tpu("float16")
 
 
 FUSED_RULES = [
@@ -398,10 +465,11 @@ def _example_ranks(config):
     return seen
 
 
-def _score_rows(jmodel, params, tmodel, triples, E):
-    """{direction: (kge_tpu's bfloat16 score matrix, the port's)}, each
-    [n, E]: the matrices each package ranks (kge_tpu's grouped route or its
-    sp_/_po scores; the port's rank-kernel product or its score matrix)."""
+def _score_rows(jmodel, params, tmodel, triples, E, dtype=torch.bfloat16):
+    """{direction: (kge_tpu's bfloat16 (or ``dtype``) score matrix, the
+    port's)}, each [n, E]: the matrices each package ranks (kge_tpu's
+    grouped route or its sp_/_po scores; the port's rank-kernel product or
+    its score matrix)."""
     from kge_tpu_torch.ops.rank_kernel import chain_scores
 
     t_triples = torch.tensor(triples)
@@ -428,7 +496,7 @@ def _score_rows(jmodel, params, tmodel, triples, E):
                 got = tmodel.score_sp(t_triples[:, 0], t_triples[:, 1])
             else:
                 got = tmodel.score_po(t_triples[:, 1], t_triples[:, 2])
-        assert got.dtype == torch.bfloat16
+        assert got.dtype == dtype
         out[key] = (want, got.float().numpy())
     return out
 

@@ -9,7 +9,10 @@ on dataset_test, on the CPU), once refused by the port:
   tolerances and checkpoints of the same dtypes; kge_tpu on
   ``train.epoch_scan: never`` (its scanned KvsAll epoch fails on bfloat16
   tables, ROADMAP C.4);
-- any other dtype (``float16``): the port raises (ROADMAP A.11);
+- float16 trains (ROADMAP A.11a; tests/test_torch_float16.py) but on the
+  routes of the kernels without a float16 path yet (the fused row update
+  on the row-sparse step, the pooled distance kernels), which the port
+  refuses naming ROADMAP A.11b; any other dtype (``float64``) is refused;
 - a device mesh larger than one card (``parallel.data`` or
   ``parallel.model`` above 1): the port raises with kge_tpu's message, as
   kge_tpu does on one device.
@@ -26,6 +29,10 @@ tests/test_torch_distributed_auto.py), the data axis with
 without a launcher's environment is refused, as kge_tpu's
 ``jax.distributed.initialize()`` refuses it, and so is a mesh that does not
 fit the ranks. One process, or none named, still trains.
+
+The command that found ROADMAP C.7, whose setting the port ignored:
+``train.subbatch_auto_tune`` under a mesh of 2 x 1 ranks is refused, naming
+ROADMAP A.12, where kge_tpu would halve the subbatch and retry.
 """
 
 import subprocess
@@ -115,17 +122,34 @@ def test_bfloat16_dtypes_train_as_kge_tpu_trains(tmp_path, options):
     assert dtypes["port"] == dtypes["kge_tpu"]
 
 
-@pytest.mark.parametrize("options,message", [
-    (["--parallel.param_dtype", "float16"], "parallel.param_dtype=float16"),
-], ids=["param"])
-def test_dtypes_other_than_float32_are_refused(tmp_path, options, message):
-    """Dtypes other than float32 and bfloat16 (kge_tpu would run them)."""
+NEGS = str(EXAMPLES_DIR / "toy-complex-train-negs.yaml")
+TRANSE = str(EXAMPLES_DIR / "toy-transe-train.yaml")
+
+
+@pytest.mark.parametrize("config,options,message", [
+    (TOY, ["--parallel.param_dtype", "float64"],
+     "parallel.param_dtype=float64: kge_tpu_torch runs float32, bfloat16 and "
+     "float16"),
+    (NEGS, ["--parallel.param_dtype", "float16", "--train.sparse_embedding_update",
+            "always", "--train.optimizer.default.type", "Adam"],
+     "parallel.param_dtype=float16 on the row-sparse step"),
+    (TRANSE, ["--parallel.compute_dtype", "float16", "--transe.l_norm", "1.0",
+              "--negative_sampling.implementation", "pool",
+              "--negative_sampling.pooled_kernel", "always"],
+     "parallel.compute_dtype=float16 with pooled l1 scores"),
+], ids=["param", "rows_adam", "pooled"])
+def test_dtypes_other_than_float32_are_refused(tmp_path, config, options, message):
+    """What stays refused of the dtypes (kge_tpu would run them): float64,
+    and float16 on the routes of the kernels that have no float16 path yet,
+    naming ROADMAP A.11b: Adam on the row-sparse step (the fused row update)
+    and pooled TransE-L1 scores (the pooled distance kernels)."""
     cwd = _toy_cwd(tmp_path)
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", TOY,
+    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", config,
                  "--job.device", "cpu", *options, "--folder", str(cwd / "x")],
                 cwd=cwd, check=False)
     assert proc.returncode != 0
-    assert message in proc.stderr and "ROADMAP A.11" in proc.stderr
+    assert f"ValueError: {message}" in proc.stderr, proc.stderr[-2000:]
+    assert ("ROADMAP A.11b" in proc.stderr) == ("float16" in options)
 
 
 @pytest.mark.parametrize("options,message", [
@@ -178,7 +202,11 @@ CONVE = str(EXAMPLES_DIR / "toy-conve-train.yaml")
     (TOY, ["--parallel.data", "2", "--parallel.model", "1", "--train.subbatch_size",
            "2"], 2, "environment", None),
     (CONVE, ["--parallel.data", "2"], 2, "environment", None),
-], ids=["coordinator", "auto", "auto_torchrun", "environment", "conve_statistics"])
+    (TOY, ["--parallel.data", "2", "--train.subbatch_auto_tune", "true"], 2,
+     "environment", "train.subbatch_auto_tune=True under the 2x1 mesh: its ranks "
+     "would have to agree to retry a step, which is not ported (ROADMAP A.12)"),
+], ids=["coordinator", "auto", "auto_torchrun", "environment", "conve_statistics",
+        "auto_tune"])
 def test_runs_over_several_processes_are_refused(tmp_path, config, options, ranks,
                                                  by, message):
     """Runs over several processes train (tests/test_torch_parallel.py),
@@ -190,7 +218,8 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
     (``message``): ``auto`` without a launcher environment, and a mesh that
     leaves a rank without a place, with kge_tpu's kind of message. The
     ranks come up from the ``parallel.distributed`` keys ("config"), the
-    ``KGE_*`` environment or torchrun's variables."""
+    ``KGE_*`` environment or torchrun's variables. ``train.subbatch_auto_tune``
+    under the 2 x 1 mesh is refused on every rank, naming ROADMAP A.12 (C.7)."""
     from tests.test_torch_distributed_auto import LAUNCH_VARIABLES
     from tests.torch_mesh import free_port
     from tests.util import make_synthetic_dataset
