@@ -281,24 +281,36 @@ Phases (any failure exits non-zero; nothing is caught):
    step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
    states the bound), and the warm epochs of X-complex and P-rotate,
    profiled (X-complex's GEMM milliseconds, P-rotate's K5b share).
-   Then float16 (ROADMAP A.11a; ``run_float16``): the float16 paths of the
-   rank kernel (identity and L2 epilogue, as above: counts equal, vals and
-   pivots bit for bit, two launches bit-equal; library: cuBLAS's fp16
-   product and the compares), of ``rank_pivots`` on one 1,200,000-column
-   shard (equal in bits, -0.0 off the shard), of the scatter (within a
-   float16 ulp of the sums; ``index_add_`` in float16) and of the row write
-   (exact; ``index_copy_``) at the bfloat16 rows' shapes, the bound at
+   Then float16 (ROADMAP A.11a and A.11b; ``run_float16``): the float16
+   paths of the rank kernel (identity and L2 epilogue, as above: counts
+   equal, vals and pivots bit for bit, two launches bit-equal; library:
+   cuBLAS's fp16 product and the compares), of ``rank_pivots`` on one
+   1,200,000-column shard (equal in bits, -0.0 off the shard), of the
+   scatter (within a float16 ulp of the sums; ``index_add_`` in float16),
+   of the row write (exact; ``index_copy_``), of Adam's fused update
+   (within a float16 ulp or 2^-24, two launches bit-equal; ``index_add_`` +
+   fused Adam on float16) and of the pooled scores and their backward
+   (within an ulp, plus 2^-12 of the summed magnitudes for dq and dpool,
+   with rows of zero and of underflowing ``cmod`` distances whose
+   infinities and NaNs must fall where the plain version's do) at the
+   bfloat16 rows' shapes (K5: ``cmod`` and ``l1`` at d = 128), the bound at
    float16 bytes and fp16 products over 989 TFLOP/s; then through
-   ``cli.main``, counts set to 0 before and read after each: T-transe-l2's
-   ``test`` and phase 3's ``test`` with ``--parallel.compute_dtype float16``
-   (every rank launch the float16 path, with the L2 epilogue in the
-   first; two test batches' ranks of the second through the kernel equal
-   the plain version's), T-sparse with both dtypes in float16 for one epoch
-   (K3 4 and K2 7 times a step, all float16; tables float16 in the
-   checkpoint; if Adagrad from a zero accumulator gives kge_tpu's NaN there,
-   it is logged and the epoch runs from ``initial_accumulator_value`` 0.1),
-   and P-rotate's config in float16, which must be refused naming ROADMAP
-   A.11b.
+   ``cli.main``, counts set to 0 before and
+   read after each: T-transe-l2's ``test`` and phase 3's ``test`` with
+   ``--parallel.compute_dtype float16`` (every rank launch the float16
+   path, with the L2 epilogue in the first; two test batches' ranks of the
+   second through the kernel equal the plain version's), T-sparse with
+   both dtypes in float16 for one epoch (K3 4 and K2 7 times a step, all
+   float16; tables float16 in the checkpoint; if Adagrad from a zero
+   accumulator gives kge_tpu's NaN there, it is logged and the epoch runs
+   from ``initial_accumulator_value`` 0.1), P-transe in float16 compute
+   for one epoch (K5a and K5b 2 a step, all float16) and P-rotate with both
+   dtypes in float16 for one epoch (K4, K5a and K5b 2 a step each, all
+   float16; tables and Adam's moments float16 in the checkpoint; the
+   non-finite entries of K5b's outputs counted, and the first step's
+   elements at distance 0; if the epoch ends in kge_tpu's ``Cost became
+   nan``, that is logged), then one step of it card against CPU at a
+   quarter of its batch.
 23. Hyperparameter search and the tools that read its results, through
    ``cli.main`` in ``build/chip_smoke`` (where ``data/`` names the
    datasets): (a) a grid search over T-dense's configuration (lr 0.1 and
@@ -3506,32 +3518,42 @@ def narrow_rows_set_case(seed: int, device, dtype=torch.bfloat16):
             "max_abs_err": 0.0}
 
 
-def bf16_fused_case(seed: int, device):
-    """K4's bfloat16 path: Adam, 10,240 row gradients into [200,000, 1,024]
-    bfloat16 with bfloat16 moments, within one bfloat16 ulp of the plain
-    version (the gradients' duplicates agree in sign)."""
+def narrow_fused_case(seed: int, device, dtype=torch.bfloat16):
+    """K4's bfloat16 (or float16) path: Adam, 10,240 row gradients into
+    [200,000, 1,024] of the dtype with moments of the dtype, within one ulp
+    of the plain version (float16: or its subnormal spacing, 2^-24; the
+    gradients' duplicates agree in sign), NaN where it is NaN; two launches
+    from one state equal in bits."""
     from kge_tpu_torch.ops.optim import fused_sorted_update, fused_sorted_update_plain
 
+    tag, ulp = NARROW[dtype]
+    tiny = 2.0 ** -24 if dtype == torch.float16 else 0.0
     rng = np.random.default_rng(seed + 25)
     generator = torch.Generator(device=device).manual_seed(seed + 25)
     name, rows, D, ids_np = fused_cases(rng)[0]
     n = len(ids_np)
     ids = torch.tensor(ids_np, dtype=torch.int64, device=device)
-    upd = signed_updates(ids, D, generator).bfloat16()
+    upd = signed_updates(ids, D, generator).to(dtype)
     param, states = fused_state("adam", {}, rows, D, generator, device)
-    param = param.bfloat16()
-    states = {k: v.bfloat16() for k, v in states.items()}
+    param = param.to(dtype)
+    states = {k: v.to(dtype) for k, v in states.items()}
     ref_param, ref_states = param.clone(), {k: v.clone() for k, v in states.items()}
+    again, again_states = param.clone(), {k: v.clone() for k, v in states.items()}
     lr, step = ROTATE_LR, 3
     fused_sorted_update("adam", {}, ids, upd, param, states, lr, step)
+    fused_sorted_update("adam", {}, ids, upd, again, again_states, lr, step)
     fused_sorted_update_plain("adam", {}, ids, upd, ref_param, ref_states, lr, step)
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in
+              [(param, again)] + [(states[k], again_states[k]) for k in states]),
+          f"{tag} fused update: two launches from one state differ in bits")
+    del again, again_states
     worst = 0.0
     for got, want in [(param, ref_param)] + [(states[k], ref_states[k]) for k in states]:
-        check(got.dtype == torch.bfloat16)
-        err = (got.float() - want.float()).abs()
-        check(bool((err <= BF16_ULP * want.float().abs()).all()),
-              "bf16 fused update differs from its plain version by more than an ulp")
-        worst = max(worst, float(err.max()))
+        check(got.dtype == dtype)
+        check(same_non_finite_within(got, want, ulp * want.float().abs() + tiny),
+              f"{tag} fused update differs from its plain version by more than an ulp")
+        finite = torch.isfinite(want)
+        worst = max(worst, float((got.float() - want.float())[finite].abs().max()))
     del ref_param, ref_states
     ms = time_ms(lambda: fused_sorted_update("adam", {}, ids, upd, param, states,
                                              lr, step), reps=10)
@@ -3547,11 +3569,12 @@ def bf16_fused_case(seed: int, device):
     library_ms = time_ms(library, reps=10)
     del weight, adam
     nbytes = 2.0 * (2 * 3 * rows * D + n * D) + 8.0 * n
-    bound_ms, bound_by, _ = bf16_bound(nbytes, flops=12.0 * rows * D)
-    log(f"  fused_row_update bf16 (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms, "
+    bound_ms, bound_by, _ = bf16_bound(nbytes, flops=12.0 * rows * D, name=tag)
+    log(f"  fused_row_update {tag} (Adam) {name} [{rows}, {D}] n={n}: {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library index_add_ + torch.optim.Adam(fused=True) "
-        f"on bf16 {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max abs "
-        f"difference from plain {worst:.3e} (within one bf16 ulp)")
+        f"on {tag} {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); max abs "
+        f"difference from plain {worst:.3e} (within one {tag} ulp); two launches "
+        f"bit-equal")
     del param, states, upd
     torch.cuda.empty_cache()
     return {"shape": f"Adam [{rows}, {D}] n={n}", "ms": ms, "plain_ms": plain_ms,
@@ -3559,32 +3582,60 @@ def bf16_fused_case(seed: int, device):
             "max_abs_err": worst}
 
 
-def bf16_pooled_case(seed: int, device):
-    """K5a and K5b's bfloat16 paths against the plain version at P-rotate's
-    shape (cmod, n = 4,096, K = 128, F = 8, d = 512 a part) and P-transe's
-    two (l1, n = 8,192, K = 128, F = 8, d = 128 and 512): scores within
-    one bfloat16 ulp, dq and dpool within one ulp plus 2^-12 of the summed
-    factor magnitudes (2 |g| each); two launches bit-equal. Times of the
-    kernels, the plain version and, for l1, one library call: torch.cdist
-    (p = 1) + gather in float32 on the same inputs (no one call computes
-    cmod). Returns (forward cases, backward cases), P-rotate's first."""
+def same_non_finite_within(got, want, bound) -> bool:
+    """NaN, +inf and -inf in the same places of ``got`` and ``want``, and
+    elsewhere |got - want| <= bound (a tensor that broadcasts, or a
+    number)."""
+    got, want = got.float(), want.float()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(got), test(want)):
+            return False
+    finite = torch.isfinite(want)
+    bound = torch.as_tensor(bound, dtype=torch.float32, device=want.device)
+    bound = bound.expand_as(want)
+    return bool(((got - want).abs()[finite] <= bound[finite]).all())
+
+
+def narrow_pooled_case(seed: int, device, dtype=torch.bfloat16, shapes=3):
+    """K5a and K5b's bfloat16 (or float16) paths against the plain version
+    at P-rotate's shape (cmod, n = 4,096, K = 128, F = 8, d = 512 a part)
+    and P-transe's two (l1, n = 8,192, K = 128, F = 8, d = 128 and 512):
+    scores within one ulp, dq and dpool within one ulp plus 2^-12 of the
+    summed factor magnitudes (2 |g| each), NaN and +-inf in the same
+    places; two launches bit-equal. ``pooled_inputs`` puts a zero distance
+    in every seventh row, and in float16 a block of rows has differences
+    of 2^-13 at 0.1875, whose squares underflow: cmod's factors there are
+    g / 0 times the difference, non-finite in dq and dpool (their count is
+    returned). Times of the kernels, the plain version and, for l1, one
+    library call: torch.cdist (p = 1) + gather in float32 on the same
+    inputs (no one call computes cmod). ``shapes``: the first 2 or all 3
+    of them. Returns (forward cases, backward cases), P-rotate's first."""
     forward, backward = [], []
     generator = torch.Generator(device=device).manual_seed(seed + 26)
-    for case in (POOLED_CASES[2], POOLED_CASES[0], POOLED_CASES[1]):
-        fwd, bwd = bf16_pooled_shape(case, generator, device)
+    for case in (POOLED_CASES[2], POOLED_CASES[0], POOLED_CASES[1])[:shapes]:
+        fwd, bwd = narrow_pooled_shape(case, generator, device, dtype)
         forward.append(fwd)
         backward.append(bwd)
     return forward, backward
 
 
-def bf16_pooled_shape(case, generator, device):
+def narrow_pooled_shape(case, generator, device, dtype=torch.bfloat16):
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
 
+    tag, ulp = NARROW[dtype]
     name, kind, n, K, F, d, _, _ = case
     queries, pools, sel = pooled_inputs(kind, n, K, F, d, generator, device)
-    leaves = [x.bfloat16().requires_grad_(True) for x in queries + pools]
-    g = torch.randn(n, K, generator=generator, device=device).bfloat16()
+    leaves = [x.to(dtype) for x in queries + pools]
     parts = len(queries)
+    if dtype == torch.float16 and kind == "cmod":
+        # rows 1, 8, 15, ... at slot 2: |diff| = 2^-13 in the first 8 columns
+        for i in range(1, n, 7):
+            row = 2 * F + int(sel[i, 2])
+            for p in range(parts):
+                leaves[parts + p][row, :8] = 0.1875
+                leaves[p][i, :8] = 0.1875 + 2.0 ** -13
+    leaves = [x.requires_grad_(True) for x in leaves]
+    g = torch.randn(n, K, generator=generator, device=device).to(dtype)
     del queries, pools
 
     def run(fn, tensors=leaves):
@@ -3597,26 +3648,29 @@ def bf16_pooled_shape(case, generator, device):
     (out, grads), (out2, grads2) = runs
     check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
               for a, b in zip((out, *grads), (out2, *grads2))),
-          f"bf16 pooled kernels not bit-equal across launches ({name})")
+          f"{tag} pooled kernels not bit-equal across launches ({name})")
     ref = run(pooled_dist_scores_plain)
     ref_grads = torch.autograd.grad(ref, leaves, g)
-    err = (out.float() - ref.detach().float()).abs()
-    check(out.dtype == torch.bfloat16 and bool(
-        (err <= 1e-6 + BF16_ULP * ref.float().abs()).all()),
-        f"bf16 pooled scores differ from the plain version by more than an ulp ({name})")
-    fwd_err = float(err.max())
+    ref = ref.detach()
+    check(out.dtype == dtype and same_non_finite_within(
+        out, ref, 1e-6 + ulp * ref.float().abs()),
+        f"{tag} pooled scores differ from the plain version by more than an ulp ({name})")
+    fwd_err = float((out.float() - ref.float())[torch.isfinite(ref)].abs().max())
     rows = (torch.arange(K, device=device)[None, :] * F + sel.long()).reshape(-1)
     dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
     dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
         0, rows, 2 * g.float().abs().reshape(-1, 1))
-    bwd_err = 0.0
+    bwd_err, non_finite = 0.0, 0
     for i, (got, want) in enumerate(zip(grads, ref_grads)):
         mag = dq_mag if i < parts else dpool_mag
-        e = (got.float() - want.float()).abs()
-        check(got.dtype == torch.bfloat16 and bool(
-            (e <= 1e-6 + BF16_ULP * want.float().abs() + 2.0 ** -12 * mag).all()),
-            f"bf16 pooled gradient {i} differs from the plain version ({name})")
-        bwd_err = max(bwd_err, float(e.max()))
+        check(got.dtype == dtype and same_non_finite_within(
+            got, want, 1e-6 + ulp * want.float().abs() + 2.0 ** -12 * mag),
+            f"{tag} pooled gradient {i} differs from the plain version ({name})")
+        finite = torch.isfinite(want)
+        non_finite += int((~finite).sum())
+        bwd_err = max(bwd_err, float((got.float() - want.float())[finite].abs().max()))
+    if dtype == torch.float16 and kind == "cmod":
+        check(non_finite > 0, f"f16 pooled gradients: no zero distance ({name})")
     del out, grads, out2, grads2, runs, ref, ref_grads, dq_mag, dpool_mag
     # the library call in float32 on the same (bfloat16) inputs
     leaves32 = [x.detach().float().requires_grad_(True) for x in leaves]
@@ -3657,16 +3711,18 @@ def bf16_pooled_shape(case, generator, device):
             ("pooled_scores", 0, fwd_bound, fwd_err),
             ("pooled_scores_bwd", 1, bwd_bound, bwd_err)):
         lib_ms = times["library"][index]
-        log(f"  {label} bf16 {name} ({kind}) n={n} K={K} F={F} d={d}: "
+        log(f"  {label} {tag} {name} ({kind}) n={n} K={K} F={F} d={d}: "
             f"{times['kernel'][index]:.4f} ms, plain {times['plain'][index]:.4f} ms, "
             f"library ({library_name}) "
             f"{'null' if lib_ms is None else format(lib_ms, '.4f') + ' ms'}, bound "
             f"{bound_ms:.4f} ms ({bound_by}: {term}); max abs difference from plain "
-            f"{max_err:.3e}; two launches bit-equal")
+            f"{max_err:.3e}; two launches bit-equal"
+            + (f"; {non_finite} non-finite gradient entries in both" if index else ""))
         out.append({"shape": f"{name} ({kind}) n={n} K={K} F={F} d={d}",
                     "ms": times["kernel"][index], "plain_ms": times["plain"][index], "library_ms": lib_ms,
                     "library": library_name, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bound_term": term, "max_abs_err": max_err})
+                    "bound_by": bound_by, "bound_term": term, "max_abs_err": max_err,
+                    **({"non_finite_gradient_entries": non_finite} if index else {})})
     del leaves, leaves32, sel, g, rows, gather
     torch.cuda.empty_cache()
     return out
@@ -3692,11 +3748,11 @@ def bf16_fast_ops_exact(device):
     return counts
 
 
-def card_vs_cpu_step(folder, checkpoint, lr, what):
-    """One step of a bfloat16 job on the card and on the CPU from
-    ``checkpoint``, the same batch and negatives (drawn on the card). The
-    bound: an element of a table or state within 1e-6 + 1e-5 |CPU| (float32)
-    or one bfloat16 ulp of |CPU| (bfloat16), plus 2^-5 of the step's own
+def card_vs_cpu_step(folder, checkpoint, lr, what, **overrides):
+    """One step of a bfloat16 (or float16) job on the card and on the CPU
+    from ``checkpoint``, the same batch and negatives (drawn on the card).
+    The bound: an element of a table or state within 1e-6 + 1e-5 |CPU|
+    (float32) or one ulp of |CPU| (bfloat16, float16), plus 2^-5 of the step's own
     size |CPU - before| (the step's inputs are bfloat16 scores or gradients,
     summed in other orders on the two devices). Two things move an element
     further, and the rule turns either into a step of its own of up to lr
@@ -3707,8 +3763,13 @@ def card_vs_cpu_step(folder, checkpoint, lr, what):
     weights of its row by a fraction of themselves. At most 1% of the
     elements may lie beyond that bound (up to 0.1% were, in the runs that
     chose it), and all within it plus 2.1 lr. The step must move the tables.
-    Losses within rtol 1e-2."""
-    jobs = {device: resumed_job(folder, checkpoint, **{"job.device": device})
+    Losses within rtol 1e-2. In float16 an element may be non-finite on one
+    device only, at most 1e-6 of them (counted): a RotatE query whose
+    rotation (cos and sin, which the two devices may round apart in a last
+    bit) meets its candidate exactly on one device has a cmod distance of 0
+    there, and its gradient is g / 0 times the difference. ``overrides``
+    set configuration keys of both jobs (a smaller batch)."""
+    jobs = {device: resumed_job(folder, checkpoint, **{"job.device": device, **overrides})
             for device in ("cuda", "cpu")}
     batch = next(iter(jobs["cuda"]._batches()))
     variant = jobs["cuda"]._step_variant(batch)
@@ -3725,16 +3786,23 @@ def card_vs_cpu_step(folder, checkpoint, lr, what):
     torch.cuda.synchronize()
     (cost_c, card), (cost_h, cpu) = out["cuda"], out["cpu"]
     check(abs(cost_c - cost_h) <= 1e-2 * abs(cost_h), (what, cost_c, cost_h))
-    worst, beyond, total, moved = 0.0, 0, 0, 0.0
+    worst, beyond, total, moved, one_sided = 0.0, 0, 0, 0.0, 0
     cpu_seen = []
     for a, b, b0 in zip(card, cpu, before):
         cpu_seen.append(b)
-        moved = max(moved, float((b.float() - b0).abs().max()))
+        moved = max(moved, float((b.float() - b0).abs().nan_to_num(nan=0.0).max()))
         check(a.dtype == b.dtype, f"{what}: dtypes {a.dtype} and {b.dtype}")
         a, bf = a.float(), b.float()
-        rel = BF16_ULP if b.dtype == torch.bfloat16 else 1e-5
+        rel = NARROW[b.dtype][1] if b.dtype in NARROW else 1e-5
         strict = 1e-6 + rel * bf.abs() + 2.0 ** -5 * (bf - b0).abs()
-        err = (a - bf).abs()
+        # the same infinity or NaN on both devices is no difference
+        same = (a == bf) | (torch.isnan(a) & torch.isnan(bf))
+        if b.dtype == torch.float16:
+            apart = torch.isfinite(a) != torch.isfinite(bf)
+            one_sided += int(apart.sum())
+            same |= apart
+        err = torch.where(same, torch.zeros_like(a), (a - bf).abs())
+        strict = torch.where(same, torch.zeros_like(strict), strict)
         off = err > strict
         excess = err - strict - 2.1 * lr
         if bool((excess > 0).any()):
@@ -3748,14 +3816,18 @@ def card_vs_cpu_step(folder, checkpoint, lr, what):
         total += err.numel()
         worst = max(worst, float(err.max()))
     check(beyond <= 1e-2 * total, f"{what}: {beyond} of {total} elements beyond the bound")
+    check(one_sided <= 1e-6 * total,
+          f"{what}: {one_sided} of {total} elements non-finite on one device only")
     check(moved > 0.0, f"{what}: the step did not move the tables")
     log(f"  one step of {what}, card vs CPU: loss {cost_c:.6f} vs {cost_h:.6f}; "
         f"tables and states max abs difference {worst:.3e} (the step moved them by "
         f"up to {moved:.3e}); {beyond} of {total} elements beyond 1e-6 + ulp |CPU| "
-        f"+ 2^-5 |step| (all within it + 2.1 lr = {2.1 * lr:.2e})")
+        f"+ 2^-5 |step| (all within it + 2.1 lr = {2.1 * lr:.2e})"
+        + (f"; {one_sided} non-finite on one device only" if one_sided else ""))
     del jobs
     torch.cuda.empty_cache()
     return {"loss_card": cost_c, "loss_cpu": cost_h, "max_abs_diff": worst,
+            "non_finite_on_one_device": one_sided,
             "moved": moved, "elements_beyond": beyond, "elements": total}
 
 
@@ -3806,9 +3878,9 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
                         narrow_rank_case(seed, device, True)],
         "scatter_add_sorted": narrow_scatter_case(seed, device),
         "rows_set": [narrow_rows_set_case(seed, device)],
-        "fused_row_update": [bf16_fused_case(seed, device)],
+        "fused_row_update": [narrow_fused_case(seed, device)],
     }
-    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = bf16_pooled_case(seed, device)
+    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = narrow_pooled_case(seed, device)
     log(f"  {card_line()}")
     out = {"kernels": kernels, "bf16_fast_ops": bf16_fast_ops_exact(device),
            "gamma_check": gamma}
@@ -3970,7 +4042,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     step = card_vs_cpu_step(folder, "checkpoint_00001.pt", 0.1, "T-sparse bf16 tables")
     out["sparse"] = {"launches": launches, "bf16_launches": bf16, "wall_s": wall,
                      "avg_loss": losses, "step_card_vs_cpu": step}
-    out["f16"] = run_float16(seed, eval_folder, transe_l2_folder)
+    out["f16"] = run_float16(seed, eval_folder, transe_l2_folder, data)
     return out
 
 
@@ -3978,21 +4050,88 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
 
 
 def reset_f16_counters():
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
     from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
-    for fn in (fused_rank_counts, sorted_scatter_add, rows_set):
+    for fn in (fused_rank_counts, sorted_scatter_add, rows_set, fused_sorted_update,
+               pooled_dist_scores):
         fn.f16_launches = 0
+    pooled_dist_scores.f16_backward_launches = 0
 
 
 def read_f16_counters():
     """The float16 launches among each wrapper's launches."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
     from kge_tpu_torch.ops.embedding_ops import rows_set, sorted_scatter_add
+    from kge_tpu_torch.ops.optim import fused_sorted_update
     from kge_tpu_torch.ops.rank_kernel import fused_rank_counts
 
     return {"rank_counts": fused_rank_counts.f16_launches,
             "scatter_add_sorted": sorted_scatter_add.f16_launches,
-            "rows_set": rows_set.f16_launches}
+            "rows_set": rows_set.f16_launches,
+            "fused_row_update": fused_sorted_update.f16_launches,
+            "pooled_scores": pooled_dist_scores.f16_launches,
+            "pooled_scores_bwd": pooled_dist_scores.f16_backward_launches}
+
+
+class NonFiniteGradients:
+    """Counts, while entered, the entries of K5b's outputs (dq and dpool,
+    the pooled scores' gradients) that are +-inf or NaN, on the card
+    without a synchronize; and for the first backward the pairs' elements
+    whose float16 cmod distance is 0 (both squares 0: equal or underflowing
+    differences)."""
+
+    def __init__(self):
+        from kge_tpu_torch.ops import dist_pool
+
+        self.module = dist_pool
+        self.original = dist_pool._launch_backward
+        self.non_finite = self.entries = self.calls = 0
+        self.per_call = []
+        self.zero_elements = self.elements = None
+
+    def __enter__(self):
+        def counted(queries, pools, sel, grad, pool_factor, kind):
+            dqs, dpools = self.original(queries, pools, sel, grad, pool_factor, kind)
+            self.per_call.append(sum((~torch.isfinite(x)).sum() for x in (*dqs, *dpools)))
+            self.entries += sum(x.numel() for x in (*dqs, *dpools))
+            if self.calls == 0 and kind == "cmod":
+                self.zero_elements, self.elements = zero_cmod_elements(
+                    queries, pools, sel, pool_factor)
+            self.calls += 1
+            return dqs, dpools
+
+        self.module._launch_backward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._launch_backward = self.original
+        counts = torch.stack(self.per_call).tolist() if self.per_call else []
+        self.non_finite = int(sum(counts))
+        self.counts = counts
+        #: the first backward with a non-finite entry (None: none had one)
+        self.first = next((k for k, c in enumerate(counts) if c), None)
+        return False
+
+
+def zero_cmod_elements(queries, pools, sel, pool_factor, rows: int = 256):
+    """(elements whose cmod distance is 0 in the queries' dtype, all
+    elements) of the pairs (i, j) and columns of one call, ``rows`` rows at
+    a time."""
+    n, K = sel.shape
+    cand = (torch.arange(K, device=sel.device)[None, :] * pool_factor + sel.long())
+    zero = 0
+    for lo in range(0, n, rows):
+        squares = None
+        for q, p in zip(queries, pools):
+            diff = (q[lo:lo + rows, None, :].float() - p[cand[lo:lo + rows]].float()).to(
+                q.dtype)
+            sq = diff * diff
+            squares = sq if squares is None else squares + sq
+        zero += int((squares == 0).sum())
+    return zero, n * K * queries[0].shape[1]
 
 
 def f16_pivots_case(seed: int, device, rows: int = BATCH, columns: int = 1_200_000,
@@ -4063,12 +4202,17 @@ def f16_ranks_agree(folder: str, batches: int = 2):
     torch.cuda.empty_cache()
 
 
-def run_float16(seed: int, eval_folder: str, transe_l2_folder: str):
-    """Phase 22's float16 part (ROADMAP A.11a): K1 (identity and L2
-    epilogue, rank_pivots on a shard), K2 and K3 against their plain
-    versions and timed; T-transe-l2's and the eval folder's ``test`` in
-    float16 compute, T-sparse with both dtypes in float16, and P-rotate's
-    refusal. Returns a summary dict."""
+def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
+    """Phase 22's float16 part (ROADMAP A.11a and A.11b): every kernel's
+    float16 path against its plain version and timed (K1 with the identity
+    and the L2 epilogue, rank_pivots on a shard; K2; K3; K4 at P-rotate's
+    entity table; K5a and K5b at P-rotate's cmod shape and P-transe's l1 at
+    d = 128, zero and underflowing distances included); T-transe-l2's and
+    the eval folder's
+    ``test`` in float16 compute, T-sparse with both dtypes in float16,
+    P-transe in float16 compute and P-rotate with both dtypes in float16
+    (one epoch each, every K4, K5a and K5b launch on its float16 path).
+    Returns a summary dict."""
     from kge_tpu_torch import cli
     from kge_tpu_torch.models.convert import leaf_tensor
     from kge_tpu_torch.utils.io import load_checkpoint
@@ -4082,9 +4226,14 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str):
         "rank_pivots": [f16_pivots_case(seed, device)],
         "scatter_add_sorted": narrow_scatter_case(seed, device, f16),
         "rows_set": [narrow_rows_set_case(seed, device, f16)],
+        "fused_row_update": [narrow_fused_case(seed, device, f16)],
     }
+    kernels["pooled_scores"], kernels["pooled_scores_bwd"] = narrow_pooled_case(
+        seed, device, f16, shapes=2)
     log(f"  {card_line()}")
     out = {"kernels": kernels}
+    log(f"  the float16 kernels against their plain versions: "
+        f"{time.perf_counter() - start:.1f} s")
     test_batches = -(-NUM_TEST // BATCH)
 
     # the tests in float16 compute: every K1 launch on its float16 path
@@ -4155,21 +4304,100 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str):
                               "initial_accumulator_value": accumulator or 0.0})
         break
 
-    # P-rotate in float16: the fused row update and the pooled kernels have
-    # no float16 path yet, so the job refuses it
+    # P-transe in float16 compute: K5a and K5b on their float16 path
+    steps = -(-FB15K237[2] // TRAIN_BATCH)
+    folder = os.path.join(WORK, "train_transe_f16")
+    shutil.rmtree(folder, ignore_errors=True)
+    conf = os.path.join(WORK, "train_transe_f16.yaml")
+    write_train_config(conf, data, seed, **{
+        **pooled_config("transe"), "train.max_epochs": 1,
+        "parallel.compute_dtype": "float16"})
+    reset_counters()
+    reset_f16_counters()
+    begin = time.perf_counter()
+    cli.main(["start", conf, "--folder", folder])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - begin
+    launches, half = read_counters(), read_f16_counters()
+    check_pooled_counts(launches, steps, 12, 0, "P-transe f16")
+    check(half["pooled_scores"] == launches["pooled_scores"]
+          and half["pooled_scores_bwd"] == launches["pooled_scores_bwd"],
+          ("P-transe f16", launches, half))
+    losses = check_losses(folder, [1])
+    log(f"  P-transe f16 compute: start 1 epoch, wall {wall:.2f} s, avg_loss {losses}; "
+        f"launches {launches}; f16 {half} (K5a and K5b 2 a step, all float16)")
+    out["transe"] = {"launches": launches, "f16_launches": half, "wall_s": wall,
+                     "avg_loss": losses}
+
+    # P-rotate with both dtypes in float16: K4, K5a and K5b on their float16
+    # paths, tables and Adam's moments float16
+    steps = -(-FB15K237[2] // ROTATE_BATCH)
     folder = os.path.join(WORK, "train_rotate_f16")
     shutil.rmtree(folder, ignore_errors=True)
     conf = os.path.join(WORK, "train_rotate_f16.yaml")
     write_train_config(conf, rotate_data, seed, **pooled_config("rotate"), **both)
-    try:
-        cli.main(["start", conf, "--folder", folder])
-        refusal = None
-    except ValueError as e:
-        refusal = str(e)
-    check(refusal is not None and "ROADMAP A.11b" in refusal,
-          f"P-rotate in float16 was not refused naming A.11b: {refusal}")
-    log(f"  P-rotate in f16 refused: {refusal}")
-    out["rotate_refusal"] = refusal
+    reset_counters()
+    reset_f16_counters()
+    begin = time.perf_counter()
+    nan = None
+    with NonFiniteGradients() as grads:
+        try:
+            cli.main(["start", conf, "--folder", folder])
+        except FloatingPointError as e:
+            nan = str(e)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - begin
+    launches, half = read_counters(), read_f16_counters()
+    ran = launches["fused_row_update"] // 2
+    check(launches["fused_row_update"] == half["fused_row_update"] > 0
+          and launches["pooled_scores"] == half["pooled_scores"] == 2 * ran
+          and launches["pooled_scores_bwd"] == half["pooled_scores_bwd"] == 2 * ran,
+          ("P-rotate f16", launches, half))
+    share = grads.non_finite / max(1, grads.entries)
+    log(f"  P-rotate f16 tables and compute: start 1 epoch, wall {wall:.2f} s; "
+        f"{ran} of {steps} steps; launches {launches}; f16 {half} (K4 2, K5a 2 and "
+        f"K5b 2 a step, all float16); K5b's outputs: {grads.non_finite} of "
+        f"{grads.entries} entries non-finite ({share:.3e}), the first in backward "
+        f"{grads.first} (2 a step; the first four backwards {grads.counts[:4]}); the "
+        f"first step's pairs: {grads.zero_elements} of {grads.elements} elements at "
+        f"distance 0 in float16")
+    out["rotate"] = {"launches": launches, "f16_launches": half, "wall_s": wall,
+                     "steps_run": ran, "steps": steps,
+                     "non_finite_gradient_entries": grads.non_finite,
+                     "gradient_entries": grads.entries,
+                     "first_non_finite_backward": grads.first,
+                     "non_finite_first_backwards": grads.counts[:4],
+                     "zero_distance_elements_first_step": grads.zero_elements,
+                     "elements_first_step": grads.elements}
+    checkpoint = "checkpoint_00000.pt"
+    if nan is None:
+        check(ran == steps, ("P-rotate f16", ran, steps))
+        saved = load_checkpoint(os.path.join(folder, "checkpoint_00001.pt"))
+        for leaf in saved["model"][0].values():
+            check(leaf_tensor(leaf["embeddings"]).dtype == torch.float16,
+                  "P-rotate f16: a table is not float16")
+        for leaf in saved["optimizer_state"]["leaves"]:
+            check(all(leaf_tensor(v).dtype == torch.float16 for v in leaf.values()),
+                  "P-rotate f16: Adam's moments are not float16")
+        out["rotate"]["avg_loss"] = check_losses(folder, [1])
+        checkpoint = "checkpoint_00001.pt"
+        log(f"  P-rotate f16: avg_loss {out['rotate']['avg_loss']}; tables and moments "
+            f"float16 in the checkpoint")
+    else:
+        log(f"  P-rotate f16: {nan} after {ran} of {steps} steps (kge_tpu's check of "
+            f"the epoch's cost), as kge_tpu's rules give it: a cmod distance of 0 in "
+            f"float16 (kge_tpu's 1e-30 is 0 there) makes the gradient g / 0 times the "
+            f"difference, from backward {grads.first} on; and Adam's v = 0.001 g^2 "
+            f"underflows to 0 in float16 for |g| below about 5.5e-3, where "
+            f"m_hat / (0 + 1e-8) makes a step of lr |g| 1e8")
+        out["rotate"]["nan"] = nan
+    # a quarter of the batch: the CPU's float16 pooled scores are the slow part
+    begin = time.perf_counter()
+    out["rotate"]["step_card_vs_cpu"] = card_vs_cpu_step(
+        folder, checkpoint, ROTATE_LR, "P-rotate f16",
+        **{"train.batch_size": ROTATE_BATCH // 4})
+    log(f"  (the step card vs CPU at batch {ROTATE_BATCH // 4}: "
+        f"{time.perf_counter() - begin:.1f} s)")
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - start
     log(f"  float16 part of phase 22: {out['wall_s']:.1f} s")
@@ -7074,9 +7302,9 @@ def main():
 
     log("== phase 22: the dtype policy: the six kernels' bfloat16 paths; X-complex "
         "in bfloat16 compute from T-dense's entity table, P-rotate with both dtypes "
-        "in bfloat16, T-sparse with bfloat16 tables; K1, K2 and K3's float16 paths, "
+        "in bfloat16, T-sparse with bfloat16 tables; every kernel's float16 path, "
         "the tests of T-transe-l2 and of the eval folder in float16 compute, "
-        "T-sparse in float16, P-rotate's float16 refusal")
+        "T-sparse, P-transe and P-rotate in float16")
     start = time.perf_counter()
     dtype = run_dtype_policy(args.seed, data, os.path.join(WORK, "train_dense"),
                              transe_l2["folder"], folder)
@@ -7276,6 +7504,20 @@ def main():
              {k: f16_cases["scatter_add_sorted"][0][k] for k in SCATTER_LAUNCH_KEYS}),
             ("rows_set_f16", "kge_tpu/ops/pallas_ops.py:258", "rows_set",
              f16["sparse"]["f16_launches"]["rows_set"], f16_cases["rows_set"], {}),
+            # K4, K5a and K5b (ROADMAP A.11b): launches in P-rotate's float16
+            # epoch, K5's in P-transe's too
+            ("fused_row_update_f16", "kge_tpu/ops/pallas_ops.py:402", "fused_row_update",
+             f16["rotate"]["f16_launches"]["fused_row_update"],
+             f16_cases["fused_row_update"], {}),
+            ("pooled_dist_scores_f16", "kge_tpu/ops/dist_pool.py:279", "dist_pool",
+             f16["rotate"]["f16_launches"]["pooled_scores"], f16_cases["pooled_scores"],
+             {"launches_transe_start": f16["transe"]["f16_launches"]["pooled_scores"]}),
+            ("pooled_bwd_f16", "kge_tpu/ops/dist_pool.py:248", "dist_pool",
+             f16["rotate"]["f16_launches"]["pooled_scores_bwd"],
+             f16_cases["pooled_scores_bwd"],
+             {"launches_transe_start": f16["transe"]["f16_launches"]["pooled_scores_bwd"],
+              "non_finite_gradient_entries_rotate_epoch":
+                  f16["rotate"]["non_finite_gradient_entries"]}),
         )
     ], "eval_wall_s": wall, "eval_warm_wall_s": warm_wall, "profile": profile,
         "filtered_triples_per_s": NUM_TEST / wall,

@@ -52,7 +52,19 @@
 // would round it; the states are bfloat16 already. Loads and stores of 4
 // elements are 8 bytes. Half the bytes of the float32 path move.
 
+// float16 tables (parallel.param_dtype: float16; fused_row_update_launch_
+// f16): the same rules and the same kernel, templated on the element type E,
+// with R rounding to float16 (__float2half_rn, to nearest even, subnormals
+// included). The product of two float16 values is exact in float32, and a
+// float32 sum, quotient or square root of float16 values rounded to float16
+// is the operation rounded once (24 >= 2 x 11 + 2), as for bfloat16. Weakly
+// typed constants round to float16 first: Adagrad's eps 1e-10 becomes 0, so
+// a K4 Adagrad step from a zero accumulator computes 0/0 on untouched
+// entries, as kge_tpu's rule does; Adam's eps meets the float32 v_hat and
+// stays 1e-8. A sum past 65,504 stores +-inf.
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -196,46 +208,61 @@ struct Adadelta {  // states: acc, sq
   }
 };
 
-// first position in ids[0, n) whose id is >= value (n when there is none)
-// -- the bfloat16 rules ---------------------------------------------------
+// -- the rules on 16-bit tables -------------------------------------------
 //
-// R(x): x rounded to bfloat16 (round to nearest even), as a float. A
-// bfloat16 operation is an exact float32 operation on bfloat16 values
-// rounded by R, as XLA computes it; W(c) is a weakly typed constant.
+// R<E>(x): x rounded to E (bfloat16 or float16; round to nearest even), as
+// a float. An operation on E values is an exact float32 operation on E
+// values rounded by R, as XLA computes it; W(c) is a weakly typed constant.
 
-__device__ __forceinline__ float R(float x) {
+using bf16 = __nv_bfloat16;
+
+template <typename E>
+__device__ __forceinline__ float R(float x);
+template <>
+__device__ __forceinline__ float R<bf16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ float W(float c) { return R(c); }
+template <>
+__device__ __forceinline__ float R<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
+template <typename E>
+__device__ __forceinline__ float W(float c) { return R<E>(c); }
+template <typename E>
 __device__ __forceinline__ float mulb(float a, float b) {
-  return R(__fmul_rn(a, b));
+  return R<E>(__fmul_rn(a, b));
 }
+template <typename E>
 __device__ __forceinline__ float addb(float a, float b) {
-  return R(__fadd_rn(a, b));
+  return R<E>(__fadd_rn(a, b));
 }
 
+template <typename E>
 __device__ __forceinline__ float with_wd_b(float g, float p, const Hyper& h) {
-  return h.wd != 0.f ? addb(g, mulb(W(h.wd), p)) : g;
+  return h.wd != 0.f ? addb<E>(g, mulb<E>(W<E>(h.wd), p)) : g;
 }
 
+template <typename E>
 struct AdagradB {
   static constexpr int NSTATE = 1;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
-    g = with_wd_b(g, p, h);
-    const float sum = addb(s[0], mulb(g, g));
-    const float denom = addb(R(sqrtf(sum)), W(h.eps));
+    g = with_wd_b<E>(g, p, h);
+    const float sum = addb<E>(s[0], mulb<E>(g, g));
+    const float denom = addb<E>(R<E>(sqrtf(sum)), W<E>(h.eps));
     p = __fadd_rn(p, __fdiv_rn(__fmul_rn(-h.lr, g), denom));
     s[0] = sum;
   }
 };
 
+template <typename E>
 struct AdamB {  // m_hat, v_hat and the step are float32 (the step's dtype)
   static constexpr int NSTATE = 2;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
     const bool decoupled = h.flags & FLAG_DECOUPLED;
-    if (!decoupled) g = with_wd_b(g, p, h);
-    const float m = addb(mulb(W(h.b1), s[0]), mulb(W(h.omb1), g));
-    const float v = addb(mulb(W(h.b2), s[1]), mulb(mulb(W(h.omb2), g), g));
+    if (!decoupled) g = with_wd_b<E>(g, p, h);
+    const float m = addb<E>(mulb<E>(W<E>(h.b1), s[0]), mulb<E>(W<E>(h.omb1), g));
+    const float v =
+        addb<E>(mulb<E>(W<E>(h.b2), s[1]), mulb<E>(mulb<E>(W<E>(h.omb2), g), g));
     const float m_hat = __fdiv_rn(m, h.c1);
     const float v_hat = __fdiv_rn(v, h.c2);
     float delta = __fdiv_rn(__fmul_rn(-h.lr, m_hat),
@@ -247,60 +274,69 @@ struct AdamB {  // m_hat, v_hat and the step are float32 (the step's dtype)
   }
 };
 
+template <typename E>
 struct AdamaxB {  // c1 holds -lr / (1 - beta1^t), a float32 term
   static constexpr int NSTATE = 2;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
-    g = with_wd_b(g, p, h);
-    const float m = addb(mulb(W(h.b1), s[0]), mulb(W(h.omb1), g));
-    const float u = fmaxf(mulb(W(h.b2), s[1]), addb(fabsf(g), W(h.eps)));
+    g = with_wd_b<E>(g, p, h);
+    const float m = addb<E>(mulb<E>(W<E>(h.b1), s[0]), mulb<E>(W<E>(h.omb1), g));
+    const float u =
+        fmaxf(mulb<E>(W<E>(h.b2), s[1]), addb<E>(fabsf(g), W<E>(h.eps)));
     p = __fadd_rn(p, __fdiv_rn(__fmul_rn(h.c1, m), u));
     s[0] = m;
     s[1] = u;
   }
 };
 
+template <typename E>
 struct SgdPlainB {
   static constexpr int NSTATE = 0;
   __device__ static void apply(float g, float& p, float*, const Hyper& h) {
-    g = with_wd_b(g, p, h);
+    g = with_wd_b<E>(g, p, h);
     p = __fadd_rn(p, __fmul_rn(-h.lr, g));
   }
 };
 
+template <typename E>
 struct SgdMomentumB {
   static constexpr int NSTATE = 1;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
-    g = with_wd_b(g, p, h);
-    const float buf = (h.flags & FLAG_FIRST_STEP)
-                          ? g
-                          : addb(mulb(W(h.momentum), s[0]), mulb(W(h.omd), g));
-    const float d =
-        (h.flags & FLAG_NESTEROV) ? addb(g, mulb(W(h.momentum), buf)) : buf;
+    g = with_wd_b<E>(g, p, h);
+    const float buf =
+        (h.flags & FLAG_FIRST_STEP)
+            ? g
+            : addb<E>(mulb<E>(W<E>(h.momentum), s[0]), mulb<E>(W<E>(h.omd), g));
+    const float d = (h.flags & FLAG_NESTEROV)
+                        ? addb<E>(g, mulb<E>(W<E>(h.momentum), buf))
+                        : buf;
     p = __fadd_rn(p, __fmul_rn(-h.lr, d));
     s[0] = buf;
   }
 };
 
-template <bool CENTERED, bool MOMENTUM>
+template <typename E, bool CENTERED, bool MOMENTUM>
 struct RmsPropB {
   static constexpr int NSTATE = 1 + (CENTERED ? 1 : 0) + (MOMENTUM ? 1 : 0);
   static constexpr int AVG = 0;
   static constexpr int MOM = CENTERED ? 1 : 0;
   static constexpr int SQ = NSTATE - 1;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
-    g = with_wd_b(g, p, h);
-    const float sq = addb(mulb(W(h.b1), s[SQ]), mulb(mulb(W(h.omb1), g), g));
+    g = with_wd_b<E>(g, p, h);
+    const float sq =
+        addb<E>(mulb<E>(W<E>(h.b1), s[SQ]), mulb<E>(mulb<E>(W<E>(h.omb1), g), g));
     float denom;
     if (CENTERED) {
-      const float avg = addb(mulb(W(h.b1), s[AVG]), mulb(W(h.omb1), g));
-      denom = R(sqrtf(addb(R(__fsub_rn(sq, mulb(avg, avg))), W(h.eps))));
+      const float avg =
+          addb<E>(mulb<E>(W<E>(h.b1), s[AVG]), mulb<E>(W<E>(h.omb1), g));
+      denom = R<E>(sqrtf(addb<E>(R<E>(__fsub_rn(sq, mulb<E>(avg, avg))), W<E>(h.eps))));
       s[AVG] = avg;
     } else {
-      denom = addb(R(sqrtf(sq)), W(h.eps));
+      denom = addb<E>(R<E>(sqrtf(sq)), W<E>(h.eps));
     }
     s[SQ] = sq;
     if (MOMENTUM) {
-      const float buf = addb(mulb(W(h.momentum), s[MOM]), R(__fdiv_rn(g, denom)));
+      const float buf =
+          addb<E>(mulb<E>(W<E>(h.momentum), s[MOM]), R<E>(__fdiv_rn(g, denom)));
       s[MOM] = buf;
       p = __fadd_rn(p, __fmul_rn(-h.lr, buf));
     } else {
@@ -309,20 +345,24 @@ struct RmsPropB {
   }
 };
 
+template <typename E>
 struct AdadeltaB {  // states: acc, sq
   static constexpr int NSTATE = 2;
   __device__ static void apply(float g, float& p, float* s, const Hyper& h) {
-    g = with_wd_b(g, p, h);
-    const float sq = addb(mulb(W(h.b1), s[1]), mulb(mulb(W(h.omb1), g), g));
-    const float ratio = R(__fdiv_rn(R(sqrtf(addb(s[0], W(h.eps)))),
-                                    R(sqrtf(addb(sq, W(h.eps))))));
-    const float delta = mulb(ratio, g);
-    s[0] = addb(mulb(W(h.b1), s[0]), mulb(mulb(W(h.omb1), delta), delta));
+    g = with_wd_b<E>(g, p, h);
+    const float sq =
+        addb<E>(mulb<E>(W<E>(h.b1), s[1]), mulb<E>(mulb<E>(W<E>(h.omb1), g), g));
+    const float ratio = R<E>(__fdiv_rn(R<E>(sqrtf(addb<E>(s[0], W<E>(h.eps)))),
+                                       R<E>(sqrtf(addb<E>(sq, W<E>(h.eps))))));
+    const float delta = mulb<E>(ratio, g);
+    s[0] = addb<E>(mulb<E>(W<E>(h.b1), s[0]),
+                   mulb<E>(mulb<E>(W<E>(h.omb1), delta), delta));
     s[1] = sq;
     p = __fadd_rn(p, __fmul_rn(-h.lr, delta));
   }
 };
 
+// first position in ids[0, n) whose id is >= value (n when there is none)
 __device__ __forceinline__ int lower_bound(const int32_t* ids, int n,
                                            int64_t value) {
   int lo = 0, hi = n;
@@ -404,32 +444,47 @@ __global__ void fused_row_update_kernel(const int32_t* __restrict__ ids,
   }
 }
 
-// The bfloat16 path of fused_row_update_kernel: the same walk, elements
-// widened as they load and rounded as they store (VEC = 4: 8-byte accesses).
-template <int VEC>
-struct Bf16Vec;
+// The 16-bit paths of fused_row_update_kernel (E: bfloat16 or float16): the
+// same walk, elements widened as they load and rounded as they store (VEC =
+// 4: 8-byte accesses).
+template <typename E>
+struct Elem;
 template <>
-struct Bf16Vec<1> {
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    v[0] = __bfloat162float(*p);
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    *p = __float2bfloat16_rn(v[0]);
-  }
+struct Elem<bf16> {
+  using Two = __nv_bfloat162;
+  __device__ static float widen(bf16 x) { return __bfloat162float(x); }
+  __device__ static float2 widen2(Two x) { return __bfloat1622float2(x); }
+  __device__ static bf16 narrow(float x) { return __float2bfloat16_rn(x); }
+  __device__ static Two narrow2(float a, float b) { return __floats2bfloat162_rn(a, b); }
 };
 template <>
-struct Bf16Vec<4> {
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
+struct Elem<__half> {
+  using Two = __half2;
+  __device__ static float widen(__half x) { return __half2float(x); }
+  __device__ static float2 widen2(Two x) { return __half22float2(x); }
+  __device__ static __half narrow(float x) { return __float2half_rn(x); }
+  __device__ static Two narrow2(float a, float b) { return __floats2half2_rn(a, b); }
+};
+
+template <typename E, int VEC>
+struct HalfVec;
+template <typename E>
+struct HalfVec<E, 1> {
+  __device__ static void load(const E* p, float* v) { v[0] = Elem<E>::widen(*p); }
+  __device__ static void store(E* p, const float* v) { *p = Elem<E>::narrow(v[0]); }
+};
+template <typename E>
+struct HalfVec<E, 4> {
+  using Two = typename Elem<E>::Two;
+  __device__ static void load(const E* p, float* v) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    const float2 a = Elem<E>::widen2(*reinterpret_cast<const Two*>(&raw.x));
+    const float2 b = Elem<E>::widen2(*reinterpret_cast<const Two*>(&raw.y));
     v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
   }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  __device__ static void store(E* p, const float* v) {
+    const Two a = Elem<E>::narrow2(v[0], v[1]);
+    const Two b = Elem<E>::narrow2(v[2], v[3]);
     uint2 raw;
     raw.x = *reinterpret_cast<const unsigned*>(&a);
     raw.y = *reinterpret_cast<const unsigned*>(&b);
@@ -437,36 +492,36 @@ struct Bf16Vec<4> {
   }
 };
 
-struct Bf16States {
-  __nv_bfloat16* s[3];
+template <typename E>
+struct HalfStates {
+  E* s[3];
 };
 
-template <typename Rule, int VEC>
-__global__ void fused_row_update_bf16_kernel(
+template <typename E, typename Rule, int VEC>
+__global__ void fused_row_update_half_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ seg,
-    const __nv_bfloat16* __restrict__ gsum, int n, int Dv, int64_t num_rows,
-    __nv_bfloat16* __restrict__ param, Bf16States states, Hyper h) {
+    const E* __restrict__ gsum, int n, int Dv, int64_t num_rows,
+    E* __restrict__ param, HalfStates<E> states, Hyper h) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * ROWS_PER_BLOCK + warp;
   if (row >= num_rows) return;
   const int pos = lower_bound(ids, n, row);
   const bool touched = pos < n && ids[pos] == row;
-  const __nv_bfloat16* grow =
-      touched ? gsum + (size_t)seg[pos] * Dv * VEC : nullptr;
+  const E* grow = touched ? gsum + (size_t)seg[pos] * Dv * VEC : nullptr;
   const size_t base = (size_t)row * Dv * VEC;
   for (int col = lane; col < Dv; col += 32) {
     const size_t at = base + (size_t)col * VEC;
     float g[VEC], p[VEC], s[3][VEC];
-    Bf16Vec<VEC>::load(param + at, p);
+    HalfVec<E, VEC>::load(param + at, p);
     if (touched) {
-      Bf16Vec<VEC>::load(grow + col * VEC, g);
+      HalfVec<E, VEC>::load(grow + col * VEC, g);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) g[e] = 0.f;
     }
 #pragma unroll
     for (int k = 0; k < Rule::NSTATE; ++k)
-      Bf16Vec<VEC>::load(states.s[k] + at, s[k]);
+      HalfVec<E, VEC>::load(states.s[k] + at, s[k]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       float st[3];
@@ -476,10 +531,10 @@ __global__ void fused_row_update_bf16_kernel(
 #pragma unroll
       for (int k = 0; k < Rule::NSTATE; ++k) s[k][e] = st[k];
     }
-    Bf16Vec<VEC>::store(param + at, p);
+    HalfVec<E, VEC>::store(param + at, p);
 #pragma unroll
     for (int k = 0; k < Rule::NSTATE; ++k)
-      Bf16Vec<VEC>::store(states.s[k] + at, s[k]);
+      HalfVec<E, VEC>::store(states.s[k] + at, s[k]);
   }
 }
 
@@ -513,53 +568,54 @@ enum {
   RULE_ADADELTA = 5,
 };
 
-template <typename Rule>
-int launch_bf16(const int32_t* ids, const int32_t* seg, const void* gsum,
+template <typename E, typename Rule>
+int launch_half(const int32_t* ids, const int32_t* seg, const void* gsum,
                 int n, int D, long long num_rows, void* param, States st,
                 int nstate, const Hyper& h, cudaStream_t stream) {
   if (nstate != Rule::NSTATE) return (int)cudaErrorInvalidValue;
   const long long blocks = (num_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
   auto aligned8 = [](const void* q) { return ((uintptr_t)q & 7u) == 0; };
   bool vec = D % 4 == 0 && aligned8(param) && (n == 0 || aligned8(gsum));
-  Bf16States states;
+  HalfStates<E> states;
   for (int k = 0; k < 3; ++k) {
-    states.s[k] = reinterpret_cast<__nv_bfloat16*>(st.s[k]);
+    states.s[k] = reinterpret_cast<E*>(st.s[k]);
     if (k < Rule::NSTATE) vec = vec && aligned8(st.s[k]);
   }
-  const auto* g = reinterpret_cast<const __nv_bfloat16*>(gsum);
-  auto* p = reinterpret_cast<__nv_bfloat16*>(param);
+  const auto* g = reinterpret_cast<const E*>(gsum);
+  auto* p = reinterpret_cast<E*>(param);
   if (vec) {
-    fused_row_update_bf16_kernel<Rule, 4><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    fused_row_update_half_kernel<E, Rule, 4><<<(unsigned)blocks, THREADS, 0, stream>>>(
         ids, seg, g, n, D / 4, (int64_t)num_rows, p, states, h);
   } else {
-    fused_row_update_bf16_kernel<Rule, 1><<<(unsigned)blocks, THREADS, 0, stream>>>(
+    fused_row_update_half_kernel<E, Rule, 1><<<(unsigned)blocks, THREADS, 0, stream>>>(
         ids, seg, g, n, D, (int64_t)num_rows, p, states, h);
   }
   return (int)cudaGetLastError();
 }
 
-// The rule's launch: BF selects the bfloat16 kernel and rules.
-template <bool BF, typename Rule, typename RuleB>
+// The rule's launch on a table of E: float32 with the float32 rules, or a
+// 16-bit type with the *B rules.
+template <typename E, typename Rule, typename RuleB>
 int launch_as(const int32_t* ids, const int32_t* seg, const void* gsum, int n,
               int D, long long num_rows, void* param, States st, int nstate,
               const Hyper& h, cudaStream_t stream) {
-  if constexpr (BF) {
-    return launch_bf16<RuleB>(ids, seg, gsum, n, D, num_rows, param, st,
-                              nstate, h, stream);
-  } else {
+  if constexpr (std::is_same<E, float>::value) {
     return launch<Rule>(ids, seg, (const float*)gsum, n, D, num_rows,
                         (float*)param, st, nstate, h, stream);
+  } else {
+    return launch_half<E, RuleB>(ids, seg, gsum, n, D, num_rows, param, st,
+                                 nstate, h, stream);
   }
 }
 
-template <bool BF>
+template <typename E>
 int dispatch(int rule, const int32_t* ids, const int32_t* seg,
              const void* gsum, int n, int D, long long num_rows, void* param,
              States st, int nstate, const Hyper& h, int flags,
              cudaStream_t s) {
 #define KGE_LAUNCH(RULE)                                                  \
-  return launch_as<BF, RULE, RULE##B>(ids, seg, gsum, n, D, num_rows,     \
-                                      param, st, nstate, h, s)
+  return launch_as<E, RULE, RULE##B<E>>(ids, seg, gsum, n, D, num_rows,   \
+                                        param, st, nstate, h, s)
   switch (rule) {
     case RULE_ADAGRAD:
       KGE_LAUNCH(Adagrad);
@@ -574,18 +630,18 @@ int dispatch(int rule, const int32_t* ids, const int32_t* seg,
       const bool centered = flags & FLAG_CENTERED;
       const bool mom = h.momentum != 0.f;
       if (centered && mom) {
-        return launch_as<BF, RmsProp<true, true>, RmsPropB<true, true>>(
+        return launch_as<E, RmsProp<true, true>, RmsPropB<E, true, true>>(
             ids, seg, gsum, n, D, num_rows, param, st, nstate, h, s);
       }
       if (centered) {
-        return launch_as<BF, RmsProp<true, false>, RmsPropB<true, false>>(
+        return launch_as<E, RmsProp<true, false>, RmsPropB<E, true, false>>(
             ids, seg, gsum, n, D, num_rows, param, st, nstate, h, s);
       }
       if (mom) {
-        return launch_as<BF, RmsProp<false, true>, RmsPropB<false, true>>(
+        return launch_as<E, RmsProp<false, true>, RmsPropB<E, false, true>>(
             ids, seg, gsum, n, D, num_rows, param, st, nstate, h, s);
       }
-      return launch_as<BF, RmsProp<false, false>, RmsPropB<false, false>>(
+      return launch_as<E, RmsProp<false, false>, RmsPropB<E, false, false>>(
           ids, seg, gsum, n, D, num_rows, param, st, nstate, h, s);
     }
     case RULE_ADADELTA:
@@ -605,6 +661,19 @@ Hyper hyper_of(const float* hyper, int flags) {
   return h;
 }
 
+// The same on a 16-bit table of E: param, the states and gsum are E (the
+// pointers are passed as they are), with the *B rules.
+template <typename E>
+int launch_16(int rule, const int32_t* ids, const int32_t* seg, const void* gsum,
+              int n, int D, long long num_rows, void* param, void* s0, void* s1,
+              void* s2, int nstate, const float* hyper, int flags, void* stream) {
+  if (D <= 0 || num_rows <= 0) return 0;
+  States st;
+  st.s[0] = (float*)s0, st.s[1] = (float*)s1, st.s[2] = (float*)s2;
+  return dispatch<E>(rule, ids, seg, gsum, n, D, num_rows, param, st, nstate,
+                     hyper_of(hyper, flags), flags, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -621,24 +690,29 @@ int fused_row_update_launch(int rule, const int32_t* ids, const int32_t* seg,
   if (D <= 0 || num_rows <= 0) return 0;
   States st;
   st.s[0] = s0, st.s[1] = s1, st.s[2] = s2;
-  return dispatch<false>(rule, ids, seg, gsum, n, D, num_rows, param, st,
+  return dispatch<float>(rule, ids, seg, gsum, n, D, num_rows, param, st,
                          nstate, hyper_of(hyper, flags), flags,
                          (cudaStream_t)stream);
 }
 
-// The same on a bfloat16 table: param, the states and gsum are bfloat16
-// (the pointers are passed as they are), with the *B rules.
+// The same on a bfloat16 table (launch_16).
 int fused_row_update_launch_bf16(int rule, const int32_t* ids,
                                  const int32_t* seg, const void* gsum, int n,
                                  int D, long long num_rows, void* param,
                                  void* s0, void* s1, void* s2, int nstate,
                                  const float* hyper, int flags, void* stream) {
-  if (D <= 0 || num_rows <= 0) return 0;
-  States st;
-  st.s[0] = (float*)s0, st.s[1] = (float*)s1, st.s[2] = (float*)s2;
-  return dispatch<true>(rule, ids, seg, gsum, n, D, num_rows, param, st,
-                        nstate, hyper_of(hyper, flags), flags,
-                        (cudaStream_t)stream);
+  return launch_16<bf16>(rule, ids, seg, gsum, n, D, num_rows, param, s0, s1,
+                         s2, nstate, hyper, flags, stream);
+}
+
+// The same on a float16 table.
+int fused_row_update_launch_f16(int rule, const int32_t* ids,
+                                const int32_t* seg, const void* gsum, int n,
+                                int D, long long num_rows, void* param,
+                                void* s0, void* s1, void* s2, int nstate,
+                                const float* hyper, int flags, void* stream) {
+  return launch_16<__half>(rule, ids, seg, gsum, n, D, num_rows, param, s0, s1,
+                           s2, nstate, hyper, flags, stream);
 }
 
 }  // extern "C"

@@ -159,8 +159,6 @@ class TrainingJobNegativeSampling(TrainingJob):
         self._active_slots = [
             slot for slot in (S, P, O) if self._sampler.num_samples[slot] > 0
         ]
-        if self._implementation == "pool":
-            self._refuse_float16_pooled_kernel()
 
         fused = self.config.check(
             "negative_sampling.fused_scoring", ["auto", "always", "never"]
@@ -588,28 +586,6 @@ class TrainingJobNegativeSampling(TrainingJob):
             torch.cat([a.reshape(-1) for a in rel_ids]),
         )
 
-    def _refuse_float16_pooled_kernel(self):
-        """float16 does not reach the pooled distance kernels (K5a, K5b)
-        yet: refuse float16 compute on a pool that ``negative_sampling.
-        pooled_kernel`` would score through them (``always``; ``auto`` on
-        the card), for a scorer with a kernel form of an active slot
-        (ROADMAP A.11b)."""
-        if str(self.config.get("parallel.compute_dtype")) != "float16":
-            return
-        mode = self.config.get_default("negative_sampling.pooled_kernel")
-        if mode == "never" or (mode == "auto" and self.device.type != "cuda"):
-            return
-        scorer = self.model.get_scorer()
-        kinds = sorted({scorer.pooled_kernel_kind(slot)
-                        for slot in self._active_slots} - {None})
-        if kinds:
-            raise ValueError(
-                f"parallel.compute_dtype=float16 with pooled {'/'.join(kinds)} "
-                f"scores (negative_sampling.pooled_kernel={mode}): the pooled "
-                "distance kernels have no float16 path yet (ROADMAP A.11b); "
-                "set negative_sampling.pooled_kernel never"
-            )
-
     # -- sparse embedding update -------------------------------------------------
 
     def _sparse_update_eligible(self) -> bool:
@@ -690,14 +666,6 @@ class TrainingJobNegativeSampling(TrainingJob):
             leaf for leaf in (self._ent_leaf, self._rel_leaf)
             if not self.optimizer.supports_sparse_rows(leaf)
         ]
-        if any(self.optimizer.params[leaf].dtype == torch.float16
-               for leaf in fused_leaves):
-            raise ValueError(
-                "parallel.param_dtype=float16 on the row-sparse step with an "
-                "optimizer whose untouched rows move (Adam, AdamW, weight "
-                "decay, momentum): the fused row update has no float16 path "
-                "yet (ROADMAP A.11b); set train.sparse_embedding_update never"
-            )
         self.config.log(
             "Using row-sparse embedding updates "
             + ("(fused dense-semantics kernel)" if fused_leaves

@@ -22,13 +22,22 @@ square roots, is rounded to bfloat16 as kge_tpu's kernel rounds it, and the
 sum over d is taken in float32 and rounded once (kge_tpu sums in bfloat16
 across its d tiles; this is closer to the exact sum). The backward's
 factors are rounded likewise and summed in float32, each output rounded
-once. The same kernels serve both dtypes, with the same tiles, row chunks
-and float32 workspace: they compute the roundings with bfloat16
+once. The same kernels serve every dtype, with the same tiles, row chunks
+and float32 workspace: in bfloat16 they compute the roundings with bfloat16
 instructions that round once, which give the float32 operation rounded to
 bfloat16, and the square root and the quotient with the card's
 approximations, exact once rounded to bfloat16 (``csrc/dist_pool.cu`` says
 why; ``bf16_fast_ops_check`` holds them against the IEEE operations on the
 card, exhaustively).
+
+In float16 (``parallel.compute_dtype: float16``) the same roundings are
+float16's, with one difference: the 1e-30 of ``cmod`` is a weakly typed
+constant, which rounds to 0 in float16, so a pair whose squares both
+underflow (``|diff|`` below about 2^-12.5 in both parts) has distance 0,
+and its factor in the backward is ``g / 0`` times the difference: +-inf, or
+NaN where the difference or g is 0, as kge_tpu's ``g rsqrt(0) diff`` is.
+The kernels compute float16's roundings with IEEE operations, one element
+at a time (``csrc/dist_pool.cu`` says why not the fast ones).
 
 ``pooled_dist_scores`` is differentiable in the queries and the pool
 (``torch.autograd.Function``; the backward is a kernel too). Beside it
@@ -50,8 +59,9 @@ from kge_tpu_torch.utils.dtypes import strong32, weak
 
 _EPS = 1e-30
 _KINDS = {"l1": 0, "cmod": 1}
-#: added to the kind code for bfloat16 tensors (csrc/dist_pool.cu)
-_BF16 = 2
+#: added to the kind code for bfloat16 and for float16 tensors
+#: (csrc/dist_pool.cu)
+_KIND_OFFSET = {torch.float32: 0, torch.bfloat16: 2, torch.float16: 4}
 
 # dpool's work units, as csrc/dist_pool.cu has them: a block of DPOOL_UNITS
 # warps, each the owner of DPOOL_UNIT_ROWS pool rows of one slot; the rows i
@@ -69,10 +79,12 @@ def pooled_dist_scores_plain(queries: Sequence[torch.Tensor],
                              kind: str) -> torch.Tensor:
     """Plain version: gather ``pool[j * pool_factor + sel]``, broadcast
     difference, reduce over d. ``sign(0) = 0`` and ``0 / sqrt(1e-30) = 0``
-    come out of autograd's ``abs`` and ``sqrt``. In bfloat16 the gather and
-    the subtraction run in float32, each difference is rounded to
-    bfloat16, and the sum over d is float32 rounded once; so autograd's
-    backward sums ``dq`` and ``dpool`` in float32 too."""
+    come out of autograd's ``abs`` and ``sqrt``. In bfloat16 and float16
+    the gather and the subtraction run in float32, each difference is
+    rounded to the dtype, and the sum over d is float32 rounded once; so
+    autograd's backward sums ``dq`` and ``dpool`` in float32 too. In
+    float16 the 1e-30 is 0, and a zero distance's ``sqrt`` backward is
+    ``g / 0``."""
     _check(queries, pool_embs, sel, pool_factor, kind)
     K = sel.shape[1]
     dtype = queries[0].dtype
@@ -215,9 +227,11 @@ def pooled_dist_scores(queries: Sequence[torch.Tensor],
 #: one count per backward, which launches dq and dpool)
 pooled_dist_scores.launches = 0
 pooled_dist_scores.backward_launches = 0
-#: of those, the launches on bfloat16 tensors
+#: of those, the launches on bfloat16 and on float16 tensors
 pooled_dist_scores.bf16_launches = 0
 pooled_dist_scores.bf16_backward_launches = 0
+pooled_dist_scores.f16_launches = 0
+pooled_dist_scores.f16_backward_launches = 0
 
 
 class _PooledScores(torch.autograd.Function):
@@ -241,13 +255,14 @@ class _PooledScores(torch.autograd.Function):
 
 
 def _rows(name, x, device):
-    """``x`` as float32 or bfloat16 rows the kernels can stride over: unit
-    stride within a row (a column slice of a wider tensor serves as it
-    is)."""
+    """``x`` as float32, bfloat16 or float16 rows the kernels can stride
+    over: unit stride within a row (a column slice of a wider tensor serves
+    as it is)."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _KIND_OFFSET:
+        raise TypeError(
+            f"{name} must be float32, bfloat16 or float16, got {x.dtype}")
     if x.shape[0] > 0 and x.shape[1] > 1 and x.stride(1) != 1:
         raise ValueError(f"{name} must have unit stride within a row")
     return x
@@ -268,7 +283,7 @@ def _common_args(queries, pools, sel, pool_factor, kind):
     d = queries[0].shape[1]
     second = 1 if kind == "cmod" else 0
     args = [
-        _KINDS[kind] + (_BF16 if queries[0].dtype == torch.bfloat16 else 0),
+        _KINDS[kind] + _KIND_OFFSET[queries[0].dtype],
         queries[0].data_ptr(), queries[second].data_ptr(),
         queries[0].stride(0), pools[0].data_ptr(), pools[second].data_ptr(),
         pools[0].stride(0), sel.data_ptr(),
@@ -296,6 +311,7 @@ def _launch_forward(queries, pools, sel, pool_factor, kind):
     check_launch(code, "pooled_scores")
     pooled_dist_scores.launches += 1
     pooled_dist_scores.bf16_launches += out.dtype == torch.bfloat16
+    pooled_dist_scores.f16_launches += out.dtype == torch.float16
     return out
 
 
@@ -333,4 +349,5 @@ def _launch_backward(queries, pools, sel, grad, pool_factor, kind):
     check_launch(code, "pooled_scores_bwd")
     pooled_dist_scores.backward_launches += 1
     pooled_dist_scores.bf16_backward_launches += dtype == torch.bfloat16
+    pooled_dist_scores.f16_backward_launches += dtype == torch.float16
     return dqs, dpools

@@ -32,8 +32,8 @@ NVCC_FLAGS = [
 ]
 
 #: the suffix of a kernel's entry points by the element type of the path
-#: they run (``rank_counts_launch`` + ``"_f16"``): K1, K2 and K3 have all
-#: three, K4 and K5 the first two
+#: they run (``rank_counts_launch`` + ``"_f16"``), where a kernel has one
+#: entry point a dtype (K5 takes the dtype in its kind code)
 ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 _libraries: Dict[str, ctypes.CDLL] = {}

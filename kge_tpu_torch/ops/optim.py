@@ -70,17 +70,22 @@ def parameter_name(path: Sequence[str]) -> str:
 # every rule: init(param, args) -> state dict of tensors;
 #             update(grad, state, param, lr, step, args) -> (delta, new_state)
 # `delta` is the value to *add* to the parameter; `lr` is a float and `step`
-# an int (kge_tpu traces both). In bfloat16 the rules round where kge_tpu's
-# round: the learning rate is a float32 array there, so a term with it is
-# float32 (``strong32``), and every Python constant is weakly typed
-# (``weak``); states keep the dtype of what they are computed from.
+# an int (kge_tpu traces both). In bfloat16 and float16 the rules round
+# where kge_tpu's round: the learning rate is a float32 array there, so a
+# term with it is float32 (``strong32``), and every Python constant is
+# weakly typed (``weak``); states keep the dtype of what they are computed
+# from.
 
 
 class KernelStep(int):
     """The step count as kge_tpu's fused row-update kernel holds it: a
     float32 array (kge_tpu/ops/pallas_ops.py ``_fused_update_kernel``), so
     that Adam's bias corrections, which the dense step applies as weakly
-    typed constants, are float32 terms there. The two agree in float32."""
+    typed constants, are float32 terms there. The two agree in float32.
+    On float16 tables they part: on the dense step the bias-corrected
+    moments stay float16 and Adam's eps 1e-8 rounds to 0, so an entry whose
+    moments are 0 computes 0/0; with this step eps meets float32 terms and
+    stays 1e-8 (ROADMAP C.4)."""
 
 
 def _bias_corrected(x: torch.Tensor, c: float, step) -> torch.Tensor:
@@ -256,7 +261,8 @@ def _kernel_hyper(opt_type: str, args: Dict[str, Any], lr: float, step: int):
     """(the 12 float hyperparameters of the kernel's ``Hyper``, flags):
     every scalar that the rule's plain version computes on the host,
     computed the same way, so that both round alike. The kernel's bfloat16
-    rules round the weakly typed ones to bfloat16 where kge_tpu's would."""
+    and float16 rules round the weakly typed ones to the table's dtype where
+    kge_tpu's would."""
     h = dict.fromkeys(
         ("lr", "wd", "eps", "b1", "omb1", "b2", "omb2", "c1", "c2",
          "momentum", "omd", "lrwd"), 0.0)
@@ -345,7 +351,8 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
     Semantically ``g = zeros_like(param).index_add_(0, ids, upd)`` followed
     by the rule ``opt_type`` of ``_RULES`` on ``param`` and ``states`` with
     gradient ``g`` (summed in float32, cast to the parameter's dtype; a
-    bfloat16 table and its states stay bfloat16): every row is updated, named by ``ids`` (duplicates,
+    bfloat16 or float16 table and its states keep their dtype): every row
+    is updated, named by ``ids`` (duplicates,
     any order) or not, so Adam's moments decay and weight decay applies
     everywhere as on the dense step. The dense gradient is never held: the
     scatter kernel sorts the ids and sums duplicates into one gradient row
@@ -371,9 +378,11 @@ def fused_sorted_update(opt_type: str, args: Dict[str, Any],
     )
 
 
-#: launches of the fused row-update kernel, and of those on bfloat16 tables
+#: launches of the fused row-update kernel, and of those on bfloat16 and on
+#: float16 tables
 fused_sorted_update.launches = 0
 fused_sorted_update.bf16_launches = 0
+fused_sorted_update.f16_launches = 0
 
 
 def segment_sums(ids: torch.Tensor, upd: torch.Tensor, num_rows: int):
@@ -395,6 +404,7 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     import ctypes
 
     from kge_tpu_torch.ops.kernel_utils import (
+        ENTRY_SUFFIX,
         check_launch,
         load_library,
         require,
@@ -405,8 +415,8 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     if device.type != "cuda":
         raise ValueError(f"the fused update kernel takes CUDA tensors, got {device}")
     dtype = param.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"param must be float32 or bfloat16, got {dtype}")
+    if dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"param must be float32, bfloat16 or float16, got {dtype}")
     keys = sorted(states)  # the kernel takes the states in sorted key order
     require("param", param, device, dtype)
     for name in keys:
@@ -420,8 +430,7 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     hyper, flags = _kernel_hyper(opt_type, args, lr, step)
     lib = load_library("fused_row_update")
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = typed(lib, "fused_row_update_launch" if dtype == torch.float32
-                   else "fused_row_update_launch_bf16",
+    launch = typed(lib, "fused_row_update_launch" + ENTRY_SUFFIX[dtype],
                    [i, p, p, p, i, i, ctypes.c_longlong, p, p, p, p, i, p, i, p])
     state_ptrs = [states[name].data_ptr() for name in keys] + [None] * 3
     with torch.cuda.device(device):
@@ -435,6 +444,7 @@ def fused_update_presummed(opt_type, args, ids_sorted, seg, gsum, param, states,
     check_launch(code, "fused_row_update")
     fused_sorted_update.launches += 1
     fused_sorted_update.bf16_launches += dtype == torch.bfloat16
+    fused_sorted_update.f16_launches += dtype == torch.float16
     return states
 
 

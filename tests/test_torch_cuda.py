@@ -1764,23 +1764,185 @@ def test_f16_scatter_and_rows_set_match_plain_on_card():
     assert rows_set.f16_launches == before + 1
 
 
+def _f16(rng, *shape, scale=1.0, device="cuda"):
+    return torch.tensor(rng.normal(0.0, scale, shape).astype(np.float32),
+                        device=device).half()
+
+
+def _same_non_finite_and_within(got, want, bound):
+    """NaN, +inf and -inf in the same places; elsewhere |got - want| <=
+    bound."""
+    got, want = got.float(), want.float()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(test(got), test(want)):
+            return False
+    finite = torch.isfinite(want)
+    bound = bound.expand_as(want) if torch.is_tensor(bound) else torch.full_like(
+        want, bound)
+    return bool(torch.all((got[finite] - want[finite]).abs() <= bound[finite]))
+
+
 @pytest.mark.cuda
-def test_f16_stays_out_of_k4_and_k5_on_card():
-    """The fused row update (K4) and the pooled distance kernels (K5a,
-    K5b) have no float16 path yet (ROADMAP A.11b): a float16 CUDA tensor
-    raises there, before a launch."""
-    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
-    from kge_tpu_torch.ops.optim import fused_sorted_update
+@pytest.mark.parametrize("opt_type,args", [
+    ("adagrad", {}), ("adagrad", {"weight_decay": 0.01}), ("adam", {}),
+    ("adamw", {"weight_decay": 0.1}), ("adamax", {}),
+    ("sgd", {"momentum": 0.9, "nesterov": True}),
+    ("rmsprop", {"momentum": 0.5, "centered": True}), ("adadelta", {}),
+])
+@pytest.mark.parametrize("D", [256, 30])
+def test_f16_fused_update_matches_plain_on_card(opt_type, args, D):
+    """K4's float16 path (ROADMAP A.11b): table and states stay float16 and
+    agree with the plain version within one float16 ulp (2^-10 relative,
+    or the subnormal spacing 2^-24), with NaN and +-inf where the plain
+    version has them (Adagrad from zero accumulator entries: eps 1e-10 is 0
+    in float16, so without weight decay an untouched entry computes 0/0,
+    and one whose g^2 underflows g/0; centered RMSprop where sq - avg^2 is
+    0 or below);
+    8-byte rows (D = 256) and 2-byte ones (D = 30); two launches from one
+    state equal in bits."""
+    from kge_tpu_torch.ops.optim import (
+        _RULES,
+        fused_sorted_update,
+        fused_sorted_update_plain,
+    )
 
     device = _card()
-    ids = torch.tensor([0, 3, 3], device=device)
-    param = torch.zeros(8, 16, device=device).half()
-    states = {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fused_sorted_update("adam", {}, ids, torch.ones(3, 16, device=device).half(),
-                            param, states, 0.1, 1)
-    q = torch.zeros(4, 16, device=device).half()
-    pool = torch.zeros(6, 16, device=device).half()
-    sel = torch.zeros(4, 3, dtype=torch.int64, device=device)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        pooled_dist_scores((q,), (pool,), sel, 2, "l1")
+    rng = np.random.default_rng(15)
+    rows, n = 3000, 1000
+    ids = torch.tensor(rng.integers(0, rows, n), device=device)
+    upd = _f16(rng, n, D).abs()
+    param = _f16(rng, rows, D)
+    states = {k: _f16(rng, rows, D, scale=0.1).abs()
+              for k in _RULES[opt_type][0](param, args)}
+    if opt_type == "adagrad":
+        states["sum"][::7] = 0  # 0/0 on untouched entries with weight decay
+    start = param.clone(), {k: v.clone() for k, v in states.items()}
+    ref_param = param.clone()
+    ref_states = {k: v.clone() for k, v in states.items()}
+    before = fused_sorted_update.launches, fused_sorted_update.f16_launches
+    fused_sorted_update(opt_type, args, ids, upd, param, states, 0.01, 3)
+    torch.cuda.synchronize()
+    assert (fused_sorted_update.launches, fused_sorted_update.f16_launches) == (
+        before[0] + 1, before[1] + 1)
+    fused_sorted_update_plain(opt_type, args, ids, upd, ref_param, ref_states,
+                              0.01, 3)
+    assert param.dtype == torch.float16
+    assert _same_non_finite_and_within(
+        param, ref_param, 2.0 ** -10 * ref_param.float().abs() + 2.0 ** -24)
+    for k in states:
+        assert states[k].dtype == torch.float16
+        assert _same_non_finite_and_within(
+            states[k], ref_states[k], 2.0 ** -10 * ref_states[k].float().abs() + 2.0 ** -24), k
+    if opt_type == "adagrad" and not args:
+        assert bool(torch.isnan(ref_param).any())
+    again, again_states = start
+    fused_sorted_update(opt_type, args, ids, upd, again, again_states, 0.01, 3)
+    assert torch.equal(again.view(torch.int16), param.view(torch.int16))
+    for k in states:
+        assert torch.equal(again_states[k].view(torch.int16), states[k].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,K,F,d,stride_parts,outside", BF16_POOLED_CASES)
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_f16_pooled_kernels_match_plain_on_card(kind, n, K, F, d, stride_parts,
+                                                outside):
+    """K5a and K5b in float16 (ROADMAP A.11b) against the plain version
+    (autograd), at the bfloat16 test's cases: scores within one float16 ulp,
+    dq and dpool within one ulp plus 2^-12 of the summed factor magnitudes
+    (float32 sums in other orders, then one rounding each); bit-equal across
+    two launches. The pairs (0, 1) and (3, K - 1) have distance 0 (and the
+    pair (5, 0), for cmod, squares that underflow): their cmod factors are
+    g / 0 times the difference, so dq and the selected pool rows hold +-inf
+    and NaN in the plain version's places."""
+    from kge_tpu_torch.ops.dist_pool import (
+        pooled_dist_scores,
+        pooled_dist_scores_plain,
+    )
+
+    device = _card()
+    rng = np.random.default_rng(9)
+    parts = 1 if kind == "l1" else 2
+    qs = [_f16(rng, n, d) for _ in range(parts)]
+    if stride_parts and parts == 2:
+        pools = list(torch.chunk(_f16(rng, K * F, 2 * d), 2, dim=1))
+    else:
+        pools = [_f16(rng, K * F, d) for _ in range(parts)]
+    sel = torch.tensor(rng.integers(0, F, (n, K)), device=device)
+    for i, j in ((0, 1), (3, K - 1)):  # distance exactly 0
+        if i < n:
+            for q, pool in zip(qs, pools):
+                q[i] = pool[j * F + sel[i, j]]
+    if n > 5 and parts == 2:  # |diff| = 2^-13 at 0.1875: squares below 2^-25
+        for q, pool in zip(qs, pools):
+            pool[sel[5, 0], :2] = 0.1875
+            q[5, :2] = 0.1875 + 2.0 ** -13
+    if outside:
+        sel[torch.tensor(rng.random((n, K)) < 0.1, device=device)] = -1
+        sel[torch.tensor(rng.random((n, K)) < 0.1, device=device)] = F
+        sel[torch.tensor(rng.random((n, K)) < 0.05, device=device)] = F + 7
+    g = _f16(rng, n, K)
+
+    def kernel():
+        tensors = [x.clone().requires_grad_(True) for x in (*qs, *pools)]
+        before = (pooled_dist_scores.f16_launches,
+                  pooled_dist_scores.f16_backward_launches)
+        out = pooled_dist_scores(tensors[:parts], tensors[parts:], sel, F, kind)
+        grads = torch.autograd.grad(out, tensors, g)
+        torch.cuda.synchronize()
+        assert (pooled_dist_scores.f16_launches,
+                pooled_dist_scores.f16_backward_launches) == (before[0] + (n > 0),
+                                                              before[1] + 1)
+        return out.detach(), list(grads)
+
+    (out, grads), (out2, grads2) = kernel(), kernel()
+    assert torch.equal(out.view(torch.int16), out2.view(torch.int16))
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(grads, grads2))
+    inside = (sel >= 0) & (sel < F)
+    sel_z = torch.where(inside, sel, torch.full_like(sel, F))
+    zero = torch.zeros(K, 1, d, dtype=torch.float16, device=device)
+    tensors = [q.clone().requires_grad_(True) for q in qs] + [
+        torch.cat([p.reshape(K, F, d), zero], 1).reshape(K * (F + 1), d)
+        .requires_grad_(True) for p in pools]
+    ref = pooled_dist_scores_plain(tensors[:parts], tensors[parts:], sel_z, F + 1, kind)
+    ref_grads = list(torch.autograd.grad(ref, tensors, g))
+    ref_grads[parts:] = [x.reshape(K, F + 1, d)[:, :F].reshape(K * F, d)
+                         for x in ref_grads[parts:]]
+    assert out.dtype == torch.float16 and out.shape == (n, K)
+    assert _same_non_finite_and_within(out, ref, 2.0 ** -10 * ref.float().abs() + 1e-6)
+    if kind == "cmod" and n > 0 and bool(inside[0, 1]):
+        assert not bool(torch.isfinite(ref_grads[0][0]).all())
+    dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
+    rows = (torch.arange(K, device=device)[None, :] * F + sel)[inside]
+    dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
+        0, rows, 2 * g.float().abs()[inside].reshape(-1, 1))
+    for i, (got, want) in enumerate(zip(grads, ref_grads)):
+        mag = dq_mag if i < parts else dpool_mag
+        assert got.dtype == torch.float16
+        assert _same_non_finite_and_within(
+            got, want, 2.0 ** -10 * want.float().abs() + 2.0 ** -12 * mag + 1e-6), i
+
+
+@pytest.mark.cuda
+def test_f16_pooled_scores_keep_the_plain_version_at_infinite_terms():
+    """``cmod`` in float16 with terms of +inf (a difference past 256, whose
+    square overflows 65,504) and NaN: the scores the plain version gives,
+    -inf and NaN in the same places, every other score within one float16
+    ulp."""
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
+
+    device = _card()
+    rng = np.random.default_rng(10)
+    n, K, F, d = 40, 20, 4, 36
+    qs = [_f16(rng, n, d) for _ in range(2)]
+    pools = [_f16(rng, K * F, d) for _ in range(2)]
+    qs[0][3, 5] = 300.0         # every pair of row 3: an infinite term
+    qs[1][7, 0] = float("nan")  # every pair of row 7: NaN
+    pools[0][2 * F + 1, 7] = -300.0  # the pairs (i, 2) that select it
+    sel = torch.tensor(rng.integers(0, F, (n, K)), device=device)
+    out = pooled_dist_scores(qs, pools, sel, F, "cmod")
+    plain = pooled_dist_scores_plain(qs, pools, sel, F, "cmod")
+    assert bool(torch.isinf(plain).any()) and bool(torch.isnan(plain).any())
+    assert _same_non_finite_and_within(out, plain,
+                                       2.0 ** -10 * plain.float().abs() + 1e-6)

@@ -1,7 +1,7 @@
 """kge_tpu's dtype policy in kge_tpu_torch, against kge_tpu on the CPU:
 ``parallel.compute_dtype: bfloat16`` (tables in float32) and both dtypes in
-bfloat16; the same in float16 ("f16_compute", "f16_both") on the routes of
-the kernels that have a float16 path (K1, K2, K3: ROADMAP A.11a).
+bfloat16; the same in float16 ("f16_compute", "f16_both") on every route
+(K1, K2 and K3 since ROADMAP A.11a, K4 and K5 since A.11b).
 
 - Training: every ``train.type`` (negative sampling with ComplEx, 1vsAll,
   KvsAll with label smoothing), TransE-L1 with the pool through the pooled
@@ -17,13 +17,14 @@ the kernels that have a float16 path (K1, K2, K3: ROADMAP A.11a).
   batch-norm variances' of 10 to 30; the two packages sum bfloat16
   products in other orders, and a rounding that differs once moves a later
   step's result by an ulp). In float16 (negative sampling, 1vsAll, KvsAll,
-  TransE-L1 on the row-sparse write, ConvE): losses rtol 5e-3, tables atol
-  5e-3 plus rtol 5e-3, about five float16 ulps (2^-10 relative) at the
-  tables' magnitudes of 0.1 to 1, for the same reason.
-- Each kernel's plain bfloat16 version against kge_tpu's function, run as
-  kge_tpu's own tests run it (interpret mode on the CPU): the scatter (K2),
-  the row write (K3), the fused row update (K4), the pooled distance scores
-  and their backward (K5a, K5b); the plain float16 versions of K2 and K3.
+  TransE-L1 with the pool and on the row-sparse write, RotatE on the fused
+  step, ConvE): losses rtol 5e-3, tables atol 5e-3 plus rtol 5e-3, about
+  five float16 ulps (2^-10 relative) at the tables' magnitudes of 0.1 to 1,
+  for the same reason.
+- Each kernel's plain bfloat16 and float16 versions against kge_tpu's
+  function, run as kge_tpu's own tests run it (interpret mode on the CPU):
+  the scatter (K2), the row write (K3), the fused row update (K4), the
+  pooled distance scores and their backward (K5a, K5b).
 - Evaluation of one bfloat16 model by both packages: ranks are equal on
   every (row, direction) whose bfloat16 score row equals kge_tpu's bit for
   bit, and differ elsewhere by no more than the count of differing entries.
@@ -98,9 +99,11 @@ ROTATE_FUSED = pooled_options(
     "rotate", **{"negative_sampling.pooled_kernel": "always",
                  "train.sparse_embedding_update": "always"})
 
-#: the routes float16 trains on: those of K1, K2 and K3 (K4 and K5 are
-#: refused in float16, ROADMAP A.11b)
-F16_CASES = ("1vsAll", "KvsAll", "negative_sampling", "transe_rows")
+#: the routes float16 trains on: every route, RotatE's fused step among them
+#: (in bfloat16 it has a test of its own, below)
+F16_CASES = ("1vsAll", "KvsAll", "negative_sampling", "rotate_fused",
+             "transe_pool", "transe_rows")
+ALL_CASES = {**CASES, "rotate_fused": (ROTATE_FUSED, "negatives")}
 #: (case, setting) of the training comparison
 TRAINING = [(case, setting) for setting in ("both", "compute")
             for case in sorted(CASES)] + [
@@ -156,7 +159,16 @@ def _assert_tables_close(jjob, tjob, dtype="bfloat16"):
 @pytest.mark.parametrize("case,setting", TRAINING,
                          ids=[f"{c}-{s}" for c, s in TRAINING])
 def test_training_matches_kge_tpu(case, setting):
-    options, kind = CASES[case]
+    """Every leaf keeps kge_tpu's dtype, but on RotatE's fused step with
+    float16 tables: kge_tpu's fused kernel cannot store its rule's float32
+    result into a float16 tile, and at widths off its 128-lane tiling it
+    takes its dense fallback, whose tables turn float32; the port's K4
+    keeps the table and its Adam moments float16, as in bfloat16 (ROADMAP
+    C.4). Their values agree within the float16 tolerances all the same.
+    On this 7-entity graph every row is touched at every step, so kge_tpu's
+    fallback stays finite; where rows go untouched it turns NaN and the
+    port's fused step does not (tests/test_torch_float16.py)."""
+    options, kind = ALL_CASES[case]
     dtype = _dtype_of(setting)
     loss_rtol = TOLERANCES[dtype][0]
     jjob, tjob = make_job_pair(DATASET_DIR, "dataset_test",
@@ -165,11 +177,16 @@ def test_training_matches_kge_tpu(case, setting):
     assert got == want
     param_dtype = dtype if setting.endswith("both") else "float32"
     assert want[0][0] == param_dtype  # the entity table, before a step
+    keeps_tables = case == "rotate_fused" and setting == "f16_both"
     for step in range(3):
         jloss, tloss = _step(jjob, tjob, kind, step)
         np.testing.assert_allclose(tloss, jloss, rtol=loss_rtol)
         want, got = _leaf_dtypes(jjob, tjob)
-        assert got == want, step
+        if keeps_tables:
+            assert want[0] == ["float32", "float32"], step
+            assert got == (["float16"] * 2, [{"m": "float16", "v": "float16"}] * 2)
+        else:
+            assert got == want, step
     _assert_tables_close(jjob, tjob, dtype)
 
 
@@ -345,6 +362,48 @@ FUSED_RULES = [
 ]
 
 
+def _fused_plain_matches_kge_tpu_rule(opt_type, args, dtype):
+    from kge_tpu.ops.optim import _RULES as JAX_RULES
+    from kge_tpu_torch.ops.optim import _RULES, fused_sorted_update
+
+    unit, values, tdtype = NARROW[dtype]
+    rng = np.random.default_rng(2)
+    rows, d, n, lr, step = 30, 16, 50, 0.05, 3
+    ids = rng.integers(0, rows, n)
+    upd, upd_t, _ = values(rng, n, d)
+    param, param_t, param_j = values(rng, rows, d)
+    states_t, states_j = {}, {}
+    for name in _RULES[opt_type][0](param_t, args):
+        x, t, j = values(rng, rows, d, scale=0.1)
+        if name in ("sum", "v", "sq", "acc", "u"):
+            x, t, j = np.abs(x), t.abs(), jnp.abs(j)
+        states_t[name], states_j[name] = t, j
+    g32 = np.zeros((rows, d), np.float32)
+    np.add.at(g32, ids, upd)
+    delta, want_states = JAX_RULES[opt_type][1](
+        jnp.asarray(g32).astype(dtype), states_j, param_j,
+        jnp.float32(lr), jnp.float32(step), dict(args))
+    want = (param_j + delta).astype(dtype)
+    got_states = fused_sorted_update(opt_type, dict(args), torch.tensor(ids),
+                                     upd_t, param_t, states_t, lr, step)
+    # one ulp: 2 unit roundoffs of the value, and float16's subnormal
+    # spacing 2^-24 (below bfloat16's, 2^-133, the 1e-30 covers)
+    tiny = 2.0 ** -24 if dtype == "float16" else 1e-30
+
+    def within_an_ulp(got, want):
+        got, want = _np(got), _np(want)
+        same_nan = np.isnan(got) & np.isnan(want)  # centered RMSprop's sqrt
+        ulp = 2 * unit * np.abs(want) + tiny
+        return np.all(same_nan | (np.abs(got - want) <= ulp))
+
+    assert param_t.dtype == tdtype
+    assert within_an_ulp(param_t, want)
+    for name, value in want_states.items():
+        assert got_states[name].dtype == tdtype, name
+        assert value.dtype == jnp.dtype(dtype), name
+        assert within_an_ulp(got_states[name], value), name
+
+
 @pytest.mark.parametrize("opt_type,args", FUSED_RULES,
                          ids=[f"{o}{'+' if a else ''}" for o, a in FUSED_RULES])
 def test_fused_update_plain_matches_kge_tpu_rule(opt_type, args):
@@ -355,40 +414,19 @@ def test_fused_update_plain_matches_kge_tpu_rule(opt_type, args):
     tile (ROADMAP C.4), so its rule runs here on the dense gradient. Within
     one bfloat16 ulp: the two packages' float32 square roots may differ in
     their last bit."""
-    from kge_tpu.ops.optim import _RULES as JAX_RULES
-    from kge_tpu_torch.ops.optim import _RULES, fused_sorted_update
+    _fused_plain_matches_kge_tpu_rule(opt_type, args, "bfloat16")
 
-    rng = np.random.default_rng(2)
-    rows, d, n, lr, step = 30, 16, 50, 0.05, 3
-    ids = rng.integers(0, rows, n)
-    upd, upd_t, _ = _bf16(rng, n, d)
-    param, param_t, param_j = _bf16(rng, rows, d)
-    states_t, states_j = {}, {}
-    for name in _RULES[opt_type][0](param_t, args):
-        x, t, j = _bf16(rng, rows, d, scale=0.1)
-        if name in ("sum", "v", "sq", "acc", "u"):
-            x, t, j = np.abs(x), t.abs(), jnp.abs(j)
-        states_t[name], states_j[name] = t, j
-    g32 = np.zeros((rows, d), np.float32)
-    np.add.at(g32, ids, upd)
-    delta, want_states = JAX_RULES[opt_type][1](
-        jnp.asarray(g32).astype(jnp.bfloat16), states_j, param_j,
-        jnp.float32(lr), jnp.float32(step), dict(args))
-    want = (param_j + delta).astype(jnp.bfloat16)
-    got_states = fused_sorted_update(opt_type, dict(args), torch.tensor(ids),
-                                     upd_t, param_t, states_t, lr, step)
-    def within_an_ulp(got, want):
-        got, want = _np(got), _np(want)
-        same_nan = np.isnan(got) & np.isnan(want)  # centered RMSprop's sqrt
-        ulp = 2.0 ** -7 * np.abs(want) + 1e-30
-        return np.all(same_nan | (np.abs(got - want) <= ulp))
 
-    assert param_t.dtype == torch.bfloat16
-    assert within_an_ulp(param_t, want)
-    for name, value in want_states.items():
-        assert got_states[name].dtype == torch.bfloat16, name
-        assert value.dtype == jnp.bfloat16, name
-        assert within_an_ulp(got_states[name], value), name
+@pytest.mark.parametrize("opt_type,args", FUSED_RULES,
+                         ids=[f"{o}{'+' if a else ''}" for o, a in FUSED_RULES])
+def test_fused_update_plain_matches_kge_tpu_rule_in_float16(opt_type, args):
+    """K4 on a float16 table and states, as in bfloat16: kge_tpu's rule on
+    float16 arrays with the learning rate and the step as float32 arrays
+    (its kernel's view; the kernel itself cannot store into a float16 tile,
+    ROADMAP C.4). Within one float16 ulp (2^-10 relative, or the subnormal
+    spacing 2^-24), NaN where kge_tpu's is NaN: Adagrad's eps 1e-10 rounds
+    to 0 in float16 in both packages."""
+    _fused_plain_matches_kge_tpu_rule(opt_type, args, "float16")
 
 
 @pytest.mark.parametrize("kind", ["l1", "cmod"])
@@ -410,16 +448,33 @@ def test_pooled_scores_plain_match_kge_tpu_at_edges(kind, n, K, F, d):
     _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed=5)
 
 
-def _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed):
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_pooled_scores_plain_match_kge_tpu_in_float16(kind):
+    """K5a and K5b in float16, as in bfloat16: the port sums in float32
+    and rounds once, kge_tpu sums in float16, within 4 float16 ulps (2^-11
+    relative each) of the summed magnitudes. The inputs have no zero
+    distance (tests/test_torch_float16.py has those)."""
+    _pooled_plain_matches_kge_tpu(kind, 16, 8, 3, 64, seed=3, dtype="float16")
+
+
+@pytest.mark.parametrize("n,K,F,d", [(5, 13, 1, 24), (33, 17, 1, 7), (12, 3, 5, 130)])
+@pytest.mark.parametrize("kind", ["l1", "cmod"])
+def test_pooled_scores_plain_match_kge_tpu_at_edges_in_float16(kind, n, K, F, d):
+    """The same at the forward kernel's edges, in float16."""
+    _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed=5, dtype="float16")
+
+
+def _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed, dtype="bfloat16"):
     from kge_tpu.ops.dist_pool import pooled_dist_scores as jax_pooled
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
 
+    unit, values, tdtype = NARROW[dtype]
     rng = np.random.default_rng(seed)
     parts = 1 if kind == "l1" else 2
-    qs = [_bf16(rng, n, d) for _ in range(parts)]
-    pools = [_bf16(rng, K * F, d) for _ in range(parts)]
+    qs = [values(rng, n, d) for _ in range(parts)]
+    pools = [values(rng, K * F, d) for _ in range(parts)]
     sel = rng.integers(0, F, (n, K))
-    g, g_t, g_j = _bf16(rng, n, K)
+    g, g_t, g_j = values(rng, n, K)
 
     def jax_fn(*tensors):
         return jax_pooled(list(tensors[:parts]), list(tensors[parts:]),
@@ -432,20 +487,20 @@ def _pooled_plain_matches_kge_tpu(kind, n, K, F, d, seed):
     got = pooled_dist_scores(tensors[:parts], tensors[parts:],
                              torch.tensor(sel), F, kind)
     got.backward(g_t)
-    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.dtype == tdtype and want.dtype == jnp.dtype(dtype)
     rows = np.arange(K)[None, :] * F + sel
     diffs = [q[0][:, None, :] - p[0][rows] for q, p in zip(qs, pools)]
     dist = (np.abs(diffs[0]) if kind == "l1"
             else np.sqrt(diffs[0] ** 2 + diffs[1] ** 2))
-    _close_in_bf16(got, want, dist.sum(axis=2), ulps=4)
+    _close_in_bf16(got, want, dist.sum(axis=2), ulps=4, unit=unit)
     # every factor of the backward is at most |g| in magnitude
     dq_mag = np.abs(g).sum(axis=1)[:, None] * np.ones((1, d), np.float32)
     dpool_mag = np.zeros((K * F, d), np.float32)
     np.add.at(dpool_mag, rows.reshape(-1), np.abs(g).reshape(-1, 1) * np.ones(d))
     for i, t in enumerate(tensors):
-        assert t.grad.dtype == torch.bfloat16
+        assert t.grad.dtype == tdtype
         _close_in_bf16(t.grad, want_grads[i], dq_mag if i < parts else dpool_mag,
-                       ulps=4)
+                       ulps=4, unit=unit)
 
 
 # -- evaluation of a bfloat16 model by both packages --------------------------

@@ -1,6 +1,6 @@
 """What only float16 has, in kge_tpu_torch against kge_tpu on the CPU
-(``parallel.*_dtype: float16``; ROADMAP A.11a). The routes both dtypes
-share are in tests/test_torch_dtype_policy.py.
+(``parallel.*_dtype: float16``; ROADMAP A.11a and A.11b). The routes both
+dtypes share are in tests/test_torch_dtype_policy.py.
 
 - Adagrad from a zero accumulator (its default) with float16 tables: its
   ``eps`` 1e-10 is a weakly typed Python constant, which rounds to 0 in
@@ -17,7 +17,16 @@ share are in tests/test_torch_dtype_policy.py.
   65,520), the L2 epilogue's -0.0 (its 1e-30 rounds to 0 in float16), ties
   at the default atol (a float16 subnormal) and the self-tie.
 - float16 checkpoints both ways between the packages through the CLI: numpy
-  float16 leaves, no stand-in.
+  float16 leaves, no stand-in; and a float16 checkpoint of Adam on the
+  fused row update (tables and moments float16) resumed by each package.
+- The pooled ``cmod`` scores at zero and underflowing distances: kge_tpu's
+  1e-30 rounds to 0 in float16, so their backward divides by 0 in both
+  packages, with the same zeros, infinities and NaNs in the scores, dq and
+  the selected pool rows.
+- Adam on float16 tables: kge_tpu's NaN comes from the weakly typed bias
+  correction of its dense rule (the int32 step), which its fused row
+  update's dense fallback runs too; with its kernel's float32 step the rule
+  stays finite, and so does the port's K4 (``KernelStep``).
 """
 
 import shutil
@@ -254,3 +263,279 @@ def test_float16_checkpoints_cross_both_ways(tmp_path):
                        folder / "checkpoint_00002.pt"))["model"][0].items()}
                   for folder in (resumed, started)]
         assert dtypes[0] == dtypes[1]
+
+
+# -- the pooled cmod scores at zero and underflowing distances ------------------
+
+
+def _cmod_edge_inputs():
+    """(q parts, pool parts, sel, g) in float16, n 6, K 4, F 3, d 8. Pair
+    (0, 1): a zero distance in every column; pair (4, 0): the same with g =
+    0; pair (2, 3): in columns 0-2 both differences are 2^-13 or 0 at values
+    of 0.1875, whose squares underflow to 0 (below 2^-25), in the other
+    columns a normal distance. Every other value lies in [0.25, 1) in
+    magnitude, so that kge_tpu's zero padding of rows and slots adds no
+    zero distance."""
+    rng = np.random.default_rng(11)
+    n, K, F, d = 6, 4, 3, 8
+
+    def values(*shape):
+        x = rng.uniform(0.25, 1.0, shape) * rng.choice([-1.0, 1.0], shape)
+        return x.astype(np.float16)
+
+    qs, pools = [values(n, d), values(n, d)], [values(K * F, d), values(K * F, d)]
+    sel = rng.integers(0, F, (n, K)).astype(np.int32)
+    g = values(n, K)
+    for i, j in ((0, 1), (4, 0)):
+        for q, p in zip(qs, pools):
+            q[i] = p[j * F + sel[i, j]]
+    g[4, 0] = 0.0
+    row = 3 * F + sel[2, 3]
+    for q, p in zip(qs, pools):
+        p[row, :3] = 0.1875
+        q[2, :3] = 0.1875
+    qs[0][2, :3] += np.float16(2.0 ** -13)  # both parts in column 0, one in 1-2
+    qs[1][2, 0] += np.float16(2.0 ** -13)
+    return qs, pools, sel, g
+
+
+def test_cmod_zero_distances_as_kge_tpu():
+    """``cmod`` in float16 at zero distances (0 - 0 in both parts) and at
+    distances whose squares underflow: kge_tpu's weakly typed 1e-30 rounds
+    to 0, so the distance is 0, the score 0 where every column is, and the
+    backward's ``g rsqrt(0) diff`` is +-inf, or NaN where diff or g is 0.
+    The port's plain version (autograd's ``g / (2 sqrt(0))`` times 2 diff)
+    gives the same: scores, dq and the dpool row each such pair selected
+    have NaN and +-inf in kge_tpu's places, with kge_tpu's signs, and agree
+    elsewhere within 4 float16 ulps of the summed magnitudes (the float16
+    tolerance of tests/test_torch_dtype_policy.py). One place differs, by
+    design (ROADMAP C.4): kge_tpu selects candidates by a one-hot sum over
+    the slot's F pool rows, so a non-finite factor reaches the slot's other
+    rows too, as 0 x inf = NaN; the port gathers the selected row, and
+    those rows stay finite."""
+    import jax
+
+    from kge_tpu.ops.dist_pool import pooled_dist_scores as jax_pooled
+    from kge_tpu_torch.ops.dist_pool import pooled_dist_scores
+
+    qs, pools, sel, g = _cmod_edge_inputs()
+    n, K = sel.shape
+    F, d = pools[0].shape[0] // K, qs[0].shape[1]
+
+    def jax_fn(*tensors):
+        return jax_pooled(list(tensors[:2]), list(tensors[2:]), jnp.asarray(sel), F,
+                          "cmod")
+
+    want, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (*qs, *pools)))
+    want_grads = [np.asarray(x, np.float32) for x in vjp(jnp.asarray(g))]
+    want = np.asarray(want, np.float32)
+    tensors = [torch.tensor(x).requires_grad_(True) for x in (*qs, *pools)]
+    got = pooled_dist_scores(tensors[:2], tensors[2:], torch.tensor(sel), F, "cmod")
+    grads = torch.autograd.grad(got, tensors, torch.tensor(g))
+    assert got.dtype == torch.float16 and all(x.dtype == torch.float16 for x in grads)
+    got = got.detach().float().numpy()
+    grads = [x.float().numpy() for x in grads]
+
+    # the pairs' distances in float16, column by column: 0 exactly where the
+    # handmade pairs have them
+    rows = np.arange(K)[None, :] * F + sel
+    diffs = [(q[:, None, :].astype(np.float32) - p[rows].astype(np.float32))
+             .astype(np.float16) for q, p in zip(qs, pools)]
+    squares = (diffs[0] * diffs[0] + diffs[1] * diffs[1]).astype(np.float16)
+    zero = squares == 0
+    assert zero[0, 1].all() and zero[4, 0].all() and zero[2, 3, :3].all()
+    assert zero.sum() == 2 * d + 3 and (diffs[0][2, 3, :3] != 0).all()
+    assert got[0, 1] == want[0, 1] == 0 and got[4, 0] == want[4, 0] == 0
+
+    def same_non_finite(a, b):
+        assert np.array_equal(np.isnan(a), np.isnan(b))
+        assert np.array_equal(np.isposinf(a), np.isposinf(b))
+        assert np.array_equal(np.isneginf(a), np.isneginf(b))
+
+    unit = 2.0 ** -11
+    dist = np.sqrt(squares.astype(np.float32))
+    _close(got, want, 4 * unit * dist.sum(axis=2))
+    dq_mag = 2 * np.abs(g.astype(np.float32)).sum(axis=1)[:, None] * np.ones((1, d))
+    for i in range(2):
+        same_non_finite(grads[i], want_grads[i])
+        assert not np.isfinite(grads[i][[0, 2, 4]]).all()
+        finite = np.isfinite(want_grads[i])
+        _close(grads[i][finite], want_grads[i][finite], 4 * unit * dq_mag[finite])
+    # dpool: a non-finite factor in the selected row in both packages; in
+    # kge_tpu also as NaN in the slot's other rows
+    hit = np.zeros((K * F, d), bool)
+    slot_hit = np.zeros((K, d), bool)
+    for i, j in zip(*np.nonzero(zero.any(axis=2))):
+        hit[rows[i, j]] |= zero[i, j]
+        slot_hit[j] |= zero[i, j]
+    spread = np.repeat(slot_hit, F, axis=0) & ~hit
+    assert spread.sum() > 0
+    dpool_mag = np.zeros((K * F, d), np.float32)
+    np.add.at(dpool_mag, rows.reshape(-1), 2 * np.abs(g.astype(np.float32)).reshape(-1, 1)
+              * np.ones(d))
+    for i in range(2, 4):
+        port, jax_ = grads[i], want_grads[i]
+        assert np.isnan(jax_[spread]).all() and np.isfinite(port[spread]).all()
+        assert not np.isfinite(port[hit]).any()
+        same_non_finite(port[~spread], jax_[~spread])
+        finite = np.isfinite(jax_)
+        _close(port[finite], jax_[finite], 4 * unit * dpool_mag[finite])
+
+
+def _close(got, want, bound):
+    """|got - want| <= bound + 1e-6, element by element."""
+    excess = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32)) - (
+        bound + 1e-6)
+    assert np.all(excess <= 0), float(np.max(excess))
+
+
+# -- Adam on float16 tables: where kge_tpu's NaN comes from ----------------------
+
+
+def test_adam_nan_comes_from_the_weakly_typed_bias_correction():
+    """kge_tpu's Adam rule on float16 arrays from zero moments, where a row
+    has zero gradient: with its dense step's int32 step count the bias
+    corrections are weakly typed, so ``m_hat`` and ``v_hat`` stay float16,
+    ``eps`` 1e-8 rounds to 0, and those entries compute 0/0; with its fused
+    kernel's float32 step (kge_tpu/ops/pallas_ops.py) they are float32
+    terms, eps stays 1e-8, and the step is finite. The port's rule gives
+    the same NaNs with an int step (the dense step) and the same finite
+    step with ``KernelStep`` (its K4 and K4's plain version), within one
+    float16 ulp of kge_tpu's."""
+    from kge_tpu.ops.optim import _RULES as JAX_RULES
+    from kge_tpu_torch.ops.optim import _RULES, KernelStep
+
+    rng = np.random.default_rng(4)
+    rows, d, lr = 12, 16, 1e-3
+    param = rng.normal(0, 0.5, (rows, d)).astype(np.float16)
+    grad = rng.normal(0, 1e-2, (rows, d)).astype(np.float16)
+    grad[::3] = 0  # untouched rows
+    untouched = np.zeros((rows, d), bool)
+    untouched[::3] = True
+    zeros = np.zeros((rows, d), np.float16)
+
+    def jax_step(step):
+        delta, _ = JAX_RULES["adam"][1](
+            jnp.asarray(grad), {"m": jnp.asarray(zeros), "v": jnp.asarray(zeros)},
+            jnp.asarray(param), jnp.float32(lr), step, {})
+        return np.asarray(delta, np.float32)
+
+    def port_step(step):
+        delta, _ = _RULES["adam"][1](
+            torch.tensor(grad), {"m": torch.tensor(zeros), "v": torch.tensor(zeros)},
+            torch.tensor(param), lr, step, {})
+        return delta.float().numpy()
+
+    dense_jax, kernel_jax = jax_step(jnp.int32(0)), jax_step(jnp.float32(0))
+    dense_port, kernel_port = port_step(0), port_step(KernelStep(0))
+    assert np.array_equal(np.isnan(dense_jax), untouched)
+    assert np.array_equal(np.isnan(dense_port), untouched)
+    assert np.isfinite(kernel_jax).all() and np.isfinite(kernel_port).all()
+    assert (kernel_jax[untouched] == 0).all() and (kernel_port[untouched] == 0).all()
+    # the new parameter, stored in float16, within one float16 ulp
+    want = (param.astype(np.float32) + kernel_jax).astype(np.float16).astype(np.float32)
+    got = (param.astype(np.float32) + kernel_port).astype(np.float16).astype(np.float32)
+    assert np.all(np.abs(got - want) <= 2.0 ** -10 * np.abs(want) + 2.0 ** -24)
+
+
+def test_rotate_adam_on_float16_tables_nans_only_in_kge_tpus_fallback(synth):
+    """RotatE with Adam on the fused row-sparse step, both dtypes float16,
+    on 64 entities (a batch leaves most rows untouched), the same batches
+    and pools in both packages. kge_tpu takes its fused kernel's dense
+    fallback at d = 8 (its kernel could not store into a float16 tile at
+    any width, ROADMAP C.4): the first step turns the untouched entries
+    NaN, and the second step's loss is NaN. The port's K4 keeps kge_tpu's
+    kernel semantics (a float32 step) and stays finite; on the dense step
+    (``train.sparse_embedding_update: never``) it runs kge_tpu's dense rule
+    and meets the same NaN at the same step."""
+    from tests.test_torch_dtype_policy import ROTATE_FUSED
+
+    options = {**ROTATE_FUSED, **BOTH, "train.epoch_scan": "never"}
+    jjob, tjob = make_job_pair(synth, synth.name, options)
+    assert tjob._sparse_update
+    losses = run_steps(jjob, tjob, steps=2)
+    assert [np.isnan(j) for j, _ in losses] == [False, True]
+    assert [np.isnan(t) for _, t in losses] == [False, False]
+    np.testing.assert_allclose(losses[0][1], losses[0][0], rtol=5e-3)
+    for table in tjob.optimizer.params:
+        assert table.dtype == torch.float16 and bool(torch.isfinite(table).all())
+
+    dense = {**options, "train.sparse_embedding_update": "never"}
+    jjob, tjob = make_job_pair(synth, synth.name, dense)
+    assert not tjob._sparse_update
+    losses = run_steps(jjob, tjob, steps=2)
+    assert [np.isnan(t) for _, t in losses] == [False, True]
+    assert [np.isnan(j) for j, _ in losses] == [False, True]
+
+
+ROTATE_F16_CONFIG = """\
+job.device: cpu
+dataset.name: dataset_test
+model: rotate
+train:
+  type: negative_sampling
+  max_epochs: 1
+  batch_size: 6
+  loss: bce_self_adversarial
+  optimizer.default.type: Adam
+  optimizer.default.args.lr: 0.001
+  optimizer.default.args.eps: 1.0e-4
+  sparse_embedding_update: always
+  epoch_scan: never
+negative_sampling:
+  shared: false
+  implementation: pool
+  pool_factor: 3
+  pooled_kernel: always
+  num_samples: {s: 4, o: 4}
+lookup_embedder.dim: 8
+valid.every: 0
+random_seed.default: 1
+parallel.compute_dtype: float16
+parallel.param_dtype: float16
+"""
+
+
+def test_float16_adam_checkpoint_of_the_fused_step_resumes_in_both(tmp_path):
+    """The port starts RotatE with Adam on the fused row update with both
+    dtypes float16 (pooled cmod scores through K5's plain version) for one
+    epoch: its checkpoint holds float16 tables and float16 Adam moments.
+    Each package resumes it for a second epoch: the losses agree within
+    rtol 5e-3. Adam's eps is 1e-4: with 1e-8, a gradient entry whose v =
+    0.001 g^2 underflows in float16 takes a step of lr |g| 1e8, which
+    overflows the table in some draws, in both packages (ROADMAP C.4). The port's tables and moments stay float16; kge_tpu's fused
+    step takes its dense fallback and turns the tables float32 (ROADMAP
+    C.4)."""
+    from kge_tpu_torch.models.convert import leaf_tensor
+    from kge_tpu_torch.utils.io import load_checkpoint
+    from tests.test_torch_cli import _entries, _run, _toy_cwd
+
+    cwd = _toy_cwd(tmp_path)
+    config = cwd / "rotate_f16.yaml"
+    config.write_text(ROTATE_F16_CONFIG)
+    started = cwd / "started"
+    _run([sys.executable, "-m", "kge_tpu_torch", "start", str(config), "--folder",
+          str(started)], cwd=cwd)
+    saved = load_checkpoint(str(started / "checkpoint_00001.pt"))
+    for leaf in saved["model"][0].values():
+        table = leaf["embeddings"]
+        assert isinstance(table, np.ndarray) and table.dtype == np.float16
+    for leaf in saved["optimizer_state"]["leaves"]:
+        assert {k: v.dtype for k, v in leaf.items()} == {"m": np.float16,
+                                                         "v": np.float16}
+    losses, tables = {}, {}
+    for package in ("kge_tpu_torch", "kge_tpu"):
+        folder = cwd / package
+        folder.mkdir()
+        for name in ("config.yaml", "checkpoint_00001.pt"):
+            shutil.copy(started / name, folder / name)
+        _run([sys.executable, "-m", package, "resume", str(folder),
+              "--train.max_epochs", "2"], cwd=cwd)
+        (entry,) = _entries(folder, event="epoch_completed")
+        assert entry["epoch"] == 2
+        losses[package] = entry["avg_loss"]
+        last = load_checkpoint(str(folder / "checkpoint_00002.pt"))
+        tables[package] = {leaf_tensor(v["embeddings"]).dtype
+                           for v in last["model"][0].values()}
+    np.testing.assert_allclose(losses["kge_tpu_torch"], losses["kge_tpu"], rtol=5e-3)
+    assert tables == {"kge_tpu_torch": {torch.float16}, "kge_tpu": {torch.float32}}

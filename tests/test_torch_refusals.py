@@ -9,10 +9,10 @@ on dataset_test, on the CPU), once refused by the port:
   tolerances and checkpoints of the same dtypes; kge_tpu on
   ``train.epoch_scan: never`` (its scanned KvsAll epoch fails on bfloat16
   tables, ROADMAP C.4);
-- float16 trains (ROADMAP A.11a; tests/test_torch_float16.py) but on the
-  routes of the kernels without a float16 path yet (the fused row update
-  on the row-sparse step, the pooled distance kernels), which the port
-  refuses naming ROADMAP A.11b; any other dtype (``float64``) is refused;
+- float16 trains on every route (ROADMAP A.11a and A.11b;
+  tests/test_torch_float16.py), the fused row update on the row-sparse
+  step and the pooled distance kernels among them, which the port refused
+  before A.11b; any other dtype (``float64``) is refused;
 - a device mesh larger than one card (``parallel.data`` or
   ``parallel.model`` above 1): the port raises with kge_tpu's message, as
   kge_tpu does on one device.
@@ -35,6 +35,7 @@ The command that found ROADMAP C.7, whose setting the port ignored:
 ROADMAP A.12, where kge_tpu would halve the subbatch and retry.
 """
 
+import shutil
 import subprocess
 import sys
 
@@ -123,6 +124,8 @@ def test_bfloat16_dtypes_train_as_kge_tpu_trains(tmp_path, options):
 
 
 NEGS = str(EXAMPLES_DIR / "toy-complex-train-negs.yaml")
+#: an Adam eps at which float16 tables train at lr 0.2
+ADAM_F16_EPS = ("--train.optimizer.default.args.eps", "1e-4")
 TRANSE = str(EXAMPLES_DIR / "toy-transe-train.yaml")
 
 
@@ -131,25 +134,56 @@ TRANSE = str(EXAMPLES_DIR / "toy-transe-train.yaml")
      "parallel.param_dtype=float64: kge_tpu_torch runs float32, bfloat16 and "
      "float16"),
     (NEGS, ["--parallel.param_dtype", "float16", "--train.sparse_embedding_update",
-            "always", "--train.optimizer.default.type", "Adam"],
-     "parallel.param_dtype=float16 on the row-sparse step"),
+            "always", "--train.optimizer.default.type", "Adam",
+            *ADAM_F16_EPS], None),
     (TRANSE, ["--parallel.compute_dtype", "float16", "--transe.l_norm", "1.0",
               "--negative_sampling.implementation", "pool",
-              "--negative_sampling.pooled_kernel", "always"],
-     "parallel.compute_dtype=float16 with pooled l1 scores"),
+              "--negative_sampling.pooled_kernel", "always"], None),
 ], ids=["param", "rows_adam", "pooled"])
-def test_dtypes_other_than_float32_are_refused(tmp_path, config, options, message):
-    """What stays refused of the dtypes (kge_tpu would run them): float64,
-    and float16 on the routes of the kernels that have no float16 path yet,
-    naming ROADMAP A.11b: Adam on the row-sparse step (the fused row update)
-    and pooled TransE-L1 scores (the pooled distance kernels)."""
+def test_float16_runs_and_other_dtypes_are_refused(tmp_path, config, options,
+                                                   message):
+    """What stays refused of the dtypes (kge_tpu would run it): float64.
+    float16 runs on the routes that ROADMAP A.11b ported: Adam on the
+    row-sparse step (the fused row update) ends its epochs with float16
+    tables and float16 moments, and pooled TransE-L1 scores (the pooled
+    distance kernels' plain version) with a finite loss.
+
+    Adam's command as it was refused, with its default eps 1e-8, is no
+    longer refused, and ends as kge_tpu's run of it ends, in ``Cost became
+    nan``: at lr 0.2, ``v = 0.001 g^2`` underflows to 0 in float16 for
+    |g| below about 7.7e-3, and the step ``m_hat / (0 + 1e-8)`` overflows
+    the float16 table (float16 Adam itself, with kge_tpu's kernel's
+    semantics as with its dense fallback's). With eps 1e-4 (``ADAM_F16_EPS``)
+    both packages train it."""
     cwd = _toy_cwd(tmp_path)
-    proc = _run([sys.executable, "-m", "kge_tpu_torch", "start", config,
-                 "--job.device", "cpu", *options, "--folder", str(cwd / "x")],
-                cwd=cwd, check=False)
-    assert proc.returncode != 0
-    assert f"ValueError: {message}" in proc.stderr, proc.stderr[-2000:]
-    assert ("ROADMAP A.11b" in proc.stderr) == ("float16" in options)
+    folder = cwd / "x"
+
+    def start(*argv):
+        return _run([sys.executable, "-m", "kge_tpu_torch", "start", config,
+                     "--job.device", "cpu", *argv, "--train.max_epochs", "2",
+                     "--valid.every", "0", "--folder", str(folder)],
+                    cwd=cwd, check=False)
+
+    if "Adam" in options:
+        default_eps = [x for x in options if x not in ADAM_F16_EPS]
+        proc = start(*default_eps)
+        assert proc.returncode != 0 and "ValueError" not in proc.stderr
+        assert "FloatingPointError: Cost became nan" in proc.stderr, proc.stderr[-2000:]
+        shutil.rmtree(folder)
+    proc = start(*options)
+    if message is not None:
+        assert proc.returncode != 0
+        assert f"ValueError: {message}" in proc.stderr, proc.stderr[-2000:]
+        return
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    losses = [e["avg_loss"] for e in _entries(folder, event="epoch_completed")]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    saved = load_checkpoint(str(folder / "checkpoint_00002.pt"))
+    if "--parallel.param_dtype" in options:
+        for leaf in saved["model"][0].values():
+            assert leaf_tensor(leaf["embeddings"]).dtype == torch.float16
+        for leaf in saved["optimizer_state"]["leaves"]:
+            assert {leaf_tensor(v).dtype for v in leaf.values()} == {torch.float16}
 
 
 @pytest.mark.parametrize("options,message", [
