@@ -3619,6 +3619,18 @@ def narrow_pooled_case(seed: int, device, dtype=torch.bfloat16, shapes=3):
     return forward, backward
 
 
+def f16_underflow_block(leaves, sel, F):
+    """Float16 ``cmod`` leaves (queries, then pools): rows 1, 8, 15, ... at
+    slot 2 get |diff| = 2^-13 at 0.1875 in the first 8 columns, whose
+    squares underflow, so that their distances are 0."""
+    parts = len(leaves) // 2
+    for i in range(1, sel.shape[0], 7):
+        row = 2 * F + int(sel[i, 2])
+        for p in range(parts):
+            leaves[parts + p][row, :8] = 0.1875
+            leaves[p][i, :8] = 0.1875 + 2.0 ** -13
+
+
 def narrow_pooled_shape(case, generator, device, dtype=torch.bfloat16):
     from kge_tpu_torch.ops.dist_pool import pooled_dist_scores, pooled_dist_scores_plain
 
@@ -3628,12 +3640,7 @@ def narrow_pooled_shape(case, generator, device, dtype=torch.bfloat16):
     leaves = [x.to(dtype) for x in queries + pools]
     parts = len(queries)
     if dtype == torch.float16 and kind == "cmod":
-        # rows 1, 8, 15, ... at slot 2: |diff| = 2^-13 in the first 8 columns
-        for i in range(1, n, 7):
-            row = 2 * F + int(sel[i, 2])
-            for p in range(parts):
-                leaves[parts + p][row, :8] = 0.1875
-                leaves[p][i, :8] = 0.1875 + 2.0 ** -13
+        f16_underflow_block(leaves, sel, F)
     leaves = [x.requires_grad_(True) for x in leaves]
     g = torch.randn(n, K, generator=generator, device=device).to(dtype)
     del queries, pools
@@ -3728,21 +3735,29 @@ def narrow_pooled_shape(case, generator, device, dtype=torch.bfloat16):
     return out
 
 
-def bf16_fast_ops_exact(device):
-    """The bfloat16 path's fast operations against the IEEE ones,
-    exhaustively (ops/dist_pool.py ``bf16_fast_ops_check``): no result may
-    differ where the kernels use them."""
-    from kge_tpu_torch.ops.dist_pool import bf16_fast_ops_check
+#: per 16-bit path: its exhaustive check (ops/dist_pool.py) and the square
+#: roots and quotients it must take
+FAST_OPS = {"bf16": ("bf16_fast_ops_check", 29151, 515635208),
+            "f16": ("f16_fast_ops_check", 1 << 15, 1 << 31)}
 
+
+def fast_ops_exact(device, tag="bf16"):
+    """The bfloat16 (or float16) path's fast operations against the IEEE
+    ones, exhaustively (ops/dist_pool.py ``bf16_fast_ops_check``,
+    ``f16_fast_ops_check``): no result may differ where the kernels use
+    them, and each check takes all it should."""
+    from kge_tpu_torch.ops import dist_pool
+
+    name, roots, quotients = FAST_OPS[tag]
     start = time.perf_counter()
-    counts = bf16_fast_ops_check(device)
+    counts = getattr(dist_pool, name)(device)
     torch.cuda.synchronize()
     differ = {k: v for k, v in counts.items()
               if k.endswith("_differ") and v}
-    check(not differ and counts["sqrt_inputs"] == 29151
-          and counts["quotient_pairs"] == 515635208,
-          f"bf16 fast operations differ from the IEEE ones: {counts}")
-    log(f"  bf16 fast operations exact: sub/add/mul on all 2^32 pairs, "
+    check(not differ and counts["sqrt_inputs"] == roots
+          and counts["quotient_pairs"] == quotients,
+          f"{tag} fast operations differ from the IEEE ones: {counts}")
+    log(f"  {tag} fast operations exact: sub/add/mul on all 2^32 pairs, "
         f"{counts['sqrt_inputs']} square roots, {counts['quotient_pairs']} quotients "
         f"({time.perf_counter() - start:.2f} s)")
     return counts
@@ -3882,7 +3897,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     }
     kernels["pooled_scores"], kernels["pooled_scores_bwd"] = narrow_pooled_case(seed, device)
     log(f"  {card_line()}")
-    out = {"kernels": kernels, "bf16_fast_ops": bf16_fast_ops_exact(device),
+    out = {"kernels": kernels, "bf16_fast_ops": fast_ops_exact(device),
            "gamma_check": gamma}
     num_train = FB15K237[2]
 
@@ -4231,7 +4246,7 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
     kernels["pooled_scores"], kernels["pooled_scores_bwd"] = narrow_pooled_case(
         seed, device, f16, shapes=2)
     log(f"  {card_line()}")
-    out = {"kernels": kernels}
+    out = {"kernels": kernels, "f16_fast_ops": fast_ops_exact(device, "f16")}
     log(f"  the float16 kernels against their plain versions: "
         f"{time.perf_counter() - start:.1f} s")
     test_batches = -(-NUM_TEST // BATCH)

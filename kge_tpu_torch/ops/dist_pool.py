@@ -36,8 +36,14 @@ constant, which rounds to 0 in float16, so a pair whose squares both
 underflow (``|diff|`` below about 2^-12.5 in both parts) has distance 0,
 and its factor in the backward is ``g / 0`` times the difference: +-inf, or
 NaN where the difference or g is 0, as kge_tpu's ``g rsqrt(0) diff`` is.
-The kernels compute float16's roundings with IEEE operations, one element
-at a time (``csrc/dist_pool.cu`` says why not the fast ones).
+The kernels compute float16's roundings with float16 instructions that
+round once and keep subnormals, and the square root and the quotient with
+the card's approximations made exact: the square root against the square
+of the float16 midpoint beside it, the quotient refined once by its exact
+residual (``csrc/dist_pool.cu`` says why each is float16's IEEE result;
+``f16_fast_ops_check`` holds them against the IEEE operations on the card,
+exhaustively), so every element, and every output, has the bits of IEEE
+operations rounded one at a time.
 
 ``pooled_dist_scores`` is differentiable in the queries and the pool
 (``torch.autograd.Function``; the backward is a kernel too). Beside it
@@ -147,6 +153,28 @@ BF16_CHECK_COUNTS = (
     "sub_differ", "add_differ", "mul_differ", "sqrt_differ", "sqrt_inputs",
     "sqrt_differ_outside", "quotient_differ", "quotient_pairs",
 )
+#: what ``f16_fast_ops_check`` counts, in the order of the kernel's counts
+F16_CHECK_COUNTS = (
+    "sub_differ", "add_differ", "mul_differ", "sqrt_differ", "sqrt_inputs",
+    "quotient_differ", "quotient_pairs",
+)
+
+
+def _fast_ops_check(entry: str, names, device) -> dict:
+    """Launch the exhaustive check ``entry`` of csrc/dist_pool.cu on
+    ``device`` (a CUDA card) and return its counts by ``names``."""
+    from kge_tpu_torch.ops.kernel_utils import check_launch, load_library, typed
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{entry} runs on a CUDA card, not {device}")
+    counts = torch.zeros(len(names), dtype=torch.int64, device=device)
+    lib = load_library("dist_pool")
+    launch = typed(lib, entry, [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = launch(counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    check_launch(code, entry)
+    return dict(zip(names, counts.tolist()))
 
 
 def bf16_fast_ops_check(device) -> dict:
@@ -160,18 +188,21 @@ def bf16_fast_ops_check(device) -> dict:
     the fast quotient's range and every distance in [2^-50, 2^64] or +inf
     (``quotient_pairs``), the quotients that differ from ``R(g / R(2
     dist))``."""
-    from kge_tpu_torch.ops.kernel_utils import check_launch, load_library, typed
+    return _fast_ops_check("bf16_fast_ops_check", BF16_CHECK_COUNTS, device)
 
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"bf16_fast_ops_check runs on a CUDA card, not {device}")
-    counts = torch.zeros(len(BF16_CHECK_COUNTS), dtype=torch.int64, device=device)
-    lib = load_library("dist_pool")
-    launch = typed(lib, "bf16_fast_ops_check", [ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(device):
-        code = launch(counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    check_launch(code, "bf16_fast_ops_check")
-    return dict(zip(BF16_CHECK_COUNTS, counts.tolist()))
+
+def f16_fast_ops_check(device) -> dict:
+    """The float16 path's fast operations against the IEEE ones, on the
+    card, exhaustively (``csrc/dist_pool.cu`` ``f16_ops_check_kernel``):
+    for all 2^32 pairs of float16 values, the pairs whose one-rounding
+    difference, sum and product differ from the float32 operation's rounded
+    to float16; for every non-negative float16 t (``sqrt_inputs``: +inf and
+    NaN too), the square roots that differ from ``R(sqrt(t))``; for every
+    float16 g and every D with its sign bit clear (``quotient_pairs``:
+    2^31, which hold every ``D = R(2 dist)`` of the kernels), the quotients
+    that differ from ``R(g / D)``. Equal is the same bits, or NaN on both
+    sides."""
+    return _fast_ops_check("f16_fast_ops_check", F16_CHECK_COUNTS, device)
 
 
 def _check(queries, pool_embs, sel, pool_factor, kind):

@@ -12,9 +12,13 @@ can be compared bit for bit). With ``--bf16`` the bfloat16 path instead,
 forward and backward, at P-rotate's ``cmod`` shape and P-transe's two
 ``l1`` shapes, against the plain version in bfloat16 (chip_smoke.py phase
 22's rule: scores within one bfloat16 ulp, dq and dpool within one ulp plus
-2^-12 of the summed factor magnitudes).
+2^-12 of the summed factor magnitudes, NaN and +-inf in the same places);
+with ``--f16`` the float16 path the same way, with phase 22's zero
+distances and underflowing squares (``f16_underflow_block``) at ``cmod``.
+Both print a hash of each output (``bits``: scores, dq, dpool), so that
+two trees compare bit for bit.
 
-    python3 scripts/pooled_bwd_timing.py [--forward | --bf16] [--root DIR]
+    python3 scripts/pooled_bwd_timing.py [--forward | --bf16 | --f16] [--root DIR]
                                          [--variant NAME=V,NAME=V]...
                                          [--swap OLD=>NEW]... [--sass FILE]
 
@@ -28,8 +32,10 @@ ablation, such as an instruction taken out, to see what binds the time;
 its results are wrong by design); several replacements are joined by
 ``|||``. ``--sass``: write the root's built
 library disassembled (``cuobjdump -sass``) to FILE and print each kernel's
-instruction count. Prints one JSON line per (variant, shape), then the
-card's name and power limit.
+instruction count, its special-function (MUFU) instructions, and each of
+its innermost loops that holds one: its instructions and MUFUs, from which
+the instructions a pair element follow. Prints one JSON line per (variant,
+shape), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -152,18 +158,28 @@ def time_forward(smoke, dist_pool, case, device, seed: int, stride_parts: bool):
             "bits": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16]}
 
 
-def time_bf16(smoke, dist_pool, case, device, seed: int):
-    """The bfloat16 forward and backward of one shape: the whole call by
-    CUDA events, each launch from the profiler, both against the plain
-    version, and two launches bit for bit."""
+def bits_of(tensors) -> str:
+    """A hash of the tensors' bytes, in order."""
+    digest = hashlib.sha1()
+    for t in tensors:
+        digest.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def time_16(smoke, dist_pool, case, device, seed: int, dtype):
+    """The bfloat16 or float16 forward and backward of one shape: the whole
+    call by CUDA events, each launch from the profiler, both against the
+    plain version, two launches bit for bit, and the outputs' hashes."""
     name, kind, n, K, F, d = case[:6]
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     queries, pools, sel = smoke.pooled_inputs(kind, n, K, F, d, generator, device)
-    queries = [q.bfloat16() for q in queries]
-    pools = [p.bfloat16() for p in pools]
-    g = torch.randn(n, K, generator=generator, device=device).bfloat16()
+    leaves = [x.to(dtype) for x in queries + pools]
     parts = len(queries)
+    if dtype == torch.float16 and kind == "cmod":
+        smoke.f16_underflow_block(leaves, sel, F)
+    queries, pools = leaves[:parts], leaves[parts:]
+    g = torch.randn(n, K, generator=generator, device=device).to(dtype)
 
     def forward():
         return dist_pool._launch_forward(queries, pools, sel, F, kind)
@@ -183,33 +199,75 @@ def time_bf16(smoke, dist_pool, case, device, seed: int):
     leaves = [t.clone().requires_grad_(True) for t in queries + pools]
     ref = dist_pool.pooled_dist_scores_plain(leaves[:parts], leaves[parts:], sel, F, kind)
     ref_grads = torch.autograd.grad(ref, leaves, g)
-    ulp = 2.0 ** -7
-    e = (out.float() - ref.detach().float()).abs()
-    fwd_ok = bool((e <= 1e-6 + ulp * ref.detach().float().abs()).all())
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    ref = ref.detach()
+    fwd_ok = smoke.same_non_finite_within(out, ref, 1e-6 + ulp * ref.float().abs())
+    e = (out.float() - ref.float())[torch.isfinite(ref)].abs()
     rows = (torch.arange(K, device=device)[None, :] * F + sel.long()).reshape(-1)
     dq_mag = 2 * g.float().abs().sum(1, keepdim=True)
     dpool_mag = torch.zeros(K * F, 1, device=device).index_add_(
         0, rows, 2 * g.float().abs().reshape(-1, 1))
-    bwd_err, bwd_ok = 0.0, True
+    bwd_err, bwd_ok, non_finite = 0.0, True, 0
     for i, (got, want) in enumerate(zip(dqs + dpools, ref_grads)):
         mag = dq_mag if i < parts else dpool_mag
-        err = (got.float() - want.float()).abs()
-        bwd_err = max(bwd_err, float(err.max()))
-        bwd_ok = bwd_ok and bool(
-            (err <= 1e-6 + ulp * want.float().abs() + 2.0 ** -12 * mag).all())
+        finite = torch.isfinite(want)
+        non_finite += int((~finite).sum())
+        bwd_err = max(bwd_err, float((got.float() - want.float())[finite].abs().max()))
+        bwd_ok = bwd_ok and smoke.same_non_finite_within(
+            got, want, 1e-6 + ulp * want.float().abs() + 2.0 ** -12 * mag)
     return {"shape": name, "kind": kind, "n": n, "K": K, "F": F, "d": d,
-            "dtype": "bfloat16", "fwd_ms": fwd_ms,
+            "dtype": str(dtype).split(".")[-1], "fwd_ms": fwd_ms,
             "fwd_kernel_ms": fwd_split["pooled_scores"], "bwd_ms": bwd_ms,
             "dq_ms": bwd_split["pooled_dq"], "dpool_ms": bwd_split["pooled_dpool"],
             "fwd_max_abs_err": float(e.max()), "fwd_within_tolerance": fwd_ok,
             "bwd_max_abs_err": bwd_err, "bwd_within_tolerance": bwd_ok,
-            "bit_equal": same_bits}
+            "non_finite_gradient_entries": non_finite, "bit_equal": same_bits,
+            "bits": {"scores": bits_of([out]), "dq": bits_of(dqs),
+                     "dpool": bits_of(dpools)}}
+
+
+def sass_report(sass: str):
+    """Per kernel of a ``cuobjdump -sass`` listing: its instructions, its
+    MUFU instructions by kind, and each innermost loop that holds a MUFU (a
+    backward branch with no other such loop inside; loops without a MUFU,
+    such as a stage's copies, may lie inside): its length in instructions
+    and its MUFUs. Yields one line each."""
+    line = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", re.M)
+    for function in sass.split("Function : ")[1:]:
+        name = function.split()[0]
+        code = [(int(a, 16), text) for a, text in line.findall(function)]
+        kinds = {}
+        for _, text in code:
+            if "MUFU." in text:
+                op = "MUFU." + text.split("MUFU.")[1].split()[0]
+                kinds[op] = kinds.get(op, 0) + 1
+        yield f"sass: {len(code)} instructions, MUFU {kinds} in {name}"
+        back = []
+        for k, (addr, text) in enumerate(code):
+            target = re.search(r"BRA(?:\.\S+)? (?:`\(\.L_x_\d+\) )?0x([0-9a-f]+)", text)
+            if target and int(target.group(1), 16) <= addr:
+                start = next(i for i, (a, _) in enumerate(code)
+                             if a >= int(target.group(1), 16))
+                back.append((start, k))
+        back = [(s2, e2) for s2, e2 in back
+                if any("MUFU." in text for _, text in code[s2:e2 + 1])]
+        for start, end in back:
+            if any(start <= s2 and e2 < end and (s2, e2) != (start, end)
+                   for s2, e2 in back):
+                continue
+            body = [text for _, text in code[start:end + 1]]
+            yield (f"sass loop: {len(body)} instructions, "
+                   f"{sum('MUFU.' in t for t in body)} MUFU "
+                   f"({sum('MUFU.SQRT' in t for t in body)} SQRT, "
+                   f"{sum('MUFU.RCP' in t for t in body)} RCP, "
+                   f"{sum('MUFU.RSQ' in t for t in body)} RSQ) in {name}")
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--forward", action="store_true")
     parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--f16", action="store_true")
     parser.add_argument("--root", default=HERE)
     parser.add_argument("--variant", action="append", default=[])
     parser.add_argument("--swap", action="append", default=[])
@@ -230,9 +288,8 @@ def main():
                               capture_output=True, text=True, check=True).stdout
         with open(args.sass, "w") as f:
             f.write(sass)
-        for function in sass.split("Function : ")[1:]:
-            count = len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", function, re.M))
-            print(f"sass: {count} instructions in {function.split()[0]}", flush=True)
+        for report in sass_report(sass):
+            print(report, flush=True)
     for line in kernel_utils.build_log.get("dist_pool", "").splitlines():
         if "entry function" in line or "registers" in line or "stack frame" in line:
             print("default: " + line.strip(), flush=True)
@@ -258,8 +315,9 @@ def main():
         for k, v in {**defaults, **py}.items():
             setattr(dist_pool, k, v)
         for case, stride_parts in cases:
-            if args.bf16:
-                row = time_bf16(smoke, dist_pool, case, device, args.seed + 10)
+            if args.bf16 or args.f16:
+                row = time_16(smoke, dist_pool, case, device, args.seed + 10,
+                              torch.bfloat16 if args.bf16 else torch.float16)
             elif args.forward:
                 row = time_forward(smoke, dist_pool, case, device, args.seed + 10,
                                    stride_parts)

@@ -1615,6 +1615,28 @@ def test_bf16_fast_operations_are_exact_on_card():
 
 
 @pytest.mark.cuda
+def test_f16_fast_operations_are_exact_on_card():
+    """The float16 path's fast operations against the IEEE ones,
+    exhaustively: sub/add/mul.rn.f16x2 on all 2^32 pairs of float16 values
+    equal the float32 operations rounded to float16; the corrected square
+    root equals R(sqrt(t)) for every non-negative float16 t, +inf and NaN
+    included; the refined quotient of g / 2 and D / 2, rounded, equals
+    R(g / D) for every float16 g and every D with its sign bit clear (2^31
+    pairs, every D = R(2 dist) of the kernels among them). Equal is the same
+    bits, or NaN on both sides."""
+    from kge_tpu_torch.ops.dist_pool import F16_CHECK_COUNTS, f16_fast_ops_check
+
+    counts = f16_fast_ops_check(_card())
+    torch.cuda.synchronize()
+    assert tuple(counts) == F16_CHECK_COUNTS
+    assert counts["sqrt_inputs"] == 1 << 15
+    assert counts["quotient_pairs"] == 1 << 31
+    assert {k: v for k, v in counts.items() if k.endswith("_differ")} == {
+        "sub_differ": 0, "add_differ": 0, "mul_differ": 0, "sqrt_differ": 0,
+        "quotient_differ": 0}
+
+
+@pytest.mark.cuda
 def test_two_worker_grid_search_runs_its_trials_on_card(tmp_path):
     """The toy grid search (examples/toy-complex-search-grid.yaml, 4 trials)
     with ``search.num_workers: 2`` and ``--search.device_pool

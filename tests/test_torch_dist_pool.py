@@ -368,3 +368,191 @@ def test_bf16_fast_ops_check_runs_only_on_a_card():
         dist_pool.bf16_fast_ops_check("cpu")
     assert dist_pool.BF16_CHECK_COUNTS[-1] == "quotient_pairs"
     assert len(set(dist_pool.BF16_CHECK_COUNTS)) == 8
+
+
+# -- why the float16 path's fast operations are exact (csrc/dist_pool.cu) -----------
+
+
+def _f16_from_bits(bits) -> np.ndarray:
+    """float16 values of the bit patterns ``bits``, as float64."""
+    return np.asarray(bits, dtype=np.uint16).view(np.float16).astype(np.float64)
+
+
+def _bits32(x: np.ndarray) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32).view(np.uint32)
+
+
+def _f32(bits: np.ndarray) -> np.ndarray:
+    return np.asarray(bits, dtype=np.uint32).view(np.float32)
+
+
+def _sqrt_f16(t32: np.ndarray, approx: np.ndarray) -> np.ndarray:
+    """csrc/dist_pool.cu ``sqrt_f16`` in numpy, from an approximation of
+    sqrt(t): the midpoint m of the approximation's float16 cell, then t
+    against m^2 picks the cell's lower or upper end."""
+    m = (_bits32(approx) & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+    mf = _f32(m)
+    with np.errstate(invalid="ignore", over="ignore", under="ignore"):
+        upper = t32 > mf * mf
+    return _f32(np.where(upper, m + np.uint32(0x1000), m - np.uint32(0x1000)))
+
+
+def _assert_same_f16(got: np.ndarray, want: np.ndarray):
+    """Equal float16 bits, or NaN on both sides."""
+    with np.errstate(over="ignore"):
+        got16, want16 = got.astype(np.float16), want.astype(np.float16)
+    both_nan = np.isnan(got16) & np.isnan(want16)
+    np.testing.assert_array_equal(got16.view(np.uint16)[~both_nan],
+                                  want16.view(np.uint16)[~both_nan])
+
+
+def test_f16_square_root_midpoint_test_picks_the_rounded_root():
+    """For every non-negative float16 t (+inf and NaN too): the midpoint test
+    of ``sqrt_f16`` gives R(sqrt(t)), the square root rounded once to
+    float16 (torch: float32 sqrt, then float16), from an approximation that
+    errs by 2^-20 either way (sqrt.approx's error is under 2^-22) or not at
+    all: R(sqrt(t)) is either end of the approximation's float16 cell. The
+    midpoints' squares are exact in float32 and never equal t."""
+    t = _f16_from_bits(np.arange(0, 0x7E01))  # 0 to +inf, and one NaN
+    with np.errstate(invalid="ignore"):
+        t32 = t.astype(np.float32)
+    want = torch.sqrt(torch.tensor(t32)).half().float().numpy()
+    for err in (-(2.0 ** -20), 0.0, 2.0 ** -20):
+        with np.errstate(invalid="ignore"):
+            approx = (np.sqrt(t) * (1 + err)).astype(np.float32)
+        _assert_same_f16(_sqrt_f16(t32, approx), want)
+    # the cells' midpoints beside every root: 12 significant bits, so their
+    # squares are float32 values; a float16 t has at most 11, so t != m^2
+    finite = np.isfinite(t) & (t > 0)
+    m = _f32((_bits32(np.sqrt(t[finite])) & np.uint32(0xFFFFE000)) | np.uint32(0x1000))
+    square = m.astype(np.float64) ** 2
+    np.testing.assert_array_equal((m * m).astype(np.float64), square)
+    assert not np.any(square == t[finite])
+    # every root of t > 0 is a normal float16 value, so the cells are normal
+    assert want[finite].min() >= 2.0 ** -14
+
+
+def test_f16_midpoint_squares_and_products_are_exact_in_float32():
+    """The squares of every float16 midpoint (a value with 12 significant
+    bits) and the products of a midpoint and a float16 value D (11 bits) are
+    float32 values: 24 and 23 bits. So a float16 value never equals m^2, and
+    where it differs from m D it does so by at least m D's last bit, which
+    gives the quotient's margin below."""
+    cells = _f16_from_bits(np.arange(0x0400, 0x7C00))  # normal float16 values
+    m = cells + np.ldexp(1.0, np.frexp(cells)[1] - 12)  # their cells' midpoints
+    assert m[-1] == 65520.0
+    np.testing.assert_array_equal(m.astype(np.float32).astype(np.float64), m)
+    square = m * m
+    np.testing.assert_array_equal(square.astype(np.float32).astype(np.float64), square)
+    # a midpoint's significand and D's, over every pair of them
+    midpoints = (2 * np.arange(2048, 4096) + 1)[None, ::2] / 2.0  # odd 12-bit values
+    d = np.arange(1024, 2048, dtype=np.float64)[:, None]
+    product = midpoints * d
+    np.testing.assert_array_equal(product.astype(np.float32).astype(np.float64), product)
+
+
+def _quotient_f16(g: np.ndarray, D: np.ndarray, err: float):
+    """csrc/dist_pool.cu ``quotient_f16`` of h = g / 2 and dist = D / 2 in
+    numpy float32, with the reciprocal off by ``err`` (relative; rcp.approx
+    errs by under 2^-22) and each fused multiply-add as an exact float64
+    product and sum rounded to float32. Returns the refined value and the
+    residual dist q - h, exact in float64."""
+    h, dist = (0.5 * g).astype(np.float32), (0.5 * D).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        r = (1.0 / dist.astype(np.float64) * (1 + err)).astype(np.float32)
+        q = h * r
+        residual = dist.astype(np.float64) * q - h
+        e = residual.astype(np.float32)
+        refined = (e.astype(np.float64) * -r.astype(np.float64) + q).astype(np.float32)
+    return np.where(np.isnan(refined), q, refined), residual
+
+
+def _check_quotients(g: np.ndarray, D: np.ndarray):
+    """The refined quotient of every pair, rounded to float16, is R(g / D)
+    (numpy's float64 quotient rounded to float16: R(g / D) unless it lies
+    within 2^-53 of a boundary, which the margin excludes); the residual is
+    a float32 value; and every quotient that is not itself a float16
+    rounding boundary lies at least 2^-23 (relative) from each."""
+    y = g / D
+    for err in (-(2.0 ** -22), 0.0, 2.0 ** -22):
+        got, residual = _quotient_f16(g, D, err)
+        _assert_same_f16(got, y)
+        np.testing.assert_array_equal(residual.astype(np.float32), residual)
+    # the margin: the boundaries beside y (midpoints of float16 cells, 65520
+    # above 65504), and |g - m D|, exact in float64
+    exponent = np.clip(np.frexp(y)[1] - 1, -14, 15)
+    step = np.ldexp(1.0, exponent - 10)
+    low = np.floor(y / step) * step  # y's cell [low, low + step)
+    binade = (low == np.ldexp(1.0, exponent)) & (exponent > -14)
+    below = low - np.where(binade, step / 4, step / 2)  # the cell below's midpoint
+    gap = np.abs(g - (low + step / 2) * D) / ((low + step / 2) * D)
+    with np.errstate(divide="ignore"):
+        gap = np.where(low > 0, np.minimum(gap, np.abs(g - below * D) / (below * D)), gap)
+    ties = gap == 0
+    assert np.all(gap[~ties] >= 2.0 ** -23)
+    return ties
+
+
+def test_f16_quotients_round_as_ieee():
+    """For every pair of float16 significands (g and D in [1, 2): every
+    quotient of normal float16 values that rounds to a normal one scales
+    to one of these), at the subnormal edge (every g below 2^-13 and D in
+    [2, 4): quotients from 2^-26 to 2^-14) and at the overflow edge (g in
+    [2^15, 65504], D in [0.5, 1): quotients around 65520): the refined
+    quotient rounds to R(g / D). Ties (a quotient that is a boundary) occur
+    only among subnormal results, where the refinement is exact and rounds
+    to even."""
+    sig = _f16_from_bits(np.arange(0x3C00, 0x4000))  # [1, 2)
+    g, D = (a.ravel() for a in np.meshgrid(sig, sig, indexing="ij"))
+    assert len(g) == 1 << 20
+    assert not _check_quotients(g, D).any()
+    small = _f16_from_bits(np.arange(1, 0x0800))
+    g, D = (a.ravel() for a in np.meshgrid(small, 2 * sig, indexing="ij"))
+    ties = _check_quotients(g, D)
+    assert ties.any() and np.all(np.abs(g / D)[ties] < 2.0 ** -14)
+    big = _f16_from_bits(np.arange(0x7800, 0x7C00))
+    half = _f16_from_bits(np.arange(0x3800, 0x3C00))
+    g, D = (a.ravel() for a in np.meshgrid(big, half, indexing="ij"))
+    y = g / D
+    assert (y > 65520).any() and (y < 65520).any()
+    assert not _check_quotients(g, D).any()
+
+
+def test_f16_quotient_special_cases_are_ieee():
+    """Where D is 0, +inf or NaN, or g is +-inf, NaN or +-0, the refinement
+    is NaN or exact and the quotient is IEEE's: g / 0 = +-inf, 0 / 0 = NaN,
+    g / inf = +-0 and +-0 / D = +-0 (signs kept), inf / inf = NaN."""
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 2.0 ** -24, -(2.0 ** -24),
+                         1.5, -3.0, 65504.0, -65504.0])
+    D = np.array([0.0, np.inf, np.nan, 2.0 ** -11, 512.0, 2.0 ** -24, 1.0])
+    g, D = (a.ravel() for a in np.meshgrid(specials, D, indexing="ij"))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = g / D
+    got, _ = _quotient_f16(g, D, 0.0)
+    _assert_same_f16(got, want)
+
+
+def test_f16_double_rounding_is_innocuous():
+    """In float64, on random pairs of float16 values: a difference, sum or
+    product rounded once to float16 (what sub/add/mul.rn.f16x2 give, with
+    subnormals kept) equals the float32 operation's result rounded to
+    float16 (what the plain version computes), as float32's 24 bits are at
+    least 2 x 11 + 2. The card test f16_fast_ops_check takes all 2^32
+    pairs."""
+    rng = np.random.default_rng(0)
+    a, b = (_f16_from_bits(x) for x in rng.integers(0, 0x7C00, size=(2, 1 << 18)))
+    signs = rng.choice([-1.0, 1.0], size=(2, 1 << 18))
+    a, b = a * signs[0], b * signs[1]
+    for op in (np.subtract, np.add, np.multiply):
+        exact = op(a, b)  # exact in float64: float16 values span 40 bits
+        twice = torch.tensor(op(a.astype(np.float32), b.astype(np.float32))).half()
+        _assert_same_f16(twice.float().numpy(), exact)
+
+
+def test_f16_fast_ops_check_runs_only_on_a_card():
+    """The float16 exhaustive check is a CUDA kernel too: asked for the CPU
+    it raises, and it names its counts in the kernel's order."""
+    with pytest.raises(ValueError):
+        dist_pool.f16_fast_ops_check("cpu")
+    assert dist_pool.F16_CHECK_COUNTS[-1] == "quotient_pairs"
+    assert len(set(dist_pool.F16_CHECK_COUNTS)) == 7
