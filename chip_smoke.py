@@ -245,7 +245,7 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel's shapes 512 ids at D = 320.
 22. The dtype policy (``parallel.compute_dtype`` / ``param_dtype``:
    bfloat16). First gamma_D of the rank kernel's bfloat16 certificate: the
-   kernel's own tensor-core sums (``bf16_tile_sums``) of 50 million dot
+   kernel's own tensor-core sums (``tc_tile_sums``) of 50 million dot
    products at D = 132, 320 and 512 (Gaussian, cancelling, wide-exponent
    and all-positive inputs) against float64; the largest |x - exact| / (N M)
    must stay within gamma_D / 8. Each kernel's bfloat16 path against its
@@ -281,9 +281,14 @@ Phases (any failure exits non-zero; nothing is caught):
    step, bfloat16). One step of each card against CPU (``card_vs_cpu_step``
    states the bound), and the warm epochs of X-complex and P-rotate,
    profiled (X-complex's GEMM milliseconds, P-rotate's K5b share).
-   Then float16 (ROADMAP A.11a and A.11b; ``run_float16``): the float16
-   paths of the rank kernel (identity and L2 epilogue, as above: counts
-   equal, vals and pivots bit for bit, two launches bit-equal; library:
+   Then float16 (ROADMAP A.11a and A.11b; ``run_float16``): how the tensor
+   cores read float16, exhaustively (``f16_subnormal_check``: every pair of
+   float16 values, one product an accumulator, against the exact product;
+   no difference may show, subnormals included), gamma_D of the float16
+   certificate as for bfloat16 (subnormal inputs in the wide case), the
+   float16 paths of the rank kernel (identity and L2 epilogue, as above:
+   counts equal, vals and pivots bit for bit, two launches bit-equal, its
+   undecided entries those of the rule, the recount share; library:
    cuBLAS's fp16 product and the compares), of ``rank_pivots`` on one
    1,200,000-column shard (equal in bits, -0.0 off the shard), of the
    scatter (within a float16 ulp of the sums; ``index_add_`` in float16),
@@ -451,7 +456,8 @@ Phases (any failure exits non-zero; nothing is caught):
    entries (``*_bf16``) hold the bfloat16 paths of phase 22, their launches
    from its runs (the scatter's also its launches alone), and four more
    the float16 paths of phase 22 (``rank_counts_f16`` with ``rank_pivots``'
-   times, ``rank_counts_l2_f16``, ``scatter_add_sorted_f16``,
+   times, the recount shares, the gamma_D and the product checks,
+   ``rank_counts_l2_f16``, ``scatter_add_sorted_f16``,
    ``rows_set_f16``), their launches from its float16 runs. The rank and scatter
    kernels' entries hold their launches in phase 24 (``launches_preprocessed``),
    and the line phase 24's numbers (``data_prep``); the rank kernel's its
@@ -3267,16 +3273,16 @@ def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
     """K1's bfloat16 (or float16) path against its plain version: the
     counts exactly, vals and the pivot bit for bit; times at n = 256, |E| =
     14,541, D = 512 (with the L2 epilogue: TransE-L2's augmented operands,
-    d = 128, cast to the dtype). bfloat16 only: the entries the certificate
-    left open are those of its rule on the kernel's own tensor-core sums."""
+    d = 128, cast to the dtype). The entries the certificate left open are
+    those of its rule on the kernel's own tensor-core sums."""
     from kge_tpu_torch.ops.rank_kernel import (
         NEG_SQRT_L2,
-        bf16_tile_sums,
         certificate_bound,
         certified_categories,
         csr_row_ids,
         fused_rank_counts,
         fused_rank_counts_plain,
+        tc_tile_sums,
     )
     from kge_tpu_torch.utils.dtypes import weak
 
@@ -3307,8 +3313,7 @@ def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
                                        RTOL, score_map=score_map, pivot_cols=true)
 
     g, c, vals, pivot = kernel()
-    bf16 = dtype == torch.bfloat16
-    recounted = int(fused_rank_counts.last_recounted) if bf16 else 0
+    recounted = int(fused_rank_counts.last_recounted)
     pg, pc, pvals, ppivot = plain()
     torch.cuda.synchronize()
     check(vals.dtype == dtype and pivot.dtype == dtype)
@@ -3324,16 +3329,15 @@ def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
                           b.view(torch.int16) if b.dtype == dtype else b)
               for a, b in zip((g, c, vals, pivot), second)),
           f"two launches of the {name} rank kernel differ")
-    if bf16:
-        # the kernel leaves open exactly the entries the PyTorch rule leaves
-        # open on the kernel's own tensor-core sums and norm bounds
-        sums, nq, nt = bf16_tile_sums(q, targets)
-        rule = certified_categories(sums, certificate_bound(nq, nt, q.shape[1]),
-                                    pivot, ATOL, RTOL, score_map)
-        check(recounted == int((rule < 0).sum()),
-              f"the kernel recounted {recounted} entries, the rule leaves "
-              f"{int((rule < 0).sum())} open")
-        del sums, rule
+    # the kernel leaves open exactly the entries the PyTorch rule leaves open
+    # on the kernel's own tensor-core sums and norm bounds
+    sums, nq, nt = tc_tile_sums(q, targets)
+    rule = certified_categories(sums, certificate_bound(nq, nt, q.shape[1]),
+                                pivot, ATOL, RTOL, score_map)
+    check(recounted == int((rule < 0).sum()),
+          f"{name}: the kernel recounted {recounted} entries, the rule leaves "
+          f"{int((rule < 0).sum())} open")
+    del sums, rule
     share = recounted / (n * E)
     rows = csr_row_ids(row_ptr)
     atol, rtol = weak(ATOL, q), weak(RTOL, q)
@@ -3358,8 +3362,7 @@ def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
                                           name=name)
     what = "L2 epilogue" if epilogue else "identity"
     recount = (f"recount share {share:.6f} ({recounted} of {n * E} entries left "
-               f"open by the certificate, as by the rule; {nnz} labels)" if bf16
-               else f"{nnz} labels")
+               f"open by the certificate, as by the rule; {nnz} labels)")
     log(f"  rank_counts {name} ({what}) n={n} |E|={E} D={D} nnz={nnz}: {ms:.4f} ms, "
         f"{recount}, plain {plain_ms:.4f} ms, library {name} matmul + compares "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {term}); counts "
@@ -3371,16 +3374,20 @@ def narrow_rank_case(seed: int, device, epilogue: bool, dtype=torch.bfloat16):
             "recounted": recounted, "recount_share": share, "labels": nnz}
 
 
-def bf16_gamma_check(seed: int, device):
-    """gamma_D of K1's bfloat16 certificate on the card: the kernel's own
-    tensor-core sums (``bf16_tile_sums``) of 512 x 8,192 dot products for
-    each D in {132, 320, 512} and each of four inputs (Gaussian, cancelling
-    alternating products, exponents spread over 2^-40..2^40, all products
-    positive: 50 million in all) against float64 sums (exact products;
-    their own error under D 2^-53 S). The largest |x - exact| / (N M), N
-    and M the kernel's norm bounds, must stay within gamma_D / 8."""
-    from kge_tpu_torch.ops.rank_kernel import bf16_tile_sums, certificate_gamma
+def gamma_check(seed: int, device, dtype=torch.bfloat16):
+    """gamma_D of K1's bfloat16 (or float16) certificate on the card: the
+    kernel's own tensor-core sums (``tc_tile_sums``) of 512 x 8,192 dot
+    products for each D in {132, 320, 512} and each of four inputs
+    (Gaussian, cancelling alternating products, exponents spread over
+    2^-40..2^40, for float16 over 2^-20..2^12 so that many values are
+    subnormal and none overflows, all products positive: 50 million in
+    all) against float64 sums (exact products; their own error under D
+    2^-53 S). The largest |x - exact| / (N M), N and M the kernel's norm
+    bounds, must stay within gamma_D / 8."""
+    from kge_tpu_torch.ops.rank_kernel import certificate_gamma, tc_tile_sums
 
+    name = NARROW[dtype][0]
+    low, high = (-40, 41) if dtype == torch.bfloat16 else (-20, 13)
     generator = torch.Generator(device=device).manual_seed(seed + 2214)
     n, m = 512, 8192
 
@@ -3399,7 +3406,7 @@ def bf16_gamma_check(seed: int, device):
             return q, sign * (1.0 + rand(m)) + 1e-2 * randn(m)
         if kind == "wide":
             def spread(rows):
-                scale = torch.randint(-40, 41, (rows, D), generator=generator,
+                scale = torch.randint(low, high, (rows, D), generator=generator,
                                       device=device).float()
                 return randn(rows) * torch.exp2(scale)
             return spread(n), spread(m)
@@ -3409,17 +3416,17 @@ def bf16_gamma_check(seed: int, device):
     for D in (132, 320, 512):
         gamma = certificate_gamma(D)
         for kind in ("gaussian", "cancellation", "wide", "positive"):
-            q, t = (x.bfloat16().contiguous() for x in inputs(kind, D))
-            sums, nq, nt = bf16_tile_sums(q, t)
+            q, t = (x.to(dtype).contiguous() for x in inputs(kind, D))
+            sums, nq, nt = tc_tile_sums(q, t)
             exact = q.double() @ t.double().T
             bound = nq.double()[:, None] * nt.double()[None, :]
             ratio = float(((sums.double() - exact).abs() / bound).max())
             check(np.isfinite(ratio) and ratio <= gamma / 8,
-                  f"gamma_D check: D={D} {kind}: max |x - exact| / (N M) = "
+                  f"{name} gamma_D check: D={D} {kind}: max |x - exact| / (N M) = "
                   f"{ratio:.3e} > gamma_D / 8 = {gamma / 8:.3e}")
             out[f"D={D} {kind}"] = {"max_ratio": ratio, "gamma": gamma,
                                     "margin": gamma / ratio if ratio else None}
-            log(f"  gamma_D check D={D} {kind}: max |x - exact| / (N M) "
+            log(f"  {name} gamma_D check D={D} {kind}: max |x - exact| / (N M) "
                 f"{ratio:.4e}, gamma_D {gamma:.4e} ({gamma / ratio if ratio else float('inf'):.1f}"
                 f" times the largest), {n * m} dot products")
             del sums, exact, bound
@@ -3887,7 +3894,7 @@ def run_dtype_policy(seed: int, data: str, dense_folder: str, transe_l2_folder: 
     from kge_tpu_torch.utils.io import load_checkpoint, save_checkpoint
 
     device = torch.device("cuda")
-    gamma = bf16_gamma_check(seed, device)
+    gamma = gamma_check(seed, device)
     kernels = {
         "rank_counts": [narrow_rank_case(seed, device, False),
                         narrow_rank_case(seed, device, True)],
@@ -4189,6 +4196,57 @@ def f16_pivots_case(seed: int, device, rows: int = BATCH, columns: int = 1_200_0
             "bound_by": bound_by, "max_abs_err": 0.0}
 
 
+def f16_products_exact(device):
+    """How the tensor cores read float16 (``f16_subnormal_check``): every
+    ordered pair of float16 values through ``mma.sync``, one product an
+    accumulator, against the exact float32 product. No pair may differ, the
+    pairs with a subnormal operand included: the float16 certificate's norm
+    bound rests on it (csrc/rank_counts.cu, "float16 path")."""
+    from kge_tpu_torch.ops.rank_kernel import f16_subnormal_check
+
+    start = time.perf_counter()
+    counts = f16_subnormal_check(device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    pairs = sum(v for k, v in counts.items() if k.startswith("pairs"))
+    differ = {k: v for k, v in counts.items() if not k.startswith("pairs")}
+    check(pairs == 1 << 32 and not any(differ.values()),
+          f"the tensor cores' float16 products differ from the exact ones: {counts}")
+    log(f"  f16 tensor-core products exact on all 2^32 pairs: "
+        f"{counts['pairs_normal']} with no subnormal operand, "
+        f"{counts['pairs_one_subnormal']} with one, {counts['pairs_both_subnormal']} "
+        f"with two; differences {differ} ({seconds:.2f} s)")
+    return {**counts, "seconds": seconds}
+
+
+class RecountShare:
+    """While entered: the entries that K1's bfloat16 and float16 launches
+    left undecided (``fused_rank_counts.last_recounted`` after each, summed
+    on the card), and the entries they ranked (n x num_valid each)."""
+
+    def __enter__(self):
+        from kge_tpu_torch.ops import rank_kernel
+
+        self.module, self.original = rank_kernel, rank_kernel._launch
+        self.counts, self.entries = [], 0
+
+        def counted(q, targets, row_ptr, cols, num_valid, *args, **kwargs):
+            out = self.original(q, targets, row_ptr, cols, num_valid, *args, **kwargs)
+            if q.dtype != torch.float32:
+                self.counts.append(rank_kernel.fused_rank_counts.last_recounted)
+                self.entries += q.shape[0] * int(num_valid)
+            return out
+
+        rank_kernel._launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module._launch = self.original
+        self.recounted = int(torch.cat(self.counts).sum()) if self.counts else 0
+        self.share = self.recounted / max(1, self.entries)
+        return False
+
+
 def f16_ranks_agree(folder: str, batches: int = 2):
     """The first ``batches`` batches of the folder's test evaluation in
     float16 compute, ranked through K1's float16 path and through its plain
@@ -4235,6 +4293,8 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
     device = torch.device("cuda")
     start = time.perf_counter()
     f16 = torch.float16
+    products = f16_products_exact(device)
+    gamma = gamma_check(seed, device, f16)
     kernels = {
         "rank_counts": [narrow_rank_case(seed, device, False, f16),
                         narrow_rank_case(seed, device, True, f16)],
@@ -4246,7 +4306,8 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
     kernels["pooled_scores"], kernels["pooled_scores_bwd"] = narrow_pooled_case(
         seed, device, f16, shapes=2)
     log(f"  {card_line()}")
-    out = {"kernels": kernels, "f16_fast_ops": fast_ops_exact(device, "f16")}
+    out = {"kernels": kernels, "f16_fast_ops": fast_ops_exact(device, "f16"),
+           "products_check": products, "gamma_check": gamma}
     log(f"  the float16 kernels against their plain versions: "
         f"{time.perf_counter() - start:.1f} s")
     test_batches = -(-NUM_TEST // BATCH)
@@ -4257,9 +4318,10 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
         reset_counters()
         reset_f16_counters()
         begin = time.perf_counter()
-        cli.main(["test", folder, "--eval.batch_size", str(BATCH),
-                  "--parallel.compute_dtype", "float16"])
-        torch.cuda.synchronize()
+        with RecountShare() as recount:
+            cli.main(["test", folder, "--eval.batch_size", str(BATCH),
+                      "--parallel.compute_dtype", "float16"])
+            torch.cuda.synchronize()
         wall = time.perf_counter() - begin
         counts, half = read_counters(), read_f16_counters()
         check(half["rank_counts"] == counts["rank_counts"] == 2 * test_batches
@@ -4269,9 +4331,12 @@ def run_float16(seed: int, eval_folder: str, transe_l2_folder: str, data: str):
         check(0.0 < entry["mean_reciprocal_rank_filtered"] <= 1.0)
         log(f"  {os.path.basename(folder)} test in f16 compute: {half['rank_counts']} K1 "
             f"launches, all f16{' with the L2 epilogue' if epilogue else ''}; wall "
-            f"{wall:.3f} s; MRR filtered {entry['mean_reciprocal_rank_filtered']:.6f}")
+            f"{wall:.3f} s; MRR filtered {entry['mean_reciprocal_rank_filtered']:.6f}; "
+            f"recount share {recount.share:.6f} ({recount.recounted} of "
+            f"{recount.entries} entries)")
         out[name] = {"launches": counts, "f16_launches": half, "wall_s": wall,
-                     "mrr_filtered": entry["mean_reciprocal_rank_filtered"]}
+                     "mrr_filtered": entry["mean_reciprocal_rank_filtered"],
+                     "recount_share": recount.share, "recounted": recount.recounted}
     f16_ranks_agree(eval_folder)
 
     # T-sparse with both dtypes in float16: the row-sparse write in float16
@@ -7509,10 +7574,16 @@ def main():
         for name, replaces, source, launches_f16, cases, more in (
             ("rank_counts_f16", "kge_tpu/ops/rank_kernel.py:108", "rank_counts",
              f16["eval_test"]["f16_launches"]["rank_counts"],
-             f16_cases["rank_counts"][:1], {"pivots": f16_cases["rank_pivots"][0]}),
+             f16_cases["rank_counts"][:1],
+             {"pivots": f16_cases["rank_pivots"][0],
+              "recount_share": f16_cases["rank_counts"][0]["recount_share"],
+              "recount_share_test": f16["eval_test"]["recount_share"],
+              "gamma_check": f16["gamma_check"], "products_check": f16["products_check"]}),
             ("rank_counts_l2_f16", "kge_tpu/ops/rank_kernel.py:108", "rank_counts",
              f16["transe_l2_test"]["f16_launches"]["rank_counts"],
-             f16_cases["rank_counts"][1:], {}),
+             f16_cases["rank_counts"][1:],
+             {"recount_share": f16_cases["rank_counts"][1]["recount_share"],
+              "recount_share_test": f16["transe_l2_test"]["recount_share"]}),
             ("scatter_add_sorted_f16", "kge_tpu/ops/pallas_ops.py:120",
              "scatter_add_sorted", f16["sparse"]["f16_launches"]["scatter_add_sorted"],
              f16_cases["scatter_add_sorted"],

@@ -11,11 +11,12 @@
 //
 // Design of the float32 path: a register-blocked float32 product on the
 // CUDA cores with the counts as its epilogue, in two launches on the
-// caller's stream (the bfloat16 path below shares the first).
+// caller's stream (the 16-bit paths below share the first).
 //
 //  1. rank_prologue_kernel. One warp per query row computes the pivot
 //     pivot_i = q_i . t_{pivot_cols[i]} and zeroes the row's counts (for
-//     bfloat16, further warps write the norm bounds of the certificate); the
+//     the 16-bit types, further warps write the norm bounds of the
+//     certificate); the
 //     other blocks zero vals and fill tile_ptr[i][c], the first label of
 //     row i at or past column c * BN (c = 0 .. tiles, the last bounded by
 //     num_valid), so that a tile's epilogue finds its labels by two loads.
@@ -81,9 +82,10 @@
 //     multiply the 64 x 128 tile with mma.sync m16n8k16 (bf16 in, float32
 //     accumulators) on fragments loaded by ldmatrix (tc_tile_product).
 //  2. The certificate. The prologue writes upper bounds N_i >= ||q_i||_2 and
-//     M_j >= ||t_j||_2 (sums of squares and the root rounded upward; a row
-//     with a subnormal element gets +inf, as the tensor cores may flush
-//     one). An entry's tensor-core sum x lies within
+//     M_j >= ||t_j||_2 (sums of squares and the root rounded upward; a
+//     bfloat16 row with a subnormal element gets +inf, as the tensor cores
+//     may flush one: not measured for bfloat16, whose subnormals lie below
+//     1.2e-38). An entry's tensor-core sum x lies within
 //       E_ij = RU(gamma_D RU(N_i M_j) + eta_D)
 //     of its chain (+inf where N_i M_j > 2^126 or is no number). For every
 //     entry the epilogue takes lo = RD(x - E), hi = RU(x + E) and applies
@@ -152,7 +154,7 @@
 //    worst), d < 8 D16 u <= 1/32 the relative growth of the partial sums.
 // The sum, below 7.2 D16 u S for D <= 2^16, is covered by
 // gamma_D = D16 2^-21 = 8 D16 u; chip_smoke.py phase 22 checks it on the
-// card on the kernel's own sums (rank_counts_bf16_tile_sums) against
+// card on the kernel's own sums (rank_counts_tile_sums_bf16) against
 // float64 and requires 8 times the largest ratio it sees to stay within
 // gamma_D (the model is far from tight: at D = 512 the largest ratio seen
 // is about 2^-21, some 300 times below 6 D16 u). A
@@ -165,22 +167,54 @@
 // float16 score matrix. Its outputs are defined as the bfloat16 path's with
 // float16 in its place: the float32 chain over the float16 values (a
 // product of two float16 values has at most 22 significant bits and lies
-// between 2^-48 and 2^32, so it is exact in float32 and each FMA is one
-// rounded add), each score rounded once to float16, and the epilogue and
-// the tie test in float16 with a rounding after every operation and the
-// Python constants rounded to float16 first (Prec<__half>). float16's range
-// is narrow: a score of 65,520 or more in magnitude rounds to an infinity,
-// which the tie rule then treats as kge_tpu's does (+inf against a +inf
-// pivot is neither close nor greater, -inf against -inf is close); the L2
-// epilogue's 1e-30 rounds to 0, so a product at or above 0 scores -0.0; the
-// default atol 1e-5 is a float16 subnormal. The tiles are the float32
-// path's (rank_tiles_kernel<__half>): the same FMA chains on the CUDA cores,
-// over float16 slices widened as they are stored in shared memory
-// (Stager<__half>: 8-byte loads into registers before a slice's product,
-// widened and stored after it), so the counts, vals and pivots are the
-// chain's in every entry and need no certificate. The tile launch reads half
-// the bytes of the float32 path and does its operations, so the fp32
-// CUDA-core rate bounds it as it does the float32 path.
+// between 2^-48 and 2^32 in magnitude, so it is exact in float32 and each
+// FMA is one rounded add), each score rounded once to float16 (R16), and the
+// epilogue and the tie test in float16 with a rounding after every
+// operation and the Python constants rounded to float16 first
+// (Prec<__half>). float16's range is narrow: a score of 65,520 or more in
+// magnitude rounds to an infinity, which the tie rule then treats as
+// kge_tpu's does (+inf against a +inf pivot is neither close nor greater,
+// -inf against -inf is close); the L2 epilogue's 1e-30 rounds to 0, so a
+// product at or above 0 scores -0.0; the default atol 1e-5 is a float16
+// subnormal. It runs the bfloat16 path's three launches and certificate,
+// templated on the element type (T = __half: mma.sync m16n8k16 with f16
+// in, ldmatrix as for bfloat16, the same cuts, norms, worklist and chains).
+// What carries over, and why:
+//  - Monotonicity. For a finite pivot P and tolerance the category is a
+//    non-decreasing function of the chain's float32 value c: R16 is
+//    monotone, overflow included (c >= 65,520 gives +inf, the largest
+//    value, c <= -65,520 gives -inf, the least); the L2 map
+//    -R16(sqrt(R16(max(-s, 0) + R16(1e-30)))) is monotone, R16(1e-30) being
+//    +0 (every s >= 0 maps to -0.0); the close set {s : |R16(s - P)| <=
+//    tol} is an interval around P, since R16(s - P) is monotone in s. tol =
+//    R16(R16(atol) + R16(R16(rtol) |P|)) is finite for a finite P, atol's
+//    subnormal value included: every rounding here is IEEE's, with
+//    subnormal results and no flush to zero (no --use_fast_math). +inf
+//    against a finite P is greater and -inf below, the ends of the order. A
+//    non-finite pivot or tolerance leaves its row undecided, as in bfloat16.
+//  - The norm bounds. How the tensor cores read float16 was measured first
+//    (f16_subnormal_check_kernel): every ordered pair of float16 values
+//    (2^32) through mma.sync, one product an accumulator, gave the exact
+//    float32 product, with neither, one or both operands subnormal: 0
+//    differences of 4,294,967,296 on an NVIDIA H100 80GB HBM3 (PERF.md). So
+//    norm_bound gives a float16 row with subnormal values no +inf and no
+//    widening: each square x^2 >= 2^-48 is a normal float32 and exact, the
+//    upward-rounded sum bounds ||x||^2 as it does for any row, and the
+//    tensor cores add the exact products q_k t_k that Cauchy-Schwarz bounds
+//    by N_i M_j, subnormal factors included.
+//  - gamma_D and eta_D. The products are exact and the same hardware
+//    accumulates them, so the accumulation model below holds as it does for
+//    bfloat16; chip_smoke.py phase 22 checks gamma_D on the kernel's own
+//    float16 sums as it does for bfloat16, its wide inputs spread over
+//    2^-20..2^12 so that many are subnormal. eta_D is not needed (a nonzero
+//    product or partial sum of float16 products is at least 2^-48) and
+//    costs nothing.
+//  Measured on an NVIDIA H100 80GB HBM3 (700 W) at the shapes above: about
+//  0.067 ms a call, 0.33% of the entries recounted (0.046 ms and 0.15% with
+//  the L2 epilogue), against 0.148 ms (0.077) for the float32 path's FMA
+//  tiles over widened float16 values, which this path replaced; every
+//  output equal in bits to theirs (PERF.md). A row whose pivot is infinite
+//  is recounted whole, so scores that overflow float16 cost time.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -351,41 +385,51 @@ __device__ __forceinline__ void close_greater_as(float s, float p, float tol,
   is_greater = (s > p && !close) ? 1 : 0;
 }
 
-// The widened values of a 16-byte load of 8 bfloat16 values.
+// The widened values of a 16-byte load of 8 bfloat16 or float16 values.
+template <typename T>
 __device__ __forceinline__ void widen8(const uint4& raw, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
+    float2 f;
+    if constexpr (std::is_same<T, __half>::value) {
+      f = __half22float2(reinterpret_cast<const __half2*>(&raw)[i]);
+    } else {
+      f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&raw)[i]);
+    }
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
 }
 
-// An upper bound of ||v||_2 for the bfloat16 vector v of length D, by one
-// warp (every lane returns it): squares summed with upward rounding in any
-// order (each partial sum is at least the exact one), the root rounded
-// upward. +inf where v holds a subnormal value, which the tensor cores may
-// read as zero; NaN stays NaN. vec8: D % 8 == 0 and v 16-byte aligned.
-__device__ __forceinline__ float norm_bound(const __nv_bfloat16* v, int D,
-                                            int lane, bool vec8) {
+// An upper bound of ||v||_2 for the bfloat16 or float16 vector v of length
+// D, by one warp (every lane returns it): squares summed with upward
+// rounding in any order (each partial sum is at least the exact one), the
+// root rounded upward. For bfloat16 +inf where v holds a subnormal value,
+// which the tensor cores may read as zero; float16 subnormals are read
+// exactly (header, "float16 path"). NaN stays NaN. vec8: D % 8 == 0 and v
+// 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ float norm_bound(const T* v, int D, int lane,
+                                            bool vec8) {
+  constexpr bool kFlagTiny = std::is_same<T, __nv_bfloat16>::value;
   float s = 0.0f;
   bool tiny = false;
   if (vec8) {
     for (int d = lane * 8; d < D; d += 32 * 8) {
       float x[8];
-      widen8(*reinterpret_cast<const uint4*>(v + d), x);
+      widen8<T>(*reinterpret_cast<const uint4*>(v + d), x);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         s = __fmaf_ru(x[i], x[i], s);
-        tiny |= x[i] != 0.0f && fabsf(x[i]) < 1.17549435e-38f;
+        if constexpr (kFlagTiny)
+          tiny |= x[i] != 0.0f && fabsf(x[i]) < 1.17549435e-38f;
       }
     }
   } else {
     for (int d = lane; d < D; d += 32) {
-      const float x = __bfloat162float(v[d]);
+      const float x = Prec<T>::load(v + d);
       s = __fmaf_ru(x, x, s);
-      tiny |= x != 0.0f && fabsf(x) < 1.17549435e-38f;
+      if constexpr (kFlagTiny) tiny |= x != 0.0f && fabsf(x) < 1.17549435e-38f;
     }
   }
 #pragma unroll
@@ -407,14 +451,15 @@ __device__ __forceinline__ float key_value(long long k) {
   return __int_as_float(k >= 0 ? (int)k : (int)(0x80000000u | (unsigned)(-k - 1)));
 }
 
-// For the bfloat16 path: the row's category cuts, cut1 and cut2, the least
+// For the 16-bit paths: the row's category cuts, cut1 and cut2, the least
 // finite float32 values c whose category under the tie rule (0 below the
-// pivot p, 1 close, 2 greater; the chain's value c rounded to bfloat16 and
-// mapped by the epilogue) is at least 1 and 2, +inf where there is none.
+// pivot p, 1 close, 2 greater; the chain's value c rounded to T and mapped
+// by the epilogue) is at least 1 and 2, +inf where there is none.
 // The category is non-decreasing in c for a finite p and tolerance
 // (header, "The certificate"), so the first key at which it reaches a
 // level is found by a 16-ary search: one warp, lanes 0-15 for cut1 and
 // 16-31 for cut2, 16 probes a round, eight rounds over the 2^32 keys.
+template <typename T>
 __device__ void category_cuts(float p, float tol, int epilogue, int lane,
                               float& cut1, float& cut2) {
   const int half = lane >> 4, probe = lane & 15, level = half + 1;
@@ -427,8 +472,8 @@ __device__ void category_cuts(float p, float tol, int epilogue, int lane,
     bool at_least = true;
     if (active && k < hi) {
       int cl, gr;
-      close_greater_as<__nv_bfloat16>(
-          Prec<__nv_bfloat16>::score(key_value(k), epilogue), p, tol, cl, gr);
+      close_greater_as<T>(Prec<T>::score(key_value(k), epilogue), p, tol, cl,
+                          gr);
       at_least = cl + 2 * gr >= level;
     }
     const unsigned votes =
@@ -457,9 +502,9 @@ __device__ void category_cuts(float p, float tol, int epilogue, int lane,
 // neutral element of a sum: the columns of a row-sharded table (col_lo the
 // shard's first row) leave the pivot to the rank that holds it. With
 // pivot_in the pivot is given, as the scores' own values, and no chain
-// runs. For bfloat16 with norms the warp then writes the row's category
-// cuts (category_cuts) to norms[n + num_valid + 2 row + {0, 1}].
-// Then, for bfloat16 only, norm_blocks blocks: one warp per vector writes
+// runs. For the 16-bit types with norms the warp then writes the row's
+// category cuts (category_cuts) to norms[n + num_valid + 2 row + {0, 1}].
+// Then, for the 16-bit types only, norm_blocks blocks: one warp per vector writes
 // norm_bound of the rows of q to norms[0, n) and of the candidates to
 // norms[n, n + num_valid), and the first zeroes recounted[0, 2). The other blocks: tile_ptr and zero vals, in a grid-stride
 // loop.
@@ -517,7 +562,7 @@ rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
         close_out[row] = 0;
       }
     }
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (!std::is_same<T, float>::value) {
       if (norms == nullptr) return;
       // the row's category cuts for the certificate, after its norm bounds
       float s = score;
@@ -525,7 +570,7 @@ rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
       const float tol = Prec<T>::tol(atol, rtol, s);
       float cut1 = NAN, cut2 = NAN;
       if (isfinite(s) && isfinite(tol))
-        category_cuts(s, tol, epilogue, lane, cut1, cut2);
+        category_cuts<T>(s, tol, epilogue, lane, cut1, cut2);
       if (lane == 0) {
         norms[n + num_valid + 2 * row] = cut1;
         norms[n + num_valid + 2 * row + 1] = cut2;
@@ -533,7 +578,7 @@ rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
     }
     return;
   }
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     if ((int)blockIdx.x < pivot_blocks + norm_blocks) {
       const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
       if ((int)blockIdx.x == pivot_blocks && threadIdx.x < 2)
@@ -542,7 +587,7 @@ rank_prologue_kernel(const T* __restrict__ q, const T* __restrict__ t,
       if (v >= n + num_valid) return;
       const bool vec8 = (D & 7) == 0 && aligned16(q) && aligned16(t);
       const T* src = v < n ? q + (size_t)v * D : t + (size_t)(v - n) * D;
-      const float bound = norm_bound(src, D, lane, vec8);
+      const float bound = norm_bound<T>(src, D, lane, vec8);
       if (lane == 0) norms[v] = bound;
       return;
     }
@@ -599,80 +644,6 @@ __device__ __forceinline__ void stage_slice(float* st, const float* q,
   }
 }
 
-// Fills the ring for rank_tiles_kernel: load() stages a slice, flush()
-// completes what load() left in registers. float32 slices go straight to
-// shared memory by cp.async (stage_slice), and flush() has nothing to do.
-// float16 slices must be widened, which cp.async cannot do: load() brings
-// each thread's 8-byte pieces (4 values each) into registers, and flush(),
-// called after the current slice's product, widens them (exactly) and stores
-// them as floats in the slice's layout, where the next barriers publish
-// them. Without vec (D not a multiple of 4, or rows not 8-byte aligned) the
-// values are loaded and stored one by one in load(). Entries past n,
-// num_valid or D are zeros.
-template <typename T>
-struct Stager;
-
-template <>
-struct Stager<float> {
-  __device__ void load(float* st, const float* q, const float* t, int row0,
-                       int c0, int k0, int n, int num_valid, int D, bool vec) {
-    stage_slice(st, q, t, row0, c0, k0, n, num_valid, D, vec);
-  }
-  __device__ void flush() {}
-};
-
-template <>
-struct Stager<__half> {
-  static constexpr int CH = BK / 4;  // 4-value pieces of a row of the slice
-  static constexpr int PER = (BM + BN) * CH / THREADS;
-  static_assert((BM + BN) * CH % THREADS == 0, "pieces per thread");
-  uint2 raw[PER];
-  float* dst = nullptr;
-
-  __device__ void load(float* st, const __half* q, const __half* t, int row0,
-                       int c0, int k0, int n, int num_valid, int D, bool vec) {
-    if (!vec) {
-      for (int idx = threadIdx.x; idx < (BM + BN) * BK; idx += THREADS) {
-        const int r = idx / BK;
-        const int kk = idx - r * BK;
-        const bool is_q = r < BM;
-        const int line = is_q ? row0 + r : c0 + r - BM;
-        const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
-        st[r * LDS + kk] =
-            ok ? __half2float((is_q ? q : t)[(size_t)line * D + k0 + kk]) : 0.0f;
-      }
-      return;
-    }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int idx = threadIdx.x + u * THREADS;
-      const int r = idx / CH;
-      const int kk = (idx - r * CH) * 4;
-      const bool is_q = r < BM;
-      const int line = is_q ? row0 + r : c0 + r - BM;
-      const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
-      raw[u] = ok ? __ldg(reinterpret_cast<const uint2*>(
-                        (is_q ? q : t) + (size_t)line * D + k0 + kk))
-                  : make_uint2(0u, 0u);
-    }
-    dst = st;
-  }
-
-  __device__ void flush() {
-    if (dst == nullptr) return;
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int idx = threadIdx.x + u * THREADS;
-      const int r = idx / CH;
-      const int kk = (idx - r * CH) * 4;
-      const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw[u].x));
-      const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw[u].y));
-      *reinterpret_cast<float4*>(dst + r * LDS + kk) = make_float4(a.x, a.y, b.x, b.y);
-    }
-    dst = nullptr;
-  }
-};
-
 // acc[i][j] += sum over the slice's k, ascending, of q[row i][k] t[col j][k]
 __device__ __forceinline__ void multiply_slice(float (&acc)[RPT][CPT],
                                                const float* as,
@@ -701,17 +672,16 @@ __device__ __forceinline__ void multiply_slice(float (&acc)[RPT][CPT],
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
+rank_tiles_kernel(const float* __restrict__ q, const float* __restrict__ t,
                   const int32_t* __restrict__ cols,
                   const int32_t* __restrict__ tile_ptr,
-                  const T* __restrict__ pivot, int n, int D,
+                  const float* __restrict__ pivot, int n, int D,
                   int num_valid, int num_tiles, int tiles_per_range,
                   float atol, float rtol, int epilogue,
                   int32_t* __restrict__ greater_out,
                   int32_t* __restrict__ close_out,
-                  T* __restrict__ vals_out) {
+                  float* __restrict__ vals_out) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_piv[BM];
   __shared__ float s_tol[BM];
@@ -724,29 +694,27 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
   const int row0 = blockIdx.x * BM;
   const int tile_lo = blockIdx.y * tiles_per_range;
   const int tile_hi = min(tile_lo + tiles_per_range, num_tiles);
-  // pieces of 4 values (16-byte copies of floats, 8-byte loads of float16)
-  // need rows aligned to a piece
+  // 16-byte copies need 16-byte aligned rows
   const bool vec = (D & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(t)) & (4 * sizeof(T) - 1)) == 0;
+                     reinterpret_cast<uintptr_t>(t)) & 15) == 0;
   const int n_ks = max(1, (D + BK - 1) / BK);
   const int total = (tile_hi - tile_lo) * n_ks;
 
   if (tid < BM) {
-    float p = row0 + tid < n ? Prec<T>::load(pivot + row0 + tid) : 0.0f;
+    float p = row0 + tid < n ? pivot[row0 + tid] : 0.0f;
     p = isnan(p) ? -INFINITY : p;
     s_piv[tid] = p;
-    s_tol[tid] = Prec<T>::tol(atol, rtol, p);
+    s_tol[tid] = Prec<float>::tol(atol, rtol, p);
     s_g[tid] = 0;
     s_c[tid] = 0;
   }
 
   // the next slice to stage: (ld_tile, ld_ks) into ring buffer ld_stage
   int ld_tile = tile_lo, ld_ks = 0, ld_stage = 0;
-  Stager<T> stager;
   auto stage_next = [&]() {
     if (ld_tile < tile_hi) {
-      stager.load(smem + ld_stage * STAGE_FLOATS, q, t, row0, ld_tile * BN,
+      stage_slice(smem + ld_stage * STAGE_FLOATS, q, t, row0, ld_tile * BN,
                   ld_ks * BK, n, num_valid, D, vec);
       if (++ld_ks == n_ks) {
         ld_ks = 0;
@@ -757,10 +725,7 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
     cp_async_commit();  // an empty group keeps the count of groups uniform
   };
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    stage_next();
-    stager.flush();
-  }
+  for (int s = 0; s < STAGES - 1; ++s) stage_next();
 
   float acc[RPT][CPT];
 #pragma unroll
@@ -778,7 +743,6 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
     stage_next();
     const float* as = smem + stage * STAGE_FLOATS;
     multiply_slice(acc, as, as + BM * LDS, ty, tx);
-    stager.flush();  // the slice after next, into a buffer no one reads now
     stage = stage + 1 == STAGES ? 0 : stage + 1;
     if (++ks < n_ks) continue;
 
@@ -792,9 +756,9 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
       int g = 0, c = 0;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        acc[i][j] = Prec<T>::score(acc[i][j], epilogue);
+        acc[i][j] = score_transform(acc[i][j], epilogue);
         int cl, gr;
-        close_greater_as<T>(acc[i][j], p, tol, cl, gr);
+        close_greater_as<float>(acc[i][j], p, tol, cl, gr);
         const bool valid = c0 + tx + TX * j < num_valid;
         g += valid ? gr : 0;
         c += valid ? cl : 0;
@@ -809,7 +773,7 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
             float v = 0.0f;
 #pragma unroll
             for (int j = 0; j < CPT; ++j) v = j == jj ? acc[i][j] : v;
-            Prec<T>::store(vals_out + at, v);
+            vals_out[at] = v;
           }
         }
       }
@@ -838,19 +802,30 @@ rank_tiles_kernel(const T* __restrict__ q, const T* __restrict__ t,
 }
 
 // More than 48 KB of dynamic shared memory has to be allowed per device.
-template <typename T>
 cudaError_t allow_shared_memory() {
-  return cudaFuncSetAttribute(rank_tiles_kernel<T>,
+  return cudaFuncSetAttribute(rank_tiles_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               SMEM_BYTES);
 }
 
-// -- the bfloat16 path on the tensor cores (header, "bfloat16 path") --------
+// -- the 16-bit paths on the tensor cores (header, "bfloat16 path" and
+// "float16 path"), T = __nv_bfloat16 or __half ------------------------------
 
 using bf16 = __nv_bfloat16;
 
+template <typename T>
+__device__ __forceinline__ T zero16();
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero16<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+template <>
+__device__ __forceinline__ __half zero16<__half>() {
+  return __ushort_as_half(0);
+}
+
 constexpr int TC_BK = 32;              // depth of one staged slice (2 x k16)
-constexpr int TC_LDS = TC_BK + 8;      // padded row of a slice (bf16): 80 bytes,
+constexpr int TC_LDS = TC_BK + 8;      // padded row of a slice (16-bit): 80 bytes,
                                        // so ldmatrix's 8 rows hit distinct banks
 constexpr int TC_STAGES = 4;           // ring of slices in shared memory
 constexpr int TC_THREADS = 128;        // four warps, 2 x 2 over the tile
@@ -879,14 +854,14 @@ __device__ __forceinline__ void cp_async_bytes(void* dst, const void* src,
 }
 
 // Stage the slice [k0, k0 + TC_BK) of query rows [row0, row0 + BM) and of
-// candidate columns [c0, c0 + BN) as raw bfloat16, st[r * TC_LDS + kk], the
+// candidate columns [c0, c0 + BN) as raw 16-bit values, st[r * TC_LDS + kk], the
 // query rows first; entries past n, num_valid or D are zero-filled. VEC
 // elements a copy: 8, 4, 2 by cp.async (D a multiple of VEC, rows aligned),
 // 1 by plain loads and stores (odd D).
-template <int VEC>
-__device__ __forceinline__ void tc_stage(bf16* st, const bf16* q,
-                                         const bf16* t, int row0, int c0,
-                                         int k0, int n, int num_valid, int D) {
+template <typename T, int VEC>
+__device__ __forceinline__ void tc_stage(T* st, const T* q, const T* t,
+                                         int row0, int c0, int k0, int n,
+                                         int num_valid, int D) {
   constexpr int CH = TC_BK / VEC;  // pieces of a row of the slice
   constexpr int PIECES = (BM + BN) * CH;
   static_assert(PIECES % TC_THREADS == 0, "copies per thread");
@@ -898,16 +873,16 @@ __device__ __forceinline__ void tc_stage(bf16* st, const bf16* q,
     const bool is_q = r < BM;
     const int line = is_q ? row0 + r : c0 + r - BM;
     const bool ok = line < (is_q ? n : num_valid) && k0 + kk < D;
-    const bf16* src = ok ? (is_q ? q : t) + (size_t)line * D + k0 + kk : q;
+    const T* src = ok ? (is_q ? q : t) + (size_t)line * D + k0 + kk : q;
     if constexpr (VEC == 1) {
-      st[r * TC_LDS + kk] = ok ? *src : __ushort_as_bfloat16(0);
+      st[r * TC_LDS + kk] = ok ? *src : zero16<T>();
     } else {
       cp_async_bytes<2 * VEC>(st + r * TC_LDS + kk, src, ok ? 2 * VEC : 0);
     }
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -925,19 +900,38 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same with float16 in
+__device__ __forceinline__ void mma_f16(float (&c)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(c, a, b0, b1);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
 // The tensor cores' sums of the 64 x 128 tile at (row0, c0) over all of D:
 // warp w holds rows (w / 2) 32 + [0, 32) and columns (w % 2) 64 + [0, 64);
 // acc[mi][ni][e] is row (w / 2) 32 + mi 16 + lane / 4 + (e / 2) 8, column
 // (w % 2) 64 + ni 8 + (lane % 4) 2 + e % 2 (the mma accumulator layout).
 // Runs the ring from empty to empty: it ends with the ring drained and a
-// barrier. The tile kernel and rank_counts_bf16_tile_sums both call it.
+// barrier. The tile kernel and rank_counts_tile_sums_as both call it.
 // With lr >= 0 the thread also runs the chain of the tile's entry (lr, lc)
 // (a label column) over the staged slices, k ascending up to D, into chain.
-template <int VEC>
+template <typename T, int VEC>
 __device__ __forceinline__ void tc_tile_product(
-    float (&acc)[TC_MI][TC_NI][4], bf16* smem, const bf16* q, const bf16* t,
-    int row0, int c0, int n, int num_valid, int D, int lr, int lc,
-    float& chain) {
+    float (&acc)[TC_MI][TC_NI][4], T* smem, const T* q, const T* t, int row0,
+    int c0, int n, int num_valid, int D, int lr, int lc, float& chain) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
 #pragma unroll
@@ -952,8 +946,8 @@ __device__ __forceinline__ void tc_tile_product(
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
     if (s < n_ks)
-      tc_stage<VEC>(smem + s * TC_STAGE_ELEMS, q, t, row0, c0, s * TC_BK, n,
-                    num_valid, D);
+      tc_stage<T, VEC>(smem + s * TC_STAGE_ELEMS, q, t, row0, c0, s * TC_BK, n,
+                       num_valid, D);
     cp_async_commit();  // an empty group keeps the count of groups uniform
   }
   // lane addresses of the ldmatrix loads: A (rows lane % 16, k + 8 for the
@@ -969,10 +963,10 @@ __device__ __forceinline__ void tc_tile_product(
     __syncthreads();
     const int next = ks + TC_STAGES - 1;
     if (next < n_ks)
-      tc_stage<VEC>(smem + (next % TC_STAGES) * TC_STAGE_ELEMS, q, t, row0,
-                    c0, next * TC_BK, n, num_valid, D);
+      tc_stage<T, VEC>(smem + (next % TC_STAGES) * TC_STAGE_ELEMS, q, t, row0,
+                       c0, next * TC_BK, n, num_valid, D);
     cp_async_commit();
-    const bf16* st = smem + (ks % TC_STAGES) * TC_STAGE_ELEMS;
+    const T* st = smem + (ks % TC_STAGES) * TC_STAGE_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < TC_BK; kk += 16) {
       unsigned a[TC_MI][4], b[TC_NI][2];
@@ -992,26 +986,25 @@ __device__ __forceinline__ void tc_tile_product(
       for (int mi = 0; mi < TC_MI; ++mi) {
 #pragma unroll
         for (int ni = 0; ni < TC_NI; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+          mma16<T>(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
       }
     }
     if (lr >= 0) {
-      const bf16* ra = st + lr * TC_LDS;
-      const bf16* rb = st + (BM + lc) * TC_LDS;
+      const T* ra = st + lr * TC_LDS;
+      const T* rb = st + (BM + lc) * TC_LDS;
       const int len = min(TC_BK, D - ks * TC_BK);
       if (len == TC_BK) {
 #pragma unroll
         for (int kk = 0; kk < TC_BK; kk += 8) {
           float x[8], y[8];
-          widen8(*reinterpret_cast<const uint4*>(ra + kk), x);
-          widen8(*reinterpret_cast<const uint4*>(rb + kk), y);
+          widen8<T>(*reinterpret_cast<const uint4*>(ra + kk), x);
+          widen8<T>(*reinterpret_cast<const uint4*>(rb + kk), y);
 #pragma unroll
           for (int i = 0; i < 8; ++i) chain = __fmaf_rn(x[i], y[i], chain);
         }
       } else {
         for (int kk = 0; kk < len; ++kk)
-          chain = __fmaf_rn(__bfloat162float(ra[kk]), __bfloat162float(rb[kk]),
-                            chain);
+          chain = __fmaf_rn(Prec<T>::load(ra + kk), Prec<T>::load(rb + kk), chain);
       }
     }
   }
@@ -1043,13 +1036,13 @@ __device__ __forceinline__ void certify(float x, float nq, float nt,
 }
 
 // The prologue's chain for one entry: fmaf from 0.0f over k ascending of
-// the widened bfloat16 values, read from global memory (the tile kernel's
+// the widened 16-bit values, read from global memory (the tile kernel's
 // rare in-block path: a full worklist, labels past the first 128).
-__device__ __forceinline__ float exact_chain(const bf16* a, const bf16* b,
-                                             int D) {
+template <typename T>
+__device__ __forceinline__ float exact_chain(const T* a, const T* b, int D) {
   float acc = 0.0f;
   for (int d = 0; d < D; ++d)
-    acc = __fmaf_rn(__bfloat162float(a[d]), __bfloat162float(b[d]), acc);
+    acc = __fmaf_rn(Prec<T>::load(a + d), Prec<T>::load(b + d), acc);
   return acc;
 }
 
@@ -1105,26 +1098,26 @@ __device__ __forceinline__ int label_row(const int* lab_at, int j) {
   return lo;
 }
 
-// The bfloat16 tile kernel: the grid and the column ranges of the float32
+// The 16-bit tile kernel: the grid and the column ranges of the float32
 // kernel (rank_plan), the tile product on the tensor cores, then per tile
 // the certificate over every entry and the exact path over the undecided
 // entries and the label columns.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(TC_THREADS, 2)
-rank_tiles_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
+rank_tiles_tc_kernel(const T* __restrict__ q, const T* __restrict__ t,
                      const int32_t* __restrict__ cols,
                      const int32_t* __restrict__ tile_ptr,
-                     const bf16* __restrict__ pivot,
+                     const T* __restrict__ pivot,
                      const float* __restrict__ norms, int n, int D,
                      int num_valid, int num_tiles, int tiles_per_range,
                      float atol, float rtol, int epilogue,
                      int32_t* __restrict__ greater_out,
                      int32_t* __restrict__ close_out,
-                     bf16* __restrict__ vals_out,
+                     T* __restrict__ vals_out,
                      int32_t* __restrict__ work, int work_capacity,
                      unsigned long long* __restrict__ recounted) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(tc_smem);
+  T* smem = reinterpret_cast<T*>(tc_smem);
   __shared__ float s_piv[BM], s_tol[BM], s_nq[BM], s_nt[BN];
   __shared__ long long s_base;
   __shared__ float s_cut1[BM], s_cut2[BM];
@@ -1146,10 +1139,10 @@ rank_tiles_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
 
   if (tid < BM) {
     const bool in = row0 + tid < n;
-    float p = in ? Prec<bf16>::load(pivot + row0 + tid) : 0.0f;
+    float p = in ? Prec<T>::load(pivot + row0 + tid) : 0.0f;
     p = isnan(p) ? -INFINITY : p;
     s_piv[tid] = p;
-    s_tol[tid] = Prec<bf16>::tol(atol, rtol, p);
+    s_tol[tid] = Prec<T>::tol(atol, rtol, p);
     s_nq[tid] = in ? norms[row0 + tid] : 0.0f;
     const float* cuts = norms + n + num_valid + 2 * (row0 + tid);
     s_cut1[tid] = in ? cuts[0] : 0.0f;
@@ -1186,9 +1179,9 @@ rank_tiles_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
       lc = cols[lat] - c0;
     }
     float acc[TC_MI][TC_NI][4], chain = 0.0f;
-    tc_tile_product<VEC>(acc, smem, q, t, row0, c0, n, num_valid, D, lr, lc,
-                         chain);
-    if (lr >= 0) Prec<bf16>::store(vals_out + lat, Prec<bf16>::score(chain, epilogue));
+    tc_tile_product<T, VEC>(acc, smem, q, t, row0, c0, n, num_valid, D, lr, lc,
+                            chain);
+    if (lr >= 0) Prec<T>::store(vals_out + lat, Prec<T>::score(chain, epilogue));
 
     if (tid < BN)
       s_nt[tid] = c0 + tid < num_valid ? norms[n + c0 + tid] : 0.0f;
@@ -1297,17 +1290,17 @@ rank_tiles_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
         at = s_lab_first[r] + j - s_lab_at[r];
         col = cols[at] - c0;
       }
-      const float s = Prec<bf16>::score(
-          exact_chain(q + (size_t)(row0 + r) * D, t + (size_t)(c0 + col) * D,
-                      D),
+      const float s = Prec<T>::score(
+          exact_chain<T>(q + (size_t)(row0 + r) * D, t + (size_t)(c0 + col) * D,
+                         D),
           epilogue);
       if (at < 0) {
         int cl, gr;
-        close_greater_as<bf16>(s, s_piv[r], s_tol[r], cl, gr);
+        close_greater_as<T>(s, s_piv[r], s_tol[r], cl, gr);
         if (gr) atomicAdd(&s_g[r], 1);
         if (cl) atomicAdd(&s_c[r], 1);
       } else {
-        Prec<bf16>::store(vals_out + at, s);
+        Prec<T>::store(vals_out + at, s);
       }
     }
     // the next tile's product begins with a barrier before s_open and s_nt
@@ -1331,10 +1324,10 @@ rank_tiles_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
 // each lane runs its chain over its own rows, k ascending up to D.
 constexpr int RC_K = 64;                 // values of a row per chunk
 constexpr int RC_STAGES = 4;             // chunks of a warp in flight
-constexpr int RC_LD = RC_K + 8;          // a row of a chunk (bf16): 144 bytes
+constexpr int RC_LD = RC_K + 8;          // a row of a chunk (16-bit): 144 bytes
 constexpr int RC_ES = 2 * RC_LD + 8;     // an entry's two rows, padded to 304
                                          // bytes: 8 lanes' reads hit distinct banks
-constexpr int RC_CHUNK = 32 * RC_ES;     // one chunk of a warp (bf16)
+constexpr int RC_CHUNK = 32 * RC_ES;     // one chunk of a warp (16-bit)
 constexpr int RC_SMEM_BYTES =
     (TC_THREADS / 32) * RC_STAGES * RC_CHUNK * (int)sizeof(bf16);
 
@@ -1356,28 +1349,27 @@ __device__ __forceinline__ int rc_line(int my_row, int my_col, int u,
   return (idx % (2 * P)) / P ? col_e : row_e;
 }
 
-template <int VEC>
-__device__ __forceinline__ void rc_copy(bf16* buf, const bf16* q,
-                                        const bf16* t, int line, int u,
-                                        int k0, int D, int lane) {
+template <typename T, int VEC>
+__device__ __forceinline__ void rc_copy(T* buf, const T* q, const T* t,
+                                        int line, int u, int k0, int D,
+                                        int lane) {
   constexpr int P = RC_K / VEC;
   const int idx = lane + 32 * u, e = idx / (2 * P), rest = idx % (2 * P);
   const int side = rest / P, kk = (rest % P) * VEC;
   const bool ok = line >= 0 && k0 + kk < D;
-  const bf16* src = ok ? (side ? t : q) + (size_t)line * D + k0 + kk : q;
-  bf16* dst = buf + e * RC_ES + side * RC_LD + kk;
+  const T* src = ok ? (side ? t : q) + (size_t)line * D + k0 + kk : q;
+  T* dst = buf + e * RC_ES + side * RC_LD + kk;
   if constexpr (VEC == 1) {
-    *dst = ok ? *src : __ushort_as_bfloat16(0);
+    *dst = ok ? *src : zero16<T>();
   } else {
     cp_async_bytes<2 * VEC>(dst, src, ok ? 2 * VEC : 0);
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void rc_stage(bf16* buf, const bf16* q,
-                                         const bf16* t, const int* lines,
-                                         int my_row, int my_col, int k0,
-                                         int D, int lane) {
+template <typename T, int VEC>
+__device__ __forceinline__ void rc_stage(T* buf, const T* q, const T* t,
+                                         const int* lines, int my_row,
+                                         int my_col, int k0, int D, int lane) {
 #pragma unroll
   for (int u = 0; u < rc_slots<VEC>(); ++u) {
     int line;
@@ -1386,22 +1378,22 @@ __device__ __forceinline__ void rc_stage(bf16* buf, const bf16* q,
     } else {
       line = rc_line<VEC>(my_row, my_col, u, lane);
     }
-    rc_copy<VEC>(buf, q, t, line, u, k0, D, lane);
+    rc_copy<T, VEC>(buf, q, t, line, u, k0, D, lane);
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(TC_THREADS)
-rank_recount_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
+rank_recount_kernel(const T* __restrict__ q, const T* __restrict__ t,
                     const int32_t* __restrict__ work, int work_capacity,
                     const unsigned long long* __restrict__ recounted,
-                    const bf16* __restrict__ pivot, int D, float atol,
+                    const T* __restrict__ pivot, int D, float atol,
                     float rtol, int epilogue,
                     int32_t* __restrict__ greater_out,
                     int32_t* __restrict__ close_out) {
   extern __shared__ __align__(16) unsigned char rc_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bf16* ring = reinterpret_cast<bf16*>(rc_smem) + warp * RC_STAGES * RC_CHUNK;
+  T* ring = reinterpret_cast<T*>(rc_smem) + warp * RC_STAGES * RC_CHUNK;
   const long long fill = min((long long)recounted[1], (long long)work_capacity);
   const int n_chunks = (D + RC_K - 1) / RC_K;
   for (long long base = ((long long)blockIdx.x * (TC_THREADS / 32) + warp) * 32;
@@ -1422,78 +1414,78 @@ rank_recount_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
 #pragma unroll
     for (int c = 0; c < RC_STAGES - 1; ++c) {
       if (c < n_chunks)
-        rc_stage<VEC>(ring + c * RC_CHUNK, q, t, lines, row, col, c * RC_K,
-                      D, lane);
+        rc_stage<T, VEC>(ring + c * RC_CHUNK, q, t, lines, row, col, c * RC_K,
+                         D, lane);
       cp_async_commit();
     }
     float acc = 0.0f;
     for (int c = 0; c < n_chunks; ++c) {
       const int next = c + RC_STAGES - 1;
       if (next < n_chunks)
-        rc_stage<VEC>(ring + (next % RC_STAGES) * RC_CHUNK, q, t, lines, row,
-                      col, next * RC_K, D, lane);
+        rc_stage<T, VEC>(ring + (next % RC_STAGES) * RC_CHUNK, q, t, lines, row,
+                         col, next * RC_K, D, lane);
       cp_async_commit();
       cp_async_wait<RC_STAGES - 1>();
       __syncwarp();
-      const bf16* a = ring + (c % RC_STAGES) * RC_CHUNK + lane * RC_ES;
-      const bf16* b = a + RC_LD;
+      const T* a = ring + (c % RC_STAGES) * RC_CHUNK + lane * RC_ES;
+      const T* b = a + RC_LD;
       const int len = min(RC_K, D - c * RC_K);
       if (len == RC_K) {
 #pragma unroll
         for (int kk = 0; kk < RC_K; kk += 8) {
           float x[8], y[8];
-          widen8(*reinterpret_cast<const uint4*>(a + kk), x);
-          widen8(*reinterpret_cast<const uint4*>(b + kk), y);
+          widen8<T>(*reinterpret_cast<const uint4*>(a + kk), x);
+          widen8<T>(*reinterpret_cast<const uint4*>(b + kk), y);
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc = __fmaf_rn(x[j], y[j], acc);
         }
       } else {
         for (int kk = 0; kk < len; ++kk)
-          acc = __fmaf_rn(__bfloat162float(a[kk]), __bfloat162float(b[kk]), acc);
+          acc = __fmaf_rn(Prec<T>::load(a + kk), Prec<T>::load(b + kk), acc);
       }
       __syncwarp();  // the chunk's buffer is refilled next
     }
     cp_async_wait<0>();
     __syncwarp();
     if (row >= 0) {
-      float p = Prec<bf16>::load(pivot + row);
+      float p = Prec<T>::load(pivot + row);
       p = isnan(p) ? -INFINITY : p;
       int cl, gr;
-      close_greater_as<bf16>(Prec<bf16>::score(acc, epilogue), p,
-                             Prec<bf16>::tol(atol, rtol, p), cl, gr);
+      close_greater_as<T>(Prec<T>::score(acc, epilogue), p,
+                          Prec<T>::tol(atol, rtol, p), cl, gr);
       if (gr) atomicAdd(greater_out + row, 1);
       if (cl) atomicAdd(close_out + row, 1);
     }
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 struct RecountLaunch {
   template <typename... Args>
   static cudaError_t run(unsigned blocks, cudaStream_t s, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
-        rank_recount_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rank_recount_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         RC_SMEM_BYTES);
     if (err != cudaSuccess) return err;
-    rank_recount_kernel<VEC><<<blocks, TC_THREADS, RC_SMEM_BYTES, s>>>(args...);
+    rank_recount_kernel<T, VEC><<<blocks, TC_THREADS, RC_SMEM_BYTES, s>>>(args...);
     return cudaGetLastError();
   }
 };
 
 // The raw tensor-core sums of the [n, num_cols] block: tc_tile_product, as
 // the tile kernel calls it, written out.
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(TC_THREADS, 2)
-tc_tile_sums_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
-                    int n, int D, int num_cols, float* __restrict__ out) {
+tc_tile_sums_kernel(const T* __restrict__ q, const T* __restrict__ t, int n,
+                    int D, int num_cols, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(tc_smem);
+  T* smem = reinterpret_cast<T*>(tc_smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int row0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
   float acc[TC_MI][TC_NI][4], chain = 0.0f;
-  tc_tile_product<VEC>(acc, smem, q, t, row0, c0, n, num_cols, D, -1, 0,
-                       chain);
+  tc_tile_product<T, VEC>(acc, smem, q, t, row0, c0, n, num_cols, D, -1, 0,
+                          chain);
 #pragma unroll
   for (int mi = 0; mi < TC_MI; ++mi) {
 #pragma unroll
@@ -1509,17 +1501,120 @@ tc_tile_sums_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
   }
 }
 
+// How the tensor cores read float16, subnormals above all: every ordered
+// pair (a, b) of float16 bit patterns goes through mma.sync m16n8k16 (f16
+// in, float32 accumulators from 0) with one nonzero k per output, so that
+// each accumulator holds the one product a b, and is held against the exact
+// float32 product (__fmul_rn of the widened values: at most 22 significant
+// bits between 2^-48 and 2^32, so no rounding). Equal means equal values
+// (+0 and -0 alike: the zero terms of the mma may change a zero's sign) or
+// NaN on both sides. counts[0, 3): the pairs with neither, one, both
+// operands subnormal; counts[3, 6): the pairs among them whose sum differs;
+// counts[6]: of those, the sums that are 0 where the product is not (a
+// flushed operand). A warp does one mma a job. For finite b (7,936 blocks of
+// 8 values) the diagonal layout: A[m][k] = a_base + m where k = m, else 0;
+// B[k][n] = b_base + n for every k; so C[m][n] = (a_base + m)(b_base + n),
+// 128 pairs a job (the zeros of A meet only finite values of B). For the 256
+// blocks of infinities and NaNs among the b, 0 x b would be NaN, so there A
+// holds one a on its diagonal and B holds b_base + n only at k = n: C[n][n],
+// n < 8, is a (b_base + n) plus products of zeros, 8 pairs a job.
+constexpr int SUB_A_BLOCKS = 65536 / 16;       // a_base = 16 x block
+constexpr int SUB_FINITE_B_BLOCKS = 7936;      // b blocks without inf or NaN
+constexpr unsigned SUB_DIAGONAL_JOBS = SUB_A_BLOCKS * SUB_FINITE_B_BLOCKS;
+constexpr unsigned SUB_JOBS = SUB_DIAGONAL_JOBS + 65536u * 256;
+
+__device__ __forceinline__ bool f16_subnormal(unsigned h) {
+  return (h & 0x7c00u) == 0 && (h & 0x3ffu) != 0;
+}
+
+__device__ __forceinline__ unsigned pack_f16(unsigned lo, unsigned hi) {
+  return (lo & 0xffffu) | (hi << 16);
+}
+
+__global__ void __launch_bounds__(256)
+f16_subnormal_check_kernel(unsigned long long* __restrict__ counts) {
+  unsigned long long pairs[3] = {0, 0, 0}, differ[3] = {0, 0, 0}, flushed = 0;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const unsigned warps = gridDim.x * (blockDim.x >> 5);
+  for (unsigned job = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       job < SUB_JOBS; job += warps) {
+    const bool diagonal = job < SUB_DIAGONAL_JOBS;
+    unsigned a_of[2], b_base;  // a of rows g and g + 8
+    if (diagonal) {
+      const unsigned a_base = job / SUB_FINITE_B_BLOCKS * 16;
+      const unsigned bb = job % SUB_FINITE_B_BLOCKS;
+      // blocks below 0x7c00, then from 0x8000 below 0xfc00
+      b_base = bb < 3968 ? bb * 8 : 0x8000u + (bb - 3968) * 8;
+      a_of[0] = a_base + g;
+      a_of[1] = a_base + g + 8;
+    } else {
+      const unsigned rest = job - SUB_DIAGONAL_JOBS;
+      const unsigned a = rest >> 8, bb = rest & 255;
+      b_base = (bb < 128 ? 0x7c00u : 0xfc00u) + (bb & 127) * 8;
+      a_of[0] = a_of[1] = a;
+    }
+    // A: a0 (row g, k 2 tq, 2 tq + 1), a1 (row g + 8), a2 and a3 (k + 8)
+    unsigned a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = g + (r & 1) * 8, k = 2 * tq + (r >> 1) * 8;
+      const unsigned v = a_of[r & 1];
+      a[r] = pack_f16(k == row ? v : 0u, k + 1 == row ? v : 0u);
+    }
+    // B: b0 (k 2 tq, 2 tq + 1; column g), b1 (k + 8)
+    const unsigned bv = b_base + g;
+    unsigned b[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = 2 * tq + r * 8;
+      b[r] = diagonal ? pack_f16(bv, bv)
+                      : pack_f16(k == g ? bv : 0u, k + 1 == g ? bv : 0u);
+    }
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_f16(c, a, b[0], b[1]);
+    // c[e]: row g + (e / 2) 8, column 2 tq + e % 2
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + (e >> 1) * 8, col = 2 * tq + (e & 1);
+      const bool valid = diagonal || (row == col && row < 8);
+      if (!valid) continue;
+      const unsigned x = a_of[e >> 1], y = b_base + col;
+      const float want = __fmul_rn(__half2float(__ushort_as_half((unsigned short)x)),
+                                   __half2float(__ushort_as_half((unsigned short)y)));
+      const bool same = c[e] == want || (isnan(c[e]) && isnan(want));
+      const int cls = (int)f16_subnormal(x) + (int)f16_subnormal(y);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {  // registers, not an indexed array
+        pairs[k] += cls == k;
+        differ[k] += cls == k && !same;
+      }
+      flushed += !same && c[e] == 0.0f && want != 0.0f;
+    }
+  }
+  unsigned long long v[7] = {pairs[0], pairs[1], pairs[2], differ[0],
+                             differ[1], differ[2], flushed};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+    if (lane == 0 && v[k]) atomicAdd(counts + k, v[k]);
+  }
+}
+
 // norm_bound of rows [0, n) of q into norms[0, n) and of rows [0, num_cols)
-// of t into norms[n, n + num_cols): the prologue's bfloat16 norm blocks.
+// of t into norms[n, n + num_cols): the prologue's 16-bit norm blocks.
+template <typename T>
 __global__ void __launch_bounds__(PROLOGUE_THREADS)
-norm_bounds_kernel(const bf16* __restrict__ q, const bf16* __restrict__ t,
-                   int n, int D, int num_cols, float* __restrict__ norms) {
+norm_bounds_kernel(const T* __restrict__ q, const T* __restrict__ t, int n,
+                   int D, int num_cols, float* __restrict__ norms) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int v = blockIdx.x * PIVOT_ROWS + warp;
   if (v >= n + num_cols) return;
   const bool vec8 = (D & 7) == 0 && aligned16(q) && aligned16(t);
-  const bf16* src = v < n ? q + (size_t)v * D : t + (size_t)(v - n) * D;
-  const float bound = norm_bound(src, D, lane, vec8);
+  const T* src = v < n ? q + (size_t)v * D : t + (size_t)(v - n) * D;
+  const float bound = norm_bound<T>(src, D, lane, vec8);
   if (lane == 0) norms[v] = bound;
 }
 
@@ -1532,40 +1627,40 @@ int tc_vec(const void* q, const void* t, int D) {
   return 1;
 }
 
-// Launch kernel<VEC> for the VEC that tc_vec chose, after allowing its
+// Launch kernel<T, VEC> for the VEC that tc_vec chose, after allowing its
 // dynamic shared memory.
-template <template <int> class Launch, typename... Args>
+template <typename T, template <typename, int> class Launch, typename... Args>
 cudaError_t launch_tc(int vec, Args... args) {
   switch (vec) {
-    case 8: return Launch<8>::run(args...);
-    case 4: return Launch<4>::run(args...);
-    case 2: return Launch<2>::run(args...);
-    default: return Launch<1>::run(args...);
+    case 8: return Launch<T, 8>::run(args...);
+    case 4: return Launch<T, 4>::run(args...);
+    case 2: return Launch<T, 2>::run(args...);
+    default: return Launch<T, 1>::run(args...);
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 struct TilesLaunch {
   template <typename... Args>
   static cudaError_t run(dim3 grid, cudaStream_t s, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
-        rank_tiles_tc_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rank_tiles_tc_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         TC_SMEM_BYTES);
     if (err != cudaSuccess) return err;
-    rank_tiles_tc_kernel<VEC><<<grid, TC_THREADS, TC_SMEM_BYTES, s>>>(args...);
+    rank_tiles_tc_kernel<T, VEC><<<grid, TC_THREADS, TC_SMEM_BYTES, s>>>(args...);
     return cudaGetLastError();
   }
 };
 
-template <int VEC>
+template <typename T, int VEC>
 struct SumsLaunch {
   template <typename... Args>
   static cudaError_t run(dim3 grid, cudaStream_t s, Args... args) {
     cudaError_t err = cudaFuncSetAttribute(
-        tc_tile_sums_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc_tile_sums_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         TC_SMEM_BYTES);
     if (err != cudaSuccess) return err;
-    tc_tile_sums_kernel<VEC><<<grid, TC_THREADS, TC_SMEM_BYTES, s>>>(args...);
+    tc_tile_sums_kernel<T, VEC><<<grid, TC_THREADS, TC_SMEM_BYTES, s>>>(args...);
     return cudaGetLastError();
   }
 };
@@ -1601,7 +1696,8 @@ int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
                           int32_t* close_out, T* vals_out, T* pivot_out,
                           float* norms, int32_t* work, int work_capacity,
                           unsigned long long* recounted, void* stream) {
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  // the 16-bit types run on the tensor cores, float32 on the CUDA cores
+  constexpr bool kTensorCores = !std::is_same<T, float>::value;
   if (n <= 0) return 0;
   if (tiles_per_range < 1) return (int)cudaErrorInvalidValue;
   if (epilogue != EPILOGUE_NONE && epilogue != EPILOGUE_NEG_SQRT_L2)
@@ -1610,8 +1706,9 @@ int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
   const int num_tiles = (num_valid + BN - 1) / BN;
   const int pivot_blocks = (n + PIVOT_ROWS - 1) / PIVOT_ROWS;
   const int norm_blocks =
-      kBf16 ? (int)(((long long)n + num_valid + PIVOT_ROWS - 1) / PIVOT_ROWS)
-            : 0;
+      kTensorCores
+          ? (int)(((long long)n + num_valid + PIVOT_ROWS - 1) / PIVOT_ROWS)
+          : 0;
   const size_t entries = (size_t)n * (num_tiles + 1);
   const size_t fill = entries > (size_t)nnz ? entries : (size_t)nnz;
   size_t fill_blocks = (fill + PROLOGUE_THREADS - 1) / PROLOGUE_THREADS;
@@ -1627,11 +1724,11 @@ int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
   const int ranges = (num_tiles + tiles_per_range - 1) / tiles_per_range;
   if (ranges > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((n + BM - 1) / BM, ranges);
-  if constexpr (kBf16) {
+  if constexpr (kTensorCores) {
     const int vec = tc_vec(q, t, D);
-    err = launch_tc<TilesLaunch>(
+    err = launch_tc<T, TilesLaunch>(
         vec, grid, s, q, t, cols, (const int32_t*)tile_ptr,
-        (const bf16*)pivot_out, (const float*)norms, n, D, num_valid,
+        (const T*)pivot_out, (const float*)norms, n, D, num_valid,
         num_tiles, tiles_per_range, atol, rtol, epilogue, greater_out,
         close_out, vals_out, work, work_capacity, recounted);
     if (err != cudaSuccess || work_capacity <= 0) return (int)err;
@@ -1643,21 +1740,39 @@ int rank_counts_launch_as(const T* q, const T* t, const int32_t* pivot_cols,
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = ((long long)work_capacity + TC_THREADS - 1) / TC_THREADS;
-    return (int)launch_tc<RecountLaunch>(
+    return (int)launch_tc<T, RecountLaunch>(
         vec, (unsigned)(blocks < sms ? blocks : sms), s, q, t,
         (const int32_t*)work, work_capacity,
         (const unsigned long long*)recounted,
-        (const bf16*)pivot_out, D, atol, rtol, epilogue, greater_out,
+        (const T*)pivot_out, D, atol, rtol, epilogue, greater_out,
         close_out);
   } else {
-    err = allow_shared_memory<T>();
+    err = allow_shared_memory();
     if (err != cudaSuccess) return (int)err;
-    rank_tiles_kernel<T><<<grid, THREADS, SMEM_BYTES, s>>>(
+    rank_tiles_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
         q, t, cols, tile_ptr, pivot_out, n, D, num_valid, num_tiles,
         tiles_per_range, atol, rtol, epilogue, greater_out, close_out,
         vals_out);
     return (int)cudaGetLastError();
   }
+}
+
+template <typename T>
+int rank_counts_tile_sums_as(const T* q, const T* t, int n, int D,
+                             int num_cols, float* out, float* norms,
+                             void* stream) {
+  if (n <= 0 || num_cols <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long vectors = (long long)n + num_cols;
+  norm_bounds_kernel<T><<<(unsigned)((vectors + PIVOT_ROWS - 1) / PIVOT_ROWS),
+                          PROLOGUE_THREADS, 0, s>>>(q, t, n, D, num_cols, norms);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int col_tiles = (num_cols + BN - 1) / BN;
+  if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + BM - 1) / BM, col_tiles);
+  return (int)launch_tc<T, SumsLaunch>(tc_vec(q, t, D), grid, s, q, t, n, D,
+                                       num_cols, out);
 }
 
 extern "C" {
@@ -1720,9 +1835,9 @@ int rank_counts_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
       pivot_out, norms, work, work_capacity, recounted, stream);
 }
 
-// The same for float16 q and t: the float16 path of the header, the float32
-// path's tiles over widened float16 values; vals_out and pivot_out are
-// float16 [nnz] and [n].
+// The same for float16 q and t: the float16 path of the header, on the
+// tensor cores with the bfloat16 path's certificate, scratch and outputs;
+// vals_out and pivot_out are float16 [nnz] and [n].
 int rank_counts_launch_f16(const __half* q, const __half* t,
                            const int32_t* pivot_cols, const __half* pivot_in,
                            const int32_t* row_ptr, const int32_t* cols, int n,
@@ -1730,11 +1845,13 @@ int rank_counts_launch_f16(const __half* q, const __half* t,
                            float rtol, int epilogue, int tiles_per_range,
                            int32_t* tile_ptr, int32_t* greater_out,
                            int32_t* close_out, __half* vals_out,
-                           __half* pivot_out, void* stream) {
+                           __half* pivot_out, float* norms, int32_t* work,
+                           int work_capacity, unsigned long long* recounted,
+                           void* stream) {
   return rank_counts_launch_as<__half>(
       q, t, pivot_cols, pivot_in, row_ptr, cols, n, D, num_valid, nnz, atol,
       rtol, epilogue, tiles_per_range, tile_ptr, greater_out, close_out,
-      vals_out, pivot_out, nullptr, nullptr, 0, nullptr, stream);
+      vals_out, pivot_out, norms, work, work_capacity, recounted, stream);
 }
 
 // rank_pivots: each row's chain score (after the epilogue) at column
@@ -1767,25 +1884,29 @@ int rank_pivots_launch_f16(const __half* q, const __half* t,
                                        col_lo, epilogue, pivot_out, stream);
 }
 
+// The exhaustive check of the tensor cores' float16 products
+// (f16_subnormal_check_kernel) into counts[7], zeroed by the caller.
+int rank_counts_f16_subnormal_check(unsigned long long* counts, void* stream) {
+  f16_subnormal_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>(counts);
+  return (int)cudaGetLastError();
+}
+
 // For checks of the certificate: the tensor cores' float32 sums of
 // q [n, D] x t[:num_cols]^T into out [n, num_cols], by the tile kernel's own
 // product (tc_tile_product), and the norm bounds of the prologue into
 // norms [n + num_cols] (rows of q, then of t).
-int rank_counts_bf16_tile_sums(const __nv_bfloat16* q, const __nv_bfloat16* t,
+int rank_counts_tile_sums_bf16(const __nv_bfloat16* q, const __nv_bfloat16* t,
                                int n, int D, int num_cols, float* out,
                                float* norms, void* stream) {
-  if (n <= 0 || num_cols <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long vectors = (long long)n + num_cols;
-  norm_bounds_kernel<<<(unsigned)((vectors + PIVOT_ROWS - 1) / PIVOT_ROWS),
-                       PROLOGUE_THREADS, 0, s>>>(q, t, n, D, num_cols, norms);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int col_tiles = (num_cols + BN - 1) / BN;
-  if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + BM - 1) / BM, col_tiles);
-  return (int)launch_tc<SumsLaunch>(tc_vec(q, t, D), grid, s, q, t, n, D,
-                                    num_cols, out);
+  return rank_counts_tile_sums_as<__nv_bfloat16>(q, t, n, D, num_cols, out,
+                                                 norms, stream);
+}
+
+int rank_counts_tile_sums_f16(const __half* q, const __half* t, int n, int D,
+                              int num_cols, float* out, float* norms,
+                              void* stream) {
+  return rank_counts_tile_sums_as<__half>(q, t, n, D, num_cols, out, norms,
+                                          stream);
 }
 
 }  // extern "C"

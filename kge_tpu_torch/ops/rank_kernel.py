@@ -9,7 +9,8 @@ a thread 8 x 8 accumulators; slices of both operands stream through a
 three-stage ``cp.async`` ring in shared memory) with the counts as its
 epilogue, after a small launch that computes the pivots. At evaluation
 shapes the fp32 CUDA-core rate bounds it (about 60 flops per byte of
-input); the bfloat16 path's tiles run on the tensor cores (below). The
+input); the bfloat16 and float16 paths' tiles run on the tensor cores
+(below). The
 grid is (row tiles) x (column ranges): ``rank_plan`` cuts the candidate
 columns into ranges of whole tiles (one tile each: many short
 blocks balance the SMs best), and the blocks of
@@ -90,10 +91,16 @@ chain, each score rounded once to float16, the epilogue and the tie test in
 float16 after every operation, ``vals`` and the pivot in float16. float16's
 range ends at 65,504: a larger score becomes an infinity, which the tie
 rule treats as kge_tpu's does, and the L2 epilogue's 1e-30 rounds to 0, so
-a product at or above 0 scores -0.0. The kernel runs the float32 path's
-FMA tiles over the float16 values (widened exactly as they are staged), so
-every entry is the chain's and no certificate is needed; ``chain_scores``
-is its plain version's product.
+a product at or above 0 scores -0.0. The kernel runs the bfloat16 path's
+tensor-core tiles, certificate and recount over float16 (``chain_scores``
+is its plain version's product). The certificate carries over: the
+category stays non-decreasing in the chain's value (overflow to +-inf
+included), and the tensor cores read float16 subnormals exactly
+(``f16_subnormal_check``: all 2^32 pairs of float16 values, one product an
+accumulator, equal the exact products on the H100), so a row with
+subnormal values keeps a finite norm bound (csrc/rank_counts.cu, "float16
+path", has the proof). ``fused_rank_counts.last_recounted`` covers both
+16-bit paths.
 """
 
 from __future__ import annotations
@@ -111,7 +118,7 @@ _KERNEL = "rank_counts"
 TILE_COLS = 128
 #: query rows per block of the kernel (BM of csrc/rank_counts.cu)
 TILE_ROWS = 64
-#: entries of the bfloat16 path's recount worklist: the undecided entries
+#: entries of the 16-bit paths' recount worklist: the undecided entries
 #: of a block that finds it full are recounted by the block itself
 RECOUNT_CAPACITY = 1 << 20
 #: the dtypes whose scores are rounded chains (``chain_scores``)
@@ -232,7 +239,7 @@ def chain_scores(q: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return chain_sums(q, targets).to(q.dtype)
 
 
-# -- the certificate of the bfloat16 path (csrc/rank_counts.cu, header) -------
+# -- the certificate of the 16-bit paths (csrc/rank_counts.cu, header) -------
 #
 # The kernel computes these with directed roundings (__fmul_ru, __fmaf_ru,
 # __fsub_rd, __fadd_ru); the functions below give the same float32 results
@@ -297,22 +304,24 @@ def certified_categories(x: torch.Tensor, bound: torch.Tensor,
     """The certificate's rule, as the kernel's epilogue applies it: for
     float32 sums ``x`` [n, m] that lie within ``bound`` of their chains, the
     chain's category of each entry (int8: 0 below the pivot, 1 close, 2
-    greater, under ``close_greater`` against the bfloat16 ``pivot`` [n]
-    after the bfloat16 rounding and ``score_map``), or -1 where the rule
-    cannot settle it: lo = RD(x - bound) and hi = RU(x + bound) fall in
-    different categories, either is not finite, or the row's pivot or
-    tolerance is not finite. Not on any main path: the tests and
+    greater, under ``close_greater`` against ``pivot`` [n], bfloat16 or
+    float16, after the rounding to the pivot's dtype and ``score_map``), or
+    -1 where the rule cannot settle it: lo = RD(x - bound) and hi = RU(x +
+    bound) fall in different categories, either is not finite, or the row's
+    pivot or tolerance is not finite. Not on any main path: the tests and
     chip_smoke.py check the kernel's decisions with it."""
+    if pivot.dtype not in _CHAINED:
+        raise TypeError(f"certified_categories: the pivot must be bfloat16 or "
+                        f"float16, got {pivot.dtype}")
     x64, b64 = x.double(), bound.double()
     lo = _round_f32(*_two_sum(x64, -b64), up=False)
     hi = _round_f32(*_two_sum(x64, b64), up=True)
-    p = pivot.to(torch.bfloat16)
-    p = torch.where(torch.isnan(p), torch.full_like(p, float("-inf")), p)
+    p = torch.where(torch.isnan(pivot), torch.full_like(pivot, float("-inf")), pivot)
     tol = weak(atol, p) + weak(rtol, p) * p.abs()
     ok_row = (torch.isfinite(p) & torch.isfinite(tol))[:, None]
 
     def category(v):
-        s = v.to(torch.bfloat16)
+        s = v.to(p.dtype)
         if score_map is not None:
             s = score_map(s)
         close, greater = close_greater(s, p[:, None], atol, rtol)
@@ -486,8 +495,9 @@ fused_rank_counts.bf16_launches = 0
 fused_rank_counts.f16_launches = 0
 #: the launches among them with a given pivot (a column shard's)
 fused_rank_counts.sharded_launches = 0
-#: int64 [1] on the card: the entries that the last bfloat16 launch's
-#: certificate left undecided (recomputed by the chain); None before one
+#: int64 [1] on the card: the entries that the last bfloat16 or float16
+#: launch's certificate left undecided (recomputed by the chain); None
+#: before one
 fused_rank_counts.last_recounted = None
 
 
@@ -501,11 +511,12 @@ def _library():
         pivots = [p, p, p, i, i, i, i, i, p, p]
         for name, args in (("rank_counts_launch", launch + [p]),
                            ("rank_counts_launch_bf16", launch + [p, p, i, p, p]),
-                           ("rank_counts_launch_f16", launch + [p]),
+                           ("rank_counts_launch_f16", launch + [p, p, i, p, p]),
                            ("rank_pivots_launch", pivots),
                            ("rank_pivots_launch_bf16", pivots),
                            ("rank_pivots_launch_f16", pivots),
-                           ("rank_counts_bf16_tile_sums", [p, p, i, i, i, p, p, p])):
+                           ("rank_counts_tile_sums_bf16", [p, p, i, i, i, p, p, p]),
+                           ("rank_counts_tile_sums_f16", [p, p, i, i, i, p, p, p])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
         for name in ("rank_counts_tile_cols", "rank_counts_tile_rows"):
@@ -568,8 +579,9 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
             counts[0].data_ptr(), counts[1].data_ptr(), vals.data_ptr(),
             pivot_out.data_ptr(),
         ]
-        if dtype != torch.bfloat16:
-            code = getattr(lib, "rank_counts_launch" + _SUFFIX[dtype])(*args, stream)
+        launch = getattr(lib, "rank_counts_launch" + _SUFFIX[dtype])
+        if dtype == torch.float32:
+            code = launch(*args, stream)
         else:
             # the certificate's norm bounds and each row's category cuts,
             # the recount launch's worklist, and the count of the entries it
@@ -580,34 +592,65 @@ def _launch(q, targets, row_ptr, cols, num_valid, atol, rtol, pivot_cols,
             work = torch.empty(2 * max(capacity, 1), dtype=torch.int32,
                                device=device)
             counters = torch.empty(2, dtype=torch.int64, device=device)
-            recounted = counters[:1]
-            code = lib.rank_counts_launch_bf16(
-                *args, norms.data_ptr(), work.data_ptr(), capacity,
-                counters.data_ptr(), stream)
+            code = launch(*args, norms.data_ptr(), work.data_ptr(), capacity,
+                          counters.data_ptr(), stream)
     check_launch(code, "rank_counts")
     fused_rank_counts.launches += 1
     fused_rank_counts.epilogue_launches += epilogue != 0
     fused_rank_counts.sharded_launches += pivot is not None
+    fused_rank_counts.bf16_launches += dtype == torch.bfloat16
     fused_rank_counts.f16_launches += dtype == torch.float16
-    if dtype == torch.bfloat16:
-        fused_rank_counts.bf16_launches += 1
-        fused_rank_counts.last_recounted = recounted
+    if dtype != torch.float32:
+        fused_rank_counts.last_recounted = counters[:1]
     return counts[0], counts[1], vals, pivot_out
 
 
-def bf16_tile_sums(q: torch.Tensor, targets: torch.Tensor):
+#: what ``f16_subnormal_check`` counts, in the order of the kernel's counts
+F16_SUBNORMAL_COUNTS = (
+    "pairs_normal", "pairs_one_subnormal", "pairs_both_subnormal",
+    "differ_normal", "differ_one_subnormal", "differ_both_subnormal", "flushed",
+)
+
+
+def f16_subnormal_check(device) -> dict:
+    """How the tensor cores read float16, on the card, exhaustively
+    (``csrc/rank_counts.cu`` ``f16_subnormal_check_kernel``): every ordered
+    pair of float16 values (2^32) through ``mma.sync m16n8k16`` with one
+    product an accumulator, against the exact float32 product. ``pairs_*``
+    count the pairs with neither, one or both operands subnormal,
+    ``differ_*`` those among them whose sum is not the product (equal
+    values, or NaN on both sides), ``flushed`` the differing sums that are
+    0 where the product is not. Not on any main path."""
+    from kge_tpu_torch.ops.kernel_utils import check_launch, typed
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"f16_subnormal_check runs on a CUDA card, not {device}")
+    counts = torch.zeros(len(F16_SUBNORMAL_COUNTS), dtype=torch.int64,
+                         device=device)
+    launch = typed(_library(), "rank_counts_f16_subnormal_check",
+                   [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = launch(counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    check_launch(code, "rank_counts_f16_subnormal_check")
+    return dict(zip(F16_SUBNORMAL_COUNTS, counts.tolist()))
+
+
+def tc_tile_sums(q: torch.Tensor, targets: torch.Tensor):
     """For checks of the certificate on the card: the tensor cores' float32
-    sums ``q @ targets.T`` [n, m] of the bfloat16 kernel's own tile product
-    (its instruction sequence, not a library's), and the norm bounds of its
-    prologue for the rows of q [n] and of targets [m]. Not on any main path
-    and not counted as a launch."""
+    sums ``q @ targets.T`` [n, m] of the bfloat16 or float16 kernel's own
+    tile product (its instruction sequence, not a library's), and the norm
+    bounds of its prologue for the rows of q [n] and of targets [m]. Not on
+    any main path and not counted as a launch."""
     from kge_tpu_torch.ops.kernel_utils import check_launch, require
 
     device = q.device
     if device.type != "cuda":
-        raise ValueError("bf16_tile_sums runs the CUDA kernel only")
+        raise ValueError("tc_tile_sums runs the CUDA kernel only")
+    if q.dtype not in _CHAINED:
+        raise TypeError(f"tc_tile_sums takes bfloat16 or float16, got {q.dtype}")
     for name, x in (("q", q), ("targets", targets)):
-        require(name, x, device, torch.bfloat16)
+        require(name, x, device, q.dtype)
     (n, D), m = q.shape, targets.shape[0]
     if targets.shape[1] != D:
         raise ValueError(f"targets {tuple(targets.shape)} do not match q {tuple(q.shape)}")
@@ -615,8 +658,9 @@ def bf16_tile_sums(q: torch.Tensor, targets: torch.Tensor):
     norms = torch.empty(n + m, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _library().rank_counts_bf16_tile_sums(
+        entry = "rank_counts_tile_sums" + _SUFFIX[q.dtype]
+        code = getattr(_library(), entry)(
             q.data_ptr(), targets.data_ptr(), n, D, m, sums.data_ptr(),
             norms.data_ptr(), stream)
-    check_launch(code, "rank_counts_bf16_tile_sums")
+    check_launch(code, entry)
     return sums, norms[:n], norms[n:]

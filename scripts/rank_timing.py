@@ -3,23 +3,28 @@ card at chip_smoke.py's main shapes: float32 and bfloat16 at n = 256,
 |E| = 14,541, D = 512 (random queries and candidates, skewed labels, the
 pivot at a random true column), and bfloat16 with the L2 epilogue
 (TransE-L2's augmented operands, d = 128, D' = 132; chip_smoke.py
-``l2_inputs``). The whole call by CUDA events (chip_smoke.py ``time_ms``)
-and each launch from torch.profiler; the bfloat16 cases against the plain
-version (counts equal, vals and pivots bit for bit), with the share of
-entries the certificate left undecided where the kernel reports it, the
-tile product alone (``bf16_tile_sums``) and the kernel without labels.
-``bits`` is a hash of each case's outputs, so that two builds can be
-compared bit for bit.
+``l2_inputs``); with ``--f16`` the same two 16-bit cases in float16
+instead of the three, a third at 1,200 times the scale (about 40% of the
+scores past float16's range, an infinity), and the first two over four
+column shards (``rank_pivots`` of each summed, each shard's tile launch
+against that pivot; hashed after the shards are put together, so the hash
+must equal the whole launch's). The whole call by CUDA events (chip_smoke.py
+``time_ms``) and each launch from torch.profiler; the 16-bit cases against
+the plain version (counts equal, vals and pivots bit for bit), with the
+share of entries the certificate left undecided where the kernel reports
+it, the tile product alone (``tc_tile_sums``) and the kernel without
+labels. ``bits`` is a hash of each case's outputs, so that two builds can
+be compared bit for bit.
 
-    python3 scripts/rank_timing.py [--root DIR] [--reps N] [--sass FILE]
-                                   [--swap OLD=>NEW]...
+    python3 scripts/rank_timing.py [--f16] [--root DIR] [--reps N]
+                                   [--sass FILE] [--swap OLD=>NEW]...
 
 ``--root``: the checkout whose kge_tpu_torch is timed (default: this one;
 a ``git archive`` of another commit unpacked under ``build/`` compares the
 two in one call: parent, change, change, parent). ``--sass``: write the
 root's built library disassembled (``cuobjdump -sass``) to FILE and print
 each kernel's count of tensor-core instructions (HMMA, HGMMA). ``--swap``:
-also time the bfloat16 cases on a copy of rank_counts.cu with the text OLD
+also time the 16-bit cases on a copy of rank_counts.cu with the text OLD
 replaced by NEW (an ablation, such as a part of the epilogue taken out, to
 see what binds the time; its results are wrong by design); several
 replacements are joined by ``|||``; may be repeated. Prints one JSON line
@@ -99,6 +104,7 @@ def build_variant(kernel_utils, swap: str) -> ctypes.CDLL:
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=HERE)
+    parser.add_argument("--f16", action="store_true")
     parser.add_argument("--reps", type=int, default=100)
     parser.add_argument("--sass", default=None)
     parser.add_argument("--swap", action="append", default=[])
@@ -132,22 +138,32 @@ def main():
     row_ptr, cols = smoke.skewed_labels(rng, n, E, device, true=true_np)
     true = torch.tensor(true_np, device=device)
     l2 = smoke.l2_inputs(0, device)
+    narrow, name = (torch.float16, "float16") if args.f16 else (torch.bfloat16, "bfloat16")
     cases = [
-        ("float32", q32, t32, None, row_ptr, cols, true),
-        ("bfloat16", q32.bfloat16(), t32.bfloat16(), None, row_ptr, cols, true),
-        ("bfloat16 L2", l2[0].bfloat16().contiguous(), l2[1].bfloat16().contiguous(),
+        (name, q32.to(narrow), t32.to(narrow), None, row_ptr, cols, true),
+        (f"{name} L2", l2[0].to(narrow).contiguous(), l2[1].to(narrow).contiguous(),
          NEG_SQRT_L2, l2[3], l2[4], l2[5]),
     ]
+    if args.f16:
+        cases.append(("float16 overflow", (q32 * 1200).half(), (t32 * 1200).half(), None,
+                      row_ptr, cols, true))
+    else:
+        cases.insert(0, ("float32", q32, t32, None, row_ptr, cols, true))
+    # the tile product alone: tc_tile_sums, or bf16_tile_sums before float16
+    # ran on the tensor cores
+    tile_sums = getattr(rank_kernel, "tc_tile_sums", None)
+    if tile_sums is None and not args.f16:
+        tile_sums = getattr(rank_kernel, "bf16_tile_sums", None)
     for swap in args.swap:
-        # ablations: the bfloat16 cases on a variant library
+        # ablations: the 16-bit cases on a variant library
         kernel_utils._libraries["rank_counts"] = build_variant(kernel_utils, swap)
-        for what, q, t, score_map, rp, cl, tr in cases[1:]:
+        for what, q, t, score_map, rp, cl, tr in cases[-2:]:
             def variant(q=q, t=t, score_map=score_map, rp=rp, cl=cl, tr=tr):
                 return fused_rank_counts(q, t, None, rp, cl, E, smoke.ATOL,
                                          smoke.RTOL, score_map=score_map,
                                          pivot_cols=tr)
 
-            product = smoke.kernel_ms(lambda q=q, t=t: rank_kernel.bf16_tile_sums(q, t),
+            product = smoke.kernel_ms(lambda q=q, t=t: tile_sums(q, t),
                                       ["tc_tile_sums_kernel"])["tc_tile_sums_kernel"]
             print(json.dumps({"case": what, "swap": swap,
                               "ms": smoke.time_ms(variant, reps=args.reps),
@@ -155,6 +171,7 @@ def main():
     if args.swap:
         del kernel_utils._libraries["rank_counts"]
         kernel_utils.load_library("rank_counts")
+    whole = {}
     for what, q, t, score_map, rp, cl, tr in cases:
         def kernel(q=q, t=t, score_map=score_map, rp=rp, cl=cl, tr=tr):
             return fused_rank_counts(q, t, None, rp, cl, E, smoke.ATOL, smoke.RTOL,
@@ -167,7 +184,8 @@ def main():
         record = {"root": os.path.abspath(args.root), "case": what,
                   "shape": [n, E, q.shape[1], cl.numel()], "bits": bits(out),
                   "two_launches_equal": same}
-        if q.dtype == torch.bfloat16:
+        whole[what] = record["bits"]
+        if q.dtype != torch.float32:
             g, c, vals, pivot = fused_rank_counts_plain(
                 q, t, None, rp, cl, E, smoke.ATOL, smoke.RTOL, score_map=score_map,
                 pivot_cols=tr)
@@ -175,19 +193,19 @@ def main():
                 torch.equal(out[0], g) and torch.equal(out[1], c)
                 and torch.equal(out[2].view(torch.int16), vals.view(torch.int16))
                 and torch.equal(out[3].view(torch.int16), pivot.view(torch.int16)))
-            recounted = getattr(fused_rank_counts, "last_recounted", None)
-            if recounted is not None:
-                kernel()
+            fused_rank_counts.last_recounted = None
+            kernel()
+            if fused_rank_counts.last_recounted is not None:  # this launch's
                 record["recounted"] = int(fused_rank_counts.last_recounted)
                 record["recount_share"] = record["recounted"] / (n * E)
         record["ms"] = smoke.time_ms(kernel, reps=args.reps)
         record["launch_ms"] = smoke.kernel_ms(
             kernel, ["rank_prologue_kernel", "rank_tiles", "rank_recount"])
-        if q.dtype == torch.bfloat16 and hasattr(rank_kernel, "bf16_tile_sums"):
+        if q.dtype != torch.float32 and tile_sums is not None:
             # the parts: the tile product alone (and its [n, |E|] float32
             # store), and the kernel without labels
             record["product_ms"] = smoke.kernel_ms(
-                lambda q=q, t=t: rank_kernel.bf16_tile_sums(q, t),
+                lambda q=q, t=t: tile_sums(q, t),
                 ["tc_tile_sums_kernel"])["tc_tile_sums_kernel"]
             empty = (torch.zeros_like(rp), cl[:0])
             record["no_labels_ms"] = smoke.kernel_ms(
@@ -198,7 +216,46 @@ def main():
         print(json.dumps(record), flush=True)
         if not same or not record.get("equal_to_plain", True):
             print(f"FAILED: {what}", flush=True)
+    for what, q, t, score_map, rp, cl, tr in cases[:2] if args.f16 else []:
+        got = bits(over_shards(rank_kernel, q, t, score_map, rp, cl, tr, 4,
+                               smoke.ATOL, smoke.RTOL))
+        record = {"root": os.path.abspath(args.root), "case": f"{what} over 4 shards",
+                  "bits": got, "equal_to_whole": got == whole[what]}
+        print(json.dumps(record), flush=True)
+        if not record["equal_to_whole"]:
+            print(f"FAILED: {what} over shards", flush=True)
     print(smoke.card_line(), flush=True)
+
+
+def over_shards(rank_kernel, q, t, score_map, row_ptr, cols, true, shards,
+                atol, rtol):
+    """(greater, close, vals, pivot) of K1 over ``shards`` column shards of
+    t: the pivots of ``rank_pivots`` summed over the shards in float32 (one
+    term is the pivot, the others -0.0), each shard's tile launch against
+    them, the counts summed and the label values put back in place."""
+    E = t.shape[0]
+    per = -(-E // shards)
+    summed = torch.full((q.shape[0],), -0.0, device=q.device)
+    for lo in range(0, E, per):
+        summed += rank_kernel.rank_pivots(q, t[lo:lo + per].contiguous(), true, lo,
+                                          score_map=score_map).float()
+    pivot = summed.to(q.dtype)
+    rows = rank_kernel.csr_row_ids(row_ptr)
+    g = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    c = torch.zeros_like(g)
+    vals = torch.zeros(cols.numel(), dtype=q.dtype, device=q.device)
+    for lo in range(0, E, per):
+        hi = min(E, lo + per)
+        keep = (cols >= lo) & (cols < hi)
+        ptr = torch.zeros_like(row_ptr)
+        ptr[1:] = torch.cumsum(torch.bincount(rows[keep], minlength=q.shape[0]), 0)
+        gm, cm, vm, _ = rank_kernel.fused_rank_counts(
+            q, t[lo:hi].contiguous(), pivot, ptr, (cols[keep] - lo).contiguous(),
+            hi - lo, atol, rtol, score_map=score_map)
+        g += gm
+        c += cm
+        vals[keep] = vm
+    return g, c, vals, pivot
 
 
 if __name__ == "__main__":

@@ -1232,18 +1232,18 @@ def _bf16_rank_outputs_equal(got, want):
 def _undecided_by_the_rule(q, T, num_valid, pivot, score_map):
     """The entries that the certificate leaves open by the PyTorch rule,
     on the kernel's own tensor-core sums and norm bounds."""
-    sums, nq, nt = rank_kernel.bf16_tile_sums(q, T[:num_valid])
+    sums, nq, nt = rank_kernel.tc_tile_sums(q, T[:num_valid])
     bound = rank_kernel.certificate_bound(nq, nt, q.shape[1])
     cats = rank_kernel.certified_categories(sums, bound, pivot, ATOL, RTOL,
                                             score_map)
     return int((cats < 0).sum())
 
 
-def _check_bf16_rank(q, T, row_ptr, cols, num_valid, true, score_map):
-    """K1's bfloat16 path against its plain version: counts equal, vals and
-    pivots bit for bit; two launches and the plans of 1, 3 and every
-    range equal in bits; the undecided entries those of the rule. Returns
-    the kernel's count of undecided entries."""
+def _check_certified_rank(q, T, row_ptr, cols, num_valid, true, score_map):
+    """K1's bfloat16 (or float16: q's dtype) path against its plain version:
+    counts equal, vals and pivots bit for bit; two launches and the plans
+    of 1, 3 and every range equal in bits; the undecided entries those of
+    the rule. Returns the kernel's count of undecided entries."""
     before = fused_rank_counts.launches
 
     def run(plan=None):
@@ -1255,7 +1255,7 @@ def _check_bf16_rank(q, T, row_ptr, cols, num_valid, true, score_map):
 
     first = run()
     assert fused_rank_counts.launches == before + 1
-    assert first[2].dtype == first[3].dtype == torch.bfloat16
+    assert first[2].dtype == first[3].dtype == q.dtype
     recounted = int(fused_rank_counts.last_recounted)
     plain = rank_kernel.fused_rank_counts_plain(
         q, T, None, row_ptr, cols, num_valid, ATOL, RTOL, score_map=score_map,
@@ -1289,14 +1289,16 @@ def test_bf16_rank_kernel_counts_equal_plain_on_card(n, D, epilogue):
     q, T = q.bfloat16(), T.bfloat16()
     true = true % num_valid
     score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
-    recounted = _check_bf16_rank(q, T, row_ptr, cols, num_valid, true,
-                                 score_map)
+    recounted = _check_certified_rank(q, T, row_ptr, cols, num_valid, true,
+                                      score_map)
     if n > 5:  # the NaN and infinite rows of _inputs are recomputed whole
         assert recounted >= 2 * num_valid
 
 
-def _bf16_rank_case(case, n=70, E=1000, D=64):
+def _certified_rank_case(case, n=70, E=1000, D=64):
     rng = np.random.default_rng(len(case))
+    if case == "subnormals":  # float16 subnormals in every third row of q
+        rng = np.random.default_rng(3)
     q = rng.normal(0, 0.3, (n, D))
     T = rng.normal(0, 0.3, (E, D))
     true = rng.integers(0, E // 2, n)
@@ -1322,6 +1324,13 @@ def _bf16_rank_case(case, n=70, E=1000, D=64):
         T[true[4], 2], T[true[6], 1], T[9, 9], T[11, 0] = np.inf, np.nan, -np.inf, np.inf
     elif case == "infinite_rows":
         q[:, 0] = np.inf
+    elif case == "subnormals":
+        # below 2^-14 in float16: every third query row and every fifth
+        # candidate row hold many, the others some
+        q[::3] *= 2.0 ** -14
+        T[::5] *= 2.0 ** -14
+        q[:, ::9] *= 2.0 ** -12
+        T[:, ::7] *= 2.0 ** -12
     per_row = [np.sort(rng.choice(E, size=int(rng.integers(0, 30)), replace=False))
                for _ in range(n)]
     row_ptr = np.concatenate([[0], np.cumsum([len(c) for c in per_row])])
@@ -1348,11 +1357,11 @@ def test_bf16_rank_kernel_data_cases_on_card(case, epilogue, capacity,
     if capacity is not None:
         monkeypatch.setattr(rank_kernel, "RECOUNT_CAPACITY", capacity)
     E, num_valid = 1000, 997
-    q, T, row_ptr, cols, true = (x.to(device) for x in _bf16_rank_case(case))
+    q, T, row_ptr, cols, true = (x.to(device) for x in _certified_rank_case(case))
     q, T = q.bfloat16(), T.bfloat16()
     score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
-    recounted = _check_bf16_rank(q, T, row_ptr, cols, num_valid, true,
-                                 score_map)
+    recounted = _check_certified_rank(q, T, row_ptr, cols, num_valid, true,
+                                      score_map)
     if case == "ties":
         assert recounted > 0
     if case == "infinite_rows":
@@ -1380,6 +1389,110 @@ def test_bf16_rank_tiles_run_on_the_tensor_cores():
     assert tc and fp32
     assert all(re.search(r"\bH(G)?MMA\b", body) for body in tc)
     assert not any(re.search(r"\bH(G)?MMA\b", body) for body in fp32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subnormals", [False, True], ids=["plain", "subnormals"])
+@pytest.mark.parametrize("epilogue", [None, "l2"])
+@pytest.mark.parametrize("D", [30, 64, 132, 201, 320, 512])
+@pytest.mark.parametrize("n", [1, 70, 256])
+def test_f16_rank_kernel_certified_counts_equal_plain_on_card(n, D, epilogue,
+                                                              subnormals):
+    """K1's float16 path (the bfloat16 path's tensor-core tiles and
+    certificate over float16): the counts equal the plain version's
+    exactly, vals and the pivot bit for bit, across launches and plans, at
+    every staging width, and the entries left open are the rule's; with
+    ``subnormals`` a quarter of every row's entries scaled below 2^-14
+    (float16 subnormals in every row of q and of the candidates), which the
+    tensor cores read exactly, so their rows are not recounted whole."""
+    device = _card()
+    E, num_valid = 1000, 937
+    q, T, row_ptr, cols, true = (x.to(device) for x in _inputs(7, n, E, D))
+    if subnormals:
+        q[:, ::4] *= 2.0 ** -14
+        T[:, 1::4] *= 2.0 ** -14
+    q, T = q.half(), T.half()
+    if subnormals:
+        tiny = (q != 0) & (q.abs() < 2.0 ** -14)
+        assert bool(tiny[torch.isfinite(q).all(1)].any(1).all())
+    true = true % num_valid
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    before = fused_rank_counts.f16_launches
+    recounted = _check_certified_rank(q, T, row_ptr, cols, num_valid, true,
+                                      score_map)
+    assert fused_rank_counts.f16_launches == before + 5
+    if n > 5:  # the NaN and infinite rows of _inputs are recomputed whole
+        assert recounted >= 2 * num_valid
+        assert recounted < 0.05 * n * num_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [None, 64])
+@pytest.mark.parametrize("epilogue", [None, "l2"])
+@pytest.mark.parametrize("case", ["ties", "cancellation", "zero_rows", "nonfinite",
+                                  "infinite_rows", "subnormals"])
+def test_f16_rank_kernel_data_cases_on_card(case, epilogue, capacity,
+                                            monkeypatch):
+    """The bfloat16 data cases in float16 (the ties step by 2^-12, exact in
+    float16 too; zero_rows' candidates of 1e-4 are float16 subnormals),
+    and rows whose values lie below 2^-14 (``subnormals``): counts, vals
+    and pivots equal the plain version's, the entries left open are the
+    rule's, with the default worklist and with one of 64 entries."""
+    device = _card()
+    if capacity is not None:
+        monkeypatch.setattr(rank_kernel, "RECOUNT_CAPACITY", capacity)
+    E, num_valid = 1000, 997
+    q, T, row_ptr, cols, true = (x.to(device) for x in _certified_rank_case(case))
+    q, T = q.half(), T.half()
+    score_map = rank_kernel.NEG_SQRT_L2 if epilogue else None
+    recounted = _check_certified_rank(q, T, row_ptr, cols, num_valid, true,
+                                      score_map)
+    if case == "infinite_rows":
+        assert recounted == q.shape[0] * num_valid
+    if case == "subnormals":
+        assert recounted < 0.05 * q.shape[0] * num_valid
+
+
+@pytest.mark.cuda
+def test_f16_rank_tiles_run_on_the_tensor_cores():
+    """The built library's float16 tile kernel holds HMMA (or HGMMA)
+    instructions, and no float16 instantiation of the float32 tile kernel
+    is left."""
+    import re
+    import shutil
+    import subprocess
+
+    from kge_tpu_torch.ops import kernel_utils
+
+    _card()
+    path = kernel_utils.build("rank_counts")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    sections = [s.split("\n", 1) for s in re.split(r"\n\s*Function : ", sass)[1:]]
+    tc = [body for name, body in sections
+          if "rank_tiles_tc_kernel" in name and "6__half" in name]
+    assert tc and all(re.search(r"\bH(G)?MMA\b", body) for body in tc)
+    assert not any("rank_tiles_kernel" in name and "__half" in name
+                   for name, _ in sections)
+
+
+@pytest.mark.cuda
+def test_f16_tensor_core_products_are_exact_on_card():
+    """Every ordered pair of float16 values (2^32) through mma.sync
+    m16n8k16, one product an accumulator: each sum equals the exact
+    float32 product, where neither, one or both operands are subnormal;
+    the tensor cores flush no float16 subnormal (the finding the float16
+    norm bound rests on)."""
+    counts = rank_kernel.f16_subnormal_check(_card())
+    torch.cuda.synchronize()
+    normal, subnormal = 65536 - 2046, 2046
+    assert (counts["pairs_normal"], counts["pairs_one_subnormal"],
+            counts["pairs_both_subnormal"]) == (
+        normal * normal, 2 * normal * subnormal, subnormal * subnormal)
+    assert {k: v for k, v in counts.items() if not k.startswith("pairs")} == {
+        "differ_normal": 0, "differ_one_subnormal": 0,
+        "differ_both_subnormal": 0, "flushed": 0}
 
 
 @pytest.mark.cuda
@@ -1701,8 +1814,8 @@ def _f16_rank_outputs_equal(got, want):
 @pytest.mark.parametrize("n", [1, 70, 256])
 @pytest.mark.parametrize("scale", [1.0, 600.0], ids=["unit", "overflow"])
 def test_f16_rank_kernel_counts_equal_plain_on_card(n, D, epilogue, scale):
-    """K1's float16 path (the float32 path's FMA tiles over float16 values
-    widened as they are staged): counts equal the plain version's, vals
+    """K1's float16 path (tensor-core tiles, certified decisions, the
+    float32 chain for the rest): counts equal the plain version's, vals
     and pivots equal in bits, across launches and plans, at D of 30 and 201
     (loads of one value) and 64, 132, 512 (8-byte loads), with the NaN and
     infinite rows of ``_inputs``; at scale 600 (both operands) many scores

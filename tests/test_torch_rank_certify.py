@@ -1,4 +1,5 @@
-"""The certificate of the rank kernel's bfloat16 path, in plain PyTorch.
+"""The certificate of the rank kernel's bfloat16 and float16 paths, in
+plain PyTorch.
 
 The kernel (csrc/rank_counts.cu) multiplies its tiles on the tensor cores
 and keeps the decisions of the float32 chain: where RD(x - E) and RU(x + E)
@@ -9,7 +10,10 @@ it) to the chain's categories under ``close_greater``, its directed
 roundings to exact rational arithmetic, the monotonicity that the rule
 rests on, and the chain's error to its part of gamma_D. The kernel's own
 sums are checked against the rule on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 22).
+chip_smoke.py phase 22). The float16 tests take the bfloat16 ones' data
+where float16 can hold them, and add scores that overflow float16's range,
+rows of subnormal values and the edges of the tolerance at an atol below
+2^-14 (a float16 subnormal).
 """
 
 from fractions import Fraction
@@ -30,12 +34,17 @@ from kge_tpu_torch.ops.rank_kernel import (
     chain_sums,
     close_greater,
 )
+from kge_tpu_torch.utils.dtypes import weak
 
 ATOL, RTOL = 1e-5, 1e-4  # entity_ranking.tie_handling defaults
 
 
 def _bf16(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32)).bfloat16()
+
+
+def _f16(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32)).half()
 
 
 def _categories(scores: torch.Tensor, pivot: torch.Tensor, score_map=None):
@@ -72,9 +81,14 @@ def _exact_norm_bounds(x: torch.Tensor) -> torch.Tensor:
                                   up=True)
 
 
-def _data(kind: str, seed: int):
-    """(q, t, pivot_cols, score_map) in bfloat16 for one data kind."""
+def _data(kind: str, seed: int, dtype=torch.bfloat16):
+    """(q, t, pivot_cols, score_map) in bfloat16 (or float16) for one data
+    kind. In float16 ``wide_exponents`` spreads over 2^-20..2^10 (no
+    overflow, many subnormals); ``overflow`` puts a fifth of the scores past
+    65,520 in magnitude (an infinity in float16, the pivots' among them);
+    ``subnormals`` holds values below 2^-14 in every row."""
     rng = np.random.default_rng(seed)
+    f16 = dtype == torch.float16
     n, m, D = 24, 160, 64
     score_map = None
     if kind == "gaussian":
@@ -91,17 +105,29 @@ def _data(kind: str, seed: int):
         t[m // 2:] = t[0]                    # duplicated candidate rows
         t[1:m // 2:3, 0] += rng.normal(0, 0.01, len(range(1, m // 2, 3)))
     elif kind == "zero_rows":
-        # pivots in the atol region: zero queries and tiny candidates
+        # pivots in the atol region: zero queries and tiny candidates (in
+        # float16, scores of the order of atol)
         q = rng.normal(0, 0.2, (n, D))
         q[::2] = 0.0
         t = rng.normal(0, 1e-4, (m, D))
+        if f16:
+            t *= 0.2
     elif kind == "nonfinite":
         q, t = rng.normal(0, 0.2, (n, D)), rng.normal(0, 0.2, (m, D))
         q[1, 3], q[2, 0], q[3, 5] = np.inf, -np.inf, np.nan
         t[4, 2], t[7, 1], t[9, 9] = np.inf, np.nan, -np.inf
     elif kind == "wide_exponents":
-        q = rng.normal(0, 1, (n, D)) * 2.0 ** rng.integers(-30, 30, (n, D))
-        t = rng.normal(0, 1, (m, D)) * 2.0 ** rng.integers(-30, 30, (m, D))
+        low, high = (-20, 10) if f16 else (-30, 30)
+        q = rng.normal(0, 1, (n, D)) * 2.0 ** rng.integers(low, high, (n, D))
+        t = rng.normal(0, 1, (m, D)) * 2.0 ** rng.integers(low, high, (m, D))
+    elif kind == "overflow":
+        q, t = rng.normal(0, 80, (n, D)), rng.normal(0, 80, (m, D))
+    elif kind == "subnormals":
+        q, t = rng.normal(0, 0.3, (n, D)), rng.normal(0, 0.3, (m, D))
+        q[::3] *= 2.0 ** -14
+        t[::4] *= 2.0 ** -14
+        q[:, ::5] *= 2.0 ** -13
+        t[:, ::6] *= 2.0 ** -13
     elif kind == "l2":
         from kge_tpu_torch.models.translation import _l2_factorization
 
@@ -118,11 +144,13 @@ def _data(kind: str, seed: int):
         pivot_cols[: n // 2] = 0              # the true row repeated
     if kind == "l2":
         pivot_cols[: n // 2] = torch.arange(0, n, 2)
-    return _bf16(q), _bf16(t), pivot_cols, score_map
+    to = _f16 if f16 else _bf16
+    return to(q), to(t), pivot_cols, score_map
 
 
 KINDS = ["gaussian", "cancellation", "ties", "zero_rows", "nonfinite",
          "wide_exponents", "l2"]
+F16_KINDS = KINDS + ["overflow", "subnormals"]
 
 
 @pytest.mark.parametrize("scale", [1.0, 1e3])
@@ -134,7 +162,25 @@ def test_certified_categories_are_the_chains(kind, scale):
     under ``close_greater``; at the kernel's bound the rule decides most
     entries of finite rows, and never one of a row whose pivot is not
     finite."""
-    q, t, pivot_cols, score_map = _data(kind, seed=len(kind))
+    _check_categories_are_the_chains(kind, scale, torch.bfloat16)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+@pytest.mark.parametrize("kind", F16_KINDS)
+def test_f16_certified_categories_are_the_chains(kind, scale):
+    """Test 1 in float16, scores past float16's range (infinite pivots
+    among them) and subnormal rows included."""
+    q, t, _, _ = _data(kind, seed=len(kind), dtype=torch.float16)
+    if kind == "overflow":
+        assert bool(torch.isinf(chain_scores(q, t)).float().mean() > 0.1)
+    if kind == "subnormals":
+        tiny = (q != 0) & (q.abs() < 2.0 ** -14)
+        assert bool(tiny.any(1).all())
+    _check_categories_are_the_chains(kind, scale, torch.float16)
+
+
+def _check_categories_are_the_chains(kind, scale, dtype):
+    q, t, pivot_cols, score_map = _data(kind, seed=len(kind), dtype=dtype)
     D = q.shape[1]
     c = chain_sums(q, t)
     scores = chain_scores(q, t)
@@ -169,12 +215,34 @@ def test_rule_at_the_rounding_edges(pivot_value, score_map):
     epilogue's clamp), with bounds of 0 to 64 float32 ulps: decided entries
     are always the sum's own category, and the category is non-decreasing
     along each sweep (the monotonicity the rule rests on)."""
-    p = torch.tensor([pivot_value], dtype=torch.float32).bfloat16()
+    _check_rule_at_the_rounding_edges(pivot_value, score_map, torch.bfloat16)
+
+
+@pytest.mark.parametrize("score_map", [None, NEG_SQRT_L2])
+@pytest.mark.parametrize("pivot_value", [0.05, 1.0, -3.0, 0.0, 3e-6, -1e-6,
+                                         6e-5, -0.25, 200.0, 60000.0, -65504.0])
+def test_f16_rule_at_the_rounding_edges(pivot_value, score_map):
+    """Test 1 in float16 at the float16 midpoints next to the pivot, around
+    0, at the edges of the tolerance P +- tol (with atol 1e-5 a float16
+    subnormal: the pivots 0, 3e-6 and -1e-6 put those edges among the
+    subnormals) and at +-65,520, where the rounding to float16 overflows to
+    an infinity (the largest finite pivot, -65,504, meets it)."""
+    _check_rule_at_the_rounding_edges(pivot_value, score_map, torch.float16)
+
+
+def _check_rule_at_the_rounding_edges(pivot_value, score_map, dtype):
+    f16 = dtype == torch.float16
+    p = torch.tensor([pivot_value], dtype=torch.float32).to(dtype)
     if score_map is not None:
         p = score_map(p)
     centres = [0.0]
-    for s in (p.float(), -p.float() ** 2):  # the identity's and L2's pre-images
-        v = s.bfloat16()
+    preimages = [p.float(), -p.float() ** 2]  # the identity's and L2's
+    if f16:
+        tol = weak(ATOL, p) + weak(RTOL, p) * p.abs()
+        preimages += [(p + tol).float(), (p - tol).float()]
+        centres += [65520.0, -65520.0]
+    for s in preimages:
+        v = s.to(dtype)
         for step in range(-3, 4):
             nb = v
             for _ in range(abs(step)):
@@ -182,7 +250,9 @@ def test_rule_at_the_rounding_edges(pivot_value, score_map):
             if torch.isfinite(nb).all():
                 # the float32 midpoint between two bfloat16 neighbours
                 nxt = torch.nextafter(nb, torch.full_like(nb, float("inf")))
-                centres.append(float((nb.double() + nxt.double()) / 2))
+                centre = float((nb.double() + nxt.double()) / 2)
+                if np.isfinite(centre) and abs(centre) < 2.0 ** 127:
+                    centres.append(centre)
     sweeps = []
     for centre in centres:
         mid = torch.tensor([centre], dtype=torch.float32)
@@ -193,7 +263,7 @@ def test_rule_at_the_rounding_edges(pivot_value, score_map):
         sweeps.append(torch.cat(below[::-1] + above[1:]))
     c = torch.cat(sweeps)[None, :]
     pivot = p.reshape(1)
-    want = _categories(c.bfloat16(), pivot, score_map)
+    want = _categories(c.to(dtype), pivot, score_map)
     for sweep in want[0].split(601):
         assert bool((sweep[1:] >= sweep[:-1]).all()), "category not monotone"
     rng = np.random.default_rng(3)
@@ -276,6 +346,19 @@ def test_chain_error_within_its_part_of_gamma(kind, D):
     chain_error_factor(D) S on adversarial cancellation data, and that part
     with the tensor cores' modelled 6 D16 u S (1 + 8 D16 u) fits in
     gamma_D."""
+    _check_chain_error(kind, D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [16, 132, 201, 512])
+@pytest.mark.parametrize("kind", ["alternating", "wide", "positive"])
+def test_f16_chain_error_within_its_part_of_gamma(kind, D):
+    """Test 2 in float16 (``wide`` over 2^-24..2^10: subnormal operands and
+    products down to 2^-48, which float32 holds exactly)."""
+    _check_chain_error(kind, D, torch.float16)
+
+
+def _check_chain_error(kind, D, dtype):
+    f16 = dtype == torch.float16
     rng = np.random.default_rng(D)
     n, m = 16, 48
     if kind == "alternating":
@@ -284,12 +367,13 @@ def test_chain_error_within_its_part_of_gamma(kind, D):
         t = np.where(np.arange(D) % 2 == 0, 1.0, -1.0) * rng.uniform(1.0, 1.01, (m, D))
         t[:, -1] *= 1e-3
     elif kind == "wide":
-        q = rng.normal(0, 1, (n, D)) * 2.0 ** rng.integers(-40, 40, (n, D))
-        t = rng.normal(0, 1, (m, D)) * 2.0 ** rng.integers(-40, 40, (m, D))
+        low, high = (-24, 10) if f16 else (-40, 40)
+        q = rng.normal(0, 1, (n, D)) * 2.0 ** rng.integers(low, high, (n, D))
+        t = rng.normal(0, 1, (m, D)) * 2.0 ** rng.integers(low, high, (m, D))
     else:  # every product positive: rounding errors do not cancel either
         q = rng.uniform(0.5, 1.0, (n, D)) * 2.0 ** rng.integers(-8, 8, (n, D))
         t = rng.uniform(0.5, 1.0, (m, D)) * 2.0 ** rng.integers(-8, 8, (m, D))
-    q, t = _bf16(q), _bf16(t)
+    q, t = (_f16(q), _f16(t)) if f16 else (_bf16(q), _bf16(t))
     c = chain_sums(q, t).double()
     exact = q.double() @ t.double().T  # exact products, float64 sums
     S = q.double().abs() @ t.double().abs().T
@@ -307,7 +391,22 @@ def test_certified_counts_with_the_recount_equal_plain(kind):
     """The kernel's algorithm on the CPU: counts from the rule on perturbed
     sums within the bound, plus the chain's categories of the undecided
     entries, equal ``fused_rank_counts_plain``'s counts."""
-    q, t, pivot_cols, score_map = _data(kind, seed=11 + len(kind))
+    _check_counts_with_the_recount(kind, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", F16_KINDS)
+def test_f16_certified_counts_with_the_recount_equal_plain(kind):
+    """The kernel's algorithm on the CPU in float16: counts equal
+    ``fused_rank_counts_plain``'s, scores past float16's range and
+    subnormal rows included; rows of subnormal values are not recounted
+    whole (the tensor cores read them exactly, so their bound is finite)."""
+    undecided = _check_counts_with_the_recount(kind, torch.float16)
+    if kind == "subnormals":
+        assert float(undecided[::3].float().mean()) < 0.05
+
+
+def _check_counts_with_the_recount(kind, dtype):
+    q, t, pivot_cols, score_map = _data(kind, seed=11 + len(kind), dtype=dtype)
     D = q.shape[1]
     n, m = q.shape[0], t.shape[0]
     row_ptr = torch.zeros(n + 1, dtype=torch.int32)
@@ -327,3 +426,4 @@ def test_certified_counts_with_the_recount_equal_plain(kind):
     assert torch.equal((cat == 1).sum(1, dtype=torch.int32), c_)
     if kind == "nonfinite":
         assert bool(undecided[1:4].all())
+    return undecided
