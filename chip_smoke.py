@@ -163,15 +163,25 @@ Phases (any failure exits non-zero; nothing is caught):
    object direction, o and p + |R| for the subject direction), the rank
    kernel twice a validation and a test batch; losses finite and falling.
    One step with the kernel against ``train.pallas_gather: never`` from the
-   same state: tables within atol 1e-6 + rtol 1e-5. A warm epoch's wall,
-   triples/s and profile.
+   same state: tables within atol 1e-6 + rtol 1e-5. Check (a), here and
+   for T-dense in phase 6 (``scan_against_batches``): from the same
+   checkpoint the same epochs with ``train.epoch_scan`` auto (the default,
+   the scanned epoch: triples on the card, one copy of the permutation an
+   epoch) and with never (the batch loop): a warm-up of 50 steps (its
+   entry's ``scanned``, its host-to-card copies as operations issue them),
+   a warm epoch (wall, triples/s) and a profile of its first 50 steps
+   (the device's busy share, the profiler's count of the copies); then
+   tables and optimizer state equal in every bit.
 16. K-complex: bench.py's stage 6 (ComplEx d = 512, KvsAll with ``sp_`` and
    ``_po``, KL, Adagrad lr 0.1, batch 512): ``start`` for two epochs and one
    validation, ``resume`` to epoch 3. The scatter kernel must launch twice a
    step (the query's two keys); one batch's dense labels must sum, row by
    row, to its queries' distinct answers; one step with the kernel against
    the ``never`` step as in phase 15. A warm epoch's wall, queries/s (the
-   bench's unit) and profile.
+   bench's unit) and profile. Check (b): the epochs are scanned (KvsAll's
+   batches grouped by query type, one pass a type): the warm epoch stacks
+   as many batches a type as the type's queries make, and its entry counts
+   the split's queries.
 17. DistMult, RESCAL, CP, SimplE and RelationalTucker3 at the toy widths of
    examples/toy-rt3-train.yaml (d = 16; Tucker3's core from 8) on a small
    graph: a test evaluation on the card (the rank kernel twice a batch)
@@ -441,7 +451,20 @@ Phases (any failure exits non-zero; nothing is caught):
    ``cuda:0``, sharing it), T-dense's epoch of 4 steps within rtol 1e-4 of
    one process's; (d) phase 25's peak allocation a rank, the entity table
    drawn in blocks of 65,536 rows, below the 2.86 GiB a rank took when
-   every rank drew the whole table.
+   every rank drew the whole table; (e) T-dense's epoch of 4 steps on phase
+   26's dense graph over 2 x 1 (torchrun's ranks) and 2 x 3 (phase 26's)
+   with ``parallel.partition_edges`` auto: each rank's card holds its
+   shard's 16,384 triples alone (``_device_epoch_triples``' bytes), every
+   step's loss within rtol 1e-4 of 2 x 1 rank 0's and the 2 x 3 ranks'
+   tables against it by ``step_table_diffs`` (4 steps' flips and largest
+   steps); ``train.subbatch_auto_tune`` over torchrun's 2 ranks with the
+   card's out-of-memory error raised by the job's loss (patched in
+   ``ROUTES_RUNNER``) at the first step: on both ranks both halve to 4,096
+   and finish alike; on rank 1 alone both end with the same error naming
+   ROADMAP A.12 within 4 times the agreement's bound (3 s); the
+   agreement's seconds a call alone over 2 x 1 and 2 x 3. The one-process
+   comparisons of phases 25-27 run with ``parallel.partition_edges``
+   never (the runners' default), the route they were written for.
 28. One ``kernels`` JSON line: per kernel its time per call at the main
    path's shape, launches on its main path, the plain version's and one
    library call's time, and the bound (the largest of bytes over 3.35 TB/s,
@@ -867,8 +890,11 @@ def profile_run(fn, what: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
 
+    averages = prof.key_averages()
+    # copies from the host to the card, of pageable or pinned memory
+    copies = sum(e.count for e in averages if "HtoD" in e.key)
     # kernels only: an operator's entry repeats its kernels' device time
-    events = [e for e in prof.key_averages()
+    events = [e for e in averages
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in events) / 1e3
@@ -889,12 +915,13 @@ def profile_run(fn, what: str):
         "device_busy_ms": busy_ms if events else None,
         "device_busy_share": busy_ms / wall_ms if events else None,
         "top": top, "own_kernels_below_top": own, "torch_sort_kernels": sorts,
+        "host_to_card_copies": copies,
     }
     if not events:
         log("  profiler recorded no device time: not measured")
     else:
         log(f"  profiled {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-            f"({100 * busy_ms / wall_ms:.1f}%)")
+            f"({100 * busy_ms / wall_ms:.1f}%), {copies} host-to-card copies")
         for t in top + own:
             log(f"    {t['ms']:9.3f} ms  {t['calls']:5d} calls  {t['name']}")
         log(f"    torch radix-sort kernels: {sum(t['calls'] for t in sorts)} launches, "
@@ -1274,23 +1301,28 @@ def check_tables_close(a, b, what):
 #: a warm epoch's warm-up and its profile cover at most its first
 #: PROFILE_WINDOW steps: the profiler's reduction of O-complex's and
 #: K-complex's whole epochs (532 and 618 steps) took longer than the epochs
-#: (the run's time limit)
-PROFILE_WINDOW = 100
+#: (the run's time limit; 100 steps until the scanned epoch's checks came)
+PROFILE_WINDOW = 50
 
 
 @contextlib.contextmanager
 def first_steps(job, steps: int):
-    """The job's epochs cut to their first ``steps`` batches, inside."""
-    own = vars(job).get("_batches")
-    batches = job._batches
+    """The job's epochs cut to their first ``steps`` batches, inside: the
+    batch loop's (``_batches``, which KvsAll's scanned epoch stacks too) and
+    the scanned epoch's (``_scanned_batches``)."""
+    names = ("_batches", "_scanned_batches")
+    own = {name: vars(job).get(name) for name in names}
+    batches, scanned = job._batches, job._scanned_batches
     job._batches = lambda: itertools.islice(batches(), steps)
+    job._scanned_batches = lambda perm: itertools.islice(scanned(perm), steps)
     try:
         yield
     finally:
-        if own is None:
-            del job._batches
-        else:
-            job._batches = own
+        for name in names:
+            if own[name] is None:
+                delattr(job, name)
+            else:
+                setattr(job, name, own[name])
 
 
 def warm_epoch(job, num_train: Optional[int], what: str, unit: str = "triples",
@@ -1318,7 +1350,9 @@ def warm_epoch(job, num_train: Optional[int], what: str, unit: str = "triples",
     log(f"  warm epoch of {what}: wall {wall:.3f} s ({num_train / wall:.1f} "
         f"{unit}/s), {entry['batches']} batches, avg_loss {entry['avg_loss']:.4f}")
 
-    out = {"wall_s": wall, f"{unit}_per_s": num_train / wall}
+    out = {"wall_s": wall, f"{unit}_per_s": num_train / wall,
+           "scanned": entry.get("scanned", False), "batches": entry["batches"],
+           "size": entry["size"]}
     if profiled:
         def epoch():
             job.epoch += 1
@@ -1330,6 +1364,82 @@ def warm_epoch(job, num_train: Optional[int], what: str, unit: str = "triples",
                 epoch, f"warm epoch of {what}" if window == entry["batches"]
                 else f"{window} steps of a warm epoch of {what}")
         out["profile"]["steps"] = window
+    return out
+
+
+class HostToCardCopies:
+    """A dispatch mode that counts the copies that operations make from a
+    tensor on the host to one on the card (``aten._to_copy`` and
+    ``aten.copy_``), as PyTorch issues them; ``torch.profiler``'s count of
+    "HtoD" events is reported beside it."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.__name__
+                if name.startswith(("_to_copy", "copy_")):
+                    src = args[1] if name.startswith("copy_") else args[0]
+                    dst = args[0] if name.startswith("copy_") else out
+                    if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+                            and src.device.type == "cpu" and dst.device.type == "cuda"):
+                        counter.count += 1
+                return out
+
+        self.count = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def scan_against_batches(folder: str, checkpoint: str, num_train: int, what: str):
+    """Check (a): from the same checkpoint, with ``train.epoch_scan`` auto
+    (the scanned epoch) and never (batch by batch), each: a warm-up of the
+    first PROFILE_WINDOW steps of an epoch (``scanned`` in its entry, its
+    host-to-card copies counted by ``HostToCardCopies``), then a warm epoch
+    (``warm_epoch`` without warm-up: wall, and a profile of its first
+    PROFILE_WINDOW steps with the device's busy share and the profiler's
+    count of the copies); then the two jobs' tables and optimizer state,
+    equal in every bit."""
+    out = {}
+    tables = {}
+    for mode in ("auto", "never"):
+        job = resumed_job(folder, checkpoint, **{"train.epoch_scan": mode})
+        # the warm-up: the epoch's first PROFILE_WINDOW steps, its copies
+        # counted as operations issue them
+        with first_steps(job, PROFILE_WINDOW), HostToCardCopies() as copies:
+            job.epoch += 1
+            entry = job.run_epoch()
+        out[mode] = {"scanned": entry.get("scanned", False),
+                     "host_to_card_copies": copies.count, "copies_in_steps": entry["batches"],
+                     "warm_epoch": warm_epoch(job, num_train,
+                                              f"{what}, train.epoch_scan {mode}",
+                                              warmup=False)}
+        tables[mode] = tables_of(job, state=True)
+        job = None
+    check(out["auto"]["scanned"] is True and out["never"]["scanned"] is False,
+          f"{what}: scanned {out['auto']['scanned']}, {out['never']['scanned']}")
+    equal = all(same_bits(a, b) for a, b in zip(tables["auto"], tables["never"]))
+    check(equal and len(tables["auto"]) == len(tables["never"]),
+          f"{what}: the scanned epoch's tables differ from the batch loop's")
+    profiled = {mode: out[mode]["warm_epoch"]["profile"]["host_to_card_copies"]
+                for mode in out}
+    log(f"  (a) {what}: the scanned epoch and the batch loop from {checkpoint}: "
+        f"tables and optimizer state equal in every bit after the same epochs; "
+        f"host-to-card copies as operations issue them in "
+        f"{out['auto']['copies_in_steps']} steps: {out['auto']['host_to_card_copies']} "
+        f"scanned, {out['never']['host_to_card_copies']} batch by batch; in the "
+        f"profile of {out['auto']['warm_epoch']['profile']['steps']} steps "
+        f"{profiled['auto']} and {profiled['never']}")
     return out
 
 
@@ -1410,10 +1520,13 @@ def run_dense_training(seed: int, data: str):
     log(f"  one step, scatter kernel vs train.pallas_gather=never: max abs "
         f"difference {worst:.3e} (tables moved by up to {moved:.3e}); "
         f"tolerance atol 1e-6 + rtol 1e-5")
-    timing = warm_epoch(jobs[0], num_train, "T-dense")
+    jobs = None
+    scan = scan_against_batches(folder, "checkpoint_00003.pt", num_train, "T-dense")
     return {"launches": counts, "start_wall_s": start_wall, "avg_loss": losses,
             "epoch_time_s": [e["epoch_time"] for e in epochs],
-            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing}
+            "scanned": [e.get("scanned", False) for e in epochs],
+            "step_max_abs_diff_vs_never": worst,
+            "warm_epoch": scan["auto"]["warm_epoch"], "scan_against_batches": scan}
 
 
 def run_sparse_training(seed: int):
@@ -2358,12 +2471,15 @@ def run_ocomplex(seed: int, data: str):
     log(f"  one step, scatter kernel vs train.pallas_gather=never: max abs "
         f"difference {worst:.3e} (tables moved by up to {moved:.3e}); "
         f"tolerance atol 1e-6 + rtol 1e-5")
-    del jobs[1]
-    timing = warm_epoch(jobs[0], num_train, "O-complex")
+    jobs = None
+    scan = scan_against_batches(folder, "checkpoint_00003.pt", num_train, "O-complex")
     return {"launches": counts, "resume_launches": resumed, "test_launches": tested,
             "start_wall_s": start_wall, "test_wall_s": test_wall, "avg_loss": losses,
+            "scanned": [e.get("scanned", False) for e in trace_entries(
+                folder, event="epoch_completed")],
             "valid_mrr_filtered": [e["mean_reciprocal_rank_filtered"] for e in valid],
-            "step_max_abs_diff_vs_never": worst, "warm_epoch": timing}
+            "step_max_abs_diff_vs_never": worst,
+            "warm_epoch": scan["auto"]["warm_epoch"], "scan_against_batches": scan}
 
 
 def check_dense_labels(job):
@@ -2432,13 +2548,36 @@ def run_kcomplex(seed: int, data: str):
     log(f"  resume to epoch 3: launches {resumed}, avg_loss {losses}; one step, "
         f"scatter kernel vs never: max abs difference {worst:.3e} (moved {moved:.3e})")
     check_dense_labels(jobs[0])
-    del jobs[1]
-    queries = jobs[0].num_examples
-    timing = warm_epoch(jobs[0], queries, "K-complex", unit="queries")
+    job = jobs[0]
+    jobs = None
+    queries = job.num_examples
+    # check (b): the scanned epoch's batches a query type
+    stacked = []
+    stack = job._stack_epoch_batches
+
+    def recording():
+        stacks = stack()
+        stacked.append({q: int(v["queries"].shape[0]) for q, v in stacks.items()})
+        return stacks
+
+    job._stack_epoch_batches = recording
+    timing = warm_epoch(job, queries, "K-complex", unit="queries")
+    per_type = stacked[1]  # the timed epoch's, after the cut warm-up's
+    want = {q: -(-len(job.query_indexes[q]) // job.batch_size) for q in job.query_types}
+    scanned = [e.get("scanned", False) for e in trace_entries(folder,
+                                                              event="epoch_completed")]
+    check(per_type == want and timing["scanned"] is True and all(scanned)
+          and timing["batches"] == sum(want.values()) and timing["size"] == queries,
+          f"K-complex's scanned epoch: batches {per_type} (want {want}), entry "
+          f"{timing['batches']} batches of {timing['size']} queries ({queries}), "
+          f"scanned {timing['scanned']}, {scanned}")
+    log(f"  (b) K-complex's scanned epochs (start, resume and the warm epoch): batches "
+        f"a query type {per_type}, size {timing['size']} = the split's queries, one "
+        f"pass a type; losses finite {losses}")
     return {"launches": counts, "resume_launches": resumed, "start_wall_s": start_wall,
             "avg_loss": losses, "queries": queries, "steps": steps,
             "step_max_abs_diff_vs_never": worst, "warm_epoch": timing,
-            "folder": folder}
+            "scanned_batches_per_type": per_type, "folder": folder}
 
 
 def factorization_job(name: str, data: str, seed: int, device: str, params=None):
@@ -3189,15 +3328,14 @@ def run_neural(name: str, options, no_dropout, zero_grad_leaves, scatter_per_ste
     # a whole epoch gives the profiler millions of events, whose reduction
     # takes minutes: a window of its first steps stands for it
     profiled = resumed_job(folder, "checkpoint_00002.pt")
-    batches = profiled._batches
-    profiled._batches = lambda: itertools.islice(batches(), PROFILED_STEPS)
 
     def window():
         profiled.epoch += 1
         profiled.run_epoch()
 
-    profile = profile_run(window, f"{PROFILED_STEPS} steps of a warm epoch of "
-                                  f"C-{name}")
+    with first_steps(profiled, PROFILED_STEPS):
+        profile = profile_run(window, f"{PROFILED_STEPS} steps of a warm epoch of "
+                                      f"C-{name}")
     del profiled
     if profile["device_busy_ms"] is not None:
         device_step_ms = profile["device_busy_ms"] / PROFILED_STEPS
@@ -5162,6 +5300,8 @@ COUNTERS = ((fused_rank_counts, "launches", "rank_counts"),
             (sorted_scatter_add, "launches", "scatter_add_sorted"),
             (rows_set, "launches", "rows_set"))
 CUDA = torch.cuda.is_available()
+# the comparisons with one process were written for the global shuffle
+PARTITION_NEVER = ["--parallel.partition_edges", "never"]
 jobs = []
 Job.job_created_hooks.append(jobs.append)
 leave = distributed.shutdown
@@ -5179,7 +5319,7 @@ for argv in commands:
     if CUDA:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    cli.main(argv)
+    cli.main(argv + PARTITION_NEVER)
     job = ([j for j in jobs if getattr(j, "opt_state", None) is not None] + jobs)[0]
     entity = job.model.get_s_embedder()
     state = getattr(job, "opt_state", None)
@@ -5933,6 +6073,7 @@ def job_on(folder, checkpoint, probe, mode, options, device="cuda:0"):
     config.load(os.path.join(folder, "config.yaml"))
     config.set("job.device", device)
     config.set("parallel.ring_scoring", mode)
+    config.set("parallel.partition_edges", "never")
     for key, value in options.items():
         config.set(key, value)
     config.folder = probe
@@ -5997,6 +6138,7 @@ def probe(task):
 def fresh_job(task):
     config = Config()
     config.load(task["config"])
+    config.set("parallel.partition_edges", "never")
     for key, value in task["options"].items():
         config.set(key, value)
     config.set("job.device", task.get("device", "cuda:0"))
@@ -6052,6 +6194,103 @@ def step(task):
                                                          job.device_ctx.model]}
 
 
+def partitioned(task):
+    # one epoch of a fresh job with parallel.partition_edges from the task's
+    # options: each step's loss, the entry, the triples this rank's card
+    # holds, and its tables to <tables>-rank<r>.npz as step() writes them
+    job = fresh_job(task)
+    losses = []
+    finalize = job._finalize_epoch_scanned
+
+    def recording(fetched, meta):
+        losses.extend(fetched[1].tolist())
+        return finalize(fetched, meta)
+
+    job._finalize_epoch_scanned = recording
+    job.epoch = 1
+    entry = job.run_epoch()
+    triples = job._device_epoch_triples
+    entity = job.model.get_s_embedder()
+    arrays = {"lo": (entity.row_range or (0, 0))[0]}
+    for path, param, state in zip(job.optimizer._paths, job.optimizer.params,
+                                  job.opt_state["leaves"]):
+        name = "/".join(map(str, path))
+        arrays[name] = param.detach().cpu().numpy()
+        for key, value in state.items():
+            if torch.is_tensor(value):
+                arrays[f"{name}:{key}"] = value.cpu().numpy()
+    np.savez(f"{task['tables']}-rank{distributed.process_index()}.npz", **arrays)
+    return {"partition_edges": job._partition_edges, "scanned": entry.get("scanned"),
+            "losses": losses, "avg_loss": entry["avg_loss"], "size": entry["size"],
+            "batches": entry["batches"], "triples_shape": list(triples.shape),
+            "triples_bytes": triples.numel() * triples.element_size(),
+            "mesh": [job.device_ctx.data, job.device_ctx.model]}
+
+
+def agree(task):
+    # the ranks' agreement on a step's outcome (ROADMAP A.12) alone, "calls"
+    # times after one untimed call: seconds a call
+    distributed.agree("ok")
+    start = time.perf_counter()
+    for _ in range(task["calls"]):
+        distributed.agree("ok")
+    return {"agree_s": (time.perf_counter() - start) / task["calls"],
+            "ranks": distributed.world_size()}
+
+
+def auto_tune(task):
+    # train.subbatch_auto_tune over the ranks: an epoch of a fresh job with
+    # the card's out-of-memory error raised by the job's loss at its first
+    # step, on every rank ("both"), then on rank 1 alone ("one_rank", whose
+    # rank 0 waits in the step's gradient sum; it tears the process group
+    # down, so it comes last); the agreement's bound is a thirtieth of
+    # task["timeout"]. Per case: the error, seconds, the subbatch size left,
+    # and the agreements' seconds a call
+    os.environ["KGE_DISTRIBUTED_TIMEOUT"] = str(task["timeout"])
+    rank = distributed.process_index()
+    out = {"bound_s": distributed.agreement_timeout()}
+    real_agree = distributed.agree
+    for case, where in (("both", (0, 1)), ("one_rank", (1,))):
+        job = fresh_job(dict(task, folder=task["folder"] + "-" + case))
+        state = {"raised": rank not in where, "agree_s": 0.0, "agrees": 0}
+        loss = job._loss_for_batch
+
+        def failing(*args, **kwargs):
+            if not state["raised"]:
+                state["raised"] = True
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory. Tried to allocate 2.00 GiB")
+            return loss(*args, **kwargs)
+
+        def timed(outcome):
+            start = time.perf_counter()
+            try:
+                return real_agree(outcome)
+            finally:
+                state["agree_s"] += time.perf_counter() - start
+                state["agrees"] += 1
+
+        job._loss_for_batch = failing
+        distributed.agree = timed
+        result = {"error": None}
+        start = time.perf_counter()
+        try:
+            job.epoch = 1
+            entry = job.run_epoch()
+            result.update(avg_loss=entry["avg_loss"], batches=entry["batches"])
+        except torch.cuda.OutOfMemoryError as e:
+            result["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            distributed.agree = real_agree
+        result.update(seconds=time.perf_counter() - start,
+                      subbatch_size=job.config.get("train.subbatch_size"),
+                      partition_edges=job._partition_edges,
+                      agrees=state["agrees"], agree_s=state["agree_s"])
+        out[case] = result
+        job = None
+    return out
+
+
 spec = json.load(open(sys.argv[1]))
 leave = distributed.shutdown
 distributed.shutdown = lambda: None
@@ -6064,12 +6303,17 @@ for task in spec["tasks"]:
         torch.cuda.synchronize()
     start = time.perf_counter()
     if task["kind"] == "cli":
-        cli.main(task["argv"] + ["--job.device", task.get("device", "cuda:0")])
+        argv = task["argv"] + ["--job.device", task.get("device", "cuda:0")]
+        if not any(a == "--parallel.partition_edges" for a in argv):
+            argv += ["--parallel.partition_edges", "never"]
+        cli.main(argv)
         result = {}
     elif task["kind"] == "epoch":
         result = epoch(task)
     elif task["kind"] == "step":
         result = step(task)
+    elif task["kind"] in ("partitioned", "agree", "auto_tune"):
+        result = globals()[task["kind"]](task)
     else:
         result = probe(task)
     if CUDA:
@@ -6608,8 +6852,28 @@ def data_axis_setup(seed: int):
     setup = {"root": root, "data": data, "dense_data": dense_data,
              "conve_config": conve_config, "configs": configs,
              "write_data_s": time.perf_counter() - start}
-    setup["tasks_2x3"] = conve_tasks(setup, DATA_AXIS_MESHES[1])
+    setup["seed"] = seed
+    setup["tasks_2x3"] = (conve_tasks(setup, DATA_AXIS_MESHES[1])
+                          + [partitioned_task(setup, DATA_AXIS_MESHES[1]), AGREE_TASK])
     return setup
+
+
+#: (e): the agreement of train.subbatch_auto_tune's ranks alone, a call
+AGREE_TASK = {"name": "agree", "kind": "agree", "calls": 200}
+#: (e): the collectives' timeout of the A.12 task, a thirtieth of which
+#: bounds an agreement's wait (3 s)
+AUTO_TUNE_TIMEOUT_S = 90
+
+
+def partitioned_task(setup, m):
+    """(e): a T-dense epoch (4 steps) on phase 26's dense graph over the mesh
+    ``m`` with ``parallel.partition_edges`` auto."""
+    tag = os.path.join(setup["root"], f"tdense_partitioned_{m[0]}x{m[1]}")
+    return {"name": "tdense_partitioned", "kind": "partitioned", "device": RANK_DEVICE,
+            "config": setup["configs"]["tdense"], "folder": tag, "tables": tag,
+            "options": {"random_seed.default": setup["seed"], "console.quiet": True,
+                        "parallel.data": m[0], "parallel.model": m[1],
+                        "parallel.partition_edges": "auto"}}
 
 
 #: the checkpoints C-conve keeps in phase 27
@@ -6671,7 +6935,16 @@ def run_data_axis(seed: int, mesh_summary, setup, ranks_2x3):
                              "--train.max_epochs", "1")}]
         + conve_tasks(setup, m)
         + [sub_step("kcomplex", configs["kcomplex"], m, KCOMPLEX_SUB),
-           sub_step("tdense", configs["tdense"], m, TDENSE_SUB)],
+           sub_step("tdense", configs["tdense"], m, TDENSE_SUB),
+           partitioned_task(setup, m), AGREE_TASK,
+           # last: its second case tears the process group down
+           {"name": "auto_tune", "kind": "auto_tune", "config": configs["tdense"],
+            "folder": os.path.join(root, "tdense_auto_tune"),
+            "timeout": AUTO_TUNE_TIMEOUT_S,
+            "options": {"random_seed.default": seed, "console.quiet": True,
+                        "parallel.data": m[0], "parallel.model": m[1],
+                        "parallel.partition_edges": "auto",
+                        "train.subbatch_auto_tune": True}}],
         m[0] * m[1], os.path.join(root, "logs_torchrun_2x1"), AUTO_DEVICE)
     walls["torchrun_2x1"] = time.perf_counter() - start
     ranks[DATA_AXIS_MESHES[1]] = ranks_2x3
@@ -6843,6 +7116,10 @@ def run_data_axis(seed: int, mesh_summary, setup, ranks_2x3):
         f"{want['batches']} steps avg_loss {auto_losses[1]} over the ranks, "
         f"{want['avg_loss']} alone")
 
+    # (e) edge partitioning and out-of-memory auto-tuning over the ranks
+    summary["partitioned"] = check_partitioned(root, ranks)
+    summary["auto_tune"] = check_auto_tune(ranks)
+
     # (d) phase 25's peak per rank with the table drawn in row blocks
     peaks = mesh_summary["max_memory_allocated"]["ranks"]
     check(max(peaks) < MESH_PEAK_WHOLE_DRAW,
@@ -6857,6 +7134,86 @@ def run_data_axis(seed: int, mesh_summary, setup, ranks_2x3):
         for name, got in results.items()}
     summary["disk_used_gb"] = disk_used_gb()
     return summary
+
+
+def check_partitioned(root, ranks):
+    """(e) T-dense's partitioned epoch over 2 x 1 and 2 x 3: every rank's card
+    holds its data coordinate's shard of the triples alone (the edge layout
+    of kge_tpu/job/train.py:610-617), and the two meshes' trajectories agree
+    within phase 27's tolerances: every step's loss within rtol 1e-4 ((c)'s
+    epoch loss), the 2 x 3 ranks' tables against the 2 x 1 rank 0's as
+    ``step_table_diffs`` holds a step, with its share of flips and its
+    largest step once a step (Adagrad moves an entry by at most lr a step)."""
+    from kge_tpu_torch.job.train import partition_layout
+
+    size, steps = DENSE_ROUTE_SIZES[2], DENSE_ROUTE_SIZES[2] // TRAIN_BATCH
+    out = {}
+    first = None
+    for m in DATA_AXIS_MESHES:
+        tag = f"{m[0]}x{m[1]}"
+        layout = partition_layout(size, m[0], TRAIN_BATCH)
+        got = ranks[m]["tdense_partitioned"]
+        for r, g in enumerate(got):
+            check(g["partition_edges"] and g["scanned"] is True and g["size"] == size
+                  and g["batches"] == steps and g["mesh"] == list(m)
+                  and g["triples_shape"] == [layout.slots, 3]
+                  and g["triples_bytes"] == layout.slots * 3 * 8 < size * 3 * 8,
+                  f"T-dense partitioned over {tag}, rank {r}: {g}")
+            first = first or g["losses"]
+            check(len(g["losses"]) == steps and all(
+                math.isclose(a, b, rel_tol=1e-4) for a, b in zip(g["losses"], first)),
+                f"T-dense partitioned over {tag}, rank {r}: losses {g['losses']}, "
+                f"2 x 1 rank 0's {first}")
+        out[tag] = {"losses": got[0]["losses"], "triples_bytes": got[0]["triples_bytes"],
+                    "whole_split_bytes": size * 3 * 8, "slots": layout.slots,
+                    "wall_s": [g["wall_s"] for g in got]}
+    m = DATA_AXIS_MESHES[1]
+    prefix = os.path.join(root, f"tdense_partitioned_{m[0]}x{m[1]}-rank")
+    alone = os.path.join(root, "tdense_partitioned_2x1-rank0.npz")
+    diffs = step_table_diffs(prefix, alone, m[0] * m[1], 2 * 0.1 * steps,
+                             steps * DATA_FLIP_SHARE)
+    out["tables_2x3_against_2x1"] = diffs
+    log(f"  (e) T-dense's partitioned epoch ({steps} steps) over 2 x 1 and 2 x 3: each "
+        f"rank's card holds its shard's {out['2x1']['slots']} triples, "
+        f"{out['2x1']['triples_bytes']} bytes of the split's {size * 3 * 8}; losses "
+        f"{out['2x1']['losses']} (2 x 1) and {out['2x3']['losses']} (2 x 3); 2 x 3's "
+        f"tables against 2 x 1's: {diffs['beyond']} of {diffs['entries']} entries "
+        f"beyond {DATA_STEP_ATOL}, max |difference| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs["max_abs_diff"].items()))
+    return out
+
+
+def check_auto_tune(ranks):
+    """(e) ``train.subbatch_auto_tune`` over torchrun's 2 x 1 ranks (ROADMAP
+    A.12): with the card's out-of-memory error at the first step on both
+    ranks, both halve the subbatch size and finish the epoch alike; on rank
+    1 alone, both end with the same A.12 error within four times the
+    agreement's bound; the agreement's cost a call over 2 x 1 and 2 x 3."""
+    got = ranks[SUBBATCH_MESH]["auto_tune"]
+    bound = got[0]["bound_s"]
+    both = [g["both"] for g in got]
+    check(all(b["error"] is None and b["subbatch_size"] == TRAIN_BATCH // 2
+              and b["partition_edges"] for b in both)
+          and both[0]["avg_loss"] == both[1]["avg_loss"],
+          f"auto-tuning with an out-of-memory error on both ranks: {both}")
+    one = [g["one_rank"] for g in got]
+    check(one[0]["error"] == one[1]["error"] and "ROADMAP A.12" in one[0]["error"]
+          and all(o["seconds"] < 4 * bound and o["subbatch_size"] == TRAIN_BATCH // 2
+                  for o in one),
+          f"an out-of-memory error on one rank: {one} (bound {bound} s)")
+    cost = {f"{m[0]}x{m[1]}": ranks[m]["agree"][0]["agree_s"]
+            for m in DATA_AXIS_MESHES}
+    per_step = both[0]["agree_s"] / both[0]["agrees"]
+    log(f"  (e) auto-tuning over 2 x 1 ranks: an out-of-memory error on both at the "
+        f"first step: both halved to {both[0]['subbatch_size']} and finished "
+        f"({both[0]['batches']} steps, avg_loss {both[0]['avg_loss']}); on rank 1 alone: "
+        f"both ended in {one[0]['seconds']:.2f} and {one[1]['seconds']:.2f} s (bound "
+        f"{bound:.1f} s) with {one[0]['error'][:90]}...; the agreement "
+        f"{1e3 * per_step:.3f} ms a step in that epoch, alone "
+        + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in cost.items()) + " a call")
+    return {"bound_s": bound, "both": both, "one_rank": one,
+            "agree_ms_per_step_2x1_epoch": 1e3 * per_step,
+            "agree_ms_per_call": {k: 1e3 * v for k, v in cost.items()}}
 
 
 # -- kernel timings ---------------------------------------------------------------

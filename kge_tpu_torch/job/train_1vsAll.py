@@ -41,6 +41,9 @@ class TrainingJob1vsAll(TrainingJob):
         self.triples = self.dataset.split(self.train_split)
         self.num_examples = len(self.triples)
 
+    def _scan_data(self):
+        return self._scan_data_triples()
+
     def _batches(self):
         perm = self._epoch_permutation(self.num_examples)
         bs = self.batch_size

@@ -14,20 +14,25 @@ holds a [batch, |E|] matrix; the loss is taken over the column shards
 Batches are homogeneous in query type, as in kge_tpu: each type's queries
 are shuffled, cut into batches, and the batches of all types come in one
 random order. ``_step_variant`` tags a batch with its query type, which
-selects the scoring function of the step. kge_tpu's scanned epoch (batches
-grouped by query type, one compiled scan each) is not ported; epochs run in
-its unscanned order.
+selects the scoring function of the step. The scanned epoch
+(``train.epoch_scan``, kge_tpu/job/train_KvsAll.py:209-322) trains the same
+batches grouped by query type, in the order of the batch stream within each
+type: each type's batches are stacked once an epoch (label coordinates
+padded to a sticky cap in buckets of 2,048, the padding at the dropped row),
+copied to the card in one copy an array, and stepped through in one pass a
+type, the optimizer state chaining across the passes.
 """
 
 from __future__ import annotations
 
-from typing import List
+import time
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from kge_tpu_torch.job.job import Job
-from kge_tpu_torch.job.train import TrainingJob
+from kge_tpu_torch.job.train import TrainingJob, _stack_scalars, _step_scalars
 from kge_tpu_torch.utils.dtypes import weak
 
 S, P, O = 0, 1, 2
@@ -156,6 +161,65 @@ class TrainingJobKvsAll(TrainingJob):
 
     def _step_variant(self, batch):
         return batch["qtype"]
+
+    # -- the scanned epoch ---------------------------------------------------------
+
+    def _scan_data(self):
+        """A marker: the batches are stacked each epoch
+        (``_dispatch_epoch_scanned``), since their label coordinates depend
+        on the epoch's shuffle."""
+        return {"__size__": self.num_examples, "__kvsall__": 1}
+
+    def _stack_epoch_batches(self):
+        """This epoch's batches grouped by query type and stacked into
+        ``[batches, ...]`` arrays, with one coordinate cap a type (kge_tpu's
+        ``_stack_epoch_batches``)."""
+        per: Dict[str, List[Dict]] = {}
+        for batch in self._batches():
+            per.setdefault(batch["qtype"], []).append(batch)
+        stacks = {}
+        if not hasattr(self, "_scan_caps"):
+            self._scan_caps = {}
+        bs = self.batch_size
+        for qtype, batches in per.items():
+            nb = len(batches)
+            # sticky cap: the largest coordinate count seen so far, bucketed
+            cap = max(
+                _bucket(max(len(b["label_rows"]) for b in batches), 2048),
+                self._scan_caps.get(qtype, 0),
+            )
+            self._scan_caps[qtype] = cap
+            rows = np.full((nb, cap), bs, dtype=np.int64)
+            cols = np.zeros((nb, cap), dtype=np.int64)
+            for i, b in enumerate(batches):
+                rows[i, : len(b["label_rows"])] = b["label_rows"]
+                cols[i, : len(b["label_cols"])] = b["label_cols"]
+            stacks[qtype] = dict(
+                queries=np.stack([b["queries"] for b in batches]).astype(np.int64),
+                mask=np.stack([b["mask"] for b in batches]),
+                label_rows=rows, label_cols=cols,
+            )
+        return stacks
+
+    def _dispatch_epoch_scanned(self, data):
+        """One pass a query type over its stacked batches, on the card; the
+        per-batch scalars of all types stay there for one fetch."""
+        epoch_start = time.time()
+        stacks = self._stack_epoch_batches()
+        stacks = {
+            qtype: {k: torch.as_tensor(v).to(self.device) for k, v in st.items()}
+            for qtype, st in stacks.items()
+        }
+        prepare_time = time.time() - epoch_start
+        lr = self._current_lrs()
+        scalars = []
+        for qtype, st in stacks.items():
+            for i in range(st["queries"].shape[0]):
+                batch = {k: v[i] for k, v in st.items()}
+                cost, aux = self._step_with_retries(batch, lr, qtype)
+                scalars.append(_step_scalars(cost, aux, batch["mask"]))
+        return _stack_scalars(scalars), dict(epoch_start=epoch_start,
+                                             prepare_time=prepare_time)
 
     def _batch_wide(self, key):
         """The label coordinates name rows of the whole batch: every

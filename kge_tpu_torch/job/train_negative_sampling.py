@@ -199,6 +199,15 @@ class TrainingJobNegativeSampling(TrainingJob):
                     for slot in self._active_slots
                 }
 
+    def _scan_data(self):
+        """The scanned epoch needs negatives drawn on the device; with
+        ``on_device: never`` (the host sampler) epochs run batch by batch.
+        kge_tpu also runs per-row ``batch`` batch by batch, on a TPU backend
+        only (a compile-time cost there), so that route scans here."""
+        if not self._on_device:
+            return None
+        return self._scan_data_triples()
+
     def _batches(self):
         perm = self._epoch_permutation(self.num_examples)
         bs = self.batch_size

@@ -30,6 +30,15 @@ Every collective of the package runs with a timeout (the environment's
 raised or died makes its peers raise instead of waiting for ever. Every
 rank holds the same host data, so kge_tpu's ``make_global`` has no
 counterpart.
+
+The ranks agree on the outcome of every training step under
+``train.subbatch_auto_tune`` (``agree``; ROADMAP A.12) through the store
+they met at, outside the process group: each posts its outcome and waits
+for the others' at most ``agreement_timeout()``, a thirtieth of the
+collectives' timeout, so that a rank that ran out of memory while its peers
+wait in a collective of the step does not wait with them. A rank that
+gives up tears the process group down (``end_agreement``), which ends its
+peers' pending collective; they then read its outcome from the store.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import datetime
 import os
 import re
 import socket
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +60,14 @@ shared_card = False
 _local_rank = 0
 #: every rank's (host, device), in rank order; empty alone
 placement: List[Tuple[str, str]] = []
+#: the store the ranks met at, kept for ``agree`` (None alone)
+_store = None
+#: whether this process serves the store (rank 0, unless torchrun's agent)
+_serves_store = False
+#: the number of agreements so far, the same on every rank
+_agreements = 0
+#: (rank, world size) of the run, kept past a teardown
+_place = (0, 1)
 
 
 class Launch(NamedTuple):
@@ -151,6 +168,12 @@ def timeout() -> datetime.timedelta:
         seconds=float(os.environ.get("KGE_DISTRIBUTED_TIMEOUT", "900")))
 
 
+def agreement_timeout() -> float:
+    """Seconds a rank waits for its peers' outcome of a step (``agree``): a
+    thirtieth of ``timeout()``, 30 s by default."""
+    return timeout().total_seconds() / 30
+
+
 def _settings(config) -> Optional[Launch]:
     """The launch as kge_tpu reads it (kge_tpu/parallel/distributed.py
     ``maybe_initialize``): the launcher's environment under
@@ -221,7 +244,8 @@ def maybe_initialize(config=None) -> bool:
     """Bring up the process group when the config or the environment names
     a coordinator; True when this run spans several processes. Safe to call
     again. Runs before seeding and before anything else touches the card."""
-    global _initialized, backend, shared_card, _local_rank, placement
+    global _initialized, backend, shared_card, _local_rank, placement, _store
+    global _serves_store, _place
     if _initialized:
         return is_multiprocess()
     import torch.distributed as dist
@@ -269,6 +293,8 @@ def maybe_initialize(config=None) -> bool:
     dist.init_process_group(backend, store=store, world_size=world, rank=rank,
                             timeout=timeout())
     shared_card = device.type == "cuda" and len(set(peers)) < len(peers)
+    _store, _serves_store = store, rank == 0 and not launch.agent_store
+    _place = (rank, world)
     return True
 
 
@@ -376,9 +402,82 @@ def fetch(tensor: torch.Tensor) -> torch.Tensor:
     return all_gather(tensor, world_size())
 
 
+def _agreement_store():
+    """The store of ``agree``: the one the ranks met at, or the default
+    process group's where another caller brought the group up."""
+    global _store, _place
+    if _store is None:
+        import torch.distributed as dist
+
+        _store = dist.distributed_c10d._get_default_store()
+        _place = (dist.get_rank(), dist.get_world_size())
+    return _store
+
+
+def _agreement_keys(number: int) -> List[str]:
+    return [f"kge_agree/{number}/{r}" for r in range(_place[1])]
+
+
+def _posted(keys: List[str]) -> Dict[int, Optional[str]]:
+    """{rank: the value it posted at its key, None where there is none}."""
+    return {r: _store.get(key).decode() if _store.check([key]) else None
+            for r, key in enumerate(keys)}
+
+
+def agree(outcome: str) -> Dict[int, Optional[str]]:
+    """Every rank's outcome of a step, this rank's ``outcome`` among them:
+    {rank: outcome}, None for a rank that did not post within
+    ``agreement_timeout()``. Four round trips to the store a call (post,
+    wait, read, and the removal of this rank's previous post); no
+    collective of the process group."""
+    global _agreements
+    store = _agreement_store()
+    _agreements += 1
+    keys = _agreement_keys(_agreements)
+    rank = _place[0]
+    store.set(keys[rank], outcome)
+    try:
+        store.wait(keys, datetime.timedelta(seconds=agreement_timeout()))
+    except RuntimeError:  # a peer did not post in time
+        return _posted(keys)
+    values = store.multi_get(keys)
+    if _agreements > 1:
+        # every rank read the previous agreement before it posted this one
+        store.delete_key(_agreement_keys(_agreements - 1)[rank])
+    return {r: v.decode() for r, v in enumerate(values)}
+
+
+def peer_outcomes() -> Dict[int, Optional[str]]:
+    """The outcomes posted so far for the agreement this rank has not
+    reached yet (that of the step it is in), without waiting."""
+    _agreement_store()
+    return _posted(_agreement_keys(_agreements + 1))
+
+
+def end_agreement(teardown: bool) -> None:
+    """This rank gives up after an agreement: it says so in the store, tears
+    the process group down where ``teardown`` (a peer may wait in a
+    collective, which then raises), and, where it serves the store, waits
+    at most ``agreement_timeout()`` for every rank to say so, so that the
+    store outlives its peers' reads of the outcomes."""
+    import torch.distributed as dist
+
+    store = _agreement_store()
+    keys = [f"kge_agree/end/{r}" for r in range(_place[1])]
+    store.set(keys[_place[0]], "1")
+    if teardown and dist.is_initialized():
+        dist.destroy_process_group()
+    if _serves_store:
+        try:
+            store.wait(keys, datetime.timedelta(seconds=agreement_timeout()))
+        except RuntimeError:
+            pass
+
+
 def shutdown() -> None:
     """Leave the process group (at the end of a run or after an error)."""
-    global _initialized, backend, shared_card, _local_rank, placement
+    global _initialized, backend, shared_card, _local_rank, placement, _store
+    global _serves_store, _agreements, _place
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -388,3 +487,4 @@ def shutdown() -> None:
     shared_card = False
     _local_rank = 0
     placement = []
+    _store, _serves_store, _agreements, _place = None, False, 0, (0, 1)

@@ -40,6 +40,9 @@ CONFIG = {
     "valid": {"every": 1},
     "random_seed": {"default": 11},
     "console": {"quiet": True},
+    # the ranks compute one process's epochs: the global shuffle, which
+    # edge partitioning (on by default over ranks) replaces
+    "parallel": {"partition_edges": "never"},
 }
 
 

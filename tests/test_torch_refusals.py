@@ -30,9 +30,10 @@ without a launcher's environment is refused, as kge_tpu's
 ``jax.distributed.initialize()`` refuses it, and so is a mesh that does not
 fit the ranks. One process, or none named, still trains.
 
-The command that found ROADMAP C.7, whose setting the port ignored:
-``train.subbatch_auto_tune`` under a mesh of 2 x 1 ranks is refused, naming
-ROADMAP A.12, where kge_tpu would halve the subbatch and retry.
+The command that found ROADMAP C.7, whose setting the port ignored,
+``train.subbatch_auto_tune`` under a mesh of 2 x 1 ranks, was refused until
+ROADMAP A.12 ported it: the ranks halve the subbatch and retry together, as
+kge_tpu's do (tests/test_torch_auto_tune_mesh.py).
 """
 
 import shutil
@@ -236,11 +237,7 @@ CONVE = str(EXAMPLES_DIR / "toy-conve-train.yaml")
     (TOY, ["--parallel.data", "2", "--parallel.model", "1", "--train.subbatch_size",
            "2"], 2, "environment", None),
     (CONVE, ["--parallel.data", "2"], 2, "environment", None),
-    (TOY, ["--parallel.data", "2", "--train.subbatch_auto_tune", "true"], 2,
-     "environment", "train.subbatch_auto_tune=True under the 2x1 mesh: its ranks "
-     "would have to agree to retry a step, which is not ported (ROADMAP A.12)"),
-], ids=["coordinator", "auto", "auto_torchrun", "environment", "conve_statistics",
-        "auto_tune"])
+], ids=["coordinator", "auto", "auto_torchrun", "environment", "conve_statistics"])
 def test_runs_over_several_processes_are_refused(tmp_path, config, options, ranks,
                                                  by, message):
     """Runs over several processes train (tests/test_torch_parallel.py),
@@ -253,7 +250,8 @@ def test_runs_over_several_processes_are_refused(tmp_path, config, options, rank
     leaves a rank without a place, with kge_tpu's kind of message. The
     ranks come up from the ``parallel.distributed`` keys ("config"), the
     ``KGE_*`` environment or torchrun's variables. ``train.subbatch_auto_tune``
-    under the 2 x 1 mesh is refused on every rank, naming ROADMAP A.12 (C.7)."""
+    under a mesh, refused from ROADMAP C.7 until A.12, trains
+    (tests/test_torch_auto_tune_mesh.py)."""
     from tests.test_torch_distributed_auto import LAUNCH_VARIABLES
     from tests.torch_mesh import free_port
     from tests.util import make_synthetic_dataset

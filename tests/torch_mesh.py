@@ -114,6 +114,9 @@ def drift(task, mesh, workdir, timeout: float = 240):
 
 
 def make_config(options, folder, config_file=None):
+    """The task's config. ``parallel.partition_edges`` is ``never`` unless
+    the options name it: the tests compare the ranks' epochs with one
+    process's, which shuffles the whole split."""
     from kge_tpu_torch import Config
 
     config = Config()
@@ -122,6 +125,7 @@ def make_config(options, folder, config_file=None):
     config.set("console.quiet", True)
     config.set("job.device", "cpu")
     config.set("random_seed.default", 0)
+    config.set("parallel.partition_edges", "never")
     if config_file is None:
         config.load_options({"model": options.get("model", "complex")})
     for key, value in options.items():
@@ -198,14 +202,16 @@ class WidestRows:
 
 def resumed_job(task, folder):
     """The job of ``task["checkpoint"]`` on this mesh, with the task's
-    options (and its ``data`` folder, where given) over the checkpoint's."""
+    options (and its ``data`` folder, where given) over the checkpoint's,
+    ``parallel.partition_edges`` never unless they name it."""
     from kge_tpu_torch import Config
     from kge_tpu_torch.job import Job
     from kge_tpu_torch.utils.io import load_checkpoint
 
     checkpoint = load_checkpoint(task["checkpoint"])
     new_config = Config.create_from(checkpoint)
-    options = dict(task["options"])
+    # as make_config: the global shuffle unless the options say otherwise
+    options = {"parallel.partition_edges": "never", **task["options"]}
     if "data" in task:
         options["dataset.name"] = task["data"]
     for key, value in options.items():
@@ -482,10 +488,147 @@ def task_init_rows(task, folder):
     return {"rows": path}
 
 
+def _job_from(task, folder, params):
+    """A job of ``task`` whose model holds kge_tpu's weights ``params``."""
+    from kge_tpu_torch import Dataset
+    from kge_tpu_torch.models import KgeModel, load_jax_params
+
+    config = make_config(task["options"], folder)
+    dataset = Dataset.create(config, folder=task["data"])
+    model = KgeModel.create(config, dataset, init_for_load_only=True)
+    load_jax_params(model, params)
+    return make_job(task, folder, model=model)
+
+
+def task_partitioned(task, folder):
+    """Partitioned scanned epochs (``parallel.partition_edges``) from
+    kge_tpu's initial weights, handed kge_tpu's shard permutations of each
+    epoch (``task["arrays"]``, a pickle), with every row of the host's
+    split outside this rank's shard poisoned (ids no table holds): the
+    epochs' losses, per-batch costs, the shape of the triples on the
+    card, and the entity table (to ``<folder>-rank<r>.npz``)."""
+    import pickle
+
+    import numpy as np
+
+    from kge_tpu_torch.job.train import partition_layout
+    from kge_tpu_torch.parallel import distributed
+
+    with open(task["arrays"], "rb") as f:
+        arrays = pickle.load(f)
+    job = _job_from(task, folder, arrays["params"])
+    ctx = job.device_ctx
+    layout = partition_layout(job.num_examples, ctx.data, job.batch_size)
+    start = ctx.data_index * layout.base
+    owned = np.zeros(job.num_examples, dtype=bool)
+    owned[start:start + int(layout.sizes[ctx.data_index])] = True
+    triples = job.triples.copy()
+    triples[~owned] = 2 ** 31 - 7
+    job.triples = triples
+    perms = list(arrays["perms"])
+    job._draw_scan_permutation = lambda size: perms.pop(0)
+    costs = []
+    finalize = job._finalize_epoch_scanned
+
+    def recording(fetched, meta):
+        costs.append(fetched[0].tolist())
+        return finalize(fetched, meta)
+
+    job._finalize_epoch_scanned = recording
+    entries = []
+    for epoch in range(1, len(arrays["perms"]) + 1):
+        job.epoch = epoch
+        entries.append(job.run_epoch())
+    tables = f"{folder}-rank{distributed.process_index()}.npz"
+    np.savez(tables, entity=job.model.get_s_embedder().embeddings.detach().numpy())
+    return {"partition_edges": job._partition_edges,
+            "scanned": [e.get("scanned") for e in entries],
+            "losses": [e["avg_loss"] for e in entries], "costs": costs,
+            "device_triples_shape": list(job._device_epoch_triples.shape),
+            "tables": str(pathlib.Path(tables).resolve())}
+
+
+def _oom_once(fn, where):
+    """``fn`` raising the card's out-of-memory error at its first call when
+    this rank is among ``where``."""
+    import torch
+
+    from kge_tpu_torch.parallel import distributed
+
+    state = {"raised": distributed.process_index() not in where}
+
+    def wrapped(*args, **kwargs):
+        if not state["raised"]:
+            state["raised"] = True
+            raise torch.cuda.OutOfMemoryError(
+                "CUDA out of memory. Tried to allocate 2.00 GiB")
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def task_auto_tune(task, folder):
+    """``train.subbatch_auto_tune`` over the ranks (ROADMAP A.12), with an
+    out-of-memory error injected by patching the job, in this order:
+    "both": on every rank at the first step, before the optimizer writes;
+    then the epoch of a job started at the halved size, from the same seed
+    (tables to ``<folder>-<case>-rank<r>.npz``); "after_write": on rank 1
+    alone, in its optimizer's update; "one_rank": on rank 1 alone, before
+    the optimizer writes, while rank 0 waits in the step's gradient sum
+    (the process group is torn down: it comes last). Per case the error
+    each rank ended with, its seconds, the logged notes and the
+    ``train.subbatch_size`` left for a resume."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from kge_tpu_torch.parallel import distributed
+
+    rank = distributed.process_index()
+    out = {}
+
+    def run(case, options, patch=None):
+        job = make_job(dict(task, options={**task["options"], **options}),
+                       pathlib.Path(f"{folder}-{case}"))
+        notes = []
+        log = job.config.log
+        job.config.log = lambda msg, *a, **k: (notes.append(msg), log(msg, *a, **k))
+        if patch:
+            patch(job)
+        result = {"error": None, "notes": notes}
+        start = time.time()
+        try:
+            job.epoch = 1
+            result["loss"] = job.run_epoch()["avg_loss"]
+        except Exception as e:
+            result["error"] = f"{type(e).__name__}: {e}"
+            result["out_of_memory"] = isinstance(e, torch.cuda.OutOfMemoryError)
+        result["seconds"] = time.time() - start
+        result["subbatch_size"] = job.config.get("train.subbatch_size")
+        result["partition_edges"] = job._partition_edges
+        tables = f"{folder}-{case}-rank{rank}.npz"
+        np.savez(tables, **{str(i): p.detach().numpy()
+                            for i, p in enumerate(job.optimizer.params)})
+        result["tables"] = str(pathlib.Path(tables).resolve())
+        return result
+
+    tuned = {"train.subbatch_auto_tune": True}
+    out["both"] = run("both", tuned, lambda job: setattr(
+        job, "_loss_for_batch", _oom_once(job._loss_for_batch, (0, 1))))
+    out["halved"] = run("halved", {"train.subbatch_size": task["halved"]})
+    out["after_write"] = run("after_write", tuned, lambda job: setattr(
+        job.optimizer, "update", _oom_once(job.optimizer.update, (1,))))
+    out["one_rank"] = run("one_rank", tuned, lambda job: setattr(
+        job, "_loss_for_batch", _oom_once(job._loss_for_batch, (1,))))
+    return out
+
+
 TASKS = {"epochs": task_epochs, "lockstep": task_lockstep, "init_rows": task_init_rows,
          "parity": task_parity, "resume": task_resume, "steps": task_steps,
          "collectives": task_collectives, "ring": task_ring,
-         "losses": task_losses}
+         "losses": task_losses, "partitioned": task_partitioned,
+         "auto_tune": task_auto_tune}
 
 
 def main(spec_file):
